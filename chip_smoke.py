@@ -3,28 +3,38 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py             # add --profile for a device-time table
+    python3 chip_smoke.py             # add --profile for device-time tables
 
-1. Prints the card's name and power limit and builds the four tree-engine
-   kernels from ``transmogrifai_tpu_torch/csrc``.
+1. Prints the card's name and power limit and builds the five tree-engine
+   kernels from ``transmogrifai_tpu_torch/csrc`` (one ``nvcc`` each, in
+   parallel) and the native text hasher (``native/fasthash.cc``, ``g++``).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   slice's shapes (n=200,000 rows, F=20 features, B=32 bins): counts,
-   selected indices, valid flags, routes and g bit-identical; weighted
-   histogram channels and predict sums within 2e-5 of the channel's max
-   |value|. Times each (median of 20 launches, CUDA events) beside its
-   plain version and, for ``cumhist``, one bf16 ``torch.matmul`` of the
-   same operands.
-3. Runs the tree-model AutoML sweep — GBT maxDepth {3, 6, 9} and XGBoost
+   main paths' shapes (n=200,000 rows; F=20 features, B=32 bins; the 2-bin
+   indicator block at Fb=512 columns): counts, selected indices, valid
+   flags, routes and g bit-identical (``cumhist_sparse01``'s counts also
+   equal ``cumhist``'s at B=2 on the same bins); weighted histogram
+   channels and predict sums within 2e-5 of the channel's max |value|.
+   Times each (median of 20 launches, CUDA events) beside its plain
+   version and, for the histograms, one bf16 ``torch.matmul`` of the same
+   operands.
+3. The tree-model AutoML sweep — GBT maxDepth {3, 6, 9} and XGBoost
    maxDepth {3, 6}, 20 rounds, 5-fold CV on AuPR, refit, scoring — through
    ``Workflow.train`` and ``WorkflowModel.evaluate`` on 200,000 rows, with
    every kernel launch counted; then the same sweep at 20,000 rows (depths
    {3, 6}) on the card and on the CPU, which must pick the same model with
    AuPR within 1e-4.
+4. The BigPassenger workflow (``big_passenger.py``): 200,000 typed records
+   → transmogrify → SanityChecker → GBT + XGBoost maxDepth {3, 6}, 20
+   rounds, 3-fold CV → refit → evaluate, with every kernel launch counted
+   (all five must launch); then the same workflow at 2,000 rows (GBT {3} +
+   XGBoost {3}, 5 rounds, 2 folds) on the card and on the CPU, which must
+   pick the same model with AuPR within 1e-4.
 
 Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists each kernel's numbers as JSON.
+the line before it lists each kernel's numbers as JSON (launches from the
+BigPassenger run of phase 4).
 """
 import json
 import math
@@ -37,6 +47,9 @@ import numpy as np
 import torch
 
 N, F, B = 200_000, 20, 32
+#: the indicator block of the sparse01 check: BigPassenger's hash width,
+#: at the density of its hashed buckets (one voyage token in ~1,000)
+FB, DENSITY = 512, 0.016
 REPS = 20
 REL_TOL = 2e-5
 #: H100 SXM peaks (data sheet): bytes/s and f32 FLOP/s outside the tensor
@@ -145,6 +158,71 @@ def check_kernels(H, dev):
     print(f"cumhist A={A} C={C}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms")
 
+    # the bc= variant at the same call: its plain version and bound
+    bc_ms = time_ms(lambda: H.cumhist(stats, node, XbT, A, B, bc=bc))
+    bc_plain_ms = time_ms(lambda: H.cumhist_reference(stats, node, XbT, A,
+                                                      B, bc=bc))
+    bc_bytes = N * C * 4 + N * 4 + B * F * N + A * C * B * F * 4
+    by_bytes = bc_bytes / HBM_BPS >= adds / F32_FLOPS
+    print(f"cumhist(bc=) A={A} C={C}: kernel {bc_ms:.4f} ms, plain "
+          f"{bc_plain_ms:.4f} ms, bound "
+          f"{1e3 * max(bc_bytes / HBM_BPS, adds / F32_FLOPS):.5f} ms "
+          f"({'bytes' if by_bytes else 'operations'})")
+
+    # -- cumhist_sparse01: the 2-bin indicator block ----------------------
+    X01 = put((rng.random((FB, N)) < DENSITY).astype(np.uint8))
+    X01_bins = X01.to(torch.int32)
+    worst = 0.0
+    for A in (1, 64, 128):
+        node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+        for C in (3, 4):
+            st = rng.normal(size=(N, C)).astype(np.float32)
+            st[:, -1] = rng.random(N) > 0.1             # count channel
+            stats = put(st)
+            out = H.cumhist_sparse01(stats, node, X01, A)
+            ref = H.cumhist_sparse01_reference(stats, node, X01, A)
+            dense = H.cumhist(stats, node, X01_bins, A, 2)
+            torch.cuda.synchronize()
+            if not (torch.equal(out[:, -1], ref[:, -1])
+                    and torch.equal(out[:, -1], dense[:, -1])):
+                fail(f"cumhist_sparse01 counts differ (A={A} C={C})")
+            for c in range(C - 1):
+                worst = max(worst, (out[:, c] - ref[:, c]).abs().max()
+                            .item())
+                e = rel_err(out[:, c], ref[:, c])
+                if e > REL_TOL:
+                    fail(f"cumhist_sparse01 channel {c} rel err {e:.3g} "
+                         f"(A={A} C={C})")
+        print(f"cumhist_sparse01 A={A:3d}: counts equal the plain version "
+              f"and cumhist at B=2, weighted channels within {REL_TOL:g} "
+              "(C = 3, 4)")
+    A, C = 64, 4
+    node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+    st = rng.normal(size=(N, C)).astype(np.float32)
+    st[:, -1] = 1.0
+    stats = put(st)
+    ms = time_ms(lambda: H.cumhist_sparse01(stats, node, X01, A))
+    plain_ms = time_ms(lambda: H.cumhist_sparse01_reference(stats, node,
+                                                            X01, A))
+    NS = torch.zeros((N, A, C), dtype=torch.bfloat16, device=dev)
+    live = (node < A).nonzero().squeeze(1)
+    NS[live, node[live].long()] = stats[live].to(torch.bfloat16)
+    NS = NS.reshape(N, A * C)
+    Xt = X01.t().to(torch.bfloat16)
+    lib_ms = time_ms(lambda: torch.matmul(NS.t(), Xt))
+    del NS, Xt
+    nbytes = N * C * 4 + N * 4 + FB * N + A * C * 2 * FB * 4
+    # each live row adds its C stats into its slot's total and into the
+    # nonzero side of each of its ones; t=0 is one subtraction per output
+    nnz_live = float(X01[:, live].sum(dtype=torch.int64).item())
+    adds = C * (nnz_live + live.numel()) + A * C * FB
+    rows["cumhist_sparse01"] = dict(
+        replaces="transmogrifai_tpu/models/_pallas_hist.py:220",
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound=(nbytes / HBM_BPS, adds / F32_FLOPS))
+    print(f"cumhist_sparse01 A={A} C={C} Fb={FB}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms")
+
     # -- split_scan: three criteria, masks, A in {1, 64, 128} -------------
     worst = 0.0
     for kind, C in (("variance", 4), ("gini", 3), ("xgb", 3)):
@@ -249,14 +327,14 @@ def check_kernels(H, dev):
     return rows
 
 
-def profile_sweep(run):
-    """The 200,000-row sweep once more under ``torch.profiler``: device
-    time per kernel and the device's busy share of the wall clock."""
+def profile_path(name, fn):
+    """One main path once more under ``torch.profiler``: device time per
+    kernel and the device's busy share of the wall clock."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(N, device="cuda")
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -267,10 +345,47 @@ def profile_sweep(run):
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"profile: wall {wall:.3f} s, device busy {busy:.3f} s "
+    print(f"profile {name}: wall {wall:.3f} s, device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
     for dev_us, count, key in rows[:15]:
-        print(f"profile: {dev_us / 1e3:10.1f} ms {count:7d}x  {key[:90]}")
+        print(f"profile {name}: {dev_us / 1e3:10.1f} ms {count:7d}x  "
+              f"{key[:90]}")
+
+
+def counted(H, fn, kernels):
+    """Run ``fn`` with every launch count set to 0 just before it; fail
+    unless each of ``kernels`` launched. Returns (result, counts)."""
+    H.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(H.KERNEL_LAUNCHES)
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        fail(f"main path never launched {missing}")
+    return out, launches
+
+
+def check_scored(out, n, what):
+    aupr = out["metrics"]["AuPR"]
+    scored = out["scored"][out["prediction"].name]
+    if not (len(scored) == n and np.isfinite(scored.probability).all()
+            and 0.0 < aupr <= 1.0):
+        fail(f"{what}: scored predictions are not finite or of the wrong "
+             "shape")
+    return aupr
+
+
+def agree(runs, what):
+    """The card's and the CPU's run pick one model, AuPR within 1e-4."""
+    a, b = runs["cuda"], runs["cpu"]
+    if (a["summary"].best_model_name != b["summary"].best_model_name
+            or a["summary"].best_model_params
+            != b["summary"].best_model_params):
+        fail(f"cuda and cpu picked different models ({what})")
+    d_aupr = abs(a["metrics"]["AuPR"] - b["metrics"]["AuPR"])
+    if d_aupr > 1e-4:
+        fail(f"cuda and cpu AuPR differ by {d_aupr:.3g} ({what})")
+    print(f"{what}: same model on cuda and cpu, |dAuPR| = {d_aupr:.3g}")
 
 
 def main():
@@ -278,9 +393,12 @@ def main():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from transmogrifai_tpu_torch import big_passenger as BP
     from transmogrifai_tpu_torch.models import _hist as H
+    from transmogrifai_tpu_torch.ops.hashing import load_native
     from transmogrifai_tpu_torch.synthetic_trees import (default_families,
                                                          run)
+    profile = "--profile" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -293,50 +411,58 @@ def main():
     t0 = time.perf_counter()
     H.build_kernels()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if not load_native():
+        fail("the native text hasher (native/fasthash.cc) did not build")
+    print(f"native hasher build: {time.perf_counter() - t0:.1f} s")
 
     rows = check_kernels(H, dev)
 
-    # -- phase 3: the slice's main path, every launch counted -------------
-    H.reset_launch_counts()
-    out = run(N, device="cuda")
-    torch.cuda.synchronize()
-    launches = dict(H.KERNEL_LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        fail(f"main path never launched {missing}")
-    s, aupr = out["summary"], out["metrics"]["AuPR"]
-    scored = out["scored"][out["prediction"].name]
-    if not (len(scored) == N and np.isfinite(scored.probability).all()
-            and 0.0 < aupr <= 1.0):
-        fail("scored predictions are not finite or of the wrong shape")
+    # -- phase 3: the synthetic tree sweep, every launch counted ----------
+    tree_kernels = ("cumhist", "split_scan", "route_level", "predict_trees")
+    out, launches = counted(H, lambda: run(N, device="cuda"), tree_kernels)
+    aupr = check_scored(out, N, "synthetic sweep")
+    s = out["summary"]
     print(f"sweep {N} rows: train {out['train_s']:.2f} s, evaluate "
           f"{out['eval_s']:.2f} s, best {s.best_model_name} "
           f"{s.best_model_params}, AuPR {aupr:.6f}")
-    print(f"main-path launches: {launches}")
-    if "--profile" in sys.argv[1:]:
-        profile_sweep(run)
+    print(f"synthetic-sweep launches: {launches}")
+    if profile:
+        profile_path("sweep", lambda: run(N, device="cuda"))
+    agree({d: run(20_000, device=d,
+                  families=default_families((3, 6), (3, 6)))
+           for d in ("cuda", "cpu")}, "synthetic sweep, 20000 rows")
 
-    small = {}
-    for d in ("cuda", "cpu"):
-        r = run(20_000, device=d,
-                families=default_families((3, 6), (3, 6)))
-        small[d] = r
-        print(f"sweep 20000 rows on {d}: train {r['train_s']:.2f} s, best "
-              f"{r['summary'].best_model_name} "
-              f"{r['summary'].best_model_params}, "
-              f"AuPR {r['metrics']['AuPR']:.6f}")
-    a, b = small["cuda"], small["cpu"]
-    if (a["summary"].best_model_name != b["summary"].best_model_name
-            or a["summary"].best_model_params
-            != b["summary"].best_model_params):
-        fail("cuda and cpu picked different models at 20,000 rows")
-    d_aupr = abs(a["metrics"]["AuPR"] - b["metrics"]["AuPR"])
-    if d_aupr > 1e-4:
-        fail(f"cuda and cpu AuPR differ by {d_aupr:.3g}")
-    print(f"20000 rows: same model on cuda and cpu, |dAuPR| = {d_aupr:.3g}")
+    # -- phase 4: the BigPassenger workflow, every launch counted ---------
+    t0 = time.perf_counter()
+    records = BP.synthesize_records(N, seed=42)
+    records_s = time.perf_counter() - t0
+    out, launches = counted(H, lambda: BP.run(N, device="cuda",
+                                              records=records),
+                            tuple(H.KERNEL_LAUNCHES))
+    aupr = check_scored(out, N, "BigPassenger")
+    s = out["summary"]
+    print(f"BigPassenger {N} rows: blocks {out['blocks']} (continuous "
+          "32-bin block, 2-bin indicator block)")
+    print(f"BigPassenger {N} rows: records {records_s:.2f} s, extract "
+          f"{out['extract_s']:.2f} s, vectorize {out['vectorize_s']:.2f} s, "
+          f"SanityChecker {out['sanity_s']:.2f} s, selector "
+          f"{out['selector_s']:.2f} s, train {out['train_s']:.2f} s, "
+          f"evaluate {out['eval_s']:.2f} s, best {s.best_model_name} "
+          f"{s.best_model_params}, AuPR {aupr:.6f}")
+    print(f"BigPassenger launches: {launches}")
+    if profile:
+        profile_path("BigPassenger", lambda: BP.run(N, device="cuda",
+                                                    records=records))
+    small = BP.synthesize_records(2_000, seed=42)
+    agree({d: BP.run(2_000, num_folds=2, device=d, records=small,
+                     families=default_families((3,), (3,), rounds=5))
+           for d in ("cuda", "cpu")}, "BigPassenger, 2000 rows")
 
     kernels = []
-    for name in ("cumhist", "split_scan", "route_level", "predict_trees"):
+    names = ("cumhist", "cumhist_sparse01", "split_scan", "route_level",
+             "predict_trees")
+    for name in names:
         r = rows[name]
         t_bytes, t_ops = r["bound"]
         kernels.append({
@@ -349,7 +475,7 @@ def main():
             "library_ms": r["library_ms"]})
     if not all(math.isfinite(k["ms"]) for k in kernels):
         fail("a kernel time is not finite")
-    print("kernels: cumhist, split_scan, route_level, predict_trees")
+    print("kernels: " + ", ".join(names))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -151,6 +151,70 @@ def test_regression_heads_and_routed_predict(rng):
 
 
 def test_binary_columns_are_refused(rng):
-    X = np.stack([rng.normal(size=50), (rng.random(50) > 0.5) * 1.0], 1)
-    with pytest.raises(NotImplementedError, match="sparse01"):
-        PT.compute_bins(torch.tensor(X), 32, binary_mask=[False, True])
+    """Indicator columns are refused a quantile-bin slot: they are rebinned
+    to ``x > 0.5`` and go to the 2-bin block, after the continuous one."""
+    X = np.stack([rng.normal(size=50), (rng.random(50) > 0.5) * 1.0,
+                  rng.normal(size=50)], 1)
+    mask = np.array([False, True, False])
+    XbT, edges = PT.compute_bins(torch.tensor(X), 32, binary_mask=mask)
+    jb, je = JT.compute_bins(jnp.asarray(X), 32, mask)
+    np.testing.assert_array_equal(XbT.numpy(), np.asarray(jb).T)
+    np.testing.assert_array_equal(edges.numpy(), np.asarray(je))
+    blocks = PT.prepare_blocks(XbT, 32, mask)
+    assert [(b.cols.tolist(), b.n_bins, b.sparse01) for b in blocks] == \
+        [([0, 2], 32, False), ([1], 2, True)]
+    assert blocks[1].mat.dtype == torch.uint8
+    np.testing.assert_array_equal(blocks[1].mat.numpy()[0], X[:, 1] > 0.5)
+    assert [(list(c), nb) for c, nb, _thr in
+            JT.make_col_blocks(je, 32, mask)] \
+        == [(b.cols.tolist(), b.n_bins) for b in blocks]
+
+
+def _mixed_data(rng, n, F_cont, F_bin):
+    """Continuous columns beside independent 0/1 columns of varying
+    density (no column is another's complement, so no two candidates tie
+    in exact arithmetic); the label reads both kinds."""
+    Xc = rng.normal(size=(n, F_cont))
+    dens = rng.uniform(0.05, 0.5, size=F_bin)
+    Xbin = (rng.random((n, F_bin)) < dens).astype(np.float64)
+    X = np.concatenate([Xbin[:, :2], Xc, Xbin[:, 2:]], axis=1)
+    mask = np.array([True, True] + [False] * F_cont + [True] * (F_bin - 2))
+    y = ((Xc[:, 0] > 0.2) ^ (Xbin[:, 0] > 0.5)
+         | (Xbin[:, 3] > 0.5)).astype(np.float64)
+    w = np.ones(n)
+    w[rng.random(n) < 0.2] = 0.0
+    return X, y, w, mask
+
+
+@pytest.mark.parametrize("unroll", [False, True])
+def test_fit_gbt_mixed_blocks_matches(rng, unroll):
+    X, y, w, mask = _mixed_data(rng, 900, 3, 9)
+    kw = dict(task="classification", n_rounds=4, max_depth=4, n_bins=32,
+              unroll=unroll, depth_limit=None if unroll else 3)
+    pj = JT.fit_gbt(jnp.asarray(X), jnp.asarray(y), jnp.asarray(w),
+                    min_instances=jnp.asarray(5.0),
+                    min_info_gain=jnp.asarray(0.001),
+                    step_size=jnp.asarray(0.1),
+                    num_rounds_used=jnp.asarray(4.0), binary_mask=mask, **kw)
+    pp = PT.fit_gbt(torch.tensor(X), torch.tensor(y), torch.tensor(w),
+                    min_instances=5.0, min_info_gain=0.001, step_size=0.1,
+                    num_rounds_used=4.0, binary_mask=mask, **kw)
+    assert (np.asarray(pj["thr"]) == 0.5).any(), "no indicator split"
+    _trees_equal(pj, pp, ("feat", "thr", "leaf", "gain", "train_margin"),
+                 X=X, depth=4)
+
+
+@pytest.mark.parametrize("unroll", [False, True])
+def test_fit_xgb_mixed_blocks_matches(rng, unroll):
+    X, y, w, mask = _mixed_data(rng, 900, 3, 9)
+    kw = dict(task="classification", n_rounds=4, max_depth=4, n_bins=32,
+              lam=1.0, unroll=unroll)
+    pj = JT.fit_xgb(jnp.asarray(X), jnp.asarray(y), jnp.asarray(w),
+                    eta=jnp.asarray(0.3), min_child_weight=jnp.asarray(1.0),
+                    num_rounds_used=jnp.asarray(4.0), binary_mask=mask, **kw)
+    pp = PT.fit_xgb(torch.tensor(X), torch.tensor(y), torch.tensor(w),
+                    eta=0.3, min_child_weight=1.0, num_rounds_used=4.0,
+                    binary_mask=mask, **kw)
+    assert (np.asarray(pj["thr"]) == 0.5).any(), "no indicator split"
+    _trees_equal(pj, pp, ("feat", "thr", "leaf", "gain", "train_margin"),
+                 X=X, depth=4)

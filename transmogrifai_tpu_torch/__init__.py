@@ -1,16 +1,19 @@
 """transmogrifai_tpu_torch — the PyTorch/CUDA port of ``transmogrifai_tpu``.
 
-AutoML for tabular data on an NVIDIA H100: the typed feature DAG, the
-``Workflow`` runtime and the tree-model CV sweep (GBT and XGBoost
-families) with hand-written CUDA kernels for the tree engine
+AutoML for tabular data on an NVIDIA H100: the typed feature DAG,
+``transmogrify`` (numeric, categorical, text and date vectorizers), the
+SanityChecker, the ``Workflow`` runtime and the tree-model CV sweep (GBT
+and XGBoost families) with hand-written CUDA kernels for the tree engine
 (``models/_hist.py``, ``csrc/``). Entry points run on the card unless the
 caller passes ``device="cpu"``. The package imports ``torch`` and numpy,
 never ``jax``.
 """
 from . import types  # noqa: F401
 from .columns import Column, ColumnStore, column_from_values  # noqa: F401
+from .dsl import transmogrify  # noqa: F401
 from .features import Feature, FeatureBuilder  # noqa: F401
 from .workflow import Workflow, WorkflowModel  # noqa: F401
 
 __all__ = ["Workflow", "WorkflowModel", "FeatureBuilder", "Feature",
-           "ColumnStore", "Column", "column_from_values", "types"]
+           "ColumnStore", "Column", "column_from_values", "types",
+           "transmogrify"]

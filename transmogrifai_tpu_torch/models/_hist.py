@@ -1,4 +1,4 @@
-"""The tree engine's four kernels: CUDA wrappers, plain PyTorch versions,
+"""The tree engine's five kernels: CUDA wrappers, plain PyTorch versions,
 and the build.
 
 Counterpart of ``transmogrifai_tpu/models/_pallas_hist.py``. Each kernel
@@ -7,6 +7,9 @@ has a wrapper and a plain version of the same function:
 * ``cumhist`` — level histograms ``cum[s,c,t,f] = Σ_i 1[node_i=s] ·
   1[bin_fi ≤ t] · stats_ic`` ([A, C, B, F]); ``bc=`` takes the
   precomputed ``bin ≤ t`` indicator from :func:`make_bc`.
+* ``cumhist_sparse01`` — the same [A, C, 2, Fb] histograms for a 2-bin
+  block of 0/1 indicator columns, from the block itself: t=1 is the
+  per-slot total, t=0 the total minus the nonzero side.
 * ``split_scan`` — per slot, the best (score, t-major flat index t·F+f,
   valid) over a cumulative histogram.
 * ``route_level`` — per row, (slot, g) → (child slot, 2g + right).
@@ -41,6 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["cumhist", "cumhist_reference", "make_bc",
+           "cumhist_sparse01", "cumhist_sparse01_reference",
            "split_scan", "split_scan_reference", "route_level",
            "route_level_reference", "predict_trees",
            "predict_trees_reference", "build_kernels", "KERNEL_LAUNCHES",
@@ -51,8 +55,9 @@ SPLIT_NEG = -1e30
 _EPS = 1e-12
 _KINDS = {"variance": 0, "gini": 1, "xgb": 2}
 
-KERNEL_LAUNCHES: Dict[str, int] = {"cumhist": 0, "split_scan": 0,
-                                   "route_level": 0, "predict_trees": 0}
+KERNEL_LAUNCHES: Dict[str, int] = {"cumhist": 0, "cumhist_sparse01": 0,
+                                   "split_scan": 0, "route_level": 0,
+                                   "predict_trees": 0}
 
 
 def reset_launch_counts() -> None:
@@ -76,6 +81,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRY = {
     "cumhist": ("cumhist_launch",
                 [_P] * 6 + [_I] * 9 + [_P]),
+    "cumhist_sparse01": ("cumhist_sparse01_launch",
+                         [_P] * 5 + [_I] * 8 + [_P]),
     "split_scan": ("split_scan_launch",
                    [_P, _P] + [_I] * 5 + [_F] * 3 + [_P] * 4),
     "route_level": ("route_level_launch", [_P] * 6 + [_I] * 3 + [_P]),
@@ -97,7 +104,7 @@ def _nvcc() -> str:
 
 
 def build_kernels() -> float:
-    """Build (when their sources changed) and load all four kernel
+    """Build (when their sources changed) and load all the kernel
     libraries; returns the seconds spent. One ``nvcc`` per source, all
     started together; outputs are keyed by a hash of source and flags."""
     t0 = time.perf_counter()
@@ -215,9 +222,22 @@ def cumhist_reference(stats: torch.Tensor, node: torch.Tensor,
 #: row splits per call aim at this many blocks (four per SM of an H100);
 #: a function of shapes only, so a call's summation order is fixed
 _CUMHIST_TARGET_BLOCKS = 4 * 132
-#: the kernel's output tile (csrc/cumhist.cu BM = BN); M = A·C and
-#: N = B·F are padded to it
+#: the kernels' output tile (csrc/cumhist.cu and cumhist_sparse01.cu
+#: BM = BN); M and N are padded to it
 _CUMHIST_TILE = 128
+
+
+def _tiling(n: int, M: int, N: int) -> Tuple[int, int, int, int]:
+    """(M_pad, N_pad, row splits, rows per split) of a histogram product
+    with M output rows, N output columns and n data rows; rows per split
+    is a multiple of the kernels' 32-row step."""
+    T = _CUMHIST_TILE
+    M_pad = -(-M // T) * T
+    N_pad = -(-N // T) * T
+    tiles = (M_pad // T) * (N_pad // T)
+    splits = max(1, min(-(-n // 32), -(-_CUMHIST_TARGET_BLOCKS // tiles)))
+    rows_per_split = -(-(-(-n // splits)) // 32) * 32
+    return M_pad, N_pad, -(-n // rows_per_split), rows_per_split
 
 
 def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
@@ -241,13 +261,7 @@ def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
     if not (1 <= C <= 8 and A >= 1 and B >= 1 and n >= 1):
         raise ValueError(f"cumhist: unsupported shape n={n} C={C} A={A} "
                          f"B={B}")
-    T = _CUMHIST_TILE
-    M_pad = -(-A * C // T) * T
-    N_pad = -(-B * F // T) * T
-    tiles = (M_pad // T) * (N_pad // T)
-    splits = max(1, min(-(-n // 32), -(-_CUMHIST_TARGET_BLOCKS // tiles)))
-    rows_per_split = -(-(-(-n // splits)) // 32) * 32
-    splits = -(-n // rows_per_split)
+    M_pad, N_pad, splits, rows_per_split = _tiling(n, A * C, B * F)
     partial = torch.empty(splits * M_pad * N_pad, dtype=torch.float32,
                           device=dev)
     out = torch.empty((A, C, B, F), dtype=torch.float32, device=dev)
@@ -255,6 +269,58 @@ def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
             bc.data_ptr() if bc is not None else None, partial.data_ptr(),
             out.data_ptr(), n, C, A, B, F, splits, rows_per_split, M_pad,
             N_pad, _stream(dev))
+    return out
+
+
+def cumhist_sparse01_reference(stats: torch.Tensor, node: torch.Tensor,
+                               Xb01: torch.Tensor,
+                               n_nodes: int) -> torch.Tensor:
+    """Plain version: ``(one_hot(node) ⊗ stats)ᵀ @ [X | 1]`` — the nonzero
+    side of each column and, from the all-ones column, the per-slot total
+    — then t=0 = total − nonzero side and t=1 = total. f32 stats are
+    rounded to bf16 first and the products summed in f32 (counts stay
+    exact); f64 stays f64."""
+    Fb, n = Xb01.shape
+    C = stats.shape[1]
+    A = int(n_nodes)
+    st = (stats.to(torch.bfloat16).to(torch.float32)
+          if stats.dtype == torch.float32 else stats)
+    NS = torch.zeros((n, A, C), dtype=st.dtype, device=st.device)
+    rows = torch.nonzero(node < A).squeeze(1)
+    NS[rows, node[rows].long()] = st[rows]
+    X1 = torch.cat([(Xb01.t() != 0).to(st.dtype),
+                    torch.ones((n, 1), dtype=st.dtype, device=st.device)],
+                   dim=1)
+    h = NS.reshape(n, A * C).t() @ X1                  # [A·C, Fb + 1]
+    tot = h[:, Fb:].expand(A * C, Fb)
+    return torch.stack([tot - h[:, :Fb], tot], dim=1).reshape(A, C, 2, Fb)
+
+
+def cumhist_sparse01(stats: torch.Tensor, node: torch.Tensor,
+                     Xb01: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """[n, C] stats + [n] node slots (idle rows: node == n_nodes) + [Fb, n]
+    0/1 block → [A, C, 2, Fb] histograms, as :func:`cumhist` at B=2 on the
+    same bins. Kernel: f32 stats, int32 node, uint8 block, C ≤ 8."""
+    if _on_cpu(stats):
+        return cumhist_sparse01_reference(stats, node, Xb01, n_nodes)
+    dev = stats.device
+    Fb, n = Xb01.shape
+    C = stats.shape[1]
+    A = int(n_nodes)
+    _check(stats, "stats", torch.float32, (n, C), dev)
+    _check(node, "node", torch.int32, (n,), dev)
+    _check(Xb01, "Xb01", torch.uint8, (Fb, n), dev)
+    if not (1 <= C <= 8 and A >= 1 and Fb >= 1 and n >= 1):
+        raise ValueError(f"cumhist_sparse01: unsupported shape n={n} C={C} "
+                         f"A={A} Fb={Fb}")
+    # the all-ones column j = Fb rides in the product's padding
+    M_pad, N_pad, splits, rows_per_split = _tiling(n, A * C, Fb + 1)
+    partial = torch.empty(splits * M_pad * N_pad, dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((A, C, 2, Fb), dtype=torch.float32, device=dev)
+    _launch("cumhist_sparse01", stats.data_ptr(), node.data_ptr(),
+            Xb01.data_ptr(), partial.data_ptr(), out.data_ptr(), n, C, A,
+            Fb, splits, rows_per_split, M_pad, N_pad, _stream(dev))
     return out
 
 

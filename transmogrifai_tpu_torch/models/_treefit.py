@@ -10,6 +10,12 @@ slot (``models/_hist.py``; CUDA kernels on the card, plain versions on the
 CPU). Nodes that stop splitting route their rows left through +inf
 thresholds, so the fixed-depth layout stays exact.
 
+Indicator columns (all values 0 or 1, ``binary_mask``) get a 2-bin block
+of their own, as in the JAX package: per level each block gets its own
+histogram (``cumhist`` for the quantile-binned block, ``cumhist_sparse01``
+for the 0/1 block) and split scan, and the per-block winners merge on the
+concatenated candidate axis (continuous block first).
+
 Two drivers share one level body, as in the JAX package: a constant
 ``cap`` slot count per level with a depth gate (``depth_limit``), and the
 unrolled driver with per-level slot growth and sibling subtraction (each
@@ -22,15 +28,17 @@ Tree layout: level-order ``feat``/``thr`` of length 2^D − 1 and ``leaf``
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import random as R
-from ._hist import cumhist, predict_trees, route_level, split_scan
+from ._hist import (cumhist, cumhist_sparse01, predict_trees, route_level,
+                    split_scan)
 
-__all__ = ["quantile_bin_edges", "binarize", "compute_bins",
+__all__ = ["quantile_bin_edges", "binarize", "compute_bins", "Block",
+           "make_col_blocks", "prepare_blocks",
            "VarianceCriterion", "XGBCriterion", "variance_leaf",
            "make_xgb_leaf", "grow_tree", "fit_gbt", "fit_xgb",
            "predict_ensemble", "margin_head",
@@ -99,15 +107,68 @@ def binarize(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     return (X[:, :, None] > edges[None, :, :]).sum(2, dtype=torch.int32)
 
 
+def _mask_or_none(binary_mask) -> Optional[np.ndarray]:
+    if binary_mask is None or not np.asarray(binary_mask).any():
+        return None
+    return np.asarray(binary_mask, bool)
+
+
 def compute_bins(X: torch.Tensor, n_bins: int, binary_mask=None):
     """[n, F] reals → (XbT [F, n] int32, edges [F, n_bins − 1]): the bins
-    in the feature-major layout the kernels stream."""
-    if binary_mask is not None and np.asarray(binary_mask).any():
-        raise NotImplementedError(
-            "2-bin indicator-column blocks need the sparse01 histogram "
-            "kernel (ROADMAP B2); only continuous features are ported")
+    in the feature-major layout the kernels stream. Indicator columns
+    (host-side [F] bool ``binary_mask``) are rebinned to ``x > 0.5``, so
+    routing's ``bin > t`` works with their block-local threshold index 0
+    (``_treefit.compute_bins`` of the JAX package)."""
     edges = quantile_bin_edges(X, n_bins)
-    return binarize(X, edges).t().contiguous(), edges
+    Xb = binarize(X, edges)
+    bm = _mask_or_none(binary_mask)
+    if bm is not None:
+        Xb = torch.where(torch.from_numpy(bm).to(X.device)[None, :],
+                         (X > 0.5).to(torch.int32), Xb)
+    return Xb.t().contiguous(), edges
+
+
+class Block(NamedTuple):
+    """One histogram block of the feature axis: ``cols`` [Fb] global
+    column indices (int64, on the fit's device), ``n_bins``, the block's
+    [Fb, n] bin matrix ``mat`` (int32 bins, or the uint8 0/1 matrix of a
+    2-bin indicator block) and ``sparse01`` (the indicator block, whose
+    stored threshold is 0.5)."""
+
+    cols: torch.Tensor
+    n_bins: int
+    mat: torch.Tensor
+    sparse01: bool
+
+
+def make_col_blocks(n_features: int, n_bins: int, binary_mask=None
+                    ) -> List[tuple]:
+    """(column indices, bins, indicator block?) per block: the continuous
+    block first (if any), then the 2-bin block of the indicator columns —
+    the JAX package's ``make_col_blocks`` order, which fixes the candidate
+    axis."""
+    bm = _mask_or_none(binary_mask)
+    if bm is None:
+        return [(np.arange(n_features), n_bins, False)]
+    cont = np.nonzero(~bm)[0]
+    return ([(cont, n_bins, False)] if len(cont) else []) \
+        + [(np.nonzero(bm)[0], 2, True)]
+
+
+def prepare_blocks(XbT: torch.Tensor, n_bins: int, binary_mask=None
+                   ) -> List[Block]:
+    """The blocks of one fit, extracted once from the full [F, n] bins:
+    the indicator block is stored as uint8 (its bins are 0 or 1), the
+    operand ``cumhist_sparse01`` streams; a single continuous block is
+    ``XbT`` itself."""
+    F = XbT.shape[0]
+    out = []
+    for cols, nb, indicator in make_col_blocks(F, n_bins, binary_mask):
+        idx = torch.from_numpy(cols).to(XbT.device)
+        mat = XbT if len(cols) == F else XbT.index_select(0, idx)
+        out.append(Block(idx, nb, mat.to(torch.uint8) if indicator else mat,
+                         indicator))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -173,10 +234,18 @@ def make_xgb_leaf(lam: float):
 def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
               crit, leaf_fn: Callable, max_depth: int, n_bins: int,
               min_instances, min_info_gain, depth_limit: Optional[int] = None,
-              max_active_nodes: int = 128, unroll: bool = False):
+              max_active_nodes: int = 128, unroll: bool = False,
+              blocks: Optional[List[Block]] = None):
     """Grow one tree level-wise over [F, n] bins; returns (feat [2^D−1]
     int32, thr [2^D−1], leaf [2^D, K], node [n] final sample→leaf index,
     gain [2^D−1]).
+
+    ``blocks`` (:func:`prepare_blocks`; default one block of every
+    column) partition the features into histogram blocks. Each block's
+    winner is a flat index ``t·Fb + f`` inside it; the blocks' candidates
+    concatenate in order (offsets ``(nb−1)·Fb``), and the level takes the
+    highest score, ties to the lower concatenated index — what one argmax
+    over the concatenation picks. Routing reads the full ``XbT``.
 
     At most ``cap = min(max_active_nodes, 2^(D−1))`` live nodes per level
     (ranked by split gain); ``depth_limit`` stops splitting past that
@@ -187,9 +256,11 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
     the ``bin ≤ t`` indicator when it fits (``prepare_blocks``), but on
     the H100 the kernel builds it from the bins faster than it reads the
     precomputed one (``PERF.md``), so no fit passes ``bc``."""
-    F, n = XbT.shape
+    n = XbT.shape[1]
     dev, dt = stats.device, stats.dtype
-    B, C, D = n_bins, stats.shape[1], max_depth
+    C, D = stats.shape[1], max_depth
+    if blocks is None:
+        blocks = prepare_blocks(XbT, n_bins)
     cap = max(2, min(max_active_nodes, 1 << max(D - 1, 1)))
     if unroll:
         cap -= cap % 2      # sibling interleave pairs child slots
@@ -200,30 +271,69 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
                       min=1e-10)
     i32 = dict(dtype=torch.int32, device=dev)
 
+    def hist(blk, node, a):
+        if blk.sparse01:
+            return cumhist_sparse01(stats, node, blk.mat, a)
+        return cumhist(stats, node, blk.mat, a, blk.n_bins)
+
     def level(d, A, A_next, slot, g, gpos, alive, feat, thr, gain, leafS,
               prev):
         if prev is not None:
             # left children live in the even slots; each right sibling is
-            # its parent's histogram minus the left one
+            # its parent's histogram minus the left one, per block
             half = A // 2
             node_even = torch.where((slot < A) & (slot % 2 == 0), slot // 2,
                                     torch.full_like(slot, half))
-            ev = cumhist(stats, node_even, XbT, half, B)
-            parent = prev[0][prev[1]]
-            cum = torch.stack([ev, parent - ev], dim=1).reshape(
-                (A,) + ev.shape[1:])
-        else:
-            cum = cumhist(stats, slot, XbT, A, B)
-        _score, best, valid = split_scan(cum, crit.kernel_kind,
-                                         min_instances, lam=lam,
-                                         min_child_weight=mcw)
-        best = best.long()
-        f_idx = (best % F).to(torch.int32)
-        t_idx = (best // F).to(torch.int32)
-        thr_v = edges[f_idx.long(), t_idx.long()]
-        lstats = cum[:, :, :-1, :].reshape(A, C, (B - 1) * F).gather(
-            2, best[:, None, None].expand(A, C, 1))[:, :, 0]
-        tstats = cum[:, :, -1, 0]
+        cums = []
+        off = 0
+        for bi, blk in enumerate(blocks):
+            if prev is not None:
+                ev = hist(blk, node_even, half)
+                parent = prev[0][bi][prev[1]]
+                cumb = torch.stack([ev, parent - ev], dim=1).reshape(
+                    (A,) + ev.shape[1:])
+            else:
+                cumb = hist(blk, slot, A)
+            s_b, i_b, v_b = split_scan(cumb, crit.kernel_kind,
+                                       min_instances, lam=lam,
+                                       min_child_weight=mcw)
+            gi = off + i_b.long()
+            if not cums:
+                score, best, valid = s_b, gi, v_b
+            else:
+                take = (s_b > score) | ((s_b == score) & (gi < best))
+                best = torch.where(take, gi, best)
+                valid = torch.where(take, v_b, valid)
+                score = torch.where(take, s_b, score)
+            cums.append(cumb)
+            off += (blk.n_bins - 1) * len(blk.cols)
+        # decode the winner in its block (later blocks override where the
+        # winner lies in them); the exact gain is taken at the winner's
+        # [A, C] left / total stats
+        off = 0
+        for bi, (blk, cumb) in enumerate(zip(blocks, cums)):
+            fb_n = len(blk.cols)
+            size = (blk.n_bins - 1) * fb_n
+            local = best - off
+            if len(blocks) > 1:
+                local = torch.clamp(local, 0, size - 1)
+            fg = blk.cols[local % fb_n]
+            tb = local // fb_n
+            thr_b = (torch.full((A,), 0.5, dtype=edges.dtype, device=dev)
+                     if blk.sparse01 else edges[fg, tb])
+            lb = cumb[:, :, :-1, :].reshape(A, C, size).gather(
+                2, local[:, None, None].expand(A, C, 1))[:, :, 0]
+            if bi == 0:
+                f_idx, t_idx, thr_v, lstats = fg, tb, thr_b, lb
+            else:
+                inb = best >= off
+                f_idx = torch.where(inb, fg, f_idx)
+                t_idx = torch.where(inb, tb, t_idx)
+                thr_v = torch.where(inb, thr_b, thr_v)
+                lstats = torch.where(inb[:, None], lb, lstats)
+            off += size
+        f_idx, t_idx = f_idx.to(torch.int32), t_idx.to(torch.int32)
+        tstats = cums[0][:, :, -1, 0]
         best_gain = crit.gain(lstats, tstats)
         do_split = alive & valid & (best_gain >= mig)
         if depth_limit is not None and d >= depth_limit:
@@ -272,7 +382,7 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
         leafS[li] = lstats
         leafS[ri] = tstats - lstats
         return (slot2, g2, gpos2[:A_next], alive2[:A_next],
-                (cum, rank[:A_next // 2]))
+                (cums, rank[:A_next // 2]))
 
     feat = torch.zeros((total_nodes + 1,), **i32)
     thr = torch.full((total_nodes + 1,), float("inf"), dtype=edges.dtype,
@@ -307,9 +417,12 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
 
 def _boost(X, y, w, n_rounds, max_depth, n_bins, num_rounds_used, shrink,
            stats_of, crit, leaf_fn, min_instances, min_info_gain,
-           depth_limit, max_active_nodes, prebinned, unroll):
-    XbT, edges = (prebinned if prebinned is not None
-                  else compute_bins(X, n_bins))
+           depth_limit, max_active_nodes, binary_mask, prebinned, unroll):
+    if prebinned is None:
+        XbT, edges = compute_bins(X, n_bins, binary_mask)
+        blocks = prepare_blocks(XbT, n_bins, binary_mask)
+    else:
+        XbT, edges, blocks = prebinned
     dt = w.dtype
     shrink = torch.as_tensor(shrink, dtype=dt, device=w.device)
     Fm = torch.zeros_like(w)
@@ -318,7 +431,7 @@ def _boost(X, y, w, n_rounds, max_depth, n_bins, num_rounds_used, shrink,
         feat, thr, leaf, node, gain = grow_tree(
             XbT, edges, stats_of(Fm), crit, leaf_fn, max_depth, n_bins,
             min_instances, min_info_gain, depth_limit=depth_limit,
-            max_active_nodes=max_active_nodes, unroll=unroll)
+            max_active_nodes=max_active_nodes, unroll=unroll, blocks=blocks)
         use = 1.0 if t < float(num_rounds_used) else 0.0
         scale = use * shrink
         Fm = Fm + scale * leaf[node.long()][:, 0]
@@ -335,12 +448,13 @@ def _boost(X, y, w, n_rounds, max_depth, n_bins, num_rounds_used, shrink,
 def fit_gbt(X, y, w, *, task: str, n_rounds: int, max_depth: int,
             n_bins: int, min_instances, min_info_gain, step_size,
             num_rounds_used, depth_limit: Optional[int] = None,
-            max_active_nodes: int = 128, prebinned=None,
+            max_active_nodes: int = 128, binary_mask=None, prebinned=None,
             unroll: bool = False):
     """Spark-style GBT: each round fits a weighted regression tree to the
     pseudo-residuals; classification uses logloss on y' ∈ {−1, +1} with
-    margin F, prob = σ(2F). ``prebinned`` is (XbT, edges) from
-    :func:`compute_bins`."""
+    margin F, prob = σ(2F). ``binary_mask`` marks indicator columns
+    (2-bin block); ``prebinned`` is (XbT, edges, blocks) from
+    :func:`compute_bins` and :func:`prepare_blocks`."""
     dt = w.dtype
     ypm = 2.0 * y - 1.0
     cnt = (w > 0).to(dt)
@@ -352,13 +466,13 @@ def fit_gbt(X, y, w, *, task: str, n_rounds: int, max_depth: int,
     return _boost(X, y, w, n_rounds, max_depth, n_bins, num_rounds_used,
                   step_size, stats_of, VarianceCriterion(), variance_leaf,
                   min_instances, min_info_gain, depth_limit,
-                  max_active_nodes, prebinned, unroll)
+                  max_active_nodes, binary_mask, prebinned, unroll)
 
 
 def fit_xgb(X, y, w, *, task: str, n_rounds: int, max_depth: int,
             n_bins: int, eta, lam: float, min_child_weight, num_rounds_used,
             depth_limit: Optional[int] = None, max_active_nodes: int = 128,
-            prebinned=None, unroll: bool = False):
+            binary_mask=None, prebinned=None, unroll: bool = False):
     """Second-order boosting: g/h of the logistic (classification) or
     squared loss; leaf = −G/(H+λ)."""
     dt = w.dtype
@@ -374,7 +488,7 @@ def fit_xgb(X, y, w, *, task: str, n_rounds: int, max_depth: int,
     return _boost(X, y, w, n_rounds, max_depth, n_bins, num_rounds_used,
                   eta, stats_of, XGBCriterion(lam, min_child_weight),
                   make_xgb_leaf(lam), 0.0, -1e29, depth_limit,
-                  max_active_nodes, prebinned, unroll)
+                  max_active_nodes, binary_mask, prebinned, unroll)
 
 
 # ---------------------------------------------------------------------------
@@ -385,8 +499,8 @@ def predict_ensemble(feat, thr, leaf, tree_w, X, max_depth: int):
     """Weighted sum over [T, …] stacked trees → [n, K]
     (``predict_trees``: the kernel on the card, the plain version on the
     CPU)."""
-    return predict_trees(X, feat, thr, leaf * tree_w[:, None, None],
-                         max_depth)
+    return predict_trees(X.contiguous(), feat, thr,
+                         leaf * tree_w[:, None, None], max_depth)
 
 
 def margin_head(m, margin_scale: float, dtype, task: str):

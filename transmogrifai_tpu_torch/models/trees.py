@@ -108,8 +108,8 @@ class _TreeFamilyBase(ModelFamily):
         super().__init__(grid)
         self.n_classes = n_classes
         self.max_active_nodes = max_active_nodes
-        #: host-side [F] bool of one-hot indicator columns (set by the
-        #: selector); the 2-bin blocks they would get are not ported yet
+        #: host-side [F] bool of indicator columns (set by the selector
+        #: from its prepared matrix); they get the 2-bin sparse01 block
         self.binary_mask = None
 
     def _static_trees(self) -> int:
@@ -129,10 +129,13 @@ class _TreeFamilyBase(ModelFamily):
 
     def device_prep(self, Xd: torch.Tensor) -> Dict[str, Any]:
         """Bin the feature matrix once per (data, binning config):
-        ``{"XbT": [F, n] int32, "edges"}`` — accepted by fit_batch
-        and predict_batch in place of raw X."""
+        ``{"XbT": [F, n] int32, "edges", "blocks"}`` (the histogram
+        blocks of ``binary_mask``) — accepted by fit_batch and
+        predict_batch in place of raw X."""
         XbT, edges = TF.compute_bins(Xd, self.n_bins, self.binary_mask)
-        return {"XbT": XbT, "edges": edges}
+        return {"XbT": XbT, "edges": edges,
+                "blocks": TF.prepare_blocks(XbT, self.n_bins,
+                                            self.binary_mask)}
 
     def _point(self, g: Dict[str, Any]) -> Dict[str, Any]:
         hp = dict(self.param_defaults())
@@ -167,7 +170,7 @@ class _TreeFamilyBase(ModelFamily):
 
     def _prebinned(self, X):
         if isinstance(X, dict):
-            return (X["XbT"], X["edges"]), None
+            return (X["XbT"], X["edges"], X["blocks"]), None
         return None, X
 
     def predict_batch(self, params: List[Dict], X, on_train: bool = False):
@@ -231,8 +234,8 @@ class GBTFamily(_TreeFamilyBase):
             min_info_gain=float(hp["minInfoGain"]),
             step_size=float(hp["stepSize"]),
             num_rounds_used=float(hp["maxIter"]), depth_limit=depth_limit,
-            max_active_nodes=self.max_active_nodes, prebinned=prebinned,
-            unroll=unroll)
+            max_active_nodes=self.max_active_nodes,
+            binary_mask=self.binary_mask, prebinned=prebinned, unroll=unroll)
 
 
 class XGBoostFamily(_TreeFamilyBase):
@@ -269,8 +272,8 @@ class XGBoostFamily(_TreeFamilyBase):
             n_bins=self.n_bins, eta=float(hp["eta"]), lam=self.reg_lambda,
             min_child_weight=float(hp["minChildWeight"]),
             num_rounds_used=float(hp["numRound"]), depth_limit=depth_limit,
-            max_active_nodes=self.max_active_nodes, prebinned=prebinned,
-            unroll=unroll)
+            max_active_nodes=self.max_active_nodes,
+            binary_mask=self.binary_mask, prebinned=prebinned, unroll=unroll)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,6 +25,7 @@ from .features import Feature
 from .graph import StagesDAG, compute_dag
 from .models.base import resolve_device
 from .stages.base import Estimator, FittedModel, Transformer
+from .stages.generator import FeatureGeneratorStage
 from .utils import uid as uid_mod
 
 __all__ = ["Workflow", "WorkflowModel", "WorkflowError"]
@@ -44,8 +45,20 @@ def _raw_features_of(result_features: Sequence[Feature]) -> List[Feature]:
     return sorted(seen.values(), key=lambda f: f.name)
 
 
-def _raw_store(data: ColumnStore, raw_features: Sequence[Feature]
-               ) -> ColumnStore:
+def _raw_store(data, raw_features: Sequence[Feature]) -> ColumnStore:
+    """The raw feature columns of ``data``: a ColumnStore keyed by raw
+    feature names, or a sequence of record dicts run through each
+    feature's generator (``DataReader.generateDataFrame``)."""
+    if not isinstance(data, ColumnStore):
+        records = list(data)
+        cols = {}
+        for f in raw_features:
+            gen = f.origin_stage
+            if not isinstance(gen, FeatureGeneratorStage):
+                raise WorkflowError(
+                    f"Raw feature {f.name!r} has no generator stage")
+            cols[f.name] = gen.extract_column(records)
+        return ColumnStore(cols, len(records))
     missing = [f.name for f in raw_features if f.name not in data]
     if missing:
         raise WorkflowError(f"Input store is missing raw features {missing}")
@@ -57,9 +70,16 @@ def _device_kw(stage, device) -> Dict[str, Any]:
 
 
 def _apply_layer(models: Sequence[Transformer], store: ColumnStore,
-                 device) -> ColumnStore:
+                 device, seconds: Optional[Dict[str, float]] = None
+                 ) -> ColumnStore:
+    """Transform ``store`` by each model; ``seconds`` accumulates each
+    stage's wall-clock by uid."""
     for m in models:
+        t0 = time.perf_counter()
         store = m.transform(store, **_device_kw(m, device))
+        if seconds is not None:
+            seconds[m.uid] = seconds.get(m.uid, 0.0) \
+                + time.perf_counter() - t0
     return store
 
 
@@ -69,7 +89,8 @@ class Workflow:
     def __init__(self):
         self.uid = uid_mod.make_uid("Workflow")
         self.result_features: Tuple[Feature, ...] = ()
-        self._input_data: Optional[ColumnStore] = None
+        #: a ColumnStore or a list of record dicts
+        self._input_data = None
         self.splitter = None          # tuning.Splitter for the holdout
 
     def set_result_features(self, *features: Feature) -> "Workflow":
@@ -86,6 +107,13 @@ class Workflow:
         self._input_data = store
         return self
 
+    def set_input_records(self, records: Sequence[Mapping[str, Any]]
+                          ) -> "Workflow":
+        """Record dicts; each raw feature's generator extracts its column
+        when ``train`` runs."""
+        self._input_data = list(records)
+        return self
+
     def set_splitter(self, splitter) -> "Workflow":
         self.splitter = splitter
         return self
@@ -95,7 +123,8 @@ class Workflow:
         """Fit the DAG on ``device`` (default: the card) in ``dtype``."""
         dev = resolve_device(device)
         if self._input_data is None:
-            raise WorkflowError("No input data: call set_input_store")
+            raise WorkflowError(
+                "No input data: call set_input_store or set_input_records")
         store = _raw_store(self._input_data,
                            _raw_features_of(self.result_features))
         train, test = store, None
@@ -104,6 +133,7 @@ class Workflow:
         dag = compute_dag(self.result_features)
         t0 = time.perf_counter()
         fitted: Dict[str, FittedModel] = {}
+        seconds: Dict[str, float] = {}
         for li, layer in enumerate(dag):
             models: List[Transformer] = []
             for stage in layer:
@@ -111,7 +141,9 @@ class Workflow:
                     kw = _device_kw(stage, dev)
                     if kw:
                         kw["dtype"] = dtype
+                    ts = time.perf_counter()
                     model = stage.fit(train, **kw)
+                    seconds[stage.uid] = time.perf_counter() - ts
                     fitted[stage.uid] = model
                     if model.has_test_eval() and test is not None:
                         model.evaluate_model(test, **_device_kw(model, dev))
@@ -121,14 +153,15 @@ class Workflow:
                 else:
                     raise WorkflowError(f"Unfittable stage {stage!r}")
             if li < len(dag) - 1:       # the last layer's outputs are unused
-                train = _apply_layer(models, train, dev)
+                train = _apply_layer(models, train, dev, seconds)
                 if test is not None:
-                    test = _apply_layer(models, test, dev)
+                    test = _apply_layer(models, test, dev, seconds)
         train_time = time.perf_counter() - t0
         logger.info("train: %d rows, %d layers in %.2fs", train.n_rows,
                     len(dag), train_time)
         return WorkflowModel(self.result_features, fitted, dag,
-                             train_time_s=train_time)
+                             train_time_s=train_time,
+                             stage_seconds=seconds)
 
 
 class WorkflowModel:
@@ -136,12 +169,15 @@ class WorkflowModel:
 
     def __init__(self, result_features: Sequence[Feature],
                  fitted_stages: Dict[str, FittedModel],
-                 dag: Optional[StagesDAG] = None, train_time_s: float = 0.0):
+                 dag: Optional[StagesDAG] = None, train_time_s: float = 0.0,
+                 stage_seconds: Optional[Dict[str, float]] = None):
         self.uid = uid_mod.make_uid("WorkflowModel")
         self.result_features = tuple(result_features)
         self.fitted_stages = dict(fitted_stages)
         self.dag = dag if dag is not None else compute_dag(result_features)
         self.train_time_s = train_time_s
+        #: stage uid → train wall-clock seconds (its fit + its transforms)
+        self.stage_seconds = dict(stage_seconds or {})
 
     def _resolved_dag(self) -> List[List[Transformer]]:
         out: List[List[Transformer]] = []
@@ -159,8 +195,9 @@ class WorkflowModel:
             out.append(row)
         return out
 
-    def transform(self, data: ColumnStore, device=None) -> ColumnStore:
-        """Apply every fitted layer on ``device`` (default: the card)."""
+    def transform(self, data, device=None) -> ColumnStore:
+        """Apply every fitted layer to ``data`` (a ColumnStore or record
+        dicts) on ``device`` (default: the card)."""
         dev = resolve_device(device)
         store = _raw_store(data, _raw_features_of(self.result_features))
         for layer in self._resolved_dag():
