@@ -5,30 +5,40 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py             # add --profile for device-time tables
 
-1. Prints the card's name and power limit and builds the five tree-engine
+1. Prints the card's name and power limit and builds the six tree-engine
    kernels from ``transmogrifai_tpu_torch/csrc`` (one ``nvcc`` each, in
    parallel) and the native text hasher (``native/fasthash.cc``, ``g++``).
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (n=200,000 rows; F=20 features, B=32 bins; the 2-bin
-   indicator block at Fb=512 columns): counts, selected indices, valid
-   flags, routes and g bit-identical (``cumhist_sparse01``'s counts also
-   equal ``cumhist``'s at B=2 on the same bins); weighted histogram
-   channels and predict sums within 2e-5 of the channel's max |value|.
-   Times each (median of 20 launches, CUDA events) beside its plain
-   version and, for the histograms, one bf16 ``torch.matmul`` of the same
-   operands.
+   indicator block at Fb=512 columns): ``group_rows``' order and segment
+   offsets, counts, selected indices, valid flags, routes and g
+   bit-identical (``cumhist_sparse01``'s counts also equal ``cumhist``'s
+   at B=2 on the same bins); weighted histogram channels and predict sums
+   within 2e-5 of the channel's max |value|; two histogram calls on the
+   same inputs bitwise equal, all-idle rows giving zeros. Times each
+   (median of 20 launches, CUDA events) beside its plain version and one
+   PyTorch call computing the same function where there is one (a bf16
+   ``torch.matmul`` of the histograms' materialized operands, a stable
+   ``torch.argsort`` for ``group_rows``); the histograms at A ∈ {1, 16,
+   32, 64} slots, both as the level loop calls them (rows grouped once per
+   level, the row-major copy made once per fit) and grouping their own
+   rows, and the per-fit copies on their own lines. Then both histograms
+   at blocks with several groups of output rows (``cumhist`` at F ∈ {40,
+   600, 1100} features, B ∈ {32, 2, 1}; ``cumhist_sparse01`` at Fb=1,500)
+   against their plain versions at 20,000 rows, timed at 200,000.
 3. The tree-model AutoML sweep — GBT maxDepth {3, 6, 9} and XGBoost
    maxDepth {3, 6}, 20 rounds, 5-fold CV on AuPR, refit, scoring — through
    ``Workflow.train`` and ``WorkflowModel.evaluate`` on 200,000 rows, with
-   every kernel launch counted; then the same sweep at 20,000 rows (depths
-   {3, 6}) on the card and on the CPU, which must pick the same model with
-   AuPR within 1e-4.
+   every kernel launch counted (``group_rows`` once per level); then the
+   same sweep at 20,000 rows (depths {3, 6}) on the card and on the CPU,
+   which must pick the same model with AuPR within 1e-4.
 4. The BigPassenger workflow (``big_passenger.py``): 200,000 typed records
    → transmogrify → SanityChecker → GBT + XGBoost maxDepth {3, 6}, 20
    rounds, 3-fold CV → refit → evaluate, with every kernel launch counted
-   (all five must launch); then the same workflow at 2,000 rows (GBT {3} +
-   XGBoost {3}, 5 rounds, 2 folds) on the card and on the CPU, which must
-   pick the same model with AuPR within 1e-4.
+   (all six must launch, ``group_rows`` once per level); then the same
+   workflow at 2,000 rows (GBT {3} + XGBoost {3}, 5 rounds, 2 folds) on
+   the card and on the CPU, which must pick the same model with AuPR
+   within 1e-4.
 
 Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
@@ -87,6 +97,96 @@ def rel_err(out, ref):
     return (out - ref).abs().max().item() / scale if scale > 0 else 0.0
 
 
+def hold(out, again, refs, what):
+    """A histogram (last channel the counts) against its plain versions:
+    ``again`` (a second call) bitwise equal, counts equal to every ref's,
+    weighted channels within REL_TOL of the first ref. Returns the max
+    abs error of the weighted channels."""
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        fail(f"{what}: two calls differ")
+    if not all(torch.equal(out[:, -1], r[:, -1]) for r in refs):
+        fail(f"{what}: counts differ")
+    ref = refs[0]
+    worst = 0.0
+    for c in range(out.shape[1] - 1):
+        worst = max(worst, (out[:, c] - ref[:, c]).abs().max().item())
+        e = rel_err(out[:, c], ref[:, c])
+        if e > REL_TOL:
+            fail(f"{what}: channel {c} rel err {e:.3g}")
+    return worst
+
+
+def stats_with_count(rng, n, C):
+    """[n, C] f32 normal stats whose last channel is a 0/1 count."""
+    st = rng.normal(size=(n, C)).astype(np.float32)
+    st[:, -1] = rng.random(n) > 0.1
+    return st
+
+
+#: blocks with several groups of output rows (one group is up to 1,024)
+#: and rows wider than a group reads: cumhist's (F, B) (B·F > 1,024; at
+#: B = 1 the widest groups take fewer m-tiles a warp) and sparse01's Fb
+N_WIDE = 20_000
+WIDE_CUMHIST = ((40, 32), (600, 32), (1100, 2), (600, 1))
+WIDE_FB = 1500
+
+
+def check_wide(H, dev, rng, put):
+    """The histograms at several groups of output rows against their
+    plain versions (N_WIDE rows: the plain cumhist materializes [n, B·F]),
+    timed at N rows. Returns each kernel's max abs error of the weighted
+    channels."""
+    worst = {"cumhist": 0.0, "cumhist_sparse01": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    st4 = put(stats_with_count(rng, N, 4))
+    node = put(rng.integers(0, 65, size=N, dtype=np.int32))
+    for Fw, Bw in WIDE_CUMHIST:
+        XbT = put(rng.integers(0, Bw, size=(Fw, N_WIDE), dtype=np.int32))
+        for A in (1, 64):
+            nd = put(rng.integers(0, A + 1, size=N_WIDE, dtype=np.int32))
+            for C in (3, 4):
+                st = put(stats_with_count(rng, N_WIDE, C))
+                worst["cumhist"] = max(worst["cumhist"], hold(
+                    H.cumhist(st, nd, XbT, A, Bw),
+                    H.cumhist(st, nd, XbT, A, Bw),
+                    [H.cumhist_reference(st, nd, XbT, A, Bw)],
+                    f"cumhist F={Fw} B={Bw} A={A} C={C}"))
+        big = torch.randint(0, Bw, (Fw, N), generator=gen, device=dev,
+                            dtype=torch.int32)
+        hrows, groups = H.hist_rows(big), H.group_rows(node, 64)
+        ms = time_ms(lambda: H.cumhist(st4, node, big, 64, Bw, groups=groups,
+                                       rows=hrows))
+        del big, hrows
+        print(f"cumhist F={Fw} B={Bw} ({Bw * Fw} output rows): counts exact, "
+              f"weighted channels within {REL_TOL:g}, two calls bitwise equal "
+              f"(A = 1, 64; C = 3, 4; {N_WIDE} rows); main-path call at {N} "
+              f"rows, A=64 C=4: {ms:.4f} ms")
+    X01 = put((rng.random((WIDE_FB, N_WIDE)) < DENSITY).astype(np.uint8))
+    for A in (1, 64):
+        nd = put(rng.integers(0, A + 1, size=N_WIDE, dtype=np.int32))
+        for C in (3, 4):
+            st = put(stats_with_count(rng, N_WIDE, C))
+            e = hold(H.cumhist_sparse01(st, nd, X01, A),
+                     H.cumhist_sparse01(st, nd, X01, A),
+                     [H.cumhist_sparse01_reference(st, nd, X01, A),
+                      H.cumhist(st, nd, X01.to(torch.int32), A, 2)],
+                     f"cumhist_sparse01 Fb={WIDE_FB} A={A} C={C}")
+            worst["cumhist_sparse01"] = max(worst["cumhist_sparse01"], e)
+    big = (torch.rand((WIDE_FB, N), generator=gen, device=dev)
+           < DENSITY).to(torch.uint8)
+    srows, groups = H.sparse01_rows(big), H.group_rows(node, 64)
+    ms = time_ms(lambda: H.cumhist_sparse01(st4, node, big, 64,
+                                            groups=groups, rows=srows))
+    del big, srows
+    print(f"cumhist_sparse01 Fb={WIDE_FB} (2 groups of output rows): counts "
+          f"equal the plain version and cumhist at B=2, weighted channels "
+          f"within {REL_TOL:g}, two calls bitwise equal (A = 1, 64; C = 3, "
+          f"4; {N_WIDE} rows); main-path call at {N} rows, A=64 C=4: "
+          f"{ms:.4f} ms")
+    return worst
+
+
 def check_kernels(H, dev):
     """Phase 2: every kernel against its plain version; returns the per-
     kernel numbers of the result line."""
@@ -99,46 +199,84 @@ def check_kernels(H, dev):
     bc = H.make_bc(XbT, B)
     rows = {}
 
-    # -- cumhist (generic and bc=): every channel, A in {1, 64, 128} ------
+    # -- group_rows: exact against its plain version ----------------------
+    for A in (1, 64, 128):
+        for case in ("mixed", "all idle", "empty slots"):
+            node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+            if case == "all idle":
+                node[:] = A
+            elif case == "empty slots":            # odd slots hold no row
+                node = torch.where(node % 2 == 1, A, node)
+            got = H.group_rows(node, A)
+            ref = H.group_rows_reference(node, A)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                fail(f"group_rows differs (A={A}, {case})")
+    print("group_rows: order and seg_off exact (A = 1, 64, 128; mixed, all "
+          "idle, empty slots)")
+    for A in (1, 16, 32, 64):
+        node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+        key = torch.where(node < A, node, A)
+        ms = time_ms(lambda: H.group_rows(node, A))
+        lib_ms = time_ms(lambda: torch.argsort(key, stable=True))
+        print(f"group_rows A={A:3d}: kernel {ms:.4f} ms, one stable "
+              f"torch.argsort {lib_ms:.4f} ms")
+    plain_ms = time_ms(lambda: H.group_rows_reference(node, A))
+    rows["group_rows"] = dict(
+        replaces="none: the port's own helper (no TPU kernel)",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        # node once, order and seg_off written once; a few integer
+        # operations a row
+        bound=((4 * N + 4 * (N + (H.KSTEP - 1) * A) + 4 * (A + 1))
+               / HBM_BPS, 8.0 * N / F32_FLOPS))
+
+    # -- cumhist: every channel, A in {1, 64, 128} ------------------------
+    hrows = H.hist_rows(XbT)
     worst = 0.0
     for A in (1, 64, 128):
         node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+        groups = H.group_rows(node, A)
         for C in (3, 4):
-            st = rng.normal(size=(N, C)).astype(np.float32)
-            st[:, -1] = rng.random(N) > 0.1             # count channel
-            stats = put(st)
+            stats = put(stats_with_count(rng, N, C))
             ref = H.cumhist_reference(stats, node, XbT, A, B)
             for use_bc in (False, True):
-                out = H.cumhist(stats, node, XbT, A, B,
-                                bc=bc if use_bc else None)
-                torch.cuda.synchronize()
-                if not torch.equal(out[:, -1], ref[:, -1]):
-                    fail(f"cumhist counts differ (A={A} C={C} bc={use_bc})")
-                for c in range(C - 1):
-                    e = rel_err(out[:, c], ref[:, c])
-                    worst = max(worst, (out[:, c] - ref[:, c]).abs().max()
-                                .item())
-                    if e > REL_TOL:
-                        fail(f"cumhist channel {c} rel err {e:.3g} "
-                             f"(A={A} C={C} bc={use_bc})")
+                kw = dict(bc=bc if use_bc else None)
+                worst = max(worst, hold(
+                    H.cumhist(stats, node, XbT, A, B, groups=groups,
+                              rows=hrows, **kw),
+                    H.cumhist(stats, node, XbT, A, B, **kw), [ref],
+                    f"cumhist A={A} C={C} bc={use_bc}"))
             print(f"cumhist A={A:3d} C={C}: counts exact, weighted "
-                  f"channels within {REL_TOL:g} (generic and bc=)")
-    # the two operand variants across the main path's slot counts
-    for A in (1, 16, 64):
+                  f"channels within {REL_TOL:g}, two calls bitwise equal "
+                  "(grouped and bc=)")
+    idle = torch.full((N,), 64, dtype=torch.int32, device=dev)
+    if H.cumhist(stats, idle, XbT, 64, B).any():
+        fail("cumhist: an all-idle node vector gave nonzero histograms")
+    print("cumhist: all-idle rows give zeros")
+    # the slot counts of the main paths: the call as the level loop makes
+    # it (groups and the per-fit row copy given), with its own grouping,
+    # and the bc= variant
+    st4 = put(rng.normal(size=(N, 4)).astype(np.float32))
+    for A in (1, 16, 32, 64):
         nd = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
-        st4 = put(rng.normal(size=(N, 4)).astype(np.float32))
-        g_ms = time_ms(lambda: H.cumhist(st4, nd, XbT, A, B))
+        gr = H.group_rows(nd, A)
+        m_ms = time_ms(lambda: H.cumhist(st4, nd, XbT, A, B, groups=gr,
+                                         rows=hrows))
+        s_ms = time_ms(lambda: H.cumhist(st4, nd, XbT, A, B, rows=hrows))
         b_ms = time_ms(lambda: H.cumhist(st4, nd, XbT, A, B, bc=bc))
-        print(f"cumhist A={A:3d} C=4: generic {g_ms:.4f} ms, "
-              f"bc= {b_ms:.4f} ms")
-    # the main path's call: the sibling half of a 128-slot level, GBT
-    # stats, bins read directly (the fits pass no bc)
+        print(f"cumhist A={A:3d} C=4: main-path call {m_ms:.4f} ms, with "
+              f"its own grouping {s_ms:.4f} ms, bc= {b_ms:.4f} ms")
+    print(f"per-fit row copy hist_rows [{F} x {N}]: "
+          f"{time_ms(lambda: H.hist_rows(XbT)):.4f} ms")
+    # the row of the result line: A=64, GBT stats
     A, C = 64, 4
     node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+    groups = H.group_rows(node, A)
     st = rng.normal(size=(N, C)).astype(np.float32)
     st[:, -1] = 1.0
     stats = put(st)
-    ms = time_ms(lambda: H.cumhist(stats, node, XbT, A, B))
+    ms = time_ms(lambda: H.cumhist(stats, node, XbT, A, B, groups=groups,
+                                   rows=hrows))
     plain_ms = time_ms(lambda: H.cumhist_reference(stats, node, XbT, A, B))
     NS = torch.zeros((N, A, C), dtype=torch.bfloat16, device=dev)
     live = (node < A).nonzero().squeeze(1)
@@ -146,23 +284,30 @@ def check_kernels(H, dev):
     NS = NS.reshape(N, A * C)
     Bc = bc.t().to(torch.bfloat16)
     lib_ms = time_ms(lambda: torch.matmul(NS.t(), Bc))
-    nbytes = N * C * 4 + N * 4 + F * N * 4 + A * C * B * F * 4
+    del NS, Bc
+    out_bytes = A * C * B * F * 4
+    # what the function must read in the form the port stores it per fit:
+    # node once, the live rows' stats and uint8 bins, the output once
+    nbytes = N * 4 + live.numel() * (C * 4 + F) + out_bytes
+    old_bytes = N * C * 4 + N * 4 + F * N * 4 + out_bytes
     # what these inputs need: each live row adds its C stats into the
-    # B − bin cumulative columns of each feature, f32 adds (the one-hot
-    # product's zeros are the kernel's choice, not the function's work)
+    # B − bin cumulative columns of each feature, f32 adds
     adds = C * float((B - XbT[:, live]).sum().item())
     rows["cumhist"] = dict(
         replaces="transmogrifai_tpu/models/_pallas_hist.py:160",
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound=(nbytes / HBM_BPS, adds / F32_FLOPS))
     print(f"cumhist A={A} C={C}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms")
+          f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms, bound "
+          f"{1e3 * max(nbytes / HBM_BPS, adds / F32_FLOPS):.5f} ms "
+          f"(int32 all-rows bound: "
+          f"{1e3 * max(old_bytes / HBM_BPS, adds / F32_FLOPS):.5f} ms)")
 
     # the bc= variant at the same call: its plain version and bound
     bc_ms = time_ms(lambda: H.cumhist(stats, node, XbT, A, B, bc=bc))
     bc_plain_ms = time_ms(lambda: H.cumhist_reference(stats, node, XbT, A,
                                                       B, bc=bc))
-    bc_bytes = N * C * 4 + N * 4 + B * F * N + A * C * B * F * 4
+    bc_bytes = N * C * 4 + N * 4 + B * F * N + out_bytes
     by_bytes = bc_bytes / HBM_BPS >= adds / F32_FLOPS
     print(f"cumhist(bc=) A={A} C={C}: kernel {bc_ms:.4f} ms, plain "
           f"{bc_plain_ms:.4f} ms, bound "
@@ -172,36 +317,46 @@ def check_kernels(H, dev):
     # -- cumhist_sparse01: the 2-bin indicator block ----------------------
     X01 = put((rng.random((FB, N)) < DENSITY).astype(np.uint8))
     X01_bins = X01.to(torch.int32)
+    srows = H.sparse01_rows(X01)
     worst = 0.0
     for A in (1, 64, 128):
         node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+        groups = H.group_rows(node, A)
         for C in (3, 4):
-            st = rng.normal(size=(N, C)).astype(np.float32)
-            st[:, -1] = rng.random(N) > 0.1             # count channel
-            stats = put(st)
-            out = H.cumhist_sparse01(stats, node, X01, A)
-            ref = H.cumhist_sparse01_reference(stats, node, X01, A)
-            dense = H.cumhist(stats, node, X01_bins, A, 2)
-            torch.cuda.synchronize()
-            if not (torch.equal(out[:, -1], ref[:, -1])
-                    and torch.equal(out[:, -1], dense[:, -1])):
-                fail(f"cumhist_sparse01 counts differ (A={A} C={C})")
-            for c in range(C - 1):
-                worst = max(worst, (out[:, c] - ref[:, c]).abs().max()
-                            .item())
-                e = rel_err(out[:, c], ref[:, c])
-                if e > REL_TOL:
-                    fail(f"cumhist_sparse01 channel {c} rel err {e:.3g} "
-                         f"(A={A} C={C})")
+            stats = put(stats_with_count(rng, N, C))
+            worst = max(worst, hold(
+                H.cumhist_sparse01(stats, node, X01, A, groups=groups,
+                                   rows=srows),
+                H.cumhist_sparse01(stats, node, X01, A),
+                [H.cumhist_sparse01_reference(stats, node, X01, A),
+                 H.cumhist(stats, node, X01_bins, A, 2, groups=groups)],
+                f"cumhist_sparse01 A={A} C={C}"))
         print(f"cumhist_sparse01 A={A:3d}: counts equal the plain version "
-              f"and cumhist at B=2, weighted channels within {REL_TOL:g} "
-              "(C = 3, 4)")
+              f"and cumhist at B=2, weighted channels within {REL_TOL:g}, "
+              "two calls bitwise equal (C = 3, 4)")
+    if H.cumhist_sparse01(stats, idle, X01, 64).any():
+        fail("cumhist_sparse01: an all-idle node vector gave nonzero "
+             "histograms")
+    print("cumhist_sparse01: all-idle rows give zeros")
+    for A in (1, 16, 32, 64):
+        nd = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+        gr = H.group_rows(nd, A)
+        m_ms = time_ms(lambda: H.cumhist_sparse01(st4, nd, X01, A,
+                                                  groups=gr, rows=srows))
+        s_ms = time_ms(lambda: H.cumhist_sparse01(st4, nd, X01, A,
+                                                  rows=srows))
+        print(f"cumhist_sparse01 A={A:3d} C=4: main-path call {m_ms:.4f} "
+              f"ms, with its own grouping {s_ms:.4f} ms")
+    print(f"per-fit row copy sparse01_rows [{FB} x {N}]: "
+          f"{time_ms(lambda: H.sparse01_rows(X01)):.4f} ms")
     A, C = 64, 4
     node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+    groups = H.group_rows(node, A)
     st = rng.normal(size=(N, C)).astype(np.float32)
     st[:, -1] = 1.0
     stats = put(st)
-    ms = time_ms(lambda: H.cumhist_sparse01(stats, node, X01, A))
+    ms = time_ms(lambda: H.cumhist_sparse01(stats, node, X01, A,
+                                            groups=groups, rows=srows))
     plain_ms = time_ms(lambda: H.cumhist_sparse01_reference(stats, node,
                                                             X01, A))
     NS = torch.zeros((N, A, C), dtype=torch.bfloat16, device=dev)
@@ -211,7 +366,9 @@ def check_kernels(H, dev):
     Xt = X01.t().to(torch.bfloat16)
     lib_ms = time_ms(lambda: torch.matmul(NS.t(), Xt))
     del NS, Xt
-    nbytes = N * C * 4 + N * 4 + FB * N + A * C * 2 * FB * 4
+    out_bytes = A * C * 2 * FB * 4
+    nbytes = N * 4 + live.numel() * (C * 4 + FB) + out_bytes
+    old_bytes = N * C * 4 + N * 4 + FB * N + out_bytes
     # each live row adds its C stats into its slot's total and into the
     # nonzero side of each of its ones; t=0 is one subtraction per output
     nnz_live = float(X01[:, live].sum(dtype=torch.int64).item())
@@ -221,7 +378,14 @@ def check_kernels(H, dev):
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound=(nbytes / HBM_BPS, adds / F32_FLOPS))
     print(f"cumhist_sparse01 A={A} C={C} Fb={FB}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms")
+          f"plain {plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms, bound "
+          f"{1e3 * max(nbytes / HBM_BPS, adds / F32_FLOPS):.5f} ms (all-rows "
+          f"bound: "
+          f"{1e3 * max(old_bytes / HBM_BPS, adds / F32_FLOPS):.5f} ms)")
+
+    # -- both histograms at several groups of output rows -----------------
+    for name, e in check_wide(H, dev, np.random.default_rng(1), put).items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
 
     # -- split_scan: three criteria, masks, A in {1, 64, 128} -------------
     worst = 0.0
@@ -350,6 +514,14 @@ def profile_path(name, fn):
     for dev_us, count, key in rows[:15]:
         print(f"profile {name}: {dev_us / 1e3:10.1f} ms {count:7d}x  "
               f"{key[:90]}")
+    # the level histograms: both grouped products, their reduce passes
+    # and group_rows' three kernels
+    hist = [r for r in rows if "grouped::" in r[2] or "group_" in r[2]]
+    for dev_us, count, key in hist:
+        print(f"profile {name} histograms: {dev_us / 1e3:10.1f} ms "
+              f"{count:7d}x  {key[:70]}")
+    print(f"profile {name}: histogram device time "
+          f"{sum(r[0] for r in hist) / 1e3:.1f} ms")
 
 
 def counted(H, fn, kernels):
@@ -363,6 +535,13 @@ def counted(H, fn, kernels):
     if missing:
         fail(f"main path never launched {missing}")
     return out, launches
+
+
+def once_per_level(launches, what):
+    """Each tree level routes its rows once and groups them once."""
+    if launches["group_rows"] != launches["route_level"]:
+        fail(f"{what}: {launches['group_rows']} group_rows launches for "
+             f"{launches['route_level']} levels")
 
 
 def check_scored(out, n, what):
@@ -419,8 +598,10 @@ def main():
     rows = check_kernels(H, dev)
 
     # -- phase 3: the synthetic tree sweep, every launch counted ----------
-    tree_kernels = ("cumhist", "split_scan", "route_level", "predict_trees")
+    tree_kernels = ("cumhist", "group_rows", "split_scan", "route_level",
+                    "predict_trees")
     out, launches = counted(H, lambda: run(N, device="cuda"), tree_kernels)
+    once_per_level(launches, "synthetic sweep")
     aupr = check_scored(out, N, "synthetic sweep")
     s = out["summary"]
     print(f"sweep {N} rows: train {out['train_s']:.2f} s, evaluate "
@@ -440,6 +621,7 @@ def main():
     out, launches = counted(H, lambda: BP.run(N, device="cuda",
                                               records=records),
                             tuple(H.KERNEL_LAUNCHES))
+    once_per_level(launches, "BigPassenger")
     aupr = check_scored(out, N, "BigPassenger")
     s = out["summary"]
     print(f"BigPassenger {N} rows: blocks {out['blocks']} (continuous "
@@ -460,8 +642,8 @@ def main():
            for d in ("cuda", "cpu")}, "BigPassenger, 2000 rows")
 
     kernels = []
-    names = ("cumhist", "cumhist_sparse01", "split_scan", "route_level",
-             "predict_trees")
+    names = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
+             "route_level", "predict_trees")
     for name in names:
         r = rows[name]
         t_bytes, t_ops = r["bound"]

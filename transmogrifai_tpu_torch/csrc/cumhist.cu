@@ -5,32 +5,31 @@
 //
 //   cum[s, c, t, f] = sum_i 1[node_i = s] * 1[bin_fi <= t] * bf16(stats_ic)
 //
-// computed as one matrix product NS^T @ Bc with M = A*C rows (m = s*C + c),
-// N = B*F columns (j = t*F + f) and the n data rows as the contraction
-// axis. Neither operand exists in device memory: per 32 rows a block of
-// 256 threads writes its [128 x 32] one-hot*stats tile and its [32 x 128]
-// "bin <= t" tile into shared memory, and the tensor cores (WMMA bf16
-// 16x16x16, f32 accumulate) multiply them; the lower-triangular indicator
-// makes the sums cumulative over bins. Both tiles are built without
-// divisions: a row's one-hot block is the C entries from m = slot*C, and
-// each thread owns one column (its (t, f) fixed for the whole block) and
-// turns 16 consecutive rows of bins (one 16-byte or four 16-byte loads)
-// into 16 bf16 indicator values (two 16-byte stores). With bc= the
-// precomputed uint8 indicator rows are read instead of the bins.
+// cumhist_launch (the fits' call): the slot-grouped product of
+// grouped_hist.cuh with M = B*F output rows (m = t*F + f), N = C channels
+// padded to 8 and each slot's live rows as K. The "bin <= t" indicator is
+// built per K-step from the gathered uint8 bins in shared memory, so each
+// live row's bins are read once per call; the lower-triangular indicator
+// makes the sums cumulative over bins.
 //
-// What bounds it: at the slice shape (n = 2e5, F = 20, B = 32, A*C <= 512)
-// the product is up to ~1.3e11 bf16 operations against ~2e7 bytes of
-// input, so its bound is the tensor-core rate; the tile builds in shared
-// memory and the per-32-row barriers are what this first design pays.
+// cumhist_bc_launch (bc=, the precomputed uint8 [B*F, n] indicator; no
+// fit passes it): the first design, kept as it was. One matrix product
+// NS^T @ Bc with M = A*C rows (m = s*C + c), N = B*F columns and all n
+// rows as K: per 32 rows a block of 256 threads writes its [128 x 32]
+// one-hot*stats tile and [32 x 128] indicator tile into shared memory and
+// multiplies them with WMMA bf16 16x16x16 (f32 accumulate); the row axis
+// is split over gridDim.z and a second kernel sums the splits in order.
+// It multiplies the one-hot's zeros and streams idle rows.
 //
-// Determinism: the row axis is split over gridDim.z; every split writes
-// its own f32 partial tile and a second kernel sums the partials in split
-// order, so the weighted channels are bitwise reproducible run to run and
-// split ties never flip. Counts are sums of exact 1.0 products in f32.
+// Determinism (both): fixed summation orders, no float atomics, so the
+// weighted channels are bitwise reproducible run to run and split ties
+// never flip. Counts are sums of exact 1.0 products in f32.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "grouped_hist.cuh"
 
 using namespace nvcuda;
 
@@ -55,19 +54,17 @@ __device__ __forceinline__ uint32_t pack2(bool lo, bool hi) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-cumhist_partial_kernel(const float* __restrict__ stats,
-                       const int* __restrict__ node,
-                       const int* __restrict__ xbt,
-                       const uint8_t* __restrict__ bc,
-                       float* __restrict__ partial,
-                       int n, int C, int A, int B, int F,
-                       int rows_per_split, int M_pad, int N_pad) {
+cumhist_bc_partial_kernel(const float* __restrict__ stats,
+                          const int* __restrict__ node,
+                          const uint8_t* __restrict__ bc,
+                          float* __restrict__ partial,
+                          int n, int C, int A, int N,
+                          int rows_per_split, int M_pad, int N_pad) {
   __shared__ __align__(128) __nv_bfloat16 As[BK * LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[BN * LDB];
   __shared__ int lo_s[BK];                   // row's first tile row m
   __shared__ uint32_t st_s[BK * MAX_C];      // row's stats as bf16 bits
 
-  const int N = B * F;
   const int m0 = blockIdx.y * BM;
   const int j0 = blockIdx.x * BN;
   const int r_begin = blockIdx.z * rows_per_split;
@@ -81,11 +78,7 @@ cumhist_partial_kernel(const float* __restrict__ stats,
   const int bh = (threadIdx.x & 1) * 16;
   const int j = j0 + bn;
   const bool col_ok = j < N;
-  const int f = col_ok ? j % F : 0;
-  const int t = col_ok ? j / F : 0;
-  const int* __restrict__ xrow = xbt + (size_t)f * n;
-  const uint8_t* __restrict__ brow =
-      bc != nullptr ? bc + (size_t)(col_ok ? j : 0) * n : nullptr;
+  const uint8_t* __restrict__ brow = bc + (size_t)(col_ok ? j : 0) * n;
   const bool vec_ok = (n % 16) == 0;         // 16-byte aligned row starts
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
@@ -110,29 +103,16 @@ cumhist_partial_kernel(const float* __restrict__ stats,
       bool on[16];
       const int r = k0 + bh;
       if (col_ok && vec_ok && r + 16 <= r_end) {
-        if (brow != nullptr) {
-          const uint4 v = *reinterpret_cast<const uint4*>(brow + r);
-          const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+        const uint4 v = *reinterpret_cast<const uint4*>(brow + r);
+        const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-          for (int i = 0; i < 16; ++i)
-            on[i] = ((w4[i / 4] >> (8 * (i % 4))) & 0xFFu) != 0u;
-        } else {
-          const int4* p = reinterpret_cast<const int4*>(xrow + r);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int4 v = p[q];
-            on[4 * q] = v.x <= t;
-            on[4 * q + 1] = v.y <= t;
-            on[4 * q + 2] = v.z <= t;
-            on[4 * q + 3] = v.w <= t;
-          }
-        }
+        for (int i = 0; i < 16; ++i)
+          on[i] = ((w4[i / 4] >> (8 * (i % 4))) & 0xFFu) != 0u;
       } else {
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
           const int rr = r + i;
-          on[i] = col_ok && rr < r_end &&
-                  (brow != nullptr ? brow[rr] != 0 : xrow[rr] <= t);
+          on[i] = col_ok && rr < r_end && brow[rr] != 0;
         }
       }
       uint4* dst = reinterpret_cast<uint4*>(Bs + bn * LDB + bh);
@@ -192,9 +172,9 @@ cumhist_partial_kernel(const float* __restrict__ stats,
 }
 
 // Sum the per-split partials in split order: out [M, N] = [A, C, B, F].
-__global__ void cumhist_reduce_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ out, int S, int M,
-                                      int N, int M_pad, int N_pad) {
+__global__ void cumhist_bc_reduce_kernel(const float* __restrict__ partial,
+                                         float* __restrict__ out, int S,
+                                         int M, int N, int M_pad, int N_pad) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= M * N) return;
   const int m = idx / N, j = idx % N;
@@ -206,25 +186,36 @@ __global__ void cumhist_reduce_kernel(const float* __restrict__ partial,
 
 }  // namespace
 
-extern "C" int cumhist_launch(const void* stats, const void* node,
-                              const void* xbt, const void* bc, void* partial,
-                              void* out, int n, int C, int A, int B, int F,
-                              int S, int rows_per_split, int M_pad, int N_pad,
-                              void* stream) {
+// stats [n, C] f32, rows [n, row_bytes] uint8 bins, order/seg_off from
+// group_rows; partial [n_chunks + A, C, B*F] f32 scratch; out [A, C, B, F].
+extern "C" int cumhist_launch(const void* stats, const void* rows,
+                              const void* order, const void* seg_off,
+                              void* partial, void* out, int n, int C, int A,
+                              int B, int F, int row_bytes, int chunk,
+                              int n_chunks, void* stream) {
+  return grouped::launch<grouped::CUMULATIVE>(
+      stats, rows, order, seg_off, partial, out, n, C, A, B * F, B * F, B,
+      row_bytes, chunk, n_chunks, (cudaStream_t)stream);
+}
+
+extern "C" int cumhist_bc_launch(const void* stats, const void* node,
+                                 const void* bc, void* partial, void* out,
+                                 int n, int C, int A, int B, int F, int S,
+                                 int rows_per_split, int M_pad, int N_pad,
+                                 void* stream) {
   if (C < 1 || C > MAX_C || M_pad % BM != 0 || N_pad % BN != 0 ||
       rows_per_split % BK != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = A * C, N = B * F;
   dim3 grid(N_pad / BN, M_pad / BM, S);
-  cumhist_partial_kernel<<<grid, THREADS, 0, st>>>(
-      (const float*)stats, (const int*)node, (const int*)xbt,
-      (const uint8_t*)bc, (float*)partial, n, C, A, B, F, rows_per_split,
-      M_pad, N_pad);
+  cumhist_bc_partial_kernel<<<grid, THREADS, 0, st>>>(
+      (const float*)stats, (const int*)node, (const uint8_t*)bc,
+      (float*)partial, n, C, A, N, rows_per_split, M_pad, N_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int total = M * N;
-  cumhist_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+  cumhist_bc_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(
       (const float*)partial, (float*)out, S, M, N, M_pad, N_pad);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-"""The tree engine's five kernels: CUDA wrappers, plain PyTorch versions,
-and the build.
+"""The tree engine's kernels: CUDA wrappers, plain PyTorch versions, and
+the build.
 
 Counterpart of ``transmogrifai_tpu/models/_pallas_hist.py``. Each kernel
 has a wrapper and a plain version of the same function:
@@ -10,10 +10,20 @@ has a wrapper and a plain version of the same function:
 * ``cumhist_sparse01`` — the same [A, C, 2, Fb] histograms for a 2-bin
   block of 0/1 indicator columns, from the block itself: t=1 is the
   per-slot total, t=0 the total minus the nonzero side.
+* ``group_rows`` — the live rows sorted by slot (stable), each slot's
+  segment padded to the MMA K-step: the row order both histogram kernels
+  read. The port's own helper; no TPU kernel corresponds to it.
 * ``split_scan`` — per slot, the best (score, t-major flat index t·F+f,
   valid) over a cumulative histogram.
 * ``route_level`` — per row, (slot, g) → (child slot, 2g + right).
 * ``predict_trees`` — rows down stacked level-order trees, summed leaves.
+
+On the card the two histograms multiply each slot's live rows only: the
+level loop calls :func:`group_rows` once and passes its result as
+``groups=`` to every block's histogram, and each fit makes the row-major
+uint8 copies the kernels gather rows from (:func:`hist_rows`,
+:func:`sparse01_rows`; ``rows=``) once. A wrapper given neither makes
+them itself.
 
 A wrapper given tensors on the CPU runs the plain version (what the CPU
 tests use); given CUDA tensors it launches its kernel or raises — there
@@ -43,8 +53,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["cumhist", "cumhist_reference", "make_bc",
-           "cumhist_sparse01", "cumhist_sparse01_reference",
+__all__ = ["cumhist", "cumhist_reference", "make_bc", "hist_rows",
+           "cumhist_sparse01", "cumhist_sparse01_reference", "sparse01_rows",
+           "group_rows", "group_rows_reference", "group_chunk", "KSTEP",
            "split_scan", "split_scan_reference", "route_level",
            "route_level_reference", "predict_trees",
            "predict_trees_reference", "build_kernels", "KERNEL_LAUNCHES",
@@ -56,8 +67,8 @@ _EPS = 1e-12
 _KINDS = {"variance": 0, "gini": 1, "xgb": 2}
 
 KERNEL_LAUNCHES: Dict[str, int] = {"cumhist": 0, "cumhist_sparse01": 0,
-                                   "split_scan": 0, "route_level": 0,
-                                   "predict_trees": 0}
+                                   "group_rows": 0, "split_scan": 0,
+                                   "route_level": 0, "predict_trees": 0}
 
 
 def reset_launch_counts() -> None:
@@ -77,17 +88,20 @@ _NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: source stem → (C entry point, argtypes)
+#: C entry point → (source stem, argtypes)
 _ENTRY = {
-    "cumhist": ("cumhist_launch",
-                [_P] * 6 + [_I] * 9 + [_P]),
-    "cumhist_sparse01": ("cumhist_sparse01_launch",
-                         [_P] * 5 + [_I] * 8 + [_P]),
-    "split_scan": ("split_scan_launch",
-                   [_P, _P] + [_I] * 5 + [_F] * 3 + [_P] * 4),
-    "route_level": ("route_level_launch", [_P] * 6 + [_I] * 3 + [_P]),
-    "predict_trees": ("predict_trees_launch", [_P] * 5 + [_I] * 5 + [_P]),
+    "cumhist_launch": ("cumhist", [_P] * 6 + [_I] * 8 + [_P]),
+    "cumhist_bc_launch": ("cumhist", [_P] * 5 + [_I] * 9 + [_P]),
+    "cumhist_sparse01_launch": ("cumhist_sparse01",
+                                [_P] * 6 + [_I] * 7 + [_P]),
+    "group_rows_launch": ("group_rows", [_P] * 4 + [_I] * 2 + [_P]),
+    "split_scan_launch": ("split_scan",
+                          [_P, _P] + [_I] * 5 + [_F] * 3 + [_P] * 4),
+    "route_level_launch": ("route_level", [_P] * 6 + [_I] * 3 + [_P]),
+    "predict_trees_launch": ("predict_trees",
+                             [_P] * 5 + [_I] * 5 + [_P]),
 }
+_STEMS = tuple(dict.fromkeys(stem for stem, _ in _ENTRY.values()))
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_LOCK = threading.Lock()
@@ -106,18 +120,21 @@ def _nvcc() -> str:
 def build_kernels() -> float:
     """Build (when their sources changed) and load all the kernel
     libraries; returns the seconds spent. One ``nvcc`` per source, all
-    started together; outputs are keyed by a hash of source and flags."""
+    started together; outputs are keyed by a hash of the source, the
+    shared headers and the flags."""
     t0 = time.perf_counter()
     with _BUILD_LOCK:
-        if len(_LIBS) == len(_ENTRY):
+        if len(_LIBS) == len(_STEMS):
             return 0.0
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        headers = b"".join(p.read_bytes()
+                           for p in sorted(_CSRC.glob("*.cuh")))
         nvcc = None
         jobs = []
         targets = {}
-        for stem in _ENTRY:
+        for stem in _STEMS:
             src = _CSRC / f"{stem}.cu"
-            tag = hashlib.sha1(src.read_bytes()
+            tag = hashlib.sha1(src.read_bytes() + headers
                                + " ".join(_NVCC_FLAGS).encode()).hexdigest()
             out = _BUILD_DIR / f"{stem}-{tag[:16]}.so"
             targets[stem] = out
@@ -139,23 +156,24 @@ def build_kernels() -> float:
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(errors))
-        for stem, (fn_name, argtypes) in _ENTRY.items():
-            lib = ctypes.CDLL(str(targets[stem]))
-            fn = getattr(lib, fn_name)
+        libs = {stem: ctypes.CDLL(str(targets[stem])) for stem in _STEMS}
+        for fn_name, (stem, argtypes) in _ENTRY.items():
+            fn = getattr(libs[stem], fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _LIBS[stem] = lib
+        _LIBS.update(libs)
     return time.perf_counter() - t0
 
 
-def _launch(stem: str, *args) -> None:
+def _launch(kernel: str, fn_name: str, *args) -> None:
+    """Call entry point ``fn_name``; count one launch of ``kernel``."""
+    stem = _ENTRY[fn_name][0]
     if stem not in _LIBS:
         build_kernels()
-    fn = getattr(_LIBS[stem], _ENTRY[stem][0])
-    rc = fn(*args)
+    rc = getattr(_LIBS[stem], fn_name)(*args)
     if rc != 0:
-        raise RuntimeError(f"{stem} kernel launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES[stem] += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+    KERNEL_LAUNCHES[kernel] += 1
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -183,6 +201,121 @@ def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for device {t.device}")
     return False
+
+
+# ---------------------------------------------------------------------------
+# group_rows: live rows by slot, the grouped histograms' row order
+# ---------------------------------------------------------------------------
+
+#: the MMA K-step of csrc/grouped_hist.cuh: every slot's segment of the
+#: grouped order is padded to a multiple of it
+KSTEP = 16
+#: group_rows' kernel takes at most this many slots (csrc/group_rows.cu)
+GROUP_MAX_SLOTS = 1024
+
+
+def group_rows_reference(node: torch.Tensor, n_nodes: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`group_rows`: one stable ``argsort`` of the
+    slots (idle rows last), ``bincount`` and ``cumsum`` for the padded
+    segment offsets, and a scatter into the padded layout."""
+    n, A = node.shape[0], int(n_nodes)
+    dev = node.device
+    cap = n + (KSTEP - 1) * A
+    key = torch.where((node >= 0) & (node < A), node.long(),
+                      torch.full_like(node, A, dtype=torch.long))
+    perm = torch.argsort(key, stable=True)
+    ks = key[perm]
+    cnt = torch.bincount(key, minlength=A + 1)[:A]
+    seg_off = torch.zeros(A + 1, dtype=torch.long, device=dev)
+    seg_off[1:] = torch.cumsum((cnt + KSTEP - 1) // KSTEP * KSTEP, 0)
+    first = torch.zeros(A + 1, dtype=torch.long, device=dev)
+    first[1:] = torch.cumsum(cnt, 0)                # unpadded, sorted order
+    kc = ks.clamp(max=A - 1)
+    dest = torch.where(ks < A, seg_off[kc] + torch.arange(n, device=dev)
+                       - first[kc], torch.full_like(ks, cap))
+    order = torch.full((cap + 1,), n, dtype=torch.int32, device=dev)
+    order[dest] = perm.to(torch.int32)              # idle rows → dropped cap
+    return order[:cap], seg_off.to(torch.int32)
+
+
+def group_rows(node: torch.Tensor, n_nodes: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[n] int32 slots (idle rows: outside [0, A)) → (order [n + 15·A]
+    int32, seg_off [A + 1] int32): slot s's live row ids in increasing
+    order at ``order[seg_off[s]:seg_off[s+1]]``, each segment padded to a
+    multiple of :data:`KSTEP` with the id n (a zero row), the tail past
+    ``seg_off[A]`` too. What the histogram wrappers' ``groups=`` takes;
+    the level loop makes it once per level for all blocks. Kernel: int32,
+    A ≤ 1024."""
+    if _on_cpu(node):
+        return group_rows_reference(node, n_nodes)
+    dev = node.device
+    n, A = node.shape[0], int(n_nodes)
+    _check(node, "node", torch.int32, (n,), dev)
+    if not (n >= 1 and 1 <= A <= GROUP_MAX_SLOTS):
+        raise ValueError(f"group_rows: unsupported shape n={n} A={A}")
+    counts = torch.empty(A * (-(-n // 1024)), dtype=torch.int32, device=dev)
+    order = torch.empty(n + (KSTEP - 1) * A, dtype=torch.int32, device=dev)
+    seg_off = torch.empty(A + 1, dtype=torch.int32, device=dev)
+    _launch("group_rows", "group_rows_launch", node.data_ptr(),
+            counts.data_ptr(), order.data_ptr(), seg_off.data_ptr(), n, A,
+            _stream(dev))
+    return order, seg_off
+
+
+#: the grouped kernels' chunks of the order aim at this many blocks (four
+#: per SM of an H100); a function of (n, A) only, so a call's summation
+#: order is fixed
+_GROUP_TARGET_CHUNKS = 4 * 132
+#: chunk sizes are multiples of the kernels' 32-row stage
+_STAGE_ROWS = 32
+
+
+def group_chunk(n: int, n_nodes: int) -> Tuple[int, int]:
+    """(positions per chunk, chunks) of the grouped order of n rows and A
+    slots: the blocks of the grouped histogram kernels. A slot's partial
+    sums are taken per chunk and added in chunk order."""
+    cap = n + (KSTEP - 1) * int(n_nodes)
+    per = -(-cap // _GROUP_TARGET_CHUNKS)
+    chunk = max(64, -(-per // _STAGE_ROWS) * _STAGE_ROWS)
+    return chunk, -(-cap // chunk)
+
+
+def _groups_for(node: torch.Tensor, A: int, groups):
+    if groups is None:
+        return group_rows(node, A)
+    order, seg_off = groups
+    dev, n = node.device, node.shape[0]
+    _check(order, "groups.order", torch.int32, (n + (KSTEP - 1) * A,), dev)
+    _check(seg_off, "groups.seg_off", torch.int32, (A + 1,), dev)
+    return order, seg_off
+
+
+def _row_pad(width: int) -> int:
+    return -(-width // 16) * 16
+
+
+def hist_rows(XbT: torch.Tensor) -> torch.Tensor:
+    """[F, n] bins (< 256) → the row-major uint8 [n, F rounded up to 16]
+    copy :func:`cumhist`'s kernel gathers rows from; made once per fit."""
+    F, n = XbT.shape
+    out = torch.zeros((n, _row_pad(F)), dtype=torch.uint8, device=XbT.device)
+    out[:, :F] = XbT.t()
+    return out
+
+
+def sparse01_rows(Xb01: torch.Tensor) -> torch.Tensor:
+    """[Fb, n] 0/1 block → the row-major uint8 [n, Fb + 1 rounded up to
+    16] copy :func:`cumhist_sparse01`'s kernel gathers rows from: the
+    block's bytes (nonzero → 1), then an all-ones column at Fb (the
+    per-slot total); made once per fit."""
+    Fb, n = Xb01.shape
+    out = torch.zeros((n, _row_pad(Fb + 1)), dtype=torch.uint8,
+                      device=Xb01.device)
+    out[:, :Fb] = Xb01.t() != 0
+    out[:, Fb] = 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -219,18 +352,18 @@ def cumhist_reference(stats: torch.Tensor, node: torch.Tensor,
     return h.reshape(n_nodes, C, n_bins, F)
 
 
-#: row splits per call aim at this many blocks (four per SM of an H100);
-#: a function of shapes only, so a call's summation order is fixed
+#: row splits per call of the bc= kernel aim at this many blocks; a
+#: function of shapes only, so a call's summation order is fixed
 _CUMHIST_TARGET_BLOCKS = 4 * 132
-#: the kernels' output tile (csrc/cumhist.cu and cumhist_sparse01.cu
-#: BM = BN); M and N are padded to it
+#: the bc= kernel's output tile (csrc/cumhist.cu BM = BN); M and N are
+#: padded to it
 _CUMHIST_TILE = 128
 
 
 def _tiling(n: int, M: int, N: int) -> Tuple[int, int, int, int]:
-    """(M_pad, N_pad, row splits, rows per split) of a histogram product
-    with M output rows, N output columns and n data rows; rows per split
-    is a multiple of the kernels' 32-row step."""
+    """(M_pad, N_pad, row splits, rows per split) of the bc= product with
+    M output rows, N output columns and n data rows; rows per split is a
+    multiple of the kernel's 32-row step."""
     T = _CUMHIST_TILE
     M_pad = -(-M // T) * T
     N_pad = -(-N // T) * T
@@ -240,13 +373,37 @@ def _tiling(n: int, M: int, N: int) -> Tuple[int, int, int, int]:
     return M_pad, N_pad, -(-n // rows_per_split), rows_per_split
 
 
+def _cumhist_bc(stats, node, bc, A, B, F):
+    n, C = stats.shape
+    dev = stats.device
+    _check(bc, "bc", torch.uint8, (B * F, n), dev)
+    M_pad, N_pad, splits, rows_per_split = _tiling(n, A * C, B * F)
+    partial = torch.empty(splits * M_pad * N_pad, dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((A, C, B, F), dtype=torch.float32, device=dev)
+    _launch("cumhist", "cumhist_bc_launch", stats.data_ptr(),
+            node.data_ptr(), bc.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), n, C, A, B, F, splits, rows_per_split, M_pad,
+            N_pad, _stream(dev))
+    return out
+
+
 def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
             n_nodes: int, n_bins: int, *,
-            bc: Optional[torch.Tensor] = None) -> torch.Tensor:
+            bc: Optional[torch.Tensor] = None, groups=None,
+            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[n, C] stats + [n] node slots (idle rows: node == n_nodes) + [F, n]
-    bins → [A, C, B, F] cumulative histograms. Kernel: f32 stats, int32
-    node/bins, C ≤ 8; ``bc`` the uint8 [B·F, n] indicator of
-    :func:`make_bc`."""
+    bins → [A, C, B, F] cumulative histograms.
+
+    On the card the rows are grouped by slot (``groups``, the
+    ``(order, seg_off)`` of :func:`group_rows` on ``node``, made here when
+    not given) and the kernel gathers each live row's bins from ``rows``,
+    the row-major uint8 copy of :func:`hist_rows` (made here when not
+    given; a fit makes it once). ``bc``, the uint8 [B·F, n] indicator of
+    :func:`make_bc`, takes the first design's one-hot product instead.
+    Kernel: f32 stats, int32 node/bins, C ≤ 8, B ≤ 256, any F. The CPU
+    takes the plain version, which reads ``XbT`` and ignores ``groups``
+    and ``rows``."""
     if _on_cpu(stats):
         return cumhist_reference(stats, node, XbT, n_nodes, n_bins, bc=bc)
     dev = stats.device
@@ -256,19 +413,26 @@ def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
     _check(stats, "stats", torch.float32, (n, C), dev)
     _check(node, "node", torch.int32, (n,), dev)
     _check(XbT, "XbT", torch.int32, (F, n), dev)
-    if bc is not None:
-        _check(bc, "bc", torch.uint8, (B * F, n), dev)
     if not (1 <= C <= 8 and A >= 1 and B >= 1 and n >= 1):
         raise ValueError(f"cumhist: unsupported shape n={n} C={C} A={A} "
                          f"B={B}")
-    M_pad, N_pad, splits, rows_per_split = _tiling(n, A * C, B * F)
-    partial = torch.empty(splits * M_pad * N_pad, dtype=torch.float32,
+    if bc is not None:
+        return _cumhist_bc(stats, node, bc, A, B, F)
+    if B > 256 or B * F >= 2 ** 31:
+        raise ValueError(f"cumhist: B={B} > 256 does not fit the uint8 row "
+                         f"copy, or B·F={B * F} overflows the kernel's int")
+    if rows is None:
+        rows = hist_rows(XbT)
+    _check(rows, "rows", torch.uint8, (n, _row_pad(F)), dev)
+    order, seg_off = _groups_for(node, A, groups)
+    chunk, n_chunks = group_chunk(n, A)
+    partial = torch.empty((n_chunks + A) * C * B * F, dtype=torch.float32,
                           device=dev)
     out = torch.empty((A, C, B, F), dtype=torch.float32, device=dev)
-    _launch("cumhist", stats.data_ptr(), node.data_ptr(), XbT.data_ptr(),
-            bc.data_ptr() if bc is not None else None, partial.data_ptr(),
-            out.data_ptr(), n, C, A, B, F, splits, rows_per_split, M_pad,
-            N_pad, _stream(dev))
+    _launch("cumhist", "cumhist_launch", stats.data_ptr(), rows.data_ptr(),
+            order.data_ptr(), seg_off.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), n, C, A, B, F, rows.shape[1], chunk, n_chunks,
+            _stream(dev))
     return out
 
 
@@ -297,10 +461,18 @@ def cumhist_sparse01_reference(stats: torch.Tensor, node: torch.Tensor,
 
 
 def cumhist_sparse01(stats: torch.Tensor, node: torch.Tensor,
-                     Xb01: torch.Tensor, n_nodes: int) -> torch.Tensor:
+                     Xb01: torch.Tensor, n_nodes: int, *, groups=None,
+                     rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[n, C] stats + [n] node slots (idle rows: node == n_nodes) + [Fb, n]
     0/1 block → [A, C, 2, Fb] histograms, as :func:`cumhist` at B=2 on the
-    same bins. Kernel: f32 stats, int32 node, uint8 block, C ≤ 8."""
+    same bins.
+
+    The public layout is the JAX package's [Fb, n]; the kernel gathers
+    rows from ``rows``, the row-major uint8 copy of :func:`sparse01_rows`
+    (made here when not given; a fit makes it once), grouped by slot
+    (``groups`` as in :func:`cumhist`). Kernel: f32 stats, int32 node,
+    uint8 block, C ≤ 8. The CPU takes the plain version, which reads
+    ``Xb01`` and ignores ``groups`` and ``rows``."""
     if _on_cpu(stats):
         return cumhist_sparse01_reference(stats, node, Xb01, n_nodes)
     dev = stats.device
@@ -313,14 +485,18 @@ def cumhist_sparse01(stats: torch.Tensor, node: torch.Tensor,
     if not (1 <= C <= 8 and A >= 1 and Fb >= 1 and n >= 1):
         raise ValueError(f"cumhist_sparse01: unsupported shape n={n} C={C} "
                          f"A={A} Fb={Fb}")
-    # the all-ones column j = Fb rides in the product's padding
-    M_pad, N_pad, splits, rows_per_split = _tiling(n, A * C, Fb + 1)
-    partial = torch.empty(splits * M_pad * N_pad, dtype=torch.float32,
+    if rows is None:
+        rows = sparse01_rows(Xb01)
+    _check(rows, "rows", torch.uint8, (n, _row_pad(Fb + 1)), dev)
+    order, seg_off = _groups_for(node, A, groups)
+    chunk, n_chunks = group_chunk(n, A)
+    partial = torch.empty((n_chunks + A) * C * (Fb + 1), dtype=torch.float32,
                           device=dev)
     out = torch.empty((A, C, 2, Fb), dtype=torch.float32, device=dev)
-    _launch("cumhist_sparse01", stats.data_ptr(), node.data_ptr(),
-            Xb01.data_ptr(), partial.data_ptr(), out.data_ptr(), n, C, A,
-            Fb, splits, rows_per_split, M_pad, N_pad, _stream(dev))
+    _launch("cumhist_sparse01", "cumhist_sparse01_launch", stats.data_ptr(),
+            rows.data_ptr(), order.data_ptr(), seg_off.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), n, C, A, Fb, rows.shape[1],
+            chunk, n_chunks, _stream(dev))
     return out
 
 
@@ -403,7 +579,8 @@ def split_scan(cum: torch.Tensor, kind: str, min_instances, *,
     idx = torch.empty((A,), dtype=torch.int32, device=dev)
     valid = torch.empty((A,), dtype=torch.uint8, device=dev)
     mcw = 0.0 if min_child_weight is None else float(min_child_weight)
-    _launch("split_scan", cum.data_ptr(),
+    _launch("split_scan", "split_scan_launch",
+            cum.data_ptr(),
             mask.data_ptr() if mask is not None else None, A, C, B, F,
             _KINDS[kind], float(min_instances), mcw, float(lam),
             score.data_ptr(), idx.data_ptr(), valid.data_ptr(), _stream(dev))
@@ -450,7 +627,8 @@ def route_level(XbT, slot, g, f_idx, t_idx, lchild, rchild, do_split,
                        do_split.to(torch.int32)]).contiguous()
     slot2 = torch.empty_like(slot)
     g2 = torch.empty_like(g)
-    _launch("route_level", XbT.data_ptr(), slot.data_ptr(), g.data_ptr(),
+    _launch("route_level", "route_level_launch",
+            XbT.data_ptr(), slot.data_ptr(), g.data_ptr(),
             tab.data_ptr(), slot2.data_ptr(), g2.data_ptr(), n, Ap,
             int(A_child), _stream(dev))
     return slot2, g2
@@ -497,6 +675,7 @@ def predict_trees(X, feat, thr, leaf_w, max_depth: int):
     if not (1 <= K <= 8 and 1 <= D <= 16):
         raise ValueError(f"predict_trees: unsupported K={K} D={D}")
     out = torch.empty((n, K), dtype=torch.float32, device=dev)
-    _launch("predict_trees", X.data_ptr(), feat.data_ptr(), thr.data_ptr(),
+    _launch("predict_trees", "predict_trees_launch",
+            X.data_ptr(), feat.data_ptr(), thr.data_ptr(),
             leaf_w.data_ptr(), out.data_ptr(), n, F, T, D, K, _stream(dev))
     return out

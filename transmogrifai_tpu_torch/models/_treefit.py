@@ -14,7 +14,9 @@ Indicator columns (all values 0 or 1, ``binary_mask``) get a 2-bin block
 of their own, as in the JAX package: per level each block gets its own
 histogram (``cumhist`` for the quantile-binned block, ``cumhist_sparse01``
 for the 0/1 block) and split scan, and the per-block winners merge on the
-concatenated candidate axis (continuous block first).
+concatenated candidate axis (continuous block first). On the card, per
+level one ``group_rows`` sorts the live rows by slot for every block's
+histogram.
 
 Two drivers share one level body, as in the JAX package: a constant
 ``cap`` slot count per level with a depth gate (``depth_limit``), and the
@@ -34,8 +36,8 @@ import numpy as np
 import torch
 
 from .. import random as R
-from ._hist import (cumhist, cumhist_sparse01, predict_trees, route_level,
-                    split_scan)
+from ._hist import (cumhist, cumhist_sparse01, group_rows, hist_rows,
+                    predict_trees, route_level, sparse01_rows, split_scan)
 
 __all__ = ["quantile_bin_edges", "binarize", "compute_bins", "Block",
            "make_col_blocks", "prepare_blocks",
@@ -132,13 +134,17 @@ class Block(NamedTuple):
     """One histogram block of the feature axis: ``cols`` [Fb] global
     column indices (int64, on the fit's device), ``n_bins``, the block's
     [Fb, n] bin matrix ``mat`` (int32 bins, or the uint8 0/1 matrix of a
-    2-bin indicator block) and ``sparse01`` (the indicator block, whose
-    stored threshold is 0.5)."""
+    2-bin indicator block), ``sparse01`` (the indicator block, whose
+    stored threshold is 0.5) and, on the card, ``rows``: the row-major
+    uint8 copy the histogram kernel gathers rows from (``hist_rows`` /
+    ``sparse01_rows``; None on the CPU, whose plain versions read
+    ``mat``)."""
 
     cols: torch.Tensor
     n_bins: int
     mat: torch.Tensor
     sparse01: bool
+    rows: Optional[torch.Tensor] = None
 
 
 def make_col_blocks(n_features: int, n_bins: int, binary_mask=None
@@ -158,16 +164,21 @@ def make_col_blocks(n_features: int, n_bins: int, binary_mask=None
 def prepare_blocks(XbT: torch.Tensor, n_bins: int, binary_mask=None
                    ) -> List[Block]:
     """The blocks of one fit, extracted once from the full [F, n] bins:
-    the indicator block is stored as uint8 (its bins are 0 or 1), the
-    operand ``cumhist_sparse01`` streams; a single continuous block is
-    ``XbT`` itself."""
+    the indicator block is stored as uint8 (its bins are 0 or 1); a
+    single continuous block is ``XbT`` itself. On the card each block
+    also gets its row-major uint8 copy, once per fit."""
     F = XbT.shape[0]
+    on_card = XbT.device.type != "cpu"
     out = []
     for cols, nb, indicator in make_col_blocks(F, n_bins, binary_mask):
         idx = torch.from_numpy(cols).to(XbT.device)
         mat = XbT if len(cols) == F else XbT.index_select(0, idx)
-        out.append(Block(idx, nb, mat.to(torch.uint8) if indicator else mat,
-                         indicator))
+        if indicator:
+            mat = mat.to(torch.uint8)
+        rows = None
+        if on_card:
+            rows = sparse01_rows(mat) if indicator else hist_rows(mat)
+        out.append(Block(idx, nb, mat, indicator, rows))
     return out
 
 
@@ -271,29 +282,39 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
                       min=1e-10)
     i32 = dict(dtype=torch.int32, device=dev)
 
-    def hist(blk, node, a):
+    def hist(blk, node, a, groups):
         if blk.sparse01:
-            return cumhist_sparse01(stats, node, blk.mat, a)
-        return cumhist(stats, node, blk.mat, a, blk.n_bins)
+            return cumhist_sparse01(stats, node, blk.mat, a, groups=groups,
+                                    rows=blk.rows)
+        return cumhist(stats, node, blk.mat, a, blk.n_bins, groups=groups,
+                       rows=blk.rows)
 
     def level(d, A, A_next, slot, g, gpos, alive, feat, thr, gain, leafS,
               prev):
+        # the card's kernels read the live rows grouped by slot, once a
+        # level for every block; the CPU's plain versions need no grouping
+        grouped = dev.type != "cpu"
+        groups = None
         if prev is not None:
             # left children live in the even slots; each right sibling is
             # its parent's histogram minus the left one, per block
             half = A // 2
             node_even = torch.where((slot < A) & (slot % 2 == 0), slot // 2,
                                     torch.full_like(slot, half))
+            if grouped:
+                groups = group_rows(node_even, half)
+        elif grouped:
+            groups = group_rows(slot, A)
         cums = []
         off = 0
         for bi, blk in enumerate(blocks):
             if prev is not None:
-                ev = hist(blk, node_even, half)
+                ev = hist(blk, node_even, half, groups)
                 parent = prev[0][bi][prev[1]]
                 cumb = torch.stack([ev, parent - ev], dim=1).reshape(
                     (A,) + ev.shape[1:])
             else:
-                cumb = hist(blk, slot, A)
+                cumb = hist(blk, slot, A, groups)
             s_b, i_b, v_b = split_scan(cumb, crit.kernel_kind,
                                        min_instances, lam=lam,
                                        min_child_weight=mcw)
