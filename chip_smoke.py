@@ -6,39 +6,56 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py             # add --profile for device-time tables
 
 1. Prints the card's name and power limit and builds the six tree-engine
-   kernels from ``transmogrifai_tpu_torch/csrc`` (one ``nvcc`` each, in
-   parallel) and the native text hasher (``native/fasthash.cc``, ``g++``).
+   kernel sources from ``transmogrifai_tpu_torch/csrc`` (one ``nvcc``
+   each, in parallel) and the native text hasher (``native/fasthash.cc``,
+   ``g++``).
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes (n=200,000 rows; F=20 features, B=32 bins; the 2-bin
    indicator block at Fb=512 columns): ``group_rows``' order and segment
    offsets, counts, selected indices, valid flags, routes and g
    bit-identical (``cumhist_sparse01``'s counts also equal ``cumhist``'s
-   at B=2 on the same bins); weighted histogram channels and predict sums
-   within 2e-5 of the channel's max |value|; two histogram calls on the
-   same inputs bitwise equal, all-idle rows giving zeros. Times each
+   at B=2 on the same bins, and ``cumhist(bc=)``'s those from the bins);
+   weighted histogram channels and predict sums within 2e-5 of the
+   channel's max |value|; two histogram calls on the same inputs bitwise
+   equal, all-idle rows giving zeros. ``split_scan``'s scores are bitwise
+   equal to the plain version's at every criterion (variance, gini, xgb),
+   A ∈ {1, 2, 32, 64, 128} slots, (F, B) ∈ {(20, 32), (32, 32), (419, 2),
+   (600, 32)}, with and without a feature mask, and at constructed ties
+   (duplicate feature columns; the lowest flat index wins). Times each
    (median of 20 launches, CUDA events) beside its plain version and one
    PyTorch call computing the same function where there is one (a bf16
    ``torch.matmul`` of the histograms' materialized operands, a stable
-   ``torch.argsort`` for ``group_rows``); the histograms at A ∈ {1, 16,
-   32, 64} slots, both as the level loop calls them (rows grouped once per
-   level, the row-major copy made once per fit) and grouping their own
-   rows, and the per-fit copies on their own lines. Then both histograms
-   at blocks with several groups of output rows (``cumhist`` at F ∈ {40,
-   600, 1100} features, B ∈ {32, 2, 1}; ``cumhist_sparse01`` at Fb=1,500)
-   against their plain versions at 20,000 rows, timed at 200,000.
+   ``torch.argsort`` for ``group_rows``); the histograms (``cumhist``
+   from the bins and from ``bc=``, ``cumhist_sparse01``) at A ∈ {1, 16,
+   32, 64} slots as the level loop calls them (rows grouped once per
+   level, the row-major copy made once per fit), the first two also
+   grouping their own rows, and the per-fit copies on their own lines;
+   ``split_scan`` at each of its shapes at A ∈ {1, 128}. Then the
+   histograms at blocks with several groups of output rows (``cumhist``
+   at F ∈ {40, 600, 1100} features, B ∈ {32, 2, 1}; ``cumhist(bc=)`` at
+   F=40, B=32; ``cumhist_sparse01`` at Fb=1,500) against their plain
+   versions at 20,000 rows, timed at 200,000.
 3. The tree-model AutoML sweep — GBT maxDepth {3, 6, 9} and XGBoost
    maxDepth {3, 6}, 20 rounds, 5-fold CV on AuPR, refit, scoring — through
    ``Workflow.train`` and ``WorkflowModel.evaluate`` on 200,000 rows, with
-   every kernel launch counted (``group_rows`` once per level); then the
-   same sweep at 20,000 rows (depths {3, 6}) on the card and on the CPU,
-   which must pick the same model with AuPR within 1e-4.
+   every kernel launch counted (``group_rows`` once per level, no
+   ``cumhist(bc=)``); then the same sweep at 20,000 rows (depths {3, 6})
+   on the card and on the CPU, which must pick the same model with AuPR
+   within 1e-4.
 4. The BigPassenger workflow (``big_passenger.py``): 200,000 typed records
    → transmogrify → SanityChecker → GBT + XGBoost maxDepth {3, 6}, 20
    rounds, 3-fold CV → refit → evaluate, with every kernel launch counted
-   (all six must launch, ``group_rows`` once per level); then the same
-   workflow at 2,000 rows (GBT {3} + XGBoost {3}, 5 rounds, 2 folds) on
-   the card and on the CPU, which must pick the same model with AuPR
-   within 1e-4.
+   (the six main-path kernels must launch, ``group_rows`` once per level,
+   no ``cumhist(bc=)``); then the same workflow at 2,000 rows (GBT {3} +
+   XGBoost {3}, 5 rounds, 2 folds) on the card and on the CPU, which must
+   pick the same model with AuPR within 1e-4.
+
+``--profile`` runs each main path once more under ``torch.profiler`` and
+prints its device-time table: the busy share, the histogram kernels, the
+split scans and the uint8 → bool copies. ``--timings-only`` skips every
+check and prints only ``split_scan``'s times and both paths' profiles,
+with no result line; it uses only what every version of the port has,
+so a copy of this script in another checkout times that checkout.
 
 Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
@@ -130,6 +147,9 @@ def stats_with_count(rng, n, C):
 N_WIDE = 20_000
 WIDE_CUMHIST = ((40, 32), (600, 32), (1100, 2), (600, 1))
 WIDE_FB = 1500
+#: cumhist(bc=)'s (F, B): B·F = 1,280 bytes of indicator a row, two
+#: groups of 640 output rows
+WIDE_BC = (40, 32)
 
 
 def check_wide(H, dev, rng, put):
@@ -137,7 +157,7 @@ def check_wide(H, dev, rng, put):
     plain versions (N_WIDE rows: the plain cumhist materializes [n, B·F]),
     timed at N rows. Returns each kernel's max abs error of the weighted
     channels."""
-    worst = {"cumhist": 0.0, "cumhist_sparse01": 0.0}
+    worst = {"cumhist": 0.0, "cumhist_bc": 0.0, "cumhist_sparse01": 0.0}
     gen = torch.Generator(device=dev).manual_seed(5)
     st4 = put(stats_with_count(rng, N, 4))
     node = put(rng.integers(0, 65, size=N, dtype=np.int32))
@@ -162,6 +182,30 @@ def check_wide(H, dev, rng, put):
               f"weighted channels within {REL_TOL:g}, two calls bitwise equal "
               f"(A = 1, 64; C = 3, 4; {N_WIDE} rows); main-path call at {N} "
               f"rows, A=64 C=4: {ms:.4f} ms")
+    Fw, Bw = WIDE_BC
+    XbT = put(rng.integers(0, Bw, size=(Fw, N_WIDE), dtype=np.int32))
+    bc = H.make_bc(XbT, Bw)
+    for A in (1, 64):
+        nd = put(rng.integers(0, A + 1, size=N_WIDE, dtype=np.int32))
+        for C in (3, 4):
+            st = put(stats_with_count(rng, N_WIDE, C))
+            worst["cumhist_bc"] = max(worst["cumhist_bc"], hold(
+                H.cumhist(st, nd, XbT, A, Bw, bc=bc),
+                H.cumhist(st, nd, XbT, A, Bw, bc=bc),
+                [H.cumhist_reference(st, nd, XbT, A, Bw, bc=bc),
+                 H.cumhist_reference(st, nd, XbT, A, Bw)],
+                f"cumhist(bc=) F={Fw} B={Bw} A={A} C={C}"))
+    big = torch.randint(0, Bw, (Fw, N), generator=gen, device=dev,
+                        dtype=torch.int32)
+    bc = H.make_bc(big, Bw)
+    brows, groups = H.bc_rows(bc), H.group_rows(node, 64)
+    ms = time_ms(lambda: H.cumhist(st4, node, big, 64, Bw, bc=bc,
+                                   groups=groups, rows=brows))
+    del big, bc, brows
+    print(f"cumhist(bc=) F={Fw} B={Bw} ({Bw * Fw} output rows, 2 groups): "
+          f"counts exact, weighted channels within {REL_TOL:g}, two calls "
+          f"bitwise equal (A = 1, 64; C = 3, 4; {N_WIDE} rows); main-path "
+          f"call at {N} rows, A=64 C=4: {ms:.4f} ms")
     X01 = put((rng.random((WIDE_FB, N_WIDE)) < DENSITY).astype(np.uint8))
     for A in (1, 64):
         nd = put(rng.integers(0, A + 1, size=N_WIDE, dtype=np.int32))
@@ -185,6 +229,105 @@ def check_wide(H, dev, rng, put):
           f"4; {N_WIDE} rows); main-path call at {N} rows, A=64 C=4: "
           f"{ms:.4f} ms")
     return worst
+
+
+#: split_scan's (F, B): the sweep's block, the text path's two blocks and
+#: a wide one (several warps' feature groups a slot)
+SCAN_SHAPES = ((20, 32), (32, 32), (419, 2), (600, 32))
+SCAN_SLOTS = (1, 2, 32, 64, 128)
+SCAN_KINDS = (("variance", 4), ("gini", 3), ("xgb", 3))
+
+
+def scan_stats(rng, kind, C, n):
+    """[n, C] f32 stats of a split criterion; the last channel counts."""
+    st = np.empty((n, C), np.float32)
+    yv = (rng.random(n) > 0.7).astype(np.float32)
+    if kind == "variance":
+        wv = rng.random(n).astype(np.float32) + 0.5
+        st[:, 0], st[:, 1], st[:, 2] = wv, wv * yv, wv * yv * yv
+    elif kind == "gini":
+        st[:, 0], st[:, 1] = 1.0 - yv, yv
+    else:
+        p = rng.random(n).astype(np.float32)
+        st[:, 0], st[:, 1] = p - yv, p * (1.0 - p) + 1e-6
+    st[:, -1] = 1.0
+    return st
+
+
+def scan_holds(H, cum, kind, mask, what):
+    """split_scan against its plain version on one histogram: indices and
+    valid flags exact, scores bitwise equal. Returns the kernel's
+    (score, idx, valid)."""
+    kw = dict(lam=1.0, min_child_weight=1.0, mask=mask)
+    got = H.split_scan(cum, kind, 10.0, **kw)
+    ref = H.split_scan_reference(cum, kind, 10.0, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])):
+        fail(f"split_scan selection differs ({what})")
+    if not torch.equal(got[0], ref[0]):
+        fail(f"split_scan scores are not bitwise equal ({what})")
+    return got
+
+
+def check_scans(H, dev, rng, put):
+    """split_scan at every criterion, slot count, shape and mask, and at
+    constructed ties: each slot's best column copied into features 0 and
+    F − 1, so the same score stands at three flat indices of one t and the
+    lowest (f = 0) must win. The histograms come from the cumhist kernel
+    on N rows."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for Fs, Bs in SCAN_SHAPES:
+        Xs = torch.randint(0, Bs, (Fs, N), generator=gen, device=dev,
+                           dtype=torch.int32)
+        srows = H.hist_rows(Xs)
+        for kind, C in SCAN_KINDS:
+            st = put(scan_stats(rng, kind, C, N))
+            for A in SCAN_SLOTS:
+                node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+                cum = H.cumhist(st, node, Xs, A, Bs, rows=srows)
+                what = f"{kind} F={Fs} B={Bs} A={A}"
+                mask = put((rng.random((A, Fs)) > 0.2).astype(np.float32))
+                scan_holds(H, cum, kind, mask, f"{what} masked")
+                best = scan_holds(H, cum, kind, None, what)[1]
+                col = cum.gather(3, (best.long() % Fs).view(A, 1, 1, 1)
+                                 .expand(A, C, Bs, 1))
+                tie = cum.clone()
+                tie[..., :1] = col
+                tie[..., Fs - 1:] = col
+                if (scan_holds(H, tie, kind, None, f"{what} tie")[1]
+                        % Fs).any():
+                    fail(f"split_scan tie not resolved to f = 0 ({what})")
+        del Xs, srows
+        print(f"split_scan F={Fs} B={Bs}: selections, valid flags and "
+              f"bitwise scores equal the plain version (variance, gini, "
+              f"xgb; A = {', '.join(map(str, SCAN_SLOTS))}; masked and "
+              f"not; ties to the lowest flat index)")
+
+
+def time_scans(H, dev):
+    """split_scan's time (variance, C = 4) at each shape, A ∈ {1, 128},
+    on a histogram of N rows from the cumhist kernel; beside it the time
+    of one launch that does almost nothing (a 128-byte fill), the floor
+    of this way of timing. Returns {(F, B, A): ms}."""
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    tiny = torch.empty(128, dtype=torch.uint8, device=dev)
+    print(f"one-launch floor (a 128-byte fill): "
+          f"{time_ms(lambda: tiny.fill_(0)):.4f} ms")
+    st = torch.as_tensor(scan_stats(rng, "variance", 4, N), device=dev)
+    times = {}
+    for Fs, Bs in SCAN_SHAPES:
+        Xs = torch.randint(0, Bs, (Fs, N), generator=gen, device=dev,
+                           dtype=torch.int32)
+        for A in (1, 128):
+            node = torch.as_tensor(rng.integers(0, A + 1, size=N,
+                                                dtype=np.int32), device=dev)
+            cum = H.cumhist(st, node, Xs, A, Bs)
+            ms = time_ms(lambda: H.split_scan(cum, "variance", 10.0))
+            times[Fs, Bs, A] = ms
+            print(f"split_scan variance F={Fs} B={Bs} A={A}: kernel "
+                  f"{ms:.4f} ms")
+    return times
 
 
 def check_kernels(H, dev):
@@ -230,32 +373,37 @@ def check_kernels(H, dev):
         bound=((4 * N + 4 * (N + (H.KSTEP - 1) * A) + 4 * (A + 1))
                / HBM_BPS, 8.0 * N / F32_FLOPS))
 
-    # -- cumhist: every channel, A in {1, 64, 128} ------------------------
-    hrows = H.hist_rows(XbT)
-    worst = 0.0
+    # -- cumhist and cumhist(bc=): every channel, A in {1, 64, 128} -------
+    hrows, brows = H.hist_rows(XbT), H.bc_rows(bc)
+    worst = {"cumhist": 0.0, "cumhist_bc": 0.0}
     for A in (1, 64, 128):
         node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
         groups = H.group_rows(node, A)
         for C in (3, 4):
             stats = put(stats_with_count(rng, N, C))
             ref = H.cumhist_reference(stats, node, XbT, A, B)
-            for use_bc in (False, True):
-                kw = dict(bc=bc if use_bc else None)
-                worst = max(worst, hold(
-                    H.cumhist(stats, node, XbT, A, B, groups=groups,
-                              rows=hrows, **kw),
-                    H.cumhist(stats, node, XbT, A, B, **kw), [ref],
-                    f"cumhist A={A} C={C} bc={use_bc}"))
+            worst["cumhist"] = max(worst["cumhist"], hold(
+                H.cumhist(stats, node, XbT, A, B, groups=groups, rows=hrows),
+                H.cumhist(stats, node, XbT, A, B), [ref],
+                f"cumhist A={A} C={C}"))
+            worst["cumhist_bc"] = max(worst["cumhist_bc"], hold(
+                H.cumhist(stats, node, XbT, A, B, bc=bc, groups=groups,
+                          rows=brows),
+                H.cumhist(stats, node, XbT, A, B, bc=bc),
+                [H.cumhist_reference(stats, node, XbT, A, B, bc=bc), ref],
+                f"cumhist(bc=) A={A} C={C}"))
             print(f"cumhist A={A:3d} C={C}: counts exact, weighted "
                   f"channels within {REL_TOL:g}, two calls bitwise equal "
-                  "(grouped and bc=)")
+                  "(from the bins and from bc=)")
     idle = torch.full((N,), 64, dtype=torch.int32, device=dev)
     if H.cumhist(stats, idle, XbT, 64, B).any():
         fail("cumhist: an all-idle node vector gave nonzero histograms")
-    print("cumhist: all-idle rows give zeros")
+    if H.cumhist(stats, idle, XbT, 64, B, bc=bc, rows=brows).any():
+        fail("cumhist(bc=): an all-idle node vector gave nonzero histograms")
+    print("cumhist, cumhist(bc=): all-idle rows give zeros")
     # the slot counts of the main paths: the call as the level loop makes
     # it (groups and the per-fit row copy given), with its own grouping,
-    # and the bc= variant
+    # and bc= as a fit would call it (groups and bc_rows given)
     st4 = put(rng.normal(size=(N, 4)).astype(np.float32))
     for A in (1, 16, 32, 64):
         nd = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
@@ -263,11 +411,15 @@ def check_kernels(H, dev):
         m_ms = time_ms(lambda: H.cumhist(st4, nd, XbT, A, B, groups=gr,
                                          rows=hrows))
         s_ms = time_ms(lambda: H.cumhist(st4, nd, XbT, A, B, rows=hrows))
-        b_ms = time_ms(lambda: H.cumhist(st4, nd, XbT, A, B, bc=bc))
+        b_ms = time_ms(lambda: H.cumhist(st4, nd, XbT, A, B, bc=bc,
+                                         groups=gr, rows=brows))
         print(f"cumhist A={A:3d} C=4: main-path call {m_ms:.4f} ms, with "
-              f"its own grouping {s_ms:.4f} ms, bc= {b_ms:.4f} ms")
+              f"its own grouping {s_ms:.4f} ms, bc= (groups and bc_rows "
+              f"given) {b_ms:.4f} ms")
     print(f"per-fit row copy hist_rows [{F} x {N}]: "
           f"{time_ms(lambda: H.hist_rows(XbT)):.4f} ms")
+    print(f"per-fit row copy bc_rows [{B * F} x {N}]: "
+          f"{time_ms(lambda: H.bc_rows(bc)):.4f} ms")
     # the row of the result line: A=64, GBT stats
     A, C = 64, 4
     node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
@@ -295,24 +447,32 @@ def check_kernels(H, dev):
     adds = C * float((B - XbT[:, live]).sum().item())
     rows["cumhist"] = dict(
         replaces="transmogrifai_tpu/models/_pallas_hist.py:160",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound=(nbytes / HBM_BPS, adds / F32_FLOPS))
+        max_abs_err=worst["cumhist"], ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound=(nbytes / HBM_BPS, adds / F32_FLOPS))
     print(f"cumhist A={A} C={C}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms, bound "
           f"{1e3 * max(nbytes / HBM_BPS, adds / F32_FLOPS):.5f} ms "
           f"(int32 all-rows bound: "
           f"{1e3 * max(old_bytes / HBM_BPS, adds / F32_FLOPS):.5f} ms)")
 
-    # the bc= variant at the same call: its plain version and bound
-    bc_ms = time_ms(lambda: H.cumhist(stats, node, XbT, A, B, bc=bc))
+    # the bc= call at the same inputs: the indicator bytes of the live
+    # rows instead of their bins; the same matmul is its library call
+    bc_ms = time_ms(lambda: H.cumhist(stats, node, XbT, A, B, bc=bc,
+                                      groups=groups, rows=brows))
     bc_plain_ms = time_ms(lambda: H.cumhist_reference(stats, node, XbT, A,
                                                       B, bc=bc))
-    bc_bytes = N * C * 4 + N * 4 + B * F * N + out_bytes
-    by_bytes = bc_bytes / HBM_BPS >= adds / F32_FLOPS
+    bc_bytes = N * 4 + live.numel() * (C * 4 + B * F) + out_bytes
+    bc_old_bytes = N * C * 4 + N * 4 + B * F * N + out_bytes
+    rows["cumhist_bc"] = dict(
+        replaces="transmogrifai_tpu/models/_pallas_hist.py:193",
+        source="transmogrifai_tpu_torch/csrc/cumhist.cu",
+        max_abs_err=worst["cumhist_bc"], ms=bc_ms, plain_ms=bc_plain_ms,
+        library_ms=lib_ms, bound=(bc_bytes / HBM_BPS, adds / F32_FLOPS))
     print(f"cumhist(bc=) A={A} C={C}: kernel {bc_ms:.4f} ms, plain "
-          f"{bc_plain_ms:.4f} ms, bound "
+          f"{bc_plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms, bound "
           f"{1e3 * max(bc_bytes / HBM_BPS, adds / F32_FLOPS):.5f} ms "
-          f"({'bytes' if by_bytes else 'operations'})")
+          f"(all-rows bound: "
+          f"{1e3 * max(bc_old_bytes / HBM_BPS, adds / F32_FLOPS):.5f} ms)")
 
     # -- cumhist_sparse01: the 2-bin indicator block ----------------------
     X01 = put((rng.random((FB, N)) < DENSITY).astype(np.uint8))
@@ -387,50 +547,21 @@ def check_kernels(H, dev):
     for name, e in check_wide(H, dev, np.random.default_rng(1), put).items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
 
-    # -- split_scan: three criteria, masks, A in {1, 64, 128} -------------
-    worst = 0.0
-    for kind, C in (("variance", 4), ("gini", 3), ("xgb", 3)):
-        for A in (1, 64, 128):
-            node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
-            st = np.empty((N, C), np.float32)
-            yv = (rng.random(N) > 0.7).astype(np.float32)
-            if kind == "variance":
-                wv = rng.random(N).astype(np.float32) + 0.5
-                st[:, 0], st[:, 1], st[:, 2] = wv, wv * yv, wv * yv * yv
-            elif kind == "gini":
-                st[:, 0], st[:, 1] = 1.0 - yv, yv
-            else:
-                p = rng.random(N).astype(np.float32)
-                st[:, 0], st[:, 1] = p - yv, p * (1.0 - p) + 1e-6
-            st[:, -1] = 1.0
-            cum = H.cumhist_reference(put(st), node, XbT, A, B)
-            mask = (put((rng.random((A, F)) > 0.2).astype(np.float32))
-                    if A == 64 else None)
-            kw = dict(lam=1.0, min_child_weight=1.0, mask=mask)
-            s, i, v = H.split_scan(cum, kind, 10.0, **kw)
-            rs, ri, rv = H.split_scan_reference(cum, kind, 10.0, **kw)
-            torch.cuda.synchronize()
-            if not (torch.equal(i.long(), ri.long()) and torch.equal(v, rv)):
-                fail(f"split_scan selection differs ({kind} A={A})")
-            worst = max(worst, (s - rs).abs().max().item())
-            if rel_err(s, rs) > REL_TOL:
-                fail(f"split_scan scores differ ({kind} A={A})")
-        print(f"split_scan {kind}: selections and valid flags exact "
-              "(A = 1, 64, 128; masked at 64)")
+    # -- split_scan: criteria x slots x shapes x masks, and ties ----------
+    check_scans(H, dev, rng, put)
+    ms = time_scans(H, dev)[(F, B, 128)]
     A, C = 128, 4
     cum = H.cumhist_reference(stats, put(rng.integers(0, A + 1, size=N,
                                                       dtype=np.int32)),
                               XbT, A, B)
-    ms = time_ms(lambda: H.split_scan(cum, "variance", 10.0))
     plain_ms = time_ms(lambda: H.split_scan_reference(cum, "variance", 10.0))
     ncand = A * (B - 1) * F
     rows["split_scan"] = dict(
         replaces="transmogrifai_tpu/models/_pallas_hist.py:504",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
         bound=((A * C * B * F * 4 + A * 9) / HBM_BPS,
                12.0 * ncand / F32_FLOPS))
-    print(f"split_scan variance A={A}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
+    print(f"split_scan variance A={A}: plain {plain_ms:.4f} ms")
 
     # -- route_level: A_parent in {1, 64, 128} ----------------------------
     for A in (1, 64, 128):
@@ -493,10 +624,12 @@ def check_kernels(H, dev):
 
 def profile_path(name, fn):
     """One main path once more under ``torch.profiler``: device time per
-    kernel and the device's busy share of the wall clock."""
+    kernel and the device's busy share of the wall clock. Only device
+    activity is recorded (kernels, copies, fills), so each device
+    interval counts once in the busy share; a host operator's self
+    device time would count its kernels a second time."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -522,6 +655,18 @@ def profile_path(name, fn):
               f"{count:7d}x  {key[:70]}")
     print(f"profile {name}: histogram device time "
           f"{sum(r[0] for r in hist) / 1e3:.1f} ms")
+    # the split scans, and every uint8 → bool copy (one followed each scan
+    # while the scan wrote uint8 valid flags)
+    for what, sel in (("split_scan", lambda k: "split_scan" in k),
+                      ("bool conversion",
+                       lambda k: "copy" in k and "(bool)" in k)):
+        found = [r for r in rows if sel(r[2])]
+        for dev_us, count, key in found:
+            print(f"profile {name} {what}: {dev_us / 1e3:10.3f} ms "
+                  f"{count:7d}x  {key}")
+        print(f"profile {name}: {what} device time "
+              f"{sum(r[0] for r in found) / 1e3:.3f} ms, "
+              f"{sum(r[1] for r in found)} launches")
 
 
 def counted(H, fn, kernels):
@@ -538,10 +683,13 @@ def counted(H, fn, kernels):
 
 
 def once_per_level(launches, what):
-    """Each tree level routes its rows once and groups them once."""
+    """Each tree level routes its rows once and groups them once; no fit
+    passes the precomputed indicator (``bc=``)."""
     if launches["group_rows"] != launches["route_level"]:
         fail(f"{what}: {launches['group_rows']} group_rows launches for "
              f"{launches['route_level']} levels")
+    if launches["cumhist_bc"]:
+        fail(f"{what}: {launches['cumhist_bc']} cumhist(bc=) launches")
 
 
 def check_scored(out, n, what):
@@ -567,6 +715,22 @@ def agree(runs, what):
     print(f"{what}: same model on cuda and cpu, |dAuPR| = {d_aupr:.3g}")
 
 
+def timings(H, dev, BP, run):
+    """``--timings-only``: split_scan's times at its shapes, then each main
+    path run once and profiled once; nothing is checked and no result
+    line is printed. It calls only what every version of the port has, so
+    a copy of this script placed in another checkout times that
+    checkout's kernels: two versions compare in one call, in turns."""
+    time_scans(H, dev)
+    run(N, device="cuda")
+    profile_path("sweep", lambda: run(N, device="cuda"))
+    records = BP.synthesize_records(N, seed=42)
+    BP.run(N, device="cuda", records=records)
+    profile_path("BigPassenger", lambda: BP.run(N, device="cuda",
+                                                records=records))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -578,6 +742,7 @@ def main():
     from transmogrifai_tpu_torch.synthetic_trees import (default_families,
                                                          run)
     profile = "--profile" in sys.argv[1:]
+    timings_only = "--timings-only" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -594,6 +759,8 @@ def main():
     if not load_native():
         fail("the native text hasher (native/fasthash.cc) did not build")
     print(f"native hasher build: {time.perf_counter() - t0:.1f} s")
+    if timings_only:
+        return timings(H, dev, BP, run)
 
     rows = check_kernels(H, dev)
 
@@ -620,7 +787,7 @@ def main():
     records_s = time.perf_counter() - t0
     out, launches = counted(H, lambda: BP.run(N, device="cuda",
                                               records=records),
-                            tuple(H.KERNEL_LAUNCHES))
+                            tree_kernels + ("cumhist_sparse01",))
     once_per_level(launches, "BigPassenger")
     aupr = check_scored(out, N, "BigPassenger")
     s = out["summary"]
@@ -642,20 +809,22 @@ def main():
            for d in ("cuda", "cpu")}, "BigPassenger, 2000 rows")
 
     kernels = []
-    names = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
-             "route_level", "predict_trees")
+    names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",
+             "split_scan", "route_level", "predict_trees")
     for name in names:
         r = rows[name]
         t_bytes, t_ops = r["bound"]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"transmogrifai_tpu_torch/csrc/{name}.cu",
+            "source": r.get("source",
+                            f"transmogrifai_tpu_torch/csrc/{name}.cu"),
             "replaces": r["replaces"], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": r["library_ms"]})
-    if not all(math.isfinite(k["ms"]) for k in kernels):
+    if not all(math.isfinite(k[key]) for k in kernels
+               for key in ("ms", "plain_ms", "bound_ms")):
         fail("a kernel time is not finite")
     print("kernels: " + ", ".join(names))
     print(json.dumps({"kernels": kernels}))

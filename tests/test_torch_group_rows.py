@@ -121,6 +121,16 @@ def _grouped_cumhist(stats, node, Xb, A, B):
     return out.permute(0, 2, 1).reshape(A, -1, B, F).numpy()
 
 
+def _grouped_bc(stats, node, Xb, A, B):
+    """The precomputed kind: the indicator rows are the bytes of
+    ``bc_rows``' copy of ``make_bc``, byte m = t·F + f, read as they are."""
+    n, F = Xb.shape
+    rows = H.bc_rows(H.make_bc(torch.tensor(Xb.T.copy()), B))
+    st = _st(stats)
+    out = _grouped(rows[:, :B * F].to(st.dtype), st, torch.tensor(node), A)
+    return out.permute(0, 2, 1).reshape(A, -1, B, F).numpy()
+
+
 def _grouped_sparse01(stats, node, X01, A):
     Fb, n = X01.shape
     st = _st(stats)
@@ -164,6 +174,25 @@ def test_grouped_cumhist_f64_matches_references(rng, A, C):
 
 @pytest.mark.parametrize("A", [1, 8, 128])
 @pytest.mark.parametrize("C", [3, 4])
+def test_grouped_bc_f64_matches_references(rng, A, C):
+    n, F, B = 1001, 5, 8
+    stats, node = _inputs(rng, n, A, C, np.float64)
+    Xb = rng.integers(0, B, size=(n, F)).astype(np.int32)
+    got = _grouped_bc(stats, node, Xb, A, B)
+    XbT = torch.tensor(Xb.T.copy())
+    ref = H.cumhist_reference(torch.tensor(stats), torch.tensor(node), XbT,
+                              A, B, bc=H.make_bc(XbT, B)).numpy()
+    xla = np.asarray(JT._level_cumhist(jnp.asarray(stats), jnp.asarray(node),
+                                       jnp.asarray(Xb), A, B))
+    pal = np.asarray(JP.cumhist(
+        jnp.asarray(stats), jnp.asarray(node), jnp.asarray(Xb.T), A, B,
+        bc=JP.make_bc(jnp.asarray(Xb.T), B, jnp.float64), interpret=True))
+    for want in (ref, xla, pal):
+        np.testing.assert_allclose(got, want, rtol=TOL64, atol=TOL64)
+
+
+@pytest.mark.parametrize("A", [1, 8, 128])
+@pytest.mark.parametrize("C", [3, 4])
 @pytest.mark.parametrize("Fb", [1, 7, 130])
 def test_grouped_sparse01_f64_matches_references(rng, A, C, Fb):
     n = 1001
@@ -196,6 +225,9 @@ def test_grouped_f32_counts_exact_weighted_close(rng, A, C):
     ref = H.cumhist_reference(torch.tensor(stats), torch.tensor(node),
                               torch.tensor(Xb.T.copy()), A, B).numpy()
     _check32(got, (ref, xla), C)
+    got_bc = _grouped_bc(stats, node, Xb, A, B)
+    assert got_bc.dtype == np.float32
+    _check32(got_bc, (ref, xla), C)
     got01 = _grouped_sparse01(stats, node, X01, A)
     ref01 = H.cumhist_sparse01_reference(
         torch.tensor(stats), torch.tensor(node),
@@ -220,6 +252,18 @@ def test_row_major_copies(F, Fb, F_pad, Fb_pad):
     assert rows01.shape == (37, Fb_pad)
     np.testing.assert_array_equal(rows01[:, :Fb].numpy(), X01.numpy().T != 0)
     assert (rows01[:, Fb] == 1).all() and not rows01[:, Fb + 1:].any()
+
+
+@pytest.mark.parametrize("F,B,pad", [(20, 32, 640), (5, 3, 16),
+                                     (419, 2, 848)])
+def test_bc_rows_is_the_padded_transpose(F, B, pad):
+    rng = np.random.default_rng(9)
+    XbT = torch.tensor(rng.integers(0, B, size=(F, 37)).astype(np.int32))
+    bc = H.make_bc(XbT, B)
+    rows = H.bc_rows(bc)
+    assert rows.dtype == torch.uint8 and rows.shape == (37, pad)
+    np.testing.assert_array_equal(rows[:, :B * F].numpy(), bc.numpy().T)
+    assert not rows[:, B * F:].any()
 
 
 def _mixed_fit_inputs(rng, n, dev, dtype):
@@ -314,3 +358,39 @@ def test_grouped_kernels_match_plain_versions_on_the_card(F, B, Fb):
                 for c in range(C - 1):
                     assert (out[:, c] - refs[0][:, c]).abs().max() \
                         <= REL32 * refs[0][:, c].abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,B", [(20, 32), (5, 8),
+                                 # B·F = 1,280: two groups of output rows
+                                 (40, 32)])
+def test_cumhist_bc_kernel_matches_plain_version_on_the_card(F, B):
+    """The twin of ``chip_smoke.py``'s ``cumhist(bc=)`` check: counts
+    exact against both plain versions, weighted channels within 2e-5 of
+    the channel's max |value|, two calls bitwise equal, zeros from
+    all-idle rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA GPU present: the kernels run only on the card")
+    rng = np.random.default_rng(13)
+    dev = torch.device("cuda")
+    n = 2001
+    Xb = torch.tensor(rng.integers(0, B, size=(F, n)).astype(np.int32),
+                      device=dev)
+    bc = H.make_bc(Xb, B)
+    rows = H.bc_rows(bc)
+    for A in (1, 64, 128):
+        for C in (3, 4):
+            stats, node = _inputs(rng, n, A, C, np.float32)
+            st, nd = (torch.tensor(a, device=dev) for a in (stats, node))
+            out = H.cumhist(st, nd, Xb, A, B, bc=bc, rows=rows,
+                            groups=H.group_rows(nd, A))
+            assert torch.equal(out, H.cumhist(st, nd, Xb, A, B, bc=bc))
+            refs = [H.cumhist_reference(st, nd, Xb, A, B, bc=bc),
+                    H.cumhist_reference(st, nd, Xb, A, B)]
+            for ref in refs:
+                assert torch.equal(out[:, -1], ref[:, -1])
+            for c in range(C - 1):
+                assert (out[:, c] - refs[0][:, c]).abs().max() \
+                    <= 2e-5 * refs[0][:, c].abs().max()
+    idle = torch.full((n,), 64, dtype=torch.int32, device=dev)
+    assert not H.cumhist(st, idle, Xb, 64, B, bc=bc, rows=rows).any()

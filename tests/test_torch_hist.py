@@ -49,12 +49,46 @@ def test_cumhist_bc_matches_pallas_bc_variant(rng):
     bcj = JP.make_bc(jnp.asarray(Xb.T), B, jnp.float64)
     pal = JP.cumhist(jnp.asarray(stats), jnp.asarray(node),
                      jnp.asarray(Xb.T), A, B, bc=bcj, interpret=True)
-    bc = H.make_bc(torch.tensor(Xb.T.copy()), B)
+    xla = JT._level_cumhist(jnp.asarray(stats), jnp.asarray(node),
+                            jnp.asarray(Xb), A, B)
+    XbT = torch.tensor(Xb.T.copy())
+    bc = H.make_bc(XbT, B)
     np.testing.assert_array_equal(bc.numpy(), np.asarray(bcj))
     out = H.cumhist_reference(torch.tensor(stats), torch.tensor(node),
-                              torch.tensor(Xb.T.copy()), A, B, bc=bc)
+                              XbT, A, B, bc=bc)
     np.testing.assert_allclose(out.numpy(), np.asarray(pal), rtol=1e-9,
                                atol=1e-9)
+    # the call a fit would make: rows grouped, the per-fit bc_rows copy
+    st, nd = torch.tensor(stats), torch.tensor(node)
+    got = H.cumhist(st, nd, XbT, A, B, bc=bc, groups=H.group_rows(nd, A),
+                    rows=H.bc_rows(bc))
+    for want in (pal, xla):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
+                                   atol=1e-9)
+
+
+@pytest.mark.parametrize("A,B,F", [(1, 8, 4), (5, 32, 20), (3, 2, 419)])
+def test_cumhist_bc_rows_f64_exact_against_pallas_and_xla(rng, A, B, F):
+    """Integer-valued f64 stats: every partial sum is exact, so the plain
+    ``bc=`` call equals the Pallas ``_kernel_prebc`` (interpret mode) and
+    the XLA path bit for bit."""
+    n, C = 300, 4
+    stats = rng.integers(-8, 9, size=(n, C)).astype(np.float64)
+    stats[:, -1] = 1.0
+    node = rng.integers(0, A + 1, size=n).astype(np.int32)
+    Xb = rng.integers(0, B, size=(n, F)).astype(np.int32)
+    bcj = JP.make_bc(jnp.asarray(Xb.T), B, jnp.float64)
+    pal = JP.cumhist(jnp.asarray(stats), jnp.asarray(node),
+                     jnp.asarray(Xb.T), A, B, bc=bcj, interpret=True)
+    xla = JT._level_cumhist(jnp.asarray(stats), jnp.asarray(node),
+                            jnp.asarray(Xb), A, B)
+    bc = H.make_bc(torch.tensor(Xb.T.copy()), B)
+    got = H.cumhist(torch.tensor(stats), torch.tensor(node),
+                    torch.tensor(Xb.T.copy()), A, B, bc=bc,
+                    rows=H.bc_rows(bc))
+    assert got.shape == (A, C, B, F)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pal))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(xla))
 
 
 def test_cumhist_f32_counts_exact_weighted_close(rng):

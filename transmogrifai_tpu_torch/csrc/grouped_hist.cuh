@@ -1,6 +1,7 @@
 // Slot-grouped level histograms on the tensor cores, for Hopper (sm_90a):
-// the shared body of cumhist.cu (bin <= t indicators) and
-// cumhist_sparse01.cu (0/1 indicator columns plus an all-ones column).
+// the shared body of cumhist.cu (bin <= t indicators, built from the bins
+// or read precomputed) and cumhist_sparse01.cu (0/1 indicator columns
+// plus an all-ones column).
 //
 // Rows come grouped by slot (group_rows.cu: order, seg_off; each slot's
 // segment padded to a multiple of 16 with the id n, a zero row). For slot
@@ -9,14 +10,18 @@
 //   out_s[m, c] = sum_{i in seg(s)} ind(i, m) * bf16(stats[i, c])
 //
 // with M = the indicator's rows (sparse01: the Fb columns and the all-ones
-// column; cumulative: (t, f) pairs, m = t*F + f), N = C channels padded to
-// 8 and K = the segment's rows. Each live row costs M*8 MACs instead of
-// the one-hot product's (A*C)*M, and idle rows are never read.
+// column; cumulative and precomputed: (t, f) pairs, m = t*F + f), N = C
+// channels padded to 8 and K = the segment's rows. Each live row costs
+// M*8 MACs instead of the one-hot product's (A*C)*M, and idle rows are
+// never read.
 //
-// Operands are row-major uint8 copies of the bins made once per fit
-// (sparse01: [n, RB] 0/1 bytes with the all-ones column at byte Fb;
-// cumulative: [n, RB] bins, B <= 256), so a gathered row is one contiguous
-// 16-byte-aligned read. A block takes a fixed chunk of the grouped order
+// Operands are row-major uint8 copies made once per fit (sparse01: [n, RB]
+// 0/1 bytes with the all-ones column at byte Fb; cumulative: [n, RB] bins,
+// B <= 256; precomputed: [n, RB] 0/1 bytes of the bin <= t indicator, byte
+// m = t*F + f), so a gathered row is one contiguous 16-byte-aligned read.
+// The two byte-indicator kinds (sparse01, precomputed) read byte m as
+// output row m's indicator; the cumulative kind compares a bin with t.
+// A block takes a fixed chunk of the grouped order
 // (a multiple of 32 positions) and one group of up to 1,024 output rows m,
 // and copies only the bytes of a row that group reads (row_span below).
 // Per pipeline stage (Stages below) its 256 threads start 16-byte
@@ -26,7 +31,7 @@
 // loaded into registers a whole stage ahead. Per 16-row K-step each warp
 // builds the bf16 B fragment (the stats) once, and for each of its up to
 // 8 m-tiles the A fragment from the row bytes, two rows' bytes packed
-// into one register (sparse01: one multiply makes the bf16 pair;
+// into one register (byte indicators: one multiply makes the bf16 pair;
 // cumulative: one subtraction, one prmt and one mask test bin <= t for
 // the pair), then runs mma.sync m16n8k16 bf16 with f32 accumulators in
 // registers.
@@ -38,14 +43,15 @@
 // order rules out, so the index is unique and the buffer has
 // n_chunks + A entries of [C, M] f32. A second kernel sums each slot's
 // partials in chunk order (an empty slot gets zeros); for sparse01 it
-// forms t = 0 as total - nonzero side and t = 1 as the total.
+// forms t = 0 as total - nonzero side and t = 1 as the total; the other
+// two kinds write the sums as they are.
 //
 // Determinism: the chunk size is a function of (n, A) only, every sum
 // has a fixed order and there are no float atomics, so the weighted
 // channels are bitwise repeatable and split ties never flip. Counts are
 // sums of exact 1.0 products in f32.
 //
-// What bounds it: bytes (node once, the live rows' stats and uint8 bins,
+// What bounds it: bytes (node once, the live rows' stats and uint8 bytes,
 // the output). The products are ~M*8*K MACs on the tensor cores; the
 // A-fragment builds from shared memory and the cp.async latency of the
 // gathered rows are what this design pays.
@@ -68,16 +74,25 @@ constexpr int MAX_SLOTS = 1024;      // group_rows' limit
 constexpr int REDUCE_RUNS = 8;           // runs of chunks summed apart
 constexpr uint32_t BF16_ONE = 0x3F80u;
 
-enum Kind { SPARSE01 = 0, CUMULATIVE = 1 };
+enum Kind { SPARSE01 = 0, CUMULATIVE = 1, PRECOMPUTED = 2 };
 
-// Rows a pipeline stage and stages in the ring. The 0/1 block's rows are
-// wide (RB = 528 bytes at Fb = 512), so four stages of 32 rows (72 KB)
-// leave room for three blocks an SM; the bins' rows are narrow (32 bytes
-// at F = 20), and six stages of 64 rows (43 KB) keep more of them in
-// flight.
-template <int KIND> struct Stages;
-template <> struct Stages<0> { static constexpr int ROWS = 32, N = 4; };
-template <> struct Stages<1> { static constexpr int ROWS = 64, N = 6; };
+// byte m of a gathered row is output row m's 0/1 indicator
+__host__ __device__ constexpr bool byte_indicators(int kind) {
+  return kind != CUMULATIVE;
+}
+
+// Rows a pipeline stage and stages in the ring. The byte indicators' rows
+// are wide (RB = 528 bytes at Fb = 512, 640 at B*F = 640; a group reads
+// at most 1,024 of them), so four stages of 32 rows (72-88 KB at those
+// widths) leave room for two or three blocks an SM; the bins' rows are
+// narrow (32 bytes at F = 20), and six stages of 64 rows (43 KB) keep
+// more of them in flight.
+template <int KIND> struct Stages {
+  static constexpr int ROWS = 32, N = 4;
+};
+template <> struct Stages<CUMULATIVE> {
+  static constexpr int ROWS = 64, N = 6;
+};
 
 // shared-memory row stride: >= w and = 16 mod 64 bytes, so the four rows
 // 2t (t = 0..3) a fragment load touches fall in four different banks
@@ -91,14 +106,14 @@ __host__ __device__ inline int stage_bytes(int w) {
 }
 
 // The bytes of a row that the group of GM output rows from m_base reads:
-// [col0, col0 + W), col0 a multiple of 16. sparse01: its GM columns.
-// cumulative: the features of its (f, t) pairs, f-major, so about GM / B
-// of them; shared memory then depends on GM and B, not on F.
+// [col0, col0 + W), col0 a multiple of 16. Byte indicators: its GM
+// columns. cumulative: the features of its (f, t) pairs, f-major, so
+// about GM / B of them; shared memory then depends on GM and B, not on F.
 struct Span { int col0, W; };
 template <int KIND>
 __host__ __device__ inline Span row_span(int m_base, int GM, int M, int B,
                                          int row_bytes) {
-  if (KIND == SPARSE01) {
+  if (byte_indicators(KIND)) {
     const int w = row_bytes - m_base;
     return {m_base, w < GM ? w : GM};
   }
@@ -162,9 +177,9 @@ __device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
 
 // grid (n_chunks, groups of WARPS * TPW * 16 output rows); partial
 // [n_chunks + A, C, M] f32 in the output's row order. M: output rows
-// (sparse01: Fb + 1, the last the all-ones column; cumulative: B * F,
-// m = t * F + f). B: bins (cumulative only). row_bytes: RB. TPW: m-tiles
-// a warp holds accumulators for.
+// (sparse01: Fb + 1, the last the all-ones column; cumulative and
+// precomputed: B * F, m = t * F + f). B: bins (cumulative only).
+// row_bytes: RB. TPW: m-tiles a warp holds accumulators for.
 template <int KIND, int TPW>
 __global__ void __launch_bounds__(THREADS)
 grouped_hist_kernel(const float* __restrict__ stats,
@@ -188,27 +203,28 @@ grouped_hist_kernel(const float* __restrict__ stats,
   const int LDR = row_stride(W);
   const int SB = stage_bytes<KIND>(W);
   const int n_mt = (min(GM, M - m_base) + 15) / 16;
-  const int F = KIND == SPARSE01 ? 1 : M / B;
+  const int F = byte_indicators(KIND) ? 1 : M / B;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
 
-  // this warp's m-tiles: interleaved across warps for sparse01,
+  // this warp's m-tiles: interleaved across warps for byte indicators,
   // consecutive for cumulative (so a warp's tiles share features)
   auto tile = [&](int i) {
-    return KIND == SPARSE01 ? warp + WARPS * i : warp * TPW + i;
+    return byte_indicators(KIND) ? warp + WARPS * i : warp * TPW + i;
   };
   // this thread's two rows (g, g + 8) of each of its m-tiles, as byte
-  // columns from col0. sparse01: the indicator columns. cumulative: the
-  // tiles run over (f, t) f-major, m' = f * B + t, so when 16 divides B
-  // the two rows and, at B = 32, a pair of consecutive tiles share one
-  // feature's bins; col = f - col0, thr = t packed for le_pair.
+  // columns from col0. Byte indicators: the indicator columns.
+  // cumulative: the tiles run over (f, t) f-major, m' = f * B + t, so
+  // when 16 divides B the two rows and, at B = 32, a pair of consecutive
+  // tiles share one feature's bins; col = f - col0, thr = t packed for
+  // le_pair.
   int lo_col[TPW], hi_col[TPW];
   uint32_t lo_thr[TPW], hi_thr[TPW];
 #pragma unroll
   for (int i = 0; i < TPW; ++i) {
     const int ml = tile(i) * 16 + g;
-    if (KIND == SPARSE01) {
+    if (byte_indicators(KIND)) {
       lo_col[i] = ml;
       hi_col[i] = ml + 8;
       lo_thr[i] = hi_thr[i] = 0;
@@ -286,7 +302,7 @@ grouped_hist_kernel(const float* __restrict__ stats,
     const int ml = m_base + tile(i) * 16 + g + (hi ? 8 : 0);
     if (nn >= C || ml >= M) return;
     const int t = (int)((hi ? hi_thr[i] : lo_thr[i]) & 0xFFFFu) - 0x8000;
-    const int m = KIND == SPARSE01
+    const int m = byte_indicators(KIND)
                       ? ml : t * F + col0 + (hi ? hi_col[i] : lo_col[i]);
     P[(size_t)nn * M + m] = v;
   };
@@ -346,7 +362,7 @@ grouped_hist_kernel(const float* __restrict__ stats,
         if (tile(i) < n_mt) {
           const int cl = lo_col[i], ch = hi_col[i];
           uint32_t a0, a1, a2, a3;
-          if (KIND == SPARSE01) {   // 0/1 bytes: byte * 1.0 in bf16
+          if (byte_indicators(KIND)) {   // 0/1 bytes: byte * 1.0 in bf16
             a0 = pack_pair(R0[cl], R1[cl]) * BF16_ONE;
             a1 = pack_pair(R0[ch], R1[ch]) * BF16_ONE;
             a2 = pack_pair(R2[cl], R3[cl]) * BF16_ONE;
@@ -381,7 +397,7 @@ grouped_hist_kernel(const float* __restrict__ stats,
 // slot s's partials in chunk order, as G consecutive runs of chunks whose
 // sums are added in run order. sparse01 (M = M_out + 1, the total at
 // m = M_out): out [A, C, 2, M_out] with t = 0 the total minus the nonzero
-// side and t = 1 the total. cumulative: out [A, C, M_out].
+// side and t = 1 the total. cumulative and precomputed: out [A, C, M_out].
 template <int KIND>
 __global__ void __launch_bounds__(REDUCE_RUNS * 32)
 grouped_reduce_kernel(const float* __restrict__ partial,
@@ -490,7 +506,7 @@ int launch(const void* stats, const void* rows, const void* order,
       n < 1 ||
       row_bytes % 16 != 0 || chunk % 16 != 0 || n_chunks < 1 ||
       (KIND == CUMULATIVE && (B < 1 || M % B != 0 || row_bytes < M / B)) ||
-      (KIND == SPARSE01 && row_bytes < M))
+      (byte_indicators(KIND) && row_bytes < M))
     return (int)cudaErrorInvalidValue;
   // groups of equal size: every group pays the whole gather of its rows
   const int tiles = (M + 15) / 16;

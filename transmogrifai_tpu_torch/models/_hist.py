@@ -6,7 +6,8 @@ has a wrapper and a plain version of the same function:
 
 * ``cumhist`` — level histograms ``cum[s,c,t,f] = Σ_i 1[node_i=s] ·
   1[bin_fi ≤ t] · stats_ic`` ([A, C, B, F]); ``bc=`` takes the
-  precomputed ``bin ≤ t`` indicator from :func:`make_bc`.
+  precomputed ``bin ≤ t`` indicator from :func:`make_bc` (counted as
+  ``cumhist_bc``).
 * ``cumhist_sparse01`` — the same [A, C, 2, Fb] histograms for a 2-bin
   block of 0/1 indicator columns, from the block itself: t=1 is the
   per-slot total, t=0 the total minus the nonzero side.
@@ -22,8 +23,8 @@ On the card the two histograms multiply each slot's live rows only: the
 level loop calls :func:`group_rows` once and passes its result as
 ``groups=`` to every block's histogram, and each fit makes the row-major
 uint8 copies the kernels gather rows from (:func:`hist_rows`,
-:func:`sparse01_rows`; ``rows=``) once. A wrapper given neither makes
-them itself.
+:func:`sparse01_rows`, and :func:`bc_rows` for ``bc=``; ``rows=``) once.
+A wrapper given neither makes them itself.
 
 A wrapper given tensors on the CPU runs the plain version (what the CPU
 tests use); given CUDA tensors it launches its kernel or raises — there
@@ -54,8 +55,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["cumhist", "cumhist_reference", "make_bc", "hist_rows",
-           "cumhist_sparse01", "cumhist_sparse01_reference", "sparse01_rows",
-           "group_rows", "group_rows_reference", "group_chunk", "KSTEP",
+           "bc_rows", "cumhist_sparse01", "cumhist_sparse01_reference",
+           "sparse01_rows", "group_rows", "group_rows_reference",
+           "group_chunk", "KSTEP",
            "split_scan", "split_scan_reference", "route_level",
            "route_level_reference", "predict_trees",
            "predict_trees_reference", "build_kernels", "KERNEL_LAUNCHES",
@@ -66,9 +68,10 @@ SPLIT_NEG = -1e30
 _EPS = 1e-12
 _KINDS = {"variance": 0, "gini": 1, "xgb": 2}
 
-KERNEL_LAUNCHES: Dict[str, int] = {"cumhist": 0, "cumhist_sparse01": 0,
-                                   "group_rows": 0, "split_scan": 0,
-                                   "route_level": 0, "predict_trees": 0}
+KERNEL_LAUNCHES: Dict[str, int] = {"cumhist": 0, "cumhist_bc": 0,
+                                   "cumhist_sparse01": 0, "group_rows": 0,
+                                   "split_scan": 0, "route_level": 0,
+                                   "predict_trees": 0}
 
 
 def reset_launch_counts() -> None:
@@ -91,7 +94,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry point → (source stem, argtypes)
 _ENTRY = {
     "cumhist_launch": ("cumhist", [_P] * 6 + [_I] * 8 + [_P]),
-    "cumhist_bc_launch": ("cumhist", [_P] * 5 + [_I] * 9 + [_P]),
+    "cumhist_bc_launch": ("cumhist", [_P] * 6 + [_I] * 8 + [_P]),
     "cumhist_sparse01_launch": ("cumhist_sparse01",
                                 [_P] * 6 + [_I] * 7 + [_P]),
     "group_rows_launch": ("group_rows", [_P] * 4 + [_I] * 2 + [_P]),
@@ -318,6 +321,16 @@ def sparse01_rows(Xb01: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def bc_rows(bc: torch.Tensor) -> torch.Tensor:
+    """[B·F, n] 0/1 indicator of :func:`make_bc` → the row-major uint8
+    [n, B·F rounded up to 16] copy ``cumhist(..., bc=...)``'s kernel
+    gathers rows from: ``bc.t()``, zero-padded; made once per fit."""
+    M, n = bc.shape
+    out = torch.zeros((n, _row_pad(M)), dtype=torch.uint8, device=bc.device)
+    out[:, :M] = bc.t()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # cumhist
 # ---------------------------------------------------------------------------
@@ -352,42 +365,6 @@ def cumhist_reference(stats: torch.Tensor, node: torch.Tensor,
     return h.reshape(n_nodes, C, n_bins, F)
 
 
-#: row splits per call of the bc= kernel aim at this many blocks; a
-#: function of shapes only, so a call's summation order is fixed
-_CUMHIST_TARGET_BLOCKS = 4 * 132
-#: the bc= kernel's output tile (csrc/cumhist.cu BM = BN); M and N are
-#: padded to it
-_CUMHIST_TILE = 128
-
-
-def _tiling(n: int, M: int, N: int) -> Tuple[int, int, int, int]:
-    """(M_pad, N_pad, row splits, rows per split) of the bc= product with
-    M output rows, N output columns and n data rows; rows per split is a
-    multiple of the kernel's 32-row step."""
-    T = _CUMHIST_TILE
-    M_pad = -(-M // T) * T
-    N_pad = -(-N // T) * T
-    tiles = (M_pad // T) * (N_pad // T)
-    splits = max(1, min(-(-n // 32), -(-_CUMHIST_TARGET_BLOCKS // tiles)))
-    rows_per_split = -(-(-(-n // splits)) // 32) * 32
-    return M_pad, N_pad, -(-n // rows_per_split), rows_per_split
-
-
-def _cumhist_bc(stats, node, bc, A, B, F):
-    n, C = stats.shape
-    dev = stats.device
-    _check(bc, "bc", torch.uint8, (B * F, n), dev)
-    M_pad, N_pad, splits, rows_per_split = _tiling(n, A * C, B * F)
-    partial = torch.empty(splits * M_pad * N_pad, dtype=torch.float32,
-                          device=dev)
-    out = torch.empty((A, C, B, F), dtype=torch.float32, device=dev)
-    _launch("cumhist", "cumhist_bc_launch", stats.data_ptr(),
-            node.data_ptr(), bc.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n, C, A, B, F, splits, rows_per_split, M_pad,
-            N_pad, _stream(dev))
-    return out
-
-
 def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
             n_nodes: int, n_bins: int, *,
             bc: Optional[torch.Tensor] = None, groups=None,
@@ -399,11 +376,14 @@ def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
     ``(order, seg_off)`` of :func:`group_rows` on ``node``, made here when
     not given) and the kernel gathers each live row's bins from ``rows``,
     the row-major uint8 copy of :func:`hist_rows` (made here when not
-    given; a fit makes it once). ``bc``, the uint8 [B·F, n] indicator of
-    :func:`make_bc`, takes the first design's one-hot product instead.
-    Kernel: f32 stats, int32 node/bins, C ≤ 8, B ≤ 256, any F. The CPU
-    takes the plain version, which reads ``XbT`` and ignores ``groups``
-    and ``rows``."""
+    given; a fit makes it once). With ``bc``, the 0/1 uint8 [B·F, n]
+    indicator of :func:`make_bc`, the same kernel reads the indicator
+    instead of comparing bins: ``rows`` is then :func:`bc_rows`' copy of
+    ``bc`` (made here when not given; a fit would make it once) and its
+    launches count under ``cumhist_bc``. Kernel: f32 stats, int32
+    node/bins, C ≤ 8, B ≤ 256 (any B with ``bc``), any F. The CPU takes
+    the plain version, which reads ``XbT`` (or ``bc``) and ignores
+    ``groups`` and ``rows``."""
     if _on_cpu(stats):
         return cumhist_reference(stats, node, XbT, n_nodes, n_bins, bc=bc)
     dev = stats.device
@@ -416,20 +396,25 @@ def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
     if not (1 <= C <= 8 and A >= 1 and B >= 1 and n >= 1):
         raise ValueError(f"cumhist: unsupported shape n={n} C={C} A={A} "
                          f"B={B}")
-    if bc is not None:
-        return _cumhist_bc(stats, node, bc, A, B, F)
-    if B > 256 or B * F >= 2 ** 31:
+    if (B > 256 and bc is None) or B * F >= 2 ** 31:
         raise ValueError(f"cumhist: B={B} > 256 does not fit the uint8 row "
                          f"copy, or B·F={B * F} overflows the kernel's int")
-    if rows is None:
-        rows = hist_rows(XbT)
-    _check(rows, "rows", torch.uint8, (n, _row_pad(F)), dev)
+    if bc is not None:
+        _check(bc, "bc", torch.uint8, (B * F, n), dev)
+        kernel, width = "cumhist_bc", B * F
+        if rows is None:
+            rows = bc_rows(bc)
+    else:
+        kernel, width = "cumhist", F
+        if rows is None:
+            rows = hist_rows(XbT)
+    _check(rows, "rows", torch.uint8, (n, _row_pad(width)), dev)
     order, seg_off = _groups_for(node, A, groups)
     chunk, n_chunks = group_chunk(n, A)
     partial = torch.empty((n_chunks + A) * C * B * F, dtype=torch.float32,
                           device=dev)
     out = torch.empty((A, C, B, F), dtype=torch.float32, device=dev)
-    _launch("cumhist", "cumhist_launch", stats.data_ptr(), rows.data_ptr(),
+    _launch(kernel, f"{kernel}_launch", stats.data_ptr(), rows.data_ptr(),
             order.data_ptr(), seg_off.data_ptr(), partial.data_ptr(),
             out.data_ptr(), n, C, A, B, F, rows.shape[1], chunk, n_chunks,
             _stream(dev))
@@ -561,7 +546,8 @@ def split_scan(cum: torch.Tensor, kind: str, min_instances, *,
     """[A, C, B, F] cumulative histograms → per-slot (best score [A],
     best t-major flat index [A] int32, valid [A] bool); ``kind`` ∈
     {"variance", "gini", "xgb"}; ``mask`` [A, F] (0/1) or None. Ties go
-    to the lower flat index. Kernel: f32."""
+    to the lower flat index. Kernel: f32; ``valid`` is written in place
+    as bool bytes (no conversion launch)."""
     if _on_cpu(cum):
         return split_scan_reference(cum, kind, min_instances, lam=lam,
                                     min_child_weight=min_child_weight,
@@ -573,18 +559,18 @@ def split_scan(cum: torch.Tensor, kind: str, min_instances, *,
         _check(mask, "mask", torch.float32, (A, F), dev)
     if kind not in _KINDS:
         raise ValueError(f"split_scan: unknown kind {kind!r}")
-    if B < 2 or (B - 1) * F >= 2 ** 31 or C < (3 if kind != "gini" else 2):
+    if B < 2 or B * F >= 2 ** 31 or C < (3 if kind != "gini" else 2):
         raise ValueError(f"split_scan: unsupported shape {tuple(cum.shape)}")
     score = torch.empty((A,), dtype=torch.float32, device=dev)
     idx = torch.empty((A,), dtype=torch.int32, device=dev)
-    valid = torch.empty((A,), dtype=torch.uint8, device=dev)
+    valid = torch.empty((A,), dtype=torch.bool, device=dev)   # 0/1 bytes
     mcw = 0.0 if min_child_weight is None else float(min_child_weight)
     _launch("split_scan", "split_scan_launch",
             cum.data_ptr(),
             mask.data_ptr() if mask is not None else None, A, C, B, F,
             _KINDS[kind], float(min_instances), mcw, float(lam),
             score.data_ptr(), idx.data_ptr(), valid.data_ptr(), _stream(dev))
-    return score, idx, valid.bool()
+    return score, idx, valid
 
 
 # ---------------------------------------------------------------------------
