@@ -21,16 +21,25 @@ Run from the repository root on a machine with one NVIDIA H100:
    equal to the plain version's at every criterion (variance, gini, xgb),
    A ∈ {1, 2, 32, 64, 128} slots, (F, B) ∈ {(20, 32), (32, 32), (419, 2),
    (600, 32)}, with and without a feature mask, and at constructed ties
-   (duplicate feature columns; the lowest flat index wins). Times each
-   (median of 20 launches, CUDA events) beside its plain version and one
-   PyTorch call computing the same function where there is one (a bf16
-   ``torch.matmul`` of the histograms' materialized operands, a stable
-   ``torch.argsort`` for ``group_rows``); the histograms (``cumhist``
-   from the bins and from ``bc=``, ``cumhist_sparse01``) at A ∈ {1, 16,
-   32, 64} slots as the level loop calls them (rows grouped once per
-   level, the row-major copy made once per fit), the first two also
-   grouping their own rows, and the per-fit copies on their own lines;
-   ``split_scan`` at each of its shapes at A ∈ {1, 128}. Then the
+   (duplicate feature columns; the lowest flat index wins). The level
+   epilogue's every output (slots, g, sibling masks, gpos, alive, rank,
+   and the feat/thr/gain/leaf records) is bitwise equal to its plain
+   version at A ∈ {1, 64, 128}, variance and xgb, one block and two (the
+   2-bin block's winners included), both drivers' levels, a level past the
+   depth limit, a last level, a level where every slot dies, and gain
+   ties. ``predict_trees`` is held at the sweep's ensemble (F=20, T=20,
+   D=9), the text path's (F=451, T=20, D=6) and one of several tree
+   chunks. Times each (median of 20 launches, CUDA events) beside its
+   plain version and one PyTorch call computing the same function where
+   there is one (a bf16 ``torch.matmul`` of the histograms' materialized
+   operands, a stable ``torch.argsort`` for ``group_rows``); the
+   histograms (``cumhist`` from the bins and from ``bc=``,
+   ``cumhist_sparse01``) at A ∈ {1, 16, 32, 64} slots as the level loop
+   calls them (rows grouped once per level, the row-major copy made once
+   per fit), the first two also grouping their own rows, and the per-fit
+   copies on their own lines; ``split_scan`` at each of its shapes at A ∈
+   {1, 128}; the level epilogue and the route alone (one launch) at A=128
+   with their bounds; ``predict_trees`` at both paths' shapes. Then the
    histograms at blocks with several groups of output rows (``cumhist``
    at F ∈ {40, 600, 1100} features, B ∈ {32, 2, 1}; ``cumhist(bc=)`` at
    F=40, B=32; ``cumhist_sparse01`` at Fb=1,500) against their plain
@@ -38,24 +47,29 @@ Run from the repository root on a machine with one NVIDIA H100:
 3. The tree-model AutoML sweep — GBT maxDepth {3, 6, 9} and XGBoost
    maxDepth {3, 6}, 20 rounds, 5-fold CV on AuPR, refit, scoring — through
    ``Workflow.train`` and ``WorkflowModel.evaluate`` on 200,000 rows, with
-   every kernel launch counted (``group_rows`` once per level, no
+   every kernel launch counted (one ``level_epilogue`` and one
+   ``group_rows`` a level, no route-only ``route_level``, no
    ``cumhist(bc=)``); then the same sweep at 20,000 rows (depths {3, 6})
    on the card and on the CPU, which must pick the same model with AuPR
    within 1e-4.
 4. The BigPassenger workflow (``big_passenger.py``): 200,000 typed records
    → transmogrify → SanityChecker → GBT + XGBoost maxDepth {3, 6}, 20
    rounds, 3-fold CV → refit → evaluate, with every kernel launch counted
-   (the six main-path kernels must launch, ``group_rows`` once per level,
-   no ``cumhist(bc=)``); then the same workflow at 2,000 rows (GBT {3} +
-   XGBoost {3}, 5 rounds, 2 folds) on the card and on the CPU, which must
-   pick the same model with AuPR within 1e-4.
+   (the main-path kernels must launch, one ``level_epilogue`` and one
+   ``group_rows`` a level, no ``route_level``, no ``cumhist(bc=)``); then
+   the same workflow at 2,000 rows (GBT {3} + XGBoost {3}, 5 rounds, 2
+   folds) on the card and on the CPU, which must pick the same model with
+   AuPR within 1e-4.
 
 ``--profile`` runs each main path once more under ``torch.profiler`` and
-prints its device-time table: the busy share, the histogram kernels, the
-split scans and the uint8 → bool copies. ``--timings-only`` skips every
-check and prints only ``split_scan``'s times and both paths' profiles,
-with no result line; it uses only what every version of the port has,
-so a copy of this script in another checkout times that checkout.
+prints its device-time table: the busy share, the device operations a
+tree level, the histogram kernels, the split scans, the route or level
+epilogue, the predict and the uint8 → bool copies. ``--timings-only``
+skips every check and prints only the times of ``split_scan``, the route
+alone and ``predict_trees``, each main path's train seconds and both
+paths' profiles, with no result line; it uses only what every version of
+the port has, so a copy of this script in another checkout times that
+checkout.
 
 Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
@@ -563,77 +577,297 @@ def check_kernels(H, dev):
                12.0 * ncand / F32_FLOPS))
     print(f"split_scan variance A={A}: plain {plain_ms:.4f} ms")
 
-    # -- route_level: A_parent in {1, 64, 128} ----------------------------
+    # -- route_level and the level epilogue -------------------------------
     for A in (1, 64, 128):
         A_next = min(2 * A, 128)
         slot = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
         g = put(rng.integers(0, 1 << 8, size=N, dtype=np.int32))
-        split = rng.random(A) > 0.3
-        order = rng.permutation(A)
-        ok = split & (order < A_next // 2)
-        tabs = [put(rng.integers(0, F, A, dtype=np.int32)),
-                put(rng.integers(0, B - 1, A, dtype=np.int32)),
-                put(np.where(ok, 2 * order, A_next).astype(np.int32)),
-                put(np.where(ok, 2 * order + 1, A_next).astype(np.int32)),
-                put(split)]
+        tabs = route_tables(rng, put, A, A_next)
         s2, g2 = H.route_level(XbT, slot, g, *tabs, A, A_next)
         rs2, rg2 = H.route_level_reference(XbT, slot, g, *tabs, A, A_next)
         torch.cuda.synchronize()
         if not (torch.equal(s2, rs2) and torch.equal(g2, rg2)):
             fail(f"route_level differs (A={A})")
     print("route_level: slots and g exact (A = 1, 64, 128)")
-    ms = time_ms(lambda: H.route_level(XbT, slot, g, *tabs, A, A_next))
-    plain_ms = time_ms(lambda: H.route_level_reference(XbT, slot, g, *tabs,
-                                                       A, A_next))
-    live = int((slot < A).sum().item())
-    rows["route_level"] = dict(
-        replaces="transmogrifai_tpu/models/_pallas_hist.py:389",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-        bound=((4 * N * 4 + 4 * live + 5 * A * 4) / HBM_BPS,
-               8.0 * N / F32_FLOPS))
-    print(f"route_level A={A}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    rows.update(check_epilogue(H, dev, rng, put, XbT))
 
-    # -- predict_trees: T=20 trees of depth 9 -----------------------------
-    T, D, K = 20, 9, 1
-    NN, L = (1 << D) - 1, 1 << D
-    X = put(rng.normal(size=(N, F)).astype(np.float32))
-    feat = put(rng.integers(0, F, size=(T, NN), dtype=np.int32))
-    thr_np = rng.normal(size=(T, NN)).astype(np.float32)
-    thr_np[rng.random((T, NN)) < 0.2] = np.inf          # dead splits
-    thr = put(thr_np)
-    leaf = put(rng.normal(size=(T, L, K)).astype(np.float32))
-    out = H.predict_trees(X, feat, thr, leaf, D)
-    ref = H.predict_trees_reference(X, feat, thr, leaf, D)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    if rel_err(out, ref) > REL_TOL:
-        fail(f"predict_trees differs: max abs err {err:.3g}")
-    print(f"predict_trees T={T} D={D}: within {REL_TOL:g} "
-          f"(max abs err {err:.3g})")
-    ms = time_ms(lambda: H.predict_trees(X, feat, thr, leaf, D))
-    plain_ms = time_ms(lambda: H.predict_trees_reference(X, feat, thr, leaf,
-                                                         D), reps=5)
-    rows["predict_trees"] = dict(
-        replaces="transmogrifai_tpu/models/_pallas_hist.py:674",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        bound=((N * F * 4 + T * NN * 8 + T * L * K * 4 + N * K * 4)
-               / HBM_BPS, float(N) * T * (D + K) / F32_FLOPS))
-    print(f"predict_trees: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    rows["predict_trees"] = check_predict(H, rng, put)
     return rows
 
 
-def profile_path(name, fn):
+def check_predict(H, rng, put):
+    """predict_trees against its plain version at each of PREDICT_SHAPES
+    (N rows, within REL_TOL), timed at the first two; returns the result
+    line's row (the sweep's shape)."""
+    worst = 0.0
+    for Fp, T, D in PREDICT_SHAPES:
+        X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D)
+        out = H.predict_trees(X, feat, thr, leaf, D)
+        ref = H.predict_trees_reference(X, feat, thr, leaf, D)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if rel_err(out, ref) > REL_TOL:
+            fail(f"predict_trees differs (F={Fp} T={T} D={D}): max abs err "
+                 f"{err:.3g}")
+        chunk = H.predict_trees_chunk(Fp, D)
+        print(f"predict_trees F={Fp} T={T} D={D} ({-(-T // chunk)} chunk(s) "
+              f"of up to {chunk} trees): within {REL_TOL:g} (max abs err "
+              f"{err:.3g}, bitwise equal: {torch.equal(out, ref)})")
+        worst = max(worst, err)
+    for Fp, T, D in PREDICT_SHAPES[:2]:
+        X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D)
+        ms = time_ms(lambda: H.predict_trees(X, feat, thr, leaf, D))
+        plain_ms = time_ms(lambda: H.predict_trees_reference(
+            X, feat, thr, leaf, D), reps=5)
+        bound = predict_bound(Fp, T, D)
+        print(f"predict_trees F={Fp} T={T} D={D}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {1e3 * max(bound):.5f} ms")
+        if Fp == F:
+            row = dict(replaces="transmogrifai_tpu/models/_pallas_hist.py:674",
+                       ms=ms, plain_ms=plain_ms, library_ms=None, bound=bound)
+    row["max_abs_err"] = worst
+    return row
+
+
+def route_tables(rng, put, A, A_next):
+    """Random slot tables of one level: features, bin thresholds, children
+    (2·position of the splitting slots under A_next / 2, else the sink)
+    and do_split."""
+    split = rng.random(A) > 0.3
+    order = rng.permutation(A)
+    ok = split & (order < A_next // 2)
+    return [put(rng.integers(0, F, A, dtype=np.int32)),
+            put(rng.integers(0, B - 1, A, dtype=np.int32)),
+            put(np.where(ok, 2 * order, A_next).astype(np.int32)),
+            put(np.where(ok, 2 * order + 1, A_next).astype(np.int32)),
+            put(split)]
+
+
+#: predict_trees' (F, T, D): the sweep's deepest ensemble, the text path's
+#: (F = 451 features scored at maxDepth 6), and an ensemble of several
+#: tree chunks whose T is not a multiple of the chunk
+PREDICT_SHAPES = ((F, 20, 9), (451, 20, 6), (F, 50, 9))
+
+
+def predict_inputs(rng, put, Fp, T, D, K=1):
+    NN, L = (1 << D) - 1, 1 << D
+    X = put(rng.normal(size=(N, Fp)).astype(np.float32))
+    feat = put(rng.integers(0, Fp, size=(T, NN), dtype=np.int32))
+    thr_np = rng.normal(size=(T, NN)).astype(np.float32)
+    thr_np[rng.random((T, NN)) < 0.2] = np.inf          # dead splits
+    leaf = put(rng.normal(size=(T, L, K)).astype(np.float32))
+    return X, feat, put(thr_np), leaf
+
+
+def predict_bound(Fp, T, D, K=1):
+    """(bytes, operations) seconds of predict_trees: the rows, the trees
+    and the sums moved once; D compares and K adds a tree and row."""
+    NN, L = (1 << D) - 1, 1 << D
+    return ((N * Fp * 4 + T * NN * 8 + T * L * K * 4 + N * K * 4) / HBM_BPS,
+            float(N) * T * (D + K) / F32_FLOPS)
+
+
+def epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A, nblk, d, D):
+    """One level's epilogue inputs at N rows: the histograms and split
+    scans of the sweep's 32-bin block (and, with two blocks, of a 2-bin
+    0/1 block of FB columns after it) from the kernels, a label that reads
+    both blocks, random live slots and positions, fresh records. Slot 1
+    copies slot 0's histograms and scores (a gain tie), and at slot 2 the
+    second block ties the first's score (the lower concatenated index
+    wins)."""
+    C = 4 if kind == "variance" else 3
+    y = ((X01[3] > 0) | (XbT[0] > 24)).float()
+    u = put(rng.random(N).astype(np.float32))
+    if kind == "variance":
+        w = u + 0.5
+        st = torch.stack([w, w * y, w * y * y, torch.ones_like(w)], 1)
+    else:
+        st = torch.stack([u - y, u * (1 - u) + 1e-6, torch.ones_like(u)], 1)
+    slot = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+    cums = [H.cumhist(st, slot, XbT, A, B)]
+    cols = [torch.arange(F, device=dev)]
+    if nblk == 2:
+        cums.append(H.cumhist_sparse01(st, slot, X01, A))
+        cols.append(torch.arange(F, F + FB, device=dev))
+        Xfull = torch.cat([XbT, X01.to(torch.int32)])
+    else:
+        Xfull = XbT
+    score = torch.empty((nblk, A), dtype=torch.float32, device=dev)
+    idx = torch.empty((nblk, A), dtype=torch.int32, device=dev)
+    valid = torch.empty((nblk, A), dtype=torch.bool, device=dev)
+    for b, cumb in enumerate(cums):
+        H.split_scan(cumb, kind, 10.0, lam=1.0, min_child_weight=1.0,
+                     out=(score[b], idx[b], valid[b]))
+    if A >= 2:
+        for cumb in cums:
+            cumb[1] = cumb[0]
+        for t in (score, idx, valid):
+            t[:, 1] = t[:, 0]
+    if A >= 3 and nblk == 2:
+        score[1, 2] = score[0, 2]
+    edges = torch.sort(torch.randn((Xfull.shape[0], B - 1), device=dev),
+                       dim=1).values
+    alive = put(rng.random(A) > 0.2)
+    alive[:2] = True
+    gpos = put(rng.permutation(1 << d)[:A].astype(np.int32))
+    g = put(rng.integers(0, 1 << d, size=N, dtype=np.int32))
+    return (score, idx, valid, cums, cols, [False, True][:nblk], edges,
+            alive, gpos, Xfull, slot, g)
+
+
+def level_records(D, C, dev):
+    """A tree's fresh records as grow_tree makes them: feat, thr, gain
+    [2^D] and the leaf stats [2^D + 1, C] (the last entry a sink)."""
+    return (torch.zeros(1 << D, dtype=torch.int32, device=dev),
+            torch.full((1 << D,), float("inf"), device=dev),
+            torch.zeros(1 << D, device=dev),
+            torch.zeros(((1 << D) + 1, C), device=dev))
+
+
+#: the gain floor as grow_tree computes it from min_info_gain = 0
+MIG = torch.clamp(torch.tensor(0.0), min=1e-10)
+
+
+def epilogue_pair(H, args, records, kw):
+    """The epilogue kernel and its plain version on the same inputs, each
+    on its own copy of the records; fails unless every output and record
+    (but the records' sink entries) is bitwise equal. Returns the plain
+    version's (outputs, records)."""
+    got_rec = [r.clone() for r in records]
+    ref_rec = [r.clone() for r in records]
+    got = H.level_epilogue(*args, *got_rec, **kw)
+    ref = H.level_epilogue_reference(*args, *ref_rec, **kw)
+    torch.cuda.synchronize()
+    names = ("slot2", "g2", "node_even2", "gpos2", "alive2", "rank")
+    for name, a, b in zip(names, got, ref):
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            fail(f"level_epilogue: {name} differs ({kw})")
+    # the last entry of each record is a sink: the plain version writes
+    # its dropped entries there, the kernel leaves it
+    for name, a, b in zip(("feat", "thr", "gain", "leaf_stats"), got_rec,
+                          ref_rec):
+        if not torch.equal(a[:-1], b[:-1]):
+            fail(f"level_epilogue: {name} differs ({kw})")
+    return ref, ref_rec
+
+
+def check_epilogue(H, dev, rng, put, XbT):
+    """The level epilogue against its plain version, every output bitwise:
+    A ∈ {1, 64, 128} parent slots; variance and xgb; one block and two
+    (the 2-bin block's winners at threshold 0.5); the unrolled driver's
+    level (A_next = min(2A, 128), the next level's sibling mask) and the
+    constant-slot driver's (A_next = A, no mask, more splitting slots than
+    A_next / 2); and, with two blocks, a level past the depth limit, a
+    last level (two leaves a split) and a level where every slot dies.
+    Then the route-only call and the epilogue timed at A = 128. Returns
+    the result line's rows of both."""
+    X01 = put((rng.random((FB, N)) < 0.3).astype(np.uint8))
+    block1_wins = 0
+    for A in (1, 64, 128):
+        d, D = (A - 1).bit_length(), 9
+        for kind in ("variance", "xgb"):
+            for nblk in (1, 2):
+                args = epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A,
+                                       nblk, d, D)
+                C = args[3][0].shape[1]
+                lam = 1.0 if kind == "xgb" else 0.0
+                cases = [dict(A_next=min(2 * A, 128), node_even=True),
+                         dict(A_next=A)]
+                if nblk == 2:
+                    block1_wins += int((args[0][1] > args[0][0]).sum())
+                    cases += [dict(A_next=A, split_ok=False),
+                              dict(A_next=min(2 * A, 128), last=True),
+                              dict(A_next=A, mig=torch.tensor(3e38))]
+                for case in cases:
+                    depth = d + 1 if case.get("last") else D
+                    kw = dict(kind=kind, lam=lam, mig=case.get("mig", MIG),
+                              d=d, max_depth=depth, A_next=case["A_next"],
+                              split_ok=case.get("split_ok", True),
+                              node_even=case.get("node_even", False))
+                    epilogue_pair(H, args, level_records(depth, C, dev), kw)
+    if not block1_wins:
+        fail("level_epilogue: no winner in the 2-bin block was checked")
+    print(f"level_epilogue: slots, g, sibling masks, gpos, alive, rank and "
+          f"the feat/thr/gain/leaf records bitwise equal to the plain "
+          f"version (A = 1, 64, 128; variance, xgb; 1 and 2 blocks, "
+          f"{block1_wins} slots won in the 2-bin block; both drivers; "
+          f"depth-limit, last and all-dying levels; gain ties)")
+
+    # the main path's call: the sweep's level at A = 128 (one block,
+    # variance, the next level's sibling mask)
+    A, d, D = 128, 7, 9
+    args = epilogue_inputs(H, dev, rng, put, XbT, X01, "variance", A, 1, d,
+                           D)
+    records = level_records(D, 4, dev)
+    kw = dict(kind="variance", lam=0.0, mig=MIG, d=d, max_depth=D,
+              A_next=A, node_even=True)
+    (slot2, *_rest), rec = epilogue_pair(H, args, records, kw)
+    ms = time_ms(lambda: H.level_epilogue(*args, *records, **kw))
+    plain_ms = time_ms(lambda: H.level_epilogue_reference(*args, *records,
+                                                          **kw))
+    slot, gpos, alive = args[10], args[8], args[7]
+    split = alive & torch.isfinite(rec[1][(1 << d) - 1 + gpos.long()])
+    live = slot < A
+    split_rows = int(split[slot[live].long()].sum().item())
+    n_split = int(split.sum().item())
+    n_dying = int((alive & ~split).sum().item())
+    emit = n_split - min(n_split, A // 2)
+    C = 4
+    # rows: slot and g read, one bin where the slot splits, slot', g' and
+    # node_even' written; the plan: the block winners (9 bytes a slot),
+    # the winner's left stats and the totals, alive and gpos, the column
+    # and edge; gpos', alive', rank; the records and leaves written
+    plan = (A * 9 + A * C * 8 + A * 5 + A * 12 + A * 5 + (A // 2) * 8
+            + int(alive.sum().item()) * 12 + (n_dying + 2 * emit) * C * 4)
+    nbytes = N * 8 + split_rows * 4 + N * 12 + plan
+    ebound = (nbytes / HBM_BPS, (A * A + 10.0 * N) / F32_FLOPS)
+    print(f"level_epilogue A={A} (one block, sibling mask): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{1e3 * max(ebound):.5f} ms ({nbytes} bytes, {plan} of them the "
+          f"plan's)")
+    out = {"level_epilogue": dict(
+        replaces="transmogrifai_tpu/models/_pallas_hist.py:389 and "
+                 "transmogrifai_tpu/models/_treefit.py:876",
+        source="transmogrifai_tpu_torch/csrc/route_level.cu",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+        bound=ebound)}
+
+    # the route alone, as the JAX route_level's signature takes it
+    g = args[11]
+    tabs = route_tables(rng, put, A, A)
+    r_ms = time_ms(lambda: H.route_level(XbT, slot, g, *tabs, A, A))
+    r_plain = time_ms(lambda: H.route_level_reference(XbT, slot, g, *tabs,
+                                                      A, A))
+    live_n = int(live.sum().item())
+    rbound = ((4 * N * 4 + 4 * live_n + 5 * A * 4) / HBM_BPS,
+              8.0 * N / F32_FLOPS)
+    print(f"route_level A={A}: kernel {r_ms:.4f} ms (one launch), plain "
+          f"{r_plain:.4f} ms, bound {1e3 * max(rbound):.5f} ms; the "
+          f"epilogue beside it {ms:.4f} ms, bound {1e3 * max(ebound):.5f} ms")
+    out["route_level"] = dict(
+        replaces="transmogrifai_tpu/models/_pallas_hist.py:389",
+        max_abs_err=0.0, ms=r_ms, plain_ms=r_plain, library_ms=None,
+        bound=rbound)
+    return out
+
+
+def profile_path(H, name, fn):
     """One main path once more under ``torch.profiler``: device time per
-    kernel and the device's busy share of the wall clock. Only device
-    activity is recorded (kernels, copies, fills), so each device
-    interval counts once in the busy share; a host operator's self
-    device time would count its kernels a second time."""
+    kernel, the device's busy share of the wall clock, and the device
+    operations a tree level (every kernel, copy and fill over the levels,
+    counted as ``group_rows``' launches: one a level in every version of
+    the port). Only device activity is recorded, so each device interval
+    counts once in the busy share; a host operator's self device time
+    would count its kernels a second time."""
     from torch.profiler import ProfilerActivity, profile
+    H.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    levels = H.KERNEL_LAUNCHES["group_rows"]
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
@@ -644,6 +878,11 @@ def profile_path(name, fn):
     busy = sum(r[0] for r in rows) / 1e6
     print(f"profile {name}: wall {wall:.3f} s, device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
+    ops = sum(r[1] for r in rows)
+    copies = sum(r[1] for r in rows if r[2].startswith(("Memcpy", "Memset")))
+    print(f"profile {name}: {ops} device operations ({ops - copies} kernels, "
+          f"{copies} copies and fills) over {levels} levels: "
+          f"{ops / max(levels, 1):.1f} device launches a level")
     for dev_us, count, key in rows[:15]:
         print(f"profile {name}: {dev_us / 1e3:10.1f} ms {count:7d}x  "
               f"{key[:90]}")
@@ -655,15 +894,18 @@ def profile_path(name, fn):
               f"{count:7d}x  {key[:70]}")
     print(f"profile {name}: histogram device time "
           f"{sum(r[0] for r in hist) / 1e3:.1f} ms")
-    # the split scans, and every uint8 → bool copy (one followed each scan
-    # while the scan wrote uint8 valid flags)
+    # the split scans, the route or level epilogue, the predict, and every
+    # uint8 → bool copy
     for what, sel in (("split_scan", lambda k: "split_scan" in k),
+                      ("route/epilogue", lambda k: "route_level" in k
+                       or "level_epilogue" in k),
+                      ("predict_trees", lambda k: "predict_trees" in k),
                       ("bool conversion",
                        lambda k: "copy" in k and "(bool)" in k)):
         found = [r for r in rows if sel(r[2])]
         for dev_us, count, key in found:
             print(f"profile {name} {what}: {dev_us / 1e3:10.3f} ms "
-                  f"{count:7d}x  {key}")
+                  f"{count:7d}x  {key[:90]}")
         print(f"profile {name}: {what} device time "
               f"{sum(r[0] for r in found) / 1e3:.3f} ms, "
               f"{sum(r[1] for r in found)} launches")
@@ -683,13 +925,15 @@ def counted(H, fn, kernels):
 
 
 def once_per_level(launches, what):
-    """Each tree level routes its rows once and groups them once; no fit
-    passes the precomputed indicator (``bc=``)."""
-    if launches["group_rows"] != launches["route_level"]:
+    """Each tree level ends in one epilogue launch (which routes its rows;
+    no route-only call) and groups its rows once; no fit passes the
+    precomputed indicator (``bc=``)."""
+    if launches["group_rows"] != launches["level_epilogue"]:
         fail(f"{what}: {launches['group_rows']} group_rows launches for "
-             f"{launches['route_level']} levels")
-    if launches["cumhist_bc"]:
-        fail(f"{what}: {launches['cumhist_bc']} cumhist(bc=) launches")
+             f"{launches['level_epilogue']} levels")
+    for k in ("cumhist_bc", "route_level"):
+        if launches[k]:
+            fail(f"{what}: {launches[k]} {k} launches")
 
 
 def check_scored(out, n, what):
@@ -722,12 +966,34 @@ def timings(H, dev, BP, run):
     a copy of this script placed in another checkout times that
     checkout's kernels: two versions compare in one call, in turns."""
     time_scans(H, dev)
-    run(N, device="cuda")
-    profile_path("sweep", lambda: run(N, device="cuda"))
+    rng = np.random.default_rng(4)
+
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+
+    XbT = put(rng.integers(0, B, size=(F, N), dtype=np.int32))
+    for A in (1, 128):
+        slot = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+        g = put(rng.integers(0, 1 << 8, size=N, dtype=np.int32))
+        tabs = route_tables(rng, put, A, min(2 * A, 128))
+        ms = time_ms(lambda: H.route_level(XbT, slot, g, *tabs, A,
+                                           min(2 * A, 128)))
+        print(f"route_level A={A}: {ms:.4f} ms")
+    for Fp, T, D in PREDICT_SHAPES[:2]:
+        X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D)
+        ms = time_ms(lambda: H.predict_trees(X, feat, thr, leaf, D))
+        print(f"predict_trees F={Fp} T={T} D={D}: {ms:.4f} ms, bound "
+              f"{1e3 * max(predict_bound(Fp, T, D)):.5f} ms")
+    del XbT, X
     records = BP.synthesize_records(N, seed=42)
-    BP.run(N, device="cuda", records=records)
-    profile_path("BigPassenger", lambda: BP.run(N, device="cuda",
-                                                records=records))
+    for what, fn in (("sweep", lambda: run(N, device="cuda")),
+                     ("BigPassenger", lambda: BP.run(N, device="cuda",
+                                                     records=records))):
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"{what}: train {out['train_s']:.2f} s (run "
+              f"{time.perf_counter() - t0:.2f} s)")
+        profile_path(H, what, fn)
     return 0
 
 
@@ -765,7 +1031,7 @@ def main():
     rows = check_kernels(H, dev)
 
     # -- phase 3: the synthetic tree sweep, every launch counted ----------
-    tree_kernels = ("cumhist", "group_rows", "split_scan", "route_level",
+    tree_kernels = ("cumhist", "group_rows", "split_scan", "level_epilogue",
                     "predict_trees")
     out, launches = counted(H, lambda: run(N, device="cuda"), tree_kernels)
     once_per_level(launches, "synthetic sweep")
@@ -776,7 +1042,7 @@ def main():
           f"{s.best_model_params}, AuPR {aupr:.6f}")
     print(f"synthetic-sweep launches: {launches}")
     if profile:
-        profile_path("sweep", lambda: run(N, device="cuda"))
+        profile_path(H, "sweep", lambda: run(N, device="cuda"))
     agree({d: run(20_000, device=d,
                   families=default_families((3, 6), (3, 6)))
            for d in ("cuda", "cpu")}, "synthetic sweep, 20000 rows")
@@ -801,8 +1067,8 @@ def main():
           f"{s.best_model_params}, AuPR {aupr:.6f}")
     print(f"BigPassenger launches: {launches}")
     if profile:
-        profile_path("BigPassenger", lambda: BP.run(N, device="cuda",
-                                                    records=records))
+        profile_path(H, "BigPassenger", lambda: BP.run(N, device="cuda",
+                                                       records=records))
     small = BP.synthesize_records(2_000, seed=42)
     agree({d: BP.run(2_000, num_folds=2, device=d, records=small,
                      families=default_families((3,), (3,), rounds=5))
@@ -810,7 +1076,7 @@ def main():
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",
-             "split_scan", "route_level", "predict_trees")
+             "split_scan", "route_level", "level_epilogue", "predict_trees")
     for name in names:
         r = rows[name]
         t_bytes, t_ops = r["bound"]

@@ -208,9 +208,15 @@ def test_split_scan_f32_selection_matches_xla_argmax(rng):
         v.numpy(), ok.reshape(A, -1)[np.arange(A), i.numpy()])
 
 
-@pytest.mark.parametrize("n,T,D,K", [(50, 3, 3, 1), (300, 5, 4, 2)])
-def test_predict_trees_matches_pallas_and_xla(rng, n, T, D, K):
-    F = 6
+@pytest.mark.parametrize("n,T,D,K,F", [
+    pytest.param(50, 3, 3, 1, 6, id="50-3-3-1"),
+    pytest.param(300, 5, 4, 2, 6, id="300-5-4-2"),
+    # the text path's scoring shape: 451 features, maxDepth 6
+    pytest.param(64, 20, 6, 1, 451, id="text-F451-D6"),
+    # deep trees past one shared-memory chunk of the kernel, T not a
+    # multiple of it
+    pytest.param(40, 37, 9, 1, 20, id="chunked-T37-D9")])
+def test_predict_trees_matches_pallas_and_xla(rng, n, T, D, K, F):
     X = rng.normal(size=(n, F))
     feat = rng.integers(0, F, size=(T, (1 << D) - 1)).astype(np.int32)
     thr = rng.normal(size=(T, (1 << D) - 1))
@@ -270,12 +276,15 @@ def test_kernels_match_plain_versions_on_the_card():
     for a, b in zip(H.route_level(XbT, *args, A, A_child),
                     H.route_level_reference(XbT, *args, A, A_child)):
         assert torch.equal(a, b)
-    T, D = 4, 5
-    X = torch.tensor(rng.normal(size=(n, F)).astype(np.float32), device=dev)
-    feat = torch.tensor(rng.integers(0, F, size=(T, (1 << D) - 1)),
-                        dtype=torch.int32, device=dev)
-    thr = torch.randn((T, (1 << D) - 1), device=dev)
-    leaf = torch.randn((T, 1 << D, 1), device=dev)
-    out = H.predict_trees(X, feat, thr, leaf, D)
-    ref = H.predict_trees_reference(X, feat, thr, leaf, D)
-    assert (out - ref).abs().max() <= REL32 * ref.abs().max()
+    # the sweep's shape, the text path's, and more trees than one chunk
+    for Fp, T, D in ((F, 4, 5), (451, 20, 6),
+                     (20, H.predict_trees_chunk(20, 9) + 8, 9)):
+        X = torch.tensor(rng.normal(size=(n, Fp)).astype(np.float32),
+                         device=dev)
+        feat = torch.tensor(rng.integers(0, Fp, size=(T, (1 << D) - 1)),
+                            dtype=torch.int32, device=dev)
+        thr = torch.randn((T, (1 << D) - 1), device=dev)
+        leaf = torch.randn((T, 1 << D, 1), device=dev)
+        out = H.predict_trees(X, feat, thr, leaf, D)
+        ref = H.predict_trees_reference(X, feat, thr, leaf, D)
+        assert (out - ref).abs().max() <= REL32 * ref.abs().max()

@@ -16,7 +16,13 @@ has a wrapper and a plain version of the same function:
   read. The port's own helper; no TPU kernel corresponds to it.
 * ``split_scan`` — per slot, the best (score, t-major flat index t·F+f,
   valid) over a cumulative histogram.
-* ``route_level`` — per row, (slot, g) → (child slot, 2g + right).
+* ``route_level`` — per row, (slot, g) → (child slot, 2g + right), from
+  the slot tables.
+* ``level_epilogue`` — a tree level after its split scans, in one launch:
+  the blocks' winners merged and decoded, the exact gains, ``do_split``,
+  the gain ranking and child slots, the node and leaf records, the next
+  level's slot state, and every row routed (``route_level``'s TPU kernel
+  with the bookkeeping XLA fuses around it in the JAX package).
 * ``predict_trees`` — rows down stacked level-order trees, summed leaves.
 
 On the card the two histograms multiply each slot's live rows only: the
@@ -59,9 +65,10 @@ __all__ = ["cumhist", "cumhist_reference", "make_bc", "hist_rows",
            "sparse01_rows", "group_rows", "group_rows_reference",
            "group_chunk", "KSTEP",
            "split_scan", "split_scan_reference", "route_level",
-           "route_level_reference", "predict_trees",
-           "predict_trees_reference", "build_kernels", "KERNEL_LAUNCHES",
-           "reset_launch_counts", "SPLIT_NEG"]
+           "route_level_reference", "split_gain", "level_epilogue",
+           "level_epilogue_reference", "predict_trees",
+           "predict_trees_reference", "predict_trees_chunk", "build_kernels",
+           "KERNEL_LAUNCHES", "reset_launch_counts", "SPLIT_NEG"]
 
 #: masked-out candidate score (the criteria's scores are all ≥ 0)
 SPLIT_NEG = -1e30
@@ -71,7 +78,7 @@ _KINDS = {"variance": 0, "gini": 1, "xgb": 2}
 KERNEL_LAUNCHES: Dict[str, int] = {"cumhist": 0, "cumhist_bc": 0,
                                    "cumhist_sparse01": 0, "group_rows": 0,
                                    "split_scan": 0, "route_level": 0,
-                                   "predict_trees": 0}
+                                   "level_epilogue": 0, "predict_trees": 0}
 
 
 def reset_launch_counts() -> None:
@@ -100,9 +107,12 @@ _ENTRY = {
     "group_rows_launch": ("group_rows", [_P] * 4 + [_I] * 2 + [_P]),
     "split_scan_launch": ("split_scan",
                           [_P, _P] + [_I] * 5 + [_F] * 3 + [_P] * 4),
-    "route_level_launch": ("route_level", [_P] * 6 + [_I] * 3 + [_P]),
+    "route_level_launch": ("route_level", [_P] * 10 + [_I] * 3 + [_P]),
+    "level_epilogue_launch": ("route_level", [ctypes.c_void_p, _P]),
+    "level_epilogue_smem": ("route_level", [_I, _I]),
     "predict_trees_launch": ("predict_trees",
                              [_P] * 5 + [_I] * 5 + [_P]),
+    "predict_trees_chunk": ("predict_trees", [_I] * 3),
 }
 _STEMS = tuple(dict.fromkeys(stem for stem, _ in _ENTRY.values()))
 
@@ -168,12 +178,18 @@ def build_kernels() -> float:
     return time.perf_counter() - t0
 
 
-def _launch(kernel: str, fn_name: str, *args) -> None:
-    """Call entry point ``fn_name``; count one launch of ``kernel``."""
+def _call(fn_name: str, *args) -> int:
+    """Call entry point ``fn_name`` (building the kernels first if need
+    be); returns its int."""
     stem = _ENTRY[fn_name][0]
     if stem not in _LIBS:
         build_kernels()
-    rc = getattr(_LIBS[stem], fn_name)(*args)
+    return getattr(_LIBS[stem], fn_name)(*args)
+
+
+def _launch(kernel: str, fn_name: str, *args) -> None:
+    """Call entry point ``fn_name``; count one launch of ``kernel``."""
+    rc = _call(fn_name, *args)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     KERNEL_LAUNCHES[kernel] += 1
@@ -542,16 +558,23 @@ def split_scan_reference(cum: torch.Tensor, kind: str, min_instances, *,
 
 def split_scan(cum: torch.Tensor, kind: str, min_instances, *,
                lam: float = 0.0, min_child_weight=None,
-               mask: Optional[torch.Tensor] = None):
+               mask: Optional[torch.Tensor] = None, out=None):
     """[A, C, B, F] cumulative histograms → per-slot (best score [A],
     best t-major flat index [A] int32, valid [A] bool); ``kind`` ∈
     {"variance", "gini", "xgb"}; ``mask`` [A, F] (0/1) or None. Ties go
-    to the lower flat index. Kernel: f32; ``valid`` is written in place
-    as bool bytes (no conversion launch)."""
+    to the lower flat index. ``out``: (score, idx, valid) [A] tensors to
+    write into and return (the level loop passes the rows of one
+    [blocks, A] table). Kernel: f32; ``valid`` is written in place as
+    bool bytes (no conversion launch)."""
     if _on_cpu(cum):
-        return split_scan_reference(cum, kind, min_instances, lam=lam,
-                                    min_child_weight=min_child_weight,
-                                    mask=mask)
+        res = split_scan_reference(cum, kind, min_instances, lam=lam,
+                                   min_child_weight=min_child_weight,
+                                   mask=mask)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return tuple(out)
     dev = cum.device
     A, C, B, F = cum.shape
     _check(cum, "cum", torch.float32, (A, C, B, F), dev)
@@ -561,9 +584,16 @@ def split_scan(cum: torch.Tensor, kind: str, min_instances, *,
         raise ValueError(f"split_scan: unknown kind {kind!r}")
     if B < 2 or B * F >= 2 ** 31 or C < (3 if kind != "gini" else 2):
         raise ValueError(f"split_scan: unsupported shape {tuple(cum.shape)}")
-    score = torch.empty((A,), dtype=torch.float32, device=dev)
-    idx = torch.empty((A,), dtype=torch.int32, device=dev)
-    valid = torch.empty((A,), dtype=torch.bool, device=dev)   # 0/1 bytes
+    if out is None:
+        score = torch.empty((A,), dtype=torch.float32, device=dev)
+        idx = torch.empty((A,), dtype=torch.int32, device=dev)
+        valid = torch.empty((A,), dtype=torch.bool, device=dev)  # 0/1 bytes
+    else:
+        score, idx, valid = out
+        for name, t, dt in (("score", score, torch.float32),
+                            ("idx", idx, torch.int32),
+                            ("valid", valid, torch.bool)):
+            _check(t, f"out {name}", dt, (A,), dev)
     mcw = 0.0 if min_child_weight is None else float(min_child_weight)
     _launch("split_scan", "split_scan_launch",
             cum.data_ptr(),
@@ -576,6 +606,10 @@ def split_scan(cum: torch.Tensor, kind: str, min_instances, *,
 # ---------------------------------------------------------------------------
 # route_level
 # ---------------------------------------------------------------------------
+
+#: the route's and the epilogue's kernels take at most this many slots
+_MAX_SLOTS = 2048
+
 
 def route_level_reference(XbT, slot, g, f_idx, t_idx, lchild, rchild,
                           do_split, A_parent: int, A_child: int):
@@ -592,8 +626,12 @@ def route_level_reference(XbT, slot, g, f_idx, t_idx, lchild, rchild,
 
 def route_level(XbT, slot, g, f_idx, t_idx, lchild, rchild, do_split,
                 A_parent: int, A_child: int):
-    """(slot, g) → (slot', g') for one tree level over [F, n] bins.
-    Kernel: int32 throughout (``do_split`` bool), A_parent ≤ 2048."""
+    """(slot, g) → (slot', g') for one tree level over [F, n] bins, from
+    the [A_parent] slot tables. The level loop routes through
+    :func:`level_epilogue`, which plans the tables itself; this is the
+    route alone (the JAX ``route_level``'s signature). Kernel: int32
+    throughout (``do_split`` bool), A_parent ≤ 2048; the five tables are
+    read where they lie."""
     if _on_cpu(XbT):
         return route_level_reference(XbT, slot, g, f_idx, t_idx, lchild,
                                      rchild, do_split, A_parent, A_child)
@@ -607,17 +645,273 @@ def route_level(XbT, slot, g, f_idx, t_idx, lchild, rchild, do_split,
                     ("lchild", lchild), ("rchild", rchild)):
         _check(t, name, torch.int32, (Ap,), dev)
     _check(do_split, "do_split", torch.bool, (Ap,), dev)
-    if not 1 <= Ap <= 2048:
-        raise ValueError(f"route_level: A_parent={Ap} outside [1, 2048]")
-    tab = torch.stack([f_idx, t_idx, lchild, rchild,
-                       do_split.to(torch.int32)]).contiguous()
+    if not 1 <= Ap <= _MAX_SLOTS:
+        raise ValueError(f"route_level: A_parent={Ap} outside [1, "
+                         f"{_MAX_SLOTS}]")
     slot2 = torch.empty_like(slot)
     g2 = torch.empty_like(g)
     _launch("route_level", "route_level_launch",
-            XbT.data_ptr(), slot.data_ptr(), g.data_ptr(),
-            tab.data_ptr(), slot2.data_ptr(), g2.data_ptr(), n, Ap,
+            XbT.data_ptr(), slot.data_ptr(), g.data_ptr(), f_idx.data_ptr(),
+            t_idx.data_ptr(), lchild.data_ptr(), rchild.data_ptr(),
+            do_split.data_ptr(), slot2.data_ptr(), g2.data_ptr(), n, Ap,
             int(A_child), _stream(dev))
     return slot2, g2
+
+
+# ---------------------------------------------------------------------------
+# level_epilogue: a tree level after its split scans
+# ---------------------------------------------------------------------------
+
+def split_gain(kind: str, l: torch.Tensor, t: torch.Tensor,
+               lam: float = 0.0) -> torch.Tensor:
+    """The exact gain at [A, C] left / total stats: Spark's Variance
+    impurity decrease (``variance``; channels w, w·y, w·y², count) or
+    XGBoost's ½(G_L²/(H_L+λ) + G_R²/(H_R+λ) − G²/(H+λ)) (``xgb``;
+    channels g, h, count). The epilogue kernel evaluates the same
+    operations in the same order."""
+    if kind == "variance":
+        def imp(w, s1, s2):
+            w = torch.clamp(w, min=_EPS)
+            return s2 / w - (s1 / w) ** 2
+        W = torch.clamp(t[:, 0], min=_EPS)
+        wL, wR = l[:, 0], t[:, 0] - l[:, 0]
+        return imp(t[:, 0], t[:, 1], t[:, 2]) \
+            - (wL / W) * imp(wL, l[:, 1], l[:, 2]) \
+            - (wR / W) * imp(wR, t[:, 1] - l[:, 1], t[:, 2] - l[:, 2])
+    if kind == "xgb":
+        def s(g, h):
+            return g * g / (h + lam + _EPS)
+        return 0.5 * (s(l[:, 0], l[:, 1])
+                      + s(t[:, 0] - l[:, 0], t[:, 1] - l[:, 1])
+                      - s(t[:, 0], t[:, 1]))
+    raise ValueError(f"split_gain: unknown kind {kind!r}")
+
+
+def level_epilogue_reference(score, idx, valid, cums, cols, sparse01, edges,
+                             alive, gpos, XbT, slot, g, feat, thr, gain,
+                             leaf_stats, *, kind: str, lam: float, mig,
+                             d: int, max_depth: int, A_next: int,
+                             split_ok: bool = True, node_even: bool = False):
+    """Plain version of :func:`level_epilogue`, the level loop's eager
+    code."""
+    A = alive.shape[0]
+    C = cums[0].shape[1]
+    dev = alive.device
+    D = max_depth
+    total_nodes, n_leaves = (1 << D) - 1, 1 << D
+    i32 = dict(dtype=torch.int32, device=dev)
+    # the blocks' winners merge on the concatenated candidate axis: the
+    # highest score, ties to the lower index (one argmax over the
+    # concatenation)
+    off = 0
+    for bi, cumb in enumerate(cums):
+        gi = off + idx[bi].long()
+        if bi == 0:
+            s_best, best, ok = score[0], gi, valid[0]
+        else:
+            take = (score[bi] > s_best) | ((score[bi] == s_best)
+                                           & (gi < best))
+            best = torch.where(take, gi, best)
+            ok = torch.where(take, valid[bi], ok)
+            s_best = torch.where(take, score[bi], s_best)
+        off += (cumb.shape[2] - 1) * cumb.shape[3]
+    # decode the winner in its block (later blocks override where the
+    # winner lies in them); the exact gain is taken at the winner's
+    # [A, C] left / total stats
+    off = 0
+    for bi, cumb in enumerate(cums):
+        fb_n = cumb.shape[3]
+        size = (cumb.shape[2] - 1) * fb_n
+        local = best - off
+        if len(cums) > 1:
+            local = torch.clamp(local, 0, size - 1)
+        fg = cols[bi][local % fb_n]
+        tb = local // fb_n
+        thr_b = (torch.full((A,), 0.5, dtype=edges.dtype, device=dev)
+                 if sparse01[bi] else edges[fg, tb])
+        lb = cumb[:, :, :-1, :].reshape(A, C, size).gather(
+            2, local[:, None, None].expand(A, C, 1))[:, :, 0]
+        if bi == 0:
+            f_idx, t_idx, thr_v, lstats = fg, tb, thr_b, lb
+        else:
+            inb = best >= off
+            f_idx = torch.where(inb, fg, f_idx)
+            t_idx = torch.where(inb, tb, t_idx)
+            thr_v = torch.where(inb, thr_b, thr_v)
+            lstats = torch.where(inb[:, None], lb, lstats)
+        off += size
+    f_idx, t_idx = f_idx.to(torch.int32), t_idx.to(torch.int32)
+    tstats = cums[0][:, :, -1, 0]
+    best_gain = split_gain(kind, lstats, tstats, lam)
+    do_split = alive & ok & (best_gain >= mig)
+    if not split_ok:
+        do_split = torch.zeros_like(do_split)
+    f_idx = torch.where(do_split, f_idx, torch.zeros_like(f_idx))
+    thr_rec = torch.where(do_split, thr_v,
+                          torch.full_like(thr_v, float("inf")))
+
+    # next level: rank splitting slots by gain, allocate child slots
+    rank = torch.argsort(torch.where(
+        do_split, -best_gain, torch.full_like(best_gain, float("inf"))),
+        stable=True)
+    inv = torch.empty((A,), **i32)
+    inv[rank] = torch.arange(A, **i32)
+    parent_ok = do_split & (inv < A_next // 2)
+    sink = torch.full_like(inv, A_next)
+    lchild = torch.where(parent_ok, 2 * inv, sink)
+    rchild = torch.where(parent_ok, 2 * inv + 1, sink)
+    slot2, g2 = route_level_reference(XbT, slot, g, f_idx, t_idx, lchild,
+                                      rchild, do_split, A, A_next)
+    # index A_next / total_nodes / n_leaves is a dropped sink entry
+    gpos2 = torch.zeros((A_next + 1,), **i32)
+    gpos2[lchild.long()] = 2 * gpos
+    gpos2[rchild.long()] = 2 * gpos + 1
+    alive2 = torch.zeros((A_next + 1,), dtype=torch.bool, device=dev)
+    alive2[lchild.long()] = parent_ok
+    alive2[rchild.long()] = parent_ok
+
+    # record splits: node (d, j) lives at flat index (2^d − 1) + j
+    node = torch.where(alive, (1 << d) - 1 + gpos,
+                       torch.full_like(gpos, total_nodes)).long()
+    feat[node] = f_idx
+    thr[node] = thr_rec
+    gain[node] = torch.where(do_split, best_gain,
+                             torch.zeros_like(best_gain))
+    # leaf stats: a node that stops splitting is a leaf over the
+    # g-range [gpos << (D−d), …); a split whose children leave the
+    # slot budget or that happens at the last level emits two leaves
+    dying = alive & ~do_split
+    no_leaf = torch.full_like(gpos, n_leaves)
+    leaf_stats[torch.where(dying, gpos << (D - d), no_leaf).long()] = tstats
+    emit = do_split & (~parent_ok | (d == D - 1))
+    sh = D - d - 1
+    li = torch.where(emit, (2 * gpos) << sh, no_leaf).long()
+    ri = torch.where(emit, (2 * gpos + 1) << sh, no_leaf).long()
+    leaf_stats[li] = lstats
+    leaf_stats[ri] = tstats - lstats
+    # the next level's sibling mask: left children (even slots) by parent
+    even2 = None
+    if node_even:
+        even2 = torch.where((slot2 < A_next) & (slot2 % 2 == 0), slot2 // 2,
+                            torch.full_like(slot2, A_next // 2))
+    return (slot2, g2, even2, gpos2[:A_next], alive2[:A_next],
+            rank[:A_next // 2])
+
+
+#: candidate blocks the epilogue kernel merges (csrc/route_level.cu)
+_MAX_CAND_BLOCKS = 4
+#: dynamic shared memory an H100 block may use
+_SMEM_MAX = 232448
+
+
+class _EpilogueParams(ctypes.Structure):
+    """``EpilogueParams`` of csrc/route_level.cu, field for field."""
+    _fields_ = ([("cum", _P * _MAX_CAND_BLOCKS),
+                 ("cols", _P * _MAX_CAND_BLOCKS)]
+                + [(k, _I * _MAX_CAND_BLOCKS)
+                   for k in ("n_bins", "width", "sparse01")]
+                + [(k, _P) for k in (
+                    "score", "idx", "valid", "edges", "alive", "gpos", "xbt",
+                    "slot", "g", "slot2", "g2", "node_even2", "gpos2",
+                    "alive2", "rank", "feat", "thr", "gain", "leaf_stats")]
+                + [(k, _I) for k in (
+                    "n_blocks", "edge_stride", "n", "A", "A_next", "C",
+                    "kind", "split", "d", "D")]
+                + [("lam", _F), ("mig", _F)])
+
+
+def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
+                   gpos, XbT, slot, g, feat, thr, gain, leaf_stats, *,
+                   kind: str, lam: float, mig, d: int, max_depth: int,
+                   A_next: int, split_ok: bool = True,
+                   node_even: bool = False):
+    """One tree level after its split scans: A parent slots → A_next
+    child slots.
+
+    Inputs: every candidate block's ``split_scan`` results as [blocks, A]
+    tables (``score``, ``idx`` int32, ``valid`` bool), the blocks'
+    cumulative histograms ``cums`` ([A, C, n_bins_b, F_b] each; block 0's
+    last bin holds the slot totals), their global columns ``cols`` (int64)
+    and ``sparse01`` flags (stored threshold 0.5), ``edges`` [F, B−1], the
+    slots' ``alive`` / ``gpos``, the bins ``XbT`` [F, n] and the rows'
+    ``slot`` / ``g``; the criterion ``kind`` ("variance" or "xgb") with
+    ``lam``, the gain floor ``mig``, level ``d`` of ``max_depth``, and
+    ``split_ok`` (False past the depth limit: nothing splits).
+
+    Writes the level's records in place — ``feat`` / ``thr`` / ``gain``
+    [2^D] at flat index 2^d − 1 + gpos and ``leaf_stats`` [2^D + 1, C]
+    (the last entry of each is a sink that is never read) — and returns
+    (slot', g', node_even' or None, gpos' [A_next], alive' [A_next],
+    rank [A_next // 2] int64): the rows' child slots and g' = 2g + right;
+    with ``node_even``, each row's left-child parent index for the next
+    level's sibling subtraction (A_next // 2 elsewhere); the children's
+    positions and liveness; the parents in gain order.
+
+    Kernel: one launch; f32, int32 rows, A ≤ 2048, C ≤ 8, at most four
+    blocks."""
+    args = (score, idx, valid, cums, cols, sparse01, edges, alive, gpos,
+            XbT, slot, g, feat, thr, gain, leaf_stats)
+    kw = dict(kind=kind, lam=lam, mig=mig, d=d, max_depth=max_depth,
+              A_next=A_next, split_ok=split_ok, node_even=node_even)
+    if _on_cpu(XbT):
+        return level_epilogue_reference(*args, **kw)
+    dev = XbT.device
+    F, n = XbT.shape
+    nblk, A = len(cums), alive.shape[0]
+    C = cums[0].shape[1]
+    D, A_next = int(max_depth), int(A_next)
+    if kind not in ("variance", "xgb"):
+        raise ValueError(f"level_epilogue: no kernel for kind {kind!r}")
+    if not (1 <= nblk <= _MAX_CAND_BLOCKS and 1 <= A <= _MAX_SLOTS
+            and 3 <= C <= 8 and A_next >= 1 and 1 <= D <= 30):
+        raise ValueError(f"level_epilogue: unsupported blocks={nblk} A={A} "
+                         f"C={C} A_next={A_next} D={D}")
+    if _call("level_epilogue_smem", A, C) > _SMEM_MAX:
+        raise ValueError(f"level_epilogue: the plan of A={A} slots, C={C} "
+                         "does not fit one block's shared memory")
+    for bi, (cumb, cb) in enumerate(zip(cums, cols)):
+        _check(cumb, f"cums[{bi}]", torch.float32, (A, C, None, None), dev)
+        _check(cb, f"cols[{bi}]", torch.int64, (cumb.shape[3],), dev)
+    _check(score, "score", torch.float32, (nblk, A), dev)
+    _check(idx, "idx", torch.int32, (nblk, A), dev)
+    _check(valid, "valid", torch.bool, (nblk, A), dev)
+    _check(edges, "edges", torch.float32, (F, None), dev)
+    _check(alive, "alive", torch.bool, (A,), dev)
+    _check(gpos, "gpos", torch.int32, (A,), dev)
+    _check(XbT, "XbT", torch.int32, (F, n), dev)
+    _check(slot, "slot", torch.int32, (n,), dev)
+    _check(g, "g", torch.int32, (n,), dev)
+    _check(feat, "feat", torch.int32, (1 << D,), dev)
+    _check(thr, "thr", torch.float32, (1 << D,), dev)
+    _check(gain, "gain", torch.float32, (1 << D,), dev)
+    _check(leaf_stats, "leaf_stats", torch.float32, ((1 << D) + 1, C), dev)
+    rows = torch.empty((3 if node_even else 2, n), dtype=torch.int32,
+                       device=dev)
+    gpos2 = torch.empty((A_next,), dtype=torch.int32, device=dev)
+    alive2 = torch.empty((A_next,), dtype=torch.bool, device=dev)
+    rank = torch.empty((A_next // 2,), dtype=torch.int64, device=dev)
+    p = _EpilogueParams()
+    for bi, (cumb, cb) in enumerate(zip(cums, cols)):
+        p.cum[bi], p.cols[bi] = cumb.data_ptr(), cb.data_ptr()
+        p.n_bins[bi], p.width[bi] = cumb.shape[2], cumb.shape[3]
+        p.sparse01[bi] = bool(sparse01[bi])
+    for name, t in (("score", score), ("idx", idx), ("valid", valid),
+                    ("edges", edges), ("alive", alive), ("gpos", gpos),
+                    ("xbt", XbT), ("slot", slot), ("g", g),
+                    ("slot2", rows[0]), ("g2", rows[1]), ("gpos2", gpos2),
+                    ("alive2", alive2), ("rank", rank), ("feat", feat),
+                    ("thr", thr), ("gain", gain),
+                    ("leaf_stats", leaf_stats)):
+        setattr(p, name, t.data_ptr())
+    p.node_even2 = rows[2].data_ptr() if node_even else None
+    p.n_blocks, p.edge_stride, p.n, p.A, p.A_next, p.C = \
+        nblk, edges.shape[1], n, A, A_next, C
+    p.kind, p.split, p.d, p.D = _KINDS[kind], bool(split_ok), int(d), D
+    p.lam, p.mig = float(lam), float(mig)
+    _launch("level_epilogue", "level_epilogue_launch", ctypes.addressof(p),
+            _stream(dev))
+    return (rows[0], rows[1], rows[2] if node_even else None, gpos2, alive2,
+            rank)
 
 
 # ---------------------------------------------------------------------------
@@ -665,3 +959,12 @@ def predict_trees(X, feat, thr, leaf_w, max_depth: int):
             X.data_ptr(), feat.data_ptr(), thr.data_ptr(),
             leaf_w.data_ptr(), out.data_ptr(), n, F, T, D, K, _stream(dev))
     return out
+
+
+def predict_trees_chunk(n_features: int, max_depth: int,
+                        n_out: int = 1) -> int:
+    """Trees the predict kernel holds in shared memory at once at this
+    shape (it takes a larger ensemble in chunks of this many trees; 0:
+    one tree does not fit). Builds the kernels if need be."""
+    return _call("predict_trees_chunk", int(n_features), int(max_depth),
+                 int(n_out))

@@ -5,7 +5,9 @@ routed predict).
 Features are quantile-binned once per fit (``n_bins=32``); a tree grows
 level-wise: per level one ``cumhist`` builds the [slots, channels, bins,
 features] cumulative histograms, ``split_scan`` picks each slot's best
-(feature, threshold), and ``route_level`` moves every row to its child
+(feature, threshold), and ``level_epilogue`` does the rest of the level in
+one launch: the exact gains, the split decisions, the gain ranking and
+child slots, the node and leaf records, and every row moved to its child
 slot (``models/_hist.py``; CUDA kernels on the card, plain versions on the
 CPU). Nodes that stop splitting route their rows left through +inf
 thresholds, so the fixed-depth layout stays exact.
@@ -37,7 +39,7 @@ import torch
 
 from .. import random as R
 from ._hist import (cumhist, cumhist_sparse01, group_rows, hist_rows,
-                    predict_trees, route_level, sparse01_rows, split_scan)
+                    level_epilogue, predict_trees, sparse01_rows, split_scan)
 
 __all__ = ["quantile_bin_edges", "binarize", "compute_bins", "Block",
            "make_col_blocks", "prepare_blocks",
@@ -183,8 +185,8 @@ def prepare_blocks(XbT: torch.Tensor, n_bins: int, binary_mask=None
 
 
 # ---------------------------------------------------------------------------
-# Split criteria: ``kernel_kind`` names split_scan's inlined score; ``gain``
-# is the exact gain at the winner's [A, C] left / total stats.
+# Split criteria: ``kernel_kind`` names split_scan's inlined score and the
+# level epilogue's exact gain (``_hist.split_gain``).
 # ---------------------------------------------------------------------------
 
 class VarianceCriterion:
@@ -194,16 +196,6 @@ class VarianceCriterion:
 
     def kernel_params(self):
         return 0.0, None            # (lam, min_child_weight)
-
-    def gain(self, l, t):
-        def imp(w, s1, s2):
-            w = torch.clamp(w, min=_EPS)
-            return s2 / w - (s1 / w) ** 2
-        W = torch.clamp(t[:, 0], min=_EPS)
-        wL, wR = l[:, 0], t[:, 0] - l[:, 0]
-        return imp(t[:, 0], t[:, 1], t[:, 2]) \
-            - (wL / W) * imp(wL, l[:, 1], l[:, 2]) \
-            - (wR / W) * imp(wR, t[:, 1] - l[:, 1], t[:, 2] - l[:, 2])
 
 
 def variance_leaf(s):
@@ -223,13 +215,6 @@ class XGBCriterion:
 
     def kernel_params(self):
         return float(self.lam), self.min_child_weight
-
-    def gain(self, l, t):
-        def s(g, h):
-            return g * g / (h + self.lam + _EPS)
-        return 0.5 * (s(l[:, 0], l[:, 1])
-                      + s(t[:, 0] - l[:, 0], t[:, 1] - l[:, 1])
-                      - s(t[:, 0], t[:, 1]))
 
 
 def make_xgb_leaf(lam: float):
@@ -278,9 +263,11 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
     total_nodes = (1 << D) - 1
     n_leaves = 1 << D
     lam, mcw = crit.kernel_params()
-    mig = torch.clamp(torch.as_tensor(min_info_gain, dtype=dt, device=dev),
-                      min=1e-10)
+    # the gain floor, a host scalar in the stats' dtype
+    mig = torch.clamp(torch.as_tensor(min_info_gain, dtype=dt), min=1e-10)
     i32 = dict(dtype=torch.int32, device=dev)
+    cols = [blk.cols for blk in blocks]
+    sparse01 = [blk.sparse01 for blk in blocks]
 
     def hist(blk, node, a, groups):
         if blk.sparse01:
@@ -289,24 +276,26 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
         return cumhist(stats, node, blk.mat, a, blk.n_bins, groups=groups,
                        rows=blk.rows)
 
-    def level(d, A, A_next, slot, g, gpos, alive, feat, thr, gain, leafS,
-              prev):
+    def level(d, A, A_next, slot, g, node_even, gpos, alive, feat, thr,
+              gain, leafS, prev):
         # the card's kernels read the live rows grouped by slot, once a
         # level for every block; the CPU's plain versions need no grouping
         grouped = dev.type != "cpu"
         groups = None
         if prev is not None:
-            # left children live in the even slots; each right sibling is
-            # its parent's histogram minus the left one, per block
+            # left children live in the even slots (``node_even``, from
+            # the last level's epilogue); each right sibling is its
+            # parent's histogram minus the left one, per block
             half = A // 2
-            node_even = torch.where((slot < A) & (slot % 2 == 0), slot // 2,
-                                    torch.full_like(slot, half))
             if grouped:
                 groups = group_rows(node_even, half)
         elif grouped:
             groups = group_rows(slot, A)
+        # every block's winner, written into one [blocks, A] table
+        score = torch.empty((len(blocks), A), dtype=dt, device=dev)
+        idx = torch.empty((len(blocks), A), **i32)
+        valid = torch.empty((len(blocks), A), dtype=torch.bool, device=dev)
         cums = []
-        off = 0
         for bi, blk in enumerate(blocks):
             if prev is not None:
                 ev = hist(blk, node_even, half, groups)
@@ -315,96 +304,19 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
                     (A,) + ev.shape[1:])
             else:
                 cumb = hist(blk, slot, A, groups)
-            s_b, i_b, v_b = split_scan(cumb, crit.kernel_kind,
-                                       min_instances, lam=lam,
-                                       min_child_weight=mcw)
-            gi = off + i_b.long()
-            if not cums:
-                score, best, valid = s_b, gi, v_b
-            else:
-                take = (s_b > score) | ((s_b == score) & (gi < best))
-                best = torch.where(take, gi, best)
-                valid = torch.where(take, v_b, valid)
-                score = torch.where(take, s_b, score)
+            split_scan(cumb, crit.kernel_kind, min_instances, lam=lam,
+                       min_child_weight=mcw,
+                       out=(score[bi], idx[bi], valid[bi]))
             cums.append(cumb)
-            off += (blk.n_bins - 1) * len(blk.cols)
-        # decode the winner in its block (later blocks override where the
-        # winner lies in them); the exact gain is taken at the winner's
-        # [A, C] left / total stats
-        off = 0
-        for bi, (blk, cumb) in enumerate(zip(blocks, cums)):
-            fb_n = len(blk.cols)
-            size = (blk.n_bins - 1) * fb_n
-            local = best - off
-            if len(blocks) > 1:
-                local = torch.clamp(local, 0, size - 1)
-            fg = blk.cols[local % fb_n]
-            tb = local // fb_n
-            thr_b = (torch.full((A,), 0.5, dtype=edges.dtype, device=dev)
-                     if blk.sparse01 else edges[fg, tb])
-            lb = cumb[:, :, :-1, :].reshape(A, C, size).gather(
-                2, local[:, None, None].expand(A, C, 1))[:, :, 0]
-            if bi == 0:
-                f_idx, t_idx, thr_v, lstats = fg, tb, thr_b, lb
-            else:
-                inb = best >= off
-                f_idx = torch.where(inb, fg, f_idx)
-                t_idx = torch.where(inb, tb, t_idx)
-                thr_v = torch.where(inb, thr_b, thr_v)
-                lstats = torch.where(inb[:, None], lb, lstats)
-            off += size
-        f_idx, t_idx = f_idx.to(torch.int32), t_idx.to(torch.int32)
-        tstats = cums[0][:, :, -1, 0]
-        best_gain = crit.gain(lstats, tstats)
-        do_split = alive & valid & (best_gain >= mig)
-        if depth_limit is not None and d >= depth_limit:
-            do_split = torch.zeros_like(do_split)
-        f_idx = torch.where(do_split, f_idx, torch.zeros_like(f_idx))
-        thr_rec = torch.where(do_split, thr_v,
-                              torch.full_like(thr_v, float("inf")))
+        slot2, g2, node_even2, gpos2, alive2, rank = level_epilogue(
+            score, idx, valid, cums, cols, sparse01, edges, alive, gpos,
+            XbT, slot, g, feat, thr, gain, leafS, kind=crit.kernel_kind,
+            lam=lam, mig=mig, d=d, max_depth=D, A_next=A_next,
+            split_ok=depth_limit is None or d < depth_limit,
+            node_even=unroll and d + 1 < D)
+        return slot2, g2, node_even2, gpos2, alive2, (cums, rank)
 
-        # next level: rank splitting slots by gain, allocate child slots
-        rank = torch.argsort(torch.where(
-            do_split, -best_gain, torch.full_like(best_gain, float("inf"))),
-            stable=True)
-        inv = torch.empty((A,), **i32)
-        inv[rank] = torch.arange(A, **i32)
-        parent_ok = do_split & (inv < A_next // 2)
-        sink = torch.full_like(inv, A_next)
-        lchild = torch.where(parent_ok, 2 * inv, sink)
-        rchild = torch.where(parent_ok, 2 * inv + 1, sink)
-        slot2, g2 = route_level(XbT, slot, g, f_idx, t_idx, lchild, rchild,
-                                do_split, A, A_next)
-        # index A_next / total_nodes / n_leaves is a dropped sink entry
-        gpos2 = torch.zeros((A_next + 1,), **i32)
-        gpos2[lchild.long()] = 2 * gpos
-        gpos2[rchild.long()] = 2 * gpos + 1
-        alive2 = torch.zeros((A_next + 1,), dtype=torch.bool, device=dev)
-        alive2[lchild.long()] = parent_ok
-        alive2[rchild.long()] = parent_ok
-
-        # record splits: node (d, j) lives at flat index (2^d − 1) + j
-        idx = torch.where(alive, (1 << d) - 1 + gpos,
-                          torch.full_like(gpos, total_nodes)).long()
-        feat[idx] = f_idx
-        thr[idx] = thr_rec
-        gain[idx] = torch.where(do_split, best_gain,
-                                torch.zeros_like(best_gain))
-        # leaf stats: a node that stops splitting is a leaf over the
-        # g-range [gpos << (D−d), …); a split whose children leave the
-        # slot budget or that happens at the last level emits two leaves
-        dying = alive & ~do_split
-        no_leaf = torch.full_like(gpos, n_leaves)
-        leafS[torch.where(dying, gpos << (D - d), no_leaf).long()] = tstats
-        emit = do_split & (~parent_ok | (d == D - 1))
-        sh = D - d - 1
-        li = torch.where(emit, (2 * gpos) << sh, no_leaf).long()
-        ri = torch.where(emit, (2 * gpos + 1) << sh, no_leaf).long()
-        leafS[li] = lstats
-        leafS[ri] = tstats - lstats
-        return (slot2, g2, gpos2[:A_next], alive2[:A_next],
-                (cums, rank[:A_next // 2]))
-
+    # the trailing entry of each record is a sink for non-live slots
     feat = torch.zeros((total_nodes + 1,), **i32)
     thr = torch.full((total_nodes + 1,), float("inf"), dtype=edges.dtype,
                      device=dev)
@@ -412,22 +324,23 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
     leafS = torch.zeros((n_leaves + 1, C), dtype=dt, device=dev)
     slot = torch.zeros((n,), **i32)
     g = torch.zeros((n,), **i32)
+    node_even = None
     prev = None
     if unroll:
         gpos = torch.zeros((1,), **i32)
         alive = torch.ones((1,), dtype=torch.bool, device=dev)
         for d in range(D):
             A, A_next = min(1 << d, cap), min(1 << (d + 1), cap)
-            slot, g, gpos, alive, prev = level(
-                d, A, A_next, slot, g, gpos, alive, feat, thr, gain, leafS,
-                prev)
+            slot, g, node_even, gpos, alive, prev = level(
+                d, A, A_next, slot, g, node_even, gpos, alive, feat, thr,
+                gain, leafS, prev)
     else:
         gpos = torch.zeros((cap,), **i32)
         alive = torch.arange(cap, device=dev) == 0
         for d in range(D):
-            slot, g, gpos, alive, _ = level(
-                d, cap, cap, slot, g, gpos, alive, feat, thr, gain, leafS,
-                None)
+            slot, g, _, gpos, alive, _ = level(
+                d, cap, cap, slot, g, None, gpos, alive, feat, thr, gain,
+                leafS, None)
     return (feat[:total_nodes], thr[:total_nodes],
             leaf_fn(leafS[:n_leaves]), g, gain[:total_nodes])
 
