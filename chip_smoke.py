@@ -24,12 +24,16 @@ Run from the repository root on a machine with one NVIDIA H100:
    (duplicate feature columns; the lowest flat index wins). The level
    epilogue's every output (slots, g, sibling masks, gpos, alive, rank,
    and the feat/thr/gain/leaf records) is bitwise equal to its plain
-   version at A ∈ {1, 64, 128}, variance and xgb, one block and two (the
-   2-bin block's winners included), both drivers' levels, a level past the
-   depth limit, a last level, a level where every slot dies, and gain
-   ties. ``predict_trees`` is held at the sweep's ensemble (F=20, T=20,
-   D=9), the text path's (F=451, T=20, D=6) and one of several tree
-   chunks. Times each (median of 20 launches, CUDA events) beside its
+   version at A ∈ {1, 64, 128}, variance, xgb and gini (C = 3 and 5), one
+   block and two (the 2-bin block's winners included), both drivers'
+   levels, a level past the depth limit, a last level, a level where every
+   slot dies, and gain ties. The random forest's draws (bootstrap uniforms,
+   per-node feature masks) made on the card equal the CPU's bit for bit,
+   and ``split_scan`` under gini with those masks equals its plain version
+   bitwise. ``predict_trees`` is held at the sweep's ensemble (F=20, T=20,
+   D=9), the text path's (F=451, T=20, D=6), one of several tree chunks,
+   and the forest's (T=50, D=12, two class shares) at F=20 and at
+   Titanic's F=498. Times each (median of 20 launches, CUDA events) beside its
    plain version and one PyTorch call computing the same function where
    there is one (a bf16 ``torch.matmul`` of the histograms' materialized
    operands, a stable ``torch.argsort`` for ``group_rows``); the
@@ -38,8 +42,9 @@ Run from the repository root on a machine with one NVIDIA H100:
    calls them (rows grouped once per level, the row-major copy made once
    per fit), the first two also grouping their own rows, and the per-fit
    copies on their own lines; ``split_scan`` at each of its shapes at A ∈
-   {1, 128}; the level epilogue and the route alone (one launch) at A=128
-   with their bounds; ``predict_trees`` at both paths' shapes. Then the
+   {1, 128}; the level epilogue (variance, and gini at C = 3) and the route
+   alone (one launch) at A=128 with their bounds; ``predict_trees`` at
+   every path's shape. Then the
    histograms at blocks with several groups of output rows (``cumhist``
    at F ∈ {40, 600, 1100} features, B ∈ {32, 2, 1}; ``cumhist(bc=)`` at
    F=40, B=32; ``cumhist_sparse01`` at Fb=1,500) against their plain
@@ -60,22 +65,36 @@ Run from the repository root on a machine with one NVIDIA H100:
    the same workflow at 2,000 rows (GBT {3} + XGBoost {3}, 5 rounds, 2
    folds) on the card and on the CPU, which must pick the same model with
    AuPR within 1e-4.
+5. rf-200k: the synthetic sweep's data (200,000 rows, F=20) under a
+   random forest (50 trees, per-node draws of 4 features) and a decision
+   tree at maxDepth {3, 6, 12}, 5-fold CV, refit, scoring, with every
+   launch counted (one ``level_epilogue`` and one ``group_rows`` a level);
+   then RF (5 trees) and DT at maxDepth {3, 6} on 20,000 rows on the card
+   and on the CPU: the same model, AuPR within 1e-4.
+6. titanic (``titanic.py``, the reference's hello-world): the bundled CSV
+   read through ``DataReaders.simple.csv``, the derived features,
+   transmogrify → SanityChecker → 3-fold CV over the binary selector's
+   default families (logistic regression, random forest, GBT, linear SVC)
+   → refit → evaluate, with every launch counted (``cumhist_sparse01``
+   must launch: Titanic's indicator columns); then one grid point of each
+   family on the card and on the CPU: the same model, AuPR within 1e-4.
 
-``--profile`` runs each main path once more under ``torch.profiler`` and
-prints its device-time table: the busy share, the device operations a
-tree level, the histogram kernels, the split scans, the route or level
-epilogue, the predict and the uint8 → bool copies. ``--timings-only``
-skips every check and prints only the times of ``split_scan``, the route
-alone and ``predict_trees``, each main path's train seconds and both
-paths' profiles, with no result line; it uses only what every version of
+``--profile`` runs each main path (all four) once more under
+``torch.profiler`` and prints its device-time table: the busy share, the
+device operations a tree level, the histogram kernels, the split scans,
+the route or level epilogue, the predict and the uint8 → bool copies.
+``--timings-only`` skips every check and prints only the times of
+``split_scan``, the route alone and ``predict_trees``, the sweep's and
+BigPassenger's train seconds and both paths' profiles, with no result
+line; it uses only what every version of
 the port has, so a copy of this script in another checkout times that
 checkout.
 
 Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists each kernel's numbers as JSON (launches from the
-BigPassenger run of phase 4).
+the line before it lists each kernel's numbers as JSON (launches summed
+over the four main paths' runs, phases 3–6).
 """
 import json
 import math
@@ -91,6 +110,8 @@ N, F, B = 200_000, 20, 32
 #: the indicator block of the sparse01 check: BigPassenger's hash width,
 #: at the density of its hashed buckets (one voyage token in ~1,000)
 FB, DENSITY = 512, 0.016
+#: Titanic's transmogrified width (its 2-bin block holds 470 of them)
+TITANIC_F = 498
 REPS = 20
 REL_TOL = 2e-5
 #: H100 SXM peaks (data sheet): bytes/s and f32 FLOP/s outside the tensor
@@ -318,6 +339,45 @@ def check_scans(H, dev, rng, put):
               f"not; ties to the lowest flat index)")
 
 
+def check_forest_scans(H, TF, dev, rng, put, XbT):
+    """The random forest's draws and split scans. ``forest_draws`` on the
+    card equals its draw on the CPU (bootstrap uniforms and per-node
+    masks, bitwise); then ``split_scan`` under gini with those masks —
+    the sweep's 32-bin block and a 2-bin block of FB indicator columns,
+    levels 0, 5 and 11 of a depth-12 tree at A ∈ {1, 64, 128} — holds
+    bitwise against its plain version."""
+    X01 = (rng.random((FB, N)) < 0.3).astype(np.int32)
+    Xfull = torch.cat([XbT, put(X01)])
+    bmask = np.r_[np.zeros(F, bool), np.ones(FB, bool)]
+    blocks = TF.prepare_blocks(Xfull, B, bmask)
+    draws = TF.forest_draws(7, 3, N, "classification", 12, 128, blocks,
+                            torch.float32, dev)
+    cpu = TF.forest_draws(7, 3, N, "classification", 12, 128,
+                          TF.prepare_blocks(Xfull.cpu(), B, bmask),
+                          torch.float32, "cpu")
+    if not (torch.equal(draws.boot_u.cpu(), cpu.boot_u) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(draws.masks,
+                                                      cpu.masks))):
+        fail("forest_draws on the card differ from the CPU's")
+    k = TF.forest_k("classification", F + FB)
+    per_slot = sum(m[0, 5].sum(1) for m in draws.masks)
+    if not bool((per_slot == k).all()):
+        fail(f"per-node masks do not draw exactly {k} features")
+    st = put(scan_stats(rng, "gini", 3, N))
+    for A in (1, 64, 128):
+        node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+        cums = [H.cumhist(st, node, blocks[0].mat, A, B),
+                H.cumhist_sparse01(st, node, blocks[1].mat, A)]
+        for d in (0, 5, 11):
+            for bi, cum in enumerate(cums):
+                scan_holds(H, cum, "gini", draws.masks[bi][1, d, :A],
+                           f"gini forest mask block {bi} A={A} d={d}")
+    print(f"forest draws: card equals CPU bitwise (bootstrap uniforms, "
+          f"per-node masks of {k} of {F + FB} features); split_scan gini "
+          f"under those masks bitwise equal to the plain version (32-bin "
+          f"and 2-bin blocks, A = 1, 64, 128, levels 0, 5, 11)")
+
+
 def time_scans(H, dev):
     """split_scan's time (variance, C = 4) at each shape, A ∈ {1, 128},
     on a histogram of N rows from the cumhist kernel; beside it the time
@@ -344,7 +404,7 @@ def time_scans(H, dev):
     return times
 
 
-def check_kernels(H, dev):
+def check_kernels(H, TF, dev):
     """Phase 2: every kernel against its plain version; returns the per-
     kernel numbers of the result line."""
     rng = np.random.default_rng(0)
@@ -563,6 +623,7 @@ def check_kernels(H, dev):
 
     # -- split_scan: criteria x slots x shapes x masks, and ties ----------
     check_scans(H, dev, rng, put)
+    check_forest_scans(H, TF, dev, rng, put, XbT)
     ms = time_scans(H, dev)[(F, B, 128)]
     A, C = 128, 4
     cum = H.cumhist_reference(stats, put(rng.integers(0, A + 1, size=N,
@@ -597,34 +658,37 @@ def check_kernels(H, dev):
 
 def check_predict(H, rng, put):
     """predict_trees against its plain version at each of PREDICT_SHAPES
-    (N rows, within REL_TOL), timed at the first two; returns the result
-    line's row (the sweep's shape)."""
+    (N rows, within REL_TOL), timed at all but the chunked one; returns
+    the result line's row (the sweep's shape)."""
     worst = 0.0
-    for Fp, T, D in PREDICT_SHAPES:
-        X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D)
+    for Fp, T, D, K in PREDICT_SHAPES:
+        X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D, K)
         out = H.predict_trees(X, feat, thr, leaf, D)
         ref = H.predict_trees_reference(X, feat, thr, leaf, D)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         if rel_err(out, ref) > REL_TOL:
-            fail(f"predict_trees differs (F={Fp} T={T} D={D}): max abs err "
-                 f"{err:.3g}")
-        chunk = H.predict_trees_chunk(Fp, D)
-        print(f"predict_trees F={Fp} T={T} D={D} ({-(-T // chunk)} chunk(s) "
-              f"of up to {chunk} trees): within {REL_TOL:g} (max abs err "
-              f"{err:.3g}, bitwise equal: {torch.equal(out, ref)})")
+            fail(f"predict_trees differs (F={Fp} T={T} D={D} K={K}): max "
+                 f"abs err {err:.3g}")
+        chunk = H.predict_trees_chunk(Fp, D, K)
+        print(f"predict_trees F={Fp} T={T} D={D} K={K} ({-(-T // chunk)} "
+              f"chunk(s) of up to {chunk} trees): within {REL_TOL:g} (max "
+              f"abs err {err:.3g}, bitwise equal: {torch.equal(out, ref)})")
         worst = max(worst, err)
-    for Fp, T, D in PREDICT_SHAPES[:2]:
-        X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D)
+    for Fp, T, D, K in PREDICT_SHAPES:
+        if (Fp, T, D) == (F, 50, 9):
+            continue
+        X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D, K)
         ms = time_ms(lambda: H.predict_trees(X, feat, thr, leaf, D))
         plain_ms = time_ms(lambda: H.predict_trees_reference(
             X, feat, thr, leaf, D), reps=5)
-        bound = predict_bound(Fp, T, D)
-        print(f"predict_trees F={Fp} T={T} D={D}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {1e3 * max(bound):.5f} ms")
-        if Fp == F:
+        bound = predict_bound(Fp, T, D, K)
+        print(f"predict_trees F={Fp} T={T} D={D} K={K}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {1e3 * max(bound):.5f} ms")
+        if (Fp, T, D) == (F, 20, 9):
             row = dict(replaces="transmogrifai_tpu/models/_pallas_hist.py:674",
                        ms=ms, plain_ms=plain_ms, library_ms=None, bound=bound)
+        del X
     row["max_abs_err"] = worst
     return row
 
@@ -643,10 +707,13 @@ def route_tables(rng, put, A, A_next):
             put(split)]
 
 
-#: predict_trees' (F, T, D): the sweep's deepest ensemble, the text path's
-#: (F = 451 features scored at maxDepth 6), and an ensemble of several
-#: tree chunks whose T is not a multiple of the chunk
-PREDICT_SHAPES = ((F, 20, 9), (451, 20, 6), (F, 50, 9))
+#: predict_trees' (F, T, D, K): the sweep's deepest ensemble, the text
+#: path's (F = 451 features scored at maxDepth 6), an ensemble of several
+#: tree chunks whose T is not a multiple of the chunk, and the random
+#: forest's (50 trees of depth 12, two class shares) at rf-200k's width and
+#: at Titanic's
+PREDICT_SHAPES = ((F, 20, 9, 1), (451, 20, 6, 1), (F, 50, 9, 1),
+                  (F, 50, 12, 2), (TITANIC_F, 50, 12, 2))
 
 
 def predict_inputs(rng, put, Fp, T, D, K=1):
@@ -667,20 +734,27 @@ def predict_bound(Fp, T, D, K=1):
             float(N) * T * (D + K) / F32_FLOPS)
 
 
-def epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A, nblk, d, D):
+def epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A, nblk, d, D,
+                    C=3):
     """One level's epilogue inputs at N rows: the histograms and split
     scans of the sweep's 32-bin block (and, with two blocks, of a 2-bin
     0/1 block of FB columns after it) from the kernels, a label that reads
     both blocks, random live slots and positions, fresh records. Slot 1
     copies slot 0's histograms and scores (a gain tie), and at slot 2 the
     second block ties the first's score (the lower concatenated index
-    wins)."""
-    C = 4 if kind == "variance" else 3
+    wins). Gini takes ``C`` channels: C − 1 class weights (integer
+    bootstrap-like weights 0..2 on a one-hot class) and the count."""
+    C = {"variance": 4, "xgb": 3}.get(kind, C)
     y = ((X01[3] > 0) | (XbT[0] > 24)).float()
     u = put(rng.random(N).astype(np.float32))
     if kind == "variance":
         w = u + 0.5
         st = torch.stack([w, w * y, w * y * y, torch.ones_like(w)], 1)
+    elif kind == "gini":
+        cls = y + (2.0 * (XbT[1] > B // 2).float() if C == 5 else 0.0)
+        w = torch.floor(3.0 * u)
+        onehot = torch.nn.functional.one_hot(cls.long(), C - 1).float()
+        st = torch.cat([onehot * w[:, None], (w > 0).float()[:, None]], 1)
     else:
         st = torch.stack([u - y, u * (1 - u) + 1e-6, torch.ones_like(u)], 1)
     slot = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
@@ -726,6 +800,8 @@ def level_records(D, C, dev):
 
 #: the gain floor as grow_tree computes it from min_info_gain = 0
 MIG = torch.clamp(torch.tensor(0.0), min=1e-10)
+#: the epilogue's criteria and channel counts (gini: 2 and 4 classes)
+EPILOGUE_KINDS = (("variance", 4), ("xgb", 3), ("gini", 3), ("gini", 5))
 
 
 def epilogue_pair(H, args, records, kw):
@@ -752,6 +828,45 @@ def epilogue_pair(H, args, records, kw):
     return ref, ref_rec
 
 
+def epilogue_timed(H, dev, rng, put, XbT, X01, kind, C):
+    """The sweep's level at A = 128, one block, the next level's sibling
+    mask, under ``kind`` at C channels: checked bitwise, then timed with
+    its plain version. Returns (ms, plain ms, (bytes s, operations s),
+    inputs)."""
+    A, d, D = 128, 7, 9
+    args = epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A, 1, d, D,
+                           C=C)
+    records = level_records(D, C, dev)
+    kw = dict(kind=kind, lam=0.0, mig=MIG, d=d, max_depth=D, A_next=A,
+              node_even=True)
+    _out, rec = epilogue_pair(H, args, records, kw)
+    ms = time_ms(lambda: H.level_epilogue(*args, *records, **kw))
+    plain_ms = time_ms(lambda: H.level_epilogue_reference(*args, *records,
+                                                          **kw))
+    slot, gpos, alive = args[10], args[8], args[7]
+    split = alive & torch.isfinite(rec[1][(1 << d) - 1 + gpos.long()])
+    live = slot < A
+    split_rows = int(split[slot[live].long()].sum().item())
+    n_split = int(split.sum().item())
+    n_dying = int((alive & ~split).sum().item())
+    emit = n_split - min(n_split, A // 2)
+    # rows: slot and g read, one bin where the slot splits, slot', g' and
+    # node_even' written; the plan: the block winners (9 bytes a slot),
+    # the winner's left stats and the totals, alive and gpos, the column
+    # and edge; gpos', alive', rank; the records and leaves written
+    plan = (A * 9 + A * C * 8 + A * 5 + A * 12 + A * 5 + (A // 2) * 8
+            + int(alive.sum().item()) * 12 + (n_dying + 2 * emit) * C * 4)
+    nbytes = N * 8 + split_rows * 4 + N * 12 + plan
+    # the rank's A^2 compares, ~10 operations a row, the gains (a few
+    # dozen operations a slot)
+    ebound = (nbytes / HBM_BPS, (A * A + 10.0 * N + 40.0 * A) / F32_FLOPS)
+    print(f"level_epilogue {kind} A={A} C={C} (one block, sibling mask): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{1e3 * max(ebound):.5f} ms ({nbytes} bytes, {plan} of them the "
+          f"plan's)")
+    return ms, plain_ms, ebound, args
+
+
 def check_epilogue(H, dev, rng, put, XbT):
     """The level epilogue against its plain version, every output bitwise:
     A ∈ {1, 64, 128} parent slots; variance and xgb; one block and two
@@ -760,16 +875,18 @@ def check_epilogue(H, dev, rng, put, XbT):
     constant-slot driver's (A_next = A, no mask, more splitting slots than
     A_next / 2); and, with two blocks, a level past the depth limit, a
     last level (two leaves a split) and a level where every slot dies.
-    Then the route-only call and the epilogue timed at A = 128. Returns
-    the result line's rows of both."""
+    Gini (random forests) at C = 3 (binary) and C = 5 (four classes) in
+    every one of those cases. Then the route-only call and the epilogue
+    timed at A = 128 (variance, and gini at C = 3). Returns the result
+    line's rows of both, and the gini time."""
     X01 = put((rng.random((FB, N)) < 0.3).astype(np.uint8))
     block1_wins = 0
     for A in (1, 64, 128):
         d, D = (A - 1).bit_length(), 9
-        for kind in ("variance", "xgb"):
+        for kind, Ck in EPILOGUE_KINDS:
             for nblk in (1, 2):
                 args = epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A,
-                                       nblk, d, D)
+                                       nblk, d, D, C=Ck)
                 C = args[3][0].shape[1]
                 lam = 1.0 if kind == "xgb" else 0.0
                 cases = [dict(A_next=min(2 * A, 128), node_even=True),
@@ -790,48 +907,29 @@ def check_epilogue(H, dev, rng, put, XbT):
         fail("level_epilogue: no winner in the 2-bin block was checked")
     print(f"level_epilogue: slots, g, sibling masks, gpos, alive, rank and "
           f"the feat/thr/gain/leaf records bitwise equal to the plain "
-          f"version (A = 1, 64, 128; variance, xgb; 1 and 2 blocks, "
+          f"version (A = 1, 64, 128; variance, xgb, gini at C = 3 and 5; "
+          f"1 and 2 blocks, "
           f"{block1_wins} slots won in the 2-bin block; both drivers; "
           f"depth-limit, last and all-dying levels; gain ties)")
 
     # the main path's call: the sweep's level at A = 128 (one block,
-    # variance, the next level's sibling mask)
-    A, d, D = 128, 7, 9
-    args = epilogue_inputs(H, dev, rng, put, XbT, X01, "variance", A, 1, d,
-                           D)
-    records = level_records(D, 4, dev)
-    kw = dict(kind="variance", lam=0.0, mig=MIG, d=d, max_depth=D,
-              A_next=A, node_even=True)
-    (slot2, *_rest), rec = epilogue_pair(H, args, records, kw)
-    ms = time_ms(lambda: H.level_epilogue(*args, *records, **kw))
-    plain_ms = time_ms(lambda: H.level_epilogue_reference(*args, *records,
-                                                          **kw))
-    slot, gpos, alive = args[10], args[8], args[7]
-    split = alive & torch.isfinite(rec[1][(1 << d) - 1 + gpos.long()])
-    live = slot < A
-    split_rows = int(split[slot[live].long()].sum().item())
-    n_split = int(split.sum().item())
-    n_dying = int((alive & ~split).sum().item())
-    emit = n_split - min(n_split, A // 2)
-    C = 4
-    # rows: slot and g read, one bin where the slot splits, slot', g' and
-    # node_even' written; the plan: the block winners (9 bytes a slot),
-    # the winner's left stats and the totals, alive and gpos, the column
-    # and edge; gpos', alive', rank; the records and leaves written
-    plan = (A * 9 + A * C * 8 + A * 5 + A * 12 + A * 5 + (A // 2) * 8
-            + int(alive.sum().item()) * 12 + (n_dying + 2 * emit) * C * 4)
-    nbytes = N * 8 + split_rows * 4 + N * 12 + plan
-    ebound = (nbytes / HBM_BPS, (A * A + 10.0 * N) / F32_FLOPS)
-    print(f"level_epilogue A={A} (one block, sibling mask): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{1e3 * max(ebound):.5f} ms ({nbytes} bytes, {plan} of them the "
-          f"plan's)")
+    # variance, the next level's sibling mask); the forest's, gini at C = 3
+    A = 128
+    ms, plain_ms, ebound, args = epilogue_timed(H, dev, rng, put, XbT, X01,
+                                                "variance", 4)
     out = {"level_epilogue": dict(
         replaces="transmogrifai_tpu/models/_pallas_hist.py:389 and "
                  "transmogrifai_tpu/models/_treefit.py:876",
         source="transmogrifai_tpu_torch/csrc/route_level.cu",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
         bound=ebound)}
+    g_ms, g_plain, gbound, _ = epilogue_timed(H, dev, rng, put, XbT, X01,
+                                              "gini", 3)
+    print(f"level_epilogue gini beside variance at A={A}: {g_ms:.4f} ms "
+          f"against {ms:.4f} ms")
+    out["level_epilogue"]["gini"] = dict(ms=g_ms, plain_ms=g_plain,
+                                         bound_ms=1e3 * max(gbound))
+    slot, live = args[10], args[10] < A
 
     # the route alone, as the JAX route_level's signature takes it
     g = args[11]
@@ -946,6 +1044,21 @@ def check_scored(out, n, what):
     return aupr
 
 
+def titanic_one_point():
+    """One grid point of each default family (the forest at 5 trees): the
+    titanic card/CPU agreement."""
+    from transmogrifai_tpu_torch.models import (GBTFamily,
+                                                LinearSVCFamily,
+                                                LogisticRegressionFamily,
+                                                RandomForestFamily)
+    tree = {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}
+    return [LogisticRegressionFamily(grid=[{"regParam": 0.01,
+                                            "elasticNetParam": 0.1}]),
+            RandomForestFamily(grid=[dict(tree)], num_trees=5),
+            GBTFamily(grid=[dict(tree, maxDepth=3)]),
+            LinearSVCFamily(grid=[{"regParam": 0.01}])]
+
+
 def agree(runs, what):
     """The card's and the CPU's run pick one model, AuPR within 1e-4."""
     a, b = runs["cuda"], runs["cpu"]
@@ -979,11 +1092,11 @@ def timings(H, dev, BP, run):
         ms = time_ms(lambda: H.route_level(XbT, slot, g, *tabs, A,
                                            min(2 * A, 128)))
         print(f"route_level A={A}: {ms:.4f} ms")
-    for Fp, T, D in PREDICT_SHAPES[:2]:
-        X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D)
+    for Fp, T, D, K in PREDICT_SHAPES[:2]:
+        X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D, K)
         ms = time_ms(lambda: H.predict_trees(X, feat, thr, leaf, D))
         print(f"predict_trees F={Fp} T={T} D={D}: {ms:.4f} ms, bound "
-              f"{1e3 * max(predict_bound(Fp, T, D)):.5f} ms")
+              f"{1e3 * max(predict_bound(Fp, T, D, K)):.5f} ms")
     del XbT, X
     records = BP.synthesize_records(N, seed=42)
     for what, fn in (("sweep", lambda: run(N, device="cuda")),
@@ -1003,9 +1116,12 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from transmogrifai_tpu_torch import big_passenger as BP
+    from transmogrifai_tpu_torch import titanic as TT
     from transmogrifai_tpu_torch.models import _hist as H
+    from transmogrifai_tpu_torch.models import _treefit as TF
     from transmogrifai_tpu_torch.ops.hashing import load_native
     from transmogrifai_tpu_torch.synthetic_trees import (default_families,
+                                                         forest_families,
                                                          run)
     profile = "--profile" in sys.argv[1:]
     timings_only = "--timings-only" in sys.argv[1:]
@@ -1028,7 +1144,8 @@ def main():
     if timings_only:
         return timings(H, dev, BP, run)
 
-    rows = check_kernels(H, dev)
+    rows = check_kernels(H, TF, dev)
+    path_launches = {}
 
     # -- phase 3: the synthetic tree sweep, every launch counted ----------
     tree_kernels = ("cumhist", "group_rows", "split_scan", "level_epilogue",
@@ -1041,6 +1158,7 @@ def main():
           f"{out['eval_s']:.2f} s, best {s.best_model_name} "
           f"{s.best_model_params}, AuPR {aupr:.6f}")
     print(f"synthetic-sweep launches: {launches}")
+    path_launches["sweep-200k"] = launches
     if profile:
         profile_path(H, "sweep", lambda: run(N, device="cuda"))
     agree({d: run(20_000, device=d,
@@ -1066,6 +1184,7 @@ def main():
           f"evaluate {out['eval_s']:.2f} s, best {s.best_model_name} "
           f"{s.best_model_params}, AuPR {aupr:.6f}")
     print(f"BigPassenger launches: {launches}")
+    path_launches["text-200k"] = launches
     if profile:
         profile_path(H, "BigPassenger", lambda: BP.run(N, device="cuda",
                                                        records=records))
@@ -1073,6 +1192,47 @@ def main():
     agree({d: BP.run(2_000, num_folds=2, device=d, records=small,
                      families=default_families((3,), (3,), rounds=5))
            for d in ("cuda", "cpu")}, "BigPassenger, 2000 rows")
+
+    # -- phase 5: rf-200k, the random forest and decision tree sweep -----
+    out, launches = counted(H, lambda: run(N, device="cuda",
+                                           families=forest_families()),
+                            tree_kernels)
+    once_per_level(launches, "rf-200k")
+    aupr = check_scored(out, N, "rf-200k")
+    s = out["summary"]
+    print(f"rf-200k {N} rows: train {out['train_s']:.2f} s, evaluate "
+          f"{out['eval_s']:.2f} s, best {s.best_model_name} "
+          f"{s.best_model_params}, AuPR {aupr:.6f}, CV seconds by family "
+          f"{s.validator_summary.family_seconds}")
+    print(f"rf-200k launches: {launches}")
+    path_launches["rf-200k"] = launches
+    if profile:
+        profile_path(H, "rf-200k", lambda: run(N, device="cuda",
+                                               families=forest_families()))
+    agree({d: run(20_000, device=d,
+                  families=forest_families((3, 6), num_trees=5))
+           for d in ("cuda", "cpu")}, "rf-200k, 20000 rows (RF 5 trees, DT)")
+
+    # -- phase 6: titanic with the default families ------------------------
+    out, launches = counted(H, lambda: TT.run(device="cuda"),
+                            tree_kernels + ("cumhist_sparse01",))
+    once_per_level(launches, "titanic")
+    aupr = check_scored(out, out["n_rows"], "titanic")
+    s = out["summary"]
+    print(f"titanic {out['n_rows']} rows: train {out['train_s']:.2f} s, "
+          f"evaluate {out['eval_s']:.2f} s, best {s.best_model_name} "
+          f"{s.best_model_params}, train AuPR "
+          f"{s.train_evaluation['AuPR']:.6f}, holdout AuPR "
+          f"{s.holdout_evaluation['AuPR']:.6f}, full-file AuPR {aupr:.6f}")
+    print(f"titanic CV seconds by family: "
+          f"{s.validator_summary.family_seconds}")
+    print(f"titanic launches: {launches}")
+    path_launches["titanic"] = launches
+    if profile:
+        profile_path(H, "titanic", lambda: TT.run(device="cuda"))
+    agree({d: TT.run(device=d, families=titanic_one_point())
+           for d in ("cuda", "cpu")},
+          "titanic, one grid point a family")
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",
@@ -1084,7 +1244,8 @@ def main():
             "name": name, "route": "cuda",
             "source": r.get("source",
                             f"transmogrifai_tpu_torch/csrc/{name}.cu"),
-            "replaces": r["replaces"], "launches": launches[name],
+            "replaces": r["replaces"],
+            "launches": sum(c[name] for c in path_launches.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1092,7 +1253,11 @@ def main():
     if not all(math.isfinite(k[key]) for k in kernels
                for key in ("ms", "plain_ms", "bound_ms")):
         fail("a kernel time is not finite")
-    print("kernels: " + ", ".join(names))
+    print("kernels: " + ", ".join(names) + "; launches summed over the "
+          "main paths " + ", ".join(path_launches))
+    gini = rows["level_epilogue"]["gini"]
+    print(f"level_epilogue gini (A=128, C=3): {gini['ms']:.4f} ms, plain "
+          f"{gini['plain_ms']:.4f} ms, bound {gini['bound_ms']:.5f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,15 @@ EPS = 1e-12
 
 def _gain(kind, l, t, lam):
     """The JAX criteria's ``gain`` at one slot's [C] left / total stats."""
+    if kind == "gini":
+        def imp(cls):
+            w = max(float(np.sum(cls)), EPS)
+            return 1.0 - float(np.sum(cls * cls)) / (w * w), w
+        iT, W = imp(t[:-1])
+        iL, wL = imp(l[:-1])
+        iR, wR = imp(t[:-1] - l[:-1])
+        W = max(W, EPS)
+        return iT - (wL / W) * iL - (wR / W) * iR
     if kind == "variance":
         def imp(w, s1, s2):
             w = max(w, EPS)
@@ -114,11 +123,13 @@ def _epilogue_numpy(score, idx, valid, cums, cols, sparse01, edges, alive,
             np.asarray(order[:A_next // 2])), do, pok
 
 
-def _level_inputs(rng, kind, A, nblk, d, n=400, F=5, B=8, Fb=6, ties=False):
+def _level_inputs(rng, kind, A, nblk, d, n=400, F=5, B=8, Fb=6, ties=False,
+                  C=3):
     """Integer-valued f64 stats (every histogram sum exact), a 32-bin-like
     block of F columns and, with two blocks, a 0/1 block of Fb columns
     after it; the label reads both blocks. ``ties``: slot 1's rows are
-    slot 0's rows again (identical histograms, identical gains)."""
+    slot 0's rows again (identical histograms, identical gains). Gini
+    takes ``C`` channels: C − 1 class weights and the count."""
     Xb = rng.integers(0, B, size=(F, n)).astype(np.int32)
     X01 = (rng.random((Fb, n)) < rng.uniform(0.1, 0.6, Fb)[:, None]
            ).astype(np.int32)
@@ -126,6 +137,13 @@ def _level_inputs(rng, kind, A, nblk, d, n=400, F=5, B=8, Fb=6, ties=False):
     if kind == "variance":
         w = rng.integers(1, 3, n).astype(np.float64)
         stats = np.stack([w, w * y, w * y * y, np.ones(n)], 1)
+    elif kind == "gini":
+        # C − 1 classes: the label, and for four classes a second bit from
+        # the second column
+        cls = y + (2 * (Xb[1] > B // 2) if C == 5 else 0)
+        w = rng.integers(1, 3, n).astype(np.float64)
+        onehot = np.eye(C - 1)[cls.astype(np.int64)]
+        stats = np.concatenate([onehot * w[:, None], np.ones((n, 1))], 1)
     else:
         h = rng.integers(1, 4, n).astype(np.float64)
         stats = np.stack([2 * y - 1, h, np.ones(n)], 1)
@@ -194,13 +212,30 @@ CASES = {
     "nothing_splits": ("variance", 2, 8, 16, 3, 6, True, True, 1e30,
                        False),
     "one_slot": ("xgb", 2, 1, 2, 0, 4, True, True, 0.0, False),
+    # gini (random forests): binary (C = 3) in both drivers' levels, with
+    # two blocks, ties and a slot budget; four classes (C = 5)
+    "unrolled_gini": ("gini", 1, 8, 16, 3, 6, True, True, 0.0, False),
+    "constant_budget_gini": ("gini", 1, 8, 8, 3, 6, False, True, 0.0,
+                             False),
+    "gain_ties_gini": ("gini", 1, 8, 16, 3, 6, True, True, 0.0, True),
+    "two_blocks_gini": ("gini", 2, 16, 32, 4, 7, True, True, 0.0, False),
+    "last_level_gini": ("gini", 2, 8, 16, 3, 4, False, True, 0.0, False),
+    "gini_four_classes": ("gini5", 2, 16, 16, 4, 7, False, True, 0.0,
+                          False),
 }
+
+
+def _kind(kind):
+    """(criterion, channels) of a case's kind; ``gini5`` is gini at five
+    channels (four classes)."""
+    return ("gini", 5) if kind == "gini5" else (kind, 3)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_epilogue_plain_matches_per_slot_loop(rng, case):
     kind, nblk, A, A_next, d, D, even, split_ok, mig, ties = CASES[case]
-    args = _level_inputs(rng, kind, A, nblk, d, ties=ties)
+    kind, C = _kind(kind)
+    args = _level_inputs(rng, kind, A, nblk, d, ties=ties, C=C)
     C = args[3][0].shape[1]
     lam = 1.0 if kind == "xgb" else 0.0
     mig_t = torch.clamp(torch.as_tensor(mig, dtype=torch.float64), min=1e-10)
@@ -225,6 +260,8 @@ def test_epilogue_plain_matches_per_slot_loop(rng, case):
         np.testing.assert_array_equal(a.numpy()[:-1], b[:-1], err_msg=name)
     # each case reaches what it is named for
     score = args[0]
+    if case == "gini_four_classes":
+        assert args[3][0].shape[1] == 5
     if case.startswith("two_blocks"):
         assert (score[1] > score[0]).any() and (score[1] < score[0]).any()
         assert (got_rec[1].numpy() == 0.5).any(), "no 2-bin split recorded"
@@ -254,7 +291,7 @@ def _mixed(rng, n, F_cont, F_bin):
 
 
 @pytest.mark.parametrize("unroll", [False, True])
-@pytest.mark.parametrize("kind", ["variance", "xgb"])
+@pytest.mark.parametrize("kind", ["variance", "gini", "xgb"])
 def test_grow_tree_two_blocks_matches_jax_exactly(rng, unroll, kind):
     """Integer-valued f64 stats: every histogram sum is exact, so the
     port's tree equals the JAX tree bit for bit."""
@@ -266,6 +303,11 @@ def test_grow_tree_two_blocks_matches_jax_exactly(rng, unroll, kind):
         stats = np.stack([w, w * r, w * r * r, (w > 0) * 1.0], 1)
         jcrit, pcrit = JT.VarianceCriterion(), PT.VarianceCriterion()
         jleaf, pleaf, mi, mig = JT.variance_leaf, PT.variance_leaf, 5.0, 1e-3
+    elif kind == "gini":
+        w = rng.integers(0, 3, n).astype(np.float64)
+        stats = np.stack([w * (1 - y), w * y, (w > 0) * 1.0], 1)
+        jcrit, pcrit = JT.GiniCriterion(), PT.GiniCriterion()
+        jleaf, pleaf, mi, mig = JT.gini_leaf, PT.gini_leaf, 5.0, 1e-3
     else:
         stats = np.stack([2 * y - 1 + rng.integers(-1, 2, n),
                           rng.integers(1, 4, n) * 1.0, np.ones(n)], 1)
@@ -305,8 +347,9 @@ def test_epilogue_kernel_matches_plain_on_the_card():
     dev = torch.device("cuda")
     for case in sorted(CASES):
         kind, nblk, A, A_next, d, D, even, split_ok, mig, ties = CASES[case]
+        kind, C = _kind(kind)
         args = _each_tensor(  # the kernel's float inputs are f32
-            _level_inputs(rng, kind, A, nblk, d, n=3000, ties=ties),
+            _level_inputs(rng, kind, A, nblk, d, n=3000, ties=ties, C=C),
             lambda t: t.to(dev, torch.float32) if t.is_floating_point()
             else t.to(dev))
         C = args[3][0].shape[1]

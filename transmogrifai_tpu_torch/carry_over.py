@@ -1,5 +1,8 @@
-"""Fitted stages carried over from the JAX package: each ported stage is
-rebuilt from a JAX stage's ``get_model_state()`` and ``get_params()`` —
+"""Fitted stages carried over from the JAX package: each ported stage (the
+vectorizers, the SanityChecker, the DSL's fitted models, tree ensembles
+of every kind, logistic regression and linear SVC coefficients, the
+selected model) is rebuilt from a JAX stage's ``get_model_state()`` and
+``get_params()`` —
 numpy arrays and JSON values only, so nothing of the JAX package is
 imported. A workflow trained there scores the same here.
 
@@ -17,9 +20,12 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .dsl import FillMissingWithMeanModel, ScalarNormalizerModel
 from .features import Feature
 from .graph import compute_dag
+from .models.linear import LogisticRegressionModel
 from .models.selector import SelectedModel
+from .models.svm import LinearSVCModel
 from .models.trees import tree_model_from_numpy
 from .ops.dates import DateToUnitCircleVectorizer
 from .ops.numeric import NumericVectorizerModel
@@ -78,6 +84,18 @@ def fitted_stage_from_state(type_name: str, state: Dict[str, Any],
              if k.startswith("tree_")})
         model.uid = uid or model.uid
         return model
+    if type_name == "LogisticRegressionModel":
+        return LogisticRegressionModel(
+            np.asarray(state["coefficients"]), np.asarray(state["intercept"]),
+            int(state.get("n_classes", 2)), uid=uid)
+    if type_name == "LinearSVCModel":
+        return LinearSVCModel(np.asarray(state["coefficients"]),
+                              np.asarray(state["intercept"]), uid=uid)
+    if type_name == "FillMissingWithMeanModel":
+        return FillMissingWithMeanModel(mean=float(state["mean"]), uid=uid)
+    if type_name == "ScalarNormalizerModel":
+        return ScalarNormalizerModel(mean=float(state["mean"]),
+                                     std=float(state["std"]), uid=uid)
     if type_name == "SelectedModel":
         inner = fitted_stage_from_state(state["inner_class"],
                                         state["inner_state"],

@@ -12,10 +12,10 @@
 //     flat index asc) and its decode: global column, bin threshold, stored
 //     threshold (edges[f, t], or 0.5 in a 2-bin indicator block), the
 //     winner's [C] left stats and block 0's [C] totals;
-//   - the exact gain, in the operation order of the plain version
-//     (models/_hist.py split_gain; the file is built with -fmad=false, so
-//     the gains are bitwise the plain version's IEEE f32 operations), and
-//     do_split;
+//   - the exact gain (variance, gini or xgb), in the operation order of
+//     the plain version (models/_hist.py split_gain; the file is built
+//     with -fmad=false, so the gains are bitwise the plain version's IEEE
+//     f32 operations), and do_split;
 //   - each slot's position in the stable order of (-gain where it splits,
 //     else +inf; slot), found by counting: O(A^2) compares spread over the
 //     block, integer atomics in shared memory (exact in any order);
@@ -57,7 +57,7 @@ constexpr int MAX_BLOCKS = 4;        // candidate blocks of the feature axis
 constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may use
 constexpr float EPS = 1e-12f;
 
-enum Kind { VARIANCE = 0, XGB = 2 };  // models/_hist.py _KINDS
+enum Kind { VARIANCE = 0, GINI = 1, XGB = 2 };  // models/_hist.py _KINDS
 
 }  // namespace
 
@@ -108,9 +108,39 @@ __device__ __forceinline__ float xgb_score(float g, float h, float lam) {
   return g * g / (h + lam + EPS);
 }
 
+// Gini impurity 1 - sum(cls^2) / (w * w) of K = C - 1 class weights,
+// with w = max(sum(cls), eps) returned through *w_out; both sums run left
+// to right over the channels, as the plain version's loop does.
+template <int K>
+__device__ __forceinline__ float gini_impurity(const float* cls,
+                                               float* w_out) {
+  float w = cls[0], q = cls[0] * cls[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) {
+    w = w + cls[k];
+    q = q + cls[k] * cls[k];
+  }
+  w = clamp_eps(w);
+  *w_out = w;
+  return 1.0f - q / (w * w);
+}
+
 // split_gain of models/_hist.py at one slot's [C] left / total stats
+template <int C>
 __device__ __forceinline__ float split_gain(int kind, const float* l,
                                             const float* t, float lam) {
+  if (kind == GINI) {
+    constexpr int K = C - 1;           // the count channel takes no part
+    float r[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) r[k] = t[k] - l[k];
+    float W, wL, wR;
+    const float iT = gini_impurity<K>(t, &W);
+    const float iL = gini_impurity<K>(l, &wL);
+    const float iR = gini_impurity<K>(r, &wR);
+    W = clamp_eps(W);
+    return iT - (wL / W) * iL - (wR / W) * iR;
+  }
   if (kind == VARIANCE) {
     const float W = clamp_eps(t[0]);
     const float wL = l[0], wR = t[0] - l[0];
@@ -240,7 +270,7 @@ level_epilogue_kernel(const EpilogueParams p) {
       lst[a * C + c] = l[c];
       tst[a * C + c] = t[c];
     }
-    const float gain = split_gain(p.kind, l, t, p.lam);
+    const float gain = split_gain<C>(p.kind, l, t, p.lam);
     const bool split = p.split && p.alive[a] && ok && gain >= p.mig;
     tab[a] = split ? fg : 0;
     tab[A + a] = tb;
@@ -401,7 +431,8 @@ extern "C" int level_epilogue_launch(const EpilogueParams* params,
                                      void* stream) {
   const EpilogueParams& p = *params;
   if (p.A < 1 || p.A_next < 1 || p.C < 3 || p.C > 8 || p.n_blocks < 1 ||
-      p.n_blocks > MAX_BLOCKS || (p.kind != VARIANCE && p.kind != XGB))
+      p.n_blocks > MAX_BLOCKS ||
+      (p.kind != VARIANCE && p.kind != GINI && p.kind != XGB))
     return (int)cudaErrorInvalidValue;
   switch (p.C) {
     case 3: return launch_epilogue<3>(p, stream);

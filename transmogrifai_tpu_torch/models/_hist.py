@@ -665,10 +665,13 @@ def route_level(XbT, slot, g, f_idx, t_idx, lchild, rchild, do_split,
 def split_gain(kind: str, l: torch.Tensor, t: torch.Tensor,
                lam: float = 0.0) -> torch.Tensor:
     """The exact gain at [A, C] left / total stats: Spark's Variance
-    impurity decrease (``variance``; channels w, w·y, w·y², count) or
-    XGBoost's ½(G_L²/(H_L+λ) + G_R²/(H_R+λ) − G²/(H+λ)) (``xgb``;
-    channels g, h, count). The epilogue kernel evaluates the same
-    operations in the same order."""
+    impurity decrease (``variance``; channels w, w·y, w·y², count),
+    Spark's Gini impurity decrease (``gini``; channels: the class weights,
+    then the count, which takes no part) or XGBoost's ½(G_L²/(H_L+λ) +
+    G_R²/(H_R+λ) − G²/(H+λ)) (``xgb``; channels g, h, count). The
+    epilogue kernel evaluates the same operations in the same order: the
+    gini class sums run left to right over the channels, at any class
+    count."""
     if kind == "variance":
         def imp(w, s1, s2):
             w = torch.clamp(w, min=_EPS)
@@ -678,6 +681,21 @@ def split_gain(kind: str, l: torch.Tensor, t: torch.Tensor,
         return imp(t[:, 0], t[:, 1], t[:, 2]) \
             - (wL / W) * imp(wL, l[:, 1], l[:, 2]) \
             - (wR / W) * imp(wR, t[:, 1] - l[:, 1], t[:, 2] - l[:, 2])
+    if kind == "gini":
+        def imp(cls):
+            w, q = cls[0], cls[0] * cls[0]
+            for c in cls[1:]:
+                w, q = w + c, q + c * c
+            w = torch.clamp(w, min=_EPS)
+            return 1.0 - q / (w * w), w
+        K = l.shape[1] - 1
+        lc = [l[:, k] for k in range(K)]
+        tc = [t[:, k] for k in range(K)]
+        iT, W = imp(tc)
+        iL, wL = imp(lc)
+        iR, wR = imp([b - a for a, b in zip(lc, tc)])
+        W = torch.clamp(W, min=_EPS)
+        return iT - (wL / W) * iL - (wR / W) * iR
     if kind == "xgb":
         def s(g, h):
             return g * g / (h + lam + _EPS)
@@ -834,9 +852,10 @@ def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
     last bin holds the slot totals), their global columns ``cols`` (int64)
     and ``sparse01`` flags (stored threshold 0.5), ``edges`` [F, B−1], the
     slots' ``alive`` / ``gpos``, the bins ``XbT`` [F, n] and the rows'
-    ``slot`` / ``g``; the criterion ``kind`` ("variance" or "xgb") with
-    ``lam``, the gain floor ``mig``, level ``d`` of ``max_depth``, and
-    ``split_ok`` (False past the depth limit: nothing splits).
+    ``slot`` / ``g``; the criterion ``kind`` ("variance", "gini" or
+    "xgb") with ``lam``, the gain floor ``mig``, level ``d`` of
+    ``max_depth``, and ``split_ok`` (False past the depth limit: nothing
+    splits).
 
     Writes the level's records in place — ``feat`` / ``thr`` / ``gain``
     [2^D] at flat index 2^d − 1 + gpos and ``leaf_stats`` [2^D + 1, C]
@@ -860,7 +879,7 @@ def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
     nblk, A = len(cums), alive.shape[0]
     C = cums[0].shape[1]
     D, A_next = int(max_depth), int(A_next)
-    if kind not in ("variance", "xgb"):
+    if kind not in _KINDS:
         raise ValueError(f"level_epilogue: no kernel for kind {kind!r}")
     if not (1 <= nblk <= _MAX_CAND_BLOCKS and 1 <= A <= _MAX_SLOTS
             and 3 <= C <= 8 and A_next >= 1 and 1 <= D <= 30):

@@ -1,6 +1,6 @@
 """Histogram-based decision-tree learning in PyTorch — the port of
-``transmogrifai_tpu/models/_treefit.py`` (GBT and XGBoost fits and the
-routed predict).
+``transmogrifai_tpu/models/_treefit.py`` (random forests and decision
+trees, GBT and XGBoost fits, and the routed predict).
 
 Features are quantile-binned once per fit (``n_bins=32``); a tree grows
 level-wise: per level one ``cumhist`` builds the [slots, channels, bins,
@@ -27,6 +27,15 @@ right child's histogram is its parent's minus the left's), taken at
 ``UNROLL_MIN_ROWS`` rows and above (``models/trees.py``). Hyperparameters
 are plain scalars and grid points a Python loop.
 
+Random forests draw their randomness as the JAX package does, bit for bit
+(``random.py``): a Poisson(rate) bootstrap weight per row and tree from
+``fold_in(k_boot, tree)``, and per node exactly k candidate features from
+``fold_in(tree key, level)``. Those keys depend on the family's seed and
+the tree alone, never on the fold or the grid point, so a sweep draws each
+tree's uniforms once (:func:`forest_draws`) and every fit of the sweep
+reads them; the per-node masks are made per block up front, so a level
+takes its mask as a view and adds no launch.
+
 Tree layout: level-order ``feat``/``thr`` of length 2^D − 1 and ``leaf``
 [2^D, K]; routing is ``node = 2·node + (x[feat] > thr)``.
 """
@@ -38,14 +47,20 @@ import numpy as np
 import torch
 
 from .. import random as R
+from .base import score_sigmoid
 from ._hist import (cumhist, cumhist_sparse01, group_rows, hist_rows,
                     level_epilogue, predict_trees, sparse01_rows, split_scan)
 
 __all__ = ["quantile_bin_edges", "binarize", "compute_bins", "Block",
            "make_col_blocks", "prepare_blocks",
-           "VarianceCriterion", "XGBCriterion", "variance_leaf",
-           "make_xgb_leaf", "grow_tree", "fit_gbt", "fit_xgb",
-           "predict_ensemble", "margin_head",
+           "VarianceCriterion", "GiniCriterion", "XGBCriterion",
+           "variance_leaf", "gini_leaf", "make_xgb_leaf", "grow_tree",
+           "poisson_bootstrap_weights", "feature_masks",
+           "node_feature_uniforms", "ForestDraws", "forest_draws",
+           "forest_k", "fit_forest", "fit_gbt", "fit_xgb",
+           "predict_ensemble", "rf_head", "rf_train_aggregate",
+           "margin_head", "slot_cap",
+           "predict_rf_classification", "predict_rf_regression",
            "predict_margin_classification", "predict_margin_regression",
            "QUANTILE_SAMPLE_ROWS"]
 
@@ -203,6 +218,21 @@ def variance_leaf(s):
     return (s[..., 1] / torch.clamp(s[..., 0], min=_EPS))[..., None]
 
 
+class GiniCriterion:
+    """Spark Gini impurity. Channels: (per-class weight …, count)."""
+
+    kernel_kind = "gini"
+
+    def kernel_params(self):
+        return 0.0, None
+
+
+def gini_leaf(s):
+    """Per-class probabilities → [K]."""
+    cls = s[..., :-1]
+    return cls / torch.clamp(cls.sum(-1, keepdim=True), min=_EPS)
+
+
 class XGBCriterion:
     """XGBoost gain ½(G_L²/(H_L+λ) + G_R²/(H_R+λ) − G²/(H+λ)).
     Channels: (g, h, count); min_child_weight bounds the hessian mass."""
@@ -227,11 +257,19 @@ def make_xgb_leaf(lam: float):
 # Level-wise tree growing
 # ---------------------------------------------------------------------------
 
+def slot_cap(max_depth: int, max_active_nodes: int, unroll: bool) -> int:
+    """Live slots a level holds at most: ``min(max_active_nodes,
+    2^(D−1))``, even in the unrolled driver (sibling pairs)."""
+    cap = max(2, min(max_active_nodes, 1 << max(max_depth - 1, 1)))
+    return cap - cap % 2 if unroll else cap
+
+
 def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
               crit, leaf_fn: Callable, max_depth: int, n_bins: int,
               min_instances, min_info_gain, depth_limit: Optional[int] = None,
               max_active_nodes: int = 128, unroll: bool = False,
-              blocks: Optional[List[Block]] = None):
+              blocks: Optional[List[Block]] = None,
+              masks: Optional[List[torch.Tensor]] = None):
     """Grow one tree level-wise over [F, n] bins; returns (feat [2^D−1]
     int32, thr [2^D−1], leaf [2^D, K], node [n] final sample→leaf index,
     gain [2^D−1]).
@@ -248,6 +286,11 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
     level while the loop runs to ``max_depth``. ``unroll`` takes per-level
     slot counts ``min(2^d, cap)`` and sibling subtraction.
 
+    ``masks`` (random forests): per block a float32 [D, cap, Fb] 0/1
+    candidate mask; level d's split scans read ``mask[d, :A]`` (a
+    contiguous view). A per-tree mask repeats one row; a per-node draw
+    (:func:`node_feature_uniforms`) gives every (level, slot) its own.
+
     The histograms read the bins themselves: the JAX package precomputes
     the ``bin ≤ t`` indicator when it fits (``prepare_blocks``), but on
     the H100 the kernel builds it from the bins faster than it reads the
@@ -257,9 +300,7 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
     C, D = stats.shape[1], max_depth
     if blocks is None:
         blocks = prepare_blocks(XbT, n_bins)
-    cap = max(2, min(max_active_nodes, 1 << max(D - 1, 1)))
-    if unroll:
-        cap -= cap % 2      # sibling interleave pairs child slots
+    cap = slot_cap(D, max_active_nodes, unroll)
     total_nodes = (1 << D) - 1
     n_leaves = 1 << D
     lam, mcw = crit.kernel_params()
@@ -306,6 +347,7 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
                 cumb = hist(blk, slot, A, groups)
             split_scan(cumb, crit.kernel_kind, min_instances, lam=lam,
                        min_child_weight=mcw,
+                       mask=None if masks is None else masks[bi][d, :A],
                        out=(score[bi], idx[bi], valid[bi]))
             cums.append(cumb)
         slot2, g2, node_even2, gpos2, alive2, rank = level_epilogue(
@@ -343,6 +385,201 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
                 leafS, None)
     return (feat[:total_nodes], thr[:total_nodes],
             leaf_fn(leafS[:n_leaves]), g, gain[:total_nodes])
+
+
+# ---------------------------------------------------------------------------
+# Random forest
+# ---------------------------------------------------------------------------
+
+#: the Poisson inverse CDF's truncation (rate ≤ 1 loses < 1e-8 of mass)
+_POISSON_K_MAX = 8
+#: elements of one batched threefry draw (bounds its int64 temporaries)
+_DRAW_CHUNK = 1 << 22
+
+
+def _poisson_cdf(rate) -> torch.Tensor:
+    """The JAX package's f32 Poisson(rate) CDF at 0..k_max, on the host:
+    r^k · e^−r / k! summed left to right."""
+    f32 = torch.float32
+    ks = torch.arange(_POISSON_K_MAX + 1, dtype=f32)
+    fact = torch.tensor(np.cumprod(np.concatenate(
+        [[1.0], np.arange(1.0, _POISSON_K_MAX + 1)])), dtype=f32)
+    r = torch.clamp(torch.tensor(float(rate), dtype=f32), min=1e-9)
+    terms = torch.pow(r, ks) * torch.exp(-r) / fact
+    cdf = torch.empty_like(terms)
+    acc = torch.zeros((), dtype=f32)
+    for i in range(len(terms)):
+        acc = acc + terms[i]
+        cdf[i] = acc
+    return cdf
+
+
+def poisson_bootstrap_weights(u: torch.Tensor, rate, dtype) -> torch.Tensor:
+    """Poisson(rate) bootstrap counts from f32 uniforms ``u`` by the
+    inverse CDF truncated at k_max (the tail lands on k_max), in
+    ``dtype`` — ``poisson_bootstrap_weights`` of the JAX package, whose
+    uniforms are ``uniform(fold_in(k_boot, tree), (n,), float32)``."""
+    cdf = _poisson_cdf(rate).to(u.device)
+    w = torch.zeros_like(u)
+    for i in range(_POISSON_K_MAX):
+        w = w + (u > cdf[i]).to(torch.float32)
+    return w.to(dtype)
+
+
+def _kth_mask(u: torch.Tensor, k: int) -> torch.Tensor:
+    """Exactly the k smallest uniforms of each row (``u ≤ sort(u)[k−1]``)."""
+    return u <= torch.kthvalue(u, k, dim=-1, keepdim=True).values
+
+
+def feature_masks(key: np.ndarray, n_trees: int, n_feat: int, k: int,
+                  dtype: torch.dtype, device) -> torch.Tensor:
+    """[T, F] bool, exactly k random features per tree
+    (``_feature_masks`` of the JAX package; the draw's width is
+    ``dtype``'s)."""
+    if k >= n_feat:
+        return torch.ones((n_trees, n_feat), dtype=torch.bool, device=device)
+    u = R.uniform_batch(key[None], (n_trees, n_feat), dtype, device)[0]
+    return _kth_mask(u, k)
+
+
+def node_feature_uniforms(tree_keys: np.ndarray, max_depth: int, cap: int,
+                          n_feat: int, dtype: torch.dtype, device
+                          ) -> torch.Tensor:
+    """[T, D, cap, F] uniforms: entry (t, d) is the draw of tree t's level
+    d, ``uniform(fold_in(tree_keys[t], d), (cap, F))``. A level of A ≤ cap
+    slots draws (A, F), which is its first A rows."""
+    keys = np.stack([R.fold_in(tk, d) for tk in tree_keys
+                     for d in range(max_depth)])
+    per = max(1, _DRAW_CHUNK // max(cap * n_feat, 1))
+    u = torch.cat([R.uniform_batch(keys[i:i + per], (cap, n_feat), dtype,
+                                   device)
+                   for i in range(0, len(keys), per)])
+    return u.reshape(len(tree_keys), max_depth, cap, n_feat)
+
+
+def forest_k(task: str, n_feat: int) -> int:
+    """Candidate features a node (or tree) draws: round(√F) for
+    classification, F // 3 for regression (featureSubsetStrategy auto)."""
+    if task == "classification":
+        return max(1, int(round(np.sqrt(n_feat))))
+    return max(1, n_feat // 3)
+
+
+class ForestDraws:
+    """One forest's random draws, shared by every fold and grid point of a
+    sweep (their keys depend on the seed and the tree only): ``boot_u``
+    [T, n] f32 bootstrap uniforms (None for one tree) and ``masks``, per
+    block a float32 [T, D, cap, Fb] 0/1 candidate mask (None when every
+    feature is a candidate). :meth:`bootstrap` keeps the weights of each
+    rate it was asked for."""
+
+    def __init__(self, boot_u: Optional[torch.Tensor],
+                 masks: Optional[List[torch.Tensor]]):
+        self.boot_u = boot_u
+        self.masks = masks
+        self._weights = {}
+
+    def bootstrap(self, rate, dtype) -> Optional[torch.Tensor]:
+        """[T, n] bootstrap weights at ``rate`` in ``dtype`` (None for a
+        single tree, which takes no bootstrap)."""
+        if self.boot_u is None:
+            return None
+        key = (float(rate), dtype)
+        if key not in self._weights:
+            self._weights[key] = poisson_bootstrap_weights(self.boot_u,
+                                                           rate, dtype)
+        return self._weights[key]
+
+
+def forest_draws(seed: int, n_trees: int, n: int, task: str, max_depth: int,
+                 cap: int, blocks: List[Block], dtype: torch.dtype, device,
+                 per_node_features: bool = True) -> ForestDraws:
+    """The draws of :func:`fit_forest` for ``n`` rows at depth
+    ``max_depth`` with ``cap`` slots, as the JAX ``fit_forest`` makes them:
+    ``k_boot, k_feat = split(PRNGKey(seed))``; tree t's bootstrap from
+    ``fold_in(k_boot, t)``; per-node masks from ``split(k_feat, T)[t]``
+    folded with the level, or per-tree masks from ``k_feat``."""
+    F = sum(len(b.cols) for b in blocks)
+    if n_trees == 1:
+        return ForestDraws(None, None)
+    k_boot, k_feat = R.split(R.PRNGKey(seed))
+    boot_u = R.uniform_batch(
+        np.stack([R.fold_in(k_boot, t) for t in range(n_trees)]), (n,),
+        torch.float32, device)
+    k = forest_k(task, F)
+    if k >= F:
+        return ForestDraws(boot_u, None)
+    if per_node_features:
+        u = node_feature_uniforms(R.split(k_feat, n_trees), max_depth, cap,
+                                  F, dtype, device)
+        full = _kth_mask(u, k)                        # [T, D, cap, F]
+    else:
+        fm = feature_masks(k_feat, n_trees, F, k, dtype, device)
+        full = fm[:, None, None, :].expand(n_trees, max_depth, cap, F)
+    masks = [full.index_select(3, b.cols).to(torch.float32).contiguous()
+             for b in blocks]
+    return ForestDraws(boot_u, masks)
+
+
+def fit_forest(X, y, w, *, task: str, n_classes: int, n_trees: int,
+               max_depth: int, n_bins: int, min_instances, min_info_gain,
+               num_trees_used, subsample_rate,
+               depth_limit: Optional[int] = None,
+               max_active_nodes: int = 128, binary_mask=None, seed: int = 7,
+               per_node_features: bool = True, prebinned=None,
+               unroll: bool = False, draws: Optional[ForestDraws] = None):
+    """Random forest (one tree a loop step; the JAX package vmaps chunks
+    of trees): tree t grows on weights ``w`` × its Poisson bootstrap, over
+    per-node draws of k candidate features (Spark's featureSubsetStrategy;
+    ``per_node_features=False`` draws one mask per tree), with gini
+    (classification, channels one-hot × weight and the count) or variance
+    splits. One tree (a decision tree) takes neither draw. ``draws``
+    (:func:`forest_draws`) reuses a sweep's draws; ``prebinned`` is (XbT,
+    edges, blocks). Returns the params dict, with ``train_node`` [T, n],
+    each training row's leaf (the CV sweep predicts from it)."""
+    if prebinned is None:
+        XbT, edges = compute_bins(X, n_bins, binary_mask)
+        blocks = prepare_blocks(XbT, n_bins, binary_mask)
+    else:
+        XbT, edges, blocks = prebinned
+    n = XbT.shape[1]
+    dt, dev = w.dtype, w.device
+    if draws is None:
+        draws = forest_draws(seed, n_trees, n, task, max_depth,
+                             slot_cap(max_depth, max_active_nodes, unroll),
+                             blocks, dt, dev, per_node_features)
+    bw = draws.bootstrap(subsample_rate, dt)
+    if task == "classification":
+        onehot = torch.nn.functional.one_hot(y.long(), n_classes).to(dt)
+
+        def make_stats(wt):
+            return torch.cat([onehot * wt[:, None], (wt > 0).to(dt)[:, None]],
+                             dim=1)
+        crit, leaf_fn = GiniCriterion(), gini_leaf
+    else:
+        def make_stats(wt):
+            return torch.stack([wt, wt * y, wt * y * y, (wt > 0).to(dt)],
+                               dim=1)
+        crit, leaf_fn = VarianceCriterion(), variance_leaf
+    out = {k: [] for k in ("feat", "thr", "leaf", "train_node", "gain")}
+    for t in range(n_trees):
+        wt = w if bw is None else w * bw[t]
+        masks = (None if draws.masks is None
+                 else [m[t] for m in draws.masks])
+        res = grow_tree(XbT, edges, make_stats(wt), crit, leaf_fn, max_depth,
+                        n_bins, min_instances, min_info_gain,
+                        depth_limit=depth_limit,
+                        max_active_nodes=max_active_nodes, unroll=unroll,
+                        blocks=blocks, masks=masks)
+        for k, v in zip(("feat", "thr", "leaf", "train_node", "gain"), res):
+            out[k].append(v)
+    out = {k: torch.stack(v) for k, v in out.items()}
+    tree_w = (torch.arange(n_trees, device=dev)
+              < float(num_trees_used)).to(dt)
+    tree_w = tree_w / torch.clamp(tree_w.sum(), min=1.0)
+    out["tree_w"] = tree_w
+    out["gain"] = out["gain"] * tree_w[:, None]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -437,11 +674,46 @@ def predict_ensemble(feat, thr, leaf, tree_w, X, max_depth: int):
                          leaf * tree_w[:, None, None], max_depth)
 
 
+def rf_head(out, dtype, task: str):
+    """[n, K] weighted leaf aggregate → (prediction, raw, probability):
+    the class shares and their argmax, or the mean regression leaf."""
+    if task == "classification":
+        probs = out / torch.clamp(out.sum(-1, keepdim=True), min=_EPS)
+        return torch.argmax(probs, dim=-1).to(dtype), probs, probs
+    empty = torch.zeros((out.shape[0], 0), dtype=dtype, device=out.device)
+    return out[:, 0], empty, empty
+
+
+def rf_train_aggregate(leaf, node, tree_w, task: str):
+    """[n, K] weighted leaf sum over the fit-time routing ``node`` [T, n]
+    (the training matrix): leaf gathers, no routing. For classification
+    the last class is Σ tree_w minus the others, as the JAX package
+    computes it (every training row's leaf shares sum to 1)."""
+    T, _L, K = leaf.shape
+    vals = leaf.gather(1, node.long()[:, :, None].expand(T, -1, K))
+    out = torch.einsum("t,tnk->nk", tree_w, vals)
+    if task == "classification" and K > 1:
+        out[:, K - 1] = tree_w.sum() - out[:, :K - 1].sum(1)
+    return out
+
+
+def predict_rf_classification(params, X, max_depth: int, n_classes: int):
+    probs = predict_ensemble(params["feat"], params["thr"], params["leaf"],
+                             params["tree_w"], X, max_depth)
+    return rf_head(probs, X.dtype, "classification")
+
+
+def predict_rf_regression(params, X, max_depth: int):
+    out = predict_ensemble(params["feat"], params["thr"], params["leaf"],
+                           params["tree_w"], X, max_depth)
+    return rf_head(out, X.dtype, "regression")
+
+
 def margin_head(m, margin_scale: float, dtype, task: str):
     """[n] boosted margin → (prediction, raw, probability). GBT uses
     prob = σ(2F), XGB σ(F)."""
     if task == "classification":
-        p1 = torch.sigmoid(margin_scale * m)
+        p1 = score_sigmoid(margin_scale * m)
         prob = torch.stack([1.0 - p1, p1], dim=1)
         raw = torch.stack([-m, m], dim=1)
         return (p1 > 0.5).to(dtype), raw, prob

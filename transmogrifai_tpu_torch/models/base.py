@@ -25,7 +25,7 @@ from ..stages.base import (AllowLabelAsInput, Estimator, FittedModel,
 from ..types.feature_types import OPVector, Prediction, RealNN
 
 __all__ = ["PredictorEstimator", "PredictorModel", "ModelFamily",
-           "extract_xy", "resolve_device"]
+           "extract_xy", "resolve_device", "score_sigmoid"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -50,6 +50,15 @@ def extract_xy(store: ColumnStore, label_name: str, features_name: str
     """(X as stored — the f32 pipeline matrix —, y as f64)."""
     return (_features(store, features_name),
             np.asarray(store[label_name].values, dtype=np.float64))
+
+
+def score_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """σ(x) = 1 / (1 + e^−x) for the prediction heads: equal inputs get
+    equal scores wherever they sit in the tensor. On the CPU
+    ``torch.sigmoid``'s vectorized loop and its scalar tail round apart
+    by an ulp, which splits a tie of equal margins into two scores and
+    moves a threshold metric (AuPR) computed over them."""
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def to_f64(out) -> Tuple[np.ndarray, ...]:
@@ -121,6 +130,17 @@ class ModelFamily:
 
     def param_defaults(self) -> Dict[str, Any]:
         return {}
+
+    def device_prep(self, Xd: torch.Tensor):
+        """The fit input made once per sweep from the device matrix (the
+        tree families bin it); by default the matrix itself."""
+        return Xd
+
+    def fit_prepared(self, Xd: torch.Tensor, y, w, grid=None):
+        """(params list, fit input) for the final refit; the fit input
+        serves ``predict_batch(..., on_train=True)``."""
+        Xarg = self.device_prep(Xd)
+        return self.fit_batch(Xarg, y, w, grid), Xarg
 
     def fit_batch(self, X, y, w, grid=None):
         raise NotImplementedError

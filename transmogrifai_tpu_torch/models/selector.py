@@ -1,5 +1,6 @@
 """ModelSelector — AutoML model selection over a CV grid; the port of
-``transmogrifai_tpu/models/selector.py`` for binary classification.
+``transmogrifai_tpu/models/selector.py`` for binary classification (the
+default families: logistic regression, random forest, GBT, linear SVC).
 
 ``fit``: the splitter prepares (balancing, physical sampling) → the
 validator sweeps every (family × grid × fold) → the best grid point is
@@ -59,7 +60,7 @@ class ModelSelectorSummary:
 def _task_metrics(task: str, y, pred, prob) -> Dict[str, float]:
     if task != "binary":
         raise NotImplementedError(
-            f"{task} selection is not ported (ROADMAP A10)")
+            f"{task} selection is not ported (ROADMAP queue A, item 4)")
     scores = prob[:, 1] if prob.ndim == 2 and prob.shape[1] >= 2 else pred
     return M.binary_metrics(y, pred, scores)
 
@@ -174,11 +175,13 @@ class BinaryClassificationModelSelector:
 
     @classmethod
     def default_families(cls) -> List[ModelFamily]:
-        raise NotImplementedError(
-            "the default binary families (LR, RF, GBT, LinearSVC) need the "
-            "linear solvers and random forests, which are not ported yet "
-            "(ROADMAP A6, A8); pass families=[GBTFamily(...), "
-            "XGBoostFamily(...)]")
+        """LR, RF, GBT and LinearSVC on their default grids, in the JAX
+        package's order."""
+        from .linear import LogisticRegressionFamily
+        from .svm import LinearSVCFamily
+        from .trees import GBTFamily, RandomForestFamily
+        return [LogisticRegressionFamily(), RandomForestFamily(),
+                GBTFamily(), LinearSVCFamily()]
 
     @classmethod
     def with_cross_validation(cls, num_folds: int = 3,

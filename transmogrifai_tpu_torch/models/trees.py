@@ -1,13 +1,15 @@
-"""Boosted tree stages: GBT and XGBoost-style — the port of
-``transmogrifai_tpu/models/trees.py`` for the two boosting families.
+"""Tree stages: random forests, decision trees, GBT and XGBoost-style —
+the port of ``transmogrifai_tpu/models/trees.py``.
 
-Parity targets (reference): ``OpGBTClassifier``, ``OpXGBoostClassifier``
-(``OpXGBoostClassifier.scala:46``), fit with the histogram engine in
-``models/_treefit.py``. The JAX package vmaps the grid into one program;
-here grid points are a Python loop. Below ``UNROLL_MIN_ROWS`` rows every
-point grows the family's deepest tree with a depth gate (the constant-slot
-driver); at and above it a single-depth group grows unrolled trees at its
-own depth, as the JAX CV engine's static-depth groups do.
+Parity targets (reference): ``OpRandomForestClassifier``,
+``OpDecisionTreeClassifier`` (and their regressors), ``OpGBTClassifier``,
+``OpXGBoostClassifier`` (``OpXGBoostClassifier.scala:46``), fit with the
+histogram engine in ``models/_treefit.py``. The JAX package vmaps the
+grid into one program; here grid points are a Python loop. Below
+``UNROLL_MIN_ROWS`` rows every point grows the family's deepest tree with
+a depth gate (the constant-slot driver); at and above it a single-depth
+group grows unrolled trees at its own depth, as the JAX CV engine's
+static-depth groups do.
 """
 from __future__ import annotations
 
@@ -21,8 +23,11 @@ from . import _treefit as TF
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
                    extract_xy, resolve_device, to_f64)
 
-__all__ = ["TreeEnsembleModel", "GBTFamily", "XGBoostFamily",
-           "OpGBTClassifier", "OpXGBoostClassifier", "tree_model_from_numpy",
+__all__ = ["TreeEnsembleModel", "RandomForestFamily", "DecisionTreeFamily",
+           "GBTFamily", "XGBoostFamily", "OpRandomForestClassifier",
+           "OpRandomForestRegressor", "OpDecisionTreeClassifier",
+           "OpDecisionTreeRegressor", "OpGBTClassifier",
+           "OpXGBoostClassifier", "tree_model_from_numpy",
            "detect_binary_columns", "UNROLL_MIN_ROWS"]
 
 #: row count from which a single-depth fit grows unrolled trees (per-level
@@ -34,7 +39,7 @@ _MAX_DEPTH_DEFAULT = (3, 6, 12)        # DefaultSelectorParams.MaxDepth
 _MIN_INST_DEFAULT = (10, 100)          # .MinInstancesPerNode
 _MIN_GAIN_DEFAULT = (0.001, 0.01, 0.1)  # .MinInfoGain
 #: fit-time caches that never leave the sweep
-_CACHES = ("train_margin",)
+_CACHES = ("train_margin", "train_node")
 
 
 def detect_binary_columns(X: np.ndarray) -> Optional[np.ndarray]:
@@ -50,8 +55,8 @@ def detect_binary_columns(X: np.ndarray) -> Optional[np.ndarray]:
 @register_stage
 class TreeEnsembleModel(PredictorModel):
     """Stacked level-order trees + per-tree weights; ``kind`` selects the
-    head (``gbt_classification``, ``xgb_classification``,
-    ``gbt_regression``, ``xgb_regression``)."""
+    head (``rf_classification``, ``rf_regression``, ``gbt_classification``,
+    ``xgb_classification``, ``gbt_regression``, ``xgb_regression``)."""
 
     operation_name = "trees"
 
@@ -70,6 +75,11 @@ class TreeEnsembleModel(PredictorModel):
              for k, v in self.trees.items()}
         p["feat"] = p["feat"].to(torch.int32)
         Xd = Xd.to(p["leaf"].dtype)
+        if self.kind == "rf_classification":
+            return TF.predict_rf_classification(p, Xd, self.max_depth,
+                                                self.n_classes)
+        if self.kind == "rf_regression":
+            return TF.predict_rf_regression(p, Xd, self.max_depth)
         if self.kind.endswith("_classification"):
             scale = 2.0 if self.kind.startswith("gbt") else 1.0
             return TF.predict_margin_classification(p, Xd, self.max_depth,
@@ -98,16 +108,17 @@ def tree_model_from_numpy(kind: str, n_classes: int, max_depth: int,
 # ---------------------------------------------------------------------------
 
 class _TreeFamilyBase(ModelFamily):
-    """Shared grid handling for the boosting families."""
+    """Shared grid handling for the tree families."""
 
     task = "classification"
     n_bins = 32                      # DefaultSelectorParams.MaxBin
 
     def __init__(self, grid=None, n_classes: int = 2,
-                 max_active_nodes: int = 128):
+                 max_active_nodes: int = 128, seed: int = 7):
         super().__init__(grid)
         self.n_classes = n_classes
         self.max_active_nodes = max_active_nodes
+        self.seed = seed
         #: host-side [F] bool of indicator columns (set by the selector
         #: from its prepared matrix); they get the 2-bin sparse01 block
         self.binary_mask = None
@@ -175,17 +186,27 @@ class _TreeFamilyBase(ModelFamily):
 
     def predict_batch(self, params: List[Dict], X, on_train: bool = False):
         """(prediction, raw, prob) per grid point. ``on_train=True`` (X IS
-        the training matrix the fit saw) answers from the fit-time margin
-        cache; otherwise the trees route the raw X."""
+        the training matrix the fit saw) answers from the fit-time caches:
+        leaf gathers at ``train_node`` (forests) or the margins
+        (boosting); otherwise the trees route the raw X."""
         head = self._head()
         scale = 2.0 if head == "gbt" else 1.0
         if on_train:
             dt = X["edges"].dtype if isinstance(X, dict) else X.dtype
+            if head == "rf":
+                return [TF.rf_head(TF.rf_train_aggregate(
+                    p["leaf"], p["train_node"], p["tree_w"], self.task),
+                    dt, self.task) for p in params]
             return [TF.margin_head(p["train_margin"], scale, dt, self.task)
                     for p in params]
         if isinstance(X, dict):
             raise ValueError("routed prediction needs the raw feature matrix")
         D = self.global_depth()
+        if head == "rf":
+            if self.task == "classification":
+                return [TF.predict_rf_classification(p, X, D, self.n_classes)
+                        for p in params]
+            return [TF.predict_rf_regression(p, X, D) for p in params]
         return [TF.predict_margin_classification(p, X, D, scale)
                 for p in params]
 
@@ -193,7 +214,98 @@ class _TreeFamilyBase(ModelFamily):
         return tree_model_from_numpy(
             f"{self._head()}_{self.task}", self.n_classes,
             self.global_depth(),
-            {k: v.detach().cpu().numpy() for k, v in params.items()})
+            {k: v.detach().cpu().numpy() for k, v in params.items()
+             if k not in _CACHES})
+
+
+class RandomForestFamily(_TreeFamilyBase):
+    """RF grid = MaxDepth × MinInstancesPerNode × MinInfoGain
+    (BinaryClassificationModelSelector.scala:52-128), numTrees = 50.
+
+    Every fold and grid point of a sweep reads the same random draws
+    (their keys depend on the seed and the tree alone), so the family
+    keeps them per (rows, depth, slots, dtype, device) in ``_draws``."""
+
+    name = "OpRandomForestClassifier"
+    default_grid = [
+        {"maxDepth": d, "minInstancesPerNode": mi, "minInfoGain": mg}
+        for d in _MAX_DEPTH_DEFAULT for mi in _MIN_INST_DEFAULT
+        for mg in _MIN_GAIN_DEFAULT
+    ]
+
+    def __init__(self, grid=None, task: Optional[str] = None,
+                 n_classes: int = 2, num_trees: int = 50, seed: int = 7,
+                 per_node_features: bool = True,
+                 max_active_nodes: int = 128):
+        super().__init__(grid, n_classes=n_classes,
+                         max_active_nodes=max_active_nodes, seed=seed)
+        self.num_trees = num_trees
+        #: Spark-parity per-node candidate feature sampling (MLlib
+        #: featureSubsetStrategy); False draws one mask per tree
+        self.per_node_features = per_node_features
+        if task == "regression":
+            self.name = "OpRandomForestRegressor"
+            self.task = "regression"
+        self._draws: Dict[tuple, TF.ForestDraws] = {}
+
+    def param_defaults(self):
+        return {"maxDepth": 6, "minInstancesPerNode": 10,
+                "minInfoGain": 0.001, "numTrees": self.num_trees,
+                "subsamplingRate": 1.0}
+
+    def _head(self) -> str:
+        return "rf"
+
+    def _static_trees(self) -> int:
+        return int(max(int(g.get("numTrees", self.num_trees))
+                       for g in self.grid))
+
+    def _fit_single(self, X, y, w, depth, n_trees, hp, depth_limit, unroll):
+        prebinned, Xraw = self._prebinned(X)
+        draws = None
+        if prebinned is not None:
+            XbT, _edges, blocks = prebinned
+            cap = TF.slot_cap(depth, self.max_active_nodes, unroll)
+            key = (XbT.shape[1], n_trees, depth, cap, w.dtype, w.device)
+            draws = self._draws.get(key)
+            if draws is None:
+                draws = self._draws[key] = TF.forest_draws(
+                    self.seed, n_trees, XbT.shape[1], self.task, depth, cap,
+                    blocks, w.dtype, w.device, self.per_node_features)
+        return TF.fit_forest(
+            Xraw, y, w, task=self.task, n_classes=self.n_classes,
+            n_trees=n_trees, max_depth=depth, n_bins=self.n_bins,
+            min_instances=float(hp["minInstancesPerNode"]),
+            min_info_gain=float(hp["minInfoGain"]),
+            num_trees_used=float(hp["numTrees"]),
+            subsample_rate=float(hp["subsamplingRate"]),
+            depth_limit=depth_limit, max_active_nodes=self.max_active_nodes,
+            binary_mask=self.binary_mask, seed=self.seed,
+            per_node_features=self.per_node_features, prebinned=prebinned,
+            unroll=unroll, draws=draws)
+
+
+class DecisionTreeFamily(RandomForestFamily):
+    """Single unbagged tree, all features (OpDecisionTreeClassifier);
+    inherits the RF MaxDepth × MinInstancesPerNode × MinInfoGain grid."""
+
+    name = "OpDecisionTreeClassifier"
+
+    def __init__(self, grid=None, task: Optional[str] = None,
+                 n_classes: int = 2, seed: int = 7,
+                 max_active_nodes: int = 128):
+        super().__init__(grid, task=task, n_classes=n_classes, num_trees=1,
+                         seed=seed, max_active_nodes=max_active_nodes)
+        self.name = ("OpDecisionTreeRegressor" if self.task == "regression"
+                     else "OpDecisionTreeClassifier")
+
+    def param_defaults(self):
+        d = super().param_defaults()
+        d["numTrees"] = 1
+        return d
+
+    def _static_trees(self) -> int:
+        return 1
 
 
 class GBTFamily(_TreeFamilyBase):
@@ -281,13 +393,17 @@ class XGBoostFamily(_TreeFamilyBase):
 # ---------------------------------------------------------------------------
 
 class _TreeEstimatorBase(PredictorEstimator):
+    task = "classification"
+
     def _family(self, n_classes: int) -> _TreeFamilyBase:
         raise NotImplementedError
 
     def fit_columns(self, store, device=None,
                     dtype: torch.dtype = torch.float32) -> TreeEnsembleModel:
         X, y = extract_xy(store, self.label_name, self.features_name)
-        fam = self._family(max(int(y.max()) + 1 if len(y) else 2, 2))
+        n_classes = (max(int(y.max()) + 1 if len(y) else 2, 2)
+                     if self.task == "classification" else 2)
+        fam = self._family(n_classes)
         fam.binary_mask = detect_binary_columns(X)
         dev = resolve_device(device)
         Xd = torch.as_tensor(X, dtype=dtype, device=dev)
@@ -295,6 +411,70 @@ class _TreeEstimatorBase(PredictorEstimator):
             Xd, torch.as_tensor(y, dtype=dtype, device=dev),
             torch.ones((X.shape[0],), dtype=dtype, device=dev))
         return fam.realize(params[0], fam.grid[0])
+
+
+@register_stage
+class OpRandomForestClassifier(_TreeEstimatorBase):
+    operation_name = "randomForest"
+
+    def __init__(self, num_trees: int = 20, max_depth: int = 5,
+                 min_instances_per_node: int = 1,
+                 min_info_gain: float = 0.0, subsampling_rate: float = 1.0,
+                 max_active_nodes: int = 128, seed: int = 7,
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.num_trees = num_trees
+        self.max_depth = max_depth
+        self.min_instances_per_node = min_instances_per_node
+        self.min_info_gain = min_info_gain
+        self.subsampling_rate = subsampling_rate
+        self.max_active_nodes = max_active_nodes
+        self.seed = seed
+
+    def _family(self, n_classes):
+        return RandomForestFamily(
+            grid=[{"maxDepth": self.max_depth,
+                   "minInstancesPerNode": self.min_instances_per_node,
+                   "minInfoGain": self.min_info_gain,
+                   "numTrees": self.num_trees,
+                   "subsamplingRate": self.subsampling_rate}],
+            task=self.task, n_classes=n_classes, num_trees=self.num_trees,
+            max_active_nodes=self.max_active_nodes, seed=self.seed)
+
+
+@register_stage
+class OpRandomForestRegressor(OpRandomForestClassifier):
+    operation_name = "randomForestReg"
+    task = "regression"
+
+
+@register_stage
+class OpDecisionTreeClassifier(_TreeEstimatorBase):
+    operation_name = "decisionTree"
+
+    def __init__(self, max_depth: int = 5, min_instances_per_node: int = 1,
+                 min_info_gain: float = 0.0, max_active_nodes: int = 128,
+                 seed: int = 7, uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.max_depth = max_depth
+        self.min_instances_per_node = min_instances_per_node
+        self.min_info_gain = min_info_gain
+        self.max_active_nodes = max_active_nodes
+        self.seed = seed
+
+    def _family(self, n_classes):
+        return DecisionTreeFamily(
+            grid=[{"maxDepth": self.max_depth,
+                   "minInstancesPerNode": self.min_instances_per_node,
+                   "minInfoGain": self.min_info_gain}],
+            task=self.task, n_classes=n_classes,
+            max_active_nodes=self.max_active_nodes, seed=self.seed)
+
+
+@register_stage
+class OpDecisionTreeRegressor(OpDecisionTreeClassifier):
+    operation_name = "decisionTreeReg"
+    task = "regression"
 
 
 @register_stage

@@ -16,6 +16,7 @@ own depth.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -185,6 +186,9 @@ class ValidatorSummary:
     evaluation_metric: str
     results: List[ValidationResult] = field(default_factory=list)
     best: Optional[ValidationResult] = None
+    #: family name → wall-clock seconds of its sweep (every fold and grid
+    #: point, the metrics read back)
+    family_seconds: Dict[str, float] = field(default_factory=dict)
 
     def to_json(self) -> Dict[str, Any]:
         return {
@@ -249,7 +253,7 @@ class CrossValidation:
         if metric_fn is None:
             raise NotImplementedError(
                 f"metric {self.metric_name!r} for task {self.task!r} is not "
-                "ported (ROADMAP A6)")
+                "ported (ROADMAP queue A, item 4)")
         dev = resolve_device(device)
         splits = self._splits(y)
         base_w = (np.ones_like(y, dtype=np.float64)
@@ -265,10 +269,13 @@ class CrossValidation:
         best_family: Optional[ModelFamily] = None
         sign = 1.0 if self.is_larger_better else -1.0
         for family in families:
+            t0 = time.perf_counter()
             Xarg = family.device_prep(Xd)
             G, K = family.grid_size(), len(folds)
-            # (grid indices, static depth | None) groups
-            if len(y) >= UNROLL_MIN_ROWS:
+            # (grid indices, static depth | None) groups; only the tree
+            # families have a depth
+            if (len(y) >= UNROLL_MIN_ROWS
+                    and "maxDepth" in family.param_defaults()):
                 dflt = family.param_defaults().get("maxDepth", 0)
                 by_depth: Dict[int, List[int]] = {}
                 for i, g in enumerate(family.grid):
@@ -280,14 +287,16 @@ class CrossValidation:
             metrics = [[None] * K for _ in range(G)]
             for k, (w, v) in enumerate(folds):
                 for ix, sd in groups:
-                    params = family.fit_batch(
-                        Xarg, yd, w, [family.grid[i] for i in ix],
-                        static_depth=sd)
+                    grid = [family.grid[i] for i in ix]
+                    params = (family.fit_batch(Xarg, yd, w, grid)
+                              if sd is None else family.fit_batch(
+                                  Xarg, yd, w, grid, static_depth=sd))
                     preds = family.predict_batch(params, Xarg, on_train=True)
                     for i, (pred, _raw, prob) in zip(ix, preds):
                         metrics[i][k] = metric_fn(yd, pred, prob, v)
             per_grid = torch.stack([torch.stack(m) for m in metrics]).to(
                 "cpu", torch.float64).numpy()                   # [G, K]
+            summary.family_seconds[family.name] = time.perf_counter() - t0
             for gi in range(G):
                 r = ValidationResult(
                     family_name=family.name, hparams=family.grid[gi],

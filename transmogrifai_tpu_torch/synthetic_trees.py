@@ -1,6 +1,7 @@
 """The synthetic tree-grid sweep of ``examples/synthetic_trees.py``, for
 the port: the same numpy-seeded data (``synthesize_store``) and the same
-GBT + XGBoost k-fold CV selection through ``Workflow.train``.
+GBT + XGBoost k-fold CV selection through ``Workflow.train``; or, with
+``forest_families()``, a random forest and a decision tree.
 
 Usage::
 
@@ -20,11 +21,13 @@ from .columns import ColumnStore, VectorColumn, column_from_values
 from .evaluators import Evaluators
 from .features import FeatureBuilder
 from .models import (BinaryClassificationModelSelector, DataBalancer,
-                     GBTFamily, XGBoostFamily)
+                     DecisionTreeFamily, GBTFamily, RandomForestFamily,
+                     XGBoostFamily)
 from .types import feature_types as ft
 from .workflow import Workflow
 
-__all__ = ["synthesize_store", "run"]
+__all__ = ["synthesize_store", "default_families", "forest_families",
+           "run"]
 
 
 def synthesize_store(n_rows: int, n_features: int = 20,
@@ -54,6 +57,18 @@ def default_families(gbt_depths: Sequence[int] = (3, 6, 9),
         XGBoostFamily(grid=[{"maxDepth": d, "numRound": rounds, "eta": 0.3,
                              "minChildWeight": 1.0} for d in xgb_depths]),
     ]
+
+
+def forest_families(depths: Sequence[int] = (3, 6, 12), num_trees: int = 50,
+                    min_instances: int = 10, min_info_gain: float = 0.001):
+    """A random forest (``num_trees`` trees, per-node draws of round(√F)
+    candidate features, no subsampling) and a decision tree over the
+    same maxDepth grid: the rf-200k configuration at the defaults."""
+    grid = [{"maxDepth": d, "minInstancesPerNode": min_instances,
+             "minInfoGain": min_info_gain, "subsamplingRate": 1.0}
+            for d in depths]
+    return [RandomForestFamily(grid=grid, num_trees=num_trees),
+            DecisionTreeFamily(grid=[dict(g) for g in grid])]
 
 
 def run(n_rows: int, num_folds: int = 5, families=None, seed: int = 42,

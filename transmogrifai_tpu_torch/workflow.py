@@ -91,6 +91,8 @@ class Workflow:
         self.result_features: Tuple[Feature, ...] = ()
         #: a ColumnStore or a list of record dicts
         self._input_data = None
+        #: a readers.DataReader, read when no input data is set
+        self._reader = None
         self.splitter = None          # tuning.Splitter for the holdout
 
     def set_result_features(self, *features: Feature) -> "Workflow":
@@ -114,6 +116,12 @@ class Workflow:
         self._input_data = list(records)
         return self
 
+    def set_reader(self, reader) -> "Workflow":
+        """A ``readers.DataReader``; ``train`` reads its records when no
+        input store or records are set."""
+        self._reader = reader
+        return self
+
     def set_splitter(self, splitter) -> "Workflow":
         self.splitter = splitter
         return self
@@ -122,11 +130,13 @@ class Workflow:
               dtype: torch.dtype = torch.float32) -> "WorkflowModel":
         """Fit the DAG on ``device`` (default: the card) in ``dtype``."""
         dev = resolve_device(device)
-        if self._input_data is None:
-            raise WorkflowError(
-                "No input data: call set_input_store or set_input_records")
-        store = _raw_store(self._input_data,
-                           _raw_features_of(self.result_features))
+        data = self._input_data
+        if data is None and self._reader is not None:
+            data = self._reader.read_records()
+        if data is None:
+            raise WorkflowError("No input data: call set_input_store, "
+                                "set_input_records or set_reader")
+        store = _raw_store(data, _raw_features_of(self.result_features))
         train, test = store, None
         if self.splitter is not None:
             train, test = self.splitter.reserve_split(store)
