@@ -78,9 +78,25 @@ Run from the repository root on a machine with one NVIDIA H100:
    → refit → evaluate, with every launch counted (``cumhist_sparse01``
    must launch: Titanic's indicator columns); then one grid point of each
    family on the card and on the CPU: the same model, AuPR within 1e-4.
+7. serve: ``tests/resources/golden_model_v1`` loaded and scored on the
+   card (predictions exact, probability within rtol 1e-6 of
+   ``expected.json``); then phase 4's workflow and 200,000 records through
+   ``OpWorkflowRunner``: Train (saves the model in the JAX package's
+   format), Score (a fresh ``WorkflowModel.load``, the scoring engine:
+   24 chunks of 8,192 rows and one of 3,392 in the 4,096 bucket, a CUDA
+   graph per bucket) and Evaluate, then ``stream_score_overlapped`` over
+   25 batches of 8,000 records, with every launch counted (``predict_trees``
+   once a chunk in Score). Checks: Evaluate's AuPR equals phase 4's;
+   Score's columns bitwise equal the trained model's layer-path score on
+   the card; graph replays bitwise equal the eager program at each
+   bucket; the stream equals Score; the saved model loaded for the CPU
+   scores 2,000 records bitwise as the card does. Prints save, load,
+   Score and layer-path seconds, rows/s, the buckets and graphs. Phase 2
+   also holds ``predict_trees`` at the bucket shape (n = 8,192 and 4,096,
+   F=451, T=20, D=6) bitwise against its plain version and times it.
 
-``--profile`` runs each main path (all four) once more under
-``torch.profiler`` and prints its device-time table: the busy share, the
+``--profile`` runs each main path (the four, and serve's Score) once more
+under ``torch.profiler`` and prints its device-time table: the busy share, the
 device operations a tree level, the histogram kernels, the split scans,
 the route or level epilogue, the predict and the uint8 → bool copies.
 ``--timings-only`` skips every check and prints only the times of
@@ -94,7 +110,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the four main paths' runs, phases 3–6).
+over the main paths' runs, phases 3–7).
 """
 import json
 import math
@@ -690,6 +706,21 @@ def check_predict(H, rng, put):
                        ms=ms, plain_ms=plain_ms, library_ms=None, bound=bound)
         del X
     row["max_abs_err"] = worst
+    # the scoring engine's shape: one bucket chunk of the text path's rows
+    for n in SERVE_BUCKETS:
+        X, feat, thr, leaf = predict_inputs(rng, put, 451, 20, 6, n=n)
+        out = H.predict_trees(X, feat, thr, leaf, 6)
+        ref = H.predict_trees_reference(X, feat, thr, leaf, 6)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"predict_trees at the bucket shape (n={n}, F=451, T=20, "
+                 f"D=6) is not bitwise equal to its plain version")
+        ms = time_ms(lambda: H.predict_trees(X, feat, thr, leaf, 6))
+        plain_ms = time_ms(lambda: H.predict_trees_reference(
+            X, feat, thr, leaf, 6), reps=5)
+        print(f"predict_trees bucket n={n} F=451 T=20 D=6: bitwise equal to "
+              f"its plain version; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {1e3 * max(predict_bound(451, 20, 6, n=n)):.5f} ms")
     return row
 
 
@@ -714,11 +745,17 @@ def route_tables(rng, put, A, A_next):
 #: at Titanic's
 PREDICT_SHAPES = ((F, 20, 9, 1), (451, 20, 6, 1), (F, 50, 9, 1),
                   (F, 50, 12, 2), (TITANIC_F, 50, 12, 2))
+#: card/CPU probabilities of one f32 model: the head's exp on the card and
+#: on the CPU round an ulp apart, which 1 − p doubles (2^-22: two ulps)
+PROB_ATOL = 2.0 ** -22
+#: the scoring engine's buckets on the serve path: 24 chunks of 8,192 rows
+#: and a last one of 3,392 rows in the 4,096 bucket
+SERVE_BUCKETS = (8192, 4096)
 
 
-def predict_inputs(rng, put, Fp, T, D, K=1):
+def predict_inputs(rng, put, Fp, T, D, K=1, n=N):
     NN, L = (1 << D) - 1, 1 << D
-    X = put(rng.normal(size=(N, Fp)).astype(np.float32))
+    X = put(rng.normal(size=(n, Fp)).astype(np.float32))
     feat = put(rng.integers(0, Fp, size=(T, NN), dtype=np.int32))
     thr_np = rng.normal(size=(T, NN)).astype(np.float32)
     thr_np[rng.random((T, NN)) < 0.2] = np.inf          # dead splits
@@ -726,12 +763,12 @@ def predict_inputs(rng, put, Fp, T, D, K=1):
     return X, feat, put(thr_np), leaf
 
 
-def predict_bound(Fp, T, D, K=1):
+def predict_bound(Fp, T, D, K=1, n=N):
     """(bytes, operations) seconds of predict_trees: the rows, the trees
     and the sums moved once; D compares and K adds a tree and row."""
     NN, L = (1 << D) - 1, 1 << D
-    return ((N * Fp * 4 + T * NN * 8 + T * L * K * 4 + N * K * 4) / HBM_BPS,
-            float(N) * T * (D + K) / F32_FLOPS)
+    return ((n * Fp * 4 + T * NN * 8 + T * L * K * 4 + n * K * 4) / HBM_BPS,
+            float(n) * T * (D + K) / F32_FLOPS)
 
 
 def epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A, nblk, d, D,
@@ -1072,6 +1109,173 @@ def agree(runs, what):
     print(f"{what}: same model on cuda and cpu, |dAuPR| = {d_aupr:.3g}")
 
 
+def layer_evaluate(out, what):
+    """The path's evaluate again on the layer path (no scoring engine), on
+    the card: its seconds beside the engine's, and the same AuPR."""
+    t0 = time.perf_counter()
+    metrics = out["model"].evaluate(out["data"], out["evaluator"],
+                                    device="cuda", engine=False)
+    layer_s = time.perf_counter() - t0
+    if metrics["AuPR"] != out["metrics"]["AuPR"]:
+        fail(f"{what}: the layer path's AuPR differs from the engine's")
+    print(f"{what}: evaluate {out['eval_s']:.2f} s through the scoring "
+          f"engine, {layer_s:.2f} s on the layer path (same AuPR)")
+
+
+def same_predictions(a, b, what, prob_atol=0.0):
+    """Two prediction columns bitwise equal, every column; with
+    ``prob_atol`` the probabilities within it."""
+    for col in ("prediction", "raw_prediction", "probability"):
+        x, y = getattr(a, col), getattr(b, col)
+        if col == "probability" and prob_atol:
+            err = float(np.max(np.abs(x - y), initial=0.0))
+            if err > prob_atol:
+                fail(f"{what}: probability differs by {err:.3g}")
+        elif not np.array_equal(x, y):
+            fail(f"{what}: {col} differs")
+
+
+def serve(H, BP, records, text_aupr, dev="cuda", profile=False):
+    """Phase 7: the golden model on the card, then BigPassenger through the
+    runner's Train (saves), Score (a fresh load, the scoring engine, a CUDA
+    graph per bucket) and Evaluate, and the overlapped stream, with every
+    launch counted; then the checks. Returns the path's launches. ``dev``
+    "cpu" rehearses the phase on the host (no graphs, no kernels)."""
+    import shutil
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.runner import (OpParams, OpWorkflowRunner,
+                                                RunType)
+    from transmogrifai_tpu_torch.scoring import stream_score_overlapped
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    golden = os.path.join(root, "tests", "resources", "golden_model_v1")
+    expected = json.load(open(os.path.join(golden, "expected.json")))
+    gm = WorkflowModel.load(golden)
+    for engine in (False, True):
+        p = gm.score(expected["rows"], device=dev,
+                     engine=engine)[expected["pred_name"]]
+        if not (np.array_equal(p.prediction, expected["expected_pred"])
+                and np.allclose(p.probability[:, 1],
+                                expected["expected_prob1"], rtol=1e-6,
+                                atol=0.0)):
+            fail(f"golden model: scores differ from expected.json "
+                 f"(engine={engine})")
+    print("golden model on the card: predictions exact, probability[:, 1] "
+          "within rtol 1e-6 of expected.json (layer path and engine)")
+
+    survived, _checked, selector, prediction = BP.build_selection()
+    wf = (Workflow().set_result_features(prediction)
+          .set_splitter(selector.splitter))
+    reader = DataReaders.simple.records(records)
+    runner = OpWorkflowRunner(
+        wf, training_reader=reader, scoring_reader=reader,
+        evaluator=Evaluators.BinaryClassification.auPR().set_columns(
+            survived, prediction), device=dev)
+    path = os.path.join(root, "build", "serve", "big_passenger")
+    shutil.rmtree(path, ignore_errors=True)
+    params = OpParams(model_location=path)
+    n = len(records)
+    chunks = -(-n // 8192)
+
+    H.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = runner.run(RunType.TRAIN, params)
+    train_s = time.perf_counter() - t0
+    before = dict(H.KERNEL_LAUNCHES)
+    t0 = time.perf_counter()
+    scored = runner.run(RunType.SCORE, params)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    score_launches = {k: v - before[k] for k, v in H.KERNEL_LAUNCHES.items()}
+    t0 = time.perf_counter()
+    ev = runner.run(RunType.EVALUATE, params)
+    eval_s = time.perf_counter() - t0
+    batches = [records[i:i + 8000] for i in range(0, n, 8000)]
+    t0 = time.perf_counter()
+    streamed = list(stream_score_overlapped(scored.model, batches,
+                                            device=dev))
+    stream_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(H.KERNEL_LAUNCHES)
+    for k in ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
+              "level_epilogue", "predict_trees"):
+        if launches[k] == 0:
+            fail(f"serve path never launched {k}")
+    once_per_level(launches, "serve path")
+    if score_launches["predict_trees"] != chunks:
+        fail(f"Score launched predict_trees {score_launches['predict_trees']}"
+             f" times for {chunks} bucket chunks")
+    eng = scored.model.scoring_engine(dev)
+    print(f"serve-200k: train (runner, saves) {train_s:.2f} s, Score "
+          f"(fresh load, engine) {score_s:.2f} s = {n / score_s:,.0f} rows/s, "
+          f"Evaluate {eval_s:.2f} s, overlapped stream ({len(batches)} "
+          f"batches of 8000) {stream_s:.2f} s = {n / stream_s:,.0f} rows/s; "
+          f"buckets used {eng.buckets_used()}, graphs captured "
+          f"{eng.graphs_captured}, predict_trees launches in Score "
+          f"{score_launches['predict_trees']} ({chunks} chunks)")
+    aupr = ev.metrics["AuPR"]
+    if aupr != text_aupr:
+        fail(f"serve path: Evaluate AuPR {aupr!r} is not phase 4's "
+             f"{text_aupr!r}")
+    print(f"serve-200k: Evaluate AuPR {aupr:.6f}, equal to phase 4's")
+    print(f"serve-200k launches: {launches}")
+
+    # -- checks (not counted) ---------------------------------------------
+    t0 = time.perf_counter()
+    trained.model.save(os.path.join(root, "build", "serve", "again"),
+                       overwrite=True)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = WorkflowModel.load(path)
+    load_s = time.perf_counter() - t0
+    got = scored.scores[prediction.name]
+    t0 = time.perf_counter()
+    eager = trained.model.score(records, device=dev, engine=False)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    same_predictions(got, eager[prediction.name],
+                     "Score (engine) against the trained model's eager score")
+    print(f"serve-200k: save {save_s:.2f} s, load {load_s:.2f} s; Score "
+          f"{score_s:.2f} s against the layer path's {eager_s:.2f} s; "
+          "Score's columns bitwise equal to the layer path's")
+    warm = scored.model.scoring_engine(dev, graphs=False)
+    same_predictions(got, warm.score_store(records)[prediction.name],
+                     "graph replays at 8192 against the eager program")
+    tail = records[(chunks - 1) * 8192:]
+    want = warm.score_store(tail)[prediction.name]
+    for _ in range(2):      # capture and replay at 4096, then a replay
+        same_predictions(eng.score_store(tail, use_cache=False)[
+            prediction.name], want,
+            "graph replays at 4096 against the eager program")
+    print(f"serve-200k: graph replays bitwise equal to the eager program at "
+          f"buckets {eng.buckets_used()} ({eng.graphs_captured} graphs)")
+    for name in ("prediction", "raw_prediction", "probability"):
+        col = np.concatenate([getattr(s[prediction.name], name)
+                              for s in streamed])
+        if not np.array_equal(col, getattr(got, name)):
+            fail(f"overlapped stream: {name} differs from Score's")
+    print("serve-200k: the overlapped stream equals Score's output bitwise")
+    if profile:
+        profile_path(H, "serve-200k Score",
+                     lambda: runner.run(RunType.SCORE, params))
+    cpu = loaded.score(records[:2000], device="cpu")[prediction.name]
+    card = scored.model.score(records[:2000], device=dev,
+                              engine=True)[prediction.name]
+    # predictions and margins bitwise (the kernel is bitwise to its plain
+    # version); the sigmoid's exp rounds apart on the card and the CPU
+    same_predictions(card, cpu, "card/CPU agreement (2000 records)",
+                     prob_atol=PROB_ATOL)
+    err = float(np.max(np.abs(card.probability - cpu.probability)))
+    print(f"serve-200k: the saved model scores 2000 records alike on cuda "
+          f"(engine) and cpu: predictions and margins bitwise, "
+          f"probabilities within {err:.3g} (limit {PROB_ATOL:.3g})")
+    return launches
+
+
 def timings(H, dev, BP, run):
     """``--timings-only``: split_scan's times at its shapes, then each main
     path run once and profiled once; nothing is checked and no result
@@ -1159,6 +1363,7 @@ def main():
           f"{s.best_model_params}, AuPR {aupr:.6f}")
     print(f"synthetic-sweep launches: {launches}")
     path_launches["sweep-200k"] = launches
+    layer_evaluate(out, "sweep-200k")
     if profile:
         profile_path(H, "sweep", lambda: run(N, device="cuda"))
     agree({d: run(20_000, device=d,
@@ -1185,6 +1390,8 @@ def main():
           f"{s.best_model_params}, AuPR {aupr:.6f}")
     print(f"BigPassenger launches: {launches}")
     path_launches["text-200k"] = launches
+    text_aupr = aupr
+    layer_evaluate(out, "text-200k")
     if profile:
         profile_path(H, "BigPassenger", lambda: BP.run(N, device="cuda",
                                                        records=records))
@@ -1206,6 +1413,7 @@ def main():
           f"{s.validator_summary.family_seconds}")
     print(f"rf-200k launches: {launches}")
     path_launches["rf-200k"] = launches
+    layer_evaluate(out, "rf-200k")
     if profile:
         profile_path(H, "rf-200k", lambda: run(N, device="cuda",
                                                families=forest_families()))
@@ -1233,6 +1441,10 @@ def main():
     agree({d: TT.run(device=d, families=titanic_one_point())
            for d in ("cuda", "cpu")},
           "titanic, one grid point a family")
+
+    # -- phase 7: save, load and serve (the runner, the scoring engine) --
+    path_launches["serve-200k"] = serve(H, BP, records, text_aupr,
+                                        profile=profile)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

@@ -8,6 +8,8 @@ and XGBoost families) with hand-written CUDA kernels for the tree engine
 caller passes ``device="cpu"``. The package imports ``torch`` and numpy,
 never ``jax``.
 """
+__version__ = "0.2.0"
+
 from . import types  # noqa: F401
 from .columns import Column, ColumnStore, column_from_values  # noqa: F401
 from .dsl import transmogrify  # noqa: F401

@@ -110,7 +110,8 @@ def run(n_rows: int = 30_000, num_folds: int = 3, families=None,
         records: Optional[List[Dict[str, Any]]] = None) -> Dict[str, Any]:
     """Train the :func:`build_selection` workflow on ``device`` over
     ``records`` (default: ``n_rows`` synthesized ones), then evaluate AuPR
-    over all of them. Returns the model, metrics, summary, the width of
+    over all of them. Returns the model, metrics, summary, the records and
+    evaluator, the width of
     each histogram block and phase seconds: ``records_s`` (synthesis),
     ``vectorize_s``, ``sanity_s`` and ``selector_s`` (parts of
     ``train_s``), ``eval_s``."""
@@ -150,6 +151,7 @@ def run(n_rows: int = 30_000, num_folds: int = 3, families=None,
     n_bin = 0 if bmask is None else int(np.sum(bmask))
     return {"model": model, "metrics": metrics, "scored": scored,
             "prediction": prediction, "label": survived,
+            "data": records, "evaluator": evaluator,
             "summary": model.fitted_stages[selector.uid].selector_summary,
             "sanity": sanity,
             "blocks": {"continuous": len(sanity.keep_indices) - n_bin,

@@ -44,7 +44,11 @@ repository root) and bound with ``ctypes``. Every launch returns
 ``cudaGetLastError()``, and the wrapper raises on anything but success.
 
 ``KERNEL_LAUNCHES`` counts, per kernel, the launches its wrapper made
-(one per wrapper call that reached the card).
+(one per wrapper call that reached the card). A wrapper called while a
+CUDA graph is captured records its kernel instead of launching it; the
+scoring engine takes those counts back after the capture and adds them
+at each replay of the graph (:func:`count_graph_replay`), which is where
+the recorded kernels launch.
 """
 from __future__ import annotations
 
@@ -68,7 +72,8 @@ __all__ = ["cumhist", "cumhist_reference", "make_bc", "hist_rows",
            "route_level_reference", "split_gain", "level_epilogue",
            "level_epilogue_reference", "predict_trees",
            "predict_trees_reference", "predict_trees_chunk", "build_kernels",
-           "KERNEL_LAUNCHES", "reset_launch_counts", "SPLIT_NEG"]
+           "KERNEL_LAUNCHES", "reset_launch_counts", "count_graph_replay",
+           "SPLIT_NEG"]
 
 #: masked-out candidate score (the criteria's scores are all ≥ 0)
 SPLIT_NEG = -1e30
@@ -84,6 +89,13 @@ KERNEL_LAUNCHES: Dict[str, int] = {"cumhist": 0, "cumhist_bc": 0,
 def reset_launch_counts() -> None:
     for k in KERNEL_LAUNCHES:
         KERNEL_LAUNCHES[k] = 0
+
+
+def count_graph_replay(launches: Dict[str, int]) -> None:
+    """One replay of a CUDA graph that holds ``launches`` kernel launches
+    (per kernel, as the wrappers counted them during the capture)."""
+    for k, v in launches.items():
+        KERNEL_LAUNCHES[k] += v
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from ..stages.base import (AllowLabelAsInput, Estimator, FittedModel,
 from ..types.feature_types import OPVector, Prediction, RealNN
 
 __all__ = ["PredictorEstimator", "PredictorModel", "ModelFamily",
-           "extract_xy", "resolve_device", "score_sigmoid"]
+           "extract_xy", "resolve_device", "score_sigmoid", "device_table"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -36,6 +36,21 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is visible; pass device='cpu' to run on the CPU")
     return dev
+
+
+def device_table(owner, key: str, make, device: torch.device
+                 ) -> torch.Tensor:
+    """A fitted stage's constant (``make()``, a host array) as a tensor on
+    ``device``, uploaded once and kept on ``owner`` by (key, device).
+    Scoring reads its weights from here, so the scoring engine's CUDA
+    graphs capture no host-to-device copy, and a model scored many times
+    uploads its tables once. ``apply_model_state`` clears the cache."""
+    cache = owner.__dict__.setdefault("_device_tables", {})
+    k = (key, str(device))
+    t = cache.get(k)
+    if t is None:
+        t = cache[k] = torch.as_tensor(np.array(make()), device=device)
+    return t
 
 
 def _features(store: ColumnStore, features_name: str) -> np.ndarray:
@@ -79,10 +94,21 @@ class PredictorModel(FittedModel, AllowLabelAsInput):
     def input_spec(self) -> InputSpec:
         return FixedArity(RealNN, OPVector)
 
+    def predict_device(self, Xd: torch.Tensor):
+        """(prediction [n], raw [n, k], prob [n, k]) tensors on ``Xd``'s
+        device: the contract the scoring engine fuses. No read-back to
+        the host, no upload after the first call (``device_table``), so
+        the engine can capture it in a CUDA graph."""
+        raise NotImplementedError(
+            f"{type(self).__name__} implements neither predict_device nor "
+            "predict_arrays")
+
     def predict_arrays(self, X: np.ndarray, device=None
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(prediction [n], raw [n, k], prob [n, k]) as host float64."""
-        raise NotImplementedError
+        """(prediction [n], raw [n, k], prob [n, k]) as host float64, by
+        :meth:`predict_device` on ``device`` (default: the card)."""
+        Xd = torch.as_tensor(X, device=resolve_device(device))
+        return to_f64(self.predict_device(Xd))
 
     def transform_columns(self, store: ColumnStore, device=None) -> Column:
         X = _features(store, self.input_features[1].name)

@@ -16,7 +16,7 @@ import torch
 from ..stages.base import register_stage
 from . import _linfit as LF
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
-                   extract_xy, resolve_device, to_f64)
+                   device_table, extract_xy, resolve_device)
 
 __all__ = ["LogisticRegressionModel", "OpLogisticRegression",
            "LogisticRegressionFamily"]
@@ -42,21 +42,29 @@ class LogisticRegressionModel(PredictorModel):
                           if intercept is not None else None)
         self.n_classes = int(n_classes)
 
-    def predict_tensors(self, Xd: torch.Tensor):
-        if self.n_classes != 2 or self.coefficients.ndim != 1:
+    def predict_device(self, Xd: torch.Tensor):
+        if self.n_classes != 2 or np.ndim(self.coefficients) != 1:
             raise NotImplementedError(_MULTINOMIAL)
-        coef = torch.as_tensor(self.coefficients, device=Xd.device)
-        b = torch.as_tensor(self.intercept, dtype=coef.dtype,
-                            device=Xd.device)
+        coef = device_table(self, "coefficients",
+                            lambda: self.coefficients, Xd.device)
+        b = device_table(self, "intercept", lambda: np.asarray(
+            self.intercept, dtype=np.asarray(self.coefficients).dtype),
+            Xd.device)
         return LF.predict_binary_logistic(coef, b, Xd.to(coef.dtype))
-
-    def predict_arrays(self, X: np.ndarray, device=None):
-        Xd = torch.as_tensor(X, device=resolve_device(device))
-        return to_f64(self.predict_tensors(Xd))
 
     def get_model_state(self):
         return {"coefficients": self.coefficients, "intercept": self.intercept,
                 "n_classes": self.n_classes}
+
+    def apply_model_state(self, state) -> None:
+        for k, v in state.items():
+            setattr(self, k, v)
+        self.n_classes = int(self.n_classes)
+        self.__dict__.pop("_device_tables", None)
+
+    def summary(self):
+        return {"model": "LogisticRegression", "numClasses": self.n_classes,
+                "numFeatures": int(np.atleast_2d(self.coefficients).shape[-1])}
 
 
 @register_stage

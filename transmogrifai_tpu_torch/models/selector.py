@@ -18,7 +18,7 @@ import torch
 
 from ..columns import ColumnStore
 from ..evaluators import metrics as M
-from ..stages.base import register_stage
+from ..stages.base import register_stage, stage_from_state
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
                    extract_xy, resolve_device, to_f64)
 from .tuning import (CrossValidation, DataBalancer, Splitter,
@@ -68,19 +68,52 @@ def _task_metrics(task: str, y, pred, prob) -> Dict[str, float]:
 @register_stage
 class SelectedModel(PredictorModel):
     """The winning fitted model wrapped with selection metadata
-    (ModelSelector.scala:216-255)."""
+    (ModelSelector.scala:216-255). Binary selection maps no labels;
+    ``label_mapping`` (multiclass, ROADMAP queue A, item 4) must be None."""
 
     operation_name = "modelSelector"
 
     def __init__(self, inner: Optional[PredictorModel] = None,
-                 task: str = "binary", uid: Optional[str] = None):
+                 task: str = "binary", label_mapping=None,
+                 uid: Optional[str] = None):
         super().__init__(uid=uid)
+        if label_mapping is not None:
+            raise NotImplementedError(
+                "label mapping (DataCutter) is not ported (ROADMAP queue "
+                "A, item 4)")
         self.inner = inner
         self.task = task
+        self.label_mapping = label_mapping
         self.selector_summary: Optional[ModelSelectorSummary] = None
+
+    def predict_device(self, Xd: torch.Tensor):
+        return self.inner.predict_device(Xd)
 
     def predict_arrays(self, X, device=None):
         return self.inner.predict_arrays(X, device=device)
+
+    def get_params(self) -> Dict[str, Any]:
+        p = super().get_params()
+        p.pop("inner", None)  # rebuilt from the model state
+        return p
+
+    def get_model_state(self) -> Dict[str, Any]:
+        inner_params = self.inner.get_params()
+        inner_params.pop("uid", None)
+        return {"inner_class": type(self.inner).__name__,
+                "inner_params": inner_params,
+                "inner_state": self.inner.get_model_state()}
+
+    def apply_model_state(self, state: Dict[str, Any]) -> None:
+        self.inner = stage_from_state(state["inner_class"],
+                                      state["inner_params"],
+                                      state["inner_state"])
+
+    def summary(self) -> Dict[str, Any]:
+        out = {"model": "SelectedModel", "task": self.task}
+        if self.selector_summary is not None:
+            out.update(self.selector_summary.to_json())
+        return out
 
     def has_test_eval(self) -> bool:
         return True

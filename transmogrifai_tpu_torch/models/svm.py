@@ -19,7 +19,7 @@ import torch
 from ..stages.base import register_stage
 from ._linfit import fista, power_iter_sq_norm, standardize_stats
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
-                   extract_xy, resolve_device, score_sigmoid, to_f64)
+                   device_table, extract_xy, resolve_device, score_sigmoid)
 
 __all__ = ["fit_linear_svc", "predict_linear_svc", "LinearSVCModel",
            "OpLinearSVC", "LinearSVCFamily"]
@@ -71,19 +71,26 @@ class LinearSVCModel(PredictorModel):
                              if coefficients is not None else None)
         self.intercept = np.array(0.0 if intercept is None else intercept)
 
-    def predict_tensors(self, Xd: torch.Tensor):
-        coef = torch.as_tensor(self.coefficients, device=Xd.device)
-        b = torch.as_tensor(self.intercept, dtype=coef.dtype,
-                            device=Xd.device)
+    def predict_device(self, Xd: torch.Tensor):
+        coef = device_table(self, "coefficients",
+                            lambda: self.coefficients, Xd.device)
+        b = device_table(self, "intercept", lambda: np.asarray(
+            self.intercept, dtype=np.asarray(self.coefficients).dtype),
+            Xd.device)
         return predict_linear_svc(coef, b, Xd.to(coef.dtype))
-
-    def predict_arrays(self, X: np.ndarray, device=None):
-        Xd = torch.as_tensor(X, device=resolve_device(device))
-        return to_f64(self.predict_tensors(Xd))
 
     def get_model_state(self):
         return {"coefficients": self.coefficients,
                 "intercept": self.intercept}
+
+    def apply_model_state(self, state) -> None:
+        for k, v in state.items():
+            setattr(self, k, v)
+        self.__dict__.pop("_device_tables", None)
+
+    def summary(self):
+        return {"model": "LinearSVC",
+                "numFeatures": int(self.coefficients.shape[0])}
 
 
 @register_stage

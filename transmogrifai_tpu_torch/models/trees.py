@@ -21,7 +21,7 @@ import torch
 from ..stages.base import register_stage
 from . import _treefit as TF
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
-                   extract_xy, resolve_device, to_f64)
+                   device_table, extract_xy, resolve_device)
 
 __all__ = ["TreeEnsembleModel", "RandomForestFamily", "DecisionTreeFamily",
            "GBTFamily", "XGBoostFamily", "OpRandomForestClassifier",
@@ -68,12 +68,20 @@ class TreeEnsembleModel(PredictorModel):
         self.max_depth = int(max_depth)
         self.trees: Dict[str, np.ndarray] = {}
 
-    def predict_tensors(self, Xd: torch.Tensor):
+    def _tables(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        """The tables the descent reads, on ``device``: uploaded by the
+        first call there, the features as int32."""
+        out = {k: device_table(self, f"tree_{k}", lambda k=k: self.trees[k],
+                               device) for k in ("thr", "leaf", "tree_w")}
+        out["feat"] = device_table(
+            self, "tree_feat", lambda: np.asarray(self.trees["feat"],
+                                                  dtype=np.int32), device)
+        return out
+
+    def predict_device(self, Xd: torch.Tensor):
         """(prediction, raw, prob) tensors on ``Xd``'s device. The tables
-        take the trees' dtype and X follows it."""
-        p = {k: torch.tensor(v, device=Xd.device)
-             for k, v in self.trees.items()}
-        p["feat"] = p["feat"].to(torch.int32)
+        keep the trees' dtype and X follows it."""
+        p = self._tables(Xd.device)
         Xd = Xd.to(p["leaf"].dtype)
         if self.kind == "rf_classification":
             return TF.predict_rf_classification(p, Xd, self.max_depth,
@@ -86,20 +94,32 @@ class TreeEnsembleModel(PredictorModel):
                                                     margin_scale=scale)
         return TF.predict_margin_regression(p, Xd, self.max_depth)
 
-    def predict_arrays(self, X: np.ndarray, device=None):
-        Xd = torch.as_tensor(X, device=resolve_device(device))
-        return to_f64(self.predict_tensors(Xd))
+    def get_model_state(self) -> Dict[str, Any]:
+        state = {f"tree_{k}": np.asarray(v) for k, v in self.trees.items()}
+        state["kind"] = self.kind
+        return state
+
+    def apply_model_state(self, state: Dict[str, Any]) -> None:
+        self.trees = {k[5:]: np.asarray(v) for k, v in state.items()
+                      if k.startswith("tree_") and k[5:] not in _CACHES}
+        if "kind" in state:
+            self.kind = str(state["kind"])
+        self.__dict__.pop("_device_tables", None)
+
+    def summary(self) -> Dict[str, Any]:
+        t = self.trees.get("tree_w")
+        return {"model": "TreeEnsemble", "kind": self.kind,
+                "numTrees": int(t.shape[0]) if t is not None else 0,
+                "maxDepth": self.max_depth}
 
 
 def tree_model_from_numpy(kind: str, n_classes: int, max_depth: int,
                           trees: Dict[str, Any]) -> TreeEnsembleModel:
-    """Carry a fitted ensemble's weights over: ``trees`` is the numpy dict
-    of a JAX ``TreeEnsembleModel.trees`` (``feat``, ``thr``, ``leaf``,
-    ``tree_w``, ``gain``); the port's model scores the same ensemble."""
+    """A fitted ensemble from its numpy tables (``feat``, ``thr``,
+    ``leaf``, ``tree_w``, ``gain``); the fit-time caches are dropped."""
     model = TreeEnsembleModel(kind=kind, n_classes=n_classes,
                               max_depth=max_depth)
-    model.trees = {k: np.asarray(v) for k, v in trees.items()
-                   if k not in _CACHES}
+    model.apply_model_state({f"tree_{k}": v for k, v in trees.items()})
     return model
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..columns import ColumnStore
+from ..models.base import device_table
 from ..stages.base import register_stage
 from ..types.feature_types import Binary, Integral, OPNumeric, Real
 from ..vector_metadata import VectorColumnMetadata, VectorMetadata
@@ -52,8 +53,10 @@ class NumericVectorizerModel(VectorizerModel):
     def device_compute(self, prepared):
         values, mask = prepared["values"], prepared["mask"]
         # the fill in the pipeline dtype, as the values were canonicalized
-        fill = torch.tensor(np.asarray(self.fill_values, dtype=VEC_DTYPE),
-                            device=values.device)
+        fill = device_table(
+            self, "fill",
+            lambda: np.asarray(self.fill_values, dtype=VEC_DTYPE),
+            values.device)
         imputed = torch.where(mask, values, fill[None, :])
         if not self.track_nulls:
             return imputed

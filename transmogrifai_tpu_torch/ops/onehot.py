@@ -53,8 +53,13 @@ class OneHotModel(VectorizerModel):
                  track_nulls: bool = True,
                  input_names: Sequence[str] = (),
                  ftype_name: str = "Text",
+                 is_set: bool = False,
                  uid: Optional[str] = None):
         super().__init__(uid=uid)
+        if is_set:
+            raise NotImplementedError(
+                "the set pivot (SetVectorizer) is not ported yet (ROADMAP "
+                "queue A, item 2)")
         self.vocabs = [list(v) for v in vocabs]
         self.track_nulls = track_nulls
         self.input_names_saved = list(input_names)

@@ -1,0 +1,346 @@
+"""Workflow runner, app entry and file-driven parameters; the port of
+``transmogrifai_tpu/runner.py``.
+
+* ``OpParams`` (``OpParams.scala:30-150``): per-stage parameter overrides
+  (by stage class name or uid, applied reflectively), reader paths,
+  model / write / metrics locations and custom parameters, from JSON.
+* ``OpWorkflowRunner`` (``OpWorkflowRunner.scala:296,358-366``): the run
+  types Train (fit, save), Score (load, score, write CSV), Evaluate (load,
+  evaluate) and Features (load, materialize), each writing a metrics
+  document. Runs go to the card unless the runner is given
+  ``device="cpu"``.
+* ``OpApp`` (``OpApp.scala``): ``main(argv)`` parses ``--run-type``,
+  ``--params`` and the locations, then runs.
+
+What the JAX package's runner adds and this one does not have yet raises
+``NotImplementedError`` naming its ROADMAP queue A item when a run asks
+for it: the StreamingScore run type, the lint pre-flight, the planner
+step, telemetry sinks, the quarantine sink, mesh knobs and Avro output
+(all item 6). Their blocks of the metrics document are left out, and
+``preflight`` / ``plan`` read None, as a run with them disabled does
+there.
+"""
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from .models import _hist
+
+__all__ = ["OpParams", "RunType", "RunnerResult", "OpWorkflowRunner",
+           "OpApp"]
+
+#: customParams keys of the JAX package's runner whose module is not
+#: ported yet (all ROADMAP queue A, item 6), and what they ask for
+_UNPORTED_CUSTOM = {
+    "validate": "the lint pre-flight (lint.py)",
+    "validateDevice": "the lint pre-flight (lint.py)",
+    "failOn": "the lint pre-flight (lint.py)",
+    "lintSuppress": "the lint pre-flight (lint.py)",
+    "plan": "the planner step (planner.py)",
+    "costDb": "the planner step (planner.py)",
+    "telemetry": "telemetry sinks (telemetry.py)",
+    "traceDir": "telemetry sinks (telemetry.py)",
+    "quarantineLocation": "the quarantine sink (resilience.py)",
+    "meshDevices": "multi-device runs (parallel/mesh.py)",
+    "meshGridSize": "multi-device runs (parallel/mesh.py)",
+    "featureShards": "multi-device runs (parallel/mesh.py)",
+}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue A, item 6)")
+
+
+@dataclass
+class OpParams:
+    """File-driven workflow configuration (OpParams.scala:30-150)."""
+
+    #: {stage class name or uid: {param: value}} applied via set_params
+    stage_params: Dict[str, Dict[str, Any]] = field(default_factory=dict)
+    #: {reader name: {"path": ..., ...}}
+    reader_params: Dict[str, Dict[str, Any]] = field(default_factory=dict)
+    model_location: Optional[str] = None
+    write_location: Optional[str] = None
+    metrics_location: Optional[str] = None
+    #: a trace sink (not ported: a run that sets it raises)
+    trace_location: Optional[str] = None
+    #: "json" (the run document); "prometheus" is not ported
+    metrics_format: str = "json"
+    #: the dead-letter sink (not ported: a run that sets it raises)
+    quarantine_location: Optional[str] = None
+    custom_params: Dict[str, Any] = field(default_factory=dict)
+
+    @staticmethod
+    def from_file(path: str) -> "OpParams":
+        """Parameters from a JSON file (the JAX package's keys)."""
+        if path.endswith((".yaml", ".yml")):
+            raise _not_ported("YAML parameter files (no YAML reader in "
+                              "this package)")
+        with open(path) as fh:
+            doc = json.load(fh)
+        return OpParams(
+            stage_params=doc.get("stageParams", {}),
+            reader_params=doc.get("readerParams", {}),
+            model_location=doc.get("modelLocation"),
+            write_location=doc.get("writeLocation"),
+            metrics_location=doc.get("metricsLocation"),
+            trace_location=doc.get("traceLocation"),
+            metrics_format=doc.get("metricsFormat", "json"),
+            quarantine_location=doc.get("quarantineLocation"),
+            custom_params=doc.get("customParams", {}))
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"stageParams": self.stage_params,
+                "readerParams": self.reader_params,
+                "modelLocation": self.model_location,
+                "writeLocation": self.write_location,
+                "metricsLocation": self.metrics_location,
+                "traceLocation": self.trace_location,
+                "metricsFormat": self.metrics_format,
+                "quarantineLocation": self.quarantine_location,
+                "customParams": self.custom_params}
+
+    def apply_to_workflow(self, workflow) -> None:
+        """Push stage params into the workflow's DAG stages by uid or class
+        name (OpWorkflow.setStageParameters :166-188)."""
+        from .graph import all_stages
+        if not self.stage_params:
+            return
+        for stage in all_stages(workflow.result_features):
+            for key in (stage.uid, type(stage).__name__):
+                if key in self.stage_params:
+                    stage.set_params(**self.stage_params[key])
+
+    def check_ported(self) -> None:
+        """Raise for anything this run asks of a module not ported yet."""
+        if self.trace_location:
+            raise _not_ported("trace sinks (telemetry.py)")
+        if self.metrics_format != "json":
+            raise _not_ported(f"the {self.metrics_format!r} metrics format "
+                              "(telemetry.py)")
+        if self.quarantine_location:
+            raise _not_ported("the quarantine sink (resilience.py)")
+        for key, what in _UNPORTED_CUSTOM.items():
+            v = self.custom_params.get(key)
+            if v is not None and v is not False and v != "false":
+                raise _not_ported(f"customParams.{key}: {what}")
+
+
+class RunType:
+    TRAIN = "Train"
+    SCORE = "Score"
+    STREAMING_SCORE = "StreamingScore"
+    EVALUATE = "Evaluate"
+    FEATURES = "Features"
+
+    ALL = (TRAIN, SCORE, STREAMING_SCORE, EVALUATE, FEATURES)
+
+
+@dataclass
+class RunnerResult:
+    run_type: str
+    metrics: Dict[str, Any] = field(default_factory=dict)
+    model_location: Optional[str] = None
+    scores: Any = None
+    #: the WorkflowModel the run trained or loaded
+    model: Any = None
+
+
+def _peak_rss_mb() -> Optional[float]:
+    """Peak resident set of this process and its reaped children, MB."""
+    try:
+        import resource
+    except ImportError:
+        return None
+    kb = max(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
+             resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss)
+    return round(kb / 1024.0, 1)
+
+
+class OpWorkflowRunner:
+    """Run-type entry around a Workflow (OpWorkflowRunner.scala:296).
+
+    The readers follow the readers API (``read_records``); ``evaluator``
+    is an evaluator wired to (label, prediction). Fits and scores run on
+    ``device`` (default: the card) in ``dtype``."""
+
+    def __init__(self, workflow, training_reader=None, scoring_reader=None,
+                 evaluation_reader=None, evaluator=None,
+                 features_to_compute=None, device=None,
+                 dtype: torch.dtype = torch.float32):
+        from .models.base import resolve_device
+        self.workflow = workflow
+        self.training_reader = training_reader
+        self.scoring_reader = scoring_reader
+        self.evaluation_reader = evaluation_reader or scoring_reader
+        self.evaluator = evaluator
+        self.features_to_compute = features_to_compute
+        self.device = resolve_device(device)
+        self.dtype = dtype
+
+    @staticmethod
+    def _write_metrics(location: Optional[str], doc: Dict[str, Any]) -> None:
+        if not location:
+            return
+        os.makedirs(os.path.dirname(location) or ".", exist_ok=True)
+        tmp = location + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(doc, fh, indent=1, default=str)
+        os.replace(tmp, location)
+
+    def run(self, run_type: str, params: Optional[OpParams] = None
+            ) -> RunnerResult:
+        params = params or OpParams()
+        if run_type not in RunType.ALL:
+            raise ValueError(f"Unknown run type {run_type!r}; expected one "
+                             f"of {RunType.ALL}")
+        params.check_ported()
+        launches = dict(_hist.KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        result = self._execute(run_type, params, t0)
+        result.metrics["compileCacheDir"] = None
+        result.metrics["preflight"] = None
+        result.metrics["plan"] = None
+        # the tree engine's kernel launches of this run, per kernel
+        result.metrics["trees"] = {"launches": {
+            k: v - launches[k] for k, v in _hist.KERNEL_LAUNCHES.items()}}
+        result.metrics["peak_rss_mb"] = _peak_rss_mb()
+        self._write_metrics(params.metrics_location, result.metrics)
+        return result
+
+    def _read(self, reader, what: str):
+        if reader is None:
+            raise ValueError(f"{what} needs a reader")
+        return reader.read_records()
+
+    def _execute(self, run_type: str, params: OpParams,
+                 t0: float) -> RunnerResult:
+        if run_type == RunType.TRAIN:
+            params.apply_to_workflow(self.workflow)
+            if self.training_reader is not None:
+                self.workflow.set_reader(self.training_reader)
+            model = self.workflow.train(device=self.device,
+                                        dtype=self.dtype)
+            if params.model_location:
+                model.save(params.model_location, overwrite=True)
+            metrics = model.summary()
+            metrics["appSeconds"] = round(time.perf_counter() - t0, 3)
+            # no RawFeatureFilter is configured (none is ported)
+            metrics["rawFeatureFilter"] = None
+            return RunnerResult(run_type, metrics=metrics,
+                                model_location=params.model_location,
+                                model=model)
+        if run_type == RunType.STREAMING_SCORE:
+            raise _not_ported("the StreamingScore run type (readers/"
+                              "streaming.py, the stream readers)")
+
+        from .workflow import WorkflowModel
+        if params.model_location is None:
+            raise ValueError(f"{run_type} requires modelLocation")
+        model = WorkflowModel.load(params.model_location)
+
+        if run_type == RunType.SCORE:
+            data = self._read(self.scoring_reader, "Score")
+            scores = model.score(data, device=self.device)
+            if params.write_location:
+                _write_store_csv(scores, params.write_location)
+            metrics = {"rowsScored": scores.n_rows,
+                       "appSeconds": round(time.perf_counter() - t0, 3)}
+            return RunnerResult(run_type, metrics=metrics, scores=scores,
+                                model=model)
+
+        if run_type == RunType.EVALUATE:
+            data = self._read(self.evaluation_reader, "Evaluate")
+            metrics = dict(model.evaluate(data, self.evaluator,
+                                          device=self.device))
+            metrics["appSeconds"] = round(time.perf_counter() - t0, 3)
+            return RunnerResult(run_type, metrics=metrics, model=model)
+
+        # FEATURES: the engineered features only; one target prunes the
+        # DAG to its ancestors, several compute the whole DAG
+        data = self._read(self.training_reader or self.scoring_reader,
+                          "Features")
+        ftc = self.features_to_compute
+        if isinstance(ftc, (list, tuple)):
+            ftc = ftc[0] if len(ftc) == 1 else None
+        store = model.transform(data, device=self.device, up_to=ftc)
+        if params.write_location:
+            _write_store_csv(store, params.write_location)
+        metrics = {"rows": store.n_rows,
+                   "appSeconds": round(time.perf_counter() - t0, 3)}
+        return RunnerResult(run_type, metrics=metrics, scores=store,
+                            model=model)
+
+
+class _CsvSink:
+    """Incremental CSV sink (saveScores analog): the header from the first
+    store, its rows after."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._names = None
+        self._fh = open(path, "w", newline="")
+        self._writer = csv.writer(self._fh)
+
+    def write_header(self, names) -> None:
+        if self._names is None:
+            self._names = list(names)
+            self._writer.writerow(self._names)
+
+    def write(self, store) -> None:
+        self.write_header(store.names())
+        cols = [store[n] for n in self._names]
+        for i in range(store.n_rows):
+            self._writer.writerow([c.get_raw(i) for c in cols])
+
+    def close(self) -> None:
+        self._fh.close()
+
+
+def _write_store_csv(store, path: str) -> None:
+    """One store to ``path`` as CSV (Avro output waits for
+    ``readers/avro.py``)."""
+    if path.endswith(".avro"):
+        raise _not_ported("Avro output (readers/avro.py)")
+    sink = _CsvSink(path)
+    try:
+        sink.write(store)
+    finally:
+        sink.close()
+
+
+class OpApp:
+    """Application entry (OpApp.scala): a subclass provides the runner;
+    ``main(argv)`` parses the run type and parameters and runs it."""
+
+    def runner(self, params: OpParams) -> OpWorkflowRunner:
+        raise NotImplementedError
+
+    def main(self, argv: Optional[Sequence[str]] = None) -> RunnerResult:
+        ap = argparse.ArgumentParser(description=type(self).__name__)
+        ap.add_argument("--run-type", required=True, choices=RunType.ALL)
+        ap.add_argument("--params", help="OpParams JSON file")
+        ap.add_argument("--model-location")
+        ap.add_argument("--write-location")
+        ap.add_argument("--metrics-location")
+        ap.add_argument("--quiet", action="store_true",
+                        help="suppress INFO progress logging")
+        args = ap.parse_args(argv)
+        if not args.quiet:
+            import logging
+            logging.basicConfig(level=logging.INFO)
+        params = (OpParams.from_file(args.params) if args.params
+                  else OpParams())
+        for key in ("model_location", "write_location", "metrics_location"):
+            if getattr(args, key):
+                setattr(params, key, getattr(args, key))
+        return self.runner(params).run(args.run_type, params)

@@ -19,7 +19,7 @@ from ..utils import uid as uid_mod
 __all__ = [
     "InputSpec", "FixedArity", "VarArity", "OpPipelineStage", "Transformer",
     "Estimator", "FittedModel", "LambdaTransformer", "AllowLabelAsInput",
-    "STAGE_REGISTRY", "register_stage",
+    "STAGE_REGISTRY", "register_stage", "stage_from_state", "ctor_kwargs",
 ]
 
 
@@ -30,6 +30,60 @@ def register_stage(cls):
     """Register a stage class for serialization lookup."""
     STAGE_REGISTRY[cls.__name__] = cls
     return cls
+
+
+#: the modules that register this package's stages, imported when a
+#: decode meets a class name the registry does not hold yet
+_STAGE_MODULES = ("..stages.generator", "..dsl", "..ops.numeric",
+                  "..ops.onehot", "..ops.smart_text", "..ops.hashing",
+                  "..ops.dates", "..ops.vectors", "..ops.sanity_checker",
+                  "..ops.text", "..models")
+
+
+def ctor_kwargs(cls, params: Dict[str, Any]) -> Dict[str, Any]:
+    """``params`` that ``cls``' ctor takes. A key it does not take is
+    dropped when its value is None (an argument the JAX package's
+    counterpart has and left at its default, such as ``mesh``), and
+    refused otherwise."""
+    sig = inspect.signature(cls.__init__).parameters
+    if any(p.kind is p.VAR_KEYWORD for p in sig.values()):
+        return dict(params)
+    bad = sorted(k for k, v in params.items()
+                 if k not in sig and v is not None)
+    if bad:
+        raise ValueError(f"{cls.__name__} takes no parameter(s) {bad}: the "
+                         "saved value has no counterpart in this package")
+    return {k: v for k, v in params.items() if k in sig}
+
+
+def stage_from_state(class_name: str, params: Dict[str, Any],
+                     state: Optional[Dict[str, Any]] = None,
+                     uid: Optional[str] = None) -> "OpPipelineStage":
+    """The one decoder of a saved stage: the registered class
+    ``class_name`` built from its decoded ctor ``params`` (``uid`` wins
+    over a ``"uid"`` among them), then its fitted ``state`` applied —
+    ``apply_model_state`` where the stage has one, else each entry set as
+    an attribute. Shared by ``model_io`` (files of either package) and
+    ``carry_over`` (a live JAX stage's ``get_params`` /
+    ``get_model_state``)."""
+    if class_name not in STAGE_REGISTRY:
+        import importlib
+        for mod in _STAGE_MODULES:
+            importlib.import_module(mod, __package__)
+    cls = STAGE_REGISTRY.get(class_name)
+    if cls is None:
+        raise ValueError(f"Stage class {class_name!r} is not registered: "
+                         "this package has no such stage (not ported yet)")
+    params = ctor_kwargs(cls, params or {})
+    given_uid = params.pop("uid", None)
+    stage = cls(uid=uid or given_uid, **params)
+    if state is not None:
+        if hasattr(stage, "apply_model_state"):
+            stage.apply_model_state(state)
+        else:
+            for k, v in state.items():
+                setattr(stage, k, v)
+    return stage
 
 
 class InputSpec:
@@ -234,16 +288,17 @@ class Transformer(OpPipelineStage):
                                  self.transform_columns(store, **kw))
 
     # -- row-level path (local serving / contract tests) -------------------
-    def transform_row(self, row: Dict[str, Any]) -> Any:
+    def transform_row(self, row: Dict[str, Any], **kw) -> Any:
         """Compute the output value for one row dict {feature name: raw value}.
 
         Default routes through a 1-row ColumnStore so the row path can never
-        diverge from the columnar path. Stages may override for speed.
+        diverge from the columnar path; ``kw`` (e.g. ``device``) reaches
+        ``transform_columns``. Stages may override for speed.
         """
         cols = {}
         for f in self.input_features:
             cols[f.name] = column_from_values(f.ftype, [row.get(f.name)])
-        out = self.transform_columns(ColumnStore(cols, 1))
+        out = self.transform_columns(ColumnStore(cols, 1), **kw)
         return out.get_raw(0)
 
     def transform_key_value(self, get: Callable[[str], Any]) -> Any:

@@ -38,7 +38,12 @@ class FeatureGeneratorStage(Transformer):
         super().__init__(uid=uid)
         self.name = name
         self.ftype = ftype
-        self.extract_fn = extract_fn or (lambda rec: rec.get(name))
+        if extract_fn is None:
+            # by record key, as ``from_column`` extracts (what a loaded
+            # model's generators do): marked for the bulk-ingest path
+            extract_fn = lambda rec: rec.get(name)  # noqa: E731
+            extract_fn._column_key = name
+        self.extract_fn = extract_fn
         self.is_response = is_response
         self.aggregator = aggregator
         self.window_ms = window_ms

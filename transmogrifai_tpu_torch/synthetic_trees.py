@@ -74,7 +74,8 @@ def forest_families(depths: Sequence[int] = (3, 6, 12), num_trees: int = 50,
 def run(n_rows: int, num_folds: int = 5, families=None, seed: int = 42,
         device=None, dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Train the CV selection on ``device``, then evaluate AuPR over the
-    whole store. Returns the model, metrics, summary and phase seconds."""
+    whole store. Returns the model, metrics, summary, the store and
+    evaluator, and phase seconds."""
     families = default_families() if families is None else families
     label = FeatureBuilder.RealNN("label").from_column().as_response()
     feats = FeatureBuilder.OPVector("features").from_column().as_predictor()
@@ -97,6 +98,6 @@ def run(n_rows: int, num_folds: int = 5, families=None, seed: int = 42,
                                                device=device)
     eval_s = time.perf_counter() - t1
     return {"model": model, "metrics": metrics, "scored": scored,
-            "prediction": prediction,
+            "prediction": prediction, "data": store, "evaluator": evaluator,
             "summary": model.fitted_stages[selector.uid].selector_summary,
             "train_s": train_s, "eval_s": eval_s}

@@ -1,22 +1,31 @@
-"""Workflow runtime — DAG fitting and scoring; the port of
-``transmogrifai_tpu/workflow.py`` (train, score, evaluate).
+"""Workflow runtime — DAG fitting, scoring and persistence; the port of
+``transmogrifai_tpu/workflow.py``.
 
 * ``Workflow.set_result_features(...)`` reconstructs the stage DAG from the
   requested outputs; ``train()`` folds over its layers deepest-first: fit
   each layer's estimators on the train split, evaluate ``has_test_eval``
   models on the holdout, then transform both splits with the fitted layer
   (``FitStagesUtil.fitAndTransformLayer``).
-* ``WorkflowModel`` holds the fitted stages keyed by estimator uid and
-  scores by replaying the transform layers.
+* ``WorkflowModel`` holds the fitted stages keyed by estimator uid. It
+  scores by replaying the transform layers, or, from
+  ``scoring.SCORING_MIN_ROWS`` rows, through the batched scoring engine
+  (``scoring.ScoringEngine``); it saves and loads in the JAX package's
+  format (``model_io``).
+* Warm starts (``Workflow.with_model_stages``) substitute fitted stages by
+  uid; ``with_checkpointing`` saves the partial model after every layer
+  that fitted something, and ``fit(resume_from=)`` resumes from it.
 
 Device stages (``uses_device``) run on ``device``: the card unless the
 caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+import copy as _copy
 import logging
+import os
 import time
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -94,6 +103,11 @@ class Workflow:
         #: a readers.DataReader, read when no input data is set
         self._reader = None
         self.splitter = None          # tuning.Splitter for the holdout
+        self._checkpoint_dir: Optional[str] = None
+        self._warm_stages: Dict[str, FittedModel] = {}
+        #: stage uid → fit/transform timings of the last train
+        #: (OpSparkListener StageMetrics analog)
+        self._stage_metrics: Dict[str, Dict[str, Any]] = {}
 
     def set_result_features(self, *features: Feature) -> "Workflow":
         if not features:
@@ -126,6 +140,60 @@ class Workflow:
         self.splitter = splitter
         return self
 
+    def with_model_stages(self, model: "WorkflowModel") -> "Workflow":
+        """Warm start (OpWorkflow.withModelStages :457-460): the fitted
+        stages of ``model`` stand in, by uid, for this workflow's
+        estimators, which are then not refit. Estimators the model does not
+        hold still fit."""
+        self._warm_stages = dict(model.fitted_stages)
+        return self
+
+    def with_checkpointing(self, directory: str) -> "Workflow":
+        """Layer-granular recovery: after every DAG layer that fitted a
+        stage, the partial model is saved to ``directory``
+        crash-consistently; ``fit(resume_from=directory)`` resumes a
+        crashed train from it (FitStagesUtil.scala:134-165)."""
+        self._checkpoint_dir = directory
+        return self
+
+    def with_workflow_cv(self, enabled: bool = True) -> "Workflow":
+        raise NotImplementedError(
+            "workflow-level cross-validation is not ported yet (ROADMAP "
+            "queue A, item 1)")
+
+    def with_raw_feature_filter(self, rff) -> "Workflow":
+        raise NotImplementedError(
+            "the RawFeatureFilter hook is not ported yet (ROADMAP queue A, "
+            "item 1)")
+
+    def fit(self, resume_from: Optional[str] = None, device=None,
+            dtype: torch.dtype = torch.float32) -> "WorkflowModel":
+        """:meth:`train` with crash recovery: the checkpoint at
+        ``resume_from`` (one a previous ``with_checkpointing`` run wrote,
+        a swap a crash left half done included) warm-starts this fit, so
+        its completed layers are not refit. A missing or unreadable
+        checkpoint gives a fresh fit. Checkpointing continues into the
+        same directory unless another one is set."""
+        if resume_from:
+            from .model_io import MODEL_JSON
+            if self._checkpoint_dir is None:
+                self.with_checkpointing(resume_from)
+            partial = None
+            if any(os.path.exists(os.path.join(p, MODEL_JSON))
+                   for p in (resume_from, f"{resume_from}.tmp",
+                             f"{resume_from}.old")):
+                try:
+                    partial = WorkflowModel.load(resume_from)
+                except (OSError, ValueError, KeyError, TypeError):
+                    logger.exception("checkpoint at %s is unusable; "
+                                     "fitting from scratch", resume_from)
+            if partial is not None and partial.fitted_stages:
+                self.with_model_stages(partial)
+                logger.info("resuming fit from %s: %d fitted stage(s) "
+                            "warm-start", resume_from,
+                            len(partial.fitted_stages))
+        return self.train(device=device, dtype=dtype)
+
     def train(self, device=None,
               dtype: torch.dtype = torch.float32) -> "WorkflowModel":
         """Fit the DAG on ``device`` (default: the card) in ``dtype``."""
@@ -141,19 +209,19 @@ class Workflow:
         if self.splitter is not None:
             train, test = self.splitter.reserve_split(store)
         dag = compute_dag(self.result_features)
+        self._stage_metrics = {}
         t0 = time.perf_counter()
         fitted: Dict[str, FittedModel] = {}
         seconds: Dict[str, float] = {}
         for li, layer in enumerate(dag):
+            n_before = len(fitted)
             models: List[Transformer] = []
             for stage in layer:
+                metrics = self._stage_metrics.setdefault(
+                    stage.uid, {"stageName": stage.stage_name()})
                 if isinstance(stage, Estimator):
-                    kw = _device_kw(stage, dev)
-                    if kw:
-                        kw["dtype"] = dtype
-                    ts = time.perf_counter()
-                    model = stage.fit(train, **kw)
-                    seconds[stage.uid] = time.perf_counter() - ts
+                    model = self._fit_stage(stage, train, dev, dtype,
+                                            metrics, seconds)
                     fitted[stage.uid] = model
                     if model.has_test_eval() and test is not None:
                         model.evaluate_model(test, **_device_kw(model, dev))
@@ -163,31 +231,94 @@ class Workflow:
                 else:
                     raise WorkflowError(f"Unfittable stage {stage!r}")
             if li < len(dag) - 1:       # the last layer's outputs are unused
+                tt = time.perf_counter()
                 train = _apply_layer(models, train, dev, seconds)
                 if test is not None:
                     test = _apply_layer(models, test, dev, seconds)
+                for m in models:
+                    self._stage_metrics.setdefault(
+                        m.uid, {"stageName": m.stage_name()})[
+                        "layerTransformSeconds"] = round(
+                            time.perf_counter() - tt, 4)
+            if self._checkpoint_dir and len(fitted) > n_before:
+                from .model_io import _atomic_checkpoint
+                _atomic_checkpoint(WorkflowModel(self.result_features,
+                                                 fitted),
+                                   self._checkpoint_dir)
+                logger.info("layer %d: checkpointed %d fitted stage(s) to "
+                            "%s", li, len(fitted), self._checkpoint_dir)
         train_time = time.perf_counter() - t0
         logger.info("train: %d rows, %d layers in %.2fs", train.n_rows,
                     len(dag), train_time)
         return WorkflowModel(self.result_features, fitted, dag,
                              train_time_s=train_time,
-                             stage_seconds=seconds)
+                             stage_seconds=seconds,
+                             stage_metrics=self._stage_metrics,
+                             train_rows=train.n_rows)
+
+    def _fit_stage(self, stage: Estimator, train: ColumnStore, dev, dtype,
+                   metrics: Dict[str, Any], seconds: Dict[str, float]
+                   ) -> FittedModel:
+        """The estimator's fitted model: the warm-start stage of its uid
+        (a shallow copy rewired to this DAG, so the donor model's stages
+        stay as they are), else a fit on ``train``."""
+        warm = self._warm_stages.get(stage.uid)
+        if warm is not None:
+            model = _copy.copy(warm)
+            model.input_features = stage.input_features
+            model._output_feature = stage.get_output()
+            metrics["warmStarted"] = True
+            metrics["fitSeconds"] = 0.0
+            seconds[stage.uid] = 0.0
+            logger.info("%s [%s] warm-started", stage.stage_name(),
+                        stage.uid)
+            return model
+        kw = _device_kw(stage, dev)
+        if kw:
+            kw["dtype"] = dtype
+        ts = time.perf_counter()
+        model = stage.fit(train, **kw)
+        fit_s = time.perf_counter() - ts
+        seconds[stage.uid] = fit_s
+        metrics["fitSeconds"] = round(fit_s, 4)
+        return model
 
 
 class WorkflowModel:
-    """Fitted pipeline (OpWorkflowModel): score / evaluate."""
+    """Fitted pipeline (OpWorkflowModel): score / evaluate / save."""
 
     def __init__(self, result_features: Sequence[Feature],
                  fitted_stages: Dict[str, FittedModel],
-                 dag: Optional[StagesDAG] = None, train_time_s: float = 0.0,
-                 stage_seconds: Optional[Dict[str, float]] = None):
+                 dag: Optional[StagesDAG] = None,
+                 parameters: Optional[Dict[str, Any]] = None,
+                 train_time_s: float = 0.0,
+                 stage_seconds: Optional[Dict[str, float]] = None,
+                 stage_metrics: Optional[Dict[str, Dict[str, Any]]] = None,
+                 train_rows: int = 0,
+                 rff_results_json: Optional[Dict[str, Any]] = None,
+                 fit_stats_json: Optional[Dict[str, Any]] = None):
         self.uid = uid_mod.make_uid("WorkflowModel")
         self.result_features = tuple(result_features)
         self.fitted_stages = dict(fitted_stages)
         self.dag = dag if dag is not None else compute_dag(result_features)
+        self.parameters = parameters or {}
+        #: raw features a RawFeatureFilter dropped (none: the filter is
+        #: not ported)
+        self.blacklisted_features: List[Feature] = []
         self.train_time_s = train_time_s
         #: stage uid → train wall-clock seconds (its fit + its transforms)
         self.stage_seconds = dict(stage_seconds or {})
+        #: stage uid → {"stageName", "fitSeconds", "warmStarted",
+        #: "layerTransformSeconds"} (OpSparkListener analog)
+        self.stage_metrics = dict(stage_metrics or {})
+        #: rows of the training split (0 on a loaded model)
+        self.train_rows = int(train_rows)
+        #: the JSON a JAX-package save held for these, kept as read and
+        #: written back unchanged (ROADMAP queue A, items 3 and 6)
+        self.rff_results_json = rff_results_json
+        self.fit_stats_json = fit_stats_json
+        #: scoring engines by device (``scoring_engine``)
+        self._engines: Dict[str, Any] = {}
 
     def _resolved_dag(self) -> List[List[Transformer]]:
         out: List[List[Transformer]] = []
@@ -205,31 +336,133 @@ class WorkflowModel:
             out.append(row)
         return out
 
-    def transform(self, data, device=None) -> ColumnStore:
-        """Apply every fitted layer to ``data`` (a ColumnStore or record
-        dicts) on ``device`` (default: the card)."""
+    # -- scoring -----------------------------------------------------------
+    def scoring_engine(self, device=None, **engine_kw):
+        """The batched scoring engine (``scoring.ScoringEngine``) of this
+        model on ``device`` (default: the card), built once a device;
+        an engine with other settings (``engine_kw``) is built afresh and
+        not kept."""
+        from .scoring import ScoringEngine
         dev = resolve_device(device)
-        store = _raw_store(data, _raw_features_of(self.result_features))
+        if engine_kw:
+            return ScoringEngine(self, device=dev, **engine_kw)
+        eng = self._engines.get(str(dev))
+        if eng is None:
+            eng = self._engines[str(dev)] = ScoringEngine(self, device=dev)
+        return eng
+
+    def _use_engine(self, data, engine, dev) -> bool:
+        """``engine=True`` forces the engine, ``False`` forbids it, and
+        ``"auto"`` takes it from ``SCORING_MIN_ROWS`` rows. A model with
+        no stage the engine fuses scores by layers either way."""
+        if engine is False:
+            return False
+        from .scoring import SCORING_MIN_ROWS
+        n = (data.n_rows if isinstance(data, ColumnStore)
+             else len(data) if hasattr(data, "__len__") else 0)
+        if engine is not True and n < SCORING_MIN_ROWS:
+            return False
+        return self.scoring_engine(dev).enabled()
+
+    def _transform_layers(self, data, dev,
+                          up_to: Optional[Feature] = None) -> ColumnStore:
+        """The per-layer path: every fitted layer applied in turn (only
+        the ancestors of ``up_to``, when given)."""
+        targets = (up_to,) if up_to is not None else self.result_features
+        store = _raw_store(data, _raw_features_of(targets))
+        needed = (None if up_to is None
+                  else {s.uid for s in up_to.parent_stages()})
         for layer in self._resolved_dag():
-            store = _apply_layer(layer, store, dev)
+            store = _apply_layer([m for m in layer
+                                  if needed is None or m.uid in needed],
+                                 store, dev)
         return store
 
-    def score(self, data: ColumnStore, keep_intermediate: bool = False,
-              device=None) -> ColumnStore:
-        """Result feature columns (OpWorkflowModel.score)."""
-        store = self.transform(data, device=device)
+    def transform(self, data, device=None, engine: Any = "auto",
+                  up_to: Optional[Feature] = None) -> ColumnStore:
+        """Apply the fitted layers to ``data`` (a ColumnStore or record
+        dicts) on ``device`` (default: the card): through the scoring
+        engine (``engine``: see :meth:`_use_engine`), or layer by layer.
+        ``up_to`` computes only that feature's ancestors
+        (computeDataUpTo, OpWorkflowModel.scala:106), layer by layer."""
+        dev = resolve_device(device)
+        if up_to is None and self._use_engine(data, engine, dev):
+            return self.scoring_engine(dev).transform_store(data)
+        return self._transform_layers(data, dev, up_to)
+
+    def score(self, data, keep_intermediate: bool = False, device=None,
+              engine: Any = "auto") -> ColumnStore:
+        """Result feature columns (OpWorkflowModel.score); the engine path
+        pulls only the result columns off the device."""
+        dev = resolve_device(device)
+        if not keep_intermediate and self._use_engine(data, engine, dev):
+            return self.scoring_engine(dev).score_store(data)
+        store = self.transform(data, device=dev, engine=engine)
         if keep_intermediate:
             return store
         return store.select([f.name for f in self.result_features
                              if f.name in store])
 
-    def score_and_evaluate(self, data: ColumnStore, evaluator, device=None
+    def score_and_evaluate(self, data, evaluator, device=None,
+                           engine: Any = "auto"
                            ) -> Tuple[ColumnStore, Dict[str, Any]]:
-        store = self.transform(data, device=device)
+        """Scores and the evaluator's metrics. Through the engine only the
+        result columns and the evaluator's label leave the device path
+        (the JAX package materializes every column here)."""
+        dev = resolve_device(device)
+        if self._use_engine(data, engine, dev):
+            store = self.scoring_engine(dev).score_store(
+                data, keep=[evaluator.label_col])
+        else:
+            store = self._transform_layers(data, dev)
         metrics = evaluator.evaluate_all(store)
         return store.select([f.name for f in self.result_features
                              if f.name in store]), metrics
 
-    def evaluate(self, data: ColumnStore, evaluator,
-                 device=None) -> Dict[str, Any]:
-        return self.score_and_evaluate(data, evaluator, device=device)[1]
+    def evaluate(self, data, evaluator, device=None,
+                 engine: Any = "auto") -> Dict[str, Any]:
+        return self.score_and_evaluate(data, evaluator, device=device,
+                                       engine=engine)[1]
+
+    def score_fn(self, device=None
+                 ) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
+        """Row-level scoring closure (scoreFn): {raw feature name: raw
+        value} → {result name: raw value}, each stage through its one-row
+        columnar transform on ``device`` (default: the card)."""
+        dev = resolve_device(device)
+        layers = self._resolved_dag()
+        result_names = [f.name for f in self.result_features]
+
+        def score_row(row: Dict[str, Any]) -> Dict[str, Any]:
+            acc = dict(row)
+            for layer in layers:
+                for m in layer:
+                    acc[m.output_name] = m.transform_row(
+                        acc, **_device_kw(m, dev))
+            return {n: acc[n] for n in result_names if n in acc}
+
+        return score_row
+
+    # -- persistence (OpWorkflowModelWriter/Reader) ------------------------
+    def save(self, path: str, overwrite: bool = False) -> None:
+        """Save in the JAX package's format (``model_io``); an existing
+        model at ``path`` raises FileExistsError unless ``overwrite``."""
+        from .model_io import save_workflow_model
+        save_workflow_model(self, path, overwrite=overwrite)
+
+    @staticmethod
+    def load(path: str) -> "WorkflowModel":
+        """A model saved by either package."""
+        from .model_io import load_workflow_model
+        return load_workflow_model(path)
+
+    def summary(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"uid": self.uid,
+                               "trainTimeSeconds": self.train_time_s,
+                               "stageMetrics": self.stage_metrics,
+                               "stages": {}}
+        for uid, model in self.fitted_stages.items():
+            s = getattr(model, "summary", None)
+            if s is not None:
+                out["stages"][uid] = s() if callable(s) else s
+        return out
