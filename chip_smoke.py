@@ -95,10 +95,35 @@ Run from the repository root on a machine with one NVIDIA H100:
    also holds ``predict_trees`` at the bucket shape (n = 8,192 and 4,096,
    F=451, T=20, D=6) bitwise against its plain version and times it.
 
-``--profile`` runs each main path (the four, and serve's Score) once more
-under ``torch.profiler`` and prints its device-time table: the busy share, the
-device operations a tree level, the histogram kernels, the split scans,
-the route or level epilogue, the predict and the uint8 → bool copies.
+8. multiclass and regression: the kernels at the new shapes against
+   their plain versions — the histograms at gini C=8, ``split_scan``
+   under gini at C = 4 (iris: three classes and the count) and C = 8 (the
+   most the kernels take) at every slot count and the sweep's and iris's
+   block shapes, bitwise; the level epilogue under gini at C = 4 and 8 in
+   every case of phase 2, bitwise; ``predict_trees`` at the iris forest's
+   F=8, T=50, D=12, K=3 — each timed beside its plain version. Then
+   iris-200k (``iris.py``: 200,000 generated rows in bezdekIris.data's
+   format, the species indexed, transmogrify, the multiclass selector's
+   default families under 3-fold CV on F1 with a DataCutter, the
+   prediction de-indexed) and boston-200k (``boston.py``: 200,000
+   generated rows in housing.data's format, the random forest and GBT
+   regressors under 3-fold CV on RMSE with a DataSplitter) through
+   ``Workflow.train`` and evaluate, every launch counted (the tree
+   kernels must launch; ``predict_trees`` wherever a tree model wins);
+   each at 2,000 rows, one grid point a family, on the card and on the
+   CPU: the same model, |ΔF1| ≤ 1e-4 and |ΔRMSE| / RMSE ≤ 1e-4. Then the
+   iris-200k model saved, loaded afresh and its rows scored through the
+   scoring engine (the predictor and the de-indexer's label codes in one
+   program, a CUDA graph per bucket): species names and predictions equal
+   to the layer path's. Last, the label mapping on the card: the species
+   as numeric codes {1, 4, 6}, which the DataCutter re-indexes, scored
+   through the engine's graphs as the layer path scores them.
+
+``--profile`` runs each main path (the four, serve's Score, iris-200k and
+boston-200k) once more under ``torch.profiler`` and prints its device-time
+table: the busy share, the device operations a tree level, the histogram
+kernels, the split scans, the route or level epilogue, the predict and the
+uint8 → bool copies.
 ``--timings-only`` skips every check and prints only the times of
 ``split_scan``, the route alone and ``predict_trees``, the sweep's and
 BigPassenger's train seconds and both paths' profiles, with no result
@@ -110,7 +135,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–7).
+over the main paths' runs, phases 3–8).
 """
 import json
 import math
@@ -788,7 +813,10 @@ def epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A, nblk, d, D,
         w = u + 0.5
         st = torch.stack([w, w * y, w * y * y, torch.ones_like(w)], 1)
     elif kind == "gini":
-        cls = y + (2.0 * (XbT[1] > B // 2).float() if C == 5 else 0.0)
+        if C in (3, 5):
+            cls = y + (2.0 * (XbT[1] > B // 2).float() if C == 5 else 0.0)
+        else:           # every one of the C − 1 classes holds rows
+            cls = torch.remainder(y.long() + XbT[1].long(), C - 1)
         w = torch.floor(3.0 * u)
         onehot = torch.nn.functional.one_hot(cls.long(), C - 1).float()
         st = torch.cat([onehot * w[:, None], (w > 0).float()[:, None]], 1)
@@ -904,23 +932,15 @@ def epilogue_timed(H, dev, rng, put, XbT, X01, kind, C):
     return ms, plain_ms, ebound, args
 
 
-def check_epilogue(H, dev, rng, put, XbT):
-    """The level epilogue against its plain version, every output bitwise:
-    A ∈ {1, 64, 128} parent slots; variance and xgb; one block and two
-    (the 2-bin block's winners at threshold 0.5); the unrolled driver's
-    level (A_next = min(2A, 128), the next level's sibling mask) and the
-    constant-slot driver's (A_next = A, no mask, more splitting slots than
-    A_next / 2); and, with two blocks, a level past the depth limit, a
-    last level (two leaves a split) and a level where every slot dies.
-    Gini (random forests) at C = 3 (binary) and C = 5 (four classes) in
-    every one of those cases. Then the route-only call and the epilogue
-    timed at A = 128 (variance, and gini at C = 3). Returns the result
-    line's rows of both, and the gini time."""
-    X01 = put((rng.random((FB, N)) < 0.3).astype(np.uint8))
+def epilogue_cases(H, dev, rng, put, XbT, X01, kinds):
+    """The level epilogue against its plain version at A ∈ {1, 64, 128}
+    under each (kind, C) of ``kinds``, one block and two, in every case of
+    :func:`check_epilogue`; returns the slots whose winner was in the
+    2-bin block."""
     block1_wins = 0
     for A in (1, 64, 128):
         d, D = (A - 1).bit_length(), 9
-        for kind, Ck in EPILOGUE_KINDS:
+        for kind, Ck in kinds:
             for nblk in (1, 2):
                 args = epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A,
                                        nblk, d, D, C=Ck)
@@ -940,6 +960,23 @@ def check_epilogue(H, dev, rng, put, XbT):
                               split_ok=case.get("split_ok", True),
                               node_even=case.get("node_even", False))
                     epilogue_pair(H, args, level_records(depth, C, dev), kw)
+    return block1_wins
+
+
+def check_epilogue(H, dev, rng, put, XbT):
+    """The level epilogue against its plain version, every output bitwise:
+    A ∈ {1, 64, 128} parent slots; variance and xgb; one block and two
+    (the 2-bin block's winners at threshold 0.5); the unrolled driver's
+    level (A_next = min(2A, 128), the next level's sibling mask) and the
+    constant-slot driver's (A_next = A, no mask, more splitting slots than
+    A_next / 2); and, with two blocks, a level past the depth limit, a
+    last level (two leaves a split) and a level where every slot dies.
+    Gini (random forests) at C = 3 (binary) and C = 5 (four classes) in
+    every one of those cases. Then the route-only call and the epilogue
+    timed at A = 128 (variance, and gini at C = 3). Returns the result
+    line's rows of both, and the gini time."""
+    X01 = put((rng.random((FB, N)) < 0.3).astype(np.uint8))
+    block1_wins = epilogue_cases(H, dev, rng, put, XbT, X01, EPILOGUE_KINDS)
     if not block1_wins:
         fail("level_epilogue: no winner in the 2-bin block was checked")
     print(f"level_epilogue: slots, g, sibling masks, gpos, alive, rank and "
@@ -1276,6 +1313,398 @@ def serve(H, BP, records, text_aupr, dev="cuda", profile=False):
     return launches
 
 
+#: phase 8's gini channel counts: iris's (three classes and the count)
+#: and the most the card's tree kernels take (seven classes)
+WIDE_GINI = (4, 8)
+#: the iris forest's ensemble as scoring runs it: (F, T, D, K) = the eight
+#: transmogrified columns, 50 trees of depth 12, three class shares
+IRIS_PREDICT = (8, 50, 12, 3)
+#: split_scan's (F, B) at the wide gini: the sweep's block and iris's two
+#: (four values in 32 bins, four null indicators in 2)
+WIDE_SCAN_SHAPES = ((F, B), (4, B), (4, 2))
+#: iris species → the numeric codes of the label-mapping check
+IRIS_CODES = {"Iris-setosa": 1.0, "Iris-versicolor": 4.0,
+              "Iris-virginica": 6.0}
+TREE_WINNERS = ("OpRandomForestClassifier", "OpDecisionTreeClassifier")
+
+
+def gini_stats(rng, C, n):
+    """[n, C] f32 gini stats: a one-hot of C − 1 classes (every class
+    present) times an integer bootstrap-like weight 0..2, and the count."""
+    cls = rng.integers(0, C - 1, n)
+    w = rng.integers(0, 3, n).astype(np.float32)
+    st = np.zeros((n, C), np.float32)
+    st[np.arange(n), cls] = w
+    st[:, -1] = w > 0
+    return st
+
+
+def check_multiclass_kernels(H, dev):
+    """Phase 8's kernels at the multiclass shapes, each against its plain
+    version: the histograms at C = 8 (``cumhist`` and ``cumhist_sparse01``,
+    A ∈ {1, 64, 128}); ``split_scan`` under gini at C ∈ WIDE_GINI, every
+    slot count of SCAN_SLOTS, the sweep's and iris's block shapes, masked
+    and not, bitwise; the level epilogue under gini at C ∈ WIDE_GINI in
+    every case of :func:`check_epilogue`, bitwise; ``predict_trees`` at
+    IRIS_PREDICT within REL_TOL. Each is timed beside its plain version
+    (split_scan and the epilogue at A = 128). Returns the printed times."""
+    rng = np.random.default_rng(8)
+
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+
+    XbT = put(rng.integers(0, B, size=(F, N), dtype=np.int32))
+    X01 = put((rng.random((FB, N)) < 0.3).astype(np.uint8))
+    hrows = H.hist_rows(XbT)
+    for A in (1, 64, 128):
+        node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+        st = put(gini_stats(rng, 8, N))
+        hold(H.cumhist(st, node, XbT, A, B, rows=hrows),
+             H.cumhist(st, node, XbT, A, B),
+             [H.cumhist_reference(st, node, XbT, A, B)],
+             f"cumhist gini A={A} C=8")
+        hold(H.cumhist_sparse01(st, node, X01, A),
+             H.cumhist_sparse01(st, node, X01, A),
+             [H.cumhist_sparse01_reference(st, node, X01, A)],
+             f"cumhist_sparse01 gini A={A} C=8")
+    print("cumhist, cumhist_sparse01 at gini C=8 (A = 1, 64, 128): counts "
+          f"exact, class channels within {REL_TOL:g}, two calls bitwise "
+          "equal")
+    times = {}
+    for C in WIDE_GINI:
+        st = put(gini_stats(rng, C, N))
+        for Fs, Bs in WIDE_SCAN_SHAPES:
+            Xs = XbT[:Fs] if Bs == B else torch.remainder(XbT[:Fs], Bs)
+            srows = H.hist_rows(Xs)
+            for A in SCAN_SLOTS:
+                node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+                cum = H.cumhist(st, node, Xs, A, Bs, rows=srows)
+                what = f"gini C={C} F={Fs} B={Bs} A={A}"
+                mask = put((rng.random((A, Fs)) > 0.2).astype(np.float32))
+                scan_holds(H, cum, "gini", mask, f"{what} masked")
+                scan_holds(H, cum, "gini", None, what)
+        node = put(rng.integers(0, 129, size=N, dtype=np.int32))
+        cum = H.cumhist(st, node, XbT, 128, B, rows=hrows)
+        ms = time_ms(lambda: H.split_scan(cum, "gini", 10.0))
+        plain_ms = time_ms(lambda: H.split_scan_reference(cum, "gini",
+                                                          10.0))
+        # as phase 2's row: the histogram read once, three outputs a slot
+        # written; each candidate's two sides' gini, six operations a class
+        # and six more
+        sbound = ((cum.numel() * 4 + 128 * 9) / HBM_BPS,
+                  (6.0 * (C - 1) + 6.0) * 128 * (B - 1) * F / F32_FLOPS)
+        times[f"split_scan gini C={C}"] = (ms, plain_ms, max(sbound))
+        print(f"split_scan gini C={C}: selections and scores bitwise equal "
+              f"to the plain version (F, B in {WIDE_SCAN_SHAPES}; A = "
+              f"{', '.join(map(str, SCAN_SLOTS))}; masked and not); A=128 "
+              f"F={F} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {1e3 * max(sbound):.5f} ms")
+    wins = epilogue_cases(H, dev, rng, put, XbT, X01,
+                          [("gini", C) for C in WIDE_GINI])
+    if not wins:
+        fail("level_epilogue gini: no winner in the 2-bin block was checked")
+    print(f"level_epilogue gini at C = {WIDE_GINI}: every output bitwise "
+          f"equal to the plain version (A = 1, 64, 128; 1 and 2 blocks, "
+          f"{wins} slots won in the 2-bin block; both drivers; depth-limit, "
+          f"last and all-dying levels; gain ties)")
+    for C in WIDE_GINI:
+        ms, plain_ms, ebound, _args = epilogue_timed(H, dev, rng, put, XbT,
+                                                     X01, "gini", C)
+        times[f"level_epilogue gini C={C}"] = (ms, plain_ms, max(ebound))
+    Fp, T, D, K = IRIS_PREDICT
+    X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D, K)
+    out = H.predict_trees(X, feat, thr, leaf, D)
+    ref = H.predict_trees_reference(X, feat, thr, leaf, D)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    if rel_err(out, ref) > REL_TOL:
+        fail(f"predict_trees differs at {IRIS_PREDICT}: max abs err "
+             f"{err:.3g}")
+    ms = time_ms(lambda: H.predict_trees(X, feat, thr, leaf, D))
+    plain_ms = time_ms(lambda: H.predict_trees_reference(X, feat, thr,
+                                                         leaf, D), reps=5)
+    pbound = max(predict_bound(Fp, T, D, K))
+    times["predict_trees F=8 T=50 D=12 K=3"] = (ms, plain_ms, pbound)
+    print(f"predict_trees F={Fp} T={T} D={D} K={K} ("
+          f"{-(-T // H.predict_trees_chunk(Fp, D, K))} chunk(s)): within "
+          f"{REL_TOL:g} of the plain version (max abs err {err:.3g}, "
+          f"bitwise equal: {torch.equal(out, ref)}); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {1e3 * pbound:.5f} ms")
+    return times
+
+
+def iris_one_point():
+    """One grid point of each multiclass default family (the forest at 5
+    trees): the iris card/CPU agreement."""
+    from transmogrifai_tpu_torch.models import (DecisionTreeFamily,
+                                                LogisticRegressionFamily,
+                                                NaiveBayesFamily,
+                                                RandomForestFamily)
+    tree = {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}
+    return [LogisticRegressionFamily(grid=[{"regParam": 0.01,
+                                            "elasticNetParam": 0.1}]),
+            NaiveBayesFamily(),
+            RandomForestFamily(grid=[dict(tree)], num_trees=5),
+            DecisionTreeFamily(grid=[dict(tree)])]
+
+
+def boston_one_point():
+    """One grid point of each of boston's families: its agreement."""
+    from transmogrifai_tpu_torch.models import GBTFamily, RandomForestFamily
+    tree = {"maxDepth": 6, "minInstancesPerNode": 10, "minInfoGain": 0.001}
+    return [RandomForestFamily(grid=[dict(tree)], task="regression",
+                               num_trees=5),
+            GBTFamily(grid=[dict(tree, maxDepth=3)], task="regression")]
+
+
+def agree_metric(runs, metric, limit, what, relative=False):
+    """The card's and the CPU's run pick one model, ``metric`` within
+    ``limit`` (of the CPU's value when ``relative``), and so does every
+    family's CV metric in every fold: the losers' fits are held too."""
+    a, b = runs["cuda"], runs["cpu"]
+    if ((a["summary"].best_model_name, a["summary"].best_model_params)
+            != (b["summary"].best_model_name,
+                b["summary"].best_model_params)):
+        fail(f"cuda and cpu picked different models ({what})")
+
+    def diff(x, y):
+        return abs(x - y) / (abs(y) if relative else 1.0)
+    d = diff(a["metrics"][metric], b["metrics"][metric])
+    if not d <= limit:
+        fail(f"cuda and cpu {metric} differ by {d:.3g} ({what})")
+    ra = a["summary"].validator_summary.results
+    rb = b["summary"].validator_summary.results
+    if [(r.family_name, r.hparams) for r in ra] != \
+            [(r.family_name, r.hparams) for r in rb]:
+        fail(f"cuda and cpu validated different grids ({what})")
+    folds = {}
+    for x, y in zip(ra, rb):
+        folds[x.family_name] = max([folds.get(x.family_name, 0.0)] + [
+            diff(u, v) for u, v in zip(x.metric_values, y.metric_values)])
+    if not all(v <= limit for v in folds.values()):
+        fail(f"cuda and cpu CV fold metrics differ ({what}): {folds}")
+    rel = "/" + metric if relative else ""
+    print(f"{what}: same model on cuda and cpu "
+          f"({a['summary'].best_model_name}), |d{metric}|{rel} = {d:.3g}; "
+          f"largest CV fold |d{metric}|{rel} by family "
+          f"{ {k: float(f'{v:.3g}') for k, v in folds.items()} } "
+          f"(limit {limit:g})")
+
+
+def multiclass_paths(H, IR, BO, data_dir, profile=False, dev="cuda"):
+    """Phase 8's two paths through ``Workflow.train`` with every launch
+    counted: iris-200k (the multiclass selector's default families, a
+    DataCutter, the prediction de-indexed) and boston-200k (the random
+    forest and GBT regressors), each evaluated; then each at 2,000 rows,
+    one grid point a family, on the card and on the CPU, with all the
+    families and with each tree family alone. Returns
+    ({path: launches}, iris-200k's run). ``dev`` "cpu" rehearses the
+    phase on the host."""
+    t0 = time.perf_counter()
+    iris_path = IR.generate_csv(os.path.join(data_dir, "iris-200k.data"), N,
+                                seed=42)
+    boston_path = BO.generate_data(os.path.join(data_dir,
+                                                "boston-200k.data"), N,
+                                   seed=42)
+    print(f"phase 8 data: {N} iris and {N} boston rows written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    tree_kernels = ("cumhist", "cumhist_sparse01", "group_rows",
+                    "split_scan", "level_epilogue")
+    launches_by = {}
+    iris, launches = counted(H, lambda: IR.run(iris_path, device=dev),
+                             tree_kernels)
+    once_per_level(launches, "iris-200k")
+    s = iris["summary"]
+    tree_won = s.best_model_name in TREE_WINNERS
+    if tree_won and not launches["predict_trees"]:
+        fail("iris-200k: a tree model won and predict_trees never launched")
+    f1, err = iris["metrics"]["F1"], iris["metrics"]["Error"]
+    names = iris["predicted_labels"].values
+    if not (len(names) == N and set(names) <= set(IR.IRIS_CLASSES)
+            and 0.0 < f1 <= 1.0 and np.isfinite(
+                iris["scored"][iris["prediction"].name].probability).all()):
+        fail("iris-200k: scores are not finite, of the wrong shape, or "
+             "name no species")
+    print(f"iris-200k {N} rows: train {iris['train_s']:.2f} s, "
+          f"{launches['group_rows']} levels, evaluate {iris['eval_s']:.2f} "
+          f"s, best {s.best_model_name} {s.best_model_params}, F1 "
+          f"{f1:.6f}, Error {err:.6f}; holdout F1 "
+          f"{s.holdout_evaluation['F1']:.6f}")
+    print(f"iris-200k CV seconds by family: "
+          f"{s.validator_summary.family_seconds}")
+    print(f"iris-200k launches: {launches}")
+    launches_by["iris-200k"] = launches
+    iris["data_path"] = iris_path
+    if profile:
+        profile_path(H, "iris-200k", lambda: IR.run(iris_path,
+                                                    device="cuda"))
+
+    boston, launches = counted(H, lambda: BO.run(boston_path, device=dev),
+                               tree_kernels + ("predict_trees",))
+    once_per_level(launches, "boston-200k")
+    s = boston["summary"]
+    rmse, r2 = (boston["metrics"]["RootMeanSquaredError"],
+                boston["metrics"]["R2"])
+    pred = boston["scored"][boston["prediction"].name].prediction
+    if not (len(pred) == N and np.isfinite(pred).all()
+            and 0.0 < rmse < 50.0 and 0.0 < r2 <= 1.0):
+        fail("boston-200k: predictions are not finite or of the wrong "
+             "shape, or RMSE / R2 out of range")
+    print(f"boston-200k {N} rows: train {boston['train_s']:.2f} s, "
+          f"{launches['group_rows']} levels, evaluate "
+          f"{boston['eval_s']:.2f} s, best {s.best_model_name} "
+          f"{s.best_model_params}, RMSE {rmse:.6f}, R2 {r2:.6f}; holdout "
+          f"RMSE {s.holdout_evaluation['RootMeanSquaredError']:.6f}")
+    print(f"boston-200k CV seconds by family: "
+          f"{s.validator_summary.family_seconds}")
+    print(f"boston-200k launches: {launches}")
+    launches_by["boston-200k"] = launches
+    if profile:
+        profile_path(H, "boston-200k", lambda: BO.run(boston_path,
+                                                      device="cuda"))
+
+    t0 = time.perf_counter()
+    small = IR.generate_csv(os.path.join(data_dir, "iris-2k.data"), 2_000,
+                            seed=42)
+    # all the families, then each tree family alone: every tree family's
+    # refit and scoring (predict_trees at K=3, and the GBT regressor at
+    # K=1) is held on the path too
+    for fams, which in ((iris_one_point(), "one grid point a family"),
+                        (iris_one_point()[2:3], "the forest alone"),
+                        (iris_one_point()[3:], "the decision tree alone")):
+        agree_metric({k: IR.run(small, device=d, families=fams)
+                      for k, d in (("cuda", dev), ("cpu", "cpu"))}, "F1",
+                     1e-4, f"iris, 2000 rows, {which}")
+    small = BO.generate_data(os.path.join(data_dir, "boston-2k.data"),
+                             2_000, seed=42)
+    for fams, which in ((boston_one_point(), "one grid point a family"),
+                        (boston_one_point()[1:], "GBT alone")):
+        agree_metric({k: BO.run(small, device=d, families=fams)
+                      for k, d in (("cuda", dev), ("cpu", "cpu"))},
+                     "RootMeanSquaredError", 1e-4,
+                     f"boston, 2000 rows, {which}", relative=True)
+    print(f"phase 8 agreements: {time.perf_counter() - t0:.2f} s")
+    return launches_by, iris
+
+
+def coded_iris_model(iris_path, dev):
+    """The iris data with the species as numeric codes (IRIS_CODES) and
+    no indexer: the DataCutter re-indexes {1, 4, 6} to classes 0..2 and
+    the selected model (a 5-tree forest) maps them back through its
+    ``label_mapping``. Returns (model, prediction feature, reader)."""
+    from transmogrifai_tpu_torch import FeatureBuilder, Workflow
+    from transmogrifai_tpu_torch.dsl import transmogrify
+    from transmogrifai_tpu_torch.models import (
+        DataCutter, MultiClassificationModelSelector, RandomForestFamily)
+    from transmogrifai_tpu_torch.readers import DataReaders
+
+    def num(n):
+        return lambda r: float(r[n]) if r.get(n) not in (None, "") else None
+    code = (FeatureBuilder.RealNN("irisCode")
+            .extract(lambda r: IRIS_CODES[r["irisClass"]], "irisClass")
+            .as_response())
+    names = ["sepalLength", "sepalWidth", "petalLength", "petalWidth"]
+    vec = transmogrify([FeatureBuilder.Real(n).extract(num(n), n)
+                        .as_predictor() for n in names])
+    sel = MultiClassificationModelSelector.with_cross_validation(
+        num_folds=2, families=[RandomForestFamily(
+            grid=[{"maxDepth": 6, "minInstancesPerNode": 10,
+                   "minInfoGain": 0.001}], num_trees=5)],
+        splitter=DataCutter(reserve_test_fraction=0.2, seed=42))
+    pred = code.transform_with(sel, vec)
+    reader = DataReaders.simple.csv(iris_path, names + ["irisClass"])
+    model = (Workflow().set_reader(reader).set_result_features(pred)
+             .set_splitter(sel.splitter).train(device=dev))
+    mapping = model.fitted_stages[sel.uid].label_mapping
+    if mapping != sorted(IRIS_CODES.values()):
+        fail(f"coded iris: label mapping {mapping} is not the codes")
+    return model, pred, reader
+
+
+def serve_iris(H, iris, root, dev="cuda"):
+    """Phase 8's serving: the iris-200k model saved, loaded in a fresh
+    ``WorkflowModel`` and its 200,000 rows scored through the scoring
+    engine (the model's predict and the de-indexer's codes in one
+    program, a CUDA graph per bucket), counted; the species names and the
+    predictions must equal the layer path's. Then the label mapping on
+    the card: the coded-species model scored alike through the engine
+    and the layer path, its predictions the original codes. Returns the
+    launches of the engine's scores of each model."""
+    import shutil
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    path = os.path.join(root, "build", "serve", "iris")
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    iris["model"].save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = WorkflowModel.load(path)
+    load_s = time.perf_counter() - t0
+    store = iris["data"]
+    pred, de = iris["prediction"].name, iris["deindexed"].name
+    chunks = -(-N // 8192)
+    H.reset_launch_counts()
+    t0 = time.perf_counter()
+    scored = loaded.score(store, device=dev, engine=True)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    launches = dict(H.KERNEL_LAUNCHES)
+    eng = loaded.scoring_engine(dev)
+    kinds = [it.kind for it in eng._plan]
+    if kinds[-2:] != ["predict", "deindex"]:
+        fail(f"iris serve: the engine's program is {kinds}, not ending in "
+             "the predictor and the de-indexer")
+    tree_won = iris["summary"].best_model_name in TREE_WINNERS
+    if tree_won and launches["predict_trees"] != chunks:
+        fail(f"iris serve: predict_trees launched {launches['predict_trees']}"
+             f" times for {chunks} chunks")
+    t0 = time.perf_counter()
+    layer = iris["model"].score(store, device=dev, engine=False)
+    torch.cuda.synchronize()
+    layer_s = time.perf_counter() - t0
+    if not np.array_equal(scored[de].values, layer[de].values):
+        fail("iris serve: species names differ from the layer path's")
+    same_predictions(scored[pred], layer[pred],
+                     "iris serve: engine against the layer path")
+    again = loaded.score(store, device=dev, engine=True)
+    if not np.array_equal(again[de].values, scored[de].values):
+        fail("iris serve: a replay's species names differ")
+    print(f"iris serve: save {save_s:.2f} s, load {load_s:.2f} s, Score "
+          f"(fresh load, engine, de-indexer in the program) {score_s:.2f} s "
+          f"= {N / score_s:,.0f} rows/s against the layer path's "
+          f"{layer_s:.2f} s; species names and predictions equal to the "
+          f"layer path's (and a replay's); program {kinds}, buckets "
+          f"{eng.buckets_used()}, graphs {eng.graphs_captured}, "
+          f"predict_trees launches {launches['predict_trees']}")
+
+    model, cpred, reader = coded_iris_model(iris["data_path"], dev)
+    cstore = reader.generate_store(cpred.raw_features())
+    model.save(os.path.join(root, "build", "serve", "iris-coded"),
+               overwrite=True)
+    coded = WorkflowModel.load(os.path.join(root, "build", "serve",
+                                            "iris-coded"))
+    H.reset_launch_counts()
+    got = coded.score(cstore, device=dev, engine=True)[cpred.name]
+    got = coded.score(cstore, device=dev, engine=True)[cpred.name]
+    torch.cuda.synchronize()
+    coded_launches = dict(H.KERNEL_LAUNCHES)
+    if coded_launches["predict_trees"] != 2 * chunks:
+        fail(f"coded iris: predict_trees launched "
+             f"{coded_launches['predict_trees']} times for 2 × {chunks} "
+             "chunks")
+    want = model.score(cstore, device=dev, engine=False)[cpred.name]
+    same_predictions(got, want, "coded iris: engine against the layer path")
+    if not set(np.unique(got.prediction)) <= set(IRIS_CODES.values()):
+        fail("coded iris: predictions are not the original codes")
+    print(f"iris label mapping on the card: the coded-species model "
+          f"(mapping {sorted(IRIS_CODES.values())}) scores {N} rows through "
+          f"the engine's graphs (two passes, "
+          f"{coded_launches['predict_trees']} predict_trees launches) as "
+          f"the layer path does; predictions are the codes")
+    return launches, coded_launches
+
+
 def timings(H, dev, BP, run):
     """``--timings-only``: split_scan's times at its shapes, then each main
     path run once and profiled once; nothing is checked and no result
@@ -1320,6 +1749,8 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from transmogrifai_tpu_torch import big_passenger as BP
+    from transmogrifai_tpu_torch import boston as BO
+    from transmogrifai_tpu_torch import iris as IR
     from transmogrifai_tpu_torch import titanic as TT
     from transmogrifai_tpu_torch.models import _hist as H
     from transmogrifai_tpu_torch.models import _treefit as TF
@@ -1446,6 +1877,15 @@ def main():
     path_launches["serve-200k"] = serve(H, BP, records, text_aupr,
                                         profile=profile)
 
+    # -- phase 8: multiclass and regression (iris, boston) ---------------
+    wide = check_multiclass_kernels(H, dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    data_dir = os.path.join(root, "build", "data")
+    launches_by, iris = multiclass_paths(H, IR, BO, data_dir, profile)
+    path_launches.update(launches_by)
+    (path_launches["serve-iris"],
+     path_launches["serve-iris-coded"]) = serve_iris(H, iris, root)
+
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",
              "split_scan", "route_level", "level_epilogue", "predict_trees")
@@ -1470,6 +1910,9 @@ def main():
     gini = rows["level_epilogue"]["gini"]
     print(f"level_epilogue gini (A=128, C=3): {gini['ms']:.4f} ms, plain "
           f"{gini['plain_ms']:.4f} ms, bound {gini['bound_ms']:.5f} ms")
+    for what, (ms, plain_ms, bound) in wide.items():
+        print(f"{what} (phase 8): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {1e3 * bound:.5f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

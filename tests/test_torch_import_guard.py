@@ -56,3 +56,14 @@ def test_source_names_no_jax_import(path):
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, \
                 f"{path.name}:{node.lineno} imports {name}"
+
+
+@pytest.mark.parametrize("module", ["iris.py", "boston.py",
+                                    "ops/indexers.py"])
+def test_multiclass_and_regression_modules_are_scanned(module):
+    """The iris and boston paths and the indexers are among the sources
+    scanned above and the modules imported with ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    assert dotted in _modules()

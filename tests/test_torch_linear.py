@@ -123,10 +123,21 @@ def test_carried_over_coefficients_score_alike(data):
         np.testing.assert_allclose(b, a, rtol=1e-12, atol=1e-12)
 
 
-def test_multinomial_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        PL.LogisticRegressionFamily(n_classes=3).fit_batch(
-            torch.zeros(4, 2), torch.zeros(4), torch.ones(4))
+def test_multinomial_names_the_roadmap_item(data):
+    """Multinomial logistic regression, which raised naming ROADMAP queue
+    A item 4 until it was ported, now fits: the family at three classes
+    gives [K, d] coefficients equal to the JAX package's fit."""
+    X, y, w = data
+    y3 = y + (X[:, 1] > 0.8)
+    (c, b), = PL.LogisticRegressionFamily(
+        grid=[{"regParam": 0.01, "elasticNetParam": 0.1}],
+        n_classes=3).fit_batch(*_t(X, y3, w))
+    assert c.shape == (3, X.shape[1]) and b.shape == (3,)
+    jc, jb = JF.fit_multinomial_logistic(jnp.asarray(X), jnp.asarray(y3),
+                                         jnp.asarray(w), 0.01, 0.1,
+                                         n_classes=3)
+    _close(c, jc)
+    _close(b, jb)
 
 
 @pytest.mark.parametrize("n", [8, 802, 891, 4003])

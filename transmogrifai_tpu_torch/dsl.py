@@ -2,7 +2,8 @@
 Titanic example uses: the numeric math transformers (``+ - * /`` of two
 features or of a feature and a scalar), ``fill_missing_with_mean``,
 ``z_normalize``, ``pivot``, ``map_to``, ``alias``, ``transmogrify``
-(RichFeaturesCollection.transmogrify) and ``Feature.sanity_check``.
+(RichFeaturesCollection.transmogrify), ``Feature.sanity_check`` and the
+multiclass path's label indexing, ``indexed``.
 Importing the package attaches the methods and operators::
 
     family_size = sib_sp + par_ch + 1
@@ -316,6 +317,12 @@ def _sanity_check(self: Feature, features: Feature,
     return checker.get_output()
 
 
+def _indexed(self: Feature, **kw):
+    """Text → RealNN label indices (OpStringIndexerNoFilter)."""
+    from .ops.indexers import OpStringIndexerNoFilter
+    return self.transform_with(OpStringIndexerNoFilter(**kw))
+
+
 Feature.__add__ = _binary_math("add")
 Feature.__sub__ = _binary_math("subtract")
 Feature.__mul__ = _binary_math("multiply")
@@ -330,3 +337,4 @@ Feature.z_normalize = _z_normalize
 Feature.map_to = _map_to
 Feature.alias = _alias
 Feature.sanity_check = _sanity_check
+Feature.indexed = _indexed

@@ -1,4 +1,5 @@
-"""Evaluators — metrics over scored stores (binary classification).
+"""Evaluators — metrics over scored stores: binary and multiclass
+classification, and regression.
 
 Port of ``transmogrifai_tpu/evaluators/__init__.py``: an evaluator reads
 the label column and the Prediction struct column; ``evaluate_all``
@@ -13,10 +14,13 @@ import numpy as np
 
 from ..columns import ColumnStore, PredictionColumn
 from ..features import Feature
-from .metrics import binary_metrics
+from .metrics import (binary_metrics, multiclass_metrics,
+                      multiclass_threshold_metrics, regression_metrics)
 
-__all__ = ["OpEvaluatorBase", "BinaryClassificationEvaluator", "Evaluators",
-           "binary_metrics"]
+__all__ = ["OpEvaluatorBase", "BinaryClassificationEvaluator",
+           "MultiClassificationEvaluator", "RegressionEvaluator",
+           "Evaluators", "binary_metrics", "multiclass_metrics",
+           "regression_metrics", "multiclass_threshold_metrics"]
 
 
 class OpEvaluatorBase:
@@ -69,6 +73,37 @@ class BinaryClassificationEvaluator(OpEvaluatorBase):
         return binary_metrics(y, pred.prediction, scores)
 
 
+class MultiClassificationEvaluator(OpEvaluatorBase):
+    """Weighted P/R/F1/Error and the topN × confidence-threshold metrics
+    (``OpMultiClassificationEvaluator.scala:120-229``)."""
+
+    name = "multiEval"
+    default_metric = "F1"
+
+    def __init__(self, top_ns=(1, 3), thresholds=None, **kw):
+        super().__init__(**kw)
+        self.top_ns = tuple(top_ns)
+        self.thresholds = thresholds
+
+    def evaluate_all(self, store: ColumnStore) -> Dict[str, Any]:
+        y, pred = self._extract(store)
+        out: Dict[str, Any] = multiclass_metrics(y, pred.prediction)
+        if pred.probability.ndim == 2 and pred.probability.shape[1] >= 2:
+            out["ThresholdMetrics"] = multiclass_threshold_metrics(
+                y, pred.probability, top_ns=self.top_ns,
+                thresholds=self.thresholds)
+        return out
+
+
+class RegressionEvaluator(OpEvaluatorBase):
+    name = "regEval"
+    default_metric = "RootMeanSquaredError"
+
+    def evaluate_all(self, store: ColumnStore) -> Dict[str, float]:
+        y, pred = self._extract(store)
+        return regression_metrics(y, pred.prediction)
+
+
 class _EvalFactory:
     def __init__(self, cls):
         self._cls = cls
@@ -79,7 +114,10 @@ class _EvalFactory:
     def __getattr__(self, metric: str):
         canonical = {"aupr": "AuPR", "auroc": "AuROC",
                      "precision": "Precision", "recall": "Recall",
-                     "f1": "F1", "error": "Error"}
+                     "f1": "F1", "error": "Error",
+                     "rmse": "RootMeanSquaredError",
+                     "mse": "MeanSquaredError", "mae": "MeanAbsoluteError",
+                     "r2": "R2"}
         m = canonical.get(metric.lower())
         if m is None:
             raise AttributeError(metric)
@@ -88,7 +126,9 @@ class _EvalFactory:
 
 
 class Evaluators:
-    """Factory (Evaluators.scala:40); the multiclass and regression
-    evaluators are not ported yet."""
+    """Factory (Evaluators.scala:40); the bin-score evaluator is not
+    ported yet (ROADMAP queue A, item 6)."""
 
     BinaryClassification = _EvalFactory(BinaryClassificationEvaluator)
+    MultiClassification = _EvalFactory(MultiClassificationEvaluator)
+    Regression = _EvalFactory(RegressionEvaluator)

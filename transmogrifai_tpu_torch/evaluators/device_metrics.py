@@ -1,5 +1,7 @@
 """On-device metrics for the CV sweep, in PyTorch — the port of
-``transmogrifai_tpu/evaluators/device_metrics.py`` (binary metrics).
+``transmogrifai_tpu/evaluators/device_metrics.py``: binary, multiclass
+(weighted precision / recall / F1 and the error) and regression (RMSE,
+MSE, MAE, R2).
 
 Semantics match ``evaluators/metrics.py`` (MLlib threshold curves): ties
 are grouped per distinct score, ROC gets (0,0)/(1,1) endpoints, PR is
@@ -11,7 +13,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["device_metric_fn", "DEVICE_METRICS", "auroc", "aupr"]
+__all__ = ["device_metric_fn", "DEVICE_METRICS", "auroc", "aupr",
+           "multiclass_weighted", "multiclass_error", "rmse", "mse", "mae",
+           "r2"]
 
 _EPS = 1e-12
 
@@ -78,6 +82,51 @@ def binary_error(y, pred, w):
     return torch.sum(w * (pred != y)) / torch.clamp(torch.sum(w), min=_EPS)
 
 
+def multiclass_weighted(y, pred, w, n_classes: int, which: str):
+    """Weighted Precision / Recall / F1 over ``n_classes`` classes
+    (MulticlassMetrics): each class's value weighted by its share of the
+    validation weight."""
+    classes = torch.arange(n_classes, device=y.device)
+    oh_y = (classes[None, :] == y.long()[:, None]).to(w.dtype)
+    oh_p = (classes[None, :] == pred.long()[:, None]).to(w.dtype)
+    conf = (oh_y * w[:, None]).T @ oh_p              # [true, pred]
+    tp = torch.diagonal(conf)
+    per_true = (oh_y * w[:, None]).sum(0)
+    per_pred = (oh_p * w[:, None]).sum(0)
+    prec = tp / torch.clamp(per_pred, min=_EPS)
+    rec = tp / torch.clamp(per_true, min=_EPS)
+    f1 = 2.0 * prec * rec / torch.clamp(prec + rec, min=_EPS)
+    cw = per_true / torch.clamp(torch.sum(w), min=_EPS)
+    vals = {"Precision": prec, "Recall": rec, "F1": f1}[which]
+    return torch.sum(cw * vals)
+
+
+def multiclass_error(y, pred, w):
+    return torch.sum(w * (pred != y)) / torch.clamp(torch.sum(w), min=_EPS)
+
+
+def rmse(y, pred, w):
+    return torch.sqrt(mse(y, pred, w))
+
+
+def mse(y, pred, w):
+    return torch.sum(w * (y - pred) ** 2) / torch.clamp(torch.sum(w),
+                                                       min=_EPS)
+
+
+def mae(y, pred, w):
+    return torch.sum(w * torch.abs(y - pred)) / torch.clamp(torch.sum(w),
+                                                           min=_EPS)
+
+
+def r2(y, pred, w):
+    W = torch.clamp(torch.sum(w), min=_EPS)
+    mean = torch.sum(w * y) / W
+    var = torch.sum(w * (y - mean) ** 2) / W
+    m = torch.sum(w * (y - pred) ** 2) / W
+    return torch.where(var > 0, 1.0 - m / var, torch.zeros_like(var))
+
+
 #: (task, metric name) → (input kind, fn)
 DEVICE_METRICS = {
     ("binary", "AuROC"): ("score", auroc),
@@ -86,13 +135,25 @@ DEVICE_METRICS = {
     ("binary", "Recall"): ("pred", binary_recall),
     ("binary", "F1"): ("pred", binary_f1),
     ("binary", "Error"): ("pred", binary_error),
+    ("multiclass", "Error"): ("pred", multiclass_error),
+    ("regression", "RootMeanSquaredError"): ("pred", rmse),
+    ("regression", "MeanSquaredError"): ("pred", mse),
+    ("regression", "MeanAbsoluteError"): ("pred", mae),
+    ("regression", "R2"): ("pred", r2),
 }
 
 
-def device_metric_fn(task: str, metric_name: str):
-    """→ fn(y, pred, prob, w) → 0-dim tensor, or None if not ported.
-    Score metrics read prob[:, 1] when the model has class probabilities,
-    else the prediction."""
+def device_metric_fn(task: str, metric_name: str, n_classes: int = 2):
+    """→ fn(y, pred, prob, w) → 0-dim tensor, or None when the metric has
+    no device form (the validator then takes the host metrics). Score
+    metrics read prob[:, 1] when the model has class probabilities, else
+    the prediction; the multiclass weighted metrics count ``n_classes``
+    classes."""
+    if task == "multiclass" and metric_name in ("Precision", "Recall",
+                                                 "F1"):
+        def mc(y, pred, prob, w):
+            return multiclass_weighted(y, pred, w, n_classes, metric_name)
+        return mc
     entry = DEVICE_METRICS.get((task, metric_name))
     if entry is None:
         return None

@@ -63,25 +63,30 @@ _REF_PKG = "transmogrifai_tpu"
 #: ``transmogrifai_tpu_torch.<m>``)
 REFERENCE_MODULES = {
     "LogisticRegressionFamily": "transmogrifai_tpu.models.linear",
+    "LinearRegressionFamily": "transmogrifai_tpu.models.linear",
+    "NaiveBayesFamily": "transmogrifai_tpu.models.linear",
     "LinearSVCFamily": "transmogrifai_tpu.models.svm",
     "RandomForestFamily": "transmogrifai_tpu.models.trees",
     "DecisionTreeFamily": "transmogrifai_tpu.models.trees",
     "GBTFamily": "transmogrifai_tpu.models.trees",
     "XGBoostFamily": "transmogrifai_tpu.models.trees",
     "Splitter": "transmogrifai_tpu.models.tuning",
+    "DataSplitter": "transmogrifai_tpu.models.tuning",
     "DataBalancer": "transmogrifai_tpu.models.tuning",
+    "DataCutter": "transmogrifai_tpu.models.tuning",
     "CrossValidation": "transmogrifai_tpu.models.tuning",
+    "TrainValidationSplit": "transmogrifai_tpu.models.tuning",
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _codec_bases():
     """Config objects encoded structurally (ctor-arg capture): model
-    families, splitters and the cross validator (an unfitted
-    ModelSelector's params, reached by layer checkpoints)."""
+    families, splitters and the validators (an unfitted ModelSelector's
+    params, reached by layer checkpoints)."""
     from .models.base import ModelFamily
-    from .models.tuning import CrossValidation, Splitter
-    return (ModelFamily, Splitter, CrossValidation)
+    from .models.tuning import Splitter, _ValidatorBase
+    return (ModelFamily, Splitter, _ValidatorBase)
 
 
 def _encode_obj(v: Any, arrays: Dict[str, np.ndarray], prefix: str) -> Any:

@@ -1,14 +1,20 @@
 """Model families, the tree engine, the linear models and model
 selection."""
-from .linear import (LogisticRegressionFamily,  # noqa: F401
-                     LogisticRegressionModel, OpLogisticRegression)
+from .linear import (LinearRegressionFamily,  # noqa: F401
+                     LinearRegressionModel, LogisticRegressionFamily,
+                     LogisticRegressionModel, NaiveBayesFamily,
+                     NaiveBayesModel, OpLinearRegression,
+                     OpLogisticRegression, OpNaiveBayes)
 from .selector import (BinaryClassificationModelSelector,  # noqa: F401
-                       ModelSelector, SelectedModel)
+                       ModelSelector, MultiClassificationModelSelector,
+                       RegressionModelSelector, SelectedModel)
 from .svm import LinearSVCFamily, LinearSVCModel, OpLinearSVC  # noqa: F401
 from .trees import (DecisionTreeFamily, GBTFamily,  # noqa: F401
                     OpDecisionTreeClassifier, OpDecisionTreeRegressor,
-                    OpGBTClassifier, OpRandomForestClassifier,
-                    OpRandomForestRegressor, OpXGBoostClassifier,
+                    OpGBTClassifier, OpGBTRegressor,
+                    OpRandomForestClassifier, OpRandomForestRegressor,
+                    OpXGBoostClassifier, OpXGBoostRegressor,
                     RandomForestFamily, TreeEnsembleModel, XGBoostFamily,
                     tree_model_from_numpy)
-from .tuning import CrossValidation, DataBalancer  # noqa: F401
+from .tuning import (CrossValidation, DataBalancer,  # noqa: F401
+                     DataCutter, DataSplitter, TrainValidationSplit)

@@ -64,6 +64,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+#: the most stat channels (classes + the count) and leaf values the card's
+#: tree kernels take
+MAX_CARD_CHANNELS = 8
+
+#: what a tree fit or predict of more than seven classes waits for on the
+#: card (C > 8 stat channels or K > 8 leaf values)
+WIDE_CLASSES_ITEM = ("more than seven classes on the card: wider channel "
+                     "templates for the histograms, the split scan and the "
+                     "level epilogue, and K in chunks of 8 for "
+                     "predict_trees, ROADMAP queue B, item 7")
+
 __all__ = ["cumhist", "cumhist_reference", "make_bc", "hist_rows",
            "bc_rows", "cumhist_sparse01", "cumhist_sparse01_reference",
            "sparse01_rows", "group_rows", "group_rows_reference",
@@ -421,7 +432,7 @@ def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
     _check(stats, "stats", torch.float32, (n, C), dev)
     _check(node, "node", torch.int32, (n,), dev)
     _check(XbT, "XbT", torch.int32, (F, n), dev)
-    if not (1 <= C <= 8 and A >= 1 and B >= 1 and n >= 1):
+    if not (1 <= C <= MAX_CARD_CHANNELS and A >= 1 and B >= 1 and n >= 1):
         raise ValueError(f"cumhist: unsupported shape n={n} C={C} A={A} "
                          f"B={B}")
     if (B > 256 and bc is None) or B * F >= 2 ** 31:
@@ -495,7 +506,8 @@ def cumhist_sparse01(stats: torch.Tensor, node: torch.Tensor,
     _check(stats, "stats", torch.float32, (n, C), dev)
     _check(node, "node", torch.int32, (n,), dev)
     _check(Xb01, "Xb01", torch.uint8, (Fb, n), dev)
-    if not (1 <= C <= 8 and A >= 1 and Fb >= 1 and n >= 1):
+    if not (1 <= C <= MAX_CARD_CHANNELS and A >= 1 and Fb >= 1
+            and n >= 1):
         raise ValueError(f"cumhist_sparse01: unsupported shape n={n} C={C} "
                          f"A={A} Fb={Fb}")
     if rows is None:
@@ -894,7 +906,8 @@ def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
     if kind not in _KINDS:
         raise ValueError(f"level_epilogue: no kernel for kind {kind!r}")
     if not (1 <= nblk <= _MAX_CAND_BLOCKS and 1 <= A <= _MAX_SLOTS
-            and 3 <= C <= 8 and A_next >= 1 and 1 <= D <= 30):
+            and 3 <= C <= MAX_CARD_CHANNELS and A_next >= 1
+            and 1 <= D <= 30):
         raise ValueError(f"level_epilogue: unsupported blocks={nblk} A={A} "
                          f"C={C} A_next={A_next} D={D}")
     if _call("level_epilogue_smem", A, C) > _SMEM_MAX:
@@ -983,8 +996,10 @@ def predict_trees(X, feat, thr, leaf_w, max_depth: int):
     _check(feat, "feat", torch.int32, (T, NN), dev)
     _check(thr, "thr", torch.float32, (T, NN), dev)
     _check(leaf_w, "leaf_w", torch.float32, (T, 1 << D, K), dev)
-    if not (1 <= K <= 8 and 1 <= D <= 16):
-        raise ValueError(f"predict_trees: unsupported K={K} D={D}")
+    if not (1 <= K <= MAX_CARD_CHANNELS and 1 <= D <= 16):
+        raise ValueError(f"predict_trees: unsupported K={K} D={D}; the "
+                         f"kernel sums at most {MAX_CARD_CHANNELS} leaf "
+                         f"values ({WIDE_CLASSES_ITEM})")
     out = torch.empty((n, K), dtype=torch.float32, device=dev)
     _launch("predict_trees", "predict_trees_launch",
             X.data_ptr(), feat.data_ptr(), thr.data_ptr(),

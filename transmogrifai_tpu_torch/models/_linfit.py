@@ -1,6 +1,7 @@
 """Linear model fitting in plain PyTorch — the port of
-``transmogrifai_tpu/models/_jaxfit.py`` (binary logistic regression and
-linear regression; the linear SVC's fit is in ``models/svm.py``).
+``transmogrifai_tpu/models/_jaxfit.py``: binary and multinomial logistic
+regression, linear regression and multinomial naive Bayes (the linear
+SVC's fit is in ``models/svm.py``).
 
 Every fit is a fixed-iteration FISTA loop (accelerated proximal
 gradient), as in the JAX package: ``1/n Σ w_i ℓ_i + reg · (α ||β||₁ +
@@ -11,8 +12,9 @@ weights double as fold masks.
 The JAX package vmaps a fit over the grid points; here a grid of G points
 is one batched fit: the standardization and the power iteration, which do
 not depend on the regularization, run once, and the coefficients of all
-points iterate together as a [G, d] matrix. The products are
-``torch.matmul``.
+points iterate together as a [G, d] matrix ([G, K, d] for K classes).
+Naive Bayes' class sums do not depend on the smoothing either: they are
+taken once for the grid. The products are ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ from .base import score_sigmoid
 
 __all__ = ["standardize_stats", "power_iter_sq_norm", "soft_threshold",
            "cg_solve", "fista", "fit_binary_logistic",
-           "predict_binary_logistic", "fit_linear", "predict_linear"]
+           "predict_binary_logistic", "fit_multinomial_logistic",
+           "predict_multinomial_logistic", "fit_linear", "fit_linear_grid",
+           "predict_linear", "fit_naive_bayes", "predict_naive_bayes"]
 
 
 def standardize_stats(X: torch.Tensor, w: torch.Tensor
@@ -136,22 +140,84 @@ def predict_binary_logistic(coef: torch.Tensor, intercept, X: torch.Tensor):
     return (p1 > 0.5).to(X.dtype), raw, prob
 
 
+def fit_multinomial_logistic(X: torch.Tensor, y: torch.Tensor,
+                             w: torch.Tensor, reg_param, elastic_net,
+                             n_classes: int, max_iter: int = 128
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax elastic-net logistic regression over ``n_classes`` classes
+    at G grid points → (coef [G, K, d], intercept [G, K])."""
+    mean, std = standardize_stats(X, w)
+    Xs = (X - mean) / std
+    wsum = torch.clamp(w.sum(), min=1e-12)
+    reg, enet = _grid(reg_param, X), _grid(elastic_net, X)
+    l1, l2 = (reg * enet)[:, :, None], (reg * (1.0 - enet))[:, :, None]
+    n, d, K = X.shape[0], X.shape[1], int(n_classes)
+    G = len(reg)
+    onehot = torch.nn.functional.one_hot(y.long(), K).to(X.dtype)   # [n, K]
+
+    def grad(params):                       # [G, K, d + 1]
+        # the grid's G·K coefficient rows in one [n, d] × [d, G·K] product
+        # each way (a product batched over G reads X G times, with an
+        # inner dimension of d)
+        W, b = params[:, :, :d], params[:, :, d]
+        logits = (Xs @ W.reshape(G * K, d).T).reshape(n, G, K) + b
+        r = (torch.softmax(logits, dim=2) - onehot[:, None, :]) \
+            * w[:, None, None]                                # [n, G, K]
+        gW = (r.reshape(n, G * K).T @ Xs).reshape(G, K, d) / wsum + l2 * W
+        return torch.cat([gW, (r.sum(0) / wsum)[:, :, None]], dim=2)
+
+    def prox(params, step):
+        return torch.cat([soft_threshold(params[:, :, :d], step * l1),
+                          params[:, :, d:]], dim=2)
+
+    lip = (0.5 * power_iter_sq_norm(Xs, w) + l2 + 0.5)       # [G, 1, 1]
+    params0 = torch.zeros((G, K, d + 1), dtype=X.dtype, device=X.device)
+    params = fista(grad, prox, params0, 1.0 / lip, max_iter)
+    W = params[:, :, :d] / std
+    return W, params[:, :, d] - torch.matmul(W, mean)
+
+
+def predict_multinomial_logistic(coef: torch.Tensor, intercept,
+                                 X: torch.Tensor):
+    """One grid point's (coef [K, d], intercept [K]) → (prediction,
+    logits [n, K], prob [n, K])."""
+    logits = X @ coef.T + intercept
+    prob = torch.softmax(logits, dim=-1)
+    return torch.argmax(prob, dim=-1).to(X.dtype), logits, prob
+
+
 def fit_linear(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                reg_param: float, elastic_net: float, max_iter: int = 128
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Elastic-net linear regression → (coef [d], intercept): ridge/OLS by
-    conjugate gradients on the normal equations, FISTA when there is an
-    L1 part."""
+    """Elastic-net linear regression at one point → (coef [d], intercept):
+    :func:`fit_linear_grid` on a grid of one."""
+    coef, icpt = fit_linear_grid(X, y, w, [reg_param], [elastic_net],
+                                 max_iter)
+    return coef[0], icpt[0]
+
+
+def fit_linear_grid(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                    reg_param, elastic_net, max_iter: int = 128
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Elastic-net linear regression at G grid points → (coef [G, d],
+    intercept [G]): the points with an L1 part take one batched FISTA
+    run, each of the others ridge/OLS by conjugate gradients on the
+    normal equations."""
+    regs, enets = list(map(float, reg_param)), list(map(float, elastic_net))
+    d = X.shape[1]
+    coef = torch.empty((len(regs), d), dtype=X.dtype, device=X.device)
     mean, std = standardize_stats(X, w)
     Xs = (X - mean) / std
     wsum = torch.clamp(w.sum(), min=1e-12)
     ybar = (y * w).sum() / wsum
     yc = y - ybar
-    d = X.shape[1]
-    l1 = float(reg_param) * float(elastic_net)
-    l2 = float(reg_param) * (1.0 - float(elastic_net))
-    if l1 > 0.0:
-        def grad(beta):                     # [1, d]
+    l1_pts = [i for i, (r, e) in enumerate(zip(regs, enets)) if r * e > 0.0]
+    if l1_pts:
+        reg = _grid([regs[i] for i in l1_pts], X)
+        enet = _grid([enets[i] for i in l1_pts], X)
+        l1, l2 = reg * enet, reg * (1.0 - enet)
+
+        def grad(beta):                     # [G', d]
             r = w * (beta @ Xs.T - yc)
             return r @ Xs / wsum + l2 * beta
 
@@ -159,18 +225,50 @@ def fit_linear(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
             return soft_threshold(beta, step * l1)
 
         lip = power_iter_sq_norm(Xs, w) + l2
-        coef_s = fista(grad, prox, torch.zeros((1, d), dtype=X.dtype,
-                                               device=X.device),
-                       1.0 / lip, max_iter)[0]
-    else:
+        coef[l1_pts] = fista(grad, prox, torch.zeros(
+            (len(l1_pts), d), dtype=X.dtype, device=X.device),
+            1.0 / lip, max_iter)
+    for i, (r, e) in enumerate(zip(regs, enets)):
+        if i in l1_pts:
+            continue
+        l2 = r * (1.0 - e)
+
         def matvec(v):
             return Xs.T @ (w * (Xs @ v)) / wsum + (l2 + 1e-10) * v
-        coef_s = cg_solve(matvec, (Xs.T @ (w * yc)) / wsum,
-                          n_iter=min(max(d, 16), 128))
-    coef = coef_s / std
-    return coef, ybar - (coef * mean).sum()
+        coef[i] = cg_solve(matvec, (Xs.T @ (w * yc)) / wsum,
+                           n_iter=min(max(d, 16), 128))
+    coef = coef / std
+    return coef, ybar - (coef * mean).sum(1)
 
 
 def predict_linear(coef: torch.Tensor, intercept, X: torch.Tensor):
     empty = torch.zeros((X.shape[0], 0), dtype=X.dtype, device=X.device)
     return X @ coef + intercept, empty, empty
+
+
+def fit_naive_bayes(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                    smoothing, n_classes: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multinomial naive Bayes with Laplace smoothing (Spark NaiveBayes) at
+    G grid points (``smoothing`` of G values) → (log prior [G, K], log
+    likelihood [G, K, d]). Features are clipped at 0."""
+    K = int(n_classes)
+    yw = torch.nn.functional.one_hot(y.long(), K).to(X.dtype) * w[:, None]
+    class_count = yw.sum(0)                                  # [K]
+    feat_sum = yw.T @ torch.clamp(X, min=0.0)                # [K, d]
+    sm = torch.as_tensor(smoothing, dtype=X.dtype, device=X.device)
+    sm = sm.reshape(-1, 1)                                   # [G, 1]
+    log_prior = torch.log(class_count + sm) - torch.log(
+        class_count.sum() + sm * K)
+    log_like = torch.log(feat_sum + sm[:, :, None]) - torch.log(
+        feat_sum.sum(1, keepdim=True) + sm[:, :, None] * X.shape[1])
+    return log_prior, log_like
+
+
+def predict_naive_bayes(log_prior: torch.Tensor, log_like: torch.Tensor,
+                        X: torch.Tensor):
+    """One grid point's (log prior [K], log likelihood [K, d]) →
+    (prediction, logits [n, K], prob [n, K])."""
+    logits = torch.clamp(X, min=0.0) @ log_like.T + log_prior
+    prob = torch.softmax(logits, dim=-1)
+    return torch.argmax(logits, dim=-1).to(X.dtype), logits, prob

@@ -48,8 +48,9 @@ import torch
 
 from .. import random as R
 from .base import score_sigmoid
-from ._hist import (cumhist, cumhist_sparse01, group_rows, hist_rows,
-                    level_epilogue, predict_trees, sparse01_rows, split_scan)
+from ._hist import (MAX_CARD_CHANNELS, WIDE_CLASSES_ITEM, cumhist,
+                    cumhist_sparse01, group_rows, hist_rows, level_epilogue,
+                    predict_trees, sparse01_rows, split_scan)
 
 __all__ = ["quantile_bin_edges", "binarize", "compute_bins", "Block",
            "make_col_blocks", "prepare_blocks",
@@ -58,6 +59,7 @@ __all__ = ["quantile_bin_edges", "binarize", "compute_bins", "Block",
            "poisson_bootstrap_weights", "feature_masks",
            "node_feature_uniforms", "ForestDraws", "forest_draws",
            "forest_k", "fit_forest", "fit_gbt", "fit_xgb",
+           "check_card_classes",
            "predict_ensemble", "rf_head", "rf_train_aggregate",
            "margin_head", "slot_cap",
            "predict_rf_classification", "predict_rf_regression",
@@ -521,6 +523,21 @@ def forest_draws(seed: int, n_trees: int, n: int, task: str, max_depth: int,
     return ForestDraws(boot_u, masks)
 
 
+def check_card_classes(task: str, n_classes: int, device) -> None:
+    """A classification forest of more than seven classes needs more than
+    eight stat channels, which the card's kernels do not take: it raises
+    on the card before anything launches. The CPU's plain versions take
+    any count. A family checks in ``device_prep``, before it bins (on the
+    card binning launches ``group_rows``); :func:`fit_forest` checks when
+    it bins itself."""
+    if (task == "classification" and torch.device(device).type == "cuda"
+            and int(n_classes) + 1 > MAX_CARD_CHANNELS):
+        raise ValueError(
+            f"a tree fit of {int(n_classes)} classes needs "
+            f"{int(n_classes) + 1} stat channels and the card's kernels take "
+            f"{MAX_CARD_CHANNELS}; waits for {WIDE_CLASSES_ITEM}")
+
+
 def fit_forest(X, y, w, *, task: str, n_classes: int, n_trees: int,
                max_depth: int, n_bins: int, min_instances, min_info_gain,
                num_trees_used, subsample_rate,
@@ -538,6 +555,7 @@ def fit_forest(X, y, w, *, task: str, n_classes: int, n_trees: int,
     edges, blocks). Returns the params dict, with ``train_node`` [T, n],
     each training row's leaf (the CV sweep predicts from it)."""
     if prebinned is None:
+        check_card_classes(task, n_classes, w.device)
         XbT, edges = compute_bins(X, n_bins, binary_mask)
         blocks = prepare_blocks(XbT, n_bins, binary_mask)
     else:

@@ -1,11 +1,17 @@
 """ModelSelector — AutoML model selection over a CV grid; the port of
-``transmogrifai_tpu/models/selector.py`` for binary classification (the
-default families: logistic regression, random forest, GBT, linear SVC).
+``transmogrifai_tpu/models/selector.py``: binary classification (default
+families logistic regression, random forest, GBT, linear SVC; AuPR;
+``DataBalancer``), multiclass (logistic regression, naive Bayes, random
+forest, decision tree; F1; ``DataCutter``) and regression (linear
+regression, random forest, GBT; RMSE; ``DataSplitter``).
 
-``fit``: the splitter prepares (balancing, physical sampling) → the
-validator sweeps every (family × grid × fold) → the best grid point is
-refit on the full prepared train → train evaluation → ``SelectedModel``
-with a ``ModelSelectorSummary`` (``ModelSelector.scala:135-196``).
+``fit``: the splitter prepares (balancing, label cutting, physical
+sampling) → the validator sweeps every (family × grid × fold) → the best
+grid point is refit on the full prepared train → train evaluation →
+``SelectedModel`` with a ``ModelSelectorSummary``
+(``ModelSelector.scala:135-196``). A ``DataCutter`` that re-indexed the
+labels leaves the model its ``label_mapping`` (model class → original
+label), which the model applies to every prediction.
 """
 from __future__ import annotations
 
@@ -20,12 +26,14 @@ from ..columns import ColumnStore
 from ..evaluators import metrics as M
 from ..stages.base import register_stage, stage_from_state
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
-                   extract_xy, resolve_device, to_f64)
-from .tuning import (CrossValidation, DataBalancer, Splitter,
+                   device_table, extract_xy, resolve_device, to_f64)
+from .tuning import (CrossValidation, DataBalancer, DataCutter,
+                     DataSplitter, Splitter, TrainValidationSplit,
                      ValidatorSummary)
 
 __all__ = ["ModelSelector", "SelectedModel", "ModelSelectorSummary",
-           "BinaryClassificationModelSelector"]
+           "BinaryClassificationModelSelector",
+           "MultiClassificationModelSelector", "RegressionModelSelector"]
 
 logger = logging.getLogger(__name__)
 
@@ -57,40 +65,65 @@ class ModelSelectorSummary:
         }
 
 
-def _task_metrics(task: str, y, pred, prob) -> Dict[str, float]:
-    if task != "binary":
-        raise NotImplementedError(
-            f"{task} selection is not ported (ROADMAP queue A, item 4)")
-    scores = prob[:, 1] if prob.ndim == 2 and prob.shape[1] >= 2 else pred
-    return M.binary_metrics(y, pred, scores)
+def _task_metrics(task: str, y, pred, prob) -> Dict[str, Any]:
+    if task == "binary":
+        scores = prob[:, 1] if prob.ndim == 2 and prob.shape[1] >= 2 \
+            else pred
+        return M.binary_metrics(y, pred, scores)
+    if task == "multiclass":
+        out: Dict[str, Any] = M.multiclass_metrics(y, pred)
+        if prob is not None and np.ndim(prob) == 2 and prob.shape[1] >= 2:
+            # topN × confidence-band counts, as the reference's
+            # MultiClassificationMetrics carry them
+            # (OpMultiClassificationEvaluator.scala:120-132)
+            out["ThresholdMetrics"] = M.multiclass_threshold_metrics(y, prob)
+        return out
+    return M.regression_metrics(y, pred)
 
 
 @register_stage
 class SelectedModel(PredictorModel):
     """The winning fitted model wrapped with selection metadata
-    (ModelSelector.scala:216-255). Binary selection maps no labels;
-    ``label_mapping`` (multiclass, ROADMAP queue A, item 4) must be None."""
+    (ModelSelector.scala:216-255). ``label_mapping``: model class →
+    original label value, when a DataCutter dropped labels and re-indexed
+    the rest (the reference fixes the NominalAttribute metadata instead)."""
 
     operation_name = "modelSelector"
 
     def __init__(self, inner: Optional[PredictorModel] = None,
-                 task: str = "binary", label_mapping=None,
+                 task: str = "binary",
+                 label_mapping: Optional[Sequence[float]] = None,
                  uid: Optional[str] = None):
         super().__init__(uid=uid)
-        if label_mapping is not None:
-            raise NotImplementedError(
-                "label mapping (DataCutter) is not ported (ROADMAP queue "
-                "A, item 4)")
         self.inner = inner
         self.task = task
-        self.label_mapping = label_mapping
+        self.label_mapping = (list(label_mapping) if label_mapping
+                              else None)
         self.selector_summary: Optional[ModelSelectorSummary] = None
 
     def predict_device(self, Xd: torch.Tensor):
-        return self.inner.predict_device(Xd)
+        """The inner model's triple with the predicted class read through
+        the label mapping: a table on the device (uploaded once, so the
+        scoring engine's graphs capture no copy) indexed with the class,
+        in the prediction's dtype."""
+        pred, raw, prob = self.inner.predict_device(Xd)
+        if self.label_mapping is not None:
+            dt = str(pred.dtype).rpartition(".")[2]
+            lm = device_table(self, f"label_mapping_{dt}", lambda: np.asarray(
+                self.label_mapping, dtype=dt), pred.device)
+            pred = lm[torch.clamp(pred.long(), 0, len(self.label_mapping)
+                                  - 1)]
+        return pred, raw, prob
 
     def predict_arrays(self, X, device=None):
-        return self.inner.predict_arrays(X, device=device)
+        """On the host the mapping is applied in exact float64, so any
+        original label value survives."""
+        pred, raw, prob = self.inner.predict_arrays(X, device=device)
+        if self.label_mapping is not None:
+            lm = np.asarray(self.label_mapping, dtype=np.float64)
+            pred = lm[np.clip(np.asarray(pred).astype(np.int64), 0,
+                              len(lm) - 1)]
+        return pred, raw, prob
 
     def get_params(self) -> Dict[str, Any]:
         p = super().get_params()
@@ -108,6 +141,7 @@ class SelectedModel(PredictorModel):
         self.inner = stage_from_state(state["inner_class"],
                                       state["inner_params"],
                                       state["inner_state"])
+        self.__dict__.pop("_device_tables", None)
 
     def summary(self) -> Dict[str, Any]:
         out = {"model": "SelectedModel", "task": self.task}
@@ -134,7 +168,7 @@ class ModelSelector(PredictorEstimator):
 
     operation_name = "modelSelector"
 
-    def __init__(self, validator: Optional[CrossValidation] = None,
+    def __init__(self, validator=None,
                  splitter: Optional[Splitter] = None,
                  families: Optional[Sequence[ModelFamily]] = None,
                  task: str = "binary", uid: Optional[str] = None):
@@ -166,11 +200,16 @@ class ModelSelector(PredictorEstimator):
         dev = resolve_device(device)
         X, y = extract_xy(store, self.label_name, self.features_name)
         X, y, w = self._prepared(X, y)
+        # every family with a class count learns it from the prepared
+        # labels, as the JAX package's _maybe_set_classes sets it (for
+        # regression too, where no family reads it)
         n_classes = max(int(y.max()) + 1 if len(y) else 2, 2)
         bmask = detect_binary_columns(X)
         for fam in self.families:
-            fam.n_classes = n_classes
-            fam.binary_mask = bmask
+            if hasattr(fam, "n_classes"):
+                fam.n_classes = n_classes
+            if hasattr(fam, "binary_mask"):
+                fam.binary_mask = bmask
         best_family, best_hparams, vsummary = self.validator.validate(
             self.families, X, y, base_weights=w, device=dev, dtype=dtype)
 
@@ -185,8 +224,10 @@ class ModelSelector(PredictorEstimator):
             single.predict_batch(params, Xarg, on_train=True)[0])
         logger.info("final refit (fit + train predict): %.2fs",
                     time.perf_counter() - t0)
-        model = SelectedModel(inner=single.realize(params[0], best_hparams),
-                              task=self.task)
+        model = SelectedModel(
+            inner=single.realize(params[0], best_hparams), task=self.task,
+            label_mapping=(self.splitter.original_labels() if self.splitter
+                           else None))
         model.selector_summary = ModelSelectorSummary(
             validator_summary=vsummary,
             splitter_summary=self.splitter.summary if self.splitter else {},
@@ -197,11 +238,58 @@ class ModelSelector(PredictorEstimator):
 
 
 # ---------------------------------------------------------------------------
-# Factory (BinaryClassificationModelSelector.scala)
+# Factories (BinaryClassificationModelSelector.scala etc.)
 # ---------------------------------------------------------------------------
 
-class BinaryClassificationModelSelector:
-    """Binary selection; metric auPR, splitter DataBalancer."""
+class _SelectorFactory:
+    task = "binary"
+    default_metric = "AuPR"
+
+    @classmethod
+    def default_families(cls) -> List[ModelFamily]:
+        raise NotImplementedError
+
+    @classmethod
+    def default_splitter(cls) -> Splitter:
+        raise NotImplementedError
+
+    @classmethod
+    def _selector(cls, validator, families, splitter) -> ModelSelector:
+        return ModelSelector(
+            validator=validator,
+            splitter=(splitter if splitter is not None
+                      else cls.default_splitter()),
+            families=(families if families is not None
+                      else cls.default_families()),
+            task=cls.task)
+
+    @classmethod
+    def with_cross_validation(cls, num_folds: int = 3,
+                              validation_metric: Optional[str] = None,
+                              families: Optional[Sequence[ModelFamily]] = None,
+                              splitter: Optional[Splitter] = None,
+                              seed: int = 42,
+                              stratify: bool = False) -> ModelSelector:
+        return cls._selector(CrossValidation(
+            num_folds=num_folds,
+            metric_name=validation_metric or cls.default_metric,
+            task=cls.task, seed=seed, stratify=stratify), families, splitter)
+
+    @classmethod
+    def with_train_validation_split(
+            cls, train_ratio: float = 0.75,
+            validation_metric: Optional[str] = None,
+            families: Optional[Sequence[ModelFamily]] = None,
+            splitter: Optional[Splitter] = None,
+            seed: int = 42) -> ModelSelector:
+        return cls._selector(TrainValidationSplit(
+            train_ratio=train_ratio,
+            metric_name=validation_metric or cls.default_metric,
+            task=cls.task, seed=seed), families, splitter)
+
+
+class BinaryClassificationModelSelector(_SelectorFactory):
+    """Binary selection; metric AuPR, splitter DataBalancer."""
 
     task = "binary"
     default_metric = "AuPR"
@@ -217,18 +305,45 @@ class BinaryClassificationModelSelector:
                 GBTFamily(), LinearSVCFamily()]
 
     @classmethod
-    def with_cross_validation(cls, num_folds: int = 3,
-                              validation_metric: Optional[str] = None,
-                              families: Optional[Sequence[ModelFamily]] = None,
-                              splitter: Optional[Splitter] = None,
-                              seed: int = 42,
-                              stratify: bool = False) -> ModelSelector:
-        return ModelSelector(
-            validator=CrossValidation(
-                num_folds=num_folds,
-                metric_name=validation_metric or cls.default_metric,
-                task=cls.task, seed=seed, stratify=stratify),
-            splitter=splitter if splitter is not None else DataBalancer(),
-            families=(families if families is not None
-                      else cls.default_families()),
-            task=cls.task)
+    def default_splitter(cls) -> Splitter:
+        return DataBalancer()
+
+
+class MultiClassificationModelSelector(_SelectorFactory):
+    """Multiclass selection; metric F1, splitter DataCutter."""
+
+    task = "multiclass"
+    default_metric = "F1"
+
+    @classmethod
+    def default_families(cls) -> List[ModelFamily]:
+        """LR, naive Bayes, RF and DT, in the JAX package's order."""
+        from .linear import LogisticRegressionFamily, NaiveBayesFamily
+        from .trees import DecisionTreeFamily, RandomForestFamily
+        return [LogisticRegressionFamily(), NaiveBayesFamily(),
+                RandomForestFamily(), DecisionTreeFamily()]
+
+    @classmethod
+    def default_splitter(cls) -> Splitter:
+        return DataCutter()
+
+
+class RegressionModelSelector(_SelectorFactory):
+    """Regression selection; metric RMSE, splitter DataSplitter."""
+
+    task = "regression"
+    default_metric = "RootMeanSquaredError"
+
+    @classmethod
+    def default_families(cls) -> List[ModelFamily]:
+        """Linear regression, RF and GBT regressors, in the JAX package's
+        order."""
+        from .linear import LinearRegressionFamily
+        from .trees import GBTFamily, RandomForestFamily
+        return [LinearRegressionFamily(),
+                RandomForestFamily(task="regression"),
+                GBTFamily(task="regression")]
+
+    @classmethod
+    def default_splitter(cls) -> Splitter:
+        return DataSplitter()

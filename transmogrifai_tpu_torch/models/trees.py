@@ -2,8 +2,9 @@
 the port of ``transmogrifai_tpu/models/trees.py``.
 
 Parity targets (reference): ``OpRandomForestClassifier``,
-``OpDecisionTreeClassifier`` (and their regressors), ``OpGBTClassifier``,
-``OpXGBoostClassifier`` (``OpXGBoostClassifier.scala:46``), fit with the
+``OpDecisionTreeClassifier``, ``OpGBTClassifier``,
+``OpXGBoostClassifier`` (``OpXGBoostClassifier.scala:46``) and their
+regressors (a family's ``task="regression"``), fit with the
 histogram engine in ``models/_treefit.py``. The JAX package vmaps the
 grid into one program; here grid points are a Python loop. Below
 ``UNROLL_MIN_ROWS`` rows every point grows the family's deepest tree with
@@ -26,8 +27,9 @@ from .base import (ModelFamily, PredictorEstimator, PredictorModel,
 __all__ = ["TreeEnsembleModel", "RandomForestFamily", "DecisionTreeFamily",
            "GBTFamily", "XGBoostFamily", "OpRandomForestClassifier",
            "OpRandomForestRegressor", "OpDecisionTreeClassifier",
-           "OpDecisionTreeRegressor", "OpGBTClassifier",
-           "OpXGBoostClassifier", "tree_model_from_numpy",
+           "OpDecisionTreeRegressor", "OpGBTClassifier", "OpGBTRegressor",
+           "OpXGBoostClassifier", "OpXGBoostRegressor",
+           "tree_model_from_numpy",
            "detect_binary_columns", "UNROLL_MIN_ROWS"]
 
 #: row count from which a single-depth fit grows unrolled trees (per-level
@@ -162,7 +164,11 @@ class _TreeFamilyBase(ModelFamily):
         """Bin the feature matrix once per (data, binning config):
         ``{"XbT": [F, n] int32, "edges", "blocks"}`` (the histogram
         blocks of ``binary_mask``) — accepted by fit_batch and
-        predict_batch in place of raw X."""
+        predict_batch in place of raw X. A forest of more classes than
+        the card's kernels take raises here on the card, before the
+        sweep launches anything."""
+        if self._head() == "rf":
+            TF.check_card_classes(self.task, self.n_classes, Xd.device)
         XbT, edges = TF.compute_bins(Xd, self.n_bins, self.binary_mask)
         return {"XbT": XbT, "edges": edges,
                 "blocks": TF.prepare_blocks(XbT, self.n_bins,
@@ -227,6 +233,8 @@ class _TreeFamilyBase(ModelFamily):
                 return [TF.predict_rf_classification(p, X, D, self.n_classes)
                         for p in params]
             return [TF.predict_rf_regression(p, X, D) for p in params]
+        if self.task == "regression":
+            return [TF.predict_margin_regression(p, X, D) for p in params]
         return [TF.predict_margin_classification(p, X, D, scale)
                 for p in params]
 
@@ -339,11 +347,15 @@ class GBTFamily(_TreeFamilyBase):
         for mg in _MIN_GAIN_DEFAULT
     ]
 
-    def __init__(self, grid=None, n_classes: int = 2, max_iter: int = 20,
+    def __init__(self, grid=None, task: Optional[str] = None,
+                 n_classes: int = 2, max_iter: int = 20,
                  max_active_nodes: int = 128):
         super().__init__(grid, n_classes=n_classes,
                          max_active_nodes=max_active_nodes)
         self.max_iter = max_iter
+        if task == "regression":
+            self.name = "OpGBTRegressor"
+            self.task = "regression"
 
     def param_defaults(self):
         return {"maxDepth": 6, "minInstancesPerNode": 10,
@@ -381,11 +393,15 @@ class XGBoostFamily(_TreeFamilyBase):
         for mc in (1.0, 5.0, 10.0)
     ]
 
-    def __init__(self, grid=None, n_classes: int = 2,
-                 reg_lambda: float = 1.0, max_active_nodes: int = 128):
+    def __init__(self, grid=None, task: Optional[str] = None,
+                 n_classes: int = 2, reg_lambda: float = 1.0,
+                 max_active_nodes: int = 128):
         super().__init__(grid, n_classes=n_classes,
                          max_active_nodes=max_active_nodes)
         self.reg_lambda = reg_lambda
+        if task == "regression":
+            self.name = "OpXGBoostRegressor"
+            self.task = "regression"
 
     def param_defaults(self):
         return {"maxDepth": 6, "eta": 0.3, "minChildWeight": 1.0,
@@ -519,8 +535,14 @@ class OpGBTClassifier(_TreeEstimatorBase):
                    "minInstancesPerNode": self.min_instances_per_node,
                    "minInfoGain": self.min_info_gain,
                    "maxIter": self.max_iter, "stepSize": self.step_size}],
-            n_classes=n_classes, max_iter=self.max_iter,
+            task=self.task, n_classes=n_classes, max_iter=self.max_iter,
             max_active_nodes=self.max_active_nodes)
+
+
+@register_stage
+class OpGBTRegressor(OpGBTClassifier):
+    operation_name = "gbtRegressor"
+    task = "regression"
 
 
 @register_stage
@@ -544,5 +566,11 @@ class OpXGBoostClassifier(_TreeEstimatorBase):
             grid=[{"maxDepth": self.max_depth, "eta": self.eta,
                    "minChildWeight": self.min_child_weight,
                    "numRound": self.num_round}],
-            n_classes=n_classes, reg_lambda=self.reg_lambda,
+            task=self.task, n_classes=n_classes, reg_lambda=self.reg_lambda,
             max_active_nodes=self.max_active_nodes)
+
+
+@register_stage
+class OpXGBoostRegressor(OpXGBoostClassifier):
+    operation_name = "xgbRegressor"
+    task = "regression"

@@ -1,8 +1,9 @@
 """Tuning: splitters, balancing, and the cross-validation engine — the
 port of ``transmogrifai_tpu/models/tuning.py``.
 
-Parity: ``core/.../impl/tuning/*`` — ``Splitter``/``DataBalancer`` and
-``OpCrossValidation``. Folds are 0/1 weight vectors
+Parity: ``core/.../impl/tuning/*`` — ``Splitter`` / ``DataSplitter`` /
+``DataBalancer`` / ``DataCutter`` and ``OpCrossValidation`` /
+``OpTrainValidationSplit``. Folds are 0/1 weight vectors
 over one device-resident (X, y); all randomness is numpy's
 ``default_rng``, seeded as in the JAX package, so the holdout, the
 balancer's sample and the folds are the same rows.
@@ -24,10 +25,12 @@ import numpy as np
 import torch
 
 from ..columns import ColumnStore
-from .base import ModelFamily, resolve_device
+from ..evaluators import metrics as M
+from .base import ModelFamily, resolve_device, to_f64
 
-__all__ = ["Splitter", "DataBalancer", "CrossValidation",
-           "ValidationResult", "ValidatorSummary"]
+__all__ = ["Splitter", "DataSplitter", "DataBalancer", "DataCutter",
+           "CrossValidation", "TrainValidationSplit", "ValidationResult",
+           "ValidatorSummary"]
 
 
 # ---------------------------------------------------------------------------
@@ -70,7 +73,16 @@ class Splitter:
         return None, w
 
     def relabel(self, y: np.ndarray) -> np.ndarray:
+        """Kept labels → contiguous model classes (DataCutter only)."""
         return y
+
+    def original_labels(self) -> Optional[List[float]]:
+        """Model class → original label value, or None (identity)."""
+        return None
+
+
+class DataSplitter(Splitter):
+    """Plain splitter — regression (DataSplitter.scala:30-100)."""
 
 
 class DataBalancer(Splitter):
@@ -167,8 +179,53 @@ class DataBalancer(Splitter):
         return keep, np.maximum(w, 1.0)[keep]
 
 
+class DataCutter(Splitter):
+    """Multiclass label cutter (DataCutter.scala:30-120): keeps the
+    ``max_label_categories`` most frequent labels whose share of the rows
+    is at least ``min_label_fraction``, drops the rows of the others, and
+    re-indexes the kept labels to contiguous classes 0..k−1; the selected
+    model carries the inverse mapping (:meth:`original_labels`)."""
+
+    def __init__(self, max_label_categories: int = 100,
+                 min_label_fraction: float = 0.0, seed: int = 42,
+                 reserve_test_fraction: float = 0.0):
+        super().__init__(seed=seed,
+                         reserve_test_fraction=reserve_test_fraction)
+        self.max_label_categories = max_label_categories
+        self.min_label_fraction = min_label_fraction
+        self._kept_labels: Optional[np.ndarray] = None
+
+    def pre_validation_prepare(self, y: np.ndarray) -> None:
+        labels, counts = np.unique(y, return_counts=True)
+        frac = counts / max(len(y), 1)
+        order = np.argsort(-counts, kind="stable")
+        kept = [labels[i] for i in order[:self.max_label_categories]
+                if frac[i] >= self.min_label_fraction]
+        self._kept_labels = np.asarray(sorted(kept))
+        self.summary = {"labelsKept": self._kept_labels.tolist(),
+                        "labelsDropped": sorted(
+                            set(labels.tolist()) - set(kept))}
+
+    def keep_mask(self, y: np.ndarray) -> np.ndarray:
+        if self._kept_labels is None:
+            return np.ones_like(y, dtype=bool)
+        return np.isin(y, self._kept_labels)
+
+    def relabel(self, y: np.ndarray) -> np.ndarray:
+        if self._kept_labels is None:
+            return y
+        return np.searchsorted(self._kept_labels, y,
+                               side="left").astype(np.float64)
+
+    def original_labels(self) -> Optional[List[float]]:
+        if self._kept_labels is None or np.array_equal(
+                self._kept_labels, np.arange(len(self._kept_labels))):
+            return None                   # the identity needs no mapping
+        return [float(v) for v in self._kept_labels]
+
+
 # ---------------------------------------------------------------------------
-# Cross-validation (OpCrossValidation)
+# Validators (OpCrossValidation, OpTrainValidationSplit)
 # ---------------------------------------------------------------------------
 
 @dataclass
@@ -203,19 +260,31 @@ class ValidatorSummary:
         }
 
 
+def _metric_value(metric_name: str, task: str, y: np.ndarray,
+                  pred: np.ndarray, prob: np.ndarray) -> float:
+    """One fold's metric on the host, for a metric with no device form."""
+    if task == "binary":
+        scores = prob[:, 1] if prob.ndim == 2 and prob.shape[1] >= 2 \
+            else pred
+        m = M.binary_metrics(y, pred, scores)
+    elif task == "multiclass":
+        m = M.multiclass_metrics(y, pred)
+    else:
+        m = M.regression_metrics(y, pred)
+    return m[metric_name]
+
+
 _LARGER_BETTER = frozenset({"AuROC", "AuPR", "Precision", "Recall", "F1",
                             "R2"})
 
 
-class CrossValidation:
-    """k-fold CV over fold masks (OpCrossValidation.scala)."""
+class _ValidatorBase:
+    """The fold-mask validation engine shared by the validators."""
 
-    validation_type = "CrossValidation"
+    validation_type = "validator"
 
-    def __init__(self, num_folds: int = 3, metric_name: str = "AuROC",
-                 task: str = "binary", seed: int = 42,
+    def __init__(self, metric_name: str, task: str, seed: int = 42,
                  stratify: bool = False):
-        self.num_folds = num_folds
         self.metric_name = metric_name
         self.task = task
         self.seed = seed
@@ -224,36 +293,19 @@ class CrossValidation:
 
     def _splits(self, y: np.ndarray) -> List[Tuple[np.ndarray, np.ndarray]]:
         """(train_mask, val_mask) pairs as 0/1 float arrays."""
-        n = len(y)
-        rng = np.random.default_rng(self.seed)
-        fold_of = np.zeros(n, dtype=np.int64)
-        if self.stratify and self.task in ("binary", "multiclass"):
-            for c in np.unique(y):
-                idx = np.nonzero(y == c)[0]
-                idx = rng.permutation(idx)
-                fold_of[idx] = np.arange(len(idx)) % self.num_folds
-        else:
-            fold_of = rng.permutation(n) % self.num_folds
-        out = []
-        for kf in range(self.num_folds):
-            val = (fold_of == kf)
-            out.append(((~val).astype(np.float64), val.astype(np.float64)))
-        return out
+        raise NotImplementedError
 
     def validate(self, families: Sequence[ModelFamily], X: np.ndarray,
                  y: np.ndarray, base_weights: Optional[np.ndarray] = None,
                  device=None, dtype: torch.dtype = torch.float32
                  ) -> Tuple[ModelFamily, Dict[str, Any], ValidatorSummary]:
         """Run the (family × grid × fold) sweep on ``device``; return the
-        winner (family, hparams) and the summary."""
+        winner (family, hparams) and the summary. The selection metric is
+        taken on the device where it has a device form; otherwise each
+        fold's predictions come back and the host metric reads them."""
         from ..evaluators.device_metrics import device_metric_fn
         from .trees import UNROLL_MIN_ROWS
 
-        metric_fn = device_metric_fn(self.task, self.metric_name)
-        if metric_fn is None:
-            raise NotImplementedError(
-                f"metric {self.metric_name!r} for task {self.task!r} is not "
-                "ported (ROADMAP queue A, item 4)")
         dev = resolve_device(device)
         splits = self._splits(y)
         base_w = (np.ones_like(y, dtype=np.float64)
@@ -270,6 +322,9 @@ class CrossValidation:
         sign = 1.0 if self.is_larger_better else -1.0
         for family in families:
             t0 = time.perf_counter()
+            metric_fn = device_metric_fn(
+                self.task, self.metric_name,
+                n_classes=getattr(family, "n_classes", 2))
             Xarg = family.device_prep(Xd)
             G, K = family.grid_size(), len(folds)
             # (grid indices, static depth | None) groups; only the tree
@@ -284,18 +339,28 @@ class CrossValidation:
                 groups = [(ix, d) for d, ix in sorted(by_depth.items())]
             else:
                 groups = [(list(range(G)), None)]
-            metrics = [[None] * K for _ in range(G)]
+            metrics: List[List[Any]] = [[None] * K for _ in range(G)]
             for k, (w, v) in enumerate(folds):
+                vm = splits[k][1].astype(bool)
                 for ix, sd in groups:
                     grid = [family.grid[i] for i in ix]
                     params = (family.fit_batch(Xarg, yd, w, grid)
                               if sd is None else family.fit_batch(
                                   Xarg, yd, w, grid, static_depth=sd))
                     preds = family.predict_batch(params, Xarg, on_train=True)
-                    for i, (pred, _raw, prob) in zip(ix, preds):
-                        metrics[i][k] = metric_fn(yd, pred, prob, v)
-            per_grid = torch.stack([torch.stack(m) for m in metrics]).to(
-                "cpu", torch.float64).numpy()                   # [G, K]
+                    for i, out in zip(ix, preds):
+                        if metric_fn is not None:
+                            metrics[i][k] = metric_fn(yd, out[0], out[2], v)
+                            continue
+                        pred, _raw, prob = to_f64(out)
+                        metrics[i][k] = _metric_value(
+                            self.metric_name, self.task, y[vm], pred[vm],
+                            prob[vm] if prob.ndim == 2 else prob)
+            if metric_fn is not None:
+                per_grid = torch.stack([torch.stack(m) for m in metrics]).to(
+                    "cpu", torch.float64).numpy()               # [G, K]
+            else:
+                per_grid = np.asarray(metrics, dtype=np.float64)
             summary.family_seconds[family.name] = time.perf_counter() - t0
             for gi in range(G):
                 r = ValidationResult(
@@ -309,3 +374,53 @@ class CrossValidation:
         summary.best = best
         assert best is not None and best_family is not None
         return best_family, best.hparams, summary
+
+
+class CrossValidation(_ValidatorBase):
+    """k-fold CV over fold masks (OpCrossValidation.scala)."""
+
+    validation_type = "CrossValidation"
+
+    def __init__(self, num_folds: int = 3, metric_name: str = "AuROC",
+                 task: str = "binary", seed: int = 42,
+                 stratify: bool = False):
+        super().__init__(metric_name, task, seed, stratify)
+        self.num_folds = num_folds
+
+    def _splits(self, y: np.ndarray) -> List[Tuple[np.ndarray, np.ndarray]]:
+        n = len(y)
+        rng = np.random.default_rng(self.seed)
+        fold_of = np.zeros(n, dtype=np.int64)
+        if self.stratify and self.task in ("binary", "multiclass"):
+            for c in np.unique(y):
+                idx = np.nonzero(y == c)[0]
+                idx = rng.permutation(idx)
+                fold_of[idx] = np.arange(len(idx)) % self.num_folds
+        else:
+            fold_of = rng.permutation(n) % self.num_folds
+        out = []
+        for kf in range(self.num_folds):
+            val = (fold_of == kf)
+            out.append(((~val).astype(np.float64), val.astype(np.float64)))
+        return out
+
+
+class TrainValidationSplit(_ValidatorBase):
+    """One train / validation split (OpTrainValidationSplit.scala)."""
+
+    validation_type = "TrainValidationSplit"
+
+    def __init__(self, train_ratio: float = 0.75, metric_name: str = "AuROC",
+                 task: str = "binary", seed: int = 42,
+                 stratify: bool = False):
+        super().__init__(metric_name, task, seed, stratify)
+        self.train_ratio = train_ratio
+
+    def _splits(self, y: np.ndarray) -> List[Tuple[np.ndarray, np.ndarray]]:
+        n = len(y)
+        rng = np.random.default_rng(self.seed)
+        perm = rng.permutation(n)
+        n_train = int(round(n * self.train_ratio))
+        train = np.zeros(n, dtype=np.float64)
+        train[perm[:n_train]] = 1.0
+        return [(train, 1.0 - train)]

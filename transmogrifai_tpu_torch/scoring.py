@@ -28,8 +28,11 @@ crosses once: prepared host blocks in, result columns out.
 
 Host/device split: a fitted stage is device-capable when the engine knows
 its array form — a ``VectorizerModel`` (``host_prepare`` →
-``device_compute``), the ``VectorsCombiner``, the ``SanityCheckerModel``
-and any ``PredictorModel`` with ``predict_device``. The fused set is the
+``device_compute``), the ``VectorsCombiner``, the ``SanityCheckerModel``,
+any ``PredictorModel`` with ``predict_device`` (a selected model's label
+mapping included) and the ``PredictionDeIndexerModel``, whose label
+codes the program computes and whose strings are looked up on the host
+after the pull. The fused set is the
 largest consumer-closed subset of device-capable stages: one whose output
 a host stage reads is demoted to the host. Host stages (the DSL's row
 transformers) run first; their columns feed ``host_prepare`` and the
@@ -57,6 +60,7 @@ from .columns import (ColumnStore, GeoColumn, NumericColumn,
 from .models import _hist
 from .models.base import PredictorModel, device_table, resolve_device
 from .models.selector import SelectedModel
+from .ops.indexers import PredictionDeIndexerModel
 from .ops.sanity_checker import SanityCheckerModel
 from .ops.vectorizer_base import VectorizerModel, canonicalize_prepared
 from .ops.vectors import VectorsCombiner
@@ -108,7 +112,7 @@ class _FusedStage:
 
     def __init__(self, model, kind: str, out: str, ins: List[str]):
         self.model = model
-        self.kind = kind      # vec | combine | select | predict
+        self.kind = kind      # vec | combine | select | predict | deindex
         self.out = out
         self.ins = ins        # env / upload names read (no label slots)
 
@@ -133,6 +137,8 @@ def _classify(m) -> Optional[str]:
         return "select"
     if isinstance(m, PredictorModel) and _has_predict_device(m):
         return "predict"
+    if isinstance(m, PredictionDeIndexerModel):
+        return "deindex"
     return None
 
 
@@ -165,8 +171,9 @@ def build_fused_plan(layers) -> Tuple[List[_FusedStage], List[List[Any]]]:
             kind = kinds[m.uid]
             if kind == "vec":
                 ins: List[str] = []
-            elif kind in ("select", "predict"):
-                # (label, vector) arity: only the vector crosses
+            elif kind in ("select", "predict", "deindex"):
+                # (label, vector or prediction) arity: only the second
+                # input crosses
                 ins = [m.input_features[1].name]
             else:
                 ins = [f.name for f in m.input_features]
@@ -388,8 +395,10 @@ class ScoringEngine:
                                                    dtype=np.int64),
                                         x.device)
                     env[it.out] = x.index_select(1, keep)
-            else:                                        # predict
+            elif it.kind == "predict":
                 env[it.out] = m.predict_device(env[it.ins[0]])
+            else:                                        # deindex
+                env[it.out] = m.codes_device(env[it.ins[0]][0])
         return {nm: env[nm] for nm in out_names}
 
     def _upload(self, prepared, uploads):
@@ -520,10 +529,14 @@ class ScoringEngine:
                                                       meta_env, width_env)
             for nm in out_names:
                 val = outs[nm]
-                if self._by_out[nm].kind == "predict":
+                kind = self._by_out[nm].kind
+                if kind == "predict":
                     pred, raw, prob = (v[:n].to("cpu", torch.float64).numpy()
                                        for v in val)
                     col = PredictionColumn(pred, raw, prob)
+                elif kind == "deindex":
+                    col = self._by_out[nm].model.label_column(
+                        val[:n].cpu().numpy())
                 else:
                     col = VectorColumn(
                         OPVector, val[:n].to("cpu", copy=True).numpy(),

@@ -37,7 +37,7 @@ def register_stage(cls):
 _STAGE_MODULES = ("..stages.generator", "..dsl", "..ops.numeric",
                   "..ops.onehot", "..ops.smart_text", "..ops.hashing",
                   "..ops.dates", "..ops.vectors", "..ops.sanity_checker",
-                  "..ops.text", "..models")
+                  "..ops.text", "..ops.indexers", "..models")
 
 
 def ctor_kwargs(cls, params: Dict[str, Any]) -> Dict[str, Any]:
