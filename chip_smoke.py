@@ -118,10 +118,36 @@ Run from the repository root on a machine with one NVIDIA H100:
    to the layer path's. Last, the label mapping on the card: the species
    as numeric codes {1, 4, 6}, which the DataCutter re-indexes, scored
    through the engine's graphs as the layer path scores them.
+9. every feature type (``transmogrify``'s whole dispatch): a
+   200,000-row store, made in bulk from a seed, with one feature of each
+   type this phase adds — MultiPickList, Geolocation, DateList, RealMap,
+   IntegralMap, TextMap, MultiPickListMap, GeolocationMap, DateMap — a
+   Real through ``bucketize`` and ``auto_bucketize`` and a raw vector
+   through the standard scaler, fitted on the card and on the CPU: every
+   fitted state equal, every stage's vector and metadata bitwise equal,
+   each vectorizer's block computed on the card but where the stage
+   builds it on the host (the pivots, the smart text map), the transform
+   seconds printed for the stages on the card and the host stages apart.
+   Then mapprep-200k (``mapprep.py``: 200,000 records
+   from seed 7, generated once and reused below; logistic regression,
+   3-fold CV on AuPR), counted; its records, vectorize, selector, train
+   and evaluate seconds, width, best model and AuPR, and no column of the
+   blocked key. The binary selector's default families, one grid point
+   each, on the first 20,000 records, on the card (counted: the tree
+   kernels, ``cumhist_sparse01`` included, must launch) and on the CPU:
+   the same model, every family's fold metrics within 1e-4. Then every
+   kernel of that run at the shapes its vector gives it, against its plain
+   version on one fold's training rows: the 32-bin and 2-bin blocks (their
+   widths read off the vector), ``group_rows``, the histograms, the split
+   scans and the level epilogue under gini and variance, ``predict_trees``
+   at the GBT's and the forest's ensembles. Last, the
+   mapprep-200k model saved, loaded afresh and scored through the engine:
+   predictions equal to the layer path's, probabilities within 2^-22;
+   Score seconds and rows/s.
 
-``--profile`` runs each main path (the four, serve's Score, iris-200k and
-boston-200k) once more under ``torch.profiler`` and prints its device-time
-table: the busy share, the device operations a tree level, the histogram
+``--profile`` runs each main path (the four, serve's Score, iris-200k,
+boston-200k and mapprep-200k) once more under ``torch.profiler`` and
+prints its device-time table: the busy share, the device operations a tree level, the histogram
 kernels, the split scans, the route or level epilogue, the predict and the
 uint8 → bool copies.
 ``--timings-only`` skips every check and prints only the times of
@@ -135,7 +161,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–8).
+over the main paths' runs, phases 3–9).
 """
 import json
 import math
@@ -823,14 +849,29 @@ def epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A, nblk, d, D,
     else:
         st = torch.stack([u - y, u * (1 - u) + 1e-6, torch.ones_like(u)], 1)
     slot = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
-    cums = [H.cumhist(st, slot, XbT, A, B)]
-    cols = [torch.arange(F, device=dev)]
+    blocks = [(XbT, torch.arange(F, device=dev), False)]
+    Xfull = XbT
     if nblk == 2:
-        cums.append(H.cumhist_sparse01(st, slot, X01, A))
-        cols.append(torch.arange(F, F + FB, device=dev))
+        blocks.append((X01, torch.arange(F, F + FB, device=dev), True))
         Xfull = torch.cat([XbT, X01.to(torch.int32)])
-    else:
-        Xfull = XbT
+    edges = torch.sort(torch.randn((Xfull.shape[0], B - 1), device=dev),
+                       dim=1).values
+    return level_inputs(H, dev, rng, put, kind, st, slot, A, d, blocks,
+                        Xfull, edges)
+
+
+def level_inputs(H, dev, rng, put, kind, st, slot, A, d, blocks, Xfull,
+                 edges):
+    """One level's epilogue inputs over ``blocks`` ((bins, global column
+    indices, 2-bin?) each, in the fit's candidate order) of the full bins
+    ``Xfull``: each block's histogram of ``st`` over ``slot`` and its
+    split scan from the kernels, random live slots and positions. Slot 1
+    copies slot 0's histograms and scores (a gain tie), and at slot 2 the
+    second block ties the first's score (the lower concatenated index
+    wins)."""
+    nblk = len(blocks)
+    cums = [H.cumhist_sparse01(st, slot, mat, A) if s01
+            else H.cumhist(st, slot, mat, A, B) for mat, _c, s01 in blocks]
     score = torch.empty((nblk, A), dtype=torch.float32, device=dev)
     idx = torch.empty((nblk, A), dtype=torch.int32, device=dev)
     valid = torch.empty((nblk, A), dtype=torch.bool, device=dev)
@@ -844,14 +885,12 @@ def epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A, nblk, d, D,
             t[:, 1] = t[:, 0]
     if A >= 3 and nblk == 2:
         score[1, 2] = score[0, 2]
-    edges = torch.sort(torch.randn((Xfull.shape[0], B - 1), device=dev),
-                       dim=1).values
     alive = put(rng.random(A) > 0.2)
     alive[:2] = True
     gpos = put(rng.permutation(1 << d)[:A].astype(np.int32))
-    g = put(rng.integers(0, 1 << d, size=N, dtype=np.int32))
-    return (score, idx, valid, cums, cols, [False, True][:nblk], edges,
-            alive, gpos, Xfull, slot, g)
+    g = put(rng.integers(0, 1 << d, size=slot.shape[0], dtype=np.int32))
+    return (score, idx, valid, cums, [c for _m, c, _s in blocks],
+            [s01 for *_, s01 in blocks], edges, alive, gpos, Xfull, slot, g)
 
 
 def level_records(D, C, dev):
@@ -932,18 +971,19 @@ def epilogue_timed(H, dev, rng, put, XbT, X01, kind, C):
     return ms, plain_ms, ebound, args
 
 
-def epilogue_cases(H, dev, rng, put, XbT, X01, kinds):
-    """The level epilogue against its plain version at A ∈ {1, 64, 128}
-    under each (kind, C) of ``kinds``, one block and two, in every case of
-    :func:`check_epilogue`; returns the slots whose winner was in the
-    2-bin block."""
+def epilogue_cases(H, dev, make, kinds, slots=(1, 64, 128),
+                   nblks=(1, 2), tree_depth=9):
+    """The level epilogue against its plain version at each of ``slots``
+    under each (kind, C) of ``kinds``, with each of ``nblks`` blocks, in
+    every case of :func:`check_epilogue`, under trees of ``tree_depth``;
+    ``make(kind, A, nblk, d, D, C)`` gives a level's inputs. Returns the
+    slots whose winner was in the 2-bin block."""
     block1_wins = 0
-    for A in (1, 64, 128):
-        d, D = (A - 1).bit_length(), 9
+    for A in slots:
+        d, D = (A - 1).bit_length(), tree_depth
         for kind, Ck in kinds:
-            for nblk in (1, 2):
-                args = epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A,
-                                       nblk, d, D, C=Ck)
+            for nblk in nblks:
+                args = make(kind, A, nblk, d, D, Ck)
                 C = args[3][0].shape[1]
                 lam = 1.0 if kind == "xgb" else 0.0
                 cases = [dict(A_next=min(2 * A, 128), node_even=True),
@@ -963,6 +1003,13 @@ def epilogue_cases(H, dev, rng, put, XbT, X01, kinds):
     return block1_wins
 
 
+def sweep_levels(H, dev, rng, put, XbT, X01):
+    """:func:`epilogue_cases`' ``make`` over the sweep's block (and a
+    2-bin block of FB columns after it)."""
+    return lambda kind, A, nblk, d, D, C: epilogue_inputs(
+        H, dev, rng, put, XbT, X01, kind, A, nblk, d, D, C=C)
+
+
 def check_epilogue(H, dev, rng, put, XbT):
     """The level epilogue against its plain version, every output bitwise:
     A ∈ {1, 64, 128} parent slots; variance and xgb; one block and two
@@ -976,7 +1023,8 @@ def check_epilogue(H, dev, rng, put, XbT):
     timed at A = 128 (variance, and gini at C = 3). Returns the result
     line's rows of both, and the gini time."""
     X01 = put((rng.random((FB, N)) < 0.3).astype(np.uint8))
-    block1_wins = epilogue_cases(H, dev, rng, put, XbT, X01, EPILOGUE_KINDS)
+    block1_wins = epilogue_cases(
+        H, dev, sweep_levels(H, dev, rng, put, XbT, X01), EPILOGUE_KINDS)
     if not block1_wins:
         fail("level_epilogue: no winner in the 2-bin block was checked")
     print(f"level_epilogue: slots, g, sibling masks, gpos, alive, rank and "
@@ -1399,7 +1447,7 @@ def check_multiclass_kernels(H, dev):
               f"{', '.join(map(str, SCAN_SLOTS))}; masked and not); A=128 "
               f"F={F} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {1e3 * max(sbound):.5f} ms")
-    wins = epilogue_cases(H, dev, rng, put, XbT, X01,
+    wins = epilogue_cases(H, dev, sweep_levels(H, dev, rng, put, XbT, X01),
                           [("gini", C) for C in WIDE_GINI])
     if not wins:
         fail("level_epilogue gini: no winner in the 2-bin block was checked")
@@ -1705,6 +1753,416 @@ def serve_iris(H, iris, root, dev="cuda"):
     return launches, coded_launches
 
 
+# -- phase 9: transmogrify for every feature type; mapprep-200k ----------
+#: the features of phase 9's every-type store: (name, type, bulk maker)
+MAPPREP_SEED = 7
+MAPPREP_AGREE_N = 20_000
+TYPE_KEYS = ("k0", "k1", "k2")
+CATS = np.array(["red", "green", "blue", "teal", "plum", "gold"],
+                dtype=object)
+EPOCH_2020_MS = 1_577_836_800_000
+
+
+def every_type_store(n, seed=11):
+    """A store of ``n`` rows with one feature of each type phase 9 adds to
+    ``transmogrify``, made in bulk with numpy (no per-row Python for the
+    numeric kinds): MultiPickList, Geolocation, DateList, RealMap,
+    IntegralMap, TextMap, MultiPickListMap, GeolocationMap and DateMap;
+    a Real ``r`` and its RealNN label ``y`` (for ``bucketize`` and
+    ``auto_bucketize``) and a raw OPVector ``v`` (for the standard
+    scaler)."""
+    from transmogrifai_tpu_torch.columns import (ColumnStore, GeoColumn,
+                                                 MapColumn, NumericColumn,
+                                                 RaggedColumn, TextColumn,
+                                                 TextSetColumn, VectorColumn)
+    from transmogrifai_tpu_torch.types import feature_types as ft
+    from transmogrifai_tpu_torch.vector_metadata import (
+        VectorColumnMetadata, VectorMetadata)
+    rng = np.random.default_rng(seed)
+
+    def present(p=0.8):
+        return rng.random(n) < p
+
+    def reals():
+        return NumericColumn(ft.Real, np.round(rng.normal(size=n) * 10, 3),
+                             present())
+
+    def ints(date=False):
+        if date:
+            v = EPOCH_2020_MS + rng.integers(0, 400 * 86_400_000, n)
+            return NumericColumn(ft.Date, v.astype(np.int64), present())
+        return NumericColumn(ft.Integral, rng.integers(0, 6, n), present())
+
+    def texts():
+        v = CATS[rng.integers(0, len(CATS), n)].copy()
+        v[~present()] = None
+        return TextColumn(ft.Text, v)
+
+    def sets():
+        a = CATS[rng.integers(0, len(CATS), n)]
+        b = CATS[rng.integers(0, len(CATS), n)]
+        k = rng.integers(0, 3, n)
+        return [set() if c == 0 else {x} if c == 1 else {x, y}
+                for x, y, c in zip(a.tolist(), b.tolist(), k.tolist())]
+
+    def geos():
+        v = np.stack([np.round(rng.uniform(-60, 60, n), 4),
+                      np.round(rng.uniform(-170, 170, n), 4),
+                      rng.integers(1, 10, n).astype(np.float64)], axis=1)
+        m = present()
+        v[~m] = 0.0
+        return GeoColumn(ft.Geolocation, v, m)
+
+    def a_map(ftype, child):
+        return MapColumn(ftype, {k: child() for k in TYPE_KEYS}, n)
+
+    lengths = rng.integers(0, 4, n)
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+    flat = (EPOCH_2020_MS
+            + rng.integers(0, 400 * 86_400_000, int(offsets[-1])))
+    x = rng.normal(size=n) * 10
+    cols = {
+        "mpl": TextSetColumn(ft.MultiPickList, sets()),
+        "geo": geos(),
+        "dates": RaggedColumn(ft.DateList, flat.astype(np.int64), offsets),
+        "realMap": a_map(ft.RealMap, reals),
+        "intMap": a_map(ft.IntegralMap, ints),
+        "textMap": a_map(ft.TextMap, texts),
+        "mplMap": a_map(ft.MultiPickListMap, lambda: TextSetColumn(
+            ft.MultiPickList, sets())),
+        "geoMap": a_map(ft.GeolocationMap, geos),
+        "dateMap": a_map(ft.DateMap, lambda: ints(date=True)),
+        "r": NumericColumn(ft.Real, np.round(x, 3), present(0.9)),
+        "y": NumericColumn(ft.RealNN, ((x > 2) ^ (rng.random(n) < 0.1))
+                           .astype(np.float64), np.ones(n, bool)),
+        "v": VectorColumn(ft.OPVector, rng.normal(
+            size=(n, 4)).astype(np.float32), VectorMetadata("v", [
+                VectorColumnMetadata(parent_feature_name="v",
+                                     parent_feature_type="OPVector",
+                                     descriptor_value=f"v{i}")
+                for i in range(4)])),
+    }
+    types = {"mpl": "MultiPickList", "geo": "Geolocation",
+             "dates": "DateList", "realMap": "RealMap",
+             "intMap": "IntegralMap", "textMap": "TextMap",
+             "mplMap": "MultiPickListMap", "geoMap": "GeolocationMap",
+             "dateMap": "DateMap"}
+    return ColumnStore(cols, n), types
+
+
+def every_type_vector(types):
+    """The phase's feature: each new type through ``transmogrify``, the
+    Real bucketized at fixed splits and by a decision tree against the
+    label, and the raw vector through the standard scaler."""
+    from transmogrifai_tpu_torch import FeatureBuilder
+    from transmogrifai_tpu_torch.dsl import transmogrify
+    from transmogrifai_tpu_torch.ops.vectors import StandardScalerEstimator
+    feats = [getattr(FeatureBuilder, t)(name).from_column().as_predictor()
+             for name, t in types.items()]
+    r = FeatureBuilder.Real("r").from_column().as_predictor()
+    y = FeatureBuilder.RealNN("y").from_column().as_response()
+    v = FeatureBuilder.OPVector("v").from_column().as_predictor()
+    return transmogrify(feats + [
+        r.bucketize(splits=[-15.0, -5.0, 0.0, 5.0, 15.0],
+                    track_invalid=True),
+        r.auto_bucketize(y),
+        v.transform_with(StandardScalerEstimator())])
+
+
+def same_column(a, b, what):
+    """Two vector columns bitwise equal, metadata included."""
+    if a.values.dtype != b.values.dtype or not np.array_equal(a.values,
+                                                              b.values):
+        fail(f"{what}: the card's vector differs from the CPU's")
+    if [c.to_json() for c in a.metadata.columns] != \
+            [c.to_json() for c in b.metadata.columns]:
+        fail(f"{what}: the card's vector metadata differs from the CPU's")
+
+
+def check_every_type(n=N, dev="cuda"):
+    """Phase 9, part 1: the new vectorizers fitted and applied on the card
+    and on the CPU over one ``n``-row store: every fitted state, every
+    stage's vector and the combined vector equal bit for bit. Prints each
+    stage's transform seconds in the card's run, the stages on the card
+    apart from the host stages."""
+    from transmogrifai_tpu_torch import Workflow
+    from transmogrifai_tpu_torch.model_io import _encode_param
+    from transmogrifai_tpu_torch.stages.base import FittedModel
+    from transmogrifai_tpu_torch.ops.vectorizer_base import (
+        VectorizerModel, canonicalize_prepared)
+    t0 = time.perf_counter()
+    store, types = every_type_store(n)
+    make_s = time.perf_counter() - t0
+    vec = every_type_vector(types)
+    on = {"card": dev, "cpu": "cpu"}
+    models = {k: Workflow().set_input_store(store).set_result_features(
+        vec).train(device=d) for k, d in on.items()}
+    seconds, stores = {"card": {}, "host": {}}, {k: store for k in on}
+    for mc, mp in zip(*(sum(models[k]._resolved_dag(), []) for k in on)):
+        arrays = ({}, {})
+        states = [json.dumps(_encode_param(
+            m.get_model_state() if isinstance(m, FittedModel) else {}, a,
+            "s"), sort_keys=True) for m, a in zip((mc, mp), arrays)]
+        if states[0] != states[1] or any(
+                not np.array_equal(arrays[0][k], arrays[1][k])
+                for k in arrays[0]):
+            fail(f"{mc.stage_name()}: fitted state differs, card vs CPU")
+        for k, m in (("card", mc), ("cpu", mp)):
+            kw = {"device": on[k]} if getattr(m, "uses_device",
+                                              False) else {}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            stores[k] = m.transform(stores[k], **kw)
+            torch.cuda.synchronize()
+            if k == "card":
+                # a host stage's output is built on the host whatever the
+                # device: a row transformer, or a block that is its host
+                # preparation as it stands (``device_math`` False: the
+                # pivots, and the smart text map's delegate)
+                where = ("card" if getattr(m, "uses_device", False)
+                         and getattr(m, "device_math", True) else "host")
+                seconds[where][f"{type(m).__name__}[{m.uid[-4:]}]"
+                               f"({m.input_features[0].name})"] = \
+                    time.perf_counter() - t1
+        a, b = stores["card"][mc.output_name], stores["cpu"][mc.output_name]
+        if getattr(a, "metadata", None) is not None:
+            same_column(a, b, mc.stage_name())
+        if isinstance(mc, VectorizerModel) and mc.device_math:
+            # the block comes off the card: device_compute ran there
+            prepared = canonicalize_prepared(mc.host_prepare(stores["card"]))
+            out = mc.device_compute({
+                k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in prepared.items()})
+            if out.device.type != torch.device(dev).type:
+                fail(f"{mc.stage_name()}: device_compute left the card")
+    final = stores["card"][vec.name]
+    same_column(final, stores["cpu"][vec.name], "every-type vector")
+    if not np.isfinite(final.values).all():
+        fail("every-type vector: values not finite")
+    print(f"every-type store {n} rows ({len(types)} new types, a Real "
+          f"bucketized twice, a vector scaled; made in {make_s:.2f} s): "
+          f"width {final.values.shape[1]}, card == cpu bitwise, fitted "
+          "state equal")
+    for where, what in (("card", "stages on the card"),
+                        ("host", "host stages (their blocks built on the "
+                                 "host)")):
+        print(f"every-type transform seconds, {what}: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in seconds[where].items()))
+
+
+#: the default families' trees on the mapprep vector, (T, D, K): the GBT
+#: (20 rounds of depth 3, a margin) and the forest (5 trees of depth 6,
+#: two class shares); the slot counts their levels reach; the criteria
+#: and channel counts (the forest's gini, the GBT's variance)
+MAPPREP_TREES = ((20, 3, 1), (5, 6, 2))
+MAPPREP_SLOTS = (1, 4, 32)
+MAPPREP_KINDS = (("gini", 3), ("variance", 4))
+#: one CV fold's training rows of the agreement (two folds of three)
+MAPPREP_FOLD_ROWS = MAPPREP_AGREE_N - MAPPREP_AGREE_N // 3
+
+
+def mapprep_stats(rng, kind, y):
+    """[n, C] f32 stats of the label ``y``: the forest's gini channels
+    (class weights from integer bootstrap-like weights 0..2, the count)
+    or the GBT's variance channels of a residual."""
+    n = len(y)
+    st = np.empty((n, 3 if kind == "gini" else 4), np.float32)
+    if kind == "gini":
+        w = rng.integers(0, 3, n).astype(np.float32)
+        st[:, 0], st[:, 1], st[:, 2] = (1.0 - y) * w, y * w, w > 0
+    else:
+        r = (y - rng.random(n)).astype(np.float32)
+        st[:, 0], st[:, 1], st[:, 2], st[:, 3] = 1.0, r, r * r, 1.0
+    return st
+
+
+def check_mapprep_kernels(H, TF, dev, X, y):
+    """Phase 9's kernels at the shapes the mapprep vector gives them, each
+    against its plain version on the card. ``X`` [n, F] is the combined
+    vector of the default-families agreement on one CV fold's training
+    rows, ``y`` its label. Binned as the tree families bin it (its
+    indicator columns in the 2-bin block, the rest in the 32-bin block;
+    both widths read off the vector): ``group_rows`` exact; ``cumhist``
+    and ``cumhist_sparse01`` on each block (counts exact, weighted
+    channels within REL_TOL, two calls bitwise) and ``split_scan`` on
+    each histogram (masked and not, bitwise) under the forest's gini and
+    the GBT's variance at MAPPREP_SLOTS; the level epilogue over both
+    blocks with the fit's edges, bitwise, in every case of
+    :func:`epilogue_cases` (the odd slots' rows labelled by an indicator
+    column, so that the 2-bin block wins some slots); ``predict_trees`` on ``X`` at MAPPREP_TREES
+    within REL_TOL. Returns each kernel's max abs error."""
+    from transmogrifai_tpu_torch.models.trees import detect_binary_columns
+    rng = np.random.default_rng(9)
+
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+
+    n, Fm = X.shape
+    bmask = detect_binary_columns(X)
+    Xd = put(X.astype(np.float32))
+    XbT, edges = TF.compute_bins(Xd, B, bmask)
+    blocks = TF.prepare_blocks(XbT, B, bmask)
+    if [b.sparse01 for b in blocks] != [False, True]:
+        fail("mapprep vector: not one 32-bin and one 2-bin block")
+    widths = [len(b.cols) for b in blocks]
+    worst = {"cumhist": 0.0, "cumhist_sparse01": 0.0, "predict_trees": 0.0}
+    for A in MAPPREP_SLOTS:
+        node = put(rng.integers(0, A + 1, size=n, dtype=np.int32))
+        groups = H.group_rows(node, A)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip(groups, H.group_rows_reference(node, A))):
+            fail(f"group_rows differs at the mapprep shape (A={A})")
+        for kind, C in MAPPREP_KINDS:
+            st = put(mapprep_stats(rng, kind, y))
+            for blk, Fb in zip(blocks, widths):
+                what = f"mapprep {kind} F={Fb} A={A}"
+                if blk.sparse01:
+                    name = "cumhist_sparse01"
+                    cum = H.cumhist_sparse01(st, node, blk.mat, A,
+                                             groups=groups, rows=blk.rows)
+                    again = H.cumhist_sparse01(st, node, blk.mat, A)
+                    ref = H.cumhist_sparse01_reference(st, node, blk.mat, A)
+                else:
+                    name = "cumhist"
+                    cum = H.cumhist(st, node, blk.mat, A, B, groups=groups,
+                                    rows=blk.rows)
+                    again = H.cumhist(st, node, blk.mat, A, B)
+                    ref = H.cumhist_reference(st, node, blk.mat, A, B)
+                worst[name] = max(worst[name], hold(
+                    cum, again, [ref], f"{name} {what}"))
+                mask = put((rng.random((A, Fb)) > 0.2).astype(np.float32))
+                scan_holds(H, cum, kind, mask, f"{what} masked")
+                scan_holds(H, cum, kind, None, what)
+    cols = [(b.mat, b.cols, b.sparse01) for b in blocks]
+    # the 2-bin block's most even column: the label of the odd slots'
+    # rows, so that both blocks hold winners in one level (the real label
+    # splits best on a usage count, in the 32-bin block, at every slot)
+    dens = blocks[1].mat.float().mean(1)
+    y_ind = blocks[1].mat[int(torch.argmin((dens - 0.5).abs()))].cpu()
+
+    def make(kind, A, nblk, d, D, C):
+        slot = rng.integers(0, A + 1, size=n, dtype=np.int32)
+        lab = np.where(slot % 2 == 1, y_ind.numpy(), y)
+        st = put(mapprep_stats(rng, kind, lab))
+        return level_inputs(H, dev, rng, put, kind, st, put(slot), A, d,
+                            cols, XbT, edges)
+    wins = epilogue_cases(H, dev, make, MAPPREP_KINDS, slots=MAPPREP_SLOTS,
+                          nblks=(2,), tree_depth=6)
+    for T, D, K in MAPPREP_TREES:
+        _X, feat, thr, leaf = predict_inputs(rng, put, Fm, T, D, K, n=1)
+        out = H.predict_trees(Xd, feat, thr, leaf, D)
+        ref = H.predict_trees_reference(Xd, feat, thr, leaf, D)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if rel_err(out, ref) > REL_TOL:
+            fail(f"predict_trees differs at the mapprep shape (F={Fm} T={T} "
+                 f"D={D} K={K}): max abs err {err:.3g}")
+        worst["predict_trees"] = max(worst["predict_trees"], err)
+    print(f"mapprep kernels at the vector's shapes ({n} rows, F={Fm}: "
+          f"{widths[0]} columns in the 32-bin block, {widths[1]} in the "
+          f"2-bin block): group_rows exact; cumhist and cumhist_sparse01 "
+          f"counts exact, weighted channels within {REL_TOL:g}, two calls "
+          f"bitwise; split_scan bitwise, masked and not (gini C=3, "
+          f"variance C=4; A = {', '.join(map(str, MAPPREP_SLOTS))}); "
+          f"level_epilogue bitwise over both blocks with the fit's edges "
+          f"({wins} slots won in the 2-bin block); predict_trees within "
+          f"{REL_TOL:g} at (T, D, K) = {MAPPREP_TREES} (max abs err "
+          f"{worst['predict_trees']:.3g})")
+    if not wins:
+        fail("level_epilogue at the mapprep shape: no winner in the 2-bin "
+             "block was checked")
+    return worst
+
+
+def mapprep_paths(H, TF, MP, root, profile=False, dev="cuda"):
+    """Phase 9, parts 2-4: mapprep-200k (the example's logistic regression,
+    3-fold CV, AuPR) counted; the default families at one grid point each
+    on the first 20,000 records, card against CPU, counted on the card
+    (the tree kernels must launch), and the kernels held at that vector's
+    shapes (:func:`check_mapprep_kernels`); and the 200k model saved,
+    loaded and scored through the engine against the layer path. Returns
+    ({path: launches}, each kernel's max abs error at those shapes)."""
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    records = MP.make_records(N, MAPPREP_SEED)
+    records_s = time.perf_counter() - t0
+    out, launches = counted(H, lambda: MP.run(
+        N, seed=MAPPREP_SEED, device=dev, records=records), ())
+    s, aupr = out["summary"], out["metrics"]["AuPR"]
+    groups = {c.grouping for c in out["vector_meta"].columns}
+    if out["blocked_cols"] or MP.BLOCKED_KEY in groups:
+        fail("mapprep-200k: the blocked key reached the vector")
+    if not 0.0 < aupr <= 1.0:
+        fail("mapprep-200k: AuPR out of range")
+    print(f"mapprep-200k {N} records: records {records_s:.2f} s, "
+          f"vectorize {out['vectorize_s']:.2f} s, selector "
+          f"{out['selector_s']:.2f} s, train {out['train_s']:.2f} s, "
+          f"evaluate {out['eval_s']:.2f} s, width {out['width']}, best "
+          f"{s.best_model_name} {s.best_model_params}, AuPR {aupr:.6f}, "
+          f"no {MP.BLOCKED_KEY} column")
+    print(f"mapprep-200k launches: {launches}")
+    paths = {"mapprep-200k": launches}
+    if profile:
+        profile_path(H, "mapprep-200k", lambda: MP.run(
+            N, seed=MAPPREP_SEED, device=dev, records=records))
+
+    t0 = time.perf_counter()
+    small = records[:MAPPREP_AGREE_N]
+    tree_kernels = ("cumhist", "cumhist_sparse01", "group_rows",
+                    "split_scan", "level_epilogue")
+    runs = {}
+    runs["cuda"], launches = counted(H, lambda: MP.run(
+        MAPPREP_AGREE_N, seed=MAPPREP_SEED, device=dev, records=small,
+        families=titanic_one_point()), tree_kernels)
+    runs["cpu"] = MP.run(MAPPREP_AGREE_N, seed=MAPPREP_SEED, device="cpu",
+                         records=small, families=titanic_one_point())
+    agree_metric(runs, "AuPR", 1e-4,
+                 f"mapprep default families, {MAPPREP_AGREE_N} records")
+    print(f"mapprep-families-20k launches (card): {launches}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    paths["mapprep-families-20k"] = launches
+    cuda = runs["cuda"]
+    fold = cuda["store"].take(np.arange(MAPPREP_FOLD_ROWS))
+    X = cuda["model"].transform(fold, device=dev, up_to=cuda["features"])[
+        cuda["features"].name].values
+    worst = check_mapprep_kernels(H, TF, dev, X, fold["churned"].values)
+
+    model = out["model"]
+    path = os.path.join(root, "build", "serve", "mapprep")
+    t0 = time.perf_counter()
+    model.save(path, overwrite=True)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = WorkflowModel.load(path)
+    load_s = time.perf_counter() - t0
+    store = out["store"]
+    pred = out["prediction"].name
+
+    def score():
+        return loaded.score(store, device=dev)
+    # warm-up: the engine's first program runs eagerly, then captures
+    loaded.score(store.take(np.arange(min(N, 8192))), device=dev)
+    H.reset_launch_counts()
+    t0 = time.perf_counter()
+    scored = score()
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    paths["serve-mapprep"] = dict(H.KERNEL_LAUNCHES)
+    t0 = time.perf_counter()
+    layer = model.score(store, device=dev, engine=False)
+    layer_s = time.perf_counter() - t0
+    same_predictions(scored[pred], layer[pred], "mapprep Score",
+                     prob_atol=PROB_ATOL)
+    print(f"mapprep serve: save {save_s:.2f} s, load {load_s:.2f} s, Score "
+          f"{score_s:.2f} s through the engine ({N / score_s:.0f} rows/s), "
+          f"layer path {layer_s:.2f} s; predictions equal, probabilities "
+          f"within 2^-22")
+    print(f"phase 9 mapprep: {time.perf_counter() - t_phase:.2f} s")
+    return paths, worst
+
+
 def timings(H, dev, BP, run):
     """``--timings-only``: split_scan's times at its shapes, then each main
     path run once and profiled once; nothing is checked and no result
@@ -1751,6 +2209,7 @@ def main():
     from transmogrifai_tpu_torch import big_passenger as BP
     from transmogrifai_tpu_torch import boston as BO
     from transmogrifai_tpu_torch import iris as IR
+    from transmogrifai_tpu_torch import mapprep as MP
     from transmogrifai_tpu_torch import titanic as TT
     from transmogrifai_tpu_torch.models import _hist as H
     from transmogrifai_tpu_torch.models import _treefit as TF
@@ -1885,6 +2344,15 @@ def main():
     path_launches.update(launches_by)
     (path_launches["serve-iris"],
      path_launches["serve-iris-coded"]) = serve_iris(H, iris, root)
+
+    # -- phase 9: every feature type; mapprep-200k ------------------------
+    t0 = time.perf_counter()
+    check_every_type()
+    mapprep_launches, worst = mapprep_paths(H, TF, MP, root, profile)
+    path_launches.update(mapprep_launches)
+    for name, err in worst.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    print(f"phase 9: {time.perf_counter() - t0:.2f} s")
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

@@ -67,3 +67,17 @@ def test_multiclass_and_regression_modules_are_scanned(module):
     assert path in SOURCES
     dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
     assert dotted in _modules()
+
+
+@pytest.mark.parametrize("module", [
+    "mapprep.py", "feature_json.py", "ops/maps.py", "ops/geo.py",
+    "ops/date_list.py", "ops/dt_bucketizer.py", "ops/list_ops.py",
+    "ops/scalers.py"])
+def test_feature_type_modules_are_scanned(module):
+    """The map-feature path and the vectorizers of every feature type are
+    among the sources scanned above and the modules imported with
+    ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    assert dotted in _modules()

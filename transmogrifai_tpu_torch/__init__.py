@@ -1,10 +1,11 @@
 """transmogrifai_tpu_torch — the PyTorch/CUDA port of ``transmogrifai_tpu``.
 
 AutoML for tabular data on an NVIDIA H100: the typed feature DAG,
-``transmogrify`` (numeric, categorical, text and date vectorizers), the
-SanityChecker, the ``Workflow`` runtime and the tree-model CV sweep (GBT
-and XGBoost families) with hand-written CUDA kernels for the tree engine
-(``models/_hist.py``, ``csrc/``). Entry points run on the card unless the
+``transmogrify`` (a vectorizer for every feature type: numerics, dates,
+text, lists, sets, geolocations and maps), the Rich* DSL, the
+SanityChecker, the ``Workflow`` runtime and the model selectors (linear,
+naive Bayes and tree families) with hand-written CUDA kernels for the
+tree engine (``models/_hist.py``, ``csrc/``). Entry points run on the card unless the
 caller passes ``device="cpu"``. The package imports ``torch`` and numpy,
 never ``jax``.
 """

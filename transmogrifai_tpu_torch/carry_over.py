@@ -1,5 +1,7 @@
 """Fitted stages carried over from the JAX package: each ported stage (the
-vectorizers, the SanityChecker, the DSL's fitted models, tree ensembles
+vectorizers of every feature type — map keys and their delegates, bucket
+splits, set vocabularies, geo fills —, the scalers' means and stds, the
+IDF weights, the SanityChecker, the DSL's fitted models, tree ensembles
 of every kind, logistic regression and linear SVC coefficients, the
 selected model) is rebuilt from a JAX stage's ``get_model_state()`` and
 ``get_params()`` —
@@ -44,7 +46,8 @@ def workflow_model_from_states(
 ) -> WorkflowModel:
     """A fitted port workflow: every estimator of ``result_features``' DAG
     gets the stage carried from ``states[estimator uid]`` = (JAX class
-    name, model state, ctor params)."""
+    name, model state, ctor params), wired to the inputs its fitted model
+    reads (``Estimator.fitted_inputs``)."""
     dag = compute_dag(result_features)
     fitted: Dict[str, FittedModel] = {}
     for layer in dag:
@@ -55,7 +58,7 @@ def workflow_model_from_states(
                 raise KeyError(f"no carried state for estimator {est.uid}")
             model = fitted_stage_from_state(*states[est.uid])
             model.uid = model.parent_estimator_uid = est.uid
-            model.input_features = est.input_features
+            model.input_features = est.fitted_inputs()
             model._output_feature = est.get_output()
             fitted[est.uid] = model
     return WorkflowModel(result_features, fitted, dag)

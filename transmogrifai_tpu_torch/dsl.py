@@ -1,15 +1,22 @@
 """Feature DSL — the port of ``transmogrifai_tpu/dsl.py`` for what the
-Titanic example uses: the numeric math transformers (``+ - * /`` of two
-features or of a feature and a scalar), ``fill_missing_with_mean``,
-``z_normalize``, ``pivot``, ``map_to``, ``alias``, ``transmogrify``
-(RichFeaturesCollection.transmogrify), ``Feature.sanity_check`` and the
-multiclass path's label indexing, ``indexed``.
+Titanic and map-feature examples use: the numeric math transformers
+(``+ - * /`` of two features or of a feature and a scalar),
+``fill_missing_with_mean``, ``z_normalize``, ``pivot``, ``map_to``,
+``alias``, ``transmogrify`` (RichFeaturesCollection.transmogrify),
+``Feature.sanity_check``, the multiclass path's label indexing,
+``indexed``, and the Rich* surfaces of maps, lists and sets:
+``vectorize`` (with ``allow_keys`` / ``block_keys``), ``smart_vectorize``,
+``filter_keys``, ``extract_key``, ``bucketize``, ``auto_bucketize``,
+``tf``, ``idf``, ``tfidf``, ``ngram``, ``remove_stop_words``,
+``jaccard_similarity``, ``scaled`` and ``descaled``.
 Importing the package attaches the methods and operators::
 
     family_size = sib_sp + par_ch + 1
     cost = family_size * fare
     pivoted = sex.pivot()
     normed = age.fill_missing_with_mean().z_normalize()
+    usage_vec = usage.vectorize(block_keys=["internal_audit"])
+    note_vec = note.remove_stop_words().tfidf(num_terms=32)
 
 Null semantics follow the reference truth tables
 (``MathTransformers.scala``): plus/minus treat empty as identity;
@@ -323,6 +330,172 @@ def _indexed(self: Feature, **kw):
     return self.transform_with(OpStringIndexerNoFilter(**kw))
 
 
+def _bucketize(self: Feature, splits=None, **kw):
+    from .ops.numeric import NumericBucketizer
+    return self.transform_with(NumericBucketizer(
+        splits=list(splits) if splits is not None else None, **kw))
+
+
+def _tf(self: Feature, num_terms: int = 512, binary: bool = False):
+    """TextList → hashed term-frequency OPVector
+    (RichListFeature.tf :59)."""
+    from .ops.list_ops import OpHashingTF
+    return self.transform_with(OpHashingTF(num_terms=num_terms,
+                                           binary=binary))
+
+
+def _idf(self: Feature, min_doc_freq: int = 0):
+    """OPVector → IDF-scaled OPVector (Spark IDF wrap)."""
+    from .ops.list_ops import OpIDF
+    return self.transform_with(OpIDF(min_doc_freq=min_doc_freq))
+
+
+def _tfidf(self: Feature, num_terms: int = 512, binary: bool = False,
+           min_doc_freq: int = 0):
+    """TextList → TF-IDF OPVector (RichListFeature.tfidf :76)."""
+    return _idf(_tf(self, num_terms=num_terms, binary=binary),
+                min_doc_freq=min_doc_freq)
+
+
+def _ngram(self: Feature, n: int = 2):
+    """TextList → TextList of space-joined n-grams
+    (RichListFeature.ngram :153)."""
+    from .ops.list_ops import OpNGram
+    return self.transform_with(OpNGram(n=n))
+
+
+def _remove_stop_words(self: Feature, stop_words=None,
+                       case_sensitive: bool = False):
+    """TextList → TextList without stop words
+    (RichListFeature.removeStopWords :168)."""
+    from .ops.list_ops import OpStopWordsRemover
+    return self.transform_with(OpStopWordsRemover(
+        stop_words=stop_words, case_sensitive=case_sensitive))
+
+
+def _jaccard_similarity(self: Feature, other: Feature):
+    """(MultiPickList, MultiPickList) → RealNN Jaccard overlap
+    (RichSetFeature.jaccardSimilarity :124)."""
+    from .ops.list_ops import JaccardSimilarity
+    return self.transform_with(JaccardSimilarity(), other)
+
+
+def _scaled(self: Feature, scaling_type: str = "linear", **kw):
+    """Real → Real via ScalerTransformer (ScalerTransformer.scala);
+    ``descaled`` inverts it from the scaler's recorded parameters."""
+    from .ops.scalers import ScalerTransformer
+    return self.transform_with(ScalerTransformer(
+        scaling_type=scaling_type, **kw))
+
+
+def _descaled(self: Feature, scaled: Feature, **kw):
+    from .ops.scalers import DescalerTransformer
+    return self.transform_with(DescalerTransformer(**kw), scaled)
+
+
+def _filter_keys(self: Feature, allow=None, block=(), **kw):
+    from .ops.maps import FilterMapKeys
+    return self.transform_with(FilterMapKeys(allow=allow, block=block, **kw))
+
+
+def _extract_key(self: Feature, key: str, **kw):
+    from .ops.maps import ExtractMapKey
+    return self.transform_with(ExtractMapKey(key=key, **kw))
+
+
+def _apply_key_filters(feats, allow_keys, block_keys):
+    """Key allow/block lists apply to every map feature of the group;
+    given with no map feature present they raise (a dropped block list
+    would leak a key)."""
+    if allow_keys is None and not block_keys:
+        return feats
+    is_map = [f.ftype.column_kind is ft.ColumnKind.MAP for f in feats]
+    if not any(is_map):
+        raise ValueError(
+            "allow_keys/block_keys were given but none of the features "
+            "is map-typed — the key filter would be silently dropped")
+    return [f.filter_keys(allow=allow_keys, block=block_keys) if m else f
+            for f, m in zip(feats, is_map)]
+
+
+def _vectorize(self: Feature, *others: Feature,
+               top_k: Optional[int] = None,
+               min_support: Optional[int] = None,
+               track_nulls: Optional[bool] = None,
+               track_invalid: Optional[bool] = None,
+               num_features: Optional[int] = None,
+               fill_with_mean: Optional[bool] = None,
+               fill_with_mode: Optional[bool] = None,
+               default_value: Optional[float] = None,
+               allow_keys: Optional[Sequence[str]] = None,
+               block_keys: Sequence[str] = ()):
+    """This feature (+ same-typed ``others``) through the transmogrify
+    dispatch with per-call overrides of its defaults; map features also
+    take ``allow_keys`` / ``block_keys`` (RichMapFeature's
+    whiteListKeys / blackListKeys)."""
+    from .ops.transmogrifier import Transmogrifier
+    from .ops.vectorizer_base import TransmogrifierDefaults
+
+    feats = _apply_key_filters([self, *others], allow_keys, block_keys)
+
+    class _Defaults(TransmogrifierDefaults):
+        pass
+    for attr, v in (("TOP_K", top_k), ("MIN_SUPPORT", min_support),
+                    ("TRACK_NULLS", track_nulls),
+                    ("TRACK_INVALID", track_invalid),
+                    ("HASH_SIZE", num_features),
+                    ("FILL_WITH_MEAN", fill_with_mean),
+                    ("FILL_WITH_MODE", fill_with_mode),
+                    ("FILL_VALUE", default_value)):
+        if v is not None:
+            setattr(_Defaults, attr, v)
+    return Transmogrifier.vectorize(feats, _Defaults)
+
+
+def _smart_vectorize(self: Feature, *others: Feature,
+                     max_cardinality: int = 100,
+                     top_k: Optional[int] = None,
+                     min_support: Optional[int] = None,
+                     num_features: Optional[int] = None,
+                     track_nulls: bool = True,
+                     track_text_len: bool = False,
+                     allow_keys: Optional[Sequence[str]] = None,
+                     block_keys: Sequence[str] = ()):
+    """Cardinality-probing text vectorization (RichTextFeature
+    ``smartVectorize`` :223-281 / RichMapFeature ``smartVectorize``
+    :280-350): low-cardinality values pivot, high-cardinality values
+    hash; text features and text-valued maps."""
+    from .ops.maps import SmartTextMapVectorizer
+    from .ops.smart_text import SmartTextVectorizer
+    from .ops.vectorizer_base import TransmogrifierDefaults as TD
+
+    kw = dict(max_cardinality=max_cardinality,
+              top_k=TD.TOP_K if top_k is None else top_k,
+              min_support=TD.MIN_SUPPORT if min_support is None
+              else min_support,
+              num_features=TD.HASH_SIZE if num_features is None
+              else num_features,
+              track_nulls=track_nulls, track_text_len=track_text_len)
+    feats = _apply_key_filters([self, *others], allow_keys, block_keys)
+    if self.ftype.column_kind is ft.ColumnKind.MAP:
+        stage = SmartTextMapVectorizer(**kw)
+    else:
+        stage = SmartTextVectorizer(**kw)
+    return feats[0].transform_with(stage, *feats[1:])
+
+
+def _auto_bucketize(self: Feature, label: Feature, **kw):
+    """Label-aware decision-tree bucketing (RichNumericFeature /
+    RichMapFeature ``autoBucketize`` :542-664): the splits of a
+    one-feature decision tree against the label."""
+    from .ops.dt_bucketizer import (DecisionTreeNumericBucketizer,
+                                    DecisionTreeNumericMapBucketizer)
+    cls = (DecisionTreeNumericMapBucketizer
+           if self.ftype.column_kind is ft.ColumnKind.MAP
+           else DecisionTreeNumericBucketizer)
+    return label.transform_with(cls(**kw), self)
+
+
 Feature.__add__ = _binary_math("add")
 Feature.__sub__ = _binary_math("subtract")
 Feature.__mul__ = _binary_math("multiply")
@@ -338,3 +511,17 @@ Feature.map_to = _map_to
 Feature.alias = _alias
 Feature.sanity_check = _sanity_check
 Feature.indexed = _indexed
+Feature.bucketize = _bucketize
+Feature.tf = _tf
+Feature.idf = _idf
+Feature.tfidf = _tfidf
+Feature.ngram = _ngram
+Feature.remove_stop_words = _remove_stop_words
+Feature.jaccard_similarity = _jaccard_similarity
+Feature.scaled = _scaled
+Feature.descaled = _descaled
+Feature.filter_keys = _filter_keys
+Feature.extract_key = _extract_key
+Feature.vectorize = _vectorize
+Feature.smart_vectorize = _smart_vectorize
+Feature.auto_bucketize = _auto_bucketize

@@ -18,7 +18,22 @@ Reading ``{"__obj__": "transmogrifai_tpu.<m>:<name>"}`` maps the module to
 this package's ``transmogrifai_tpu_torch.<m>`` by string; no module of
 the JAX package is imported, and only the codec's config classes
 (model families, splitters, the cross validator) may be built from a
-file. ``fitSufficientStats`` and ``rawFeatureFilterResults`` are kept
+file.
+
+A feature's ``parentUids`` are the inputs of the stage that computes it
+as its stage record names them (``inputFeatureUids``; the fitted model's,
+``Estimator.fitted_inputs``), and a load wires each stage to its record's
+inputs (:func:`parent_uids` for both). The two differ from the graph the
+user built only where a fit read the label and its fitted model does not:
+the decision-tree bucketizers. So a save here records the bucketizer's
+numeric input alone as its output's parents, where a JAX-package save
+lists the label too. This is what lets the JAX package load the port's
+save: its loader wires stages from ``parentUids``, and would hand the
+fitted bucketizer the label, which its label-leakage check refuses (so it
+cannot load its own save of such a workflow). A JAX-package save loads
+here through the stage records' inputs.
+
+``fitSufficientStats`` and ``rawFeatureFilterResults`` are kept
 as the JSON that was read and written back unchanged (their classes are
 not ported: ROADMAP queue A, items 3 and 6).
 """
@@ -46,7 +61,8 @@ from .vector_metadata import VectorMetadata
 
 __all__ = ["save_workflow_model", "load_workflow_model", "MODEL_JSON",
            "WEIGHTS_NPZ", "FORMAT_VERSION", "REFERENCE_MODULES",
-           "collect_stage_records", "rebuild_stages", "rebuild_features"]
+           "collect_stage_records", "rebuild_stages", "rebuild_features",
+           "stage_input_uids", "parent_uids"]
 
 MODEL_JSON = "model.json"
 #: the weights archive of a ``formatVersion`` 1 save
@@ -203,14 +219,19 @@ def _stage_record(stage: OpPipelineStage, arrays: Dict[str, np.ndarray]
     return rec
 
 
-def _feature_record(f: Feature) -> Dict[str, Any]:
+def _feature_record(f: Feature,
+                    stage_inputs: Optional[Dict[str, List[str]]] = None
+                    ) -> Dict[str, Any]:
+    """A feature's record; its ``parentUids`` by :func:`parent_uids`."""
+    origin = f.origin_stage.uid if f.origin_stage else None
     return {
         "uid": f.uid,
         "name": f.name,
         "typeName": f.ftype.__name__,
         "isResponse": f.is_response,
-        "originStageUid": f.origin_stage.uid if f.origin_stage else None,
-        "parentUids": [p.uid for p in f.parents],
+        "originStageUid": origin,
+        "parentUids": parent_uids(origin, [p.uid for p in f.parents],
+                                  stage_inputs),
     }
 
 
@@ -275,7 +296,8 @@ def save_workflow_model(model, path: str, overwrite: bool = False) -> None:
         "resultFeatureUids": [f.uid for f in model.result_features],
         "blacklistedFeatureUids": [f.uid
                                    for f in model.blacklisted_features],
-        "features": [_feature_record(f) for f in features],
+        "features": [_feature_record(f, stage_input_uids(stage_records))
+                     for f in features],
         "stages": stage_records,
         "parameters": model.parameters,
         "trainTimeSeconds": model.train_time_s,
@@ -328,17 +350,38 @@ def rebuild_stages(records, arrays: Dict[str, np.ndarray]
     return stage_by_uid
 
 
-def rebuild_features(records, stage_by_uid: Dict[str, OpPipelineStage]
+def stage_input_uids(records) -> Dict[str, List[str]]:
+    """Stage uid → the input feature uids its record names."""
+    return {rec["uid"]: list(rec["inputFeatureUids"]) for rec in records
+            if "inputFeatureUids" in rec}
+
+
+def parent_uids(origin_uid: Optional[str], parents: List[str],
+                stage_inputs: Optional[Dict[str, List[str]]] = None
+                ) -> List[str]:
+    """The inputs of the stage ``origin_uid`` that computes a feature: the
+    ones its stage record names (``stage_inputs``, from
+    :func:`stage_input_uids`) where there is one, else the feature's
+    ``parents``. The save writes a feature's ``parentUids`` by this rule
+    and the load wires each stage by it."""
+    return list((stage_inputs or {}).get(origin_uid, parents))
+
+
+def rebuild_features(records, stage_by_uid: Dict[str, OpPipelineStage],
+                     stage_inputs: Optional[Dict[str, List[str]]] = None
                      ) -> Dict[str, Feature]:
-    """Feature records (topological order) → the wired feature graph."""
+    """Feature records (topological order) → the wired feature graph,
+    each stage wired to :func:`parent_uids`."""
     feat_by_uid: Dict[str, Feature] = {}
     for frec in records:
         stage = stage_by_uid.get(frec["originStageUid"])
         if stage is None:
             raise ValueError(
                 f"Feature {frec['name']!r} has unknown origin stage")
-        if frec["parentUids"]:
-            parents = [feat_by_uid[u] for u in frec["parentUids"]]
+        input_uids = parent_uids(stage.uid, frec["parentUids"],
+                                 stage_inputs)
+        if input_uids:
+            parents = [feat_by_uid[u] for u in input_uids]
             if tuple(stage.input_features) != tuple(parents):
                 stage.set_input(*parents)
         feat = stage.get_output()
@@ -450,7 +493,8 @@ def load_workflow_model(path: str):
     from .workflow import WorkflowModel
     doc, arrays = _read_model_dir(path)
     stage_by_uid = rebuild_stages(doc["stages"], arrays)
-    feat_by_uid = rebuild_features(doc["features"], stage_by_uid)
+    feat_by_uid = rebuild_features(doc["features"], stage_by_uid,
+                                   stage_input_uids(doc["stages"]))
     result_features = [feat_by_uid[u] for u in doc["resultFeatureUids"]]
     fitted = {uid: st for uid, st in stage_by_uid.items()
               if isinstance(st, FittedModel)}

@@ -23,7 +23,8 @@ import numpy as np
 
 from .vectorizer_base import VEC_DTYPE
 
-__all__ = ["string_codes", "onehot_block", "hashed_count_block",
+__all__ = ["string_codes", "onehot_block", "multihot_block",
+           "hashed_count_block",
            "hashed_count_flat", "flatten_ragged", "value_counts",
            "hashed_text_block"]
 
@@ -83,6 +84,24 @@ def flatten_ragged(row_values: Sequence[Sequence[str]]
         flat.extend(v)
     rows = np.repeat(np.arange(len(row_values)), lengths)
     return flat, rows, lengths
+
+
+def multihot_block(row_values: Sequence[Sequence[str]], vocab: Sequence[str],
+                   track_nulls: bool,
+                   out: Optional[np.ndarray] = None) -> np.ndarray:
+    """[n, K+1(+1)] multi-hot block of a set column: [cat_1..cat_K,
+    OTHER(, Null)]; an empty set counts as null."""
+    n = len(row_values)
+    k = len(vocab)
+    width = k + 1 + (1 if track_nulls else 0)
+    block = out if out is not None else np.zeros((n, width), dtype=VEC_DTYPE)
+    flat, rows, lengths = flatten_ragged(row_values)
+    if flat:
+        codes, _ = string_codes(flat, vocab)
+        block[rows, codes] = 1.0          # an assignment: repeats set once
+    if track_nulls:
+        block[lengths == 0, k + 1] = 1.0
+    return block
 
 
 def hashed_count_block(row_tokens: Sequence[Sequence[str]], num_features: int,

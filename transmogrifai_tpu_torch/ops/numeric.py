@@ -1,10 +1,12 @@
-"""Numeric vectorizers: mean/mode impute + null tracking; the port of
-``transmogrifai_tpu/ops/numeric.py`` (``RealVectorizer.scala:121``,
-``IntegralVectorizer``, ``BinaryVectorizer``).
+"""Numeric vectorizers: mean/mode impute + null tracking, and the
+bucketizer; the port of ``transmogrifai_tpu/ops/numeric.py``
+(``RealVectorizer.scala:121``, ``IntegralVectorizer``,
+``BinaryVectorizer``, ``NumericBucketizer``).
 
 Layout per input feature: ``[imputed value, (null indicator)]``,
-concatenated over the N inputs. The impute runs in torch on the
-workflow's device.
+concatenated over the N inputs; a bucketizer's is ``[one-hot buckets,
+(out of bounds), (null indicator)]``. The impute and the bucketing run in
+torch on the workflow's device.
 """
 from __future__ import annotations
 
@@ -20,10 +22,11 @@ from ..types.feature_types import Binary, Integral, OPNumeric, Real
 from ..vector_metadata import VectorColumnMetadata, VectorMetadata
 from .vectorizer_base import (TransmogrifierDefaults, VEC_DTYPE,
                               VectorizerEstimator, VectorizerModel,
-                              null_indicator_meta)
+                              null_indicator_meta, vec_dtype_round)
 
 __all__ = ["RealVectorizer", "IntegralVectorizer", "BinaryVectorizer",
-           "NumericVectorizerModel"]
+           "NumericVectorizerModel", "NumericBucketizer",
+           "NumericBucketizerModel"]
 
 
 @register_stage
@@ -156,3 +159,136 @@ class BinaryVectorizer(_NumericVectorizerBase):
                  uid: Optional[str] = None):
         super().__init__(track_nulls=track_nulls, fill_value=fill_value,
                          uid=uid)
+
+
+@register_stage
+class NumericBucketizerModel(VectorizerModel):
+    """One-hot of value buckets + optional out-of-bounds and null slots per
+    feature."""
+
+    operation_name = "bucketize"
+    seq_type = OPNumeric
+
+    def __init__(self, splits: Sequence[Sequence[float]] = (),
+                 track_nulls: bool = True,
+                 track_invalid: bool = False,
+                 input_names: Sequence[str] = (),
+                 ftype_name: str = "Real",
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        # the edges are rounded through the pipeline dtype here, so the
+        # stored edges are the ones transform compares against. No dedup:
+        # two f64 edges within one f32 ulp become an equal pair whose
+        # bucket never fires, and the vector keeps its width
+        self.splits = [vec_dtype_round(list(s)).tolist() for s in splits]
+        self.track_nulls = track_nulls
+        self.track_invalid = track_invalid
+        self.input_names_saved = list(input_names)
+        self.ftype_name = ftype_name
+
+    def _value_columns(self, store: ColumnStore):
+        """(values, masks) of the bucketed inputs, one pair a split set."""
+        return ([store[n].values.astype(np.float64) for n in self._names()],
+                [store[n].mask for n in self._names()])
+
+    def host_prepare(self, store: ColumnStore) -> Dict[str, np.ndarray]:
+        vals, masks = self._value_columns(store)
+        return {"values": np.stack(vals, axis=1),
+                "mask": np.stack(masks, axis=1)}
+
+    def device_compute(self, prepared):
+        values, mask = prepared["values"], prepared["mask"]
+        outs = []
+        for j, splits in enumerate(self.splits):
+            # f32 edges against the f32-canonicalized values, so the card
+            # and the CPU bucket alike
+            edges = device_table(
+                self, f"edges{j}",
+                lambda s=splits: np.asarray(s, dtype=VEC_DTYPE),
+                values.device)
+            v = values[:, j].contiguous()
+            m = mask[:, j]
+            # bucket b: edges[b] <= v < edges[b+1]; the last bucket is
+            # right-closed through in_range
+            idx = (torch.searchsorted(edges, v, right=True) - 1).clamp(
+                0, len(splits) - 2)
+            in_range = (v >= edges[0]) & (v <= edges[-1])
+            valid = m & in_range
+            onehot = idx[:, None] == torch.arange(
+                len(splits) - 1, device=v.device)[None, :]
+            outs.append((onehot & valid[:, None]).to(values.dtype))
+            if self.track_invalid:
+                outs.append((m & ~in_range).to(values.dtype)[:, None])
+            if self.track_nulls:
+                outs.append((~m).to(values.dtype)[:, None])
+        return torch.cat(outs, dim=1)
+
+    def _slot_meta(self, name: str, grouping: Optional[str],
+                   splits: Sequence[float]) -> List[VectorColumnMetadata]:
+        labels = [f"{splits[b]}-{splits[b + 1]}"
+                  for b in range(len(splits) - 1)]
+        if self.track_invalid:
+            labels.append("OutOfBounds")
+        cols = [VectorColumnMetadata(
+            parent_feature_name=name, parent_feature_type=self.ftype_name,
+            grouping=grouping, indicator_value=v) for v in labels]
+        if self.track_nulls:
+            cols.append(null_indicator_meta(name, self.ftype_name,
+                                            grouping))
+        return cols
+
+    def vector_metadata(self) -> VectorMetadata:
+        cols: List[VectorColumnMetadata] = []
+        for name, splits in zip(self._names(), self.splits):
+            cols += self._slot_meta(name, None, splits)
+        return VectorMetadata(self.meta_name, cols)
+
+    def get_model_state(self):
+        return {"splits": self.splits, "input_names_saved": self._names()}
+
+
+@register_stage
+class NumericBucketizer(VectorizerEstimator):
+    """Fixed or quantile splits → one-hot buckets (NumericBucketizer)."""
+
+    operation_name = "bucketize"
+    seq_type = OPNumeric
+
+    def __init__(self, splits: Optional[Sequence[float]] = None,
+                 num_buckets: int = 4,
+                 track_nulls: bool = TransmogrifierDefaults.TRACK_NULLS,
+                 track_invalid: bool = TransmogrifierDefaults.TRACK_INVALID,
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.splits = list(splits) if splits is not None else None
+        self.num_buckets = num_buckets
+        self.track_nulls = track_nulls
+        self.track_invalid = track_invalid
+
+    @staticmethod
+    def _splits_of(qs) -> List[float]:
+        """Quantiles → split edges, deduplicated; a constant column gets
+        one bucket of width 1."""
+        if qs is None:
+            return [0.0, 1.0]
+        qs = np.unique(qs)
+        if qs.size < 2:
+            qs = np.array([qs[0], qs[0] + 1.0])
+        return qs.tolist()
+
+    def fit_columns(self, store: ColumnStore) -> NumericBucketizerModel:
+        per_feature = []
+        for name in self.input_names:
+            if self.splits is not None:
+                per_feature.append(self.splits)
+                continue
+            col = store[name]
+            present = col.values[col.mask].astype(np.float64)
+            qs = (np.quantile(present,
+                              np.linspace(0, 1, self.num_buckets + 1))
+                  if present.size else None)
+            per_feature.append(self._splits_of(qs))
+        return NumericBucketizerModel(
+            splits=per_feature, track_nulls=self.track_nulls,
+            track_invalid=self.track_invalid, input_names=self.input_names,
+            ftype_name=self.seq_type.__name__)

@@ -1,9 +1,11 @@
-"""One-hot pivot vectorizer for categorical text; the port of
-``transmogrifai_tpu/ops/onehot.py`` (``OpOneHotVectorizer.scala``).
+"""One-hot pivot vectorizers for categorical text and sets; the port of
+``transmogrifai_tpu/ops/onehot.py`` (``OpOneHotVectorizer.scala``,
+``OpSetVectorizer``).
 
 Per feature: count values, keep the top K with count ≥ min_support, emit
-``[cat_1 .. cat_K, OTHER, NullIndicator]``. Fit is a host value count;
-transform is a host vocab lookup and scatter (``device_math = False``).
+``[cat_1 .. cat_K, OTHER, NullIndicator]`` (a multi-hot row for a set,
+whose empty set is the null). Fit is a host value count; transform is a
+host vocab lookup and scatter (``device_math = False``).
 """
 from __future__ import annotations
 
@@ -12,15 +14,16 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..columns import ColumnStore
-from ..stages.base import register_stage
-from ..types.feature_types import Text
+from ..columns import ColumnStore, TextSetColumn
+from ..stages.base import VarArity, register_stage
+from ..types.feature_types import OPSet, Text
 from ..vector_metadata import (NULL_INDICATOR, OTHER_INDICATOR,
                                VectorColumnMetadata, VectorMetadata)
 from .vectorizer_base import (TransmogrifierDefaults, VEC_DTYPE,
                               VectorizerEstimator, VectorizerModel)
 
-__all__ = ["OneHotVectorizer", "OneHotModel", "pivot_metadata"]
+__all__ = ["OneHotVectorizer", "SetVectorizer", "OneHotModel",
+           "pivot_metadata"]
 
 
 def _sorted_topk(counts: Counter, top_k: int, min_support: int) -> List[str]:
@@ -43,7 +46,8 @@ def pivot_metadata(name: str, ftype_name: str, vocab: Sequence[str],
 
 @register_stage
 class OneHotModel(VectorizerModel):
-    """Fitted pivot: per-feature vocab → [cats..., OTHER, null]."""
+    """Fitted pivot: per-feature vocab → [cats..., OTHER, null]; a set
+    column (``is_set``) gets the multi-hot block."""
 
     operation_name = "pivot"
     seq_type = Text
@@ -56,25 +60,29 @@ class OneHotModel(VectorizerModel):
                  is_set: bool = False,
                  uid: Optional[str] = None):
         super().__init__(uid=uid)
-        if is_set:
-            raise NotImplementedError(
-                "the set pivot (SetVectorizer) is not ported yet (ROADMAP "
-                "queue A, item 2)")
         self.vocabs = [list(v) for v in vocabs]
         self.track_nulls = track_nulls
         self.input_names_saved = list(input_names)
         self.ftype_name = ftype_name
+        self.is_set = is_set
+
+    @property
+    def input_spec(self):
+        return VarArity(OPSet if self.is_set else Text)
 
     def host_prepare(self, store: ColumnStore) -> Dict[str, np.ndarray]:
         """One full-width matrix; each feature's block is a view into it."""
-        from ._hostvec import onehot_block
+        from ._hostvec import multihot_block, onehot_block
         nul = 1 if self.track_nulls else 0
         widths = [len(v) + 1 + nul for v in self.vocabs]
         mat = np.zeros((store.n_rows, sum(widths)), dtype=VEC_DTYPE)
         off = 0
         for name, vocab, w in zip(self._names(), self.vocabs, widths):
-            onehot_block(store[name].values, vocab, self.track_nulls,
-                         out=mat[:, off:off + w])
+            col = store[name]
+            block = (multihot_block if isinstance(col, TextSetColumn)
+                     else onehot_block)
+            block(col.values, vocab, self.track_nulls,
+                  out=mat[:, off:off + w])
             off += w
         return {"mat": mat}
 
@@ -105,11 +113,31 @@ class OneHotVectorizer(VectorizerEstimator):
         self.min_support = min_support
         self.track_nulls = track_nulls
 
-    def fit_columns(self, store: ColumnStore) -> OneHotModel:
+    #: the model's flavor; the set pivot overrides it and ``_count``
+    _is_set = False
+
+    def _count(self, col) -> Counter:
         from ._hostvec import value_counts
+        return value_counts(col.values)
+
+    def fit_columns(self, store: ColumnStore) -> OneHotModel:
         return OneHotModel(
-            vocabs=[_sorted_topk(value_counts(store[n].values), self.top_k,
+            vocabs=[_sorted_topk(self._count(store[n]), self.top_k,
                                  self.min_support)
                     for n in self.input_names],
             track_nulls=self.track_nulls, input_names=self.input_names,
-            ftype_name=self.seq_type.__name__)
+            ftype_name=self.seq_type.__name__, is_set=self._is_set)
+
+
+@register_stage
+class SetVectorizer(OneHotVectorizer):
+    """MultiPickList pivot (OpSetVectorizer): multi-hot over the top-K
+    values."""
+
+    operation_name = "pivotSet"
+    seq_type = OPSet
+    _is_set = True
+
+    def _count(self, col) -> Counter:
+        from ._hostvec import flatten_ragged, value_counts
+        return value_counts(flatten_ragged(col.values)[0])

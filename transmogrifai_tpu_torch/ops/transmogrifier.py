@@ -13,12 +13,14 @@ PickList/ComboBox/Country/State/
 City/PostalCode/Street/ID          OneHotVectorizer (topK + OTHER + null)
 Text/TextArea/Email/URL/Phone/
 Base64                             SmartTextVectorizer (pivot|hash by card.)
+MultiPickList                      SetVectorizer (multi-hot topK)
+Geolocation                        GeolocationVectorizer (geo-mean fill)
 TextList                           HashingVectorizerModel
+DateList/DateTimeList              DateListVectorizer (days since last)
 OPVector                           passthrough
+the map types                      MapVectorizer, one per map type
+                                   (``ops.maps.vectorize_maps``)
 =================================  =======================================
-
-MultiPickList, Geolocation, DateList and the map types have vectorizers
-in the JAX package that are not ported yet; they raise ``TypeError``.
 """
 from __future__ import annotations
 
@@ -26,10 +28,13 @@ from typing import Dict, List, Sequence, Type
 
 from ..features import Feature
 from ..types import feature_types as ft
+from .date_list import DateListVectorizer
 from .dates import DateToUnitCircleVectorizer
+from .geo import GeolocationVectorizer
 from .hashing import HashingVectorizerModel
+from .maps import vectorize_maps
 from .numeric import BinaryVectorizer, IntegralVectorizer, RealVectorizer
-from .onehot import OneHotVectorizer
+from .onehot import OneHotVectorizer, SetVectorizer
 from .smart_text import SmartTextVectorizer
 from .vectorizer_base import TransmogrifierDefaults
 from .vectors import VectorsCombiner
@@ -39,12 +44,6 @@ __all__ = ["transmogrify", "Transmogrifier"]
 # pivot (one-hot) text subtypes: closed-ish vocabularies
 _PIVOT_TEXT = (ft.PickList, ft.ComboBox, ft.Country, ft.State, ft.City,
                ft.PostalCode, ft.Street, ft.ID)
-
-#: the JAX package's vectorizer for each type the port does not handle yet
-_NOT_PORTED = ((ft.MultiPickList, "SetVectorizer"),
-               (ft.Geolocation, "GeolocationVectorizer"),
-               (ft.DateList, "DateListVectorizer"),
-               (ft.OPMap, "the OPMapVectorizer family (ops/maps.py)"))
 
 
 def _group_features(features: Sequence[Feature]) -> Dict[str, List[Feature]]:
@@ -59,20 +58,23 @@ def _group_features(features: Sequence[Feature]) -> Dict[str, List[Feature]]:
             key = "integral"
         elif issubclass(t, ft.Real):
             key = "real"
+        elif issubclass(t, ft.MultiPickList):
+            key = "set"
         elif issubclass(t, _PIVOT_TEXT):
             key = "pivot_text"
         elif issubclass(t, ft.Text):
             key = "smart_text"
+        elif issubclass(t, ft.Geolocation):
+            key = "geo"
         elif issubclass(t, ft.TextList):
             key = "text_list"
         elif issubclass(t, ft.OPVector):
             key = "vector"
+        elif issubclass(t, ft.DateList):
+            key = "date_list"
+        elif issubclass(t, ft.OPMap):
+            key = "map"
         else:
-            for typ, stage in _NOT_PORTED:
-                if issubclass(t, typ):
-                    raise TypeError(
-                        f"{t.__name__} feature {f.name!r}: its vectorizer, "
-                        f"{stage}, is not ported yet")
             raise TypeError(
                 f"Transmogrifier has no default vectorizer for {t.__name__}")
         groups.setdefault(key, []).append(f)
@@ -120,11 +122,20 @@ class Transmogrifier:
                                      num_features=d.HASH_SIZE,
                                      track_nulls=d.TRACK_NULLS),
                  "smart_text")
+        if "set" in groups:
+            wire(SetVectorizer(top_k=d.TOP_K, min_support=d.MIN_SUPPORT,
+                               track_nulls=d.TRACK_NULLS), "set")
+        if "geo" in groups:
+            wire(GeolocationVectorizer(track_nulls=d.TRACK_NULLS), "geo")
         if "text_list" in groups:
             wire(HashingVectorizerModel(
                 num_features=d.HASH_SIZE, track_nulls=d.TRACK_NULLS,
                 input_names=[f.name for f in groups["text_list"]]),
                 "text_list")
+        if "map" in groups:
+            blocks.extend(vectorize_maps(groups["map"], d))
+        if "date_list" in groups:
+            wire(DateListVectorizer(track_nulls=d.TRACK_NULLS), "date_list")
         blocks.extend(groups.get("vector", []))
 
         if len(blocks) == 1:

@@ -30,7 +30,8 @@ from ..vector_metadata import (NULL_INDICATOR, VectorColumnMetadata,
                                VectorMetadata)
 
 __all__ = ["VectorizerModel", "VectorizerEstimator", "TransmogrifierDefaults",
-           "canonicalize_prepared", "null_indicator_meta", "VEC_DTYPE"]
+           "canonicalize_prepared", "null_indicator_meta", "VEC_DTYPE",
+           "vec_dtype_round"]
 
 #: dtype of the vector pipeline: f32 end to end
 VEC_DTYPE = np.float32
@@ -59,6 +60,13 @@ def canonicalize_prepared(prepared: Dict[str, np.ndarray]
     return out
 
 
+def vec_dtype_round(values) -> np.ndarray:
+    """Fitted f64 constants (bucket edges) rounded through the pipeline
+    dtype once, at fit time, so that fit-time decisions and transform-time
+    comparisons see the same numbers."""
+    return np.asarray(values, dtype=VEC_DTYPE).astype(np.float64)
+
+
 class TransmogrifierDefaults:
     """Default knobs (core/.../impl/feature/Transmogrifier.scala:52-88)."""
 
@@ -70,6 +78,7 @@ class TransmogrifierDefaults:
     FILL_WITH_MEAN = True
     FILL_WITH_MODE = True
     TRACK_NULLS = True
+    TRACK_INVALID = False
     CIRCULAR_DATE_REPRESENTATIONS = ["HourOfDay", "DayOfWeek", "DayOfMonth",
                                      "DayOfYear"]
 

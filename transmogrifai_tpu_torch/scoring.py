@@ -5,7 +5,8 @@ port of ``transmogrifai_tpu/scoring.py``.
 host and device at each. The engine instead runs a fitted model's
 device-capable chain as one program: every vectorizer's
 ``device_compute``, the combiner's concatenation, the SanityChecker's
-column gather and the predictor's ``predict_device``. A scoring batch
+column gather, the vector standard scaler's affine map and the
+predictor's ``predict_device``. A scoring batch
 crosses once: prepared host blocks in, result columns out.
 
 * **Bucketed batch shapes.** A batch is zero-padded to a power-of-two
@@ -28,15 +29,17 @@ crosses once: prepared host blocks in, result columns out.
 
 Host/device split: a fitted stage is device-capable when the engine knows
 its array form — a ``VectorizerModel`` (``host_prepare`` →
-``device_compute``), the ``VectorsCombiner``, the ``SanityCheckerModel``,
-any ``PredictorModel`` with ``predict_device`` (a selected model's label
+``device_compute``; the map vectorizers and bucketizers among them), the
+``VectorsCombiner``, the ``SanityCheckerModel``, the
+``StandardScalerModel``, any ``PredictorModel`` with ``predict_device`` (a selected model's label
 mapping included) and the ``PredictionDeIndexerModel``, whose label
 codes the program computes and whose strings are looked up on the host
 after the pull. The fused set is the
 largest consumer-closed subset of device-capable stages: one whose output
 a host stage reads is demoted to the host. Host stages (the DSL's row
-transformers) run first; their columns feed ``host_prepare`` and the
-direct vector uploads.
+transformers, the map key filters and extractors, the term frequencies
+and IDF, stop words, Jaccard) run first; their columns feed
+``host_prepare`` and the direct vector uploads.
 
 Not carried over from the JAX package: the circuit breaker to the host
 tier, the link-bandwidth gate, the planner's rewrites (CSE, pruning),
@@ -54,16 +57,17 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .columns import (ColumnStore, GeoColumn, NumericColumn,
+from .columns import (ColumnStore, GeoColumn, MapColumn, NumericColumn,
                       PredictionColumn, RaggedColumn, TextColumn,
-                      TextListColumn, TextSetColumn, VectorColumn)
+                      TextListColumn, TextSetColumn, VectorColumn,
+                      column_of_empty)
 from .models import _hist
 from .models.base import PredictorModel, device_table, resolve_device
 from .models.selector import SelectedModel
 from .ops.indexers import PredictionDeIndexerModel
 from .ops.sanity_checker import SanityCheckerModel
 from .ops.vectorizer_base import VectorizerModel, canonicalize_prepared
-from .ops.vectors import VectorsCombiner
+from .ops.vectors import StandardScalerModel, VectorsCombiner
 from .types.feature_types import OPVector
 from .vector_metadata import VectorMetadata
 
@@ -112,7 +116,8 @@ class _FusedStage:
 
     def __init__(self, model, kind: str, out: str, ins: List[str]):
         self.model = model
-        self.kind = kind      # vec | combine | select | predict | deindex
+        self.kind = kind      # vec | combine | select | scale | predict
+        #                       | deindex
         self.out = out
         self.ins = ins        # env / upload names read (no label slots)
 
@@ -126,15 +131,15 @@ def _has_predict_device(m) -> bool:
 
 
 def _classify(m) -> Optional[str]:
-    """Device-capable kind of a fitted stage, or None (host). The JAX
-    package's "scale" kind waits for ``StandardScalerModel`` (ROADMAP
-    queue A, item 2)."""
+    """Device-capable kind of a fitted stage, or None (host)."""
     if isinstance(m, VectorizerModel):
         return "vec"
     if isinstance(m, VectorsCombiner):
         return "combine"
     if isinstance(m, SanityCheckerModel):
         return "select"
+    if isinstance(m, StandardScalerModel):
+        return "scale"
     if isinstance(m, PredictorModel) and _has_predict_device(m):
         return "predict"
     if isinstance(m, PredictionDeIndexerModel):
@@ -395,6 +400,8 @@ class ScoringEngine:
                                                    dtype=np.int64),
                                         x.device)
                     env[it.out] = x.index_select(1, keep)
+            elif it.kind == "scale":
+                env[it.out] = m.scale_device(env[it.ins[0]])
             elif it.kind == "predict":
                 env[it.out] = m.predict_device(env[it.ins[0]])
             else:                                        # deindex
@@ -479,6 +486,8 @@ class ScoringEngine:
                              else None)
             elif it.kind == "select":
                 w[it.out] = len(it.model.keep_indices)
+            elif it.kind == "scale":
+                w[it.out] = w.get(it.ins[0])
             else:
                 w[it.out] = None
         return w
@@ -507,6 +516,8 @@ class ScoringEngine:
             meta = meta.select(it.model.keep_indices)
             meta.name = it.out
             return meta
+        if it.kind == "scale":
+            return in_meta(it.ins[0])
         return None
 
     def run_batch(self, prep: _PreparedBatch, results_only: bool = True,
@@ -601,6 +612,14 @@ def _concat_stores(stores: List[ColumnStore]) -> ColumnStore:
             cols[nm] = GeoColumn(
                 c0.ftype, np.concatenate([p.values for p in parts]),
                 np.concatenate([p.mask for p in parts]))
+        elif isinstance(c0, MapColumn):
+            keys = sorted({k for p in parts for k in p.children})
+            children = {k: _concat_stores([ColumnStore(
+                {k: p.children.get(k) or column_of_empty(
+                    c0.ftype.element_type, p.n_rows)}, p.n_rows)
+                for p in parts])[k] for k in keys}
+            cols[nm] = MapColumn(c0.ftype, children,
+                                 sum(p.n_rows for p in parts))
         elif isinstance(c0, RaggedColumn):
             lengths = np.concatenate([np.diff(p.offsets) for p in parts])
             cols[nm] = RaggedColumn(

@@ -37,7 +37,9 @@ def register_stage(cls):
 _STAGE_MODULES = ("..stages.generator", "..dsl", "..ops.numeric",
                   "..ops.onehot", "..ops.smart_text", "..ops.hashing",
                   "..ops.dates", "..ops.vectors", "..ops.sanity_checker",
-                  "..ops.text", "..ops.indexers", "..models")
+                  "..ops.text", "..ops.indexers", "..ops.geo",
+                  "..ops.date_list", "..ops.scalers", "..ops.maps",
+                  "..ops.dt_bucketizer", "..ops.list_ops", "..models")
 
 
 def ctor_kwargs(cls, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -357,7 +359,7 @@ class Estimator(OpPipelineStage):
             model = self.fit_columns_from_stats(store, stats)
         model.uid = self.uid
         model.parent_estimator_uid = self.uid
-        model.input_features = self.input_features
+        model.input_features = self.fitted_inputs()
         model._output_feature = self.get_output()
         if not hasattr(model, "_ctor_params"):
             model._ctor_params = {}
@@ -365,6 +367,11 @@ class Estimator(OpPipelineStage):
 
     def fit_columns(self, store: ColumnStore) -> FittedModel:
         raise NotImplementedError
+
+    def fitted_inputs(self) -> Tuple[Feature, ...]:
+        """The inputs the fitted model reads: all of the estimator's,
+        unless the fit needed one that scoring does not (a label)."""
+        return self.input_features
 
     # -- fused fit-statistics protocol (fitstats.py) -----------------------
     def stat_requests(self, store: ColumnStore):

@@ -265,7 +265,7 @@ class Workflow:
         warm = self._warm_stages.get(stage.uid)
         if warm is not None:
             model = _copy.copy(warm)
-            model.input_features = stage.input_features
+            model.input_features = stage.fitted_inputs()
             model._output_feature = stage.get_output()
             metrics["warmStarted"] = True
             metrics["fitSeconds"] = 0.0
