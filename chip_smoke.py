@@ -144,9 +144,36 @@ Run from the repository root on a machine with one NVIDIA H100:
    mapprep-200k model saved, loaded afresh and scored through the engine:
    predictions equal to the layer path's, probabilities within 2^-22;
    Score seconds and rows/s.
+10. the guard rails (mapprep-guarded-200k): phase 9's 200,000 records
+   through mapprep's workflow with the default families at one grid point
+   each, behind the RawFeatureFilter (scoring data: 50,000 records from
+   seed 8 whose attrs lost their "region" key) and under workflow-level
+   CV (3 folds: the label-aware stages refit in each fold, each fold's
+   matrix binned and swept on the card), counted; then ModelInsights over
+   the training records, LOCO (top 20) of the selected model and the corr
+   insights over 20,000 scoring records, and LOCO of a GBT fitted on the
+   training vector (``predict_trees`` at 113 · 20,000 rows). Fails unless
+   ``(attrs, region)`` is excluded, no region column reaches the vector,
+   the summary is a ``WorkflowCV:`` one, every tree family's every fold
+   launched each tree kernel, and ``predict_trees`` launched in LOCO.
+   Prints the exclusions, the width, the *during* stages, each family's
+   fold metrics, the winner, the train seconds by phase (filter,
+   vectorize, sweep, refit), the insights, LOCO and corr seconds and the
+   top five contributions. Then the same at 20,000 records (5,000 scoring
+   records) on the card and the CPU: the filter's results JSON equal, the
+   blacklist, the width, the winner and every family's fold metrics
+   within 1e-4, the contributions within 1e-5 of the largest, the card
+   model's LOCO (selected and GBT) on the card and the CPU within 1e-6
+   with the top-K names equal but at ties, the corr importances within
+   1e-5; every kernel held at one workflow-CV fold's matrix
+   (``check_mapprep_kernels``); ``predict_trees`` at the LOCO batch
+   against its plain version, timed with its bound; and the guarded
+   model with its LOCO stage saved, loaded (the filter's results and the
+   blacklist equal, LOCO re-attached) and scored through the engine as
+   the layer path scores it.
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
-boston-200k and mapprep-200k) once more under ``torch.profiler`` and
+boston-200k, mapprep-200k and mapprep-guarded-200k) once more under ``torch.profiler`` and
 prints its device-time table: the busy share, the device operations a tree level, the histogram
 kernels, the split scans, the route or level epilogue, the predict and the
 uint8 → bool copies.
@@ -161,7 +188,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–9).
+over the main paths' runs, phases 3–10).
 """
 import json
 import math
@@ -1976,11 +2003,11 @@ def mapprep_stats(rng, kind, y):
     return st
 
 
-def check_mapprep_kernels(H, TF, dev, X, y):
+def check_mapprep_kernels(H, TF, dev, X, y, run="mapprep"):
     """Phase 9's kernels at the shapes the mapprep vector gives them, each
     against its plain version on the card. ``X`` [n, F] is the combined
-    vector of the default-families agreement on one CV fold's training
-    rows, ``y`` its label. Binned as the tree families bin it (its
+    vector of one CV fold's training rows (``run`` names the run), ``y``
+    its label. Binned as the tree families bin it (its
     indicator columns in the 2-bin block, the rest in the 32-bin block;
     both widths read off the vector): ``group_rows`` exact; ``cumhist``
     and ``cumhist_sparse01`` on each block (counts exact, weighted
@@ -2059,7 +2086,7 @@ def check_mapprep_kernels(H, TF, dev, X, y):
             fail(f"predict_trees differs at the mapprep shape (F={Fm} T={T} "
                  f"D={D} K={K}): max abs err {err:.3g}")
         worst["predict_trees"] = max(worst["predict_trees"], err)
-    print(f"mapprep kernels at the vector's shapes ({n} rows, F={Fm}: "
+    print(f"{run} kernels at the vector's shapes ({n} rows, F={Fm}: "
           f"{widths[0]} columns in the 32-bin block, {widths[1]} in the "
           f"2-bin block): group_rows exact; cumhist and cumhist_sparse01 "
           f"counts exact, weighted channels within {REL_TOL:g}, two calls "
@@ -2075,19 +2102,23 @@ def check_mapprep_kernels(H, TF, dev, X, y):
     return worst
 
 
-def mapprep_paths(H, TF, MP, root, profile=False, dev="cuda"):
+def mapprep_paths(H, TF, MP, root, profile=False, dev="cuda", records=None,
+                  records_s=0.0):
     """Phase 9, parts 2-4: mapprep-200k (the example's logistic regression,
     3-fold CV, AuPR) counted; the default families at one grid point each
     on the first 20,000 records, card against CPU, counted on the card
     (the tree kernels must launch), and the kernels held at that vector's
     shapes (:func:`check_mapprep_kernels`); and the 200k model saved,
-    loaded and scored through the engine against the layer path. Returns
-    ({path: launches}, each kernel's max abs error at those shapes)."""
+    loaded and scored through the engine against the layer path.
+    ``records``: the path's (made here from MAPPREP_SEED when None, in
+    ``records_s`` seconds). Returns ({path: launches}, each kernel's max
+    abs error at those shapes)."""
     from transmogrifai_tpu_torch.workflow import WorkflowModel
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    records = MP.make_records(N, MAPPREP_SEED)
-    records_s = time.perf_counter() - t0
+    if records is None:
+        t0 = time.perf_counter()
+        records = MP.make_records(N, MAPPREP_SEED)
+        records_s = time.perf_counter() - t0
     out, launches = counted(H, lambda: MP.run(
         N, seed=MAPPREP_SEED, device=dev, records=records), ())
     s, aupr = out["summary"], out["metrics"]["AuPR"]
@@ -2161,6 +2192,413 @@ def mapprep_paths(H, TF, MP, root, profile=False, dev="cuda"):
           f"within 2^-22")
     print(f"phase 9 mapprep: {time.perf_counter() - t_phase:.2f} s")
     return paths, worst
+
+
+# -- phase 10: the guard rails; mapprep-guarded-200k -----------------------
+#: the filter's scoring records: seed 8, every record's attrs without the
+#: "region" key (a key that disappeared upstream)
+GUARD_SCORE_N, GUARD_SCORE_SEED = 50_000, 8
+#: scoring records explained by LOCO and corr on the path
+LOCO_ROWS = 20_000
+#: the agreement's scoring records (its training records: the first
+#: MAPPREP_AGREE_N of the path's)
+GUARD_AGREE_SCORE_N = 5_000
+#: card/CPU LOCO diffs of one f32 model: each probability within 2^-22
+LOCO_ATOL = 1e-6
+GUARD_KERNELS = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
+                 "level_epilogue")
+
+
+def guard_scoring_records(MP, n):
+    recs = MP.make_records(n, GUARD_SCORE_SEED)
+    for r in recs:
+        r["attrs"].pop("region", None)
+    return recs
+
+
+def spy_folds(H, validator, keep_fold=False):
+    """Wrap ``validator``'s per-fold sweep: every (family, fold)'s kernel
+    launches, and with ``keep_fold`` fold 0's (X, y) training rows."""
+    per_fold, fold0 = [], {}
+    sweep, per_fold_fn = validator._sweep_fold, validator.validate_per_fold
+
+    def spy(family, groups, metric_fn, Xarg, yd, w, v, y, vm, metrics, k):
+        torch.cuda.synchronize()
+        before = dict(H.KERNEL_LAUNCHES)
+        sweep(family, groups, metric_fn, Xarg, yd, w, v, y, vm, metrics, k)
+        torch.cuda.synchronize()
+        per_fold.append((family.name, k, {
+            n: H.KERNEL_LAUNCHES[n] - before[n] for n in before}))
+
+    def keep(families, fold_data, **kw):
+        if keep_fold:
+            X, y, w = fold_data[0][:3]
+            fold0["X"], fold0["y"] = X[w > 0], y[w > 0]
+        return per_fold_fn(families, fold_data, **kw)
+    validator._sweep_fold = spy
+    validator.validate_per_fold = keep
+    return per_fold, fold0
+
+
+def guarded_run(H, MP, records, score_records, dev, loco_rows,
+                keep_fold=False):
+    """mapprep's workflow with the default families at one grid point
+    each, behind the RawFeatureFilter (scoring data: ``score_records``)
+    and under workflow-level CV, trained on ``dev``; then its insights
+    over the training records, a LOCO (top 20) of the selected model and
+    the corr insights (fitted on the training records) over the first
+    ``loco_rows`` scoring records, and LOCO of the GBT of
+    :func:`titanic_one_point` fitted by ``OpGBTClassifier`` on the
+    training vector. Every part timed; the workflow's per-fold launches
+    recorded (:func:`spy_folds`)."""
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.filters import RawFeatureFilter
+    from transmogrifai_tpu_torch.insights import (RecordInsightsCorr,
+                                                  RecordInsightsLOCO)
+    from transmogrifai_tpu_torch.models import OpGBTClassifier
+    store = MP.records_store(records)
+    sstore = MP.records_store(score_records)
+    wf = MP.build_workflow(store, families=titanic_one_point(),
+                           seed=MAPPREP_SEED)
+    wf["workflow"].with_raw_feature_filter(
+        RawFeatureFilter(scoring_data=sstore)).with_workflow_cv()
+    per_fold, fold0 = spy_folds(H, wf["selector"].validator, keep_fold)
+    out = {"store": store, "per_fold": per_fold, "fold0": fold0,
+           "prediction": wf["prediction"], "label": wf["label"]}
+    t0 = time.perf_counter()
+    model = out["model"] = wf["workflow"].train(device=dev)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    sel = out["selected"] = model.fitted_stages[wf["selector"].uid]
+    out["summary"] = sel.selector_summary
+    vec = out["vector"] = sel.input_features[1]
+    t0 = time.perf_counter()
+    out["insights"] = model.model_insights(wf["prediction"], store=store,
+                                           device=dev)
+    out["insights_s"] = time.perf_counter() - t0
+    head = sstore.take(np.arange(min(loco_rows, sstore.n_rows)))
+    scored = out["scored"] = model.transform(head, device=dev, engine=False)
+    out["X"] = np.asarray(scored[vec.name].values, dtype=np.float64)
+    out["width"] = out["X"].shape[1]
+    loco = out["loco"] = RecordInsightsLOCO(model=sel, top_k=20)
+    loco.set_input(vec)
+    t0 = time.perf_counter()
+    out["loco_cells"] = loco.transform_columns(scored, device=dev)
+    torch.cuda.synchronize()
+    out["loco_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trained = model.transform(store, device=dev, engine=False)
+    out["transform_s"] = time.perf_counter() - t0
+    evaluator = Evaluators.BinaryClassification.auPR().set_columns(
+        wf["label"], wf["prediction"])
+    out["metrics"] = evaluator.evaluate_all(trained)
+    t0 = time.perf_counter()
+    corr = RecordInsightsCorr(top_k=20)
+    corr.set_input(wf["prediction"], vec)
+    out["corr"] = corr.fit(trained, device=dev)
+    out["corr_cells"] = out["corr"].transform_columns(scored, device=dev)
+    torch.cuda.synchronize()
+    out["corr_s"] = time.perf_counter() - t0
+    est = OpGBTClassifier(max_depth=3, min_instances_per_node=10,
+                          min_info_gain=0.001)
+    est.set_input(wf["label"], vec)
+    out["gbt"] = est.fit(trained, device=dev)
+    gloco = out["gbt_loco"] = RecordInsightsLOCO(model=out["gbt"], top_k=20)
+    gloco.set_input(vec)
+    torch.cuda.synchronize()
+    before = H.KERNEL_LAUNCHES["predict_trees"]
+    t0 = time.perf_counter()
+    out["gbt_loco_cells"] = gloco.transform_columns(scored, device=dev)
+    torch.cuda.synchronize()
+    out["gbt_loco_s"] = time.perf_counter() - t0
+    out["gbt_loco_launches"] = H.KERNEL_LAUNCHES["predict_trees"] - before
+    return out
+
+
+def fold_launches(out, what):
+    """Every tree family's every fold launched each tree kernel; returns
+    the sweep's launches summed by kernel."""
+    trees = [(f, k, c) for f, k, c in out["per_fold"]
+             if f in ("OpRandomForestClassifier", "OpGBTClassifier")]
+    folds = {(f, k) for f, k, _ in trees}
+    if len(folds) != 6:
+        fail(f"{what}: {len(folds)} tree family folds swept, not 2 x 3")
+    for f, k, c in trees:
+        missing = [n for n in GUARD_KERNELS if c[n] == 0]
+        if missing:
+            fail(f"{what}: {f} fold {k} never launched {missing}")
+    return {n: sum(c[n] for _f, _k, c in out["per_fold"])
+            for n in GUARD_KERNELS + ("predict_trees",)}
+
+
+def top_names_agree(loco, X, tol, what, dev="cuda"):
+    """One model's LOCO on the card against the CPU: diffs within ``tol``;
+    the card's top K the stable descending order of its own |diffs|; each
+    row's top-K names the CPU's wherever neighbouring |diffs| differ by
+    more than ``tol``. Returns the max abs difference."""
+    da = loco.loco_diffs(X, device=dev)
+    db = loco.loco_diffs(X, device="cpu")
+    err = float(np.max(np.abs(da - db), initial=0.0))
+    if not err <= tol:
+        fail(f"{what}: LOCO diffs differ by {err:.3g} between the card and "
+             "the CPU")
+    oa, _va = loco.top_diffs(X, device=dev)
+    ob, _vb = loco.top_diffs(X, device="cpu")
+    k = oa.shape[0]
+    if not np.array_equal(oa, np.argsort(-np.abs(da), axis=0,
+                                         kind="stable")[:k]):
+        fail(f"{what}: the card's top-K order is not the stable order of "
+             "its |diffs|")
+    s = -np.sort(-np.abs(db), axis=0)                  # [d, n] descending
+    gap = s[:-1] - s[1:]
+    near = np.zeros((k, s.shape[1]), dtype=bool)
+    near[:] = gap[:k] <= tol
+    near[1:] |= gap[:k - 1] <= tol
+    if np.any((oa != ob) & ~near):
+        fail(f"{what}: the top-K names differ where the |diffs| do not tie")
+    return err
+
+
+def guard_agreement(H, MP, records, dev="cuda"):
+    """Phase 10's card/CPU agreement: the guarded workflow on the first
+    MAPPREP_AGREE_N training records and GUARD_AGREE_SCORE_N scoring
+    records on the card (counted: the tree kernels in every fold) and on
+    the CPU. The filter's results JSON exactly equal; the blacklist and
+    the width; the winner and every family's fold metrics within 1e-4;
+    the insights' contributions within 1e-5 of the largest; the card
+    model's LOCO (selected and GBT) on the card against the CPU (diffs
+    within LOCO_ATOL, top-K names); the corr importances within 1e-5.
+    Returns (card launches, LOCO and corr max abs differences)."""
+    small = records[:MAPPREP_AGREE_N]
+    srecs = guard_scoring_records(MP, GUARD_AGREE_SCORE_N)
+    runs = {}
+    runs["cuda"], launches = counted(H, lambda: guarded_run(
+        H, MP, small, srecs, dev, GUARD_AGREE_SCORE_N),
+        GUARD_KERNELS + ("predict_trees",))
+    fold_launches(runs["cuda"], "guarded 20k (card)")
+    runs["cpu"] = guarded_run(H, MP, small, srecs, "cpu",
+                              GUARD_AGREE_SCORE_N)
+    a, b = runs["cuda"], runs["cpu"]
+    if json.dumps(a["model"].rff_results.to_json(), sort_keys=True) != \
+            json.dumps(b["model"].rff_results.to_json(), sort_keys=True):
+        fail("guarded 20k: the filter's results differ on the card and "
+             "the CPU")
+    if ([f.name for f in a["model"].blacklisted_features],
+            a["width"]) != ([f.name for f in b["model"].blacklisted_features],
+                            b["width"]):
+        fail("guarded 20k: blacklist or width differs on the card and CPU")
+    agree_metric(runs, "AuPR", 1e-4,
+                 f"guarded mapprep, {MAPPREP_AGREE_N} records")
+
+    def contribs(o):
+        return np.array([d.contribution or 0.0 for f in o["insights"].features
+                         for d in f.derived])
+    ca, cb = contribs(a), contribs(b)
+    d_contrib = float(np.max(np.abs(ca - cb), initial=0.0)
+                      / max(np.abs(cb).max(initial=0.0), 1e-300))
+    if ca.shape != cb.shape or not d_contrib <= 1e-5:
+        fail(f"guarded 20k: contributions differ by {d_contrib:.3g} of the "
+             "largest")
+    X = a["X"]
+    err = {"loco": top_names_agree(a["loco"], X, LOCO_ATOL,
+                                   "guarded 20k LOCO", dev),
+           "gbt_loco": top_names_agree(a["gbt_loco"], X, LOCO_ATOL,
+                                       "guarded 20k GBT LOCO", dev)}
+    ia = a["corr"].importances(X, device=dev)[1]
+    ib = b["corr"].importances(X, device="cpu")[1]
+    err["corr"] = float(np.max(np.abs(ia - ib), initial=0.0))
+    if not err["corr"] <= 1e-5:
+        fail(f"guarded 20k: corr importances differ by {err['corr']:.3g}")
+    print(f"guarded mapprep {MAPPREP_AGREE_N} records: filter results JSON "
+          f"equal, width {a['width']}, contributions within "
+          f"{d_contrib:.3g} of the largest, LOCO max |d| {err['loco']:.3g} "
+          f"(GBT {err['gbt_loco']:.3g}; limit {LOCO_ATOL:g}), top-K names "
+          f"equal but at ties, corr max |d| {err['corr']:.3g} (limit 1e-5)")
+    return launches, err
+
+
+def check_loco_predict(H, gbt, X, dev):
+    """``predict_trees`` at the LOCO batch: the GBT's trees over the
+    [C·n, d] zeroed rows (C = d columns of ``X``, one chunk), against its
+    plain version on the card, timed beside it, with its bound (the rows'
+    bytes, n·F·4, and the trees', over the memory rate). Returns
+    (max abs err, ms, plain ms, (bytes s, operations s), n)."""
+    tabs = gbt._tables(dev)
+    leaf = tabs["leaf"] * tabs["tree_w"][:, None, None]
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    n, d = Xd.shape
+    C = min(128, d)
+    Xz = Xd.unsqueeze(0).expand(C, n, d).clone()
+    Xz[torch.arange(C, device=dev), :, torch.arange(C, device=dev)] = 0.0
+    Xb = Xz.reshape(C * n, d)
+    del Xz
+    D, (T, _NN) = gbt.max_depth, tabs["feat"].shape
+
+    def kernel():
+        return H.predict_trees(Xb, tabs["feat"], tabs["thr"], leaf, D)
+
+    def plain():
+        return H.predict_trees_reference(Xb, tabs["feat"], tabs["thr"],
+                                         leaf, D)
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    if rel_err(out, ref) > REL_TOL:
+        fail(f"predict_trees at the LOCO batch (n={C * n}, F={d}, T={T}, "
+             f"D={D}): max abs err {err:.3g}")
+    ms, plain_ms = time_ms(kernel, reps=5), time_ms(plain, reps=3)
+    bound = predict_bound(d, T, D, 1, n=C * n)
+    print(f"predict_trees at the LOCO batch n={C * n} F={d} T={T} D={D}: "
+          f"within {REL_TOL:g} of its plain version (max abs err "
+          f"{err:.3g}, bitwise equal: {torch.equal(out, ref)}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{1e3 * max(bound):.5f} ms ({'bytes' if bound[0] >= bound[1] else 'operations'})")
+    return err, ms, plain_ms, bound, C * n
+
+
+def guard_second_life(H, out, root, dev="cuda"):
+    """The guarded 200k model with its LOCO stage saved, loaded afresh:
+    the filter's results and the blacklist equal, LOCO re-attached to the
+    loaded selected model, and LOCO_ROWS scoring records scored through
+    the engine equal to the saved model's layer path (predictions; the
+    probabilities within PROB_ATOL; each row's LOCO cell with the same
+    names, but where the K-th |diff| ties, and the diffs within
+    LOCO_ATOL)."""
+    from transmogrifai_tpu_torch.insights import parse_insights
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    model, loco, sel = out["model"], out["loco"], out["selected"]
+    pred, cells = out["prediction"], loco.get_output()
+    saved = WorkflowModel([pred, cells],
+                          {**model.fitted_stages, loco.uid: loco},
+                          blacklisted_features=model.blacklisted_features,
+                          rff_results=model.rff_results)
+    path = os.path.join(root, "build", "serve", "mapprep-guarded")
+    t0 = time.perf_counter()
+    saved.save(path, overwrite=True)
+    loaded = WorkflowModel.load(path)
+    io_s = time.perf_counter() - t0
+    if json.dumps(loaded.rff_results.to_json(), sort_keys=True) != \
+            json.dumps(model.rff_results.to_json(), sort_keys=True):
+        fail("guarded model: the filter's results changed in the save")
+    if [f.uid for f in loaded.blacklisted_features] != \
+            [f.uid for f in model.blacklisted_features]:
+        fail("guarded model: the blacklist changed in the save")
+    stage = next(f for f in loaded.result_features
+                 if f.name == cells.name).origin_stage
+    if stage.model is not loaded.fitted_stages.get(sel.uid):
+        fail("guarded model: LOCO is not re-attached to the loaded "
+             "selected model")
+    head = out["scored"]
+    raw = head.select([f.name for f in model.result_features[0]
+                       .raw_features()])
+    t0 = time.perf_counter()
+    got = loaded.score(raw, device=dev, engine=True)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    want = saved.score(raw, device=dev, engine=False)
+    same_predictions(got[pred.name], want[pred.name], "guarded Score",
+                     prob_atol=PROB_ATOL)
+    worst, tied = 0.0, 0
+    K = min(loco.top_k, out["width"])
+    for i in range(raw.n_rows):
+        x = parse_insights(got[cells.name].get_raw(i))
+        y = parse_insights(want[cells.name].get_raw(i))
+        for k in set(x) & set(y):
+            worst = max(worst, abs(x[k] - y[k]))
+        # a cell holds the top K nonzero diffs: a column in one cell only
+        # lies at most at the other's K-th |diff| (at 0 where the other
+        # holds fewer than K)
+        for a, b in ((x, y), (y, x)):
+            edge = min(map(abs, b.values())) if len(b) == K else 0.0
+            for k in set(a) - set(b):
+                if not abs(a[k]) <= edge + LOCO_ATOL:
+                    fail(f"guarded Score: row {i}'s LOCO names differ "
+                         f"where the |diffs| do not tie ({k})")
+        tied += set(x) != set(y)
+    if not worst <= LOCO_ATOL:
+        fail(f"guarded Score: LOCO cells differ by {worst:.3g}")
+    print(f"guarded serve: save + load {io_s:.2f} s; filter results and "
+          f"blacklist equal; LOCO re-attached; Score of {raw.n_rows} "
+          f"records with LOCO {score_s:.2f} s through the engine, "
+          f"predictions equal to the layer path's, probabilities within "
+          f"2^-22, LOCO cells within {worst:.3g} with the same names but "
+          f"at ties ({tied} rows)")
+
+
+def guarded_paths(H, TF, MP, records, root, profile=False, dev="cuda"):
+    """Phase 10: mapprep-guarded-200k counted (the tree kernels in every
+    fold, ``predict_trees`` in LOCO); its kernels at the path's shapes;
+    the card/CPU agreement at 20,000 records; the second life. Returns
+    ({path: launches}, each kernel's max abs error, the LOCO-batch
+    ``predict_trees`` row)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    srecs = guard_scoring_records(MP, GUARD_SCORE_N)
+    score_records_s = time.perf_counter() - t0
+    out, launches = counted(H, lambda: guarded_run(
+        H, MP, records, srecs, dev, LOCO_ROWS, keep_fold=True),
+        GUARD_KERNELS + ("predict_trees",))
+    sweep = fold_launches(out, "mapprep-guarded-200k")
+    model, s = out["model"], out["summary"]
+    excluded = [(r.name, r.key) for r in model.rff_results.exclusion_reasons
+                if r.excluded]
+    if ("attrs", "region") not in excluded:
+        fail("mapprep-guarded-200k: (attrs, region) was not excluded")
+    names = out["scored"][out["vector"].name].metadata.column_names()
+    if any("region" in nm for nm in names):
+        fail("mapprep-guarded-200k: a region column reached the vector")
+    vtype = s.validator_summary.validation_type
+    if not vtype.startswith("WorkflowCV:"):
+        fail(f"mapprep-guarded-200k: summary type {vtype}")
+    if out["gbt_loco_launches"] < 1:
+        fail("mapprep-guarded-200k: predict_trees never launched in LOCO")
+    from transmogrifai_tpu_torch.graph import cut_dag
+    _ms, _b, during, _a = cut_dag(model.result_features)
+    ph = model.phase_seconds
+    print(f"mapprep-guarded-200k: filter excluded {excluded}, blacklisted "
+          f"{[f.name for f in model.blacklisted_features]}; width "
+          f"{out['width']}; during stages "
+          f"{[sorted(type(x).__name__ for x in layer) for layer in during]}")
+    for r in s.validator_summary.results:
+        print(f"mapprep-guarded-200k fold metrics: {r.family_name} "
+              f"{r.hparams} {r.metric_values} mean {r.mean_metric:.6f}")
+    print(f"mapprep-guarded-200k: {vtype}, best {s.best_model_name} "
+          f"{s.best_model_params}, AuPR {out['metrics']['AuPR']:.6f}; "
+          f"scoring records {score_records_s:.2f} s; train "
+          f"{out['train_s']:.2f} s (filter {ph['rawFeatureFilter']:.2f}, "
+          f"vectorize {ph['before'] + ph['foldFeatures']:.2f} = before "
+          f"{ph['before']:.2f} + fold features {ph['foldFeatures']:.2f}, "
+          f"workflow-CV sweep {ph['cvSweep']:.2f}, refit "
+          f"{ph['final']:.2f}); insights {out['insights_s']:.2f} s, LOCO "
+          f"{out['loco_s']:.2f} s, training transform "
+          f"{out['transform_s']:.2f} s, corr {out['corr_s']:.2f} s, GBT "
+          f"LOCO {out['gbt_loco_s']:.2f} s ({out['gbt_loco_launches']} "
+          f"predict_trees launches); CV s by family "
+          f"{s.validator_summary.family_seconds}")
+    top = sorted(((d.contribution, d.column_name) for f in
+                  out["insights"].features for d in f.derived
+                  if d.contribution is not None), reverse=True)[:5]
+    print(f"mapprep-guarded-200k top contributions: "
+          f"{[(nm, round(c, 6)) for c, nm in top]}")
+    print(f"mapprep-guarded-200k launches: {launches}; the sweep's: {sweep}")
+    paths = {"mapprep-guarded-200k": launches}
+    if profile:
+        profile_path(H, "mapprep-guarded-200k", lambda: guarded_run(
+            H, MP, records, srecs, dev, LOCO_ROWS))
+
+    paths["mapprep-guarded-20k"], errs = guard_agreement(H, MP, records,
+                                                         dev)
+    fold0 = out.pop("fold0")
+    worst = check_mapprep_kernels(H, TF, dev, fold0["X"], fold0["y"],
+                                  "mapprep-guarded-200k workflow-CV fold 0")
+    del fold0
+    err, ms, plain_ms, bound, n_loco = check_loco_predict(
+        H, out["gbt"], out["X"], dev)
+    worst["predict_trees"] = max(worst["predict_trees"], err)
+    guard_second_life(H, out, root, dev)
+    print(f"phase 10: {time.perf_counter() - t_phase:.2f} s")
+    return paths, worst, {"ms": ms, "plain_ms": plain_ms, "bound": bound,
+                          "n": n_loco, "max_abs_err": err, **errs}
 
 
 def timings(H, dev, BP, run):
@@ -2348,11 +2786,22 @@ def main():
     # -- phase 9: every feature type; mapprep-200k ------------------------
     t0 = time.perf_counter()
     check_every_type()
-    mapprep_launches, worst = mapprep_paths(H, TF, MP, root, profile)
+    t1 = time.perf_counter()
+    mapprep_records = MP.make_records(N, MAPPREP_SEED)
+    mapprep_launches, worst = mapprep_paths(
+        H, TF, MP, root, profile, records=mapprep_records,
+        records_s=time.perf_counter() - t1)
     path_launches.update(mapprep_launches)
     for name, err in worst.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     print(f"phase 9: {time.perf_counter() - t0:.2f} s")
+
+    # -- phase 10: the guard rails; mapprep-guarded-200k ------------------
+    guard_launches, worst, loco_row = guarded_paths(
+        H, TF, MP, mapprep_records, root, profile)
+    path_launches.update(guard_launches)
+    for name, err in worst.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",
@@ -2381,6 +2830,9 @@ def main():
     for what, (ms, plain_ms, bound) in wide.items():
         print(f"{what} (phase 8): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {1e3 * bound:.5f} ms")
+    print(f"predict_trees at the LOCO batch (phase 10, n={loco_row['n']}): "
+          f"{loco_row['ms']:.4f} ms, plain {loco_row['plain_ms']:.4f} ms, "
+          f"bound {1e3 * max(loco_row['bound']):.5f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -81,3 +81,18 @@ def test_feature_type_modules_are_scanned(module):
     assert path in SOURCES
     dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
     assert dotted in _modules()
+
+
+@pytest.mark.parametrize("module", [
+    "filters/__init__.py", "filters/distribution.py",
+    "filters/raw_feature_filter.py", "insights/__init__.py",
+    "insights/model_insights.py", "insights/loco.py", "insights/corr.py"])
+def test_guard_modules_are_scanned(module):
+    """The RawFeatureFilter and the insights are among the sources scanned
+    above and the modules imported with ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    if dotted.endswith(".__init__"):
+        dotted = dotted[:-len(".__init__")]
+    assert dotted in _modules()

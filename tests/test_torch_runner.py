@@ -1,8 +1,9 @@
 """The port's runner (``transmogrifai_tpu_torch/runner.py``) beside the JAX
 package's: Train → Score → Evaluate → Features on the CPU with the same
 records, the metrics documents' keys, stage-parameter overrides, the
-``OpApp`` entry, the written CSV, and what is not ported raising with
-its ROADMAP queue A item."""
+``OpApp`` entry, the written CSV, a workflow with the RawFeatureFilter
+and workflow-level CV (the filter's verdict in Train's metrics), and what
+is not ported raising with its ROADMAP queue A item."""
 import csv
 import json
 import os
@@ -205,9 +206,6 @@ UNPORTED = {
         model_location=p.model_location, write_location="s.avro")),
         "item 6"),
     "yaml": (lambda r, p: OpParams.from_file("p.yaml"), "item 6"),
-    "workflow_cv": (lambda r, p: r.workflow.with_workflow_cv(), "item 1"),
-    "raw_feature_filter": (
-        lambda r, p: r.workflow.with_raw_feature_filter(None), "item 1"),
 }
 
 
@@ -221,3 +219,79 @@ def test_unported_parts_raise_naming_their_item(what, tmp_path):
     call, item = UNPORTED[what]
     with pytest.raises(NotImplementedError, match=f"queue A,? {item}"):
         call(runner, params)
+
+
+def _guarded_flow(FB, transmogrify, S, LR, W, RFF):
+    """``_flow`` with a second predictor that is never filled and the
+    SanityChecker, behind the RawFeatureFilter (which blacklists
+    ``dead``) and workflow-level CV (which refits the SanityChecker in
+    each fold)."""
+    label = FB.RealNN("label").from_column().as_response()
+    fx = FB.Real("x").from_column().as_predictor()
+    dead = FB.Real("dead").from_column().as_predictor()
+    sel = S.with_cross_validation(num_folds=2, families=[LR()],
+                                  splitter=None, seed=5)
+    pred = label.transform_with(sel, label.sanity_check(
+        transmogrify([fx, dead])))
+    wf = (W().set_result_features(pred)
+          .with_raw_feature_filter(RFF(min_fill=0.10)).with_workflow_cv())
+    return wf, label, pred
+
+
+def _guarded_runners(tmp_path):
+    from transmogrifai_tpu.filters import RawFeatureFilter as JRFF
+    from transmogrifai_tpu_torch.filters import RawFeatureFilter as PRFF
+    records = [dict(r, dead=None) for r in _records()]
+    out = []
+    for pkg, (FB, tm, S, LR, W, RFF, Runner, Params, Ev, uid, kw) in (
+            ("jax", (JFB, jtransmogrify, JS, JLR, JWorkflow, JRFF, JRunner,
+                     JOpParams, JEv, juid, {})),
+            ("port", (PFB, ptransmogrify, PS, PLR, PWorkflow, PRFF,
+                      OpWorkflowRunner, OpParams, PEv, puid,
+                      {"device": "cpu", "dtype": torch.float64}))):
+        uid.reset()
+        wf, label, pred = _guarded_flow(FB, tm, S, LR, W, RFF)
+        reader = _ListReader(records)
+        runner = Runner(wf, training_reader=reader, scoring_reader=reader,
+                        evaluator=Ev.BinaryClassification.auPR()
+                        .set_columns(label, pred), **kw)
+        params = Params(model_location=str(tmp_path / pkg / "model"))
+        out.append((runner, params, pred))
+    return out
+
+
+def test_runner_reports_raw_feature_filter(tmp_path):
+    """Train's ``rawFeatureFilter`` block is the filter's summary, equal to
+    the JAX runner's (``dead`` excluded); without a filter it is None."""
+    (jr, jp, _), (pr, pp, _) = _guarded_runners(tmp_path)
+    want = jr.run(RunType.TRAIN, jp).metrics["rawFeatureFilter"]
+    got = pr.run(RunType.TRAIN, pp).metrics["rawFeatureFilter"]
+    assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
+    assert got["excluded"] == ["dead"] and got["featuresChecked"] == 2
+    runner, params, _pred = _port_runner(_records(n=60), tmp_path / "plain")
+    assert runner.run(RunType.TRAIN, params).metrics[
+        "rawFeatureFilter"] is None
+
+
+def test_runner_trains_with_workflow_cv(tmp_path):
+    """Train under workflow-level CV through the runner: the saved model's
+    selector summary is a ``WorkflowCV:`` one with the JAX runner's fold
+    metrics (within 1e-9), the model loads with the filter's results, and
+    Evaluate gives the JAX runner's AuPR."""
+    from transmogrifai_tpu_torch import WorkflowModel
+    (jr, jp, jpred), (pr, pp, ppred) = _guarded_runners(tmp_path)
+    jm = jr.run(RunType.TRAIN, jp).metrics
+    pm = pr.run(RunType.TRAIN, pp).metrics
+    uid = ppred.origin_stage.uid
+    jv = jm["stages"][uid]["validationResults"]
+    pv = pm["stages"][uid]["validationResults"]
+    assert pv["validationType"] == jv["validationType"] == \
+        "WorkflowCV:CrossValidation"
+    np.testing.assert_allclose(pv["results"][0]["metricPerFold"],
+                               jv["results"][0]["metricPerFold"], rtol=0,
+                               atol=1e-9)
+    loaded = WorkflowModel.load(pp.model_location)
+    assert [r.name for r in loaded.rff_results.exclusion_reasons
+            if r.excluded] == ["dead"]
+    want = jr.run(RunType.EVALUATE, jp).metrics["AuPR"]
+    assert abs(pr.run(RunType.EVALUATE, pp).metrics["AuPR"] - want) < 1e-9

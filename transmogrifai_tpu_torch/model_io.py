@@ -33,9 +33,12 @@ fitted bucketizer the label, which its label-leakage check refuses (so it
 cannot load its own save of such a workflow). A JAX-package save loads
 here through the stage records' inputs.
 
-``fitSufficientStats`` and ``rawFeatureFilterResults`` are kept
-as the JSON that was read and written back unchanged (their classes are
-not ported: ROADMAP queue A, items 3 and 6).
+``rawFeatureFilterResults`` is written from and read into the model's
+``filters.RawFeatureFilterResults``. ``fitSufficientStats`` is kept as the
+JSON that was read and written back unchanged (its classes are not
+ported: ROADMAP queue A, item 3). A stage that holds another stage by uid
+(``RecordInsightsLOCO``'s scored model) is re-attached by
+``rebind_stages`` once every stage of a load exists.
 """
 from __future__ import annotations
 
@@ -301,7 +304,9 @@ def save_workflow_model(model, path: str, overwrite: bool = False) -> None:
         "stages": stage_records,
         "parameters": model.parameters,
         "trainTimeSeconds": model.train_time_s,
-        "rawFeatureFilterResults": model.rff_results_json,
+        "rawFeatureFilterResults": (model.rff_results.to_json()
+                                    if model.rff_results is not None
+                                    else None),
         "fitSufficientStats": model.fit_stats_json or None,
         "weightsFile": weights_name,
     }
@@ -347,6 +352,11 @@ def rebuild_stages(records, arrays: Dict[str, np.ndarray]
         stage_by_uid[rec["uid"]] = stage_from_state(
             rec["className"], _decode_param(rec["params"], arrays), state,
             uid=rec["uid"])
+    # stages that hold another stage by uid (RecordInsightsLOCO's scored
+    # model) re-attach it now that every stage exists
+    for stage in stage_by_uid.values():
+        if hasattr(stage, "rebind_stages"):
+            stage.rebind_stages(stage_by_uid)
     return stage_by_uid
 
 
@@ -498,12 +508,17 @@ def load_workflow_model(path: str):
     result_features = [feat_by_uid[u] for u in doc["resultFeatureUids"]]
     fitted = {uid: st for uid, st in stage_by_uid.items()
               if isinstance(st, FittedModel)}
+    rff_results = None
+    if doc.get("rawFeatureFilterResults"):
+        from .filters.raw_feature_filter import RawFeatureFilterResults
+        rff_results = RawFeatureFilterResults.from_json(
+            doc["rawFeatureFilterResults"])
     model = WorkflowModel(
         result_features=result_features,
         fitted_stages=fitted,
         parameters=doc.get("parameters") or {},
         train_time_s=doc.get("trainTimeSeconds", 0.0),
-        rff_results_json=doc.get("rawFeatureFilterResults"),
+        rff_results=rff_results,
         fit_stats_json=doc.get("fitSufficientStats"))
     model.uid = doc["uid"]
     return model

@@ -9,15 +9,18 @@ regression, random forest, GBT; RMSE; ``DataSplitter``).
 sampling) → the validator sweeps every (family × grid × fold) → the best
 grid point is refit on the full prepared train → train evaluation →
 ``SelectedModel`` with a ``ModelSelectorSummary``
-(``ModelSelector.scala:135-196``). A ``DataCutter`` that re-indexed the
-labels leaves the model its ``label_mapping`` (model class → original
-label), which the model applies to every prediction.
+(``ModelSelector.scala:135-196``). Under workflow-level CV
+:meth:`ModelSelector.select_per_fold` has already swept the folds, each
+on its own feature matrix, and the fit goes straight to the refit. A
+``DataCutter`` that re-indexed the labels leaves the model its
+``label_mapping`` (model class → original label), which the model
+applies to every prediction.
 """
 from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -177,41 +180,90 @@ class ModelSelector(PredictorEstimator):
         self.splitter = splitter
         self.families = list(families or [])
         self.task = task
+        #: (family, hparams, summary) of the workflow-level CV sweep
+        #: (:meth:`select_per_fold`); taken by the next fit, which then
+        #: does not sweep again (ModelSelector.scala:135-156,
+        #: bestEstimator.getOrElse)
+        self.precomputed_ = None
+
+    def _set_classes(self, y: np.ndarray) -> None:
+        """Every family with a class count learns it from the prepared
+        labels (for regression too, where no family reads it)."""
+        n_classes = max(int(y.max()) + 1 if len(y) else 2, 2)
+        for fam in self.families:
+            if hasattr(fam, "n_classes"):
+                fam.n_classes = n_classes
+
+    def _kept_labels(self, y: np.ndarray):
+        """(kept rows mask, their relabelled labels, their weights): the
+        splitter estimates on the full labels, drops, relabels and
+        weights."""
+        if self.splitter is None:
+            return np.ones(len(y), dtype=bool), y, np.ones_like(y)
+        self.splitter.pre_validation_prepare(y)
+        keep = self.splitter.keep_mask(y)
+        y = self.splitter.relabel(y[keep])
+        return keep, y, self.splitter.sample_weights(y)
 
     def _prepared(self, X: np.ndarray, y: np.ndarray):
         """(X, y, weights) after the splitter's preparation: estimate on
         the full labels, drop, relabel, weight, physically sample."""
-        if self.splitter is None:
-            return X, y, np.ones_like(y)
-        self.splitter.pre_validation_prepare(y)
-        keep = self.splitter.keep_mask(y)
+        keep, y, w = self._kept_labels(y)
         if not keep.all():
-            X, y = X[keep], y[keep]
-        y = self.splitter.relabel(y)
-        w = self.splitter.sample_weights(y)
-        sub, w = self.splitter.physical_sample(y, w)
-        if sub is not None:
-            X, y = X[sub], y[sub]
+            X = X[keep]
+        if self.splitter is not None:
+            sub, w = self.splitter.physical_sample(y, w)
+            if sub is not None:
+                X, y = X[sub], y[sub]
         return X, y, w
+
+    def select_per_fold(self, store: ColumnStore,
+                        fold_matrix: Callable[[ColumnStore, np.ndarray],
+                                              np.ndarray],
+                        device=None, dtype: torch.dtype = torch.float32
+                        ) -> None:
+        """Workflow-level CV's sweep (OpCrossValidation.scala:89-116,
+        dagCopy): the labels of ``store`` prepared as the fit prepares
+        them (no physical sampling), then per fold of the validator
+        ``fold_matrix(kept_store, train_rows)``, the feature matrix of
+        every kept row with the label-aware stages fitted on
+        ``train_rows`` only, swept by ``validate_per_fold``. The winner
+        and the summary wait for the next fit."""
+        from .trees import detect_binary_columns
+        y = np.asarray(store[self.label_name].values, dtype=np.float64)
+        keep, y, w = self._kept_labels(y)
+        kept = store if keep.all() else store.take(np.nonzero(keep)[0])
+        self._set_classes(y)
+        folds = []
+        for train_mask, val_mask in self.validator._splits(y):
+            X = fold_matrix(kept, np.nonzero(train_mask > 0)[0])
+            folds.append((X, y, train_mask * w, val_mask,
+                          detect_binary_columns(X)))
+        self.precomputed_ = self.validator.validate_per_fold(
+            self.families, folds, device=device, dtype=dtype)
 
     def fit_columns(self, store: ColumnStore, device=None,
                     dtype: torch.dtype = torch.float32) -> SelectedModel:
         from .trees import detect_binary_columns
         dev = resolve_device(device)
-        X, y = extract_xy(store, self.label_name, self.features_name)
-        X, y, w = self._prepared(X, y)
-        # every family with a class count learns it from the prepared
-        # labels, as the JAX package's _maybe_set_classes sets it (for
-        # regression too, where no family reads it)
-        n_classes = max(int(y.max()) + 1 if len(y) else 2, 2)
-        bmask = detect_binary_columns(X)
+        X_all, y = extract_xy(store, self.label_name, self.features_name)
+        precomputed, self.precomputed_ = self.precomputed_, None
+        X, y, w = self._prepared(X_all, y)
+        self._set_classes(y)
+        # after workflow CV the prepare side effects are replayed (the
+        # splitter's state, the class count, and, as the JAX package
+        # replays it, the indicator mask of the whole matrix) and the
+        # sweep is not
+        bmask = detect_binary_columns(X_all if precomputed else X)
         for fam in self.families:
-            if hasattr(fam, "n_classes"):
-                fam.n_classes = n_classes
             if hasattr(fam, "binary_mask"):
                 fam.binary_mask = bmask
-        best_family, best_hparams, vsummary = self.validator.validate(
-            self.families, X, y, base_weights=w, device=dev, dtype=dtype)
+        if precomputed:
+            best_family, best_hparams, vsummary = precomputed
+        else:
+            best_family, best_hparams, vsummary = self.validator.validate(
+                self.families, X, y, base_weights=w, device=dev,
+                dtype=dtype)
 
         # final refit on the full prepared train (ModelSelector.scala:158)
         t0 = time.perf_counter()

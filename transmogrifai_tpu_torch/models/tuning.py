@@ -11,7 +11,9 @@ balancer's sample and the folds are the same rows.
 The engine bins the data once per family, then for every fold fits each
 grid point, predicts the training matrix from the fit-time margin cache,
 and takes the selection metric on the device; only the [grid, folds]
-metric matrix comes back to the host. From ``UNROLL_MIN_ROWS`` rows the
+metric matrix comes back to the host. Under workflow-level CV
+(``validate_per_fold``) every fold brings its own matrix, binned once per
+family and fold. From ``UNROLL_MIN_ROWS`` rows the
 grid is grouped by ``maxDepth`` and each group grows unrolled trees at its
 own depth.
 """
@@ -303,9 +305,6 @@ class _ValidatorBase:
         winner (family, hparams) and the summary. The selection metric is
         taken on the device where it has a device form; otherwise each
         fold's predictions come back and the host metric reads them."""
-        from ..evaluators.device_metrics import device_metric_fn
-        from .trees import UNROLL_MIN_ROWS
-
         dev = resolve_device(device)
         splits = self._splits(y)
         base_w = (np.ones_like(y, dtype=np.float64)
@@ -317,63 +316,135 @@ class _ValidatorBase:
         folds = [(put(m * base_w), put(v)) for m, v in splits]
 
         summary = ValidatorSummary(self.validation_type, self.metric_name)
-        best: Optional[ValidationResult] = None
-        best_family: Optional[ModelFamily] = None
-        sign = 1.0 if self.is_larger_better else -1.0
+        ranked: List[Tuple[ValidationResult, ModelFamily]] = []
         for family in families:
             t0 = time.perf_counter()
-            metric_fn = device_metric_fn(
-                self.task, self.metric_name,
-                n_classes=getattr(family, "n_classes", 2))
+            metric_fn = self._metric_fn(family)
             Xarg = family.device_prep(Xd)
-            G, K = family.grid_size(), len(folds)
-            # (grid indices, static depth | None) groups; only the tree
-            # families have a depth
-            if (len(y) >= UNROLL_MIN_ROWS
-                    and "maxDepth" in family.param_defaults()):
-                dflt = family.param_defaults().get("maxDepth", 0)
-                by_depth: Dict[int, List[int]] = {}
-                for i, g in enumerate(family.grid):
-                    by_depth.setdefault(int(g.get("maxDepth", dflt)),
-                                        []).append(i)
-                groups = [(ix, d) for d, ix in sorted(by_depth.items())]
-            else:
-                groups = [(list(range(G)), None)]
-            metrics: List[List[Any]] = [[None] * K for _ in range(G)]
+            groups = self._depth_groups(family, len(y))
+            metrics: List[List[Any]] = [[None] * len(folds)
+                                        for _ in range(family.grid_size())]
             for k, (w, v) in enumerate(folds):
-                vm = splits[k][1].astype(bool)
-                for ix, sd in groups:
-                    grid = [family.grid[i] for i in ix]
-                    params = (family.fit_batch(Xarg, yd, w, grid)
-                              if sd is None else family.fit_batch(
-                                  Xarg, yd, w, grid, static_depth=sd))
-                    preds = family.predict_batch(params, Xarg, on_train=True)
-                    for i, out in zip(ix, preds):
-                        if metric_fn is not None:
-                            metrics[i][k] = metric_fn(yd, out[0], out[2], v)
-                            continue
-                        pred, _raw, prob = to_f64(out)
-                        metrics[i][k] = _metric_value(
-                            self.metric_name, self.task, y[vm], pred[vm],
-                            prob[vm] if prob.ndim == 2 else prob)
-            if metric_fn is not None:
-                per_grid = torch.stack([torch.stack(m) for m in metrics]).to(
-                    "cpu", torch.float64).numpy()               # [G, K]
-            else:
-                per_grid = np.asarray(metrics, dtype=np.float64)
-            summary.family_seconds[family.name] = time.perf_counter() - t0
-            for gi in range(G):
-                r = ValidationResult(
-                    family_name=family.name, hparams=family.grid[gi],
-                    grid_index=gi, metric_values=per_grid[gi].tolist(),
-                    mean_metric=float(per_grid[gi].mean()))
-                summary.results.append(r)
-                if best is None or \
-                        sign * r.mean_metric > sign * best.mean_metric:
-                    best, best_family = r, family
-        summary.best = best
-        assert best is not None and best_family is not None
-        return best_family, best.hparams, summary
+                self._sweep_fold(family, groups, metric_fn, Xarg, yd, w, v,
+                                 y, splits[k][1].astype(bool), metrics, k)
+            ranked += self._record(summary, family, metric_fn, metrics, t0)
+        return self._winner(summary, ranked)
+
+    def validate_per_fold(self, families: Sequence[ModelFamily],
+                          fold_data: Sequence[Tuple[np.ndarray, ...]],
+                          device=None, dtype: torch.dtype = torch.float32
+                          ) -> Tuple[ModelFamily, Dict[str, Any],
+                                     ValidatorSummary]:
+        """Workflow-level CV engine: each fold carries its own feature
+        matrix (``cut_dag``'s *during* stages were re-fit on the fold's
+        training rows upstream of this call), so every fold uploads and
+        bins its own matrix. ``fold_data``: per fold ``(X, y, w_train,
+        w_val, binary_mask)``, full-length arrays and the fold matrix's
+        indicator columns, which a family with a ``binary_mask`` takes
+        before ``device_prep`` bins the fold. Within a
+        fold the sweep is :meth:`validate`'s: the by-depth groups and the
+        device metrics. The summary's type is ``"WorkflowCV:"`` + the
+        validation type (OpCrossValidation.scala:89-116, dagCopy)."""
+        dev = resolve_device(device)
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        summary = ValidatorSummary("WorkflowCV:" + self.validation_type,
+                                   self.metric_name)
+        ranked: List[Tuple[ValidationResult, ModelFamily]] = []
+        for family in families:
+            t0 = time.perf_counter()
+            metric_fn = self._metric_fn(family)
+            metrics: List[List[Any]] = [[None] * len(fold_data)
+                                        for _ in range(family.grid_size())]
+            for k, fold in enumerate(fold_data):
+                X, y, w_tr, w_val, bmask = fold
+                if hasattr(family, "binary_mask"):
+                    family.binary_mask = bmask
+                self._sweep_fold(family, self._depth_groups(family, len(y)),
+                                 metric_fn, family.device_prep(put(X)),
+                                 put(y), put(w_tr), put(w_val), y, w_val > 0,
+                                 metrics, k)
+            ranked += self._record(summary, family, metric_fn, metrics, t0)
+        return self._winner(summary, ranked)
+
+    def _metric_fn(self, family: ModelFamily):
+        from ..evaluators.device_metrics import device_metric_fn
+        return device_metric_fn(self.task, self.metric_name,
+                                n_classes=getattr(family, "n_classes", 2))
+
+    @staticmethod
+    def _depth_groups(family: ModelFamily, n: int
+                      ) -> List[Tuple[List[int], Optional[int]]]:
+        """(grid indices, static depth | None) groups: from
+        ``UNROLL_MIN_ROWS`` rows the tree families' grid by ``maxDepth``,
+        each grown unrolled at its depth; otherwise the whole grid."""
+        from .trees import UNROLL_MIN_ROWS
+        if n >= UNROLL_MIN_ROWS and "maxDepth" in family.param_defaults():
+            dflt = family.param_defaults().get("maxDepth", 0)
+            by_depth: Dict[int, List[int]] = {}
+            for i, g in enumerate(family.grid):
+                by_depth.setdefault(int(g.get("maxDepth", dflt)),
+                                    []).append(i)
+            return [(ix, d) for d, ix in sorted(by_depth.items())]
+        return [(list(range(family.grid_size())), None)]
+
+    def _sweep_fold(self, family: ModelFamily, groups, metric_fn, Xarg, yd,
+                    w, v, y: np.ndarray, vm: np.ndarray,
+                    metrics: List[List[Any]], k: int) -> None:
+        """Fit every grid point on fold ``k``'s weights ``w``, predict the
+        training matrix from the fit-time caches and put each point's
+        metric over the validation rows (``v`` on the device, ``vm`` on
+        the host) in ``metrics[i][k]``."""
+        for ix, sd in groups:
+            grid = [family.grid[i] for i in ix]
+            params = (family.fit_batch(Xarg, yd, w, grid) if sd is None
+                      else family.fit_batch(Xarg, yd, w, grid,
+                                            static_depth=sd))
+            preds = family.predict_batch(params, Xarg, on_train=True)
+            for i, out in zip(ix, preds):
+                if metric_fn is not None:
+                    metrics[i][k] = metric_fn(yd, out[0], out[2], v)
+                    continue
+                pred, _raw, prob = to_f64(out)
+                metrics[i][k] = _metric_value(
+                    self.metric_name, self.task, y[vm], pred[vm],
+                    prob[vm] if prob.ndim == 2 else prob)
+
+    def _record(self, summary: ValidatorSummary, family: ModelFamily,
+                metric_fn, metrics: List[List[Any]], t0: float
+                ) -> List[Tuple[ValidationResult, ModelFamily]]:
+        """The family's [grid, folds] metrics read back (one copy when
+        they were taken on the device) into the summary's results; returns
+        them with the family."""
+        if metric_fn is not None:
+            per_grid = torch.stack([torch.stack(m) for m in metrics]).to(
+                "cpu", torch.float64).numpy()                   # [G, K]
+        else:
+            per_grid = np.asarray(metrics, dtype=np.float64)
+        summary.family_seconds[family.name] = time.perf_counter() - t0
+        out = [(ValidationResult(
+            family_name=family.name, hparams=family.grid[gi], grid_index=gi,
+            metric_values=per_grid[gi].tolist(),
+            mean_metric=float(per_grid[gi].mean())), family)
+            for gi in range(family.grid_size())]
+        summary.results += [r for r, _ in out]
+        return out
+
+    def _winner(self, summary: ValidatorSummary,
+                ranked: List[Tuple[ValidationResult, ModelFamily]]
+                ) -> Tuple[ModelFamily, Dict[str, Any], ValidatorSummary]:
+        """The first result with the best mean metric, in sweep order."""
+        sign = 1.0 if self.is_larger_better else -1.0
+        best: Optional[Tuple[ValidationResult, ModelFamily]] = None
+        for r, family in ranked:
+            if best is None or \
+                    sign * r.mean_metric > sign * best[0].mean_metric:
+                best = (r, family)
+        assert best is not None
+        summary.best = best[0]
+        return best[1], best[0].hparams, summary
 
 
 class CrossValidation(_ValidatorBase):

@@ -234,8 +234,10 @@ class OpWorkflowRunner:
                 model.save(params.model_location, overwrite=True)
             metrics = model.summary()
             metrics["appSeconds"] = round(time.perf_counter() - t0, 3)
-            # no RawFeatureFilter is configured (none is ported)
-            metrics["rawFeatureFilter"] = None
+            # the RawFeatureFilter's verdict (None: no filter configured)
+            metrics["rawFeatureFilter"] = (
+                model.rff_results.summary()
+                if model.rff_results is not None else None)
             return RunnerResult(run_type, metrics=metrics,
                                 model_location=params.model_location,
                                 model=model)

@@ -14,6 +14,11 @@
 * Warm starts (``Workflow.with_model_stages``) substitute fitted stages by
   uid; ``with_checkpointing`` saves the partial model after every layer
   that fitted something, and ``fit(resume_from=)`` resumes from it.
+* ``with_raw_feature_filter`` runs the RawFeatureFilter on the raw store
+  before any fit and prunes the blacklisted raw features from a copy of
+  the DAG; ``with_workflow_cv`` re-fits the label-aware feature stages
+  inside every CV fold (``graph.cut_dag``), so the selector's validation
+  metrics see no label leakage from feature engineering.
 
 Device stages (``uses_device``) run on ``device``: the card unless the
 caller passes ``device="cpu"``.
@@ -27,11 +32,12 @@ import time
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple)
 
+import numpy as np
 import torch
 
 from .columns import ColumnStore
-from .features import Feature
-from .graph import StagesDAG, compute_dag
+from .features import Feature, copy_dag
+from .graph import StagesDAG, compute_dag, cut_dag
 from .models.base import resolve_device
 from .stages.base import Estimator, FittedModel, Transformer
 from .stages.generator import FeatureGeneratorStage
@@ -103,6 +109,11 @@ class Workflow:
         #: a readers.DataReader, read when no input data is set
         self._reader = None
         self.splitter = None          # tuning.Splitter for the holdout
+        #: a filters.RawFeatureFilter run on the raw store before any fit
+        self.raw_feature_filter = None
+        #: raw features the last train's filter removed
+        self.blacklisted_features: List[Feature] = []
+        self._workflow_cv = False
         self._checkpoint_dir: Optional[str] = None
         self._warm_stages: Dict[str, FittedModel] = {}
         #: stage uid → fit/transform timings of the last train
@@ -157,14 +168,19 @@ class Workflow:
         return self
 
     def with_workflow_cv(self, enabled: bool = True) -> "Workflow":
-        raise NotImplementedError(
-            "workflow-level cross-validation is not ported yet (ROADMAP "
-            "queue A, item 1)")
+        """Leak-free workflow-level cross-validation
+        (OpWorkflowCore.withWorkflowCV :104): the DAG's label-aware feature
+        stages (``cut_dag``'s *during* set) are re-fit inside every CV fold
+        so validation metrics never see label leakage from feature
+        engineering."""
+        self._workflow_cv = enabled
+        return self
 
     def with_raw_feature_filter(self, rff) -> "Workflow":
-        raise NotImplementedError(
-            "the RawFeatureFilter hook is not ported yet (ROADMAP queue A, "
-            "item 1)")
+        """Attach a ``filters.RawFeatureFilter`` data-quality gate
+        (OpWorkflow.withRawFeatureFilter, OpWorkflow.scala:521-563)."""
+        self.raw_feature_filter = rff
+        return self
 
     def fit(self, resume_from: Optional[str] = None, device=None,
             dtype: torch.dtype = torch.float32) -> "WorkflowModel":
@@ -204,15 +220,82 @@ class Workflow:
         if data is None:
             raise WorkflowError("No input data: call set_input_store, "
                                 "set_input_records or set_reader")
-        store = _raw_store(data, _raw_features_of(self.result_features))
+        raw_features = _raw_features_of(self.result_features)
+        store = _raw_store(data, raw_features)
+        self._stage_metrics = {}
+        self._phase_seconds: Dict[str, float] = {}
+        self.blacklisted_features = []
+        result_features, rff_results = self.result_features, None
+        if self.raw_feature_filter is not None:
+            t0 = time.perf_counter()
+            store, result_features, rff_results = self._filter(
+                store, raw_features)
+            self._phase_seconds["rawFeatureFilter"] = \
+                time.perf_counter() - t0
         train, test = store, None
         if self.splitter is not None:
             train, test = self.splitter.reserve_split(store)
-        dag = compute_dag(self.result_features)
-        self._stage_metrics = {}
+        dag = compute_dag(result_features)
+        #: the graph being fitted (the filter may have copied it); layer
+        #: checkpoints record this one
+        self._active_result_features = result_features
         t0 = time.perf_counter()
         fitted: Dict[str, FittedModel] = {}
         seconds: Dict[str, float] = {}
+        if self._workflow_cv:
+            self._fit_dag_workflow_cv(result_features, dag, train, test,
+                                      fitted, dev, dtype, seconds)
+        else:
+            self._fit_dag(dag, train, test, fitted, dev, dtype, seconds)
+        train_time = time.perf_counter() - t0
+        logger.info("train: %d rows, %d layers in %.2fs%s", train.n_rows,
+                    len(dag), train_time,
+                    " [workflow-level CV]" if self._workflow_cv else "")
+        model = WorkflowModel(result_features, fitted, dag,
+                              train_time_s=train_time,
+                              stage_seconds=seconds,
+                              stage_metrics=self._stage_metrics,
+                              train_rows=train.n_rows,
+                              blacklisted_features=self.blacklisted_features,
+                              rff_results=rff_results)
+        model.phase_seconds = dict(self._phase_seconds)
+        return model
+
+    def _filter(self, store: ColumnStore, raw_features: List[Feature]):
+        """The RawFeatureFilter's (clean store, result features, results):
+        blacklisted raw features leave the store, and the DAG is copied
+        without them (copyWithNewStages, OpWorkflow.scala:112-154), so the
+        user's graph stays as it is."""
+        filtered = self.raw_feature_filter.filter_raw(store, raw_features)
+        self.blacklisted_features = filtered.blacklisted_features
+        blacklisted = {f.uid for f in self.blacklisted_features}
+        result_features = self.result_features
+        if blacklisted:
+            for f in result_features:
+                if f.uid in blacklisted:
+                    raise WorkflowError(
+                        f"Result feature {f.name!r} was blacklisted by the "
+                        "RawFeatureFilter")
+            try:
+                result_features = tuple(copy_dag(result_features,
+                                                 frozenset(blacklisted)))
+            except TypeError as e:
+                raise WorkflowError(
+                    "A fixed-arity stage depends on blacklisted "
+                    f"feature(s): {e}") from e
+        return filtered.clean_store, result_features, filtered.results
+
+    def _fit_dag(self, dag: StagesDAG, train: ColumnStore,
+                 test: Optional[ColumnStore],
+                 fitted: Dict[str, FittedModel], dev, dtype,
+                 seconds: Dict[str, float], checkpoint: bool = True,
+                 transform_last: bool = False
+                 ) -> Tuple[ColumnStore, Optional[ColumnStore]]:
+        """Fold ``dag``'s layers: fit each layer's estimators on ``train``
+        into ``fitted``, evaluate ``has_test_eval`` models on ``test``, then
+        transform both splits with the layer (FitStagesUtil
+        .fitAndTransformLayer); the last layer's outputs are transformed
+        only when ``transform_last``. Returns the transformed splits."""
         for li, layer in enumerate(dag):
             n_before = len(fitted)
             models: List[Transformer] = []
@@ -230,7 +313,7 @@ class Workflow:
                     models.append(stage)
                 else:
                     raise WorkflowError(f"Unfittable stage {stage!r}")
-            if li < len(dag) - 1:       # the last layer's outputs are unused
+            if transform_last or li < len(dag) - 1:
                 tt = time.perf_counter()
                 train = _apply_layer(models, train, dev, seconds)
                 if test is not None:
@@ -240,21 +323,73 @@ class Workflow:
                         m.uid, {"stageName": m.stage_name()})[
                         "layerTransformSeconds"] = round(
                             time.perf_counter() - tt, 4)
-            if self._checkpoint_dir and len(fitted) > n_before:
+            if checkpoint and self._checkpoint_dir \
+                    and len(fitted) > n_before:
                 from .model_io import _atomic_checkpoint
-                _atomic_checkpoint(WorkflowModel(self.result_features,
-                                                 fitted),
-                                   self._checkpoint_dir)
+                _atomic_checkpoint(WorkflowModel(
+                    self._active_result_features, fitted),
+                    self._checkpoint_dir)
                 logger.info("layer %d: checkpointed %d fitted stage(s) to "
                             "%s", li, len(fitted), self._checkpoint_dir)
-        train_time = time.perf_counter() - t0
-        logger.info("train: %d rows, %d layers in %.2fs", train.n_rows,
-                    len(dag), train_time)
-        return WorkflowModel(self.result_features, fitted, dag,
-                             train_time_s=train_time,
-                             stage_seconds=seconds,
-                             stage_metrics=self._stage_metrics,
-                             train_rows=train.n_rows)
+        return train, test
+
+    def _fit_dag_workflow_cv(self, result_features, dag: StagesDAG,
+                             train: ColumnStore, test: Optional[ColumnStore],
+                             fitted: Dict[str, FittedModel], dev, dtype,
+                             seconds: Dict[str, float]) -> None:
+        """Leak-free workflow CV (OpWorkflow.scala:388-443 + cutDAG):
+
+        1. fit the *before* DAG once on the training split;
+        2. the ModelSelector sweeps the (family × grid) grid on each CV
+           fold's own matrix (``ModelSelector.select_per_fold``;
+           OpCrossValidation.scala:89-116), which ``fold_matrix`` makes:
+           the *during* (label-aware) stages re-fit on the fold's training
+           rows only, the whole split transformed with them;
+        3. fit the *during* stages, the selector (which takes the winner
+           without sweeping again) and the *after* layers on the whole
+           training split.
+
+        ``self._phase_seconds`` gets each step's seconds (``before``,
+        ``foldFeatures``, ``cvSweep``, ``final``)."""
+        ms, before, during, _after = cut_dag(result_features)
+        if ms is None or not during:
+            self._fit_dag(dag, train, test, fitted, dev, dtype, seconds)
+            return
+        phase = self._phase_seconds
+        t0 = time.perf_counter()
+        train_b, test_b = self._fit_dag(before, train, test, fitted, dev,
+                                        dtype, seconds, transform_last=True)
+        phase["before"] = time.perf_counter() - t0
+        feats_name = ms.input_features[1].name
+        phase["foldFeatures"] = 0.0
+
+        def fold_matrix(kept: ColumnStore, rows: np.ndarray) -> np.ndarray:
+            """Every kept row's vector through the *during* stages fitted
+            on ``rows``."""
+            tf = time.perf_counter()
+            fold_fit: Dict[str, FittedModel] = {}
+            self._fit_dag(during, kept.take(rows), None, fold_fit, dev,
+                          dtype, {}, checkpoint=False)
+            for layer in during:
+                kept = _apply_layer([fold_fit.get(s.uid, s) for s in layer],
+                                    kept, dev)
+            phase["foldFeatures"] += time.perf_counter() - tf
+            return np.asarray(kept[feats_name].values, dtype=np.float64)
+
+        t0 = time.perf_counter()
+        ms.select_per_fold(train_b, fold_matrix, device=dev, dtype=dtype)
+        phase["cvSweep"] = time.perf_counter() - t0 - phase["foldFeatures"]
+
+        # the during stages, the selector and the after layers on the
+        # whole training split
+        t0 = time.perf_counter()
+        done = {s.uid for layer in before for s in layer}
+        remaining = [rest for rest in ([s for s in layer
+                                        if s.uid not in done]
+                                       for layer in dag) if rest]
+        self._fit_dag(remaining, train_b, test_b, fitted, dev, dtype,
+                      seconds)
+        phase["final"] = time.perf_counter() - t0
 
     def _fit_stage(self, stage: Estimator, train: ColumnStore, dev, dtype,
                    metrics: Dict[str, Any], seconds: Dict[str, float]
@@ -295,16 +430,18 @@ class WorkflowModel:
                  stage_seconds: Optional[Dict[str, float]] = None,
                  stage_metrics: Optional[Dict[str, Dict[str, Any]]] = None,
                  train_rows: int = 0,
-                 rff_results_json: Optional[Dict[str, Any]] = None,
+                 blacklisted_features: Sequence[Feature] = (),
+                 rff_results=None,
                  fit_stats_json: Optional[Dict[str, Any]] = None):
         self.uid = uid_mod.make_uid("WorkflowModel")
         self.result_features = tuple(result_features)
         self.fitted_stages = dict(fitted_stages)
         self.dag = dag if dag is not None else compute_dag(result_features)
         self.parameters = parameters or {}
-        #: raw features a RawFeatureFilter dropped (none: the filter is
-        #: not ported)
-        self.blacklisted_features: List[Feature] = []
+        #: raw features the RawFeatureFilter dropped
+        self.blacklisted_features = list(blacklisted_features)
+        #: the filter's ``RawFeatureFilterResults`` (None without one)
+        self.rff_results = rff_results
         self.train_time_s = train_time_s
         #: stage uid → train wall-clock seconds (its fit + its transforms)
         self.stage_seconds = dict(stage_seconds or {})
@@ -313,10 +450,13 @@ class WorkflowModel:
         self.stage_metrics = dict(stage_metrics or {})
         #: rows of the training split (0 on a loaded model)
         self.train_rows = int(train_rows)
-        #: the JSON a JAX-package save held for these, kept as read and
-        #: written back unchanged (ROADMAP queue A, items 3 and 6)
-        self.rff_results_json = rff_results_json
+        #: the JSON a JAX-package save held for its train-time sufficient
+        #: statistics, kept as read and written back unchanged (ROADMAP
+        #: queue A, item 3)
         self.fit_stats_json = fit_stats_json
+        #: train seconds by phase: ``rawFeatureFilter``, and with workflow
+        #: CV ``before``, ``foldFeatures``, ``cvSweep`` and ``final``
+        self.phase_seconds: Dict[str, float] = {}
         #: scoring engines by device (``scoring_engine``)
         self._engines: Dict[str, Any] = {}
 
@@ -335,6 +475,22 @@ class WorkflowModel:
                         f"Estimator {stage.uid} has no fitted model")
             out.append(row)
         return out
+
+    def stage_of(self, feature: Feature) -> Transformer:
+        """The fitted stage (or transformer) that computes ``feature``."""
+        st = feature.origin_stage
+        if st is None:
+            raise WorkflowError(f"{feature.name!r} is a raw feature")
+        return self.fitted_stages.get(st.uid, st)
+
+    def model_insights(self, pred_feature: Optional[Feature] = None,
+                       store: Optional[ColumnStore] = None, device=None):
+        """The interpretability report (OpWorkflowModel.modelInsights
+        :163-176): ``insights.ModelInsights`` of ``pred_feature`` (default:
+        the Prediction result), the vector's metadata from ``store``'s
+        layers on ``device`` (default: the card) when a store is given."""
+        from .insights import ModelInsights
+        return ModelInsights.extract(self, pred_feature, store, device)
 
     # -- scoring -----------------------------------------------------------
     def scoring_engine(self, device=None, **engine_kw):
