@@ -64,7 +64,18 @@ Run from the repository root on a machine with one NVIDIA H100:
    ``group_rows`` a level, no ``route_level``, no ``cumhist(bc=)``); then
    the same workflow at 2,000 rows (GBT {3} + XGBoost {3}, 5 rounds, 2
    folds) on the card and on the CPU, which must pick the same model with
-   AuPR within 1e-4.
+   AuPR within 1e-4. After the 200k train, its seconds by stage and by
+   layer (:func:`stage_table`: each stage's fit and layer-transform
+   seconds, the fused statistics pass's tier, stages, requests, seconds
+   and bytes scanned, the fused transform's seconds and copies, the top
+   stages) and :func:`check_fusion` on its training split: each layer's
+   statistics on the device tier against the host tier (counts exact,
+   minima and maxima those of the f32-rounded values, the other moments
+   within FUSED_RTOL), every opted-in stage fitted from the host tier's
+   values equal to its sequential fit, each fill the card's f32 moments
+   moved printed with both values, and the fused layer transform bitwise
+   equal to the per-model path on the card with one upload and one pull
+   (counted where they are issued, the profiler's memcpy records beside).
 5. rf-200k: the synthetic sweep's data (200,000 rows, F=20) under a
    random forest (50 trees, per-node draws of 4 features) and a decision
    tree at maxDepth {3, 6, 12}, 5-fold CV, refit, scoring, with every
@@ -101,7 +112,8 @@ Run from the repository root on a machine with one NVIDIA H100:
    most the kernels take) at every slot count and the sweep's and iris's
    block shapes, bitwise; the level epilogue under gini at C = 4 and 8 in
    every case of phase 2, bitwise; ``predict_trees`` at the iris forest's
-   F=8, T=50, D=12, K=3 — each timed beside its plain version. Then
+   F=8, T=50, D=12, K=3 — each timed beside its plain version, as are
+   both histograms at gini C=8 (A=64). Then
    iris-200k (``iris.py``: 200,000 generated rows in bezdekIris.data's
    format, the species indexed, transmogrify, the multiclass selector's
    default families under 3-fold CV on F1 with a DataCutter, the
@@ -127,12 +139,16 @@ Run from the repository root on a machine with one NVIDIA H100:
    fitted state equal, every stage's vector and metadata bitwise equal,
    each vectorizer's block computed on the card but where the stage
    builds it on the host (the pivots, the smart text map), the transform
-   seconds printed for the stages on the card and the host stages apart.
-   Then mapprep-200k (``mapprep.py``: 200,000 records
+   seconds printed for the stages on the card and the host stages apart
+   (both trains on the host tier with per-model transforms: the row
+   floor ``workflow.FUSE_MIN_ROWS`` raised past the store); the card's
+   default train (device tier, fused transform) held against it, every
+   fitted state within FUSED_RTOL and the vector within FUSED_RTOL, and
+   :func:`check_fusion` on it. Then mapprep-200k (``mapprep.py``: 200,000 records
    from seed 7, generated once and reused below; logistic regression,
    3-fold CV on AuPR), counted; its records, vectorize, selector, train
    and evaluate seconds, width, best model and AuPR, and no column of the
-   blocked key. The binary selector's default families, one grid point
+   blocked key; its :func:`stage_table` and :func:`check_fusion`. The binary selector's default families, one grid point
    each, on the first 20,000 records, on the card (counted: the tree
    kernels, ``cumhist_sparse01`` included, must launch) and on the CPU:
    the same model, every family's fold metrics within 1e-4. Then every
@@ -159,7 +175,9 @@ Run from the repository root on a machine with one NVIDIA H100:
    Prints the exclusions, the width, the *during* stages, each family's
    fold metrics, the winner, the train seconds by phase (filter,
    vectorize, sweep, refit), the insights, LOCO and corr seconds and the
-   top five contributions. Then the same at 20,000 records (5,000 scoring
+   top five contributions, its :func:`stage_table` and
+   :func:`check_fusion` (on the filtered records). Then the same at
+   20,000 records (5,000 scoring
    records) on the card and the CPU: the filter's results JSON equal, the
    blacklist, the width, the winner and every family's fold metrics
    within 1e-4, the contributions within 1e-5 of the largest, the card
@@ -177,6 +195,11 @@ boston-200k, mapprep-200k and mapprep-guarded-200k) once more under ``torch.prof
 prints its device-time table: the busy share, the device operations a tree level, the histogram
 kernels, the split scans, the route or level epilogue, the predict and the
 uint8 → bool copies.
+``--stage-seconds`` trains text-200k, mapprep-200k and
+mapprep-guarded-200k twice each and prints :func:`stage_table` after each
+train, nothing else; like ``--timings-only`` it calls only what every
+version of the port has, so a copy of this script times another
+checkout's stages.
 ``--timings-only`` skips every check and prints only the times of
 ``split_scan``, the route alone and ``predict_trees``, the sweep's and
 BigPassenger's train seconds and both paths' profiles, with no result
@@ -1446,6 +1469,35 @@ def check_multiclass_kernels(H, dev):
           f"exact, class channels within {REL_TOL:g}, two calls bitwise "
           "equal")
     times = {}
+    # both histograms timed at gini C=8 as phase 2's rows are (A=64, the
+    # level loop's call), their bounds by phase 2's counts
+    A, C = 64, 8
+    node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+    groups = H.group_rows(node, A)
+    st = put(gini_stats(rng, C, N))
+    live = (node < A).nonzero().squeeze(1)
+    ms = time_ms(lambda: H.cumhist(st, node, XbT, A, B, groups=groups,
+                                   rows=hrows))
+    plain_ms = time_ms(lambda: H.cumhist_reference(st, node, XbT, A, B))
+    hbound = ((N * 4 + live.numel() * (C * 4 + F) + A * C * B * F * 4)
+              / HBM_BPS,
+              C * float((B - XbT[:, live]).sum().item()) / F32_FLOPS)
+    times["cumhist gini C=8"] = (ms, plain_ms, max(hbound))
+    srows = H.sparse01_rows(X01)
+    s_ms = time_ms(lambda: H.cumhist_sparse01(st, node, X01, A,
+                                              groups=groups, rows=srows))
+    s_plain_ms = time_ms(lambda: H.cumhist_sparse01_reference(st, node,
+                                                              X01, A))
+    nnz_live = float(X01[:, live].sum(dtype=torch.int64).item())
+    sbound = ((N * 4 + live.numel() * (C * 4 + FB) + A * C * 2 * FB * 4)
+              / HBM_BPS,
+              (C * (nnz_live + live.numel()) + A * C * FB) / F32_FLOPS)
+    times["cumhist_sparse01 gini C=8"] = (s_ms, s_plain_ms, max(sbound))
+    print(f"cumhist gini A={A} C={C}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {1e3 * max(hbound):.5f} ms; "
+          f"cumhist_sparse01 gini A={A} C={C} Fb={FB} (density 0.3): kernel "
+          f"{s_ms:.4f} ms, plain {s_plain_ms:.4f} ms, bound "
+          f"{1e3 * max(sbound):.5f} ms")
     for C in WIDE_GINI:
         st = put(gini_stats(rng, C, N))
         for Fs, Bs in WIDE_SCAN_SHAPES:
@@ -1922,8 +1974,17 @@ def check_every_type(n=N, dev="cuda"):
     make_s = time.perf_counter() - t0
     vec = every_type_vector(types)
     on = {"card": dev, "cpu": "cpu"}
-    models = {k: Workflow().set_input_store(store).set_result_features(
-        vec).train(device=d) for k, d in on.items()}
+    # like tiers: the card's statistics on the host tier and its layers
+    # per model, as the CPU's (the row floor raised past the store)
+    from transmogrifai_tpu_torch import workflow as W
+    floor, W.FUSE_MIN_ROWS = W.FUSE_MIN_ROWS, n + 1
+    try:
+        models = {k: Workflow().set_input_store(store).set_result_features(
+            vec).train(device=d) for k, d in on.items()}
+    finally:
+        W.FUSE_MIN_ROWS = floor
+    fused = Workflow().set_input_store(store).set_result_features(
+        vec).train(device=dev)
     seconds, stores = {"card": {}, "host": {}}, {k: store for k in on}
     for mc, mp in zip(*(sum(models[k]._resolved_dag(), []) for k in on)):
         arrays = ({}, {})
@@ -1969,7 +2030,27 @@ def check_every_type(n=N, dev="cuda"):
     print(f"every-type store {n} rows ({len(types)} new types, a Real "
           f"bucketized twice, a vector scaled; made in {make_s:.2f} s): "
           f"width {final.values.shape[1]}, card == cpu bitwise, fitted "
-          "state equal")
+          "state equal (both on the host tier, per-model transforms)")
+    # across tiers: the card's default train (the device tier's f32
+    # moments, the fused transform) against the like-tier card's
+    worst = 0.0
+    for uid, m in models["card"].fitted_stages.items():
+        d = numbers_close(json.loads(model_state(m)[0]),
+                          json.loads(model_state(fused.fitted_stages[uid])[0]),
+                          FUSED_RTOL)
+        if d > FUSED_RTOL:
+            fail(f"every-type: {m.stage_name()} moved by {d:.3g} across "
+                 "tiers")
+        worst = max(worst, d)
+    got = fused.transform(store, device=dev, engine=False)[vec.name].values
+    diff = np.abs(got.astype(np.float64) - final.values)
+    if not np.allclose(got, final.values, rtol=FUSED_RTOL, atol=0.0):
+        fail("every-type: the fused train's vector moved past FUSED_RTOL")
+    print(f"every-type across tiers (device-tier moments, fused transform "
+          f"vs host tier, per model): fitted states within {worst:.3g} "
+          f"relative, vector elements differing {int((diff > 0).sum())}, "
+          f"largest {diff.max():.3g}")
+    check_fusion(fused, store, "every-type-200k", dev)
     for where, what in (("card", "stages on the card"),
                         ("host", "host stages (their blocks built on the "
                                  "host)")):
@@ -2134,6 +2215,8 @@ def mapprep_paths(H, TF, MP, root, profile=False, dev="cuda", records=None,
           f"{s.best_model_name} {s.best_model_params}, AuPR {aupr:.6f}, "
           f"no {MP.BLOCKED_KEY} column")
     print(f"mapprep-200k launches: {launches}")
+    stage_table(out["model"], "mapprep-200k")
+    check_fusion(out["model"], out["store"], "mapprep-200k", dev)
     paths = {"mapprep-200k": launches}
     if profile:
         profile_path(H, "mapprep-200k", lambda: MP.run(
@@ -2264,7 +2347,8 @@ def guarded_run(H, MP, records, score_records, dev, loco_rows,
         RawFeatureFilter(scoring_data=sstore)).with_workflow_cv()
     per_fold, fold0 = spy_folds(H, wf["selector"].validator, keep_fold)
     out = {"store": store, "per_fold": per_fold, "fold0": fold0,
-           "prediction": wf["prediction"], "label": wf["label"]}
+           "prediction": wf["prediction"], "label": wf["label"],
+           "workflow": wf["workflow"]}
     t0 = time.perf_counter()
     model = out["model"] = wf["workflow"].train(device=dev)
     torch.cuda.synchronize()
@@ -2581,6 +2665,10 @@ def guarded_paths(H, TF, MP, records, root, profile=False, dev="cuda"):
     print(f"mapprep-guarded-200k top contributions: "
           f"{[(nm, round(c, 6)) for c, nm in top]}")
     print(f"mapprep-guarded-200k launches: {launches}; the sweep's: {sweep}")
+    stage_table(model, "mapprep-guarded-200k")
+    check_fusion(model, training_store(
+        model, out["store"], rff=out["workflow"].raw_feature_filter),
+        "mapprep-guarded-200k", dev)
     paths = {"mapprep-guarded-200k": launches}
     if profile:
         profile_path(H, "mapprep-guarded-200k", lambda: guarded_run(
@@ -2599,6 +2687,277 @@ def guarded_paths(H, TF, MP, records, root, profile=False, dev="cuda"):
     print(f"phase 10: {time.perf_counter() - t_phase:.2f} s")
     return paths, worst, {"ms": ms, "plain_ms": plain_ms, "bound": bound,
                           "n": n_loco, "max_abs_err": err, **errs}
+
+
+def stage_table(model, what):
+    """Print a trained model's seconds by stage and by layer: each stage's
+    fit seconds, its layer's transform seconds (``layerTransformSeconds``)
+    and its ``stage_seconds`` (its fit and its share of the transforms),
+    and each layer's total of ``stage_seconds``. Under workflow CV the
+    table is the final fit's; the folds' are in ``phase_seconds``. Where
+    the stage metrics hold the fused statistics pass and the fused layer
+    transform, their lines follow each layer's."""
+    m, sec = model.stage_metrics, model.stage_seconds
+    for li, layer in enumerate(model.dag):
+        total = sum(sec.get(s.uid, 0.0) for s in layer)
+        print(f"{what} layer {li}: {total:.4f} s over {len(layer)} "
+              f"stage(s)")
+        for s in layer:
+            mm = m.get(s.uid, {})
+            fused = " fusedStats" if mm.get("fusedStats") else ""
+            print(f"  {mm.get('stageName', s.stage_name())}: fit "
+                  f"{mm.get('fitSeconds', 0.0)} s, layer transform "
+                  f"{mm.get('layerTransformSeconds', '-')} s, stage "
+                  f"{sec.get(s.uid, 0.0):.4f} s{fused}")
+        for key in ("statsPass", "fusedTransform"):
+            info = next((m[s.uid][key] for s in layer
+                         if key in m.get(s.uid, {})), None)
+            if info is not None:
+                print(f"  {key}: {info}")
+    if model.phase_seconds:
+        print(f"{what} phases: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in model.phase_seconds.items()))
+    top = sorted(((v, m.get(u, {}).get("stageName", u))
+                  for u, v in sec.items()), reverse=True)[:5]
+    print(f"{what} top stages: "
+          f"{[(nm, round(v, 4)) for v, nm in top]}")
+
+
+#: the card's f32 moment fold (Chan-merged in f64) against the host
+#: tier's f64 numpy, relative: f32 sums of 200,000 values, ~1e-7 seen
+FUSED_RTOL = 1e-5
+
+
+def model_state(m):
+    """A fitted stage's state as sorted JSON (arrays listed)."""
+    from transmogrifai_tpu_torch.model_io import _encode_param
+    from transmogrifai_tpu_torch.stages.base import FittedModel
+    arrays = {}
+    doc = json.dumps(_encode_param(
+        m.get_model_state() if isinstance(m, FittedModel) else {}, arrays,
+        "s"), sort_keys=True)
+    return doc, {k: v.tolist() for k, v in arrays.items()}
+
+
+def numbers_close(a, b, rtol):
+    """Two JSON-like values: equal but for floats within ``rtol``;
+    returns the largest relative difference (inf where they differ
+    otherwise)."""
+    if isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys():
+        return max([numbers_close(a[k], b[k], rtol) for k in a] + [0.0])
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        return max([numbers_close(x, y, rtol) for x, y in zip(a, b)]
+                   + [0.0])
+    if isinstance(a, float) and isinstance(b, float):
+        if a == b:
+            return 0.0
+        return abs(a - b) / max(abs(a), abs(b))
+    return 0.0 if a == b else math.inf
+
+
+def transfers(fn):
+    """The copies between the host and the card that ``fn()`` issues:
+    (uploads, pulls) counted where they are made (a ``Tensor.to`` or
+    ``copy_`` whose source and destination devices differ), and the
+    profiler's (HtoD, DtoH) memcpy records of the same call."""
+    from torch.profiler import ProfilerActivity, profile
+    to, copy_ = torch.Tensor.to, torch.Tensor.copy_
+    made = {"up": 0, "down": 0}
+
+    def count(src, dst):
+        if src.type != dst.type:
+            made["up" if dst.type == "cuda" else "down"] += 1
+
+    def counted_to(t, *args, **kw):
+        out = to(t, *args, **kw)
+        count(t.device, out.device)
+        return out
+
+    def counted_copy(t, src, *args, **kw):
+        count(src.device, t.device)
+        return copy_(t, src, *args, **kw)
+    torch.cuda.synchronize()
+    torch.Tensor.to, torch.Tensor.copy_ = counted_to, counted_copy
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.Tensor.to, torch.Tensor.copy_ = to, copy_
+    seen = {"HtoD": 0, "DtoH": 0}
+    for e in prof.key_averages():
+        for k in seen:
+            if e.key.startswith(f"Memcpy {k}"):
+                seen[k] += e.count
+    return made["up"], made["down"], seen["HtoD"], seen["DtoH"]
+
+
+def selector_splitter(model):
+    """The splitter of ``model``'s selector (BigPassenger's workflow holds
+    out its rows)."""
+    return next(s.splitter for layer in model.dag for s in layer
+                if getattr(s, "splitter", None) is not None)
+
+
+def training_store(model, data, splitter=None, rff=None):
+    """The store a trained ``model``'s first layer read: ``data``'s raw
+    columns, through the filter ``rff`` and the holdout ``splitter``
+    where the workflow had them."""
+    from transmogrifai_tpu_torch.workflow import _raw_features_of, _raw_store
+    raw_features = _raw_features_of(model.result_features)
+    store = _raw_store(data, raw_features)
+    if rff is not None:
+        store = rff.filter_raw(store, raw_features).clean_store
+    if splitter is not None:
+        store = splitter.reserve_split(store)[0]
+    return store
+
+
+def check_fusion(model, store, what, dev="cuda"):
+    """Phases 4, 9 and 10: the fused statistics pass and the fused layer
+    transform of a trained ``model`` on its training ``store``, layer by
+    layer (each layer's input made by the per-model path on ``dev``).
+    Where a layer's estimators ask for statistics: their plan on the host
+    tier against the device tier (counts exact, minima and maxima those
+    of the f32-rounded host values, the other moments within FUSED_RTOL;
+    the worst printed), each opted-in stage fitted from the host tier's
+    values against its sequential fit (every state equal: fills, splits,
+    vocabularies), and the trained stage against the host tier's fit
+    (any moved fill printed with both values). Where a layer has
+    device-math vectorizers: the fused transform against the per-model
+    path on the card, bitwise, with one upload and one pull (counted where
+    they are issued; the profiler's memcpy records printed beside)."""
+    from transmogrifai_tpu_torch import fitstats as FS, workflow as W
+    from transmogrifai_tpu_torch.ops.vectorizer_base import VectorizerModel
+    from transmogrifai_tpu_torch.stages.base import Estimator
+    resolved = model._resolved_dag()
+    for li, (layer, fitted) in enumerate(zip(model.dag, resolved)):
+        opted = [s for s in layer if isinstance(s, Estimator)
+                 and s.stat_requests(store) is not None]
+        reqs = [r for s in opted for r in s.stat_requests(store)]
+        if reqs:
+            plan = FS.LayerStatsPlan(reqs, n_stages=len(opted))
+            t0 = time.perf_counter()
+            host = plan.run(store, device=False, workflow_device=dev)
+            host_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            card = plan.run(store, device=True, workflow_device=dev)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            worst = 0.0
+            for r in plan.requests:
+                if r.kind not in ("count", "mean", "variance", "std", "min",
+                                  "max"):
+                    continue
+                a, b = host.for_request(r), card.for_request(r)
+                if r.kind == "count" or a is None:
+                    ok = a == b
+                elif r.kind in ("min", "max"):
+                    ok = b == float(np.float32(a))
+                else:
+                    err = abs(a - b) / max(abs(a), 1e-300)
+                    worst, ok = max(worst, err), err <= FUSED_RTOL
+                if not ok:
+                    fail(f"{what} layer {li}: {r.kind}({r.column}) device "
+                         f"tier {b!r}, host tier {a!r}")
+            moved = []
+            for s in opted:
+                fused = s.fit(store, stats=host)
+                seq = s.fit(store, **({"device": dev, "dtype": torch.float32}
+                                      if getattr(s, "uses_device", False)
+                                      else {}))
+                if model_state(fused) != model_state(seq):
+                    fail(f"{what} layer {li}: {s.stage_name()} fitted from "
+                         "the host tier differs from its sequential fit")
+                trained = model.fitted_stages[s.uid]
+                if model_state(trained) != model_state(fused):
+                    d = numbers_close(json.loads(model_state(trained)[0]),
+                                      json.loads(model_state(fused)[0]),
+                                      FUSED_RTOL)
+                    if d > FUSED_RTOL:
+                        fail(f"{what} layer {li}: {s.stage_name()} moved "
+                             f"by {d:.3g} from its host-tier fit")
+                    moved.append(f"{s.stage_name()} (largest relative "
+                                 f"change {d:.3g}): trained "
+                                 f"{model_state(trained)[0]} host tier "
+                                 f"{model_state(fused)[0]}")
+            print(f"{what} layer {li} stats: {len(opted)} opted-in "
+                  f"stage(s), {plan.n_requests} request(s); host tier "
+                  f"{host_s:.4f} s, device tier {card_s:.4f} s, moments "
+                  f"within {worst:.3g} relative; every opted-in stage's "
+                  "host-tier fit equal to its sequential fit")
+            for line in moved:
+                print(f"{what} layer {li} fill moved by the card's f32 "
+                      f"moments: {line}")
+        vecs = [m for m in fitted
+                if isinstance(m, VectorizerModel) and m.device_math]
+        if vecs:
+            W.apply_layer(vecs, store, dev, fuse=True)      # the tables
+            fused = W.apply_layer(vecs, store, dev, fuse=True)
+            plain = W.apply_layer(vecs, store, dev, fuse=False)
+            for m in vecs:
+                if not np.array_equal(fused[m.output_name].values,
+                                      plain[m.output_name].values):
+                    fail(f"{what} layer {li}: the fused transform of "
+                         f"{m.stage_name()} differs from the per-model path")
+            t0 = time.perf_counter()
+            W.apply_layer(vecs, store, dev, fuse=True)
+            fused_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            W.apply_layer(vecs, store, dev, fuse=False)
+            plain_s = time.perf_counter() - t0
+            up, down, rec_up, rec_down = transfers(
+                lambda: W.apply_layer(vecs, store, dev, fuse=True))
+            pup, pdown, prec_up, prec_down = transfers(
+                lambda: W.apply_layer(vecs, store, dev, fuse=False))
+            if (up, down) != (1, 1):
+                fail(f"{what} layer {li}: the fused transform made {up} "
+                     f"uploads and {down} pulls")
+            print(f"{what} layer {li} transform: {len(vecs)} vectorizer(s) "
+                  f"fused {fused_s:.4f} s ({up} upload, {down} pull; the "
+                  f"profiler's memcpy records {rec_up} HtoD, {rec_down} "
+                  f"DtoH), per-model {plain_s:.4f} s ({pup} uploads, {pdown} "
+                  f"pulls; records {prec_up} HtoD, {prec_down} DtoH); "
+                  "bitwise equal")
+        if li < len(resolved) - 1:
+            store = W.apply_layer(fitted, store, dev, fuse=False)
+
+
+def stage_seconds(BP, MP, dev="cuda"):
+    """``--stage-seconds``: text-200k, mapprep-200k and
+    mapprep-guarded-200k's training (no insights, no checks) twice each,
+    with :func:`stage_table` after each train. It calls only what every
+    version of the port has, so a copy of this script in another checkout
+    reads that checkout's stages: two versions compare in one call, in
+    turns."""
+    from transmogrifai_tpu_torch.filters import RawFeatureFilter
+    records = BP.synthesize_records(N, seed=42)
+    mrecords = MP.make_records(N, MAPPREP_SEED)
+    srecs = guard_scoring_records(MP, GUARD_SCORE_N)
+    for rep in range(2):
+        out = BP.run(N, device=dev, records=records)
+        print(f"text-200k rep {rep}: train {out['train_s']:.4f} s, "
+              f"vectorize {out['vectorize_s']:.4f} s, SanityChecker "
+              f"{out['sanity_s']:.4f} s, AuPR {out['metrics']['AuPR']:.6f}")
+        stage_table(out["model"], f"text-200k rep {rep}")
+        out = MP.run(N, seed=MAPPREP_SEED, device=dev, records=mrecords)
+        print(f"mapprep-200k rep {rep}: train {out['train_s']:.4f} s, "
+              f"vectorize {out['vectorize_s']:.4f} s, AuPR "
+              f"{out['metrics']['AuPR']:.6f}")
+        stage_table(out["model"], f"mapprep-200k rep {rep}")
+        store, sstore = MP.records_store(mrecords), MP.records_store(srecs)
+        wf = MP.build_workflow(store, families=titanic_one_point(),
+                               seed=MAPPREP_SEED)
+        wf["workflow"].with_raw_feature_filter(
+            RawFeatureFilter(scoring_data=sstore)).with_workflow_cv()
+        t0 = time.perf_counter()
+        model = wf["workflow"].train(device=dev)
+        torch.cuda.synchronize()
+        s = model.fitted_stages[wf["selector"].uid].selector_summary
+        print(f"mapprep-guarded-200k rep {rep}: train "
+              f"{time.perf_counter() - t0:.4f} s, best {s.best_model_name}")
+        stage_table(model, f"mapprep-guarded-200k rep {rep}")
+    return 0
 
 
 def timings(H, dev, BP, run):
@@ -2675,6 +3034,8 @@ def main():
     print(f"native hasher build: {time.perf_counter() - t0:.1f} s")
     if timings_only:
         return timings(H, dev, BP, run)
+    if "--stage-seconds" in sys.argv[1:]:
+        return stage_seconds(BP, MP)
 
     rows = check_kernels(H, TF, dev)
     path_launches = {}
@@ -2719,6 +3080,10 @@ def main():
     print(f"BigPassenger launches: {launches}")
     path_launches["text-200k"] = launches
     text_aupr = aupr
+    stage_table(out["model"], "text-200k")
+    check_fusion(out["model"], training_store(
+        out["model"], records, selector_splitter(out["model"])),
+        "text-200k")
     layer_evaluate(out, "text-200k")
     if profile:
         profile_path(H, "BigPassenger", lambda: BP.run(N, device="cuda",

@@ -96,3 +96,8 @@ def test_guard_modules_are_scanned(module):
     if dotted.endswith(".__init__"):
         dotted = dotted[:-len(".__init__")]
     assert dotted in _modules()
+
+
+def test_scan_list_holds_the_fused_statistics_module():
+    """The fused statistics pass is among the sources scanned above."""
+    assert PORT / "fitstats.py" in SOURCES

@@ -316,3 +316,56 @@ def test_summary_and_stage_metrics():
     sel_uid = pred.origin_stage.uid
     assert s["stages"][sel_uid]["model"] == "SelectedModel"
     assert "fitSeconds" in s["stageMetrics"][sel_uid]
+
+
+def _fit_stats_json(states):
+    return {k: v.to_json() for k, v in sorted(states.items())}
+
+
+def test_jax_saved_fit_stats_load_as_sufficient_stats(tmp_path):
+    """A JAX-package save's ``fitSufficientStats`` loads into the port's
+    ``SufficientStats``, equal to the JAX package's own reading of it."""
+    from transmogrifai_tpu import fitstats as JF
+    from transmogrifai_tpu_torch import fitstats as PF
+    jm, _pred = _jax_model("lr", _records())
+    path = str(tmp_path / "m")
+    jm.save(path)
+    want = _fit_stats_json(JF.load_sufficient_stats(path))
+    assert want and all(k.startswith("0:") for k in want)
+    pm = PWorkflowModel.load(path)
+    assert all(isinstance(v, PF.SufficientStats)
+               for v in pm.fit_stats.values())
+    assert _fit_stats_json(pm.fit_stats) == want
+    assert _fit_stats_json(PF.load_sufficient_stats(path)) == want
+
+
+def test_port_saved_fit_stats_read_back_in_the_jax_package(tmp_path):
+    """The port's train states, saved, read back in the JAX package equal
+    (its ``load_sufficient_stats`` and its loaded model's states), and
+    equal the JAX package's own train's states."""
+    from transmogrifai_tpu import fitstats as JF
+    records = _records(seed=11)
+    pm, _pred = _port_model("lr", records)
+    jm, _ = _jax_model("lr", records)
+    got = _fit_stats_json(pm.fit_stats)
+    assert got == _fit_stats_json(jm.fit_stats)
+    path = str(tmp_path / "m")
+    pm.save(path)
+    assert _fit_stats_json(JF.load_sufficient_stats(path)) == got
+    assert _fit_stats_json(JWorkflowModel.load(path).fit_stats) == got
+    assert _fit_stats_json(PWorkflowModel.load(path).fit_stats) == got
+
+
+def test_golden_model_without_fit_stats_round_trips(tmp_path):
+    """The golden model holds no sufficient statistics: it loads with
+    none, saves none, and its save still scores as it does."""
+    expected = json.load(open(os.path.join(GOLDEN, "expected.json")))
+    model = PWorkflowModel.load(GOLDEN)
+    assert model.fit_stats == {}
+    path = str(tmp_path / "m")
+    model.save(path)
+    with open(os.path.join(path, pio.MODEL_JSON)) as fh:
+        assert json.load(fh)["fitSufficientStats"] is None
+    pcol = PWorkflowModel.load(path).score(
+        expected["rows"], device="cpu")[expected["pred_name"]]
+    np.testing.assert_array_equal(pcol.prediction, expected["expected_pred"])

@@ -135,6 +135,16 @@ class FillMissingWithMean(Estimator):
                 if col.mask.any() else self.default)
         return FillMissingWithMeanModel(mean=mean)
 
+    # -- the fused fit-statistics pass (fitstats.py) -----------------------
+    def stat_requests(self, store):
+        from .fitstats import StatRequest
+        return [StatRequest("mean", self.input_features[0].name)]
+
+    def fit_columns_from_stats(self, store, stats):
+        mean = stats.value("mean", self.input_features[0].name)
+        return FillMissingWithMeanModel(
+            mean=self.default if mean is None else mean)
+
 
 @register_stage
 class FillMissingWithMeanModel(FittedModel):
@@ -178,6 +188,21 @@ class ScalarNormalizer(Estimator):
         vals = col.values[col.mask].astype(np.float64)
         mean = float(vals.mean()) if vals.size else 0.0
         std = float(vals.std()) if vals.size else 1.0
+        return ScalarNormalizerModel(mean=mean,
+                                     std=std if std > 1e-12 else 1.0)
+
+    # -- the fused fit-statistics pass (fitstats.py) -----------------------
+    def stat_requests(self, store):
+        from .fitstats import StatRequest
+        name = self.input_features[0].name
+        return [StatRequest("mean", name), StatRequest("std", name)]
+
+    def fit_columns_from_stats(self, store, stats):
+        name = self.input_features[0].name
+        mean = stats.value("mean", name)
+        std = stats.value("std", name)
+        mean = 0.0 if mean is None else mean
+        std = 1.0 if std is None else std
         return ScalarNormalizerModel(mean=mean,
                                      std=std if std > 1e-12 else 1.0)
 

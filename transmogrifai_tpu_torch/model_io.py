@@ -34,9 +34,9 @@ cannot load its own save of such a workflow). A JAX-package save loads
 here through the stage records' inputs.
 
 ``rawFeatureFilterResults`` is written from and read into the model's
-``filters.RawFeatureFilterResults``. ``fitSufficientStats`` is kept as the
-JSON that was read and written back unchanged (its classes are not
-ported: ROADMAP queue A, item 3). A stage that holds another stage by uid
+``filters.RawFeatureFilterResults``; ``fitSufficientStats`` from and into
+its train-time ``fitstats.SufficientStats`` (``"<layer>:<column>"`` →
+count, mean, m2, min, max). A stage that holds another stage by uid
 (``RecordInsightsLOCO``'s scored model) is re-attached by
 ``rebind_stages`` once every stage of a load exists.
 """
@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .features import Feature
+from .fitstats import sufficient_stats_from_json, sufficient_stats_to_json
 from .stages.base import (FittedModel, OpPipelineStage, ctor_kwargs,
                           stage_from_state)
 from .types.feature_types import FeatureType, feature_type_by_name
@@ -307,7 +308,8 @@ def save_workflow_model(model, path: str, overwrite: bool = False) -> None:
         "rawFeatureFilterResults": (model.rff_results.to_json()
                                     if model.rff_results is not None
                                     else None),
-        "fitSufficientStats": model.fit_stats_json or None,
+        "fitSufficientStats": (sufficient_stats_to_json(model.fit_stats)
+                               if model.fit_stats else None),
         "weightsFile": weights_name,
     }
     # a concurrent saver stalled between its weights and its model.json
@@ -519,6 +521,7 @@ def load_workflow_model(path: str):
         parameters=doc.get("parameters") or {},
         train_time_s=doc.get("trainTimeSeconds", 0.0),
         rff_results=rff_results,
-        fit_stats_json=doc.get("fitSufficientStats"))
+        fit_stats=sufficient_stats_from_json(
+            doc.get("fitSufficientStats") or {}))
     model.uid = doc["uid"]
     return model

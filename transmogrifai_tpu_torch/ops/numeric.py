@@ -93,11 +93,30 @@ class _NumericVectorizerBase(VectorizerEstimator):
     def _fill_for(self, col) -> float:
         return float(self.fill_value)
 
-    def fit_columns(self, store: ColumnStore) -> NumericVectorizerModel:
+    def _model_of(self, fills) -> NumericVectorizerModel:
         return NumericVectorizerModel(
-            fill_values=[self._fill_for(store[n]) for n in self.input_names],
-            track_nulls=self.track_nulls, input_names=self.input_names,
-            ftype_name=self.seq_type.__name__)
+            fill_values=fills, track_nulls=self.track_nulls,
+            input_names=self.input_names, ftype_name=self.seq_type.__name__)
+
+    def fit_columns(self, store: ColumnStore) -> NumericVectorizerModel:
+        return self._model_of([self._fill_for(store[n])
+                               for n in self.input_names])
+
+    # -- the fused fit-statistics pass (fitstats.py) -----------------------
+    def _stat_request_for(self, name: str):
+        """The column's request, or None where the fill is a constant."""
+        return None
+
+    def stat_requests(self, store):
+        return [r for r in (self._stat_request_for(n)
+                            for n in self.input_names) if r is not None]
+
+    def _fill_from_stats(self, name: str, stats) -> float:
+        return float(self.fill_value)
+
+    def fit_columns_from_stats(self, store, stats):
+        return self._model_of([self._fill_from_stats(n, stats)
+                               for n in self.input_names])
 
 
 @register_stage
@@ -119,6 +138,19 @@ class RealVectorizer(_NumericVectorizerBase):
     def _fill_for(self, col) -> float:
         if self.fill_with_mean and col.mask.any():
             return float(col.values[col.mask].astype(np.float64).mean())
+        return float(self.fill_value)
+
+    def _stat_request_for(self, name: str):
+        if not self.fill_with_mean:
+            return None
+        from ..fitstats import StatRequest
+        return StatRequest("mean", name)
+
+    def _fill_from_stats(self, name: str, stats) -> float:
+        if self.fill_with_mean:
+            mean = stats.value("mean", name)
+            if mean is not None:
+                return mean
         return float(self.fill_value)
 
 
@@ -144,6 +176,19 @@ class IntegralVectorizer(_NumericVectorizerBase):
             vals, counts = np.unique(col.values[col.mask],
                                      return_counts=True)
             return float(vals[np.argmax(counts)])
+        return float(self.fill_value)
+
+    def _stat_request_for(self, name: str):
+        if not self.fill_with_mode:
+            return None
+        from ..fitstats import StatRequest
+        return StatRequest("mode", name)
+
+    def _fill_from_stats(self, name: str, stats) -> float:
+        if self.fill_with_mode:
+            mode = stats.value("mode", name)
+            if mode is not None:
+                return mode
         return float(self.fill_value)
 
 
@@ -288,7 +333,26 @@ class NumericBucketizer(VectorizerEstimator):
                               np.linspace(0, 1, self.num_buckets + 1))
                   if present.size else None)
             per_feature.append(self._splits_of(qs))
+        return self._model_of(per_feature)
+
+    def _model_of(self, per_feature) -> NumericBucketizerModel:
         return NumericBucketizerModel(
             splits=per_feature, track_nulls=self.track_nulls,
             track_invalid=self.track_invalid, input_names=self.input_names,
             ftype_name=self.seq_type.__name__)
+
+    # -- the fused fit-statistics pass (fitstats.py) -----------------------
+    def stat_requests(self, store):
+        if self.splits is not None:
+            return []           # fixed splits: nothing to scan
+        from ..fitstats import StatRequest
+        return [StatRequest("quantile", n, params=(self.num_buckets,))
+                for n in self.input_names]
+
+    def fit_columns_from_stats(self, store, stats):
+        if self.splits is not None:
+            return self._model_of([self.splits] * len(self.input_names))
+        return self._model_of([
+            self._splits_of(stats.value("quantile", n,
+                                        params=(self.num_buckets,)))
+            for n in self.input_names])

@@ -113,20 +113,39 @@ class OneHotVectorizer(VectorizerEstimator):
         self.min_support = min_support
         self.track_nulls = track_nulls
 
-    #: the model's flavor; the set pivot overrides it and ``_count``
+    #: the count's request kind and the model's flavor; the set pivot
+    #: overrides both and ``_count``
+    _count_kind = "value_counts"
     _is_set = False
 
     def _count(self, col) -> Counter:
         from ._hostvec import value_counts
         return value_counts(col.values)
 
-    def fit_columns(self, store: ColumnStore) -> OneHotModel:
+    def _model_of(self, vocabs) -> OneHotModel:
         return OneHotModel(
-            vocabs=[_sorted_topk(self._count(store[n]), self.top_k,
-                                 self.min_support)
-                    for n in self.input_names],
-            track_nulls=self.track_nulls, input_names=self.input_names,
+            vocabs=vocabs, track_nulls=self.track_nulls,
+            input_names=self.input_names,
             ftype_name=self.seq_type.__name__, is_set=self._is_set)
+
+    def fit_columns(self, store: ColumnStore) -> OneHotModel:
+        return self._model_of(
+            [_sorted_topk(self._count(store[n]), self.top_k,
+                          self.min_support)
+             for n in self.input_names])
+
+    # -- the fused fit-statistics pass (fitstats.py) -----------------------
+    # Two pivots over one column (other top_k) share one count: the
+    # request is the whole Counter, each stage cuts its own top K.
+    def stat_requests(self, store):
+        from ..fitstats import StatRequest
+        return [StatRequest(self._count_kind, n) for n in self.input_names]
+
+    def fit_columns_from_stats(self, store, stats):
+        return self._model_of(
+            [_sorted_topk(stats.value(self._count_kind, n), self.top_k,
+                          self.min_support)
+             for n in self.input_names])
 
 
 @register_stage
@@ -136,6 +155,7 @@ class SetVectorizer(OneHotVectorizer):
 
     operation_name = "pivotSet"
     seq_type = OPSet
+    _count_kind = "set_value_counts"
     _is_set = True
 
     def _count(self, col) -> Counter:

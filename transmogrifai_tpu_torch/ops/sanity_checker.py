@@ -166,6 +166,27 @@ class SanityChecker(Estimator, AllowLabelAsInput):
             sample_seed=self.sample_seed)
         return self._finalize_from_stats(stats)
 
+    # -- the fused fit-statistics pass (fitstats.py) -----------------------
+    def _stats_params(self) -> Tuple:
+        return (("feature_label_corr_only", self.feature_label_corr_only),
+                ("correlation_type", self.correlation_type),
+                ("check_sample", self.check_sample),
+                ("sample_seed", self.sample_seed))
+
+    def stat_requests(self, store):
+        """The "sanity" request: ``LayerStatsPlan.run`` computes it by
+        :func:`compute_sanity_stats` on the workflow's device and dtype."""
+        from ..fitstats import StatRequest
+        return [StatRequest("sanity", self.input_features[1].name,
+                            label=self.input_features[0].name,
+                            params=self._stats_params())]
+
+    def fit_columns_from_stats(self, store, stats):
+        return self._finalize_from_stats(stats.value(
+            "sanity", self.input_features[1].name,
+            label=self.input_features[0].name,
+            params=self._stats_params()))
+
     def _finalize_from_stats(self, stats: Dict[str, Any]
                              ) -> SanityCheckerModel:
         """Host-side finalize: thresholds, reasons, summary and the

@@ -74,6 +74,21 @@ class OpScalarStandardScaler(Estimator):
         std = float(present.std(ddof=1)) if present.size > 1 else 1.0
         return ScalarStandardScalerModel(mean=mean, std=std or 1.0)
 
+    # -- the fused fit-statistics pass (fitstats.py) -----------------------
+    def stat_requests(self, store):
+        from ..fitstats import StatRequest
+        name = self.input_features[0].name
+        return [StatRequest("mean", name),
+                StatRequest("std", name, params=(1,))]
+
+    def fit_columns_from_stats(self, store, stats):
+        name = self.input_features[0].name
+        mean = stats.value("mean", name)
+        std = stats.value("std", name, params=(1,))
+        mean = 0.0 if mean is None else mean
+        std = 1.0 if std is None else std
+        return ScalarStandardScalerModel(mean=mean, std=std or 1.0)
+
 
 @register_stage
 class ScalerTransformer(Transformer):

@@ -11,6 +11,12 @@
   ``scoring.SCORING_MIN_ROWS`` rows, through the batched scoring engine
   (``scoring.ScoringEngine``); it saves and loads in the JAX package's
   format (``model_io``).
+* Each layer's opted-in estimators fit from one statistics pass over the
+  train split (``_layer_stats_pass``, ``fitstats.py``), and its
+  vectorizers transform with one upload and one pull on the card from
+  ``FUSE_MIN_ROWS`` rows (``apply_layer``); the train's sufficient
+  statistics are saved with the model (``WorkflowModel.fit_stats``) and
+  warm-start a later train (``with_warm_fit_stats``).
 * Warm starts (``Workflow.with_model_stages``) substitute fitted stages by
   uid; ``with_checkpointing`` saves the partial model after every layer
   that fitted something, and ``fit(resume_from=)`` resumes from it.
@@ -84,17 +90,113 @@ def _device_kw(stage, device) -> Dict[str, Any]:
     return {"device": device} if getattr(stage, "uses_device", False) else {}
 
 
-def _apply_layer(models: Sequence[Transformer], store: ColumnStore,
-                 device, seconds: Optional[Dict[str, float]] = None
-                 ) -> ColumnStore:
-    """Transform ``store`` by each model; ``seconds`` accumulates each
-    stage's wall-clock by uid."""
+#: rows from which a layer's vectorizers transform with one upload and
+#: one pull on the card (``apply_layer``), and the fused statistics pass
+#: folds its moments on the card (``fitstats.LayerStatsPlan``)
+FUSE_MIN_ROWS = 20_000
+
+#: byte alignment of each block in the fused transform's staging buffer
+_STAGE_ALIGN = 64
+
+
+def _fused_vectors(vecs: Sequence[Transformer], store: ColumnStore, dev,
+                   seconds: Dict[str, float]
+                   ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The vectors of ``vecs`` (VectorizerModels with ``device_math``) by
+    one device program: each model's ``host_prepare`` (canonicalized),
+    every block staged in one host buffer (pinned on the card) and
+    uploaded by one copy, each ``device_compute`` on ``dev``, and every
+    output pulled by one copy into one host buffer and split. The same
+    torch operations on the same inputs as ``VectorizerModel.
+    transform_columns``, so the vectors are bitwise equal to the
+    per-model path's. ``seconds`` gets each model's ``host_prepare``
+    seconds plus an equal share of the upload, compute and pull. Returns
+    {output name: VectorColumn} and the layer's ``info``."""
+    from .columns import VectorColumn
+    from .ops.vectorizer_base import canonicalize_prepared
+    from .types.feature_types import OPVector
+    preps = []
+    for m in vecs:
+        t0 = time.perf_counter()
+        preps.append(canonicalize_prepared(m.host_prepare(store)))
+        seconds[m.uid] = seconds.get(m.uid, 0.0) + time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pinned = dev.type == "cuda"
+    layout, size = [], 0
+    for prep in preps:
+        for k, a in prep.items():
+            a = np.ascontiguousarray(a)
+            layout.append((k, a, size))
+            size += -(-a.nbytes // _STAGE_ALIGN) * _STAGE_ALIGN
+    staged = torch.empty(size, dtype=torch.uint8, pin_memory=pinned)
+    view = staged.numpy()
+    for _k, a, off in layout:
+        view[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    up = staged.to(dev, non_blocking=pinned)
+    outs, i = [], 0
+    for m, prep in zip(vecs, preps):
+        blocks = {}
+        for k, a, off in layout[i:i + len(prep)]:
+            dt = torch.from_numpy(a[:0]).dtype
+            blocks[k] = up[off:off + a.nbytes].view(dt).reshape(a.shape)
+        i += len(prep)
+        outs.append(m.device_compute(blocks).to(torch.float32))
+    flat = torch.cat([o.reshape(-1) for o in outs])
+    pulled = torch.empty(flat.numel(), dtype=torch.float32,
+                         pin_memory=pinned)
+    pulled.copy_(flat, non_blocking=pinned)
+    if pinned:
+        torch.cuda.current_stream(dev).synchronize()
+    host = pulled.numpy()
+    cols, off = {}, 0
+    for m, o in zip(vecs, outs):
+        mat = host[off:off + o.numel()].reshape(tuple(o.shape))
+        off += o.numel()
+        meta = m.vector_metadata()
+        assert mat.ndim == 2 and mat.shape[1] == meta.size, \
+            (type(m).__name__, mat.shape, meta.size)
+        cols[m.output_name] = VectorColumn(OPVector, mat, meta)
+    fused_s = time.perf_counter() - t0
+    for m in vecs:
+        seconds[m.uid] += fused_s / len(vecs)
+    return cols, {"vectorizers": len(vecs), "rows": store.n_rows,
+                  "seconds": round(fused_s, 4), "uploads": 1, "pulls": 1,
+                  "bytesUp": size, "bytesDown": 4 * flat.numel()}
+
+
+def apply_layer(models: Sequence[Transformer], store: ColumnStore, device,
+                seconds: Optional[Dict[str, float]] = None,
+                fuse: Optional[bool] = None,
+                info: Optional[Dict[str, Any]] = None) -> ColumnStore:
+    """Transform ``store`` by a DAG layer's models on ``device``.
+
+    The layer's VectorizerModels with ``device_math`` transform as one
+    device program with one upload and one pull (``_fused_vectors``; the
+    port of the JAX package's ``apply_layer_vectorized``) when ``fuse``
+    is True, or, when it is None, from ``FUSE_MIN_ROWS`` rows on the
+    card. The other models (and every model otherwise) transform one by
+    one. Both paths give bitwise-equal vectors. ``seconds`` accumulates each stage's seconds
+    by uid; ``info`` receives the fused program's (``_fused_vectors``)."""
+    from .ops.vectorizer_base import VectorizerModel
+    dev = torch.device(device)
+    vecs = [m for m in models
+            if isinstance(m, VectorizerModel) and m.device_math]
+    if fuse is None:
+        fuse = store.n_rows >= FUSE_MIN_ROWS and dev.type == "cuda"
+    seconds = {} if seconds is None else seconds
+    cols: Dict[str, Any] = {}
+    if fuse and vecs:
+        cols, fused_info = _fused_vectors(vecs, store, dev, seconds)
+        if info is not None:
+            info.update(fused_info)
     for m in models:
+        if m.output_name in cols:
+            store = store.with_column(m.output_name, cols[m.output_name])
+            continue
         t0 = time.perf_counter()
         store = m.transform(store, **_device_kw(m, device))
-        if seconds is not None:
-            seconds[m.uid] = seconds.get(m.uid, 0.0) \
-                + time.perf_counter() - t0
+        seconds[m.uid] = seconds.get(m.uid, 0.0) \
+            + time.perf_counter() - t0
     return store
 
 
@@ -116,6 +218,9 @@ class Workflow:
         self._workflow_cv = False
         self._checkpoint_dir: Optional[str] = None
         self._warm_stages: Dict[str, FittedModel] = {}
+        #: ``"<layer>:<column>"`` → persisted SufficientStats
+        #: (``with_warm_fit_stats``)
+        self._warm_fit_stats: Optional[Dict[str, Any]] = None
         #: stage uid → fit/transform timings of the last train
         #: (OpSparkListener StageMetrics analog)
         self._stage_metrics: Dict[str, Dict[str, Any]] = {}
@@ -157,6 +262,18 @@ class Workflow:
         estimators, which are then not refit. Estimators the model does not
         hold still fit."""
         self._warm_stages = dict(model.fitted_stages)
+        return self
+
+    def with_warm_fit_stats(self, stats) -> "Workflow":
+        """Warm-start the fused statistics pass from a previous model's
+        sufficient statistics (``"<layer>:<column>"`` →
+        ``fitstats.SufficientStats``, as ``fitstats.load_sufficient_stats``
+        or ``WorkflowModel.fit_stats`` give them): each layer's moment
+        statistics are Chan-merged with the matching entries, so opted-in
+        estimators fit over [old window + fresh data] while the scan
+        covers the fresh data alone. None or an empty mapping is a cold
+        fit; columns without an entry stay fresh-only."""
+        self._warm_fit_stats = dict(stats) if stats else None
         return self
 
     def with_checkpointing(self, directory: str) -> "Workflow":
@@ -242,12 +359,20 @@ class Workflow:
         t0 = time.perf_counter()
         fitted: Dict[str, FittedModel] = {}
         seconds: Dict[str, float] = {}
+        fit_state: Dict[str, Any] = {}
+        self._warm_matched = 0
         if self._workflow_cv:
             self._fit_dag_workflow_cv(result_features, dag, train, test,
-                                      fitted, dev, dtype, seconds)
+                                      fitted, dev, dtype, seconds,
+                                      fit_state)
         else:
-            self._fit_dag(dag, train, test, fitted, dev, dtype, seconds)
+            self._fit_dag(dag, train, test, fitted, dev, dtype, seconds,
+                          fit_state=fit_state)
         train_time = time.perf_counter() - t0
+        if self._warm_fit_stats and not self._warm_matched:
+            logger.warning("train: the warm-start sufficient statistics "
+                           "matched no layer of this DAG; the refit ran "
+                           "over the fresh data alone")
         logger.info("train: %d rows, %d layers in %.2fs%s", train.n_rows,
                     len(dag), train_time,
                     " [workflow-level CV]" if self._workflow_cv else "")
@@ -257,7 +382,7 @@ class Workflow:
                               stage_metrics=self._stage_metrics,
                               train_rows=train.n_rows,
                               blacklisted_features=self.blacklisted_features,
-                              rff_results=rff_results)
+                              rff_results=rff_results, fit_stats=fit_state)
         model.phase_seconds = dict(self._phase_seconds)
         return model
 
@@ -289,22 +414,34 @@ class Workflow:
                  test: Optional[ColumnStore],
                  fitted: Dict[str, FittedModel], dev, dtype,
                  seconds: Dict[str, float], checkpoint: bool = True,
-                 transform_last: bool = False
+                 transform_last: bool = False,
+                 fit_state: Optional[Dict[str, Any]] = None
                  ) -> Tuple[ColumnStore, Optional[ColumnStore]]:
         """Fold ``dag``'s layers: fit each layer's estimators on ``train``
-        into ``fitted``, evaluate ``has_test_eval`` models on ``test``, then
-        transform both splits with the layer (FitStagesUtil
-        .fitAndTransformLayer); the last layer's outputs are transformed
-        only when ``transform_last``. Returns the transformed splits."""
+        into ``fitted`` (the opted-in ones from one statistics pass a
+        layer, ``_layer_stats_pass``), evaluate ``has_test_eval`` models
+        on ``test``, then transform both splits with the layer
+        (``apply_layer``; FitStagesUtil.fitAndTransformLayer); the last
+        layer's outputs are transformed only when ``transform_last``.
+        ``fit_state`` receives the layers' sufficient statistics. Returns
+        the transformed splits."""
         for li, layer in enumerate(dag):
             n_before = len(fitted)
+            stats, fused, pass_info = self._layer_stats_pass(
+                li, layer, train, dev, dtype, fit_state)
             models: List[Transformer] = []
             for stage in layer:
                 metrics = self._stage_metrics.setdefault(
                     stage.uid, {"stageName": stage.stage_name()})
                 if isinstance(stage, Estimator):
-                    model = self._fit_stage(stage, train, dev, dtype,
-                                            metrics, seconds)
+                    model = self._fit_stage(
+                        stage, train, dev, dtype, metrics, seconds,
+                        stats if stage.uid in fused else None)
+                    if stage.uid in fused:
+                        # the pass's seconds, shared by the stages it fed
+                        seconds[stage.uid] += \
+                            pass_info["seconds"] / len(fused)
+                        metrics["statsPass"] = pass_info
                     fitted[stage.uid] = model
                     if model.has_test_eval() and test is not None:
                         model.evaluate_model(test, **_device_kw(model, dev))
@@ -315,14 +452,17 @@ class Workflow:
                     raise WorkflowError(f"Unfittable stage {stage!r}")
             if transform_last or li < len(dag) - 1:
                 tt = time.perf_counter()
-                train = _apply_layer(models, train, dev, seconds)
+                info: Dict[str, Any] = {}
+                train = apply_layer(models, train, dev, seconds, info=info)
                 if test is not None:
-                    test = _apply_layer(models, test, dev, seconds)
+                    test = apply_layer(models, test, dev, seconds)
                 for m in models:
-                    self._stage_metrics.setdefault(
-                        m.uid, {"stageName": m.stage_name()})[
-                        "layerTransformSeconds"] = round(
-                            time.perf_counter() - tt, 4)
+                    metrics = self._stage_metrics.setdefault(
+                        m.uid, {"stageName": m.stage_name()})
+                    metrics["layerTransformSeconds"] = round(
+                        time.perf_counter() - tt, 4)
+                    if info:
+                        metrics["fusedTransform"] = info
             if checkpoint and self._checkpoint_dir \
                     and len(fitted) > n_before:
                 from .model_io import _atomic_checkpoint
@@ -336,7 +476,8 @@ class Workflow:
     def _fit_dag_workflow_cv(self, result_features, dag: StagesDAG,
                              train: ColumnStore, test: Optional[ColumnStore],
                              fitted: Dict[str, FittedModel], dev, dtype,
-                             seconds: Dict[str, float]) -> None:
+                             seconds: Dict[str, float],
+                             fit_state: Dict[str, Any]) -> None:
         """Leak-free workflow CV (OpWorkflow.scala:388-443 + cutDAG):
 
         1. fit the *before* DAG once on the training split;
@@ -350,15 +491,19 @@ class Workflow:
            training split.
 
         ``self._phase_seconds`` gets each step's seconds (``before``,
-        ``foldFeatures``, ``cvSweep``, ``final``)."""
+        ``foldFeatures``, ``cvSweep``, ``final``). Each fold's *during*
+        layers take the same statistics pass and layer transform as the
+        whole split's; ``fit_state`` gets the whole split's states."""
         ms, before, during, _after = cut_dag(result_features)
         if ms is None or not during:
-            self._fit_dag(dag, train, test, fitted, dev, dtype, seconds)
+            self._fit_dag(dag, train, test, fitted, dev, dtype, seconds,
+                          fit_state=fit_state)
             return
         phase = self._phase_seconds
         t0 = time.perf_counter()
         train_b, test_b = self._fit_dag(before, train, test, fitted, dev,
-                                        dtype, seconds, transform_last=True)
+                                        dtype, seconds, transform_last=True,
+                                        fit_state=fit_state)
         phase["before"] = time.perf_counter() - t0
         feats_name = ms.input_features[1].name
         phase["foldFeatures"] = 0.0
@@ -371,8 +516,8 @@ class Workflow:
             self._fit_dag(during, kept.take(rows), None, fold_fit, dev,
                           dtype, {}, checkpoint=False)
             for layer in during:
-                kept = _apply_layer([fold_fit.get(s.uid, s) for s in layer],
-                                    kept, dev)
+                kept = apply_layer([fold_fit.get(s.uid, s) for s in layer],
+                                   kept, dev)
             phase["foldFeatures"] += time.perf_counter() - tf
             return np.asarray(kept[feats_name].values, dtype=np.float64)
 
@@ -388,15 +533,72 @@ class Workflow:
                                         if s.uid not in done]
                                        for layer in dag) if rest]
         self._fit_dag(remaining, train_b, test_b, fitted, dev, dtype,
-                      seconds)
+                      seconds, fit_state=fit_state)
         phase["final"] = time.perf_counter() - t0
 
+    def _layer_stats_pass(self, li: int, layer, train: ColumnStore, dev,
+                          dtype, fit_state: Optional[Dict[str, Any]]):
+        """The fused fit-statistics pass (``fitstats.py``): every
+        opted-in estimator's StatRequests for this layer (warm-started
+        stages excluded) computed in one pass over ``train`` when at least
+        ``FITSTATS_MIN_STAGES`` of them scan data, or a warm state matches
+        this layer. Returns (StatResults or None, the uids it feeds, the
+        pass's {"tier", "stages", "requests", "seconds", "bytesScanned"}).
+        A layer below the threshold still records its moment columns'
+        state. The layer's states go to ``fit_state`` as
+        ``"<layer>:<column>"``. A failing opt-in raises."""
+        from . import fitstats
+        if not fitstats.FITSTATS_ENABLED:
+            return None, set(), None
+        requests: Dict[str, list] = {}
+        for stage in layer:
+            if isinstance(stage, Estimator) \
+                    and stage.uid not in self._warm_stages:
+                reqs = stage.stat_requests(train)
+                if reqs is not None:
+                    requests[stage.uid] = list(reqs)
+        n_scanning = sum(1 for reqs in requests.values() if reqs)
+        warm = None
+        if self._warm_fit_stats and n_scanning:
+            prefix = f"{li}:"
+            warm = {k[len(prefix):]: v
+                    for k, v in self._warm_fit_stats.items()
+                    if k.startswith(prefix)} or None
+            self._warm_matched += len(warm or ())
+        if n_scanning < fitstats.FITSTATS_MIN_STAGES and warm is None:
+            if fit_state is not None:
+                cols = {r.column for reqs in requests.values()
+                        for r in reqs if r.kind in fitstats._MOMENT_KINDS}
+                for col in sorted(cols):
+                    fit_state[f"{li}:{col}"] = \
+                        fitstats.collect_column_state(train[col])
+            return None, set(), None
+        plan = fitstats.LayerStatsPlan(
+            [r for reqs in requests.values() for r in reqs],
+            n_stages=n_scanning)
+        state_out: Dict[str, Any] = {}
+        t0 = time.perf_counter()
+        stats = plan.run(train, state_out=state_out, warm_state=warm,
+                         workflow_device=dev, dtype=dtype)
+        info = {"tier": plan.tier, "stages": n_scanning,
+                "requests": plan.n_requests,
+                "seconds": time.perf_counter() - t0,
+                "bytesScanned": plan.bytes_scanned}
+        if fit_state is not None:
+            for col, st in state_out.items():
+                fit_state[f"{li}:{col}"] = st
+        logger.info("layer %d: one %s statistics pass fed %d estimator(s) "
+                    "(%d request(s)) in %.2fs", li, plan.tier,
+                    len(requests), plan.n_requests, info["seconds"])
+        return stats, set(requests), info
+
     def _fit_stage(self, stage: Estimator, train: ColumnStore, dev, dtype,
-                   metrics: Dict[str, Any], seconds: Dict[str, float]
-                   ) -> FittedModel:
+                   metrics: Dict[str, Any], seconds: Dict[str, float],
+                   stats=None) -> FittedModel:
         """The estimator's fitted model: the warm-start stage of its uid
         (a shallow copy rewired to this DAG, so the donor model's stages
-        stay as they are), else a fit on ``train``."""
+        stay as they are), else a fit on ``train``, from the layer's
+        ``stats`` where the statistics pass fed it."""
         warm = self._warm_stages.get(stage.uid)
         if warm is not None:
             model = _copy.copy(warm)
@@ -412,7 +614,11 @@ class Workflow:
         if kw:
             kw["dtype"] = dtype
         ts = time.perf_counter()
-        model = stage.fit(train, **kw)
+        if stats is not None:
+            model = stage.fit(train, stats=stats)
+            metrics["fusedStats"] = True
+        else:
+            model = stage.fit(train, **kw)
         fit_s = time.perf_counter() - ts
         seconds[stage.uid] = fit_s
         metrics["fitSeconds"] = round(fit_s, 4)
@@ -432,7 +638,7 @@ class WorkflowModel:
                  train_rows: int = 0,
                  blacklisted_features: Sequence[Feature] = (),
                  rff_results=None,
-                 fit_stats_json: Optional[Dict[str, Any]] = None):
+                 fit_stats: Optional[Dict[str, Any]] = None):
         self.uid = uid_mod.make_uid("WorkflowModel")
         self.result_features = tuple(result_features)
         self.fitted_stages = dict(fitted_stages)
@@ -446,14 +652,14 @@ class WorkflowModel:
         #: stage uid → train wall-clock seconds (its fit + its transforms)
         self.stage_seconds = dict(stage_seconds or {})
         #: stage uid → {"stageName", "fitSeconds", "warmStarted",
-        #: "layerTransformSeconds"} (OpSparkListener analog)
+        #: "layerTransformSeconds", "fusedStats", "statsPass",
+        #: "fusedTransform"} (OpSparkListener analog)
         self.stage_metrics = dict(stage_metrics or {})
         #: rows of the training split (0 on a loaded model)
         self.train_rows = int(train_rows)
-        #: the JSON a JAX-package save held for its train-time sufficient
-        #: statistics, kept as read and written back unchanged (ROADMAP
-        #: queue A, item 3)
-        self.fit_stats_json = fit_stats_json
+        #: the train's sufficient statistics: ``"<layer>:<column>"`` →
+        #: ``fitstats.SufficientStats`` (saved as ``fitSufficientStats``)
+        self.fit_stats = dict(fit_stats or {})
         #: train seconds by phase: ``rawFeatureFilter``, and with workflow
         #: CV ``before``, ``foldFeatures``, ``cvSweep`` and ``final``
         self.phase_seconds: Dict[str, float] = {}
@@ -529,7 +735,7 @@ class WorkflowModel:
         needed = (None if up_to is None
                   else {s.uid for s in up_to.parent_stages()})
         for layer in self._resolved_dag():
-            store = _apply_layer([m for m in layer
+            store = apply_layer([m for m in layer
                                   if needed is None or m.uid in needed],
                                  store, dev)
         return store
