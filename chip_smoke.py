@@ -189,14 +189,38 @@ Run from the repository root on a machine with one NVIDIA H100:
    model with its LOCO stage saved, loaded (the filter's results and the
    blacklist equal, LOCO re-attached) and scored through the engine as
    the layer path scores it.
+11. the event-time readers (eventlog-200k): ``bench.py``'s event log (16
+   Avro files of 10,000 rows over 5,000 users, seed 47) written by the
+   port's ``write_avro_records``, joined to its users table and
+   aggregated twice — ``read_avro_records`` into the row-wise join and
+   fold under ``aggregateColumnar`` false, ``read_avro_table`` into the
+   columnar path — every column's values and mask bitwise equal, events/s
+   for each tier. Then ``dataprep.make_event_log`` (200,000 users, 20
+   events each, seed 47) through ``dataprep.build_workflow``: the
+   ``JoinedAggregateDataReader`` (the columnar join and aggregation,
+   timed) → transmogrify → SanityChecker → the default families at one
+   grid point each, 3-fold CV, trained on the card, counted (the
+   temporal tallies must show a columnar aggregate and no row-wise one;
+   every tree family's every fold must launch ``group_rows``, ``cumhist``,
+   ``split_scan`` and ``level_epilogue``; ``predict_trees`` must launch);
+   prints the width, each family's fold metrics, the winner and its AuPR,
+   the train seconds by phase (aggregate, vectorize, sweep, refit) and
+   :func:`stage_table`. The model saved, loaded afresh and the aggregated
+   store scored through the engine: predictions equal to the layer
+   path's, probabilities within 2^-22. The same at 20,000 users on the
+   card and the CPU: the aggregated stores bitwise equal, the same
+   winner, every family's fold metrics within 1e-4. Last, the dataprep
+   walkthrough's rows (``dataprep.run()``) against those
+   ``examples/dataprep.py`` prints, written here as data.
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
-boston-200k, mapprep-200k and mapprep-guarded-200k) once more under ``torch.profiler`` and
+boston-200k, mapprep-200k, mapprep-guarded-200k and eventlog-200k) once
+more under ``torch.profiler`` and
 prints its device-time table: the busy share, the device operations a tree level, the histogram
 kernels, the split scans, the route or level epilogue, the predict and the
 uint8 → bool copies.
-``--stage-seconds`` trains text-200k, mapprep-200k and
-mapprep-guarded-200k twice each and prints :func:`stage_table` after each
+``--stage-seconds`` trains text-200k, mapprep-200k,
+mapprep-guarded-200k and eventlog-200k twice each and prints :func:`stage_table` after each
 train, nothing else; like ``--timings-only`` it calls only what every
 version of the port has, so a copy of this script times another
 checkout's stages.
@@ -211,7 +235,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–10).
+over the main paths' runs, phases 3–11).
 """
 import json
 import math
@@ -2111,7 +2135,7 @@ def check_mapprep_kernels(H, TF, dev, X, y, run="mapprep"):
     XbT, edges = TF.compute_bins(Xd, B, bmask)
     blocks = TF.prepare_blocks(XbT, B, bmask)
     if [b.sparse01 for b in blocks] != [False, True]:
-        fail("mapprep vector: not one 32-bin and one 2-bin block")
+        fail(f"{run} vector: not one 32-bin and one 2-bin block")
     widths = [len(b.cols) for b in blocks]
     worst = {"cumhist": 0.0, "cumhist_sparse01": 0.0, "predict_trees": 0.0}
     for A in MAPPREP_SLOTS:
@@ -2178,7 +2202,7 @@ def check_mapprep_kernels(H, TF, dev, X, y, run="mapprep"):
           f"{REL_TOL:g} at (T, D, K) = {MAPPREP_TREES} (max abs err "
           f"{worst['predict_trees']:.3g})")
     if not wins:
-        fail("level_epilogue at the mapprep shape: no winner in the 2-bin "
+        fail(f"level_epilogue at the {run} shape: no winner in the 2-bin "
              "block was checked")
     return worst
 
@@ -2301,9 +2325,15 @@ def guard_scoring_records(MP, n):
 
 def spy_folds(H, validator, keep_fold=False):
     """Wrap ``validator``'s per-fold sweep: every (family, fold)'s kernel
-    launches, and with ``keep_fold`` fold 0's (X, y) training rows."""
+    launches, and with ``keep_fold`` fold 0's (X, y) training rows, under
+    workflow-level CV or the selector's own CV."""
     per_fold, fold0 = [], {}
     sweep, per_fold_fn = validator._sweep_fold, validator.validate_per_fold
+    validate = validator.validate
+
+    def keep_rows(X, y, w):
+        if keep_fold and not fold0:
+            fold0["X"], fold0["y"] = X[w > 0], y[w > 0]
 
     def spy(family, groups, metric_fn, Xarg, yd, w, v, y, vm, metrics, k):
         torch.cuda.synchronize()
@@ -2314,12 +2344,16 @@ def spy_folds(H, validator, keep_fold=False):
             n: H.KERNEL_LAUNCHES[n] - before[n] for n in before}))
 
     def keep(families, fold_data, **kw):
-        if keep_fold:
-            X, y, w = fold_data[0][:3]
-            fold0["X"], fold0["y"] = X[w > 0], y[w > 0]
+        keep_rows(*fold_data[0][:3])
         return per_fold_fn(families, fold_data, **kw)
+
+    def keep_cv(families, X, y, base_weights=None, **kw):
+        w = validator._splits(y)[0][0]
+        keep_rows(X, y, w if base_weights is None else w * base_weights)
+        return validate(families, X, y, base_weights=base_weights, **kw)
     validator._sweep_fold = spy
     validator.validate_per_fold = keep
+    validator.validate = keep_cv
     return per_fold, fold0
 
 
@@ -2399,20 +2433,20 @@ def guarded_run(H, MP, records, score_records, dev, loco_rows,
     return out
 
 
-def fold_launches(out, what):
-    """Every tree family's every fold launched each tree kernel; returns
-    the sweep's launches summed by kernel."""
+def fold_launches(out, what, kernels=GUARD_KERNELS):
+    """Every tree family's every fold launched each of ``kernels``;
+    returns the sweep's launches summed by kernel."""
     trees = [(f, k, c) for f, k, c in out["per_fold"]
              if f in ("OpRandomForestClassifier", "OpGBTClassifier")]
     folds = {(f, k) for f, k, _ in trees}
     if len(folds) != 6:
         fail(f"{what}: {len(folds)} tree family folds swept, not 2 x 3")
     for f, k, c in trees:
-        missing = [n for n in GUARD_KERNELS if c[n] == 0]
+        missing = [n for n in kernels if c[n] == 0]
         if missing:
             fail(f"{what}: {f} fold {k} never launched {missing}")
     return {n: sum(c[n] for _f, _k, c in out["per_fold"])
-            for n in GUARD_KERNELS + ("predict_trees",)}
+            for n in kernels + ("predict_trees",)}
 
 
 def top_names_agree(loco, X, tol, what, dev="cuda"):
@@ -2689,6 +2723,327 @@ def guarded_paths(H, TF, MP, records, root, profile=False, dev="cuda"):
                           "n": n_loco, "max_abs_err": err, **errs}
 
 
+# -- phase 11: the event-time readers; eventlog-200k ---------------------
+#: eventlog-200k: users, events a user, the seed of ``dataprep.
+#: make_event_log``; the card/CPU agreement's users
+EVENT_USERS, EVENTS_PER_USER, EVENT_SEED = 200_000, 20, 47
+EVENT_AGREE_USERS = 20_000
+#: ``bench.py``'s event log: files, rows a file, users
+BENCH_FILES, BENCH_FILE_ROWS, BENCH_USERS = 16, 10_000, 5_000
+#: the kernels every tree family's every fold must launch on the path
+EVENT_KERNELS = ("cumhist", "group_rows", "split_scan", "level_epilogue")
+#: ``examples/dataprep.py``'s rows: user b (no purchase) dropped, user a's
+#: minutes before its first purchase, user c bought at its first visit
+DATAPREP_ROWS = {0: {"minutes": 10.0, "purchase": False},
+                 1: {"minutes": None, "purchase": True}}
+
+
+class _Src:
+    """A reader handing a decoded source to the join, keyed by user."""
+
+    def __init__(self, data):
+        from transmogrifai_tpu_torch import temporal
+        self._data = data
+        self.key_fn = temporal.field("user")
+
+    def read_records(self):
+        return self._data
+
+
+def same_store(a, b, names, what):
+    """Two raw stores with the same rows, every column's values and mask
+    bitwise equal."""
+    if a.n_rows != b.n_rows:
+        fail(f"{what}: {a.n_rows} rows against {b.n_rows}")
+    for n in names:
+        if (a[n].values.dtype != b[n].values.dtype
+                or a[n].values.tobytes() != b[n].values.tobytes()
+                or not np.array_equal(a[n].mask, b[n].mask)):
+            fail(f"{what}: column {n} differs")
+
+
+def bench_event_log(DP, root):
+    """Phase 11 (a): ``bench.py``'s event log — BENCH_FILES Avro files of
+    BENCH_FILE_ROWS rows over BENCH_USERS users, seed 47, the bench's draws
+    — written by the port's ``write_avro_records``, then joined to the
+    users table and aggregated twice: ``read_avro_records`` into the
+    row-wise join and fold under ``aggregateColumnar`` false, and
+    ``read_avro_table`` into the columnar path. Every column's values and
+    mask bitwise equal; events/s for each tier."""
+    import shutil
+
+    from transmogrifai_tpu_torch import temporal
+    from transmogrifai_tpu_torch.readers import (CutOffTime,
+                                                 JoinedAggregateDataReader)
+    from transmogrifai_tpu_torch.readers.avro import (read_avro_records,
+                                                      read_avro_table,
+                                                      write_avro_records)
+    work = os.path.join(root, "build", "eventlog")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(EVENT_SEED)
+    t0 = time.perf_counter()
+    files = []
+    for i in range(BENCH_FILES):
+        uid = rng.integers(0, BENCH_USERS, BENCH_FILE_ROWS).astype(float)
+        recs = [{"user": float(uid[r]),
+                 "ts": float(rng.uniform(0, 1000.0)),
+                 "amount": float(rng.gamma(2.0, 10.0)),
+                 "flag": bool(rng.random() < 0.05)}
+                for r in range(BENCH_FILE_ROWS)]
+        files.append(os.path.join(work, f"e{i:04d}.avro"))
+        write_avro_records(files[-1], recs)
+    write_s = time.perf_counter() - t0
+    users = [{"user": float(u), "seg": float(u % 7)}
+             for u in range(BENCH_USERS)]
+    label, preds = DP.event_features()
+    feats = [label] + preds
+    ts, cutoff = temporal.field("ts"), CutOffTime.at(DP.CUTOFF)
+    rows = BENCH_FILES * BENCH_FILE_ROWS
+
+    prev = temporal.set_run_defaults(columnar=False)
+    try:
+        before = temporal.temporal_stats()
+        t0 = time.perf_counter()
+        recs = [r for fp in files for r in read_avro_records(fp)]
+        row = JoinedAggregateDataReader(_Src(recs), _Src(users), ts,
+                                        cutoff).generate_store(feats)
+        row_s = time.perf_counter() - t0
+        mid = temporal.temporal_stats()
+    finally:
+        temporal.set_run_defaults(**prev)
+    t0 = time.perf_counter()
+    tables = [read_avro_table(fp) for fp in files]
+    col = JoinedAggregateDataReader(
+        _Src(temporal.concat_tables(tables)),
+        _Src(temporal.table_from_records(users)), ts,
+        cutoff).generate_store(feats)
+    col_s = time.perf_counter() - t0
+    after = temporal.temporal_stats()
+    if mid["rowwise_aggregates"] != before["rowwise_aggregates"] + 1 \
+            or after["columnar_aggregates"] != mid["columnar_aggregates"] + 1:
+        fail(f"event log: the tiers did not serve as asked ({after})")
+    if not all(type(t).__name__ == "ColumnarRecords" for t in tables):
+        fail("event log: a file did not decode by the columnar path")
+    same_store(row, col, [f.name for f in feats],
+               "event log: row-wise against columnar")
+    print(f"event log (bench.py's: {BENCH_FILES} Avro files x "
+          f"{BENCH_FILE_ROWS} rows, {BENCH_USERS} users): written in "
+          f"{write_s:.2f} s; decode + join + aggregate row-wise {row_s:.3f} s"
+          f" = {rows / row_s:,.0f} events/s, columnar {col_s:.3f} s = "
+          f"{rows / col_s:,.0f} events/s ({row_s / col_s:.2f}x); {row.n_rows}"
+          f" keys, every column's values and mask bitwise equal")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def tree_refits(wf, model, store, dev):
+    """The selector's tree families at their grid point, each refit by its
+    estimator on the whole aggregated vector and scored over it, so that
+    ``predict_trees`` runs whichever family the selector picked. Returns
+    {estimator: AuPR over the store}."""
+    from transmogrifai_tpu_torch.evaluators.metrics import aupr
+    from transmogrifai_tpu_torch.models import (GBTFamily, OpGBTClassifier,
+                                                OpRandomForestClassifier,
+                                                RandomForestFamily)
+    vec = model.fitted_stages[wf["selector"].uid].input_features[1]
+    trained = model.transform(store, device=dev, engine=False)
+    y = np.asarray(trained[wf["label"].name].values, dtype=np.float64)
+    out = {}
+    for fam in wf["selector"].families:
+        if not isinstance(fam, (RandomForestFamily, GBTFamily)):
+            continue
+        g = fam.grid[0]
+        kw = dict(max_depth=g["maxDepth"],
+                  min_instances_per_node=g["minInstancesPerNode"],
+                  min_info_gain=g["minInfoGain"],
+                  max_active_nodes=fam.max_active_nodes)
+        est = (OpRandomForestClassifier(num_trees=fam.num_trees,
+                                        seed=fam.seed, **kw)
+               if isinstance(fam, RandomForestFamily)
+               else OpGBTClassifier(max_iter=fam.max_iter, **kw))
+        est.set_input(wf["label"], vec)
+        scored = est.fit(trained, device=dev).transform_columns(
+            trained, device=dev)
+        out[fam.name] = aupr(y, scored.probability[:, 1])
+    return out
+
+
+def eventlog_run(H, DP, n_users, dev, events=None, keep_fold=False):
+    """``dataprep``'s event log of ``n_users`` users (EVENTS_PER_USER each,
+    EVENT_SEED) joined, aggregated through the columnar engine and trained
+    on ``dev`` with the default families at one grid point each; the
+    model evaluated on the aggregated store, and the tree families refit
+    and scored over it (:func:`tree_refits`). Returns the model, the store
+    the train aggregated, the summary, metrics, the refits' AuPR, the
+    per-fold launches (with ``keep_fold`` fold 0's training rows;
+    :func:`spy_folds`), the temporal tallies and the seconds."""
+    from transmogrifai_tpu_torch import temporal
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    t0 = time.perf_counter()
+    if events is None:
+        events = DP.make_event_log(n_users, EVENTS_PER_USER, EVENT_SEED)
+    make_s = time.perf_counter() - t0
+    wf = DP.build_workflow(*events)
+    kept = {}
+    generate = wf["reader"].generate_store
+
+    def keep(raw):
+        kept["store"] = generate(raw)
+        return kept["store"]
+    wf["reader"].generate_store = keep
+    per_fold, fold0 = spy_folds(H, wf["selector"].validator, keep_fold)
+    temporal.reset_temporal_stats()
+    t0 = time.perf_counter()
+    model = wf["workflow"].train(device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    stats = temporal.temporal_stats()
+    store, sel = kept["store"], model.fitted_stages[wf["selector"].uid]
+    evaluator = Evaluators.BinaryClassification.auPR().set_columns(
+        wf["label"], wf["prediction"])
+    t0 = time.perf_counter()
+    metrics = model.evaluate(store, evaluator, device=dev)
+    eval_s = time.perf_counter() - t0
+    before = H.KERNEL_LAUNCHES["predict_trees"]
+    t0 = time.perf_counter()
+    refits = tree_refits(wf, model, store, dev)
+    refit_s = time.perf_counter() - t0
+    refit_launches = H.KERNEL_LAUNCHES["predict_trees"] - before
+    head = store.take(np.arange(min(256, store.n_rows)))
+    vec = sel.input_features[1]
+    width = model.transform(head, device=dev, engine=False)[
+        vec.name].values.shape[1]
+    return {"model": model, "store": store, "summary": sel.selector_summary,
+            "metrics": metrics, "refits": refits,
+            "refit_launches": refit_launches, "per_fold": per_fold,
+            "fold0": fold0, "temporal": stats,
+            "prediction": wf["prediction"], "raw": wf["raw"],
+            "selector": sel, "width": width, "events": events,
+            "make_s": make_s, "train_s": train_s, "eval_s": eval_s,
+            "refit_s": refit_s}
+
+
+def eventlog_paths(H, TF, DP, root, profile=False, dev="cuda"):
+    """Phase 11: the two tiers at the bench's size; eventlog-200k
+    aggregated columnar and trained on the card, counted (the tree
+    refits launch ``predict_trees``, whichever family wins); its kernels
+    at the shapes of its CV fold 0 (:func:`check_mapprep_kernels`); the
+    model saved, loaded and scored through the engine against the layer
+    path; the card against the CPU at EVENT_AGREE_USERS users; the
+    dataprep walkthrough's rows. Returns ({path: launches}, each kernel's
+    max abs error at the fold's shapes)."""
+    from transmogrifai_tpu_torch import WorkflowModel
+    t_phase = time.perf_counter()
+    bench_event_log(DP, root)
+
+    out, launches = counted(H, lambda: eventlog_run(
+        H, DP, EVENT_USERS, dev, keep_fold=True),
+        EVENT_KERNELS + ("predict_trees",))
+    sweep = fold_launches(out, "eventlog-200k", EVENT_KERNELS)
+    st = out["temporal"]
+    n_events = EVENT_USERS * EVENTS_PER_USER
+    if st["columnar_aggregates"] < 1 or st["rowwise_aggregates"] \
+            or st["columnar_joins"] < 1:
+        fail(f"eventlog-200k: not aggregated columnar ({st})")
+    if out["store"].n_rows != EVENT_USERS or \
+            out["model"].train_rows != EVENT_USERS:
+        fail(f"eventlog-200k: {out['store'].n_rows} keys aggregated, "
+             f"{out['model'].train_rows} rows trained, not {EVENT_USERS}")
+    aupr = out["metrics"]["AuPR"]
+    if not all(0.0 < a <= 1.0 for a in [aupr, *out["refits"].values()]):
+        fail(f"eventlog-200k: AuPR {aupr}, tree refits {out['refits']}")
+    if out["refit_launches"] < 1:
+        fail("eventlog-200k: the tree refits never launched predict_trees")
+    model, s = out["model"], out["summary"]
+    ph, sec = model.phase_seconds, model.stage_seconds
+    sel_s = sec.get(out["selector"].uid, 0.0)
+    sweep_s = sum(s.validator_summary.family_seconds.values())
+    for r in s.validator_summary.results:
+        print(f"eventlog-200k fold metrics: {r.family_name} {r.hparams} "
+              f"{r.metric_values} mean {r.mean_metric:.6f}")
+    print(f"eventlog-200k: {n_events} events over {EVENT_USERS} users made "
+          f"in {out['make_s']:.2f} s; join + aggregate (columnar) "
+          f"{ph['aggregate']:.2f} s = {n_events / ph['aggregate']:,.0f} "
+          f"events/s; width {out['width']}; best {s.best_model_name} "
+          f"{s.best_model_params}, AuPR {aupr:.6f} over the aggregated "
+          f"store; train {out['train_s']:.2f} s (aggregate "
+          f"{ph['aggregate']:.2f}, vectorize "
+          f"{sum(sec.values()) - sel_s:.2f}, sweep {sweep_s:.2f}, refit "
+          f"{sel_s - sweep_s:.2f}); evaluate {out['eval_s']:.2f} s; CV s by "
+          f"family {s.validator_summary.family_seconds}; temporal {st}")
+    print(f"eventlog-200k tree refits over the aggregated store: AuPR "
+          f"{ {k: round(v, 6) for k, v in out['refits'].items()} } in "
+          f"{out['refit_s']:.2f} s ({out['refit_launches']} predict_trees "
+          f"launches)")
+    print(f"eventlog-200k launches: {launches}; the sweep's: {sweep}")
+    stage_table(model, "eventlog-200k")
+    paths = {"eventlog-200k": launches}
+    if profile:
+        events = out["events"]
+        profile_path(H, "eventlog-200k", lambda: eventlog_run(
+            H, DP, EVENT_USERS, dev, events=events))
+    fold0 = out.pop("fold0")
+    worst = check_mapprep_kernels(H, TF, dev, fold0["X"], fold0["y"],
+                                  "eventlog-200k CV fold 0")
+    del fold0
+
+    # the second life: saved, loaded afresh, the aggregated store scored
+    # through the engine as the saved model's layer path scores it
+    path = os.path.join(root, "build", "serve", "eventlog")
+    t0 = time.perf_counter()
+    model.save(path, overwrite=True)
+    loaded = WorkflowModel.load(path)
+    io_s = time.perf_counter() - t0
+    store, pred = out["store"], out["prediction"].name
+    t0 = time.perf_counter()
+    got = loaded.score(store, device=dev, engine=True)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = model.score(store, device=dev, engine=False)
+    torch.cuda.synchronize()
+    layer_s = time.perf_counter() - t0
+    same_predictions(got[pred], want[pred], "eventlog serve",
+                     prob_atol=PROB_ATOL)
+    print(f"eventlog serve: save + load {io_s:.2f} s; Score of "
+          f"{store.n_rows} users through the engine {score_s:.2f} s = "
+          f"{store.n_rows / score_s:,.0f} rows/s against the layer path's "
+          f"{layer_s:.2f} s; predictions equal, probabilities within 2^-22")
+    del out, model, loaded, store, got, want
+
+    t0 = time.perf_counter()
+    events = DP.make_event_log(EVENT_AGREE_USERS, EVENTS_PER_USER,
+                               EVENT_SEED)
+    runs = {}
+    runs["cuda"], paths["eventlog-20k"] = counted(
+        H, lambda: eventlog_run(H, DP, EVENT_AGREE_USERS, "cuda", events),
+        EVENT_KERNELS)
+    fold_launches(runs["cuda"], "eventlog-20k (card)", EVENT_KERNELS)
+    runs["cpu"] = eventlog_run(H, DP, EVENT_AGREE_USERS, "cpu", events)
+    same_store(runs["cuda"]["store"], runs["cpu"]["store"],
+               [f.name for f in runs["cpu"]["raw"]],
+               "eventlog-20k: the card's store against the CPU's")
+    agree_metric(runs, "AuPR", 1e-4,
+                 f"eventlog, {EVENT_AGREE_USERS} users (stores bitwise "
+                 "equal)")
+    refit_d = {k: abs(v - runs["cpu"]["refits"][k])
+               for k, v in runs["cuda"]["refits"].items()}
+    if not max(refit_d.values()) <= 1e-4:
+        fail(f"eventlog-20k: the tree refits' AuPR differ {refit_d}")
+    print(f"eventlog-20k tree refits: card/CPU |dAuPR| "
+          f"{ {k: float(f'{v:.3g}') for k, v in refit_d.items()} } "
+          f"(limit 1e-4)")
+    print(f"eventlog agreement: {time.perf_counter() - t0:.2f} s")
+
+    _store, rows = DP.run()
+    if rows != DATAPREP_ROWS:
+        fail(f"dataprep walkthrough: rows {rows}, not {DATAPREP_ROWS}")
+    print(f"dataprep walkthrough: {rows}, the rows examples/dataprep.py "
+          "prints")
+    print(f"phase 11: {time.perf_counter() - t_phase:.2f} s")
+    return paths, worst
+
+
 def stage_table(model, what):
     """Print a trained model's seconds by stage and by layer: each stage's
     fit seconds, its layer's transform seconds (``layerTransformSeconds``)
@@ -2923,17 +3278,17 @@ def check_fusion(model, store, what, dev="cuda"):
             store = W.apply_layer(fitted, store, dev, fuse=False)
 
 
-def stage_seconds(BP, MP, dev="cuda"):
-    """``--stage-seconds``: text-200k, mapprep-200k and
-    mapprep-guarded-200k's training (no insights, no checks) twice each,
-    with :func:`stage_table` after each train. It calls only what every
-    version of the port has, so a copy of this script in another checkout
-    reads that checkout's stages: two versions compare in one call, in
-    turns."""
+def stage_seconds(BP, MP, DP, dev="cuda"):
+    """``--stage-seconds``: text-200k, mapprep-200k, mapprep-guarded-200k
+    and eventlog-200k's training (no insights, no checks) twice each,
+    with :func:`stage_table` after each train. A copy of this script in
+    another checkout that has these paths reads that checkout's stages:
+    two versions compare in one call, in turns."""
     from transmogrifai_tpu_torch.filters import RawFeatureFilter
     records = BP.synthesize_records(N, seed=42)
     mrecords = MP.make_records(N, MAPPREP_SEED)
     srecs = guard_scoring_records(MP, GUARD_SCORE_N)
+    events = DP.make_event_log(EVENT_USERS, EVENTS_PER_USER, EVENT_SEED)
     for rep in range(2):
         out = BP.run(N, device=dev, records=records)
         print(f"text-200k rep {rep}: train {out['train_s']:.4f} s, "
@@ -2957,6 +3312,14 @@ def stage_seconds(BP, MP, dev="cuda"):
         print(f"mapprep-guarded-200k rep {rep}: train "
               f"{time.perf_counter() - t0:.4f} s, best {s.best_model_name}")
         stage_table(model, f"mapprep-guarded-200k rep {rep}")
+        wf = DP.build_workflow(*events)
+        t0 = time.perf_counter()
+        model = wf["workflow"].train(device=dev)
+        torch.cuda.synchronize()
+        s = model.fitted_stages[wf["selector"].uid].selector_summary
+        print(f"eventlog-200k rep {rep}: train "
+              f"{time.perf_counter() - t0:.4f} s, best {s.best_model_name}")
+        stage_table(model, f"eventlog-200k rep {rep}")
     return 0
 
 
@@ -3005,6 +3368,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from transmogrifai_tpu_torch import big_passenger as BP
     from transmogrifai_tpu_torch import boston as BO
+    from transmogrifai_tpu_torch import dataprep as DP
     from transmogrifai_tpu_torch import iris as IR
     from transmogrifai_tpu_torch import mapprep as MP
     from transmogrifai_tpu_torch import titanic as TT
@@ -3035,7 +3399,7 @@ def main():
     if timings_only:
         return timings(H, dev, BP, run)
     if "--stage-seconds" in sys.argv[1:]:
-        return stage_seconds(BP, MP)
+        return stage_seconds(BP, MP, DP)
 
     rows = check_kernels(H, TF, dev)
     path_launches = {}
@@ -3165,6 +3529,12 @@ def main():
     guard_launches, worst, loco_row = guarded_paths(
         H, TF, MP, mapprep_records, root, profile)
     path_launches.update(guard_launches)
+    for name, err in worst.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+    # -- phase 11: the event-time readers; eventlog-200k -----------------
+    event_launches, worst = eventlog_paths(H, TF, DP, root, profile)
+    path_launches.update(event_launches)
     for name, err in worst.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
 

@@ -101,3 +101,18 @@ def test_guard_modules_are_scanned(module):
 def test_scan_list_holds_the_fused_statistics_module():
     """The fused statistics pass is among the sources scanned above."""
     assert PORT / "fitstats.py" in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "temporal.py", "dataprep.py", "utils/aggregators.py",
+    "readers/avro.py", "readers/data_readers.py", "readers/__init__.py"])
+def test_temporal_modules_are_scanned(module):
+    """The event-time readers, the Avro codec, the temporal engine and
+    the dataprep path are among the sources scanned above and the
+    modules imported with ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    if dotted.endswith(".__init__"):
+        dotted = dotted[:-len(".__init__")]
+    assert dotted in _modules()

@@ -38,10 +38,10 @@ from transmogrifai_tpu_torch.utils import uid as puid
 #: metrics-document blocks of the JAX package's runner whose modules are
 #: not ported (all ROADMAP queue A, item 6: aot, continual, fleet,
 #: lifecycle, parallel/mesh and multi-host, pipeline, resilience, server,
-#: temporal, telemetry's MFU, workload, config's effective knobs)
+#: telemetry's MFU, workload, config's effective knobs)
 NOT_PORTED = {"aot", "continual", "effectiveConfig", "fleet", "lifecycle",
               "mesh", "mfu", "pipeline", "process", "resilience", "server",
-              "temporal", "workload"}
+              "workload"}
 RUNS = (RunType.TRAIN, RunType.SCORE, RunType.EVALUATE, RunType.FEATURES)
 
 
@@ -202,9 +202,6 @@ UNPORTED = {
         custom_params={"plan": True})), "item 6"),
     "mesh": (lambda r, p: r.run(RunType.TRAIN, OpParams(
         custom_params={"meshDevices": 4})), "item 6"),
-    "avro": (lambda r, p: r.run(RunType.SCORE, OpParams(
-        model_location=p.model_location, write_location="s.avro")),
-        "item 6"),
     "yaml": (lambda r, p: OpParams.from_file("p.yaml"), "item 6"),
 }
 
@@ -214,8 +211,6 @@ def test_unported_parts_raise_naming_their_item(what, tmp_path):
     """Nothing of the JAX runner is silently ignored: each part not
     ported raises NotImplementedError naming its ROADMAP queue A item."""
     runner, params, _pred = _port_runner(_records(n=60), tmp_path)
-    if what == "avro":
-        runner.run(RunType.TRAIN, params)
     call, item = UNPORTED[what]
     with pytest.raises(NotImplementedError, match=f"queue A,? {item}"):
         call(runner, params)

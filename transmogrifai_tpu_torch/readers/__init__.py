@@ -1,5 +1,20 @@
 """Data readers: host-side ingestion into record dicts and raw feature
-stores."""
-from .data_readers import CSVReader, DataReader, DataReaders  # noqa: F401
+stores, the event-time aggregating and joining readers, and the Avro
+codec. The streaming directory reader comes with ``readers/streaming.py``
+(ROADMAP queue A, item A6.5)."""
+from .avro import (ColumnarRecords, read_avro_records,  # noqa: F401
+                   read_avro_table)
+from .data_readers import (AggregateReader, AvroReader,  # noqa: F401
+                           ConditionalReader, CSVAutoReader, CSVReader,
+                           CutOffTime, DataReader, DataReaders,
+                           FilteredReader, JoinedAggregateDataReader,
+                           JoinedDataReader, ParquetReader,
+                           TemporalJoinReader, TimeBasedFilter,
+                           stream_score)
 
-__all__ = ["DataReader", "CSVReader", "DataReaders"]
+__all__ = ["DataReader", "CSVReader", "CSVAutoReader", "ParquetReader",
+           "AvroReader", "AggregateReader", "ConditionalReader",
+           "DataReaders", "JoinedDataReader", "JoinedAggregateDataReader",
+           "TemporalJoinReader", "TimeBasedFilter", "FilteredReader",
+           "CutOffTime", "stream_score", "ColumnarRecords",
+           "read_avro_records", "read_avro_table"]

@@ -8,23 +8,28 @@
   types Train (fit, save), Score (load, score, write CSV), Evaluate (load,
   evaluate) and Features (load, materialize), each writing a metrics
   document. Runs go to the card unless the runner is given
-  ``device="cpu"``.
+  ``device="cpu"``. The temporal tier's ``customParams``
+  (``aggregateColumnar``, ``joinPartitions``, ``joinTableMaxRows``) are
+  validated before anything is installed and hold for the run; the
+  ``temporal`` block of every metrics document holds its tallies. A
+  write location ending in ``.avro`` gets an Avro container, any other
+  a CSV.
 * ``OpApp`` (``OpApp.scala``): ``main(argv)`` parses ``--run-type``,
   ``--params`` and the locations, then runs.
 
 What the JAX package's runner adds and this one does not have yet raises
 ``NotImplementedError`` naming its ROADMAP queue A item when a run asks
 for it: the StreamingScore run type, the lint pre-flight, the planner
-step, telemetry sinks, the quarantine sink, mesh knobs and Avro output
-(all item 6). Their blocks of the metrics document are left out, and
-``preflight`` / ``plan`` read None, as a run with them disabled does
-there.
+step, telemetry sinks, the quarantine sink and mesh knobs (all item 6).
+Their blocks of the metrics document are left out, and ``preflight`` /
+``plan`` read None, as a run with them disabled does there.
 """
 from __future__ import annotations
 
 import argparse
 import csv
 import json
+import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -58,6 +63,44 @@ _UNPORTED_CUSTOM = {
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue A, item 6)")
+
+
+def _count_custom_param(params: "OpParams", key: str) -> Optional[int]:
+    """``customParams[key]`` as an int of at least 1; None when absent or
+    null. A malformed value raises a ``ValueError`` naming the key (a
+    float that is not whole, a bool, NaN, a string, zero)."""
+    raw = params.custom_params.get(key)
+    if raw is None:
+        return None
+    try:
+        if isinstance(raw, bool):
+            raise TypeError
+        v = int(raw)
+        if float(raw) != v or not math.isfinite(float(raw)):
+            raise TypeError
+    except (TypeError, ValueError, OverflowError):
+        raise ValueError(
+            f"customParams.{key} must be an integer, got {raw!r}") from None
+    if v < 1:
+        raise ValueError(f"customParams.{key} must be >= 1, got {raw!r}")
+    return v
+
+
+def _tristate_custom_param(params: "OpParams", key: str) -> Any:
+    """``customParams[key]`` as True, False or ``"auto"`` (JSON booleans,
+    or the strings "true", "false" and "auto"); None when absent or null.
+    Anything else raises a ``ValueError`` naming the key."""
+    raw = params.custom_params.get(key)
+    if raw is None or isinstance(raw, bool):
+        return raw
+    if isinstance(raw, str):
+        v = raw.strip().lower()
+        if v in ("true", "false"):
+            return v == "true"
+        if v == "auto":
+            return "auto"
+    raise ValueError(f'customParams.{key} must be a boolean (true/false) '
+                     f'or "auto", got {raw!r}')
 
 
 @dataclass
@@ -204,9 +247,25 @@ class OpWorkflowRunner:
             raise ValueError(f"Unknown run type {run_type!r}; expected one "
                              f"of {RunType.ALL}")
         params.check_ported()
+        # the temporal tier's run-scoped knobs (docs/readers.md), all
+        # validated before any is installed: a malformed value names its
+        # key, and no half-installed configuration outlives the run
+        from . import temporal
+        knobs = dict(
+            columnar=_tristate_custom_param(params, "aggregateColumnar"),
+            join_partitions=_count_custom_param(params, "joinPartitions"),
+            join_table_max_rows=_count_custom_param(params,
+                                                    "joinTableMaxRows"))
         launches = dict(_hist.KERNEL_LAUNCHES)
-        t0 = time.perf_counter()
-        result = self._execute(run_type, params, t0)
+        prev = temporal.set_run_defaults(**knobs)
+        try:
+            t0 = time.perf_counter()
+            result = self._execute(run_type, params, t0)
+        finally:
+            temporal.set_run_defaults(**prev)
+        # the temporal tier's tallies (columnar and row-wise aggregates,
+        # joins, spilled rows): zeros on runs that never touch it
+        result.metrics["temporal"] = temporal.temporal_stats()
         result.metrics["compileCacheDir"] = None
         result.metrics["preflight"] = None
         result.metrics["plan"] = None
@@ -218,6 +277,10 @@ class OpWorkflowRunner:
         return result
 
     def _read(self, reader, what: str):
+        """The reader's records. As in the JAX package's runner, Score,
+        Evaluate and Features read ``read_records()`` even from an
+        aggregating reader: they see its events, not its keys (ROADMAP
+        C)."""
         if reader is None:
             raise ValueError(f"{what} needs a reader")
         return reader.read_records()
@@ -254,7 +317,7 @@ class OpWorkflowRunner:
             data = self._read(self.scoring_reader, "Score")
             scores = model.score(data, device=self.device)
             if params.write_location:
-                _write_store_csv(scores, params.write_location)
+                _write_store(scores, params.write_location)
             metrics = {"rowsScored": scores.n_rows,
                        "appSeconds": round(time.perf_counter() - t0, 3)}
             return RunnerResult(run_type, metrics=metrics, scores=scores,
@@ -276,7 +339,7 @@ class OpWorkflowRunner:
             ftc = ftc[0] if len(ftc) == 1 else None
         store = model.transform(data, device=self.device, up_to=ftc)
         if params.write_location:
-            _write_store_csv(store, params.write_location)
+            _write_store(store, params.write_location)
         metrics = {"rows": store.n_rows,
                    "appSeconds": round(time.perf_counter() - t0, 3)}
         return RunnerResult(run_type, metrics=metrics, scores=store,
@@ -308,12 +371,64 @@ class _CsvSink:
         self._fh.close()
 
 
-def _write_store_csv(store, path: str) -> None:
-    """One store to ``path`` as CSV (Avro output waits for
-    ``readers/avro.py``)."""
-    if path.endswith(".avro"):
-        raise _not_ported("Avro output (readers/avro.py)")
-    sink = _CsvSink(path)
+class _AvroSink:
+    """Avro container sink (``saveScores`` / ``saveAvro``,
+    ``OpWorkflowModel.scala:376-421``): the schema inferred from the first
+    store's rows, each store appended as one sync-delimited block."""
+
+    def __init__(self, path: str):
+        self._path = path
+        self._names = None
+        self._writer = None
+
+    def write_header(self, names) -> None:
+        if self._names is None:
+            self._names = list(names)
+
+    @staticmethod
+    def _pyify(v):
+        import numpy as np
+        if isinstance(v, np.ndarray):
+            return v.tolist()
+        if isinstance(v, np.generic):
+            return v.item()
+        if isinstance(v, dict):
+            return {k: _AvroSink._pyify(x) for k, x in v.items()}
+        if isinstance(v, (set, frozenset)):
+            return sorted(_AvroSink._pyify(x) for x in v)
+        if isinstance(v, (list, tuple)):
+            return [_AvroSink._pyify(x) for x in v]
+        return v
+
+    def write(self, store) -> None:
+        self.write_header(store.names())
+        records = [{n: self._pyify(store[n].get_raw(i))
+                    for n in self._names}
+                   for i in range(store.n_rows)]
+        if not records:
+            return      # empty store: close() writes the header-only file
+        if self._writer is None:
+            from .readers.avro import AvroWriter, infer_avro_schema
+            self._writer = AvroWriter(
+                self._path, infer_avro_schema(records))
+        self._writer.append(records)
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+        elif self._names is not None:
+            # header-only output on empty input (schema from names alone)
+            from .readers.avro import AvroWriter
+            AvroWriter(self._path, {
+                "type": "record", "name": "ScoreRecord",
+                "fields": [{"name": n, "type": ["null", "string"]}
+                           for n in self._names]}).close()
+
+
+def _write_store(store, path: str) -> None:
+    """One store to ``path``: an Avro container where the path ends in
+    ``.avro`` (the reference's saveScores), else CSV."""
+    sink = _AvroSink(path) if path.endswith(".avro") else _CsvSink(path)
     try:
         sink.write(store)
     finally:

@@ -331,16 +331,25 @@ class Workflow:
               dtype: torch.dtype = torch.float32) -> "WorkflowModel":
         """Fit the DAG on ``device`` (default: the card) in ``dtype``."""
         dev = resolve_device(device)
+        raw_features = _raw_features_of(self.result_features)
+        self._stage_metrics = {}
+        self._phase_seconds: Dict[str, float] = {}
         data = self._input_data
         if data is None and self._reader is not None:
-            data = self._reader.read_records()
+            if getattr(self._reader, "is_aggregating", False):
+                # event-grouped readers own raw-store generation (the
+                # group-by-key and the cutoff and window folds):
+                # read_records would hand over the events, one row per
+                # event instead of one per key
+                t0 = time.perf_counter()
+                data = self._reader.generate_store(raw_features)
+                self._phase_seconds["aggregate"] = time.perf_counter() - t0
+            else:
+                data = self._reader.read_records()
         if data is None:
             raise WorkflowError("No input data: call set_input_store, "
                                 "set_input_records or set_reader")
-        raw_features = _raw_features_of(self.result_features)
         store = _raw_store(data, raw_features)
-        self._stage_metrics = {}
-        self._phase_seconds: Dict[str, float] = {}
         self.blacklisted_features = []
         result_features, rff_results = self.result_features, None
         if self.raw_feature_filter is not None:
@@ -660,8 +669,9 @@ class WorkflowModel:
         #: the train's sufficient statistics: ``"<layer>:<column>"`` →
         #: ``fitstats.SufficientStats`` (saved as ``fitSufficientStats``)
         self.fit_stats = dict(fit_stats or {})
-        #: train seconds by phase: ``rawFeatureFilter``, and with workflow
-        #: CV ``before``, ``foldFeatures``, ``cvSweep`` and ``final``
+        #: train seconds by phase: ``aggregate`` (an aggregating reader's
+        #: store), ``rawFeatureFilter``, and with workflow CV ``before``,
+        #: ``foldFeatures``, ``cvSweep`` and ``final``
         self.phase_seconds: Dict[str, float] = {}
         #: scoring engines by device (``scoring_engine``)
         self._engines: Dict[str, Any] = {}
