@@ -212,6 +212,26 @@ Run from the repository root on a machine with one NVIDIA H100:
    winner, every family's fold metrics within 1e-4. Last, the dataprep
    walkthrough's rows (``dataprep.run()``) against those
    ``examples/dataprep.py`` prints, written here as data.
+12. serving artifacts at serve-200k: phase 7's saved model (text-200k's
+   GBT maxDepth 6 over the 451-wide vector) through
+   ``serving.export_scoring_fn`` on the card with its program bank
+   (``build/serve/export``, the whole ladder 8 … 8,192); a cold process
+   (a fresh interpreter importing torch, numpy and the port) loads the
+   model, preloads the bank into a fresh engine and scores one record,
+   then the 200,000: no program built, 25 ``predict_trees`` launches,
+   the columns bitwise equal to phase 7's Score. ``load_scoring_fn``
+   through the bank at 8,192 and 3,392 rows and through the
+   batch-polymorphic ``scoring_fn.pt2`` at n ∈ {1, 7, 3,392, 8,192},
+   each bitwise equal to the engine's eager program, and the 200,000
+   rows' prepared blocks through the bank, equal to Score.
+   ``export_prediction_fn`` at F=451, loaded, bitwise equal to
+   ``predict_device`` on 8,192 rows of the vector. One byte of
+   ``bucket_8192.pt2`` changed: a TMG502 finding, and the bucket built by
+   the engine and served by the polymorphic program, bitwise on the
+   card. Then ``tmog_torch::predict_trees`` bitwise against its plain
+   version at n=8,192, F=451, T=20, D=6, timed beside the direct launch
+   (device time, and host time a call at n=8). Counted: the export, the
+   cold process, the loaders and the head.
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
 boston-200k, mapprep-200k, mapprep-guarded-200k and eventlog-200k) once
@@ -226,8 +246,9 @@ version of the port has, so a copy of this script times another
 checkout's stages.
 ``--timings-only`` skips every check and prints only the times of
 ``split_scan``, the route alone and ``predict_trees``, the sweep's and
-BigPassenger's train seconds and both paths' profiles, with no result
-line; it uses only what every version of
+BigPassenger's train seconds and both paths' profiles, and serve-200k's
+Score seconds twice (BigPassenger's model saved, loaded afresh and
+scored through the engine), with no result line; it uses only what every version of
 the port has, so a copy of this script in another checkout times that
 checkout.
 
@@ -235,7 +256,9 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–11).
+over the main paths' runs, phases 3–12).
+``--serve-export-only`` runs phase 7 (without its comparison with phase
+4's AuPR) and phase 12 alone, and prints no result line.
 """
 import json
 import math
@@ -1298,8 +1321,10 @@ def serve(H, BP, records, text_aupr, dev="cuda", profile=False):
     """Phase 7: the golden model on the card, then BigPassenger through the
     runner's Train (saves), Score (a fresh load, the scoring engine, a CUDA
     graph per bucket) and Evaluate, and the overlapped stream, with every
-    launch counted; then the checks. Returns the path's launches. ``dev``
-    "cpu" rehearses the phase on the host (no graphs, no kernels)."""
+    launch counted; then the checks. Returns the path's launches and
+    Score's prediction column. ``dev`` "cpu" rehearses the phase on the
+    host (no graphs, no kernels); ``text_aupr`` None skips the check of
+    Evaluate against phase 4 (``--serve-export-only``)."""
     import shutil
 
     from transmogrifai_tpu_torch import WorkflowModel
@@ -1377,7 +1402,7 @@ def serve(H, BP, records, text_aupr, dev="cuda", profile=False):
           f"{eng.graphs_captured}, predict_trees launches in Score "
           f"{score_launches['predict_trees']} ({chunks} chunks)")
     aupr = ev.metrics["AuPR"]
-    if aupr != text_aupr:
+    if text_aupr is not None and aupr != text_aupr:
         fail(f"serve path: Evaluate AuPR {aupr!r} is not phase 4's "
              f"{text_aupr!r}")
     print(f"serve-200k: Evaluate AuPR {aupr:.6f}, equal to phase 4's")
@@ -1432,7 +1457,7 @@ def serve(H, BP, records, text_aupr, dev="cuda", profile=False):
     print(f"serve-200k: the saved model scores 2000 records alike on cuda "
           f"(engine) and cpu: predictions and margins bitwise, "
           f"probabilities within {err:.3g} (limit {PROB_ATOL:.3g})")
-    return launches
+    return launches, got
 
 
 #: phase 8's gini channel counts: iris's (three classes and the count)
@@ -3044,6 +3069,307 @@ def eventlog_paths(H, TF, DP, root, profile=False, dev="cuda"):
     return paths, worst
 
 
+# -- phase 12: serving artifacts at serve-200k ---------------------------
+#: the buckets phase 12 banks (None: the whole ladder, 8 … 8,192)
+EXPORT_LADDER = None
+#: the cold process: a fresh interpreter that imports torch, numpy and
+#: the port, loads the saved model, preloads the bank into a fresh engine
+#: and scores the records (one record first, then all of them), printing
+#: its numbers as one JSON line and saving the columns beside the export
+COLD_SCRIPT = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+root, model_dir, export, n, dev = sys.argv[1:6]
+sys.path.insert(0, root)
+from transmogrifai_tpu_torch import WorkflowModel, aot
+from transmogrifai_tpu_torch import big_passenger as BP
+from transmogrifai_tpu_torch.models import _hist as H
+from transmogrifai_tpu_torch.types.feature_types import Prediction
+
+
+def sync():
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+model = WorkflowModel.load(model_dir)
+eng = model.scoring_engine(dev)
+report = aot.load_program_bank(eng, export)
+sync()
+load_s = time.perf_counter() - t0
+records = BP.synthesize_records(int(n), seed=42)
+H.reset_launch_counts()
+t1 = time.perf_counter()
+eng.score_store(records[:1])
+sync()
+first_ms = 1e3 * (time.perf_counter() - t1)
+launches = dict(H.KERNEL_LAUNCHES)
+H.reset_launch_counts()
+t1 = time.perf_counter()
+out = eng.score_store(records, use_cache=False)
+sync()
+score_s = time.perf_counter() - t1
+pred = next(f.name for f in model.result_features if f.ftype is Prediction)
+col = out[pred]
+np.savez(os.path.join(export, "cold_score.npz"), prediction=col.prediction,
+         raw=col.raw_prediction, prob=col.probability)
+print(json.dumps({"load_s": load_s, "first_ms": first_ms,
+                  "first_launches": launches,
+                  "launches": dict(H.KERNEL_LAUNCHES), "score_s": score_s,
+                  "rows": out.n_rows, "compile_count": eng.compile_count,
+                  "loaded": report["loaded"],
+                  "findings": [f.format() for f in report["findings"]],
+                  "graphs": eng.graphs_captured}))
+"""
+
+
+def flat_blocks(eng, records):
+    """The host-prepared blocks of ``records`` keyed as a scoring
+    artifact's loader takes them (``uid/name``, upload names)."""
+    from transmogrifai_tpu_torch.workflow import _raw_store
+    _, prepared, uploads = eng.host_blocks(_raw_store(records,
+                                                      eng._raw_features))
+    out = {f"{uid}/{k}": v for uid, bl in prepared.items()
+           for k, v in bl.items()}
+    out.update(uploads)
+    return out
+
+
+def artifact_equal(got, want, name, what):
+    """An artifact's flat outputs (f32) against an engine's prediction
+    column (f64), every column bitwise."""
+    for key, col in (("prediction", "prediction"),
+                     ("rawPrediction", "raw_prediction"),
+                     ("probability", "probability")):
+        a = np.asarray(got[f"{name}.{key}"], dtype=np.float64)
+        if not np.array_equal(a, getattr(want, col)):
+            err = float(np.max(np.abs(a - getattr(want, col)), initial=0.0))
+            fail(f"{what}: {key} differs (max abs {err:.3g})")
+
+
+def serve_export(H, records, score_col, dev="cuda"):
+    """Phase 12: phase 7's saved model (text-200k's GBT over the 451-wide
+    vector) exported with its program bank, loaded in a cold process and
+    through the loaders, the head exported, a corrupted bucket degraded,
+    the operator held on the card. Returns the path's launches (this
+    process's and the cold process's). ``dev`` "cpu" rehearses the phase
+    on the host."""
+    import shutil
+
+    from transmogrifai_tpu_torch import WorkflowModel, aot, serving
+    from transmogrifai_tpu_torch.scoring import ScoringEngine
+    from transmogrifai_tpu_torch.types.feature_types import Prediction
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    model_dir = os.path.join(root, "build", "serve", "big_passenger")
+    export = os.path.join(root, "build", "serve", "export")
+    head_dir = os.path.join(export, "head")
+    shutil.rmtree(export, ignore_errors=True)
+    model = WorkflowModel.load(model_dir)
+    pred = next(f for f in model.result_features if f.ftype is Prediction)
+    predictor = model.stage_of(pred)
+    n = len(records)
+    chunks = -(-n // 8192)
+    tail = records[(chunks - 1) * 8192:]
+    # the polymorphic program's batch sizes: one row, a few, Score's last
+    # chunk (3,392 rows at 200,000) and a full bucket
+    cases = {1: records[:1], 7: records[:7], len(tail): tail,
+             8192: records[:8192]}
+
+    # references and host blocks, not counted: the engine's eager program
+    warm = ScoringEngine(model, device=dev, graphs=False)
+    refs = {k: warm.score_store(v, use_cache=False)[pred.name]
+            for k, v in cases.items()}
+    blocks = {k: flat_blocks(warm, v) for k, v in cases.items()}
+    all_blocks = [flat_blocks(warm, records[i:i + 8192])
+                  for i in range(0, n, 8192)]
+    vec = predictor.input_features[1].name
+    X = np.asarray(warm.transform_store(records[:8192])[vec].values,
+                   dtype=np.float32)
+    head_ref = [o.detach().to("cpu", torch.float64).numpy()
+                for o in predictor.predict_device(torch.as_tensor(
+                    X, device=dev))]
+    sync()
+
+    H.reset_launch_counts()
+    # (a) the scoring chain with its bank
+    t0 = time.perf_counter()
+    meta = serving.export_scoring_fn(model, export, records[:64],
+                                     device=dev, aot_ladder=EXPORT_LADDER)
+    sync()
+    export_s = time.perf_counter() - t0
+    ladder = meta["aot"]["bucketLadder"]
+    print(f"serve-export: export_scoring_fn {export_s:.2f} s, ladder "
+          f"{ladder}, scoring_fn.pt2 {meta['blobBytes']:,} bytes, bank "
+          f"{meta['aot']['programs']} programs {meta['aot']['bytes']:,} "
+          f"bytes, {len(meta['inputs'])} input blocks, "
+          f"{meta['fusedStages']} fused stages")
+    # (b) a cold process loads the model and the bank and scores
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", COLD_SCRIPT, root, model_dir, export,
+         str(n), dev], capture_output=True, text=True, timeout=900,
+        cwd=root)
+    cold_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"serve-export: the cold process failed:\n"
+             f"{proc.stderr[-4000:]}")
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    # (c) the loaders: the bank, then the polymorphic program
+    banked = serving.load_scoring_fn(export, device=dev)
+    plain = serving.load_scoring_fn(export, prefer_bank=False, device=dev)
+    outs = {("bank", k): banked(blocks[k]) for k in (8192, len(tail))}
+    outs.update({("plain", k): plain(blocks[k]) for k in cases})
+    sync()
+    t0 = time.perf_counter()
+    whole = [banked(b) for b in all_blocks]
+    sync()
+    artifact_s = time.perf_counter() - t0
+    # (d) the prediction head
+    t0 = time.perf_counter()
+    hmeta = serving.export_prediction_fn(model, head_dir, device=dev)
+    head = serving.load_prediction_fn(head_dir, device=dev)
+    head_out = head(X)
+    sync()
+    head_s = time.perf_counter() - t0
+    launches = dict(H.KERNEL_LAUNCHES)
+    for k, v in cold["launches"].items():
+        launches[k] += v + cold["first_launches"][k]
+
+    # -- checks (not counted) ---------------------------------------------
+    if cold["compile_count"] != 0:
+        fail(f"cold process built {cold['compile_count']} programs")
+    if cold["loaded"] != ladder or cold["findings"]:
+        fail(f"cold process bank: loaded {cold['loaded']}, findings "
+             f"{cold['findings']}")
+    if cold["launches"]["predict_trees"] != chunks:
+        fail(f"cold process launched predict_trees "
+             f"{cold['launches']['predict_trees']} times for {chunks} "
+             "chunks")
+    saved = np.load(os.path.join(export, "cold_score.npz"))
+    for key, col in (("prediction", "prediction"), ("raw", "raw_prediction"),
+                     ("prob", "probability")):
+        if not np.array_equal(saved[key], getattr(score_col, col)):
+            fail(f"cold process: {col} differs from phase 7's Score")
+    print(f"serve-export: cold process (fresh interpreter, bank preloaded) "
+          f"import + load {cold['load_s']:.2f} s, first request (1 record) "
+          f"{cold['first_ms']:.2f} ms, {cold['rows']:,} records "
+          f"{cold['score_s']:.2f} s = {cold['rows'] / cold['score_s']:,.0f} "
+          f"rows/s, compile_count 0, predict_trees {chunks} launches, "
+          f"{cold['graphs']} graphs, columns bitwise equal to phase 7's "
+          f"Score (process wall {cold_wall:.2f} s)")
+    for (how, k), got in outs.items():
+        artifact_equal(got, refs[k], pred.name,
+                       f"load_scoring_fn ({how}, n={k})")
+    if banked.bank_buckets != ladder:
+        fail(f"load_scoring_fn took bank buckets {banked.bank_buckets}")
+    for key, col in (("prediction", "prediction"),
+                     ("rawPrediction", "raw_prediction"),
+                     ("probability", "probability")):
+        a = np.concatenate([w[f"{pred.name}.{key}"] for w in whole])
+        if not np.array_equal(a.astype(np.float64), getattr(score_col, col)):
+            fail(f"load_scoring_fn over {n} rows: {key} differs from "
+                 "phase 7's Score")
+    print(f"serve-export: load_scoring_fn bitwise equal to the engine's "
+          f"eager program through the bank at 8192 and {len(tail)} and the "
+          f"polymorphic program at n = {list(cases)}; {n:,} rows of "
+          f"prepared blocks through the bank {artifact_s:.2f} s = "
+          f"{n / artifact_s:,.0f} rows/s, equal to phase 7's Score")
+    for got, want, key in zip((head_out["prediction"],
+                               head_out["rawPrediction"],
+                               head_out["probability"]), head_ref,
+                              ("prediction", "rawPrediction",
+                               "probability")):
+        if not np.array_equal(np.asarray(got, dtype=np.float64), want):
+            fail(f"export_prediction_fn: {key} differs from predict_device")
+    print(f"serve-export: export_prediction_fn at F={hmeta['featureDim']} "
+          f"({hmeta['blobBytes']:,} bytes), loaded, {len(X)} rows bitwise "
+          f"equal to predict_device ({head_s:.2f} s export + load + call)")
+
+    # (e) one byte of the 8192 program changed: a TMG502 finding, and the
+    # bucket still scores on the device
+    bad = os.path.join(root, "build", "serve", "export_bad")
+    shutil.rmtree(bad, ignore_errors=True)
+    shutil.copytree(export, bad)
+    f = os.path.join(aot.bank_dir(bad), "bucket_8192.pt2")
+    blob = bytearray(open(f, "rb").read())
+    blob[len(blob) // 2] ^= 0xFF
+    open(f, "wb").write(bytes(blob))
+    eng = ScoringEngine(model, device=dev)
+    report = aot.load_program_bank(eng, bad)
+    rules = {x.rule for x in report["findings"]}
+    if rules != {"TMG502"} or list(report["skipped"]) != [8192] \
+            or 8192 in report["loaded"]:
+        fail(f"corrupted bucket: report {report}")
+    before = H.KERNEL_LAUNCHES["predict_trees"]
+    for _ in range(3):          # eager, then captured and replayed
+        same_predictions(eng.score_store(records[:8192], use_cache=False)[
+            pred.name], refs[8192], "corrupted bucket, built by the engine")
+    sync()
+    if eng.compile_count != 1 or (
+            dev == "cuda"
+            and H.KERNEL_LAUNCHES["predict_trees"] - before != 3):
+        fail(f"corrupted bucket: compile_count {eng.compile_count}")
+    fn = serving.load_scoring_fn(bad, device=dev)
+    if 8192 in fn.bank_buckets:
+        fail("load_scoring_fn served a corrupted bucket")
+    artifact_equal(fn(blocks[8192]), refs[8192], pred.name,
+                   "corrupted bucket through the polymorphic program")
+    print(f"serve-export: bucket_8192.pt2 with one byte changed: "
+          f"{sorted(rules)} ({report['findings'][0].message[:60]}...); the "
+          f"engine built that bucket (compile_count 1) and the loader served "
+          f"it by the polymorphic program, both bitwise on {dev}")
+    print(f"serve-export launches: {launches}")
+    print(f"phase 12: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
+def check_predict_op(H, dev):
+    """Phase 12 (f): ``tmog_torch::predict_trees`` against its plain
+    version at the bucket shape, bitwise; its time beside the direct
+    launch's, device time and host time a call."""
+    rng = np.random.default_rng(12)
+
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+
+    X, feat, thr, leaf = predict_inputs(rng, put, 451, 20, 6, n=8192)
+    out = torch.ops.tmog_torch.predict_trees(X, feat, thr, leaf, 6)
+    ref = H.predict_trees_reference(X, feat, thr, leaf, 6)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        fail("tmog_torch::predict_trees at n=8192 F=451 T=20 D=6 is not "
+             "bitwise equal to its plain version")
+    op_ms = time_ms(lambda: H.predict_trees(X, feat, thr, leaf, 6))
+    direct_ms = time_ms(lambda: H._predict_trees_launch(X, feat, thr,
+                                                        leaf, 6))
+    Xs = X[:8].contiguous()
+    host = {}
+    for name, fn in (("op", H.predict_trees),
+                     ("direct", H._predict_trees_launch),
+                     ("op", H.predict_trees),
+                     ("direct", H._predict_trees_launch)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn(Xs, feat, thr, leaf, 6)
+        torch.cuda.synchronize()
+        host[name] = 1e6 * (time.perf_counter() - t0) / 2000
+    print(f"predict_trees op (n=8192, F=451, T=20, D=6): bitwise equal to "
+          f"its plain version; device {op_ms:.4f} ms through "
+          f"tmog_torch::predict_trees, {direct_ms:.4f} ms by the direct "
+          f"launch; host a call at n=8: op {host['op']:.2f} us, direct "
+          f"{host['direct']:.2f} us (dispatch {host['op'] - host['direct']:.2f} "
+          "us)")
+
+
 def stage_table(model, what):
     """Print a trained model's seconds by stage and by layer: each stage's
     fit seconds, its layer's transform seconds (``layerTransformSeconds``)
@@ -3358,6 +3684,19 @@ def timings(H, dev, BP, run):
         print(f"{what}: train {out['train_s']:.2f} s (run "
               f"{time.perf_counter() - t0:.2f} s)")
         profile_path(H, what, fn)
+    # serve-200k's Score: BigPassenger's model saved, loaded afresh and
+    # its 200,000 records scored through the engine, twice
+    from transmogrifai_tpu_torch import WorkflowModel
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "serve", "timings")
+    out["model"].save(path, overwrite=True)
+    for _ in range(2):
+        loaded = WorkflowModel.load(path)
+        t0 = time.perf_counter()
+        loaded.score(records, device="cuda")
+        torch.cuda.synchronize()
+        print(f"serve-200k: Score (fresh load, engine) "
+              f"{time.perf_counter() - t0:.2f} s")
     return 0
 
 
@@ -3389,6 +3728,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
+    print(f"torch {torch.__version__}, CUDA runtime {torch.version.cuda}")
     t0 = time.perf_counter()
     H.build_kernels()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
@@ -3400,6 +3740,12 @@ def main():
         return timings(H, dev, BP, run)
     if "--stage-seconds" in sys.argv[1:]:
         return stage_seconds(BP, MP, DP)
+    if "--serve-export-only" in sys.argv[1:]:
+        records = BP.synthesize_records(N, seed=42)
+        _, score_col = serve(H, BP, records, None)
+        serve_export(H, records, score_col)
+        check_predict_op(H, dev)
+        return 0
 
     rows = check_kernels(H, TF, dev)
     path_launches = {}
@@ -3500,8 +3846,8 @@ def main():
           "titanic, one grid point a family")
 
     # -- phase 7: save, load and serve (the runner, the scoring engine) --
-    path_launches["serve-200k"] = serve(H, BP, records, text_aupr,
-                                        profile=profile)
+    path_launches["serve-200k"], score_col = serve(H, BP, records, text_aupr,
+                                                   profile=profile)
 
     # -- phase 8: multiclass and regression (iris, boston) ---------------
     wide = check_multiclass_kernels(H, dev)
@@ -3537,6 +3883,10 @@ def main():
     path_launches.update(event_launches)
     for name, err in worst.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+    # -- phase 12: serving artifacts at serve-200k ------------------------
+    path_launches["serve-export"] = serve_export(H, records, score_col)
+    check_predict_op(H, dev)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

@@ -116,3 +116,14 @@ def test_temporal_modules_are_scanned(module):
     if dotted.endswith(".__init__"):
         dotted = dotted[:-len(".__init__")]
     assert dotted in _modules()
+
+
+@pytest.mark.parametrize("module", ["serving.py", "aot.py", "lint.py"])
+def test_serving_modules_are_scanned(module):
+    """The serving artifacts, the program bank and the findings they raise
+    are among the sources scanned above and the modules imported with
+    ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    assert dotted in _modules()

@@ -36,10 +36,10 @@ from transmogrifai_tpu_torch.runner import (OpApp, OpParams,
 from transmogrifai_tpu_torch.utils import uid as puid
 
 #: metrics-document blocks of the JAX package's runner whose modules are
-#: not ported (all ROADMAP queue A, item 6: aot, continual, fleet,
-#: lifecycle, parallel/mesh and multi-host, pipeline, resilience, server,
-#: telemetry's MFU, workload, config's effective knobs)
-NOT_PORTED = {"aot", "continual", "effectiveConfig", "fleet", "lifecycle",
+#: not ported (all ROADMAP queue A, item 6: continual, fleet, lifecycle,
+#: parallel/mesh and multi-host, pipeline, resilience, server, telemetry's
+#: MFU, workload, config's effective knobs)
+NOT_PORTED = {"continual", "effectiveConfig", "fleet", "lifecycle",
               "mesh", "mfu", "pipeline", "process", "resilience", "server",
               "workload"}
 RUNS = (RunType.TRAIN, RunType.SCORE, RunType.EVALUATE, RunType.FEATURES)

@@ -24,6 +24,15 @@ has a wrapper and a plain version of the same function:
   level's slot state, and every row routed (``route_level``'s TPU kernel
   with the bookkeeping XLA fuses around it in the JAX package).
 * ``predict_trees`` — rows down stacked level-order trees, summed leaves.
+  It is the one kernel a scoring program reaches, so it is an operator,
+  ``tmog_torch::predict_trees`` (``torch.library.custom_op``, registered
+  when this module is imported): its CPU implementation is the plain
+  version, its CUDA one the kernel's launch, and its fake implementation
+  the empty [n, K] result, so ``torch.export`` traces a tree model's
+  program with the operator in its graph and a loaded program finds it
+  again. The other wrappers stay direct calls: the dispatcher adds tens
+  of µs of host time a call (``chip_smoke.py`` times it), and a tree
+  level makes 12–22 launches.
 
 On the card the two histograms multiply each slot's live rows only: the
 level loop calls :func:`group_rows` once and passes its result as
@@ -44,11 +53,12 @@ repository root) and bound with ``ctypes``. Every launch returns
 ``cudaGetLastError()``, and the wrapper raises on anything but success.
 
 ``KERNEL_LAUNCHES`` counts, per kernel, the launches its wrapper made
-(one per wrapper call that reached the card). A wrapper called while a
-CUDA graph is captured records its kernel instead of launching it; the
-scoring engine takes those counts back after the capture and adds them
-at each replay of the graph (:func:`count_graph_replay`), which is where
-the recorded kernels launch.
+(one per wrapper call that reached the card; for ``predict_trees`` the
+operator's CUDA implementation counts, so a trace counts nothing). A
+wrapper called while a CUDA graph is captured records its kernel instead
+of launching it; the scoring engine takes those counts back after the
+capture and adds them at each replay of the graph
+(:func:`count_graph_replay`), which is where the recorded kernels launch.
 """
 from __future__ import annotations
 
@@ -89,6 +99,9 @@ __all__ = ["cumhist", "cumhist_reference", "make_bc", "hist_rows",
 #: masked-out candidate score (the criteria's scores are all ≥ 0)
 SPLIT_NEG = -1e30
 _EPS = 1e-12
+#: the operator ``predict_trees`` is registered as (see the module
+#: docstring); an exported scoring program names it
+PREDICT_TREES_OP = "tmog_torch::predict_trees"
 _KINDS = {"variance": 0, "gini": 1, "xgb": 2}
 
 KERNEL_LAUNCHES: Dict[str, int] = {"cumhist": 0, "cumhist_bc": 0,
@@ -979,12 +992,10 @@ def predict_trees_reference(X, feat, thr, leaf_w, max_depth: int):
     return out
 
 
-def predict_trees(X, feat, thr, leaf_w, max_depth: int):
-    """[n, F] rows through [T, 2^D−1] stacked trees → [n, K] summed
-    (tree-weight-scaled) leaves. Kernel: f32 X/thr/leaf, int32 feat,
-    K ≤ 8."""
-    if _on_cpu(X):
-        return predict_trees_reference(X, feat, thr, leaf_w, max_depth)
+def _predict_trees_launch(X, feat, thr, leaf_w, max_depth: int):
+    """The CUDA implementation of ``tmog_torch::predict_trees``: one launch
+    of ``csrc/predict_trees.cu`` on the current stream, counted. f32
+    X/thr/leaf, int32 feat, K ≤ 8."""
     dev = X.device
     n, F = X.shape
     T, NN = feat.shape
@@ -1005,6 +1016,32 @@ def predict_trees(X, feat, thr, leaf_w, max_depth: int):
             X.data_ptr(), feat.data_ptr(), thr.data_ptr(),
             leaf_w.data_ptr(), out.data_ptr(), n, F, T, D, K, _stream(dev))
     return out
+
+
+@torch.library.custom_op(PREDICT_TREES_OP, mutates_args=(),
+                         device_types="cpu")
+def _predict_trees_op(X: torch.Tensor, feat: torch.Tensor,
+                      thr: torch.Tensor, leaf_w: torch.Tensor,
+                      max_depth: int) -> torch.Tensor:
+    return predict_trees_reference(X, feat, thr, leaf_w, max_depth)
+
+
+_predict_trees_op.register_kernel("cuda")(_predict_trees_launch)
+
+
+@_predict_trees_op.register_fake
+def _predict_trees_fake(X, feat, thr, leaf_w, max_depth):
+    return X.new_empty((X.shape[0], leaf_w.shape[-1]), dtype=leaf_w.dtype)
+
+
+def predict_trees(X, feat, thr, leaf_w, max_depth: int):
+    """[n, F] rows through [T, 2^D−1] stacked trees → [n, K] summed
+    (tree-weight-scaled) leaves, through ``tmog_torch::predict_trees``:
+    the plain version for CPU tensors, the kernel for CUDA tensors, the
+    empty [n, K] shape under a trace."""
+    _on_cpu(X)                  # raises for a device with no kernel
+    return torch.ops.tmog_torch.predict_trees(X, feat, thr, leaf_w,
+                                              int(max_depth))
 
 
 def predict_trees_chunk(n_features: int, max_depth: int,

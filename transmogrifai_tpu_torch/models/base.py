@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..columns import Column, ColumnStore, PredictionColumn, VectorColumn
 from ..stages.base import (AllowLabelAsInput, Estimator, FittedModel,
@@ -44,13 +45,31 @@ def device_table(owner, key: str, make, device: torch.device
     ``device``, uploaded once and kept on ``owner`` by (key, device).
     Scoring reads its weights from here, so the scoring engine's CUDA
     graphs capture no host-to-device copy, and a model scored many times
-    uploads its tables once. ``apply_model_state`` clears the cache."""
+    uploads its tables once. ``apply_model_state`` clears the cache.
+
+    A trace (``torch.export``, ``torch.compile``) reads a cached table as
+    a constant, but never fills the cache: the value it would keep is a
+    FakeTensor with no data, and every later eager call would return it.
+    So a cold table under a trace raises, naming the table; an export
+    first warms every table with one eager call on its device."""
     cache = owner.__dict__.setdefault("_device_tables", {})
     k = (key, str(device))
     t = cache.get(k)
     if t is None:
-        t = cache[k] = torch.as_tensor(np.array(make()), device=device)
+        if torch.compiler.is_compiling():
+            raise RuntimeError(_cold_table(owner, key, device))
+        t = torch.as_tensor(np.array(make()), device=device)
+        if isinstance(t, FakeTensor):
+            raise RuntimeError(_cold_table(owner, key, device))
+        cache[k] = t
     return t
+
+
+def _cold_table(owner, key: str, device) -> str:
+    return (f"device table {key!r} of {type(owner).__name__} "
+            f"{getattr(owner, 'uid', '')} is not on {device} yet and is "
+            "asked for under a trace; run the program once eagerly on "
+            "that device before tracing it")
 
 
 def _features(store: ColumnStore, features_name: str) -> np.ndarray:

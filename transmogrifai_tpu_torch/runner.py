@@ -272,6 +272,10 @@ class OpWorkflowRunner:
         # the tree engine's kernel launches of this run, per kernel
         result.metrics["trees"] = {"launches": {
             k: v - launches[k] for k, v in _hist.KERNEL_LAUNCHES.items()}}
+        # the program bank's tallies (aot.py): zeros on runs that never
+        # touch the serving tier
+        from . import aot
+        result.metrics["aot"] = aot.aot_stats()
         result.metrics["peak_rss_mb"] = _peak_rss_mb()
         self._write_metrics(params.metrics_location, result.metrics)
         return result

@@ -41,13 +41,20 @@ transformers, the map key filters and extractors, the term frequencies
 and IDF, stop words, Jaccard) run first; their columns feed
 ``host_prepare`` and the direct vector uploads.
 
+* **Export.** ``export_manifest``, ``program_callable``,
+  ``export_callable``, ``program_key`` / ``preload`` and the
+  ``rewrite_digest`` / ``state_digest`` identities are what
+  ``serving.py`` exports (``torch.export``) and ``aot.py`` banks and
+  preloads; a preload is not a build, so ``compile_count`` stays 0.
+
 Not carried over from the JAX package: the circuit breaker to the host
-tier, the link-bandwidth gate, the planner's rewrites (CSE, pruning),
-mesh sharding, telemetry spans and the export of the program
-(``serving.py``; ROADMAP queue A, item 5).
+tier, the link-bandwidth gate, the planner's rewrites (CSE, pruning;
+``rewrite_digest`` hashes the plan alone), mesh sharding and telemetry
+spans.
 """
 from __future__ import annotations
 
+import hashlib
 import threading
 import weakref
 from collections import OrderedDict
@@ -72,7 +79,7 @@ from .types.feature_types import OPVector
 from .vector_metadata import VectorMetadata
 
 __all__ = ["ScoringEngine", "bucket_for", "bucket_ladder",
-           "build_fused_plan", "stream_score_overlapped",
+           "build_fused_plan", "stream_score_overlapped", "flatten_outputs",
            "SCORING_MIN_ROWS", "DEFAULT_BUCKET_CAP", "BUCKET_MIN"]
 
 #: smallest padded batch
@@ -202,13 +209,16 @@ class _PreparedBatch:
 class _Program:
     """One cached program: its calls so far and, on the card from the
     second call on, its CUDA graph with the graph's static input and
-    output tensors and the kernel launches one replay makes."""
+    output tensors and the kernel launches one replay makes. ``fn`` is a
+    preloaded program (:meth:`ScoringEngine.preload`), run in place of
+    the engine's own body."""
 
     __slots__ = ("bucket", "calls", "graph", "inputs", "outputs",
-                 "launches")
+                 "launches", "fn")
 
-    def __init__(self, bucket: int):
+    def __init__(self, bucket: int, fn=None):
         self.bucket = bucket
+        self.fn = fn
         self.calls = 0
         self.graph = None
         self.inputs = None
@@ -373,9 +383,14 @@ class ScoringEngine:
                 prog = _Program(bucket)
                 self._compile_count += 1
             self._programs[key] = prog          # most recently used
-            while len(self._programs) > PROGRAM_CACHE_CAP:
-                self._programs.popitem(last=False)
+            self._evict_locked()
         return prog
+
+    def _evict_locked(self) -> None:
+        """Drop the least recently used programs past the cap (the caller
+        holds ``self._lock``)."""
+        while len(self._programs) > PROGRAM_CACHE_CAP:
+            self._programs.popitem(last=False)
 
     def _body(self, prepared: Dict[str, Dict[str, torch.Tensor]],
               uploads: Dict[str, torch.Tensor], out_names) -> Dict[str, Any]:
@@ -415,7 +430,7 @@ class ScoringEngine:
                  for uid, blocks in prepared.items()},
                 {k: put(v) for k, v in uploads.items()})
 
-    def _capture(self, prog: _Program, prepared, uploads, out_names,
+    def _capture(self, prog: _Program, body, prepared, uploads,
                  bucket: int) -> None:
         """Capture the program as a CUDA graph over static input buffers
         holding this chunk's blocks. The wrappers count the launches they
@@ -427,7 +442,7 @@ class ScoringEngine:
         torch.cuda.synchronize(self.device)
         try:
             with torch.cuda.device(self.device), torch.cuda.graph(graph):
-                outs = self._body(*ins, out_names)
+                outs = body(*ins)
         except Exception as e:
             raise RuntimeError(
                 f"scoring engine: CUDA graph capture failed at bucket "
@@ -454,11 +469,12 @@ class ScoringEngine:
     def _device_outputs(self, prepared, uploads, out_names, bucket: int):
         prog = self._program(self._signature(prepared, uploads, out_names),
                              bucket)
+        body = prog.fn or self.program_callable(out_names)
         if not self.graphs or prog.calls == 0:
-            outs = self._body(*self._upload(prepared, uploads), out_names)
+            outs = body(*self._upload(prepared, uploads))
         else:
             if prog.graph is None:
-                self._capture(prog, prepared, uploads, out_names, bucket)
+                self._capture(prog, body, prepared, uploads, bucket)
             outs = self._replay(prog, prepared, uploads)
         prog.calls += 1
         return outs
@@ -579,6 +595,174 @@ class ScoringEngine:
                                results_only=True, keep=keep)
         return store.select([nm for nm in (*self._result_names, *keep)
                              if nm in store])
+
+    # -- export ------------------------------------------------------------
+    def program_callable(self, out_names: List[str]):
+        """The program body for ``out_names``:
+        ``run(prepared, uploads) -> {name: tensor or prediction triple}``
+        on device tensors. The engine runs it (eagerly or captured), and
+        the program bank exports it (``aot.py``), so a banked program and
+        a built one compute the same graph."""
+        out_names = list(out_names)
+
+        def run(prepared, uploads):
+            return self._body(prepared, uploads, out_names)
+
+        return run
+
+    def program_key(self, prepared, uploads, out_names: List[str]) -> Tuple:
+        """The program-cache key a call with these blocks (shapes, dtypes)
+        and outputs uses: where a preloaded program
+        (:meth:`preload`) is found."""
+        return self._signature(prepared, uploads, out_names)
+
+    def preload(self, key: Tuple, fn) -> None:
+        """Seed the program cache with ``fn`` under ``key`` (from
+        :meth:`program_key`), a program built elsewhere (a bank's
+        ``torch.export`` program). A preload is not a build:
+        ``compile_count`` stays as it is. On the card the preloaded
+        program takes the path a built one takes: its first call runs
+        eagerly, its second is captured as a CUDA graph, later calls
+        replay it; a capture that fails raises."""
+        try:                    # the first block's rows: the bucket
+            bucket = int(key[0][0][2][0])
+        except (IndexError, TypeError, ValueError):
+            bucket = 0
+        with self._lock:
+            self._programs.pop(key, None)
+            self._programs[key] = _Program(bucket, fn)
+            self._evict_locked()
+
+    def export_manifest(self, sample_data) -> List[Dict[str, Any]]:
+        """The flat input manifest of an exported program: each prepared
+        block (by stage uid, then name) and each direct upload (by name)
+        with its tail shape and dtype, from one host pass over
+        ``sample_data``. Every block must be row-leading: the exported
+        program is polymorphic in the row count and pads nothing."""
+        from .workflow import _raw_store
+        store = _raw_store(sample_data, self._raw_features)
+        n = store.n_rows
+        _, prepared, uploads = self.host_blocks(store)
+        manifest = []
+        for uid in sorted(prepared):
+            for k in sorted(prepared[uid]):
+                a = np.asarray(prepared[uid][k])
+                if a.ndim == 0 or a.shape[0] != n:
+                    raise ValueError(
+                        f"prepared block {uid}/{k} is not row-leading "
+                        f"(shape {a.shape}); full-chain export needs every "
+                        "input batch-polymorphic")
+                manifest.append({"kind": "prepared", "uid": uid, "name": k,
+                                 "tail": list(a.shape[1:]),
+                                 "dtype": str(a.dtype)})
+        for k in sorted(uploads):
+            a = np.asarray(uploads[k])
+            if a.ndim == 0 or a.shape[0] != n:
+                raise ValueError(f"upload {k} is not row-leading")
+            manifest.append({"kind": "upload", "uid": "", "name": k,
+                             "tail": list(a.shape[1:]),
+                             "dtype": str(a.dtype)})
+        return manifest
+
+    def rewrite_digest(self) -> str:
+        """blake2b-128 over the fused plan (each step's kind, stage uid,
+        output and inputs): the JAX engine's digest with no planner
+        rewrites attached, which the port does not have. A bank records it
+        at export, and a serving engine whose plan differs does not take
+        the bank."""
+        h = hashlib.blake2b(digest_size=16)
+        for it in self._plan:
+            h.update(f"{it.kind}|{it.model.uid}|{it.out}|"
+                     f"{','.join(it.ins)};".encode())
+        return h.hexdigest()
+
+    def state_digest(self) -> str:
+        """blake2b-128 over the fused stages' fitted array state: every
+        numpy array or tensor reachable through public attributes (sorted
+        by path; objects, lists and dicts three levels deep). Exported
+        programs hold these values as constants, so a bank records the
+        digest and a model whose arrays differ does not take the bank.
+        Values that are not arrays and private attributes (the device
+        tables among them) are left out: they differ across a save and a
+        load of the same model."""
+        h = hashlib.blake2b(digest_size=16)
+
+        def leaves(obj, path: str, depth: int, out) -> None:
+            if isinstance(obj, torch.Tensor):
+                out.append((path, obj.detach().to("cpu").numpy()))
+                return
+            if isinstance(obj, np.ndarray):
+                if obj.dtype != object:
+                    out.append((path, obj))
+                return
+            if depth <= 0:
+                return
+            if isinstance(obj, (list, tuple)):
+                for i, v in enumerate(obj):
+                    leaves(v, f"{path}[{i}]", depth - 1, out)
+                return
+            if isinstance(obj, dict):
+                for k in sorted(obj, key=str):
+                    leaves(obj[k], f"{path}.{k}", depth - 1, out)
+                return
+            d = getattr(obj, "__dict__", None)
+            if isinstance(d, dict):
+                for k in sorted(d):
+                    if not k.startswith("_"):
+                        leaves(d[k], f"{path}.{k}", depth - 1, out)
+
+        for it in self._plan:
+            out: List[Tuple[str, np.ndarray]] = []
+            leaves(it.model, "", 3, out)
+            h.update(f"{it.kind}|{it.model.uid}|".encode())
+            for path, a in sorted(out, key=lambda kv: kv[0]):
+                h.update(path.encode())
+                h.update(str(a.dtype).encode())
+                h.update(str(a.shape).encode())
+                h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    def export_callable(self, manifest: List[Dict[str, Any]],
+                        out_names: List[str]) -> torch.nn.Module:
+        """The program over flat arguments, for ``torch.export``: a module
+        whose ``forward(*blocks)`` takes the blocks in ``manifest`` order
+        and returns the flat output dict (a prediction triple as
+        ``<name>.prediction``, ``.rawPrediction``, ``.probability``)."""
+        return _FlatProgram(self.program_callable(out_names), manifest)
+
+
+class _FlatProgram(torch.nn.Module):
+    """:meth:`ScoringEngine.export_callable`'s module."""
+
+    def __init__(self, run, manifest):
+        super().__init__()
+        self._run = run
+        self._manifest = [dict(spec) for spec in manifest]
+
+    def forward(self, *blocks):
+        prepared: Dict[str, Dict[str, Any]] = {}
+        uploads: Dict[str, Any] = {}
+        for spec, a in zip(self._manifest, blocks):
+            if spec["kind"] == "prepared":
+                prepared.setdefault(spec["uid"], {})[spec["name"]] = a
+            else:
+                uploads[spec["name"]] = a
+        return flatten_outputs(self._run(prepared, uploads))
+
+
+def flatten_outputs(outs: Dict[str, Any]) -> Dict[str, Any]:
+    """``{name: value or prediction triple}`` → a flat dict, a triple as
+    ``<name>.prediction``, ``<name>.rawPrediction`` and
+    ``<name>.probability`` (the serving artifacts' output names)."""
+    flat: Dict[str, Any] = {}
+    for nm, v in outs.items():
+        if isinstance(v, tuple):
+            flat[f"{nm}.prediction"] = v[0]
+            flat[f"{nm}.rawPrediction"] = v[1]
+            flat[f"{nm}.probability"] = v[2]
+        else:
+            flat[nm] = v
+    return flat
 
 
 def _concat_stores(stores: List[ColumnStore]) -> ColumnStore:
