@@ -232,6 +232,31 @@ Run from the repository root on a machine with one NVIDIA H100:
    version at n=8,192, F=451, T=20, D=6, timed beside the direct launch
    (device time, and host time a call at n=8). Counted: the export, the
    cold process, the loaders and the head.
+13. the remaining estimators and the rich DSL: boston-glm-200k (linear
+   regression and GLM at their default grids on boston-200k's data, 3-fold
+   CV on RMSE; CV seconds by family), iris-mlp-200k (LR and the MLP at
+   their default grids on iris-200k's data, the prediction de-indexed by
+   the DSL; the MLP winner, forced when LR wins, saved, loaded and its
+   200,000 rows scored through the engine against the layer path, rows/s
+   and graphs captured), each at 2,000 rows on the card and the CPU (the
+   same winner; every family's fold RMSE within 1e-4 relative, F1 within
+   ``MLP_AGREE``); every-surface-200k (``every_surface.py``: 200,000
+   records, seed 13, through every new DSL surface → SanityChecker → LR
+   and GBT at one grid point, the MLP at its default grid, 3-fold CV;
+   counted: GBT's fits must launch the tree kernels; ``random.categorical``'s
+   fast Gumbel noise held within its margin of XLA's on the card; seconds
+   by stage and family, LDA's and Word2Vec's fits, Word2Vec's pairs,
+   chunk and peak memory, the width, winner, AuPR and Brier score; the
+   model with the prediction alone saved, loaded and scored through the
+   engine, its plan holding the count vectorizer as "vec" and the
+   predictor as "predict" and every other new stage on the host, records/s;
+   on 20,000 records a replay, the layer path and the model with its
+   tupled columns give the same predictions; GBT refit on them so
+   ``predict_trees`` launches; then 2,000 records on the card and the CPU:
+   host stages and the count block bitwise, LDA and Word2Vec within
+   ``TOPIC_ATOL``, the same winner) and taggers-20k (entities, languages,
+   sentences and POS tags of 20,000 notes → LR; seconds by stage). Each
+   path's seconds.
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
 boston-200k, mapprep-200k, mapprep-guarded-200k and eventlog-200k) once
@@ -256,9 +281,10 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–12).
+over the main paths' runs, phases 3–13).
 ``--serve-export-only`` runs phase 7 (without its comparison with phase
 4's AuPR) and phase 12 alone, and prints no result line.
+``--every-surface-only`` runs phase 13 alone and prints no result line.
 """
 import json
 import math
@@ -3700,6 +3726,398 @@ def timings(H, dev, BP, run):
     return 0
 
 
+# -- phase 13: the remaining estimators and the rich DSL -----------------
+#: every-surface-200k's records, and the rows of each card/CPU agreement
+SURFACE_SEED = 13
+SURFACE_AGREE_N = 2_000
+#: every-surface-200k's records compared engine against layer path
+SURFACE_SERVE_N = 20_000
+#: taggers-20k's records: both packages tag one Python call a token on
+#: the host (NER ~0.7 ms and POS ~0.3 ms a 20-token note), so this path
+#: is cut from 200,000 records (PERF.md §4)
+TAGGER_N = 20_000
+TAGGER_SEED = 17
+#: the MLP's card/CPU agreement (F1, AuPR): full-batch Adam scales each
+#: gradient coordinate by its own magnitude, so f32 rounding of a
+#: cancelling sum becomes a step of full size; a row or two in 2,000 may
+#: flip
+MLP_AGREE = 2e-3
+#: LDA's θ and Word2Vec's vectors, card against CPU (f32 both): products
+#: and sums in another order over 60 EM iterations / 100 gradient steps
+TOPIC_ATOL = 1e-4
+#: the new stages that stay on the host in the scoring engine's plan
+HOST_STAGES = ("EmailParser", "UrlParser", "PhoneNumberParser",
+               "MimeTypeDetector", "NGramSimilarity", "LDAModel",
+               "Word2VecModel", "MathUnaryTransformer",
+               "PercentileCalibratorModel", "IsotonicRegressionModel",
+               "OPMapTransformer", "OPListTransformer", "ValueOpTransformer",
+               "IsSubstringTransformer", "MapTransformer",
+               "PredictionPartTransformer")
+
+
+def glm_path(BO, data_dir, dev="cuda"):
+    """boston-glm-200k: boston-200k's data, linear regression and GLM at
+    their default grids, 3-fold CV on RMSE; then 2,000 rows on the card
+    and the CPU (same winner, every fold's RMSE within 1e-4 relative)."""
+    from transmogrifai_tpu_torch.models import (GLMRegressionFamily,
+                                                LinearRegressionFamily)
+
+    def fams():
+        return [LinearRegressionFamily(), GLMRegressionFamily()]
+    path = BO.generate_data(os.path.join(data_dir, "boston-200k.data"), N,
+                            seed=42)
+    t0 = time.perf_counter()
+    out = BO.run(path, device=dev, families=fams())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = out["summary"]
+    rmse = out["metrics"]["RootMeanSquaredError"]
+    pred = out["scored"][out["prediction"].name].prediction
+    if not (len(pred) == N and np.isfinite(pred).all()
+            and 0.0 < rmse < 50.0):
+        fail("boston-glm-200k: predictions not finite or RMSE out of range")
+    print(f"boston-glm-200k {N} rows: train {out['train_s']:.2f} s, "
+          f"evaluate {out['eval_s']:.2f} s, best {s.best_model_name} "
+          f"{s.best_model_params}, RMSE {rmse:.6f}; CV seconds by family "
+          f"{s.validator_summary.family_seconds}")
+    small = BO.generate_data(os.path.join(data_dir, "boston-2k.data"),
+                             2_000, seed=42)
+    agree_metric({k: BO.run(small, device=d, families=fams())
+                  for k, d in (("cuda", dev), ("cpu", "cpu"))},
+                 "RootMeanSquaredError", 1e-4,
+                 "boston-glm, 2000 rows, default grids", relative=True)
+    return wall
+
+
+def mlp_path(H, IR, data_dir, root, dev="cuda"):
+    """iris-mlp-200k: iris-200k's data, LR and the MLP at their default
+    grids, 3-fold CV on F1, the prediction de-indexed by the DSL's
+    ``deindexed``; the MLP winner (forced where LR wins) saved, loaded
+    and its 200,000 rows scored through the engine against the layer
+    path; 2,000 rows on the card and the CPU."""
+    import shutil
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.models import (LogisticRegressionFamily,
+                                                MLPFamily)
+
+    def fams():
+        return [LogisticRegressionFamily(), MLPFamily(n_classes=3)]
+    path = IR.generate_csv(os.path.join(data_dir, "iris-200k.data"), N,
+                           seed=42)
+    t0 = time.perf_counter()
+    out = IR.run(path, device=dev, families=fams())
+    torch.cuda.synchronize()
+    s = out["summary"]
+    print(f"iris-mlp-200k {N} rows: train {out['train_s']:.2f} s, "
+          f"evaluate {out['eval_s']:.2f} s, best {s.best_model_name} "
+          f"{s.best_model_params}, F1 {out['metrics']['F1']:.6f}; CV "
+          f"seconds by family {s.validator_summary.family_seconds}")
+    mlp = out
+    if s.best_model_name != MLPFamily.name:
+        mlp = IR.run(path, device=dev, families=[MLPFamily(n_classes=3)])
+        print(f"iris-mlp-200k: LR won; the MLP alone: F1 "
+              f"{mlp['metrics']['F1']:.6f}, "
+              f"{mlp['summary'].best_model_params}")
+    save = os.path.join(root, "build", "serve", "iris-mlp")
+    shutil.rmtree(save, ignore_errors=True)
+    mlp["model"].save(save)
+    loaded = WorkflowModel.load(save)
+    store = mlp["data"]
+    pred, de = mlp["prediction"].name, mlp["deindexed"].name
+    loaded.score(store, device=dev, engine=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scored = loaded.score(store, device=dev, engine=True)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t1
+    eng = loaded.scoring_engine(dev)
+    kinds = [it.kind for it in eng._plan]
+    if kinds[-2:] != ["predict", "deindex"]:
+        fail(f"iris-mlp serve: the engine's program is {kinds}")
+    layer = loaded.score(store, device=dev, engine=False)
+    same_names = bool(np.array_equal(scored[de].values, layer[de].values))
+    if not same_names:
+        fail("iris-mlp serve: species names differ from the layer path's")
+    same_predictions(scored[pred], layer[pred],
+                     "iris-mlp serve: engine against the layer path")
+    print(f"iris-mlp serve: Score (loaded MLP, engine, second call) "
+          f"{score_s:.3f} s = {N / score_s:,.0f} rows/s; program {kinds}, "
+          f"graphs captured {eng.graphs_captured}, buckets "
+          f"{eng.buckets_used()}; species names equal to the layer path's: "
+          f"{same_names}")
+    small = IR.generate_csv(os.path.join(data_dir, "iris-2k.data"), 2_000,
+                            seed=42)
+    agree_metric({k: IR.run(small, device=d, families=fams())
+                  for k, d in (("cuda", dev), ("cpu", "cpu"))}, "F1",
+                 MLP_AGREE, "iris-mlp, 2000 rows, default grids")
+    return time.perf_counter() - t0
+
+
+def _w2v_peak(TP, dev):
+    """Wrap Word2Vec's training to keep its pair count, chunk and the
+    card's peak memory over it (``stats``)."""
+    stats = {}
+    inner = TP.w2v_train
+
+    def wrapped(*a, **kw):
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() \
+            if torch.device(dev).type == "cuda" else 0
+        kw["stats"] = stats
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+            stats["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        stats["train_s"] = time.perf_counter() - t0
+        return out
+    return stats, inner, wrapped
+
+
+class PredCols:
+    """The first ``n`` rows of a prediction column's three arrays."""
+
+    def __init__(self, col, n):
+        self.prediction = col.prediction[:n]
+        self.raw_prediction = col.raw_prediction[:n]
+        self.probability = col.probability[:n]
+
+
+def check_gumbel_noise(dev):
+    """``random.categorical``'s fast Gumbel noise (``torch.log`` on the
+    card) against XLA's f32 ``log`` written out: the gap must stay far
+    inside ``CATEGORICAL_MARGIN``, the band whose rows are drawn again
+    exactly. Returns the max |gap|."""
+    from transmogrifai_tpu_torch import random as R
+    u = R._gumbel_uniform(R.PRNGKey(9), torch.arange(
+        4_000_000, dtype=torch.int64, device=dev))
+    gap = (torch.log(-torch.log(u))
+           - R.xla_log_f32(-R.xla_log_f32(u))).abs().max().item()
+    if not gap < R.CATEGORICAL_MARGIN / 50:
+        fail(f"Gumbel noise: torch.log against XLA's log {gap:.3g}")
+    print(f"Gumbel noise on {dev}: |torch.log − XLA log| ≤ {gap:.3g} over "
+          f"4,000,000 uniforms (margin {R.CATEGORICAL_MARGIN:g})")
+    return gap
+
+
+def surface_agreement(ES, dev="cuda"):
+    """2,000 records on the card and on the CPU (f32 both): each host
+    stage's column and the count block bitwise, LDA's θ and Word2Vec's
+    vectors within ``TOPIC_ATOL``, the same winner."""
+    raw = ES.make_raw(SURFACE_AGREE_N, SURFACE_SEED)
+    runs = {k: ES.run(raw, device=d) for k, d in (("cuda", dev),
+                                                  ("cpu", "cpu"))}
+    cols = {}
+    for k, r in runs.items():
+        st = r["workflow"]["stages"]
+        out = r["model"].transform(r["store"], device=dev if k == "cuda"
+                                   else "cpu", engine=False)
+        cols[k] = {name: out[f.name] for name, f in st.items()}
+    worst = {}
+    for name in cols["cpu"]:
+        a, b = cols["cuda"][name], cols["cpu"][name]
+        if name in ("topics", "embedding"):
+            err = float(np.abs(np.asarray(a.values, np.float64)
+                               - np.asarray(b.values, np.float64)).max())
+            worst[name] = err
+            if err > TOPIC_ATOL:
+                fail(f"every-surface agreement: {name} differs by {err:.3g}")
+        elif name == "counts_vec":
+            if not np.array_equal(a.values, b.values):
+                fail("every-surface agreement: the count block differs")
+        elif [a.get_raw(i) for i in range(len(a))] != \
+                [b.get_raw(i) for i in range(len(b))]:
+            fail(f"every-surface agreement: {name} differs")
+    sa, sb = runs["cuda"]["summary"], runs["cpu"]["summary"]
+    if (sa.best_model_name, sa.best_model_params) != \
+            (sb.best_model_name, sb.best_model_params):
+        fail("every-surface agreement: cuda and cpu picked different models")
+    d_aupr = abs(runs["cuda"]["metrics"]["AuPR"]
+                 - runs["cpu"]["metrics"]["AuPR"])
+    print(f"every-surface, {SURFACE_AGREE_N} records: host stages and the "
+          f"count block bitwise on cuda and cpu, LDA / Word2Vec max |d| "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} } (limit "
+          f"{TOPIC_ATOL:g}), same model ({sa.best_model_name}), |dAuPR| "
+          f"{d_aupr:.3g}")
+
+
+def surface_path(H, TF, ES, root, dev="cuda"):
+    """every-surface-200k: the rich-DSL workflow trained on 200,000
+    records with every launch counted (GBT's histogram, scan and epilogue
+    kernels), its stage and family seconds, LDA's and Word2Vec's fits,
+    Word2Vec's pairs, chunk and peak memory, the width, winner, AuPR and
+    Brier score; the model saved, loaded and scored through the engine
+    against the layer path (the tupled columns equal to the prediction's
+    parts; the count vectorizer fused as "vec", the predictor as
+    "predict", every other new stage on the host); the tree kernels at
+    the shapes of the selector's CV fold 0 (:func:`check_mapprep_kernels`);
+    then the 2,000-record agreement. Returns (launches, seconds, each
+    kernel's max abs error at the fold's shapes)."""
+    import shutil
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.ops import topics as TP
+    t0 = time.perf_counter()
+    check_gumbel_noise(dev)
+    raw = ES.make_raw(N, SURFACE_SEED)
+    print(f"every-surface-200k: {N} records made in "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0_store = time.perf_counter()
+    store = ES.raw_store(raw)
+    store_s = time.perf_counter() - t0_store
+    wf = ES.build_workflow(store)
+    _, fold0 = spy_folds(H, wf["selector"].validator, keep_fold=True)
+    stats, inner, wrapped = _w2v_peak(TP, dev)
+    TP.w2v_train = wrapped
+    try:
+        out, launches = counted(
+            H, lambda: ES.train(store, wf, device=dev),
+            ("cumhist", "group_rows", "split_scan", "level_epilogue"))
+    finally:
+        TP.w2v_train = inner
+    once_per_level(launches, "every-surface-200k")
+    model, s = out["model"], out["summary"]
+    aupr, brier = out["metrics"]["AuPR"], out["bin_score"]["BrierScore"]
+    if not (0.5 < aupr <= 1.0 and 0.0 < brier < 0.25):
+        fail(f"every-surface-200k: AuPR {aupr} / Brier {brier} out of range")
+    st = out["workflow"]["stages"]
+    fit = {k: model.stage_metrics.get(st[k].origin_stage.uid, {}).get(
+        "fitSeconds") for k in ("counts_vec", "topics", "embedding")}
+    print(f"every-surface-200k {N} records: store {store_s:.2f} s, train "
+          f"{out['train_s']:.2f} s, "
+          f"evaluate {out['eval_s']:.2f} s, width {out['width']}, best "
+          f"{s.best_model_name} {s.best_model_params}, AuPR {aupr:.6f}, "
+          f"Brier {brier:.6f}; CV seconds by family "
+          f"{s.validator_summary.family_seconds}")
+    print(f"every-surface-200k fits: count vectorizer {fit['counts_vec']} "
+          f"s, LDA {fit['topics']} s, Word2Vec {fit['embedding']} s "
+          f"(training {stats.get('train_s', 0.0):.2f} s: "
+          f"{stats.get('pairs')} pairs, {stats.get('chunk_pairs')} a chunk, "
+          f"{stats.get('chunks_per_epoch')} chunks an epoch, peak "
+          f"{stats.get('peak_bytes', 0) / 2**20:.1f} MiB over the "
+          f"allocations before it)")
+    print(f"every-surface-200k training launches: {launches}")
+    stage_table(model, "every-surface-200k")
+
+    # the prediction alone as the result (the same fitted stages): the
+    # engine's fused program, timed over the 200,000 records; then the
+    # model as trained, whose tupled columns are host stages that read
+    # the prediction (so nothing upstream of them fuses), and the layer
+    # path, each on SURFACE_SERVE_N records: the host stages dominate
+    # every pass (~8,000 records/s)
+    from transmogrifai_tpu_torch.graph import compute_dag
+    store = out["store"]
+    pred_f = out["workflow"]["prediction"]
+    pred = pred_f.name
+    loaded = {}
+    for name, m in (("every-surface", model),
+                    ("every-surface-pred", WorkflowModel(
+                        [pred_f], model.fitted_stages,
+                        compute_dag([pred_f])))):
+        save = os.path.join(root, "build", "serve", name)
+        shutil.rmtree(save, ignore_errors=True)
+        m.save(save)
+        loaded[name] = WorkflowModel.load(save)
+    lp = loaded["every-surface-pred"]
+    t1 = time.perf_counter()
+    scored = lp.score(store, device=dev, engine=True)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t1
+    eng = lp.scoring_engine(dev)
+    plan = {}
+    for it in eng._plan:
+        plan.setdefault(type(it.model).__name__, set()).add(it.kind)
+    host = {type(m).__name__ for layer in lp._resolved_dag()
+            for m in layer} - set(plan)
+    if plan.get("CountVectorizerModel") != {"vec"} or \
+            plan.get("SelectedModel") != {"predict"}:
+        fail(f"every-surface serve: the engine's plan is {plan}")
+    if any(k in plan for k in HOST_STAGES):
+        fail(f"every-surface serve: a host stage is in the plan {plan}")
+    sub = store.take(np.arange(SURFACE_SERVE_N))
+    replay = lp.score(sub, device=dev, engine=True)[pred]
+    full = loaded["every-surface"].score(sub, device=dev, engine=True)
+    layer = lp.score(sub, device=dev, engine=False)[pred]
+    head = PredCols(scored[pred], SURFACE_SERVE_N)
+    for a, b, what in ((replay, head, "a replay against the first pass"),
+                       (layer, head, "the layer path against the engine"),
+                       (full[pred], head, "the model with tupled columns")):
+        same_predictions(a, b, f"every-surface serve: {what}")
+    p, rawp, prob = out["workflow"]["tupled"]
+    for f, part in ((p, "prediction"), (rawp, "raw_prediction"),
+                    (prob, "probability")):
+        if not np.array_equal(np.asarray(full[f.name].values),
+                              getattr(full[pred], part)):
+            fail(f"every-surface serve: tupled {part} differs")
+    print(f"every-surface serve: Score of the loaded model, prediction "
+          f"alone, through the engine {score_s:.2f} s = "
+          f"{N / score_s:,.0f} records/s; plan "
+          f"{ {k: sorted(v) for k, v in plan.items()} }; host stages "
+          f"{sorted(host)}; graphs {eng.graphs_captured}; on "
+          f"{SURFACE_SERVE_N} records a replay, the layer path and the "
+          f"model with its tupled columns (host, plan "
+          f"{[it.kind for it in loaded['every-surface'].scoring_engine(dev)._plan]})"
+          f" give the same predictions, the tupled columns the "
+          f"prediction's parts")
+    refits = tree_refits(out["workflow"], model, sub, dev)
+    torch.cuda.synchronize()
+    launches = dict(H.KERNEL_LAUNCHES)
+    if not launches["predict_trees"]:
+        fail("every-surface-200k: predict_trees never launched")
+    print(f"every-surface GBT refit on {SURFACE_SERVE_N} records (so "
+          f"predict_trees runs whichever family won): AuPR {refits}; "
+          f"launches over training, serving and the refit: {launches}")
+    if not fold0:
+        fail("every-surface-200k: the selector's CV kept no fold")
+    worst = check_mapprep_kernels(H, TF, dev, fold0.pop("X"),
+                                  fold0.pop("y"),
+                                  "every-surface-200k CV fold 0")
+    surface_agreement(ES, dev)
+    return launches, time.perf_counter() - t0, worst
+
+
+def tagger_path(ES, dev="cuda"):
+    """taggers-20k: entities, languages, sentences and POS tags of 20,000
+    notes, transmogrified, one LR point; seconds by stage."""
+    t0 = time.perf_counter()
+    raw = ES.make_tagger_raw(TAGGER_N, TAGGER_SEED)
+    out = ES.run_taggers(raw, device=dev)
+    aupr = out["metrics"]["AuPR"]
+    if not 0.5 < aupr <= 1.0:
+        fail(f"taggers-20k: AuPR {aupr} out of range")
+    print(f"taggers-20k {TAGGER_N} records: train {out['train_s']:.2f} s, "
+          f"best {out['summary'].best_model_name}, train AuPR {aupr:.6f}")
+    stage_table(out["model"], "taggers-20k")
+    return time.perf_counter() - t0
+
+
+def rich_dsl_paths(H, TF, BO, IR, root, dev="cuda"):
+    """Phase 13: boston-glm-200k, iris-mlp-200k, every-surface-200k and
+    taggers-20k, with each path's seconds. Returns ({path: launches},
+    each kernel's max abs error at every-surface-200k's fold shapes)."""
+    from transmogrifai_tpu_torch import every_surface as ES
+    data_dir = os.path.join(root, "build", "data")
+    seconds, launches_by = {}, {}
+    for name, fn in (("boston-glm-200k", lambda: glm_path(BO, data_dir,
+                                                          dev)),
+                     ("iris-mlp-200k", lambda: mlp_path(H, IR, data_dir,
+                                                        root, dev))):
+        out, launches = counted(H, fn, ())
+        seconds[name], launches_by[name] = out, launches
+    (launches_by["every-surface-200k"], seconds["every-surface-200k"],
+     worst) = surface_path(H, TF, ES, root, dev)
+    out, launches_by["taggers-20k"] = counted(H, lambda: tagger_path(ES,
+                                                                     dev), ())
+    seconds["taggers-20k"] = out
+    print(f"phase 13 seconds by path: "
+          f"{ {k: round(v, 2) for k, v in seconds.items()} }, total "
+          f"{sum(seconds.values()):.2f} s")
+    return launches_by, worst
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3745,6 +4163,10 @@ def main():
         _, score_col = serve(H, BP, records, None)
         serve_export(H, records, score_col)
         check_predict_op(H, dev)
+        return 0
+    root = os.path.dirname(os.path.abspath(__file__))
+    if "--every-surface-only" in sys.argv[1:]:
+        rich_dsl_paths(H, TF, BO, IR, root)
         return 0
 
     rows = check_kernels(H, TF, dev)
@@ -3851,7 +4273,6 @@ def main():
 
     # -- phase 8: multiclass and regression (iris, boston) ---------------
     wide = check_multiclass_kernels(H, dev)
-    root = os.path.dirname(os.path.abspath(__file__))
     data_dir = os.path.join(root, "build", "data")
     launches_by, iris = multiclass_paths(H, IR, BO, data_dir, profile)
     path_launches.update(launches_by)
@@ -3887,6 +4308,12 @@ def main():
     # -- phase 12: serving artifacts at serve-200k ------------------------
     path_launches["serve-export"] = serve_export(H, records, score_col)
     check_predict_op(H, dev)
+
+    # -- phase 13: GLM, the MLP and the rich DSL --------------------------
+    surface_launches, worst = rich_dsl_paths(H, TF, BO, IR, root)
+    path_launches.update(surface_launches)
+    for name, err in worst.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

@@ -127,3 +127,32 @@ def test_serving_modules_are_scanned(module):
     assert path in SOURCES
     dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
     assert dotted in _modules()
+
+
+@pytest.mark.parametrize("module", [
+    "random.py", "models/glm.py", "models/svm.py", "ops/calibrators.py",
+    "ops/collections.py", "ops/text_suite.py", "ops/topics.py",
+    "utils/taggers.py", "utils/fn_io.py", "every_surface.py", "dsl.py",
+    "evaluators/__init__.py"])
+def test_rich_dsl_modules_are_scanned(module):
+    """GLM, the MLP, the text suite and its taggers, the topics, the
+    calibrators, the collection lifts and the DSL are among the sources
+    scanned above and the modules imported with ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    parts = list(path.relative_to(ROOT).with_suffix("").parts)
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    assert ".".join(parts) in _modules()
+
+
+@pytest.mark.parametrize("kind", ["ner", "pos", "sent"])
+def test_tagger_weights_are_byte_identical_copies(kind):
+    """The port carries its own copy of each tagger's weights, byte for
+    byte the JAX package's, and loads it from its own tree."""
+    mine = PORT / "resources" / "taggers" / f"{kind}.json.gz"
+    ref = ROOT / "transmogrifai_tpu" / "resources" / "taggers" / \
+        f"{kind}.json.gz"
+    assert mine.read_bytes() == ref.read_bytes()
+    from transmogrifai_tpu_torch.utils import taggers
+    assert pathlib.Path(taggers.resource_dir()) == mine.parent

@@ -2,8 +2,10 @@
 vectorizers of every feature type — map keys and their delegates, bucket
 splits, set vocabularies, geo fills —, the scalers' means and stds, the
 IDF weights, the SanityChecker, the DSL's fitted models, tree ensembles
-of every kind, logistic regression and linear SVC coefficients, the
-selected model) is rebuilt from a JAX stage's ``get_model_state()`` and
+of every kind, logistic regression and linear SVC coefficients, GLM
+coefficients and MLP weights, LDA's topics, Word2Vec's vectors, the count
+vectorizer's vocabularies, the calibrators' tables, the selected model)
+is rebuilt from a JAX stage's ``get_model_state()`` and
 ``get_params()`` —
 numpy arrays and JSON values only, so nothing of the JAX package is
 imported. A workflow trained there scores the same here.

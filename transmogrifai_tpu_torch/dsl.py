@@ -1,15 +1,24 @@
-"""Feature DSL — the port of ``transmogrifai_tpu/dsl.py`` for what the
-Titanic and map-feature examples use: the numeric math transformers
-(``+ - * /`` of two features or of a feature and a scalar),
+"""Feature DSL — the port of ``transmogrifai_tpu/dsl.py``: every method
+and operator the JAX package attaches to ``Feature``. The numeric math
+transformers (``+ - * /`` of two features or of a feature and a scalar,
+and the unary ``abs ceil floor round_to exp log sqrt power``),
 ``fill_missing_with_mean``, ``z_normalize``, ``pivot``, ``map_to``,
 ``alias``, ``transmogrify`` (RichFeaturesCollection.transmogrify),
-``Feature.sanity_check``, the multiclass path's label indexing,
-``indexed``, and the Rich* surfaces of maps, lists and sets:
-``vectorize`` (with ``allow_keys`` / ``block_keys``), ``smart_vectorize``,
-``filter_keys``, ``extract_key``, ``bucketize``, ``auto_bucketize``,
-``tf``, ``idf``, ``tfidf``, ``ngram``, ``remove_stop_words``,
-``jaccard_similarity``, ``scaled`` and ``descaled``.
-Importing the package attaches the methods and operators::
+``Feature.sanity_check``, label ``indexed`` / ``deindexed``, the Rich*
+surfaces of maps, lists and sets (``vectorize`` with ``allow_keys`` /
+``block_keys``, ``smart_vectorize``, ``filter_keys``, ``extract_key``,
+``bucketize``, ``auto_bucketize``, ``tf``, ``idf``, ``tfidf``, ``ngram``,
+``remove_stop_words``, ``jaccard_similarity``, ``scaled``, ``descaled``),
+the text suite (``tokenize``, the email / URL / phone / MIME parsers,
+``ngram_similarity``, ``count_vectorize``, ``lda``, ``word2vec``,
+``detect_languages``, ``recognize_entities``, ``is_substring``),
+calibration (``to_percentile``, ``to_isotonic_calibrated``), the value
+operations (``replace_with``, ``filter_values``, ``filter_not``,
+``collect``, ``exists``, ``occurs``), the conversions
+(``to_multi_pick_list``, ``to_date_list``, ``to_date_time_list``,
+``to_unit_circle``, ``combine``, ``vectorize_location``),
+``drop_indices_by`` and ``tupled``. Importing the package attaches
+them::
 
     family_size = sib_sp + par_ch + 1
     cost = family_size * fare
@@ -22,6 +31,16 @@ Null semantics follow the reference truth tables
 (``MathTransformers.scala``): plus/minus treat empty as identity;
 multiply/divide need both sides and drop non-finite results. These stages
 run on the host (numpy), as in the JAX package.
+
+Each method builds the JAX package's stage with its defaults. Three of
+them (``is_substring``, ``drop_indices_by``, ``tupled``) are an unnamed
+``LambdaTransformer`` there, which no save can hold; here they are the
+registered stages :class:`IsSubstringTransformer`,
+:class:`DropIndicesByTransformer` and :class:`PredictionPartTransformer`
+(same operation names and outputs), so a model that uses them saves and
+loads. The DSL's own row functions are module functions, which
+``utils.fn_io`` saves by name; a user's lambda is saved as code, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -36,9 +55,12 @@ from .stages.base import (Estimator, FittedModel, FixedArity, InputSpec,
 from .types import feature_types as ft
 
 __all__ = ["MathBinaryTransformer", "MathScalarTransformer",
-           "FillMissingWithMean", "FillMissingWithMeanModel",
-           "ScalarNormalizer", "ScalarNormalizerModel", "AliasTransformer",
-           "MapTransformer", "transmogrify"]
+           "MathUnaryTransformer", "FillMissingWithMean",
+           "FillMissingWithMeanModel", "ScalarNormalizer",
+           "ScalarNormalizerModel", "AliasTransformer", "MapTransformer",
+           "ValueOpTransformer", "IsSubstringTransformer",
+           "DropIndicesByTransformer", "PredictionPartTransformer",
+           "transmogrify"]
 
 
 def _num_col(store: ColumnStore, f: Feature) -> NumericColumn:
@@ -267,7 +289,9 @@ class AliasTransformer(Transformer):
 
 @register_stage
 class MapTransformer(Transformer):
-    """Row-wise value map (RichFeature.map): ``fn`` of each raw value."""
+    """Row-wise value map (RichFeature.map): ``fn`` of each raw value.
+    The function round-trips through ``utils.fn_io`` (named functions by
+    qualified name, lambdas by marshaled code)."""
 
     def __init__(self, fn: Callable[[Any], Any] = None,
                  input_type: Type[ft.FeatureType] = ft.FeatureType,
@@ -275,6 +299,9 @@ class MapTransformer(Transformer):
                  operation_name: str = "map",
                  uid: Optional[str] = None):
         super().__init__(uid=uid)
+        if isinstance(fn, dict):  # decoded from model.json
+            from .utils.fn_io import decode_fn
+            fn = decode_fn(fn)
         self.fn = fn
         self._input_type = input_type
         self.output_type = output_type
@@ -284,11 +311,237 @@ class MapTransformer(Transformer):
     def input_spec(self) -> InputSpec:
         return FixedArity(self._input_type)
 
+    def get_params(self):
+        from .utils.fn_io import encode_fn
+        p = super().get_params()
+        p["fn"] = encode_fn(self.fn)
+        p["input_type"] = self._input_type
+        return p
+
     def transform_columns(self, store: ColumnStore) -> Column:
         col = store[self.input_features[0].name]
         return column_from_values(
             self.output_type, [self.fn(col.get_raw(i))
                                for i in range(len(col))])
+
+
+@register_stage
+class MathUnaryTransformer(Transformer):
+    """Unary numeric math (abs/ceil/floor/round/exp/log/sqrt/power —
+    ``RichNumericFeature.scala`` unary surface + ``MathTransformers``).
+    Domain violations (log of ≤0, sqrt of <0, non-finite results) null
+    the row, matching the reference's Option-returning transformers."""
+
+    output_type = ft.Real
+
+    def __init__(self, op: str = "abs", arg: float = 0.0,
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.op = op
+        self.arg = float(arg)
+        self.operation_name = {
+            "abs": "abs", "ceil": "ceil", "floor": "floor",
+            "round": "round", "exp": "exp", "log": "logN",
+            "sqrt": "sqrt", "power": "power"}[op]
+
+    @property
+    def input_spec(self) -> InputSpec:
+        return FixedArity(ft.OPNumeric)
+
+    def transform_columns(self, store: ColumnStore) -> Column:
+        a = _num_col(store, self.input_features[0])
+        av = a.values.astype(np.float64)
+        with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+            vals = {
+                "abs": lambda: np.abs(av),
+                "ceil": lambda: np.ceil(av),
+                "floor": lambda: np.floor(av),
+                "round": lambda: np.round(av, int(self.arg)),
+                "exp": lambda: np.exp(av),
+                # log base arg (reference log(base); default natural)
+                "log": lambda: (np.log(av) if self.arg in (0.0, np.e)
+                                else np.log(av) / np.log(self.arg)),
+                "sqrt": lambda: np.sqrt(av),
+                "power": lambda: np.power(av, self.arg),
+            }[self.op]()
+        mask = a.mask & np.isfinite(vals)
+        return NumericColumn(ft.Real, np.where(mask, vals, 0.0), mask)
+
+
+@register_stage
+class ValueOpTransformer(Transformer):
+    """RichFeature value-surface ops (replaceWith / filter / filterNot /
+    collect / exists / occurs, ``RichFeature.scala:61-205``) as one
+    registered stage: the op's semantics live here, and only the user's
+    predicate is serialized (``utils.fn_io``, as ``MapTransformer``)."""
+
+    def __init__(self, op: str = "exists", fn: Callable[[Any], Any] = None,
+                 default: Any = None, old_val: Any = None,
+                 new_val: Any = None,
+                 input_type: Type[ft.FeatureType] = ft.FeatureType,
+                 output_type: Type[ft.FeatureType] = ft.FeatureType,
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        if isinstance(fn, dict):        # decoded from model.json
+            from .utils.fn_io import decode_fn
+            fn = decode_fn(fn)
+        self.op = op
+        self.fn = fn
+        self.default = default
+        self.old_val = old_val
+        self.new_val = new_val
+        self._input_type = input_type
+        self.output_type = output_type
+        self.operation_name = op
+
+    @property
+    def input_spec(self) -> InputSpec:
+        return FixedArity(self._input_type)
+
+    def get_params(self):
+        from .utils.fn_io import encode_fn
+        p = super().get_params()
+        p["fn"] = encode_fn(self.fn) if self.fn is not None else None
+        p["input_type"] = self._input_type
+        return p
+
+    @staticmethod
+    def _present(v) -> bool:
+        if v is None:
+            return False
+        if isinstance(v, (list, set, dict, str)):
+            return len(v) > 0
+        return True
+
+    def _apply(self, v):
+        op, fn = self.op, self.fn
+        if op == "replaceWith":
+            return self.new_val if v == self.old_val else v
+        if op == "filter":
+            return v if fn(v) else self.default
+        if op == "filterNot":
+            return self.default if fn(v) else v
+        if op == "collect":
+            out = fn(v)
+            return self.default if out is None else out
+        if op == "exists":
+            return bool(v is not None and fn(v))
+        if op == "occurs":
+            if fn is None:
+                return 1.0 if self._present(v) else 0.0
+            return 1.0 if (v is not None and fn(v)) else 0.0
+        raise ValueError(f"unknown value op {op!r}")
+
+    def transform_columns(self, store: ColumnStore) -> Column:
+        col = store[self.input_features[0].name]
+        return column_from_values(
+            self.output_type,
+            [self._apply(col.get_raw(i)) for i in range(len(col))])
+
+
+@register_stage
+class IsSubstringTransformer(Transformer):
+    """(Text, Text) → Binary: is the first a case-insensitive substring of
+    the second (RichTextFeature.isSubstring :445)."""
+
+    operation_name = "isSubstring"
+    output_type = ft.Binary
+
+    def __init__(self, uid: Optional[str] = None):
+        super().__init__(uid=uid)
+
+    @property
+    def input_spec(self) -> InputSpec:
+        return FixedArity(ft.Text, ft.Text)
+
+    def transform_columns(self, store: ColumnStore) -> Column:
+        a_col = store[self.input_features[0].name]
+        b_col = store[self.input_features[1].name]
+        n = len(a_col)
+        vals = np.zeros((n,), np.float64)
+        mask = np.zeros((n,), bool)
+        for i in range(n):
+            a, b = a_col.get_raw(i), b_col.get_raw(i)
+            if a is not None and b is not None:
+                mask[i] = True
+                vals[i] = float(str(a).lower() in str(b).lower())
+        return NumericColumn(ft.Binary, vals, mask)
+
+
+@register_stage
+class DropIndicesByTransformer(Transformer):
+    """OPVector → OPVector without the columns whose metadata
+    ``match_fn`` selects (RichVectorFeature.dropIndicesBy :139 →
+    DropIndicesByTransformer); needs vector metadata."""
+
+    operation_name = "dropIndicesBy"
+    output_type = ft.OPVector
+
+    def __init__(self, match_fn: Callable[[Any], bool] = None,
+                 uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        if isinstance(match_fn, dict):   # decoded from model.json
+            from .utils.fn_io import decode_fn
+            match_fn = decode_fn(match_fn)
+        self.match_fn = match_fn
+
+    @property
+    def input_spec(self) -> InputSpec:
+        return FixedArity(ft.OPVector)
+
+    def get_params(self):
+        from .utils.fn_io import encode_fn
+        p = super().get_params()
+        p["match_fn"] = encode_fn(self.match_fn)
+        return p
+
+    def transform_columns(self, store: ColumnStore) -> Column:
+        from .columns import VectorColumn
+        col = store[self.input_features[0].name]
+        # explicit ValueErrors: input validation survives ``python -O``
+        if not isinstance(col, VectorColumn):
+            raise ValueError(
+                f"dropIndicesBy needs an OPVector column, got "
+                f"{type(col).__name__}")
+        if col.metadata is None:
+            raise ValueError(
+                "dropIndicesBy needs a metadata-carrying OPVector "
+                "(vectorizer outputs always carry metadata)")
+        keep = [i for i, cm in enumerate(col.metadata.columns)
+                if not self.match_fn(cm)]
+        return VectorColumn(ft.OPVector, col.values[:, keep],
+                            col.metadata.select(keep))
+
+
+#: PredictionPartTransformer parts: (operation name, output type)
+_PREDICTION_PARTS = {"prediction": ("predictionValue", ft.RealNN),
+                     "raw": ("rawPrediction", ft.OPVector),
+                     "probability": ("probability", ft.OPVector)}
+
+
+@register_stage
+class PredictionPartTransformer(Transformer):
+    """Prediction → one of its parts: the prediction (RealNN), the raw
+    prediction or the probability (OPVector) — the three stages of
+    RichPredictionFeature.tupled (:1098-1111)."""
+
+    def __init__(self, part: str = "prediction", uid: Optional[str] = None):
+        super().__init__(uid=uid)
+        self.part = part
+        self.operation_name, self.output_type = _PREDICTION_PARTS[part]
+
+    @property
+    def input_spec(self) -> InputSpec:
+        return FixedArity(ft.Prediction)
+
+    def transform_columns(self, store: ColumnStore) -> Column:
+        from .columns import VectorColumn
+        c = store[self.input_features[0].name]
+        if self.part == "prediction":
+            return NumericColumn(ft.RealNN, np.asarray(c.prediction),
+                                 np.ones(len(c), bool))
+        return VectorColumn(ft.OPVector, np.asarray(
+            c.raw_prediction if self.part == "raw" else c.probability))
 
 
 def transmogrify(features: Sequence[Feature]) -> Feature:
@@ -521,6 +774,308 @@ def _auto_bucketize(self: Feature, label: Feature, **kw):
     return label.transform_with(cls(**kw), self)
 
 
+def _unary_math(op):
+    def method(self: Feature, arg: float = 0.0):
+        return self.transform_with(MathUnaryTransformer(op=op, arg=arg))
+    method.__name__ = f"_{op}"
+    method.__doc__ = (f"Numeric → Real {op} "
+                      "(RichNumericFeature unary math surface).")
+    return method
+
+
+def _tokenize(self: Feature, **kw):
+    from .ops.text import TextTokenizer
+    return self.transform_with(TextTokenizer(**kw))
+
+
+def _to_email_prefix(self: Feature):
+    from .ops.text_suite import EmailParser
+    return self.transform_with(EmailParser(part="prefix"))
+
+
+def _to_email_domain(self: Feature):
+    from .ops.text_suite import EmailParser
+    return self.transform_with(EmailParser(part="domain"))
+
+
+def _to_url_protocol(self: Feature):
+    from .ops.text_suite import UrlParser
+    return self.transform_with(UrlParser(part="protocol"))
+
+
+def _to_url_domain(self: Feature):
+    from .ops.text_suite import UrlParser
+    return self.transform_with(UrlParser(part="domain"))
+
+
+def _is_valid_phone(self: Feature, default_region: str = "US"):
+    from .ops.text_suite import PhoneNumberParser
+    return self.transform_with(
+        PhoneNumberParser(default_region=default_region, output="valid"))
+
+
+def _parse_phone(self: Feature, default_region: str = "US"):
+    """Phone → Text national number (RichTextFeature.parsePhone :464)."""
+    from .ops.text_suite import PhoneNumberParser
+    return self.transform_with(PhoneNumberParser(
+        default_region=default_region, output="national"))
+
+
+def _detect_mime_types(self: Feature):
+    from .ops.text_suite import MimeTypeDetector
+    return self.transform_with(MimeTypeDetector())
+
+
+def _ngram_similarity(self: Feature, other: Feature, n: int = 3):
+    from .ops.text_suite import NGramSimilarity
+    return self.transform_with(NGramSimilarity(n=n), other)
+
+
+def _count_vectorize(self: Feature, *others: Feature, **kw):
+    from .ops.text_suite import OpCountVectorizer
+    return self.transform_with(OpCountVectorizer(**kw), *others)
+
+
+def _detect_languages(self: Feature):
+    """Text → RealMap of language-confidence scores
+    (RichTextFeature.detectLanguages :403)."""
+    from .ops.text_suite import LanguageDetector
+    return self.transform_with(LanguageDetector())
+
+
+def _recognize_entities(self: Feature):
+    """Text → MultiPickList of entity spans
+    (RichTextFeature.recognizeEntities :420)."""
+    from .ops.text_suite import NameEntityRecognizer
+    return self.transform_with(NameEntityRecognizer())
+
+
+def _is_substring(self: Feature, other: Feature):
+    """Binary: is this text a (case-insensitive) substring of ``other``
+    (RichTextFeature.isSubstring :445)."""
+    return self.transform_with(IsSubstringTransformer(), other)
+
+
+def _lda(self: Feature, n_topics: int = 10, **kw):
+    from .ops.topics import OpLDA
+    return self.transform_with(OpLDA(n_topics=n_topics, **kw))
+
+
+def _word2vec(self: Feature, **kw):
+    """Estimator defaults (dim=100, window=5 — Spark ml Word2Vec parity,
+    ``ops/topics.py``); keyword arguments pass through untouched."""
+    from .ops.topics import OpWord2Vec
+    return self.transform_with(OpWord2Vec(**kw))
+
+
+def _to_unit_circle(self: Feature, **kw):
+    from .ops.dates import DateToUnitCircleVectorizer
+    return self.transform_with(DateToUnitCircleVectorizer(**kw))
+
+
+def _combine(self: Feature, *others: Feature):
+    from .ops.vectors import VectorsCombiner
+    return self.transform_with(VectorsCombiner(), *others)
+
+
+def _to_percentile(self: Feature, **kw):
+    from .ops.calibrators import PercentileCalibrator
+    return self.transform_with(PercentileCalibrator(**kw))
+
+
+def _to_isotonic_calibrated(self: Feature, label: Feature,
+                            isotonic: bool = True):
+    """RealNN score → isotonic-calibrated score
+    (RichNumericFeature.toIsotonicCalibrated →
+    IsotonicRegressionCalibrator.scala)."""
+    from .ops.calibrators import IsotonicRegressionCalibrator
+    return label.transform_with(
+        IsotonicRegressionCalibrator(isotonic=isotonic), self)
+
+
+def _deindexed(self: Feature, prediction: Feature, **kw):
+    """``label.deindexed(prediction)``: predicted indices → label strings
+    (PredictionDeIndexer)."""
+    from .ops.indexers import PredictionDeIndexer
+    return self.transform_with(PredictionDeIndexer(**kw), prediction)
+
+
+# -- the DSL's row functions: module functions, saved by name ---------------
+
+def _valid_email_value(v):
+    from .ops.text_suite import parse_email
+    return None if v is None else parse_email(v)[0] is not None
+
+
+def _valid_url_value(v):
+    from .ops.text_suite import parse_url
+    return None if v is None else parse_url(v)[0] is not None
+
+
+def _as_set(v):
+    return set(v or ())
+
+
+def _as_time_list(v):
+    return [] if v is None else [int(v)]
+
+
+def _email_domain_map(m):
+    from .ops.text_suite import parse_email
+    out = {}
+    for k, v in (m or {}).items():
+        d = parse_email(v)[1]
+        if d is not None:
+            out[k] = d
+    return out
+
+
+def _url_domain_map(m):
+    from .ops.text_suite import parse_url
+    out = {}
+    for k, v in (m or {}).items():
+        proto, domain = parse_url(v)[:2]
+        if proto is not None and domain is not None:
+            out[k] = domain
+    return out
+
+
+def _valid_phone_map_us(m):
+    from .ops.text_suite import parse_phone
+    return {k: parse_phone(v, "US")[0] for k, v in (m or {}).items()}
+
+
+def _is_valid_email(self: Feature):
+    """Email → Binary validity (RichTextFeature.isValidEmail :591); the
+    grammar of to_email_prefix / to_email_domain (``parse_email``)."""
+    return _map_to(self, _valid_email_value, ft.Binary, "isValidEmail")
+
+
+def _is_valid_url(self: Feature):
+    """URL → Binary validity (RichTextFeature.isValidUrl :642); the
+    grammar of to_url_protocol / to_url_domain (``parse_url``)."""
+    return _map_to(self, _valid_url_value, ft.Binary, "isValidUrl")
+
+
+def _to_multi_pick_list(self: Feature):
+    """TextList → MultiPickList (RichTextFeature.toMultiPickList :58)."""
+    return _map_to(self, _as_set, ft.MultiPickList, "toMultiPickList")
+
+
+def _to_date_list(self: Feature):
+    """Date → DateList of the single timestamp (RichDateFeature.toDateList
+    :54-60); empty date → empty list."""
+    return _map_to(self, _as_time_list, ft.DateList, "toDateList")
+
+
+def _to_date_time_list(self: Feature):
+    """DateTime → DateTimeList (RichDateFeature.toDateTimeList :124-130)."""
+    return _map_to(self, _as_time_list, ft.DateTimeList, "toDateTimeList")
+
+
+def _to_email_domain_map(self: Feature):
+    """EmailMap → PickListMap of email domains — the extraction half of
+    RichEmailMapFeature.vectorize (:968-1004)."""
+    return _map_to(self, _email_domain_map, ft.PickListMap,
+                   "emailMapToPickListMap")
+
+
+def _to_url_domain_map(self: Feature):
+    """URLMap → PickListMap of domains of valid URLs — the extraction
+    half of RichURLMapFeature.vectorize (:1040-1096)."""
+    return _map_to(self, _url_domain_map, ft.PickListMap,
+                   "urlMapToPickListMap")
+
+
+def _is_valid_phone_map(self: Feature, default_region: str = "US"):
+    """PhoneMap → BinaryMap of per-key phone validity
+    (RichPhoneMapFeature.isValidPhoneDefaultCountryMap :945-958)."""
+    if default_region == "US":
+        fn = _valid_phone_map_us
+    else:
+        from .ops.text_suite import parse_phone
+
+        def fn(m):
+            return {k: parse_phone(v, default_region)[0]
+                    for k, v in (m or {}).items()}
+    return _map_to(self, fn, ft.BinaryMap, "isValidPhoneMapDefaultCountry")
+
+
+def _vectorize_location(self: Feature, *others: Feature,
+                        top_k: Optional[int] = None,
+                        min_support: Optional[int] = None,
+                        track_nulls: bool = True):
+    """Location-text pivot (RichLocationFeature.vectorize :50-76): top-K
+    one-hot + OTHER (+ null) columns."""
+    from .ops.onehot import OneHotVectorizer
+    from .ops.vectorizer_base import TransmogrifierDefaults as TD
+    stage = OneHotVectorizer(
+        top_k=TD.TOP_K if top_k is None else top_k,
+        min_support=TD.MIN_SUPPORT if min_support is None else min_support,
+        track_nulls=track_nulls)
+    return self.transform_with(stage, *others)
+
+
+def _value_op(self: Feature, output_type, **kw):
+    stage = ValueOpTransformer(input_type=self.ftype,
+                               output_type=output_type, **kw)
+    stage.set_input(self)
+    return stage.get_output()
+
+
+def _replace_with(self: Feature, old_val, new_val):
+    """Swap one value for another, same type (RichFeature.replaceWith
+    :75-77)."""
+    return _value_op(self, self.ftype, op="replaceWith",
+                     old_val=old_val, new_val=new_val)
+
+
+def _filter_values(self: Feature, predicate, default):
+    """Keep values passing ``predicate``; others become ``default``
+    (RichFeature.filter :134-140)."""
+    return _value_op(self, self.ftype, op="filter", fn=predicate,
+                     default=default)
+
+
+def _filter_not(self: Feature, predicate, default):
+    """RichFeature.filterNot (:148-150)."""
+    return _value_op(self, self.ftype, op="filterNot", fn=predicate,
+                     default=default)
+
+
+def _collect(self: Feature, fn, default, output_type=None):
+    """Partial transform: ``fn(value)`` where it returns non-None, else
+    ``default`` (RichFeature.collect :160-168)."""
+    return _value_op(self, output_type or self.ftype, op="collect",
+                     fn=fn, default=default)
+
+
+def _exists(self: Feature, predicate):
+    """Binary: does the (non-null) value satisfy ``predicate``
+    (RichFeature.exists :176-182)."""
+    return _value_op(self, ft.Binary, op="exists", fn=predicate)
+
+
+def _occurs(self: Feature, match_fn=None):
+    """RealNN 1.0/0.0 occurrence indicator (RichFeature.occurs
+    :190-205): default = value is present/non-empty."""
+    return _value_op(self, ft.RealNN, op="occurs", fn=match_fn)
+
+
+def _drop_indices_by(self: Feature, match_fn):
+    """OPVector → OPVector with the metadata-matched columns dropped
+    (RichVectorFeature.dropIndicesBy :139): ``match_fn(
+    VectorColumnMetadata) -> bool`` selects the columns to drop."""
+    return self.transform_with(DropIndicesByTransformer(match_fn=match_fn))
+
+
+def _tupled(self: Feature):
+    """Prediction → (prediction RealNN, rawPrediction OPVector,
+    probability OPVector) (RichPredictionFeature.tupled :1098-1111)."""
+    return tuple(self.transform_with(PredictionPartTransformer(part=p))
+                 for p in ("prediction", "raw", "probability"))
+
+
 Feature.__add__ = _binary_math("add")
 Feature.__sub__ = _binary_math("subtract")
 Feature.__mul__ = _binary_math("multiply")
@@ -550,3 +1105,48 @@ Feature.extract_key = _extract_key
 Feature.vectorize = _vectorize
 Feature.smart_vectorize = _smart_vectorize
 Feature.auto_bucketize = _auto_bucketize
+Feature.abs = _unary_math("abs")
+Feature.ceil = _unary_math("ceil")
+Feature.floor = _unary_math("floor")
+Feature.round_to = _unary_math("round")
+Feature.exp = _unary_math("exp")
+Feature.log = _unary_math("log")
+Feature.sqrt = _unary_math("sqrt")
+Feature.power = _unary_math("power")
+Feature.tokenize = _tokenize
+Feature.to_email_prefix = _to_email_prefix
+Feature.to_email_domain = _to_email_domain
+Feature.to_url_protocol = _to_url_protocol
+Feature.to_url_domain = _to_url_domain
+Feature.is_valid_email = _is_valid_email
+Feature.is_valid_url = _is_valid_url
+Feature.is_valid_phone = _is_valid_phone
+Feature.parse_phone = _parse_phone
+Feature.detect_mime_types = _detect_mime_types
+Feature.to_email_domain_map = _to_email_domain_map
+Feature.to_url_domain_map = _to_url_domain_map
+Feature.is_valid_phone_map = _is_valid_phone_map
+Feature.ngram_similarity = _ngram_similarity
+Feature.count_vectorize = _count_vectorize
+Feature.lda = _lda
+Feature.word2vec = _word2vec
+Feature.detect_languages = _detect_languages
+Feature.recognize_entities = _recognize_entities
+Feature.is_substring = _is_substring
+Feature.to_percentile = _to_percentile
+Feature.to_isotonic_calibrated = _to_isotonic_calibrated
+Feature.deindexed = _deindexed
+Feature.tupled = _tupled
+Feature.replace_with = _replace_with
+Feature.filter_values = _filter_values
+Feature.filter_not = _filter_not
+Feature.collect = _collect
+Feature.exists = _exists
+Feature.occurs = _occurs
+Feature.drop_indices_by = _drop_indices_by
+Feature.to_multi_pick_list = _to_multi_pick_list
+Feature.to_date_list = _to_date_list
+Feature.to_date_time_list = _to_date_time_list
+Feature.to_unit_circle = _to_unit_circle
+Feature.combine = _combine
+Feature.vectorize_location = _vectorize_location

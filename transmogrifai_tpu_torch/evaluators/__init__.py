@@ -1,5 +1,5 @@
 """Evaluators — metrics over scored stores: binary and multiclass
-classification, and regression.
+classification, regression, and calibration bins with the Brier score.
 
 Port of ``transmogrifai_tpu/evaluators/__init__.py``: an evaluator reads
 the label column and the Prediction struct column; ``evaluate_all``
@@ -19,7 +19,7 @@ from .metrics import (binary_metrics, multiclass_metrics,
 
 __all__ = ["OpEvaluatorBase", "BinaryClassificationEvaluator",
            "MultiClassificationEvaluator", "RegressionEvaluator",
-           "Evaluators", "binary_metrics", "multiclass_metrics",
+           "BinScoreEvaluator", "Evaluators", "binary_metrics", "multiclass_metrics",
            "regression_metrics", "multiclass_threshold_metrics"]
 
 
@@ -104,6 +104,39 @@ class RegressionEvaluator(OpEvaluatorBase):
         return regression_metrics(y, pred.prediction)
 
 
+class BinScoreEvaluator(OpEvaluatorBase):
+    """Calibration bins + Brier score (OpBinScoreEvaluator.scala)."""
+
+    name = "binScoreEval"
+    default_metric = "BrierScore"
+
+    def __init__(self, num_bins: int = 100, **kw):
+        super().__init__(**kw)
+        self.num_bins = num_bins
+
+    def evaluate_all(self, store: ColumnStore) -> Dict[str, Any]:
+        y, pred = self._extract(store)
+        scores = (pred.probability[:, 1] if pred.probability.shape[1] >= 2
+                  else pred.prediction)
+        brier = float(np.mean((scores - y) ** 2)) if len(y) else 0.0
+        edges = np.linspace(0.0, 1.0, self.num_bins + 1)
+        idx = np.clip(np.digitize(scores, edges) - 1, 0, self.num_bins - 1)
+        counts = np.bincount(idx, minlength=self.num_bins)
+        sum_scores = np.bincount(idx, weights=scores,
+                                 minlength=self.num_bins)
+        sum_labels = np.bincount(idx, weights=y, minlength=self.num_bins)
+        nonzero = counts > 0
+        return {
+            "BrierScore": brier,
+            "BinCenters": ((edges[:-1] + edges[1:]) / 2)[nonzero].tolist(),
+            "NumberOfDataPoints": counts[nonzero].tolist(),
+            "AverageScore": (sum_scores[nonzero]
+                             / counts[nonzero]).tolist(),
+            "AverageConversionRate": (sum_labels[nonzero]
+                                      / counts[nonzero]).tolist(),
+        }
+
+
 class _EvalFactory:
     def __init__(self, cls):
         self._cls = cls
@@ -126,9 +159,9 @@ class _EvalFactory:
 
 
 class Evaluators:
-    """Factory (Evaluators.scala:40); the bin-score evaluator is not
-    ported yet (ROADMAP queue A, item 6)."""
+    """Factory (Evaluators.scala:40)."""
 
     BinaryClassification = _EvalFactory(BinaryClassificationEvaluator)
     MultiClassification = _EvalFactory(MultiClassificationEvaluator)
     Regression = _EvalFactory(RegressionEvaluator)
+    BinScore = _EvalFactory(BinScoreEvaluator)

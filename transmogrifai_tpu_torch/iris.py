@@ -7,7 +7,8 @@ indicator, F = 8), the species label indexed (``irisClass.indexed()``,
 ``DataCutter`` (20% holdout) and 3-fold CV on F1 over the default
 families (logistic regression, naive Bayes, random forest, decision
 tree), refit, then F1 over the whole file and the predicted indices
-de-indexed back to species names (``PredictionDeIndexer``).
+de-indexed back to species names (``label.deindexed(prediction)``, the
+PredictionDeIndexer).
 
 :func:`generate_csv` writes data in the published file's format
 (``bezdekIris.data``: no header;
@@ -48,7 +49,7 @@ from .dsl import transmogrify
 from .evaluators import Evaluators
 from .features import FeatureBuilder
 from .models import DataCutter, MultiClassificationModelSelector
-from .ops.indexers import OpStringIndexerNoFilter, PredictionDeIndexer
+from .ops.indexers import OpStringIndexerNoFilter
 from .readers import DataReaders
 from .workflow import Workflow
 
@@ -115,7 +116,7 @@ def build_workflow(csv_path: str, num_folds: int = 3, families=None,
         splitter=DataCutter(reserve_test_fraction=0.2, seed=seed),
         seed=seed)
     prediction = labels.transform_with(selector, features)
-    deindexed = labels.transform_with(PredictionDeIndexer(), prediction)
+    deindexed = labels.deindexed(prediction)
     reader = DataReaders.simple.csv(csv_path, IRIS_SCHEMA)
     wf = (Workflow().set_reader(reader)
           .set_result_features(prediction, deindexed)

@@ -86,6 +86,8 @@ REFERENCE_MODULES = {
     "LinearRegressionFamily": "transmogrifai_tpu.models.linear",
     "NaiveBayesFamily": "transmogrifai_tpu.models.linear",
     "LinearSVCFamily": "transmogrifai_tpu.models.svm",
+    "MLPFamily": "transmogrifai_tpu.models.svm",
+    "GLMRegressionFamily": "transmogrifai_tpu.models.glm",
     "RandomForestFamily": "transmogrifai_tpu.models.trees",
     "DecisionTreeFamily": "transmogrifai_tpu.models.trees",
     "GBTFamily": "transmogrifai_tpu.models.trees",

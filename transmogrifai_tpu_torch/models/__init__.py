@@ -1,5 +1,7 @@
-"""Model families, the tree engine, the linear models and model
-selection."""
+"""Model families, the tree engine, the linear models, GLM, the MLP and
+model selection."""
+from .glm import (GLMRegressionFamily, GLMRegressionModel,  # noqa: F401
+                  OpGeneralizedLinearRegression)
 from .linear import (LinearRegressionFamily,  # noqa: F401
                      LinearRegressionModel, LogisticRegressionFamily,
                      LogisticRegressionModel, NaiveBayesFamily,
@@ -8,7 +10,9 @@ from .linear import (LinearRegressionFamily,  # noqa: F401
 from .selector import (BinaryClassificationModelSelector,  # noqa: F401
                        ModelSelector, MultiClassificationModelSelector,
                        RegressionModelSelector, SelectedModel)
-from .svm import LinearSVCFamily, LinearSVCModel, OpLinearSVC  # noqa: F401
+from .svm import (LinearSVCFamily, LinearSVCModel,  # noqa: F401
+                  MLPFamily, MLPModel, OpLinearSVC,
+                  OpMultilayerPerceptronClassifier)
 from .trees import (DecisionTreeFamily, GBTFamily,  # noqa: F401
                     OpDecisionTreeClassifier, OpDecisionTreeRegressor,
                     OpGBTClassifier, OpGBTRegressor,

@@ -39,7 +39,9 @@ _STAGE_MODULES = ("..stages.generator", "..dsl", "..ops.numeric",
                   "..ops.dates", "..ops.vectors", "..ops.sanity_checker",
                   "..ops.text", "..ops.indexers", "..ops.geo",
                   "..ops.date_list", "..ops.scalers", "..ops.maps",
-                  "..ops.dt_bucketizer", "..ops.list_ops", "..models",
+                  "..ops.dt_bucketizer", "..ops.list_ops",
+                  "..ops.calibrators", "..ops.collections",
+                  "..ops.text_suite", "..ops.topics", "..models",
                   "..insights")
 
 
