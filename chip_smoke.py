@@ -257,6 +257,24 @@ Run from the repository root on a machine with one NVIDIA H100:
    ``TOPIC_ATOL``, the same winner) and taggers-20k (entities, languages,
    sentences and POS tags of 20,000 notes → LR; seconds by stage). Each
    path's seconds.
+14. the pre-flight, the planner and the run summary: (a) plan-200k,
+   phase 4's records through ``OpWorkflowRunner`` with the default
+   ``customParams`` (the pre-flight and the plan on) and a cost database
+   in ``build/plan``: Train twice (the second with the first's database;
+   the pre-flight's findings, no error; the plans' counts and tiers and
+   the fit plan's sources, measured on the second; the database written;
+   both models equal and Evaluate's AuPR equal to phase 4's), then the
+   second model loaded and its records scored through the engine under
+   the model's plan and without one: predictions bitwise equal, every
+   bucket a CUDA graph launching ``predict_trees``; the pruned columns,
+   the CSE merges, rows/s both ways, ``plan_model`` and ``check_model``
+   seconds. (b) phase 6's titanic model (F = 498) planned and its 891
+   rows scored the same way, bitwise; its pruned columns (the
+   SanityChecker's drops). (c) ``lint.check_model(device=True)`` over
+   every model the run trained on the card: the findings by rule, no
+   error and no TMG201, no kernel launched. (d) the host-to-device rate
+   from pageable and pinned memory and the device-to-device copy rate,
+   beside the card's name and power limit.
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
 boston-200k, mapprep-200k, mapprep-guarded-200k and eventlog-200k) once
@@ -281,10 +299,12 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–13).
+over the main paths' runs, phases 3–14).
 ``--serve-export-only`` runs phase 7 (without its comparison with phase
 4's AuPR) and phase 12 alone, and prints no result line.
 ``--every-surface-only`` runs phase 13 alone and prints no result line.
+``--plan-only`` trains titanic and runs phase 14 alone (its pre-flight
+over the models it trains) and prints no result line.
 """
 import json
 import math
@@ -4118,6 +4138,283 @@ def rich_dsl_paths(H, TF, BO, IR, root, dev="cuda"):
     return launches_by, worst
 
 
+# -- phase 14: the pre-flight, the planner and the run summary -----------
+#: every WorkflowModel ``Workflow.train`` returned on the card in this run
+#: (phase 14's pre-flight goes over each)
+TRAINED = []
+
+
+def keep_trained_models():
+    """From here on, keep every model ``Workflow.train`` returns on the
+    card in :data:`TRAINED`."""
+    from transmogrifai_tpu_torch.workflow import Workflow
+    train = Workflow.train
+
+    def keeping(self, device=None, dtype=torch.float32):
+        model = train(self, device=device, dtype=dtype)
+        if torch.device(device or "cuda").type == "cuda":
+            TRAINED.append(model)
+        return model
+
+    Workflow.train = keeping
+
+
+def plan_summary(plan_doc):
+    """A plan block's counts and tiers, for a line of output."""
+    c = plan_doc["counts"]
+    return (f"{c['stages']} stages {c['tiers']}, pruned columns "
+            f"{c['prunedColumns']}, CSE merges {c['cseMerges']}, tiers "
+            f"{plan_doc['tiers']}, link {plan_doc['link']}")
+
+
+def planned_scores(H, model, data, plan, dev, what, reps=3):
+    """``data`` through ``model``'s engine under ``plan`` and through an
+    engine without one, on the same model: each scored ``reps`` times
+    (the first two passes run each bucket's program eagerly and capture
+    it, the last replays). Fails unless the last passes' predictions are
+    bitwise equal and, on the card, every program captured a CUDA graph
+    that launches ``predict_trees``. Returns (planned engine, seconds and
+    ``predict_trees`` launches of each last pass)."""
+    from transmogrifai_tpu_torch.types.feature_types import Prediction
+    pred = next(f.name for f in model.result_features
+                if f.ftype is Prediction)
+    model.attach_plan(plan)
+    engines = {"planned": model.scoring_engine(dev),
+               "unplanned": model.scoring_engine(dev, plan=None)}
+    cols, seconds, launches = {}, {}, {}
+    for name, eng in engines.items():
+        for _ in range(reps):
+            before = H.KERNEL_LAUNCHES["predict_trees"]
+            t0 = time.perf_counter()
+            out = eng.score_store(data, use_cache=False)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = H.KERNEL_LAUNCHES["predict_trees"] - before
+        cols[name] = out[pred]
+        if dev == "cuda":
+            progs = list(eng._programs.values())
+            if not progs or any(p.graph is None
+                                or not p.launches.get("predict_trees")
+                                for p in progs):
+                fail(f"{what} ({name}): a bucket's program has no CUDA "
+                     "graph launching predict_trees")
+    same_predictions(cols["planned"], cols["unplanned"],
+                     f"{what}: planned against unplanned scores")
+    model.attach_plan(None)
+    return engines["planned"], seconds, launches
+
+
+def prune_line(plan, eng):
+    """The plan's pruned columns and merges, and whether the engine
+    applied them."""
+    dead = {uid: int(plan.widths[uid] - len(live))
+            for uid, live in sorted(plan.prune.items())}
+    off = (" (pruning switched off by _disable; see the warning)"
+           if plan.prune and not eng.pruned_columns else "")
+    return (f"plan prunes {plan.counts()['prunedColumns']} columns of "
+            f"{len(plan.prune)} vectorizers ({dead}), {len(plan.cse)} CSE "
+            f"merges; the engine gathers away {eng.pruned_columns} "
+            f"columns, {len(eng.cse_aliases)} aliases{off}")
+
+
+def plan_path(H, BP, records, text_aupr, dev="cuda"):
+    """Phase 14 (a), plan-200k: BigPassenger through the runner with the
+    default customParams (pre-flight and plan on) and a cost database in
+    ``build/plan``, trained twice (the second time with the database of
+    the first), each Train's model evaluated; then the second model
+    loaded and its records scored under its plan and without one.
+    Returns the path's launches and the loaded model."""
+    import shutil
+
+    from transmogrifai_tpu_torch import WorkflowModel, lint, planner
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.runner import (OpParams, OpWorkflowRunner,
+                                                RunType)
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "plan")
+    shutil.rmtree(work, ignore_errors=True)
+    db_path = os.path.join(work, "tmog_cost_db.json")
+    survived, _checked, selector, prediction = BP.build_selection()
+    wf = (Workflow().set_result_features(prediction)
+          .set_splitter(selector.splitter))
+    reader = DataReaders.simple.records(records)
+    runner = OpWorkflowRunner(
+        wf, training_reader=reader, scoring_reader=reader,
+        evaluator=Evaluators.BinaryClassification.auPR().set_columns(
+            survived, prediction), device=dev)
+    n = len(records)
+    chunks = -(-n // 8192)
+    H.reset_launch_counts()
+    auprs = []
+    for i in (1, 2):
+        params = OpParams(model_location=os.path.join(work, f"model{i}"),
+                          custom_params={"costDb": db_path})
+        t0 = time.perf_counter()
+        tr = runner.run(RunType.TRAIN, params)
+        train_s = time.perf_counter() - t0
+        pre = tr.metrics["preflight"]
+        if pre is None or pre.get("error"):
+            fail(f"plan-200k Train {i}: pre-flight {pre}")
+        if not os.path.exists(db_path):
+            fail(f"plan-200k Train {i}: no cost database at {db_path}")
+        fit_plan = wf._exec_plan
+        sources = {}
+        for e in fit_plan.entries:
+            sources[e.source] = sources.get(e.source, 0) + 1
+        ev = runner.run(RunType.EVALUATE, params)
+        auprs.append(ev.metrics["AuPR"])
+        db = planner.CostDatabase.load(db_path)
+        phases = {k[len("phase:"):]: sorted(v) for k, v in
+                  sorted(db.doc["stages"].items()) if k.startswith("phase:")}
+        print(f"plan-200k Train {i}: {train_s:.2f} s; pre-flight {pre}; "
+              f"the fit's plan: {len(fit_plan.entries)} stages, sources "
+              f"{sources}, tiers fitstats {fit_plan.fitstats_tier} "
+              f"transform {fit_plan.transform_tier} aggregate "
+              f"{fit_plan.aggregate_tier}; the model's plan: "
+              f"{plan_summary(tr.metrics['plan'])}; cost database "
+              f"{os.path.getsize(db_path):,} bytes, phases measured "
+              f"{phases}; Evaluate (pre-flight {ev.metrics['preflight']}) "
+              f"AuPR {ev.metrics['AuPR']:.6f}")
+        if i == 2 and not sources.get("measured"):
+            fail("plan-200k Train 2: no stage's fit cost was measured")
+    if auprs[0] != auprs[1] or (text_aupr is not None
+                                and auprs[0] != text_aupr):
+        fail(f"plan-200k: AuPR {auprs} (phase 4: {text_aupr})")
+    m1 = WorkflowModel.load(os.path.join(work, "model1"))
+    model = WorkflowModel.load(os.path.join(work, "model2"))
+    digests = [m.scoring_engine(dev, plan=None).state_digest()
+               for m in (m1, model)]
+    if digests[0] != digests[1]:
+        fail("plan-200k: the two Trains fitted different models")
+    t0 = time.perf_counter()
+    plan = planner.plan_model(model, planner.CostDatabase.load(db_path))
+    plan_s = time.perf_counter() - t0
+    before = dict(H.KERNEL_LAUNCHES)
+    t0 = time.perf_counter()
+    findings = lint.check_model(model, device=True, target=dev)
+    check_s = time.perf_counter() - t0
+    if dict(H.KERNEL_LAUNCHES) != before:
+        fail("plan-200k: the pre-flight launched a kernel")
+    eng, seconds, launches = planned_scores(H, model, records, plan, dev,
+                                            "plan-200k")
+    if dev == "cuda" and launches["planned"] != chunks:
+        fail(f"plan-200k: {launches['planned']} predict_trees launches "
+             f"for {chunks} chunks")
+    print(f"plan-200k: the models of both Trains equal (state digest), "
+          f"AuPR {auprs[0]:.6f} both; plan_model {plan_s:.3f} s, "
+          f"check_model {check_s:.3f} s ({len(findings)} findings); "
+          + prune_line(plan, eng))
+    print(f"plan-200k: Score of {n:,} records, planned "
+          f"{seconds['planned']:.2f} s = {n / seconds['planned']:,.0f} "
+          f"rows/s, unplanned {seconds['unplanned']:.2f} s = "
+          f"{n / seconds['unplanned']:,.0f} rows/s; predictions bitwise "
+          f"equal; predict_trees {launches['planned']} launches, all "
+          f"replays of the {eng.graphs_captured} captured graphs")
+    path_launches = dict(H.KERNEL_LAUNCHES)
+    print(f"plan-200k launches: {path_launches}")
+    return path_launches, model
+
+
+def titanic_plan(H, TT, out, dev="cuda"):
+    """Phase 14 (b): titanic's model (F = 498) planned, its 891 rows
+    scored through the engine under the plan and without it, bitwise."""
+    from transmogrifai_tpu_torch import planner
+    from transmogrifai_tpu_torch.readers import DataReaders
+    model = out["model"]
+    reader = DataReaders.simple.csv(TT.BUNDLED_CSV, TT.TITANIC_SCHEMA,
+                                    key_fn=lambda r: r["id"])
+    store = reader.generate_store(out["prediction"].raw_features())
+    t0 = time.perf_counter()
+    plan = planner.plan_model(model)
+    plan_s = time.perf_counter() - t0
+    eng, seconds, launches = planned_scores(H, model, store, plan, dev,
+                                            "titanic")
+    if not plan.prune:
+        fail("titanic: the SanityChecker's drops gave no dead columns")
+    print(f"titanic plan: plan_model {plan_s:.3f} s; "
+          + prune_line(plan, eng)
+          + f"; {store.n_rows} rows planned {1e3 * seconds['planned']:.2f} "
+          f"ms, unplanned {1e3 * seconds['unplanned']:.2f} ms, bitwise "
+          f"equal, predict_trees {launches['planned']} launch a pass")
+
+
+def preflight_all(H, dev="cuda"):
+    """Phase 14 (c): ``check_model(device=True)`` on every model this run
+    trained on the card: no error, no TMG201, no kernel launched."""
+    from transmogrifai_tpu_torch import lint
+    by_rule = {}
+    before = dict(H.KERNEL_LAUNCHES)
+    t0 = time.perf_counter()
+    for model in TRAINED:
+        findings = lint.check_model(model, device=True, target=dev)
+        for f in findings:
+            key = f"{f.rule} {f.severity}"
+            by_rule[key] = by_rule.get(key, 0) + 1
+            if f.severity == "error" or f.rule == "TMG201":
+                fail(f"pre-flight of {[x.name for x in model.result_features]}"
+                     f": {f.format()}")
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    if dict(H.KERNEL_LAUNCHES) != before:
+        fail("the pre-flight launched a kernel")
+    print(f"pre-flight over the {len(TRAINED)} models trained on the card: "
+          f"{time.perf_counter() - t0:.2f} s, findings by rule "
+          f"{dict(sorted(by_rule.items()))}, no error, no kernel launched")
+
+
+def link_rates(dev="cuda", mib=256, reps=10):
+    """Phase 14 (d): host-to-device copies of ``mib`` MiB from pageable
+    and from pinned memory, and a device-to-device copy, each the median
+    of ``reps`` by CUDA events: {what: GB/s} (the device copy counts its
+    bytes read and written)."""
+    n = mib << 20
+    pageable = torch.ones(n, dtype=torch.uint8)
+    pinned = torch.ones(n, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(n, dtype=torch.uint8, device=dev)
+    dst2 = torch.empty_like(dst)
+    rates = {}
+    for what, fn, nbytes in (
+            ("pageable", lambda: dst.copy_(pageable), n),
+            ("pinned", lambda: dst.copy_(pinned, non_blocking=True), n),
+            ("device", lambda: dst2.copy_(dst), 2 * n)):
+        fn()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        rates[what] = nbytes / float(np.median(times)) / 1e9
+    return rates
+
+
+def plan_phase(H, BP, TT, records, text_aupr, titanic_out, card,
+               dev="cuda"):
+    """Phase 14: (a) plan-200k, (b) titanic's plan, (c) the pre-flight
+    over every model trained on the card, (d) the link's rates. Returns
+    plan-200k's launches."""
+    from transmogrifai_tpu_torch import planner
+    t_phase = time.perf_counter()
+    launches, _model = plan_path(H, BP, records, text_aupr, dev)
+    titanic_plan(H, TT, titanic_out, dev)
+    preflight_all(H, dev)
+    rates = link_rates(dev)
+    print(f"host-to-device ({card}): pageable {rates['pageable']:.2f} "
+          f"GB/s, pinned {rates['pinned']:.2f} GB/s; device-to-device "
+          f"copy {rates['device']:.1f} GB/s (read + write); the planner's "
+          f"priors: link {planner.LINK_PRIOR_MBPS:.0f} MB/s, device "
+          f"{planner.STATIC_DEVICE_GBPS:.0f} GB/s")
+    print(f"phase 14: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4156,6 +4453,7 @@ def main():
     print(f"native hasher build: {time.perf_counter() - t0:.1f} s")
     if timings_only:
         return timings(H, dev, BP, run)
+    keep_trained_models()
     if "--stage-seconds" in sys.argv[1:]:
         return stage_seconds(BP, MP, DP)
     if "--serve-export-only" in sys.argv[1:]:
@@ -4167,6 +4465,10 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if "--every-surface-only" in sys.argv[1:]:
         rich_dsl_paths(H, TF, BO, IR, root)
+        return 0
+    if "--plan-only" in sys.argv[1:]:
+        plan_phase(H, BP, TT, BP.synthesize_records(N, seed=42), None,
+                   TT.run(device="cuda"), card)
         return 0
 
     rows = check_kernels(H, TF, dev)
@@ -4261,6 +4563,7 @@ def main():
           f"{s.validator_summary.family_seconds}")
     print(f"titanic launches: {launches}")
     path_launches["titanic"] = launches
+    titanic_out = out
     if profile:
         profile_path(H, "titanic", lambda: TT.run(device="cuda"))
     agree({d: TT.run(device=d, families=titanic_one_point())
@@ -4314,6 +4617,10 @@ def main():
     path_launches.update(surface_launches)
     for name, err in worst.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+
+    # -- phase 14: the pre-flight, the planner and the run summary --------
+    path_launches["plan-200k"] = plan_phase(H, BP, TT, records, text_aupr,
+                                            titanic_out, card)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

@@ -156,3 +156,15 @@ def test_tagger_weights_are_byte_identical_copies(kind):
     assert mine.read_bytes() == ref.read_bytes()
     from transmogrifai_tpu_torch.utils import taggers
     assert pathlib.Path(taggers.resource_dir()) == mine.parent
+
+
+@pytest.mark.parametrize("module", ["planner.py", "utils/table.py",
+                                    "lint.py", "runner.py"])
+def test_preflight_and_planner_modules_are_scanned(module):
+    """The planner, the summary table, the pre-flight and the runner that
+    runs them are among the sources scanned above and the modules
+    imported with ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    assert dotted in _modules()

@@ -109,7 +109,13 @@ def test_train_score_evaluate_features_and_the_metrics_keys(tmp_path):
     assert os.path.exists(os.path.join(params.model_location, "model.json"))
     train = outs[RunType.TRAIN].metrics
     assert "fitSeconds" in train["stageMetrics"][pred.origin_stage.uid]
-    assert train["preflight"] is None and train["plan"] is None
+    # the pre-flight and the plan ran by default, as in the JAX package
+    jtrain = jrunner.run(RunType.TRAIN, jparams).metrics
+    assert train["preflight"] == jtrain["preflight"] \
+        == {"findings": 0, "failOn": "error"}
+    assert set(train["plan"]) == set(jtrain["plan"])
+    assert train["plan"]["counts"]["stages"] \
+        == jtrain["plan"]["counts"]["stages"]
     assert outs[RunType.SCORE].metrics["rowsScored"] == len(records)
     assert outs[RunType.FEATURES].metrics["rows"] == len(records)
     # the same model as the JAX package's: AuPR within 1e-9 (f64)
@@ -196,10 +202,6 @@ UNPORTED = {
         metrics_format="prometheus")), "item 6"),
     "quarantine": (lambda r, p: r.run(RunType.TRAIN, OpParams(
         quarantine_location="q.jsonl")), "item 6"),
-    "preflight": (lambda r, p: r.run(RunType.TRAIN, OpParams(
-        custom_params={"validate": True})), "item 6"),
-    "plan": (lambda r, p: r.run(RunType.TRAIN, OpParams(
-        custom_params={"plan": True})), "item 6"),
     "mesh": (lambda r, p: r.run(RunType.TRAIN, OpParams(
         custom_params={"meshDevices": 4})), "item 6"),
     "yaml": (lambda r, p: OpParams.from_file("p.yaml"), "item 6"),

@@ -41,6 +41,7 @@ import json
 import logging
 import os
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -472,24 +473,32 @@ class LayerStatsPlan:
         return merged
 
     @staticmethod
-    def _gate_device(store, workflow_device) -> bool:
+    def _gate_device(store, workflow_device,
+                     tier_hint: Optional[str] = None) -> bool:
         """The device tier from ``workflow.FUSE_MIN_ROWS`` rows when the
-        workflow's device (default: the card) is the card."""
+        workflow's device (default: the card) is the card; ``tier_hint``
+        (the planner's measured tier, "device" or "host") replaces the
+        card condition, never the row floor."""
         from . import workflow
-        return (store.n_rows >= workflow.FUSE_MIN_ROWS
-                and torch.device(workflow_device or "cuda").type == "cuda")
+        if store.n_rows < workflow.FUSE_MIN_ROWS:
+            return False
+        if tier_hint is not None:
+            return tier_hint == "device"
+        return torch.device(workflow_device or "cuda").type == "cuda"
 
     def run(self, store, device: Optional[bool] = None,
             state_out: Optional[Dict[str, SufficientStats]] = None,
             warm_state: Optional[Mapping[str, SufficientStats]] = None,
-            workflow_device=None, dtype: torch.dtype = torch.float32
-            ) -> StatResults:
+            workflow_device=None, dtype: torch.dtype = torch.float32,
+            tier_hint: Optional[str] = None) -> StatResults:
         """Compute every request in one pass.
 
         ``device`` picks the moment kinds' tier (None: the device tier
         from ``workflow.FUSE_MIN_ROWS`` rows when ``workflow_device`` is
-        the card). ``workflow_device`` (default: the card) and ``dtype``
-        are the fit's: the device tier and the SanityChecker's statistics
+        the card, or as ``tier_hint`` says). From the row floor the
+        pass's seconds feed the planner's ``phase:fitstats`` cost.
+        ``workflow_device`` (default: the card) and ``dtype`` are the
+        fit's: the device tier and the SanityChecker's statistics
         run there. ``state_out`` receives each moment column's
         :class:`SufficientStats`; ``warm_state`` maps columns to persisted
         states, each Chan-merged with the fresh one, and the moment
@@ -513,8 +522,9 @@ class LayerStatsPlan:
             else:
                 other.append(r)
         if device is None:
-            device = self._gate_device(store, workflow_device)
+            device = self._gate_device(store, workflow_device, tier_hint)
         use_device = bool(moment_cols) and bool(device)
+        t_run = time.perf_counter()
 
         values: Dict[Tuple, Any] = {}
         touched: Dict[str, int] = {}
@@ -563,4 +573,10 @@ class LayerStatsPlan:
             "fitstats: %d request(s) for %d stage(s) in one %s pass "
             "(%d column(s), %.1f MB scanned)", self.n_requests,
             self.n_stages, self.tier, len(touched), scanned / 1e6)
+        from . import workflow
+        if moment_cols and store.n_rows >= workflow.FUSE_MIN_ROWS:
+            from . import planner
+            planner.observe_phase("fitstats", self.tier,
+                                  time.perf_counter() - t_run,
+                                  store.n_rows)
         return StatResults(values)

@@ -1038,8 +1038,10 @@ def predict_trees(X, feat, thr, leaf_w, max_depth: int):
     """[n, F] rows through [T, 2^D−1] stacked trees → [n, K] summed
     (tree-weight-scaled) leaves, through ``tmog_torch::predict_trees``:
     the plain version for CPU tensors, the kernel for CUDA tensors, the
-    empty [n, K] shape under a trace."""
-    _on_cpu(X)                  # raises for a device with no kernel
+    empty [n, K] shape under a trace and on the ``meta`` device (the
+    pre-flight's shapes, ``lint.py``: no data, nothing launched)."""
+    if X.device.type != "meta":
+        _on_cpu(X)              # raises for a device with no kernel
     return torch.ops.tmog_torch.predict_trees(X, feat, thr, leaf_w,
                                               int(max_depth))
 

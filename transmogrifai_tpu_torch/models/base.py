@@ -51,7 +51,13 @@ def device_table(owner, key: str, make, device: torch.device
     a constant, but never fills the cache: the value it would keep is a
     FakeTensor with no data, and every later eager call would return it.
     So a cold table under a trace raises, naming the table; an export
-    first warms every table with one eager call on its device."""
+    first warms every table with one eager call on its device. A table
+    on the ``meta`` device (the pre-flight's shapes, ``lint.py``) holds
+    no data and is never kept."""
+    if torch.device(device).type == "meta":
+        a = np.array(make())
+        return torch.empty(a.shape, device=device,
+                           dtype=torch.from_numpy(a.reshape(-1)[:0]).dtype)
     cache = owner.__dict__.setdefault("_device_tables", {})
     k = (key, str(device))
     t = cache.get(k)

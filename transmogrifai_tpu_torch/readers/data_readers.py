@@ -37,6 +37,7 @@ fold's. A failing columnar pass raises.
 from __future__ import annotations
 
 import csv as _csv
+import time
 from dataclasses import dataclass
 from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
                     Sequence)
@@ -175,8 +176,15 @@ class AggregateReader(DataReader):
         store = temporal.route_aggregate(self, records, raw_features)
         if store is not None:
             return store
+        # timed for the planner's cost database only when the route just
+        # declined a real columnar option (row-list sources, forced-off
+        # mode and opaque extractors never had one)
+        contested = temporal.last_route_contested()
+        t0 = time.perf_counter()
         store = self._rowwise_store(records, raw_features)
-        temporal.tally_rowwise(len(records))
+        temporal.tally_rowwise(
+            len(records),
+            seconds=(time.perf_counter() - t0) if contested else None)
         return store
 
     def _rowwise_store(self, records, raw_features: Sequence[Feature]

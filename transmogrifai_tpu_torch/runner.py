@@ -14,15 +14,35 @@
   ``temporal`` block of every metrics document holds its tallies. A
   write location ending in ``.avro`` gets an Avro container, any other
   a CSV.
+* The pre-flight (``lint.py``), on by default: before any reader I/O,
+  the graph rules over the workflow (Train, with the temporal rules over
+  its training reader) or the graph rules and the device shape pass over
+  the loaded model (Score, Evaluate, Features). ``customParams.validate:
+  false`` skips it, ``validateDevice: false`` skips the device pass,
+  ``failOn`` ("error", or "warning"; ``--fail-on``) is the severity that
+  stops the run, ``lintSuppress`` mutes rule ids. Its summary is the
+  metrics document's ``preflight`` block.
+* The plan step (``planner.py``), on by default (``customParams.plan:
+  false`` skips it): before any reader I/O, the workflow's plan (its
+  measured phase tiers steer the fit) or the loaded model's (attached to
+  the scoring engine: CSE, dead-column pruning, the engine tier), from
+  the cost database at ``costDb`` (else beside ``compileCacheDir``, else
+  in memory). The TMG4xx findings, and TMG405 where a pinned
+  ``aggregateColumnar`` contradicts the measured aggregation tier, take
+  the pre-flight's ``failOn`` / ``lintSuppress`` path. After a Train the
+  stages' fit costs and the phases' observations go into the database,
+  which is saved, and the model's full plan is the metrics document's
+  ``plan`` block; after a Score the observations go in. A plan or a cost
+  recording that fails raises.
 * ``OpApp`` (``OpApp.scala``): ``main(argv)`` parses ``--run-type``,
-  ``--params`` and the locations, then runs.
+  ``--params``, the locations, ``--fail-on`` and ``--no-validate``, then
+  runs.
 
 What the JAX package's runner adds and this one does not have yet raises
 ``NotImplementedError`` naming its ROADMAP queue A item when a run asks
-for it: the StreamingScore run type, the lint pre-flight, the planner
-step, telemetry sinks, the quarantine sink and mesh knobs (all item 6).
-Their blocks of the metrics document are left out, and ``preflight`` /
-``plan`` read None, as a run with them disabled does there.
+for it: the StreamingScore run type, telemetry sinks, the quarantine sink
+and mesh knobs (all item 6). Their blocks of the metrics document are
+left out.
 """
 from __future__ import annotations
 
@@ -45,12 +65,6 @@ __all__ = ["OpParams", "RunType", "RunnerResult", "OpWorkflowRunner",
 #: customParams keys of the JAX package's runner whose module is not
 #: ported yet (all ROADMAP queue A, item 6), and what they ask for
 _UNPORTED_CUSTOM = {
-    "validate": "the lint pre-flight (lint.py)",
-    "validateDevice": "the lint pre-flight (lint.py)",
-    "failOn": "the lint pre-flight (lint.py)",
-    "lintSuppress": "the lint pre-flight (lint.py)",
-    "plan": "the planner step (planner.py)",
-    "costDb": "the planner step (planner.py)",
     "telemetry": "telemetry sinks (telemetry.py)",
     "traceDir": "telemetry sinks (telemetry.py)",
     "quarantineLocation": "the quarantine sink (resilience.py)",
@@ -84,6 +98,13 @@ def _count_custom_param(params: "OpParams", key: str) -> Optional[int]:
     if v < 1:
         raise ValueError(f"customParams.{key} must be >= 1, got {raw!r}")
     return v
+
+
+def _off(params: "OpParams", key: str) -> bool:
+    """``customParams[key]`` switched off (false, 0 or "false"); absent
+    means on."""
+    v = params.custom_params.get(key, True)
+    return v in (False, 0) or str(v).lower() == "false"
 
 
 def _tristate_custom_param(params: "OpParams", key: str) -> Any:
@@ -229,6 +250,11 @@ class OpWorkflowRunner:
         self.features_to_compute = features_to_compute
         self.device = resolve_device(device)
         self.dtype = dtype
+        #: the last run's pre-flight summary and plan (metrics blocks)
+        self._last_preflight: Optional[Dict[str, Any]] = None
+        self._last_plan: Optional[Dict[str, Any]] = None
+        #: the cost database of the run's plan step
+        self._plan_db = None
 
     @staticmethod
     def _write_metrics(location: Optional[str], doc: Dict[str, Any]) -> None:
@@ -257,6 +283,9 @@ class OpWorkflowRunner:
             join_table_max_rows=_count_custom_param(params,
                                                     "joinTableMaxRows"))
         launches = dict(_hist.KERNEL_LAUNCHES)
+        self._last_preflight = None
+        self._last_plan = None
+        self._plan_db = None
         prev = temporal.set_run_defaults(**knobs)
         try:
             t0 = time.perf_counter()
@@ -267,8 +296,10 @@ class OpWorkflowRunner:
         # joins, spilled rows): zeros on runs that never touch it
         result.metrics["temporal"] = temporal.temporal_stats()
         result.metrics["compileCacheDir"] = None
-        result.metrics["preflight"] = None
-        result.metrics["plan"] = None
+        # the pre-flight's verdict and the plan the run followed (None:
+        # switched off for the run)
+        result.metrics["preflight"] = self._last_preflight
+        result.metrics["plan"] = self._last_plan
         # the tree engine's kernel launches of this run, per kernel
         result.metrics["trees"] = {"launches": {
             k: v - launches[k] for k, v in _hist.KERNEL_LAUNCHES.items()}}
@@ -279,6 +310,116 @@ class OpWorkflowRunner:
         result.metrics["peak_rss_mb"] = _peak_rss_mb()
         self._write_metrics(params.metrics_location, result.metrics)
         return result
+
+    # -- the pre-flight (lint.py), on by default ---------------------------
+    def _preflight(self, params: OpParams, workflow=None, model=None,
+                   reader=None) -> Optional[Dict[str, Any]]:
+        """The static pre-flight before any reader I/O: the graph rules
+        over an untrained workflow (with the temporal rules over
+        ``reader``), or the graph rules and the device pass over a loaded
+        model. Returns the summary ({"findings", "failOn", and a count
+        per severity}); raises ``lint.LintError`` at ``failOn``."""
+        from . import lint
+        if _off(params, "validate"):
+            return None
+        fail_on = str(params.custom_params.get("failOn", "error")).lower()
+        suppress = params.custom_params.get("lintSuppress", ())
+        if workflow is not None:
+            findings = lint.check_workflow(workflow, suppress=suppress,
+                                           reader=reader)
+        else:
+            findings = lint.check_model(
+                model, device=not _off(params, "validateDevice"),
+                suppress=suppress, target=self.device)
+        lint.emit_findings(findings, "pre-flight")
+        counts: Dict[str, int] = {}
+        for f in findings:
+            counts[f.severity] = counts.get(f.severity, 0) + 1
+        summary = {"findings": len(findings), "failOn": fail_on, **counts}
+        lint.enforce(findings, fail_on=fail_on)
+        self._last_preflight = summary
+        return summary
+
+    # -- the plan (planner.py), on by default ------------------------------
+    @staticmethod
+    def _cost_db_path(params: OpParams) -> Optional[str]:
+        """``customParams.costDb``, else the database beside
+        ``compileCacheDir``, else None (an in-memory database: the static
+        estimates still make a plan)."""
+        from . import planner
+        db = params.custom_params.get("costDb")
+        if db:
+            return str(db)
+        return planner.default_cost_db_path(
+            params.custom_params.get("compileCacheDir"))
+
+    def _plan_step(self, params: OpParams, workflow=None, model=None):
+        """The plan before any reader I/O, installed for the run: the
+        workflow's (``Workflow.set_plan``) or the loaded model's
+        (``attach_plan``). Its findings take the pre-flight's ``failOn``
+        and ``lintSuppress``; a plan that fails to build raises."""
+        from . import lint, planner, temporal
+        if _off(params, "plan"):
+            # a reused workflow must not follow a previous run's plan
+            # while this run stamps plan: null
+            if workflow is not None:
+                workflow.set_plan(None)
+            return None
+        fail_on = str(params.custom_params.get("failOn", "error")).lower()
+        suppress = params.custom_params.get("lintSuppress", ())
+        db = planner.CostDatabase.load(self._cost_db_path(params))
+        if model is not None:
+            plan = planner.plan_model(model, cost_db=db)
+            model.attach_plan(plan)
+        else:
+            plan = planner.plan_workflow(workflow, cost_db=db)
+            workflow.set_plan(plan)
+        findings = list(plan.findings())
+        # the measured aggregation route steers the "auto" route for this
+        # run; a pinned aggregateColumnar wins, and a contradiction is a
+        # TMG405 advisory
+        agg_tier = planner.aggregate_route_tier(db)
+        if agg_tier is not None:
+            temporal.set_aggregate_tier_hint(agg_tier)
+            forced = _tristate_custom_param(params, "aggregateColumnar")
+            if (forced is True and agg_tier == "rowwise") \
+                    or (forced is False and agg_tier == "columnar"):
+                findings.append(lint.Finding(
+                    "TMG405",
+                    f"aggregateColumnar={str(forced).lower()} is pinned "
+                    f"but the cost database measured the {agg_tier} tier "
+                    "faster (phase:temporal.route_aggregate) — the knob "
+                    "wins; drop it to let the auto-route follow the "
+                    "measurement"))
+        findings = lint._apply_suppress(findings, suppress)
+        lint.emit_findings(findings, "plan")
+        lint.enforce(findings, fail_on=fail_on)
+        self._plan_db = db
+        self._last_plan = plan.to_json()
+        return plan
+
+    def _record_plan_costs(self, model) -> None:
+        """After a fresh fit: the stages' fit costs and the phases'
+        observations into the cost database, saved atomically, and the
+        fitted model's full plan (pruning, CSE, tiers) as the run's
+        ``plan`` block."""
+        from . import planner
+        db = self._plan_db
+        planner.record_fit_costs(model, db)
+        planner.drain_phase_observations(db)
+        db.save()
+        self._last_plan = planner.plan_model(model, cost_db=db).to_json()
+
+    def _record_score_costs(self) -> None:
+        """After a Score: the phases' observations into the cost database,
+        saved. A corrupt database is left for a Train to regenerate, so
+        its TMG404 finding stays until then."""
+        from . import planner
+        db = self._plan_db
+        if db is None or db.corrupt:
+            return
+        planner.drain_phase_observations(db)
+        db.save()
 
     def _read(self, reader, what: str):
         """The reader's records. As in the JAX package's runner, Score,
@@ -293,10 +434,17 @@ class OpWorkflowRunner:
                  t0: float) -> RunnerResult:
         if run_type == RunType.TRAIN:
             params.apply_to_workflow(self.workflow)
+            # a mis-wired DAG or a leaky cutoff stops here, before the
+            # reader reads a byte
+            self._preflight(params, workflow=self.workflow,
+                            reader=self.training_reader)
+            wf_plan = self._plan_step(params, workflow=self.workflow)
             if self.training_reader is not None:
                 self.workflow.set_reader(self.training_reader)
             model = self.workflow.train(device=self.device,
                                         dtype=self.dtype)
+            if wf_plan is not None:
+                self._record_plan_costs(model)
             if params.model_location:
                 model.save(params.model_location, overwrite=True)
             metrics = model.summary()
@@ -316,12 +464,17 @@ class OpWorkflowRunner:
         if params.model_location is None:
             raise ValueError(f"{run_type} requires modelLocation")
         model = WorkflowModel.load(params.model_location)
+        # the graph and device pre-flight and the plan, before the
+        # reader does any I/O
+        self._preflight(params, model=model)
+        self._plan_step(params, model=model)
 
         if run_type == RunType.SCORE:
             data = self._read(self.scoring_reader, "Score")
             scores = model.score(data, device=self.device)
             if params.write_location:
                 _write_store(scores, params.write_location)
+            self._record_score_costs()
             metrics = {"rowsScored": scores.n_rows,
                        "appSeconds": round(time.perf_counter() - t0, 3)}
             return RunnerResult(run_type, metrics=metrics, scores=scores,
@@ -453,6 +606,13 @@ class OpApp:
         ap.add_argument("--model-location")
         ap.add_argument("--write-location")
         ap.add_argument("--metrics-location")
+        ap.add_argument("--fail-on", choices=("error", "warning"),
+                        help="pre-flight gating severity (lint.py): "
+                             "'error' (default) stops only on errors, "
+                             "'warning' on warnings too")
+        ap.add_argument("--no-validate", action="store_true",
+                        help="skip the on-by-default pre-flight "
+                             "(customParams.validate: false)")
         ap.add_argument("--quiet", action="store_true",
                         help="suppress INFO progress logging")
         args = ap.parse_args(argv)
@@ -464,4 +624,8 @@ class OpApp:
         for key in ("model_location", "write_location", "metrics_location"):
             if getattr(args, key):
                 setattr(params, key, getattr(args, key))
+        if args.fail_on:
+            params.custom_params["failOn"] = args.fail_on
+        if args.no_validate:
+            params.custom_params["validate"] = False
         return self.runner(params).run(args.run_type, params)

@@ -41,6 +41,20 @@ transformers, the map key filters and extractors, the term frequencies
 and IDF, stop words, Jaccard) run first; their columns feed
 ``host_prepare`` and the direct vector uploads.
 
+* **The planner's rewrites.** An attached ``planner.ExecutionPlan``
+  (``plan=``; ``WorkflowModel.attach_plan``) carries two rewrites, both
+  bitwise equal to the unplanned program by construction. Verified CSE
+  merges: a structurally identical twin's output fans out from the kept
+  vectorizer's computation, and its ``host_prepare`` and
+  ``device_compute`` never run. Dead-column pruning: columns the
+  SanityChecker drops before any sink are gathered away right after
+  their ``device_compute`` (a gather of a concatenation equals the
+  concatenation of the gathers), the select's indices remapped into the
+  pruned coordinates and a scaler's constants sliced to the surviving
+  columns. Pruning switches off for a program whose outputs it would
+  narrow (the transform path), and wholly (``_disable``, logged) where a
+  narrowed value would reach a stage that cannot remap it. ``enabled()``
+  follows the plan's measured ``engine_tier``.
 * **Export.** ``export_manifest``, ``program_callable``,
   ``export_callable``, ``program_key`` / ``preload`` and the
   ``rewrite_digest`` / ``state_digest`` identities are what
@@ -48,13 +62,12 @@ and IDF, stop words, Jaccard) run first; their columns feed
   preloads; a preload is not a build, so ``compile_count`` stays 0.
 
 Not carried over from the JAX package: the circuit breaker to the host
-tier, the link-bandwidth gate, the planner's rewrites (CSE, pruning;
-``rewrite_digest`` hashes the plan alone), mesh sharding and telemetry
-spans.
+tier, the link-bandwidth gate, mesh sharding and telemetry spans.
 """
 from __future__ import annotations
 
 import hashlib
+import logging
 import threading
 import weakref
 from collections import OrderedDict
@@ -77,6 +90,8 @@ from .ops.vectorizer_base import VectorizerModel, canonicalize_prepared
 from .ops.vectors import StandardScalerModel, VectorsCombiner
 from .types.feature_types import OPVector
 from .vector_metadata import VectorMetadata
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["ScoringEngine", "bucket_for", "bucket_ladder",
            "build_fused_plan", "stream_score_overlapped", "flatten_outputs",
@@ -233,11 +248,12 @@ class ScoringEngine:
     keeps it); every ``score_store`` / ``transform_store`` call reuses the
     plan and the programs. ``graphs=False`` runs every call eagerly on the
     card (the warm-up's path), which is what the captured graphs are
-    held against."""
+    held against. ``plan`` is the ``planner.ExecutionPlan`` the engine
+    follows (None: unplanned)."""
 
     def __init__(self, model, device=None,
                  bucket_cap: int = DEFAULT_BUCKET_CAP,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, plan=None):
         self.model = model
         self.device = resolve_device(device)
         self.bucket_cap = int(bucket_cap)
@@ -266,11 +282,193 @@ class ScoringEngine:
         self._by_out = {it.out: it for it in self._plan}
         self._result_names = [f.name for f in model.result_features]
         self._raw_features = _raw_features_of(model.result_features)
+        self._exec_plan = plan
+        self._apply_exec_plan()
+
+    # -- the planner's rewrites (planner.py) -------------------------------
+    def _apply_exec_plan(self) -> None:
+        """The attached plan as program rewrites: CSE output aliases, each
+        pruned vectorizer's live columns, the select indices remapped
+        into pruned coordinates, the scalers' constant slices, and the
+        measured tier ``enabled()`` reads."""
+        self._cse_alias: Dict[str, str] = {}
+        self._prune: Dict[str, np.ndarray] = {}
+        self._prune_affected: set = set()
+        self._select_keep_remap: Dict[str, np.ndarray] = {}
+        self._scale_slice: Dict[str, np.ndarray] = {}
+        plan = self._exec_plan
+        self._plan_tier = getattr(plan, "engine_tier", None)
+        if plan is None:
+            return
+        by_uid = {it.model.uid: it for it in self._plan}
+        cse_groups: List[List[str]] = []
+        for m in plan.cse:
+            kept = by_uid.get(m.get("kept"))
+            if kept is None or kept.kind != "vec":
+                continue
+            members = [kept.model.uid]
+            for uid in m.get("dropped", ()):
+                it = by_uid.get(uid)
+                if it is not None and it.kind == "vec" \
+                        and it.out != kept.out:
+                    self._cse_alias[it.out] = kept.out
+                    members.append(uid)
+            if len(members) > 1:
+                cse_groups.append(members)
+        for uid, live in sorted(plan.prune.items()):
+            it = by_uid.get(uid)
+            w = plan.widths.get(uid)
+            if it is None or it.kind != "vec" or not w:
+                continue
+            live = np.asarray(live, dtype=np.int64)
+            if live.size and live.size < int(w) \
+                    and int(live.max()) < int(w) and int(live.min()) >= 0:
+                self._prune[uid] = live
+        # CSE and pruning: an aliased output is the kept computation, so
+        # every member of a merge group carries one live set, the union
+        # (a fully live member means no pruning for the group)
+        for members in cse_groups:
+            lives = [self._prune.get(u) for u in members]
+            if all(lv is None for lv in lives):
+                continue
+            w = by_uid[members[0]].model.vector_metadata().size
+            union: Optional[np.ndarray] = None
+            if all(lv is not None for lv in lives):
+                union = np.asarray(
+                    sorted(set(int(j) for lv in lives for j in lv)),
+                    dtype=np.int64)
+                if union.size >= w:
+                    union = None
+            for u in members:
+                if union is None:
+                    self._prune.pop(u, None)
+                else:
+                    self._prune[u] = union
+        if not self._prune:
+            return
+        affected = {by_uid[uid].out for uid in self._prune}
+        for it in self._plan:
+            if it.kind in ("combine", "scale") \
+                    and any(nm in affected for nm in it.ins):
+                affected.add(it.out)
+        self._prune_affected = affected
+
+        def _disable(reason: str, uid: str) -> None:
+            # a designed routing, not a fallback: this plan's pruning
+            # cannot be applied to this DAG, so the program is unpruned
+            logger.warning("planner pruning disabled: %s (%s)", reason,
+                           uid)
+            self._prune = {}
+            self._prune_affected = set()
+            self._select_keep_remap = {}
+            self._scale_slice = {}
+
+        for it in self._plan:
+            # only select, scale and combine understand a narrowed input
+            if it.kind not in ("select", "scale", "combine") \
+                    and any(nm in affected for nm in it.ins):
+                return _disable("a non-remappable stage consumes a "
+                                "pruned value", it.model.uid)
+        for it in self._plan:
+            if it.kind == "scale" and it.ins[0] in affected:
+                # the scaler's fitted mean and std are full width: slice
+                # them to the input's surviving columns
+                o2n = self._old_to_new(it.ins[0])
+                if o2n is None:
+                    return _disable("unresolvable width under a "
+                                    "scaler", it.model.uid)
+                self._scale_slice[it.model.uid] = np.nonzero(o2n >= 0)[0]
+            if it.kind != "select" or it.ins[0] not in affected:
+                continue
+            o2n = self._old_to_new(it.ins[0])
+            keep = np.asarray(it.model.keep_indices, dtype=np.int64)
+            remap = (None if o2n is None
+                     or keep.size and int(keep.max()) >= o2n.size
+                     else o2n[keep])
+            if remap is None or (remap < 0).any():
+                # a kept column the liveness pass marked dead (or an
+                # unresolvable width): never risk a wrong gather
+                return _disable("select keeps a column the liveness "
+                                "pass marked dead", it.model.uid)
+            self._select_keep_remap[it.model.uid] = remap
+
+    def _in_width(self, name: str) -> Optional[int]:
+        it = self._by_out.get(name)
+        if it is None:
+            return None                      # an upload: width unknown
+        if it.kind == "vec":
+            return it.model.vector_metadata().size
+        if it.kind == "combine":
+            ws = [self._in_width(nm) for nm in it.ins]
+            return sum(ws) if all(w is not None for w in ws) else None
+        if it.kind == "select":
+            return len(it.model.keep_indices)
+        if it.kind == "scale":
+            return self._in_width(it.ins[0])
+        return None
+
+    def _old_to_new(self, name: str) -> Optional[np.ndarray]:
+        """Old → pruned column index map of a fused value (−1: dead), or
+        None when pruning does not narrow it."""
+        it = self._by_out.get(name)
+        if it is None:
+            return None
+        if it.kind == "vec":
+            live = self._prune.get(it.model.uid)
+            if live is None:
+                return None
+            o2n = np.full(it.model.vector_metadata().size, -1,
+                          dtype=np.int64)
+            o2n[live] = np.arange(live.size, dtype=np.int64)
+            return o2n
+        if it.kind == "combine":
+            parts = []
+            any_pruned = False
+            new_off = 0
+            for nm in it.ins:
+                sub = self._old_to_new(nm)
+                w = self._in_width(nm)
+                if w is None:
+                    return None              # unresolvable width
+                if sub is None:
+                    sub = np.arange(w, dtype=np.int64)
+                else:
+                    any_pruned = True
+                parts.append(np.where(sub >= 0, sub + new_off, -1))
+                new_off += int((sub >= 0).sum())
+            return np.concatenate(parts) if any_pruned else None
+        if it.kind == "scale":
+            return self._old_to_new(it.ins[0])
+        return None                # select outputs are never pruned
+
+    def _active_prune(self, out_names) -> Optional[Dict[str, np.ndarray]]:
+        """The prune map of a program pulling ``out_names``: None when a
+        requested output would be narrowed (the transform path
+        materializes every column; scoring prunes)."""
+        if not self._prune:
+            return None
+        if any(nm in self._prune_affected for nm in out_names):
+            return None
+        return self._prune
 
     # -- introspection -----------------------------------------------------
     def enabled(self) -> bool:
-        """Something to fuse: the engine has a device program to run."""
-        return bool(self._plan)
+        """The engine runs: something is fused and the attached plan's
+        measured tier, if any, is not "host"."""
+        return bool(self._plan) and self._plan_tier != "host"
+
+    @property
+    def pruned_columns(self) -> int:
+        """Columns the planned scoring program gathers away."""
+        widths = {it.model.uid: it.model.vector_metadata().size
+                  for it in self._plan if it.kind == "vec"}
+        return int(sum(widths[uid] - len(live)
+                       for uid, live in self._prune.items()))
+
+    @property
+    def cse_aliases(self) -> Dict[str, str]:
+        """{dropped twin's output: kept output} of the applied merges."""
+        return dict(self._cse_alias)
 
     @property
     def covers_prediction(self) -> bool:
@@ -309,9 +507,12 @@ class ScoringEngine:
         for layer in self._host_layers:
             for m in layer:
                 store = m.transform(store, **_device_kw(m, self.device))
+        # a CSE-aliased vectorizer contributes no blocks: its output fans
+        # out from the kept twin's computation
         prepared = {it.model.uid: canonicalize_prepared(
             it.model.host_prepare(store))
-            for it in self._plan if it.kind == "vec"}
+            for it in self._plan
+            if it.kind == "vec" and it.out not in self._cse_alias}
         uploads = {nm: np.asarray(store[nm].values)
                    for nm in self._upload_names}
         return store, prepared, uploads
@@ -393,21 +594,39 @@ class ScoringEngine:
             self._programs.popitem(last=False)
 
     def _body(self, prepared: Dict[str, Dict[str, torch.Tensor]],
-              uploads: Dict[str, torch.Tensor], out_names) -> Dict[str, Any]:
-        """The fused program on device tensors. Vectors leave each stage
-        in f32, as the layer path's columns hold them; no value is read
-        back to the host, so the body can be captured."""
+              uploads: Dict[str, torch.Tensor], out_names,
+              prune: Optional[Dict[str, np.ndarray]] = None
+              ) -> Dict[str, Any]:
+        """The fused program on device tensors, with the plan's rewrites
+        (``prune``: :meth:`_active_prune`). Vectors leave each stage in
+        f32, as the layer path's columns hold them; no value is read back
+        to the host, so the body can be captured."""
         env: Dict[str, Any] = dict(uploads)
         for it in self._plan:
             m = it.model
-            if it.kind == "vec":
-                env[it.out] = m.device_compute(prepared[m.uid]).to(
-                    torch.float32)
+            alias = self._cse_alias.get(it.out)
+            if alias is not None:
+                # CSE fan-out: the twin's output is the kept computation
+                env[it.out] = env[alias]
+            elif it.kind == "vec":
+                v = m.device_compute(prepared[m.uid]).to(torch.float32)
+                if prune is not None and m.uid in prune:
+                    # dead columns gathered away at the producer
+                    v = v.index_select(1, device_table(
+                        self, f"prune:{m.uid}", lambda u=m.uid: prune[u],
+                        v.device))
+                env[it.out] = v
             elif it.kind == "combine":
                 env[it.out] = torch.cat([env[nm] for nm in it.ins], dim=1)
             elif it.kind == "select":
                 x = env[it.ins[0]]
-                if m.keep_indices == list(range(x.shape[1])):
+                if prune is not None and m.uid in self._select_keep_remap:
+                    keep = device_table(
+                        self, f"keep:{m.uid}",
+                        lambda u=m.uid: self._select_keep_remap[u],
+                        x.device)
+                    env[it.out] = x.index_select(1, keep)
+                elif m.keep_indices == list(range(x.shape[1])):
                     env[it.out] = x
                 else:
                     keep = device_table(m, "keep_indices", lambda m=m:
@@ -416,7 +635,18 @@ class ScoringEngine:
                                         x.device)
                     env[it.out] = x.index_select(1, keep)
             elif it.kind == "scale":
-                env[it.out] = m.scale_device(env[it.ins[0]])
+                x = env[it.ins[0]]
+                if prune is not None and m.uid in self._scale_slice:
+                    # a pruned input: the fitted constants sliced to the
+                    # surviving columns, the affine of scale_device
+                    sl = self._scale_slice[m.uid]
+                    mean = device_table(self, f"mean:{m.uid}",
+                                        lambda m=m: m.mean[sl], x.device)
+                    std = device_table(self, f"std:{m.uid}",
+                                       lambda m=m: m.std[sl], x.device)
+                    env[it.out] = (x - mean[None, :]) / std[None, :]
+                else:
+                    env[it.out] = m.scale_device(x)
             elif it.kind == "predict":
                 env[it.out] = m.predict_device(env[it.ins[0]])
             else:                                        # deindex
@@ -467,7 +697,7 @@ class ScoringEngine:
         return prog.outputs
 
     def _device_outputs(self, prepared, uploads, out_names, bucket: int):
-        prog = self._program(self._signature(prepared, uploads, out_names),
+        prog = self._program(self.program_key(prepared, uploads, out_names),
                              bucket)
         body = prog.fn or self.program_callable(out_names)
         if not self.graphs or prog.calls == 0:
@@ -602,19 +832,23 @@ class ScoringEngine:
         ``run(prepared, uploads) -> {name: tensor or prediction triple}``
         on device tensors. The engine runs it (eagerly or captured), and
         the program bank exports it (``aot.py``), so a banked program and
-        a built one compute the same graph."""
+        a built one compute the same graph. The plan's rewrites are
+        baked in."""
         out_names = list(out_names)
+        prune = self._active_prune(out_names)
 
         def run(prepared, uploads):
-            return self._body(prepared, uploads, out_names)
+            return self._body(prepared, uploads, out_names, prune=prune)
 
         return run
 
     def program_key(self, prepared, uploads, out_names: List[str]) -> Tuple:
         """The program-cache key a call with these blocks (shapes, dtypes)
-        and outputs uses: where a preloaded program
-        (:meth:`preload`) is found."""
-        return self._signature(prepared, uploads, out_names)
+        and outputs uses, with the plan's rewrite bits: where a preloaded
+        program (:meth:`preload`) is found."""
+        prune = self._active_prune(out_names)
+        return self._signature(prepared, uploads, out_names) \
+            + (("plan", bool(self._cse_alias), prune is not None),)
 
     def preload(self, key: Tuple, fn) -> None:
         """Seed the program cache with ``fn`` under ``key`` (from
@@ -666,14 +900,23 @@ class ScoringEngine:
 
     def rewrite_digest(self) -> str:
         """blake2b-128 over the fused plan (each step's kind, stage uid,
-        output and inputs): the JAX engine's digest with no planner
-        rewrites attached, which the port does not have. A bank records it
-        at export, and a serving engine whose plan differs does not take
-        the bank."""
+        output and inputs) and the attached plan's rewrites (CSE aliases,
+        live sets, remapped select indices, sliced scaler constants), as
+        the JAX engine hashes them. A bank records it at export, and a
+        serving engine whose rewrites differ does not take the bank (its
+        programs would gather other columns)."""
         h = hashlib.blake2b(digest_size=16)
         for it in self._plan:
             h.update(f"{it.kind}|{it.model.uid}|{it.out}|"
                      f"{','.join(it.ins)};".encode())
+        for k in sorted(self._cse_alias):
+            h.update(f"cse:{k}->{self._cse_alias[k]};".encode())
+        for tag, table in (("prune", self._prune),
+                           ("remap", self._select_keep_remap),
+                           ("slice", self._scale_slice)):
+            for uid in sorted(table):
+                h.update(f"{tag}:{uid}:".encode())
+                h.update(np.asarray(table[uid], np.int64).tobytes())
         return h.hexdigest()
 
     def state_digest(self) -> str:

@@ -36,14 +36,20 @@ conditional reader's triggering event) lands in neither fold.
 
 The runner installs ``customParams.aggregateColumnar`` (tri-state, with
 ``"auto"``), ``joinPartitions`` and ``joinTableMaxRows`` for a run
-(:func:`set_run_defaults`); :func:`temporal_stats` tallies ride on every
-runner metrics document.
+(:func:`set_run_defaults`), and the planner's measured aggregation tier
+(:func:`set_aggregate_tier_hint`, from the cost database's
+``phase:temporal.route_aggregate`` observations, which
+:func:`route_aggregate` and :func:`tally_rowwise` feed); the
+:func:`temporal_stats` tallies ride on every runner metrics document.
+:func:`check_temporal` holds the cutoff-leakage rules (TMG7xx) that the
+pre-flight (``lint.check_workflow``) runs over a workflow's reader.
 """
 from __future__ import annotations
 
 import hashlib
 import logging
 import threading
+import time
 from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
                     Sequence, Tuple)
 
@@ -55,6 +61,7 @@ __all__ = [
     "TemporalError", "field", "column_key_of",
     "Table", "table_from_records", "concat_tables",
     "route_aggregate", "last_route_contested", "tally_rowwise",
+    "set_aggregate_tier_hint", "aggregate_tier_hint", "check_temporal",
     "partition_of", "build_join_table",
     "set_run_defaults", "columnar_mode", "join_partitions",
     "join_table_max_rows", "temporal_stats", "reset_temporal_stats",
@@ -81,21 +88,25 @@ class TemporalError(ValueError):
 
 _RUN_LOCK = threading.Lock()
 _RUN: Dict[str, Any] = {"columnar": None, "join_partitions": None,
-                        "join_table_max_rows": None}
+                        "join_table_max_rows": None,
+                        "aggregate_hint": None}
 
 
 def set_run_defaults(columnar: Any = None,
                      join_partitions: Optional[int] = None,
-                     join_table_max_rows: Optional[int] = None
+                     join_table_max_rows: Optional[int] = None,
+                     aggregate_hint: Optional[str] = None
                      ) -> Dict[str, Any]:
     """Install run-scoped temporal defaults (the runner's
-    ``aggregateColumnar`` / ``joinPartitions`` / ``joinTableMaxRows``);
-    returns the previous ones, so the runner can restore them when the
-    run ends. ``None`` means the module default."""
+    ``aggregateColumnar`` / ``joinPartitions`` / ``joinTableMaxRows``,
+    and the planner's measured aggregation tier); returns the previous
+    ones, so the runner can restore them when the run ends. ``None``
+    means the module default."""
     with _RUN_LOCK:
         prev = dict(_RUN)
         _RUN.update(columnar=columnar, join_partitions=join_partitions,
-                    join_table_max_rows=join_table_max_rows)
+                    join_table_max_rows=join_table_max_rows,
+                    aggregate_hint=aggregate_hint)
     return prev
 
 
@@ -108,6 +119,38 @@ def columnar_mode() -> Any:
     if v is None or v == "auto":
         return "auto"
     return bool(v)
+
+
+def set_aggregate_tier_hint(hint: Optional[str]) -> Optional[str]:
+    """Install the planner's measured columnar-against-row-wise
+    aggregation tier (``"columnar"``, ``"rowwise"``, or None: no
+    evidence); the runner computes it from the cost database and installs
+    it for the run. Returns the previous hint. The hint steers the
+    ``"auto"`` route only: an explicit ``aggregateColumnar`` always wins
+    (a contradiction is a TMG405 advisory)."""
+    with _RUN_LOCK:
+        prev = _RUN["aggregate_hint"]
+        _RUN["aggregate_hint"] = hint
+    return prev
+
+
+def aggregate_tier_hint() -> Optional[str]:
+    return _RUN["aggregate_hint"]
+
+
+#: every Nth auto-routed aggregate under a "rowwise" hint still runs the
+#: columnar engine, so the columnar tier keeps being measured and the
+#: hint can flip back (without it the hint would be a one-way ratchet)
+HINT_PROBE_EVERY = 16
+_HINT_COUNT = [0]
+
+
+def _hint_stand_down() -> bool:
+    """True when a "rowwise" hint suppresses the columnar route for this
+    pass (every HINT_PROBE_EVERY-th pass probes)."""
+    with _RUN_LOCK:
+        _HINT_COUNT[0] += 1
+        return _HINT_COUNT[0] % HINT_PROBE_EVERY != 0
 
 
 def join_partitions(explicit: Optional[int] = None) -> int:
@@ -127,7 +170,7 @@ def join_table_max_rows(explicit: Optional[int] = None) -> Optional[int]:
 _TALLY_LOCK = threading.Lock()
 _TALLY: Dict[str, int] = {
     "columnar_aggregates": 0, "rowwise_aggregates": 0,
-    "columnar_fallbacks": 0,
+    "columnar_fallbacks": 0, "hint_fallbacks": 0,
     "aggregate_rows": 0, "aggregate_keys": 0,
     "joins": 0, "columnar_joins": 0, "join_rows": 0,
     "join_matched": 0, "join_unmatched": 0, "join_spilled_rows": 0,
@@ -622,6 +665,14 @@ def route_aggregate(reader, records, raw_features):
     # a columnar batch: from here on the tier decision is real, whichever
     # path serves
     _ROUTE_STATE.contested = True
+    if mode == "auto" and aggregate_tier_hint() == "rowwise" \
+            and _hint_stand_down():
+        # the cost database measured the row-wise fold faster for this
+        # workload (planner.aggregate_route_tier): the auto route defers
+        # to it, and every HINT_PROBE_EVERY-th pass still runs columnar
+        _tally("hint_fallbacks")
+        return None
+    t0 = time.perf_counter()
     try:
         store = _columnar_aggregate(reader, records, raw_features)
     except TemporalError:
@@ -632,6 +683,11 @@ def route_aggregate(reader, records, raw_features):
             _tally("columnar_fallbacks")
         return None
     _tally("columnar_aggregates")
+    # the planner's cost database learns the columnar tier's cost
+    # (phase:temporal.route_aggregate, planner.aggregate_route_tier)
+    from . import planner
+    planner.observe_phase("temporal.route_aggregate", "columnar",
+                          time.perf_counter() - t0, len(records))
     return store
 
 
@@ -647,11 +703,18 @@ def last_route_contested() -> bool:
     return bool(getattr(_ROUTE_STATE, "contested", False))
 
 
-def tally_rowwise(n_rows: int) -> None:
+def tally_rowwise(n_rows: int, seconds: Optional[float] = None) -> None:
     """Count one row-wise aggregation pass, so the columnar and row-wise
-    split shows in every metrics document."""
+    split shows in every metrics document. ``seconds`` (given when the
+    pass declined a real columnar option, :func:`last_route_contested`)
+    feeds the planner's cost database as the row-wise half of the
+    ``phase:temporal.route_aggregate`` tier decision."""
     _tally("rowwise_aggregates")
     _tally("aggregate_rows", n_rows)
+    if seconds is not None:
+        from . import planner
+        planner.observe_phase("temporal.route_aggregate", "rowwise",
+                              seconds, n_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -843,3 +906,116 @@ def build_join_table(right_records, key_field_or_fn,
             # sanctioned memory-bounded behavior
     key_fn = kf if callable(kf) else field(key_field)
     return _DictBuildTable(right_records, key_fn, p, cap)
+
+
+# ---------------------------------------------------------------------------
+# cutoff leakage rules (TMG7xx)
+# ---------------------------------------------------------------------------
+
+
+def _reader_chain(reader) -> List[Any]:
+    """Every reader reachable through base/left/right wrappers (the
+    aggregate-over-filtered-join compositions), root first."""
+    out: List[Any] = []
+    seen = set()
+    stack = [reader]
+    while stack:
+        r = stack.pop()
+        if r is None or id(r) in seen:
+            continue
+        seen.add(id(r))
+        out.append(r)
+        for attr in ("base", "left", "right"):
+            stack.append(getattr(r, attr, None))
+    return out
+
+
+def _response_sources(responses) -> Dict[str, str]:
+    """{source column: feature name} for response raw features whose
+    extraction is statically column-keyed."""
+    from .stages.generator import FeatureGeneratorStage
+    out: Dict[str, str] = {}
+    for r in responses:
+        gen = r.origin_stage
+        if not isinstance(gen, FeatureGeneratorStage):
+            continue
+        src = column_key_of(gen.extract_fn) or gen.extract_source
+        if src:
+            out.setdefault(str(src), r.name)
+    return out
+
+
+def check_temporal(reader, result_features) -> List[Any]:
+    """The cutoff-leakage rules (TMG7xx) over a workflow's reader and raw
+    features: the reader object is inspected and never polled, so no data
+    is read. Returns ``lint.Finding`` records, which the graph checker
+    folds into the ``failOn`` / ``lintSuppress`` flow. The cutoff
+    semantics are the module docstring's."""
+    from .lint import Finding
+    from .readers.data_readers import (AggregateReader, ConditionalReader,
+                                       JoinedDataReader, TemporalJoinReader)
+    from .stages.generator import FeatureGeneratorStage
+
+    findings: List[Any] = []
+    raws: List[Any] = []
+    seen = set()
+    for f in result_features:
+        for raw in f.raw_features():
+            if id(raw) not in seen:
+                seen.add(id(raw))
+                raws.append(raw)
+    responses = [f for f in raws if f.is_response]
+    predictors = [f for f in raws if not f.is_response]
+    chain = _reader_chain(reader)
+    agg = next((r for r in chain if isinstance(r, AggregateReader)), None)
+    joins = [r for r in chain
+             if isinstance(r, (JoinedDataReader, TemporalJoinReader))]
+
+    if agg is not None:
+        conditional = isinstance(agg, ConditionalReader)
+        if not conditional and agg.cutoff.timestamp_ms is None \
+                and responses and predictors:
+            # TMG701: every predictor fold would see post-outcome rows
+            pnames = ", ".join(p.name for p in predictors)
+            rnames = ", ".join(r.name for r in responses)
+            findings.append(Finding(
+                "TMG701",
+                f"point-in-time aggregation with NO cutoff while "
+                f"response(s) [{rnames}] fold from the same events: "
+                f"predictor fold(s) [{pnames}] would see post-outcome "
+                "rows — set CutOffTime.at(...) or use a conditional "
+                "reader", feature=responses[0].name))
+        for r in responses:
+            gen = r.origin_stage
+            if isinstance(gen, FeatureGeneratorStage) \
+                    and gen.window_ms is not None:
+                findings.append(Finding(
+                    "TMG702",
+                    f"response {r.name!r} declares an event-time window "
+                    f"({gen.window_ms} ms): responses fold strictly "
+                    "AFTER the cutoff, so a window reaches back across "
+                    "it into the predictor window [cutoff - w, cutoff) "
+                    "— drop the window or make the feature a predictor",
+                    feature=r.name))
+
+    if joins and responses:
+        resp_srcs = _response_sources(responses)
+        for j in joins:
+            jkeys = set()
+            kfield = getattr(j, "key_field", None)
+            if kfield:
+                jkeys.add(str(kfield))
+            for side in ("left", "right"):
+                side_reader = getattr(j, side, None)
+                if side_reader is not None:
+                    k = column_key_of(getattr(side_reader, "key_fn", None))
+                    if k:
+                        jkeys.add(str(k))
+            for hit in sorted(jkeys & set(resp_srcs)):
+                findings.append(Finding(
+                    "TMG703",
+                    f"join key {hit!r} is also the source field of "
+                    f"response {resp_srcs[hit]!r}: a key derived from a "
+                    "post-cutoff field routes outcome information into "
+                    "the joined predictors", feature=resp_srcs[hit]))
+    return findings

@@ -25,6 +25,12 @@
   the DAG; ``with_workflow_cv`` re-fits the label-aware feature stages
   inside every CV fold (``graph.cut_dag``), so the selector's validation
   metrics see no label leakage from feature engineering.
+* The pre-flight (``Workflow.check``, ``WorkflowModel.check``:
+  ``lint.py``) finds mis-wired graphs before any data is read. A
+  ``planner.ExecutionPlan`` steers a fit (``Workflow.set_plan``: the
+  statistics pass's and the layer transform's measured tiers) and the
+  scoring engine (``WorkflowModel.attach_plan``: CSE, dead-column
+  pruning, the engine tier); a tier changes cost, never a result.
 
 Device stages (``uses_device``) run on ``device``: the card unless the
 caller passes ``device="cpu"``.
@@ -167,23 +173,31 @@ def _fused_vectors(vecs: Sequence[Transformer], store: ColumnStore, dev,
 def apply_layer(models: Sequence[Transformer], store: ColumnStore, device,
                 seconds: Optional[Dict[str, float]] = None,
                 fuse: Optional[bool] = None,
-                info: Optional[Dict[str, Any]] = None) -> ColumnStore:
+                info: Optional[Dict[str, Any]] = None,
+                tier: Optional[str] = None) -> ColumnStore:
     """Transform ``store`` by a DAG layer's models on ``device``.
 
     The layer's VectorizerModels with ``device_math`` transform as one
     device program with one upload and one pull (``_fused_vectors``; the
     port of the JAX package's ``apply_layer_vectorized``) when ``fuse``
     is True, or, when it is None, from ``FUSE_MIN_ROWS`` rows on the
-    card. The other models (and every model otherwise) transform one by
-    one. Both paths give bitwise-equal vectors. ``seconds`` accumulates each stage's seconds
-    by uid; ``info`` receives the fused program's (``_fused_vectors``)."""
+    card; ``tier`` (the planner's measured transform tier, "device" or
+    "host") replaces the card condition, never the row floor. The other
+    models (and every model otherwise) transform one by one. Both paths
+    give bitwise-equal vectors. ``seconds`` accumulates each stage's
+    seconds by uid; ``info`` receives the fused program's
+    (``_fused_vectors``). From the row floor the layer's seconds feed
+    the planner's ``phase:transform`` cost."""
     from .ops.vectorizer_base import VectorizerModel
     dev = torch.device(device)
     vecs = [m for m in models
             if isinstance(m, VectorizerModel) and m.device_math]
+    contested = bool(vecs) and store.n_rows >= FUSE_MIN_ROWS
     if fuse is None:
-        fuse = store.n_rows >= FUSE_MIN_ROWS and dev.type == "cuda"
+        fuse = contested and (dev.type == "cuda" if tier is None
+                              else tier == "device")
     seconds = {} if seconds is None else seconds
+    t_layer = time.perf_counter()
     cols: Dict[str, Any] = {}
     if fuse and vecs:
         cols, fused_info = _fused_vectors(vecs, store, dev, seconds)
@@ -197,6 +211,11 @@ def apply_layer(models: Sequence[Transformer], store: ColumnStore, device,
         store = m.transform(store, **_device_kw(m, device))
         seconds[m.uid] = seconds.get(m.uid, 0.0) \
             + time.perf_counter() - t0
+    if contested:
+        from . import planner
+        planner.observe_phase("transform",
+                              "device" if fuse and vecs else "host",
+                              time.perf_counter() - t_layer, store.n_rows)
     return store
 
 
@@ -224,6 +243,8 @@ class Workflow:
         #: stage uid → fit/transform timings of the last train
         #: (OpSparkListener StageMetrics analog)
         self._stage_metrics: Dict[str, Dict[str, Any]] = {}
+        #: the planner.ExecutionPlan this fit follows (``set_plan``)
+        self._exec_plan = None
 
     def set_result_features(self, *features: Feature) -> "Workflow":
         if not features:
@@ -292,6 +313,26 @@ class Workflow:
         engineering."""
         self._workflow_cv = enabled
         return self
+
+    def set_plan(self, plan) -> "Workflow":
+        """Attach a ``planner.ExecutionPlan`` whose measured phase tiers
+        this fit follows: the fused statistics pass reads
+        ``fitstats_tier`` and the layer transform ``transform_tier`` (a
+        tier of None leaves the row-floor and card gate in charge). A
+        tier changes cost, never a result. None detaches."""
+        self._exec_plan = plan
+        return self
+
+    def check(self, suppress=()) -> list:
+        """The pre-flight graph rules (``lint.check_workflow``: TMG1xx,
+        and TMG7xx when a reader is set) before any data is read: a list
+        of ``lint.Finding``; gate on it with ``lint.enforce``."""
+        from . import lint
+        return lint.check_workflow(self, suppress=suppress)
+
+    def _tier(self, which: str) -> Optional[str]:
+        plan = self._exec_plan
+        return getattr(plan, which) if plan is not None else None
 
     def with_raw_feature_filter(self, rff) -> "Workflow":
         """Attach a ``filters.RawFeatureFilter`` data-quality gate
@@ -462,9 +503,12 @@ class Workflow:
             if transform_last or li < len(dag) - 1:
                 tt = time.perf_counter()
                 info: Dict[str, Any] = {}
-                train = apply_layer(models, train, dev, seconds, info=info)
+                tier = self._tier("transform_tier")
+                train = apply_layer(models, train, dev, seconds, info=info,
+                                    tier=tier)
                 if test is not None:
-                    test = apply_layer(models, test, dev, seconds)
+                    test = apply_layer(models, test, dev, seconds,
+                                       tier=tier)
                 for m in models:
                     metrics = self._stage_metrics.setdefault(
                         m.uid, {"stageName": m.stage_name()})
@@ -526,7 +570,8 @@ class Workflow:
                           dtype, {}, checkpoint=False)
             for layer in during:
                 kept = apply_layer([fold_fit.get(s.uid, s) for s in layer],
-                                   kept, dev)
+                                   kept, dev,
+                                   tier=self._tier("transform_tier"))
             phase["foldFeatures"] += time.perf_counter() - tf
             return np.asarray(kept[feats_name].values, dtype=np.float64)
 
@@ -588,7 +633,8 @@ class Workflow:
         state_out: Dict[str, Any] = {}
         t0 = time.perf_counter()
         stats = plan.run(train, state_out=state_out, warm_state=warm,
-                         workflow_device=dev, dtype=dtype)
+                         workflow_device=dev, dtype=dtype,
+                         tier_hint=self._tier("fitstats_tier"))
         info = {"tier": plan.tier, "stages": n_scanning,
                 "requests": plan.n_requests,
                 "seconds": time.perf_counter() - t0,
@@ -675,6 +721,9 @@ class WorkflowModel:
         self.phase_seconds: Dict[str, float] = {}
         #: scoring engines by device (``scoring_engine``)
         self._engines: Dict[str, Any] = {}
+        #: the planner.ExecutionPlan the scoring engine follows
+        #: (``attach_plan``)
+        self._execution_plan: Any = None
 
     def _resolved_dag(self) -> List[List[Transformer]]:
         out: List[List[Transformer]] = []
@@ -708,19 +757,54 @@ class WorkflowModel:
         from .insights import ModelInsights
         return ModelInsights.extract(self, pred_feature, store, device)
 
+    def check(self, device: bool = True, suppress=()) -> list:
+        """The pre-flight over the fitted model (``lint.check_model``):
+        the graph rules, with the unfitted-estimator and dead-stage rules,
+        and with ``device`` the TMG2xx shape propagation on the meta
+        device (nothing is read, uploaded or launched)."""
+        from . import lint
+        return lint.check_model(self, device=device, suppress=suppress)
+
+    # -- planning (planner.py) ---------------------------------------------
+    def plan(self, cost_db=None, attach: bool = True):
+        """This model's ``planner.ExecutionPlan`` (dead columns, CSE
+        merges, tiers from ``cost_db``'s measurements) and, with
+        ``attach``, installed for the scoring engine. Static: no data is
+        read and nothing runs on a device."""
+        from . import planner
+        p = planner.plan_model(self, cost_db=cost_db)
+        if attach:
+            self.attach_plan(p)
+        return p
+
+    def attach_plan(self, plan) -> "WorkflowModel":
+        """Install an ExecutionPlan for the scoring engine: the engines
+        built so far are dropped, so the next one applies its rewrites.
+        ``attach_plan(None)`` reverts to unplanned scoring."""
+        self._execution_plan = plan
+        self._engines = {}
+        return self
+
+    def execution_plan(self):
+        return self._execution_plan
+
     # -- scoring -----------------------------------------------------------
     def scoring_engine(self, device=None, **engine_kw):
         """The batched scoring engine (``scoring.ScoringEngine``) of this
-        model on ``device`` (default: the card), built once a device;
-        an engine with other settings (``engine_kw``) is built afresh and
-        not kept."""
+        model on ``device`` (default: the card), built once a device
+        under the attached plan; an engine with other settings
+        (``engine_kw``; ``plan=None`` for an unplanned one) is built
+        afresh and not kept."""
         from .scoring import ScoringEngine
         dev = resolve_device(device)
         if engine_kw:
-            return ScoringEngine(self, device=dev, **engine_kw)
+            kw = dict(engine_kw)
+            kw.setdefault("plan", self._execution_plan)
+            return ScoringEngine(self, device=dev, **kw)
         eng = self._engines.get(str(dev))
         if eng is None:
-            eng = self._engines[str(dev)] = ScoringEngine(self, device=dev)
+            eng = self._engines[str(dev)] = ScoringEngine(
+                self, device=dev, plan=self._execution_plan)
         return eng
 
     def _use_engine(self, data, engine, dev) -> bool:
@@ -838,3 +922,28 @@ class WorkflowModel:
             if s is not None:
                 out["stages"][uid] = s() if callable(s) else s
         return out
+
+    def summary_pretty(self) -> str:
+        """The summary for people: the per-stage timing table
+        (OpSparkListener / Table.scala rendering), then the stage JSON.
+        The columns are the JAX package's; this package measures no
+        compile seconds, so that column is empty."""
+        import json
+
+        from .utils.table import Table
+        parts = []
+        if self.stage_metrics:
+            rows = [[m.get("stageName", uid), uid,
+                     m.get("fitSeconds"), m.get("compileSeconds"),
+                     m.get("executeSeconds"),
+                     m.get("layerTransformSeconds"),
+                     "yes" if m.get("warmStarted") else ""]
+                    for uid, m in sorted(self.stage_metrics.items())]
+            parts.append(Table(
+                ["stage", "uid", "fit s", "compile s", "execute s",
+                 "layer transform s", "warm"],
+                rows, name="Stage metrics").render())
+        doc = self.summary()
+        doc.pop("stageMetrics", None)
+        parts.append(json.dumps(doc, indent=2, default=str))
+        return "\n\n".join(parts)
