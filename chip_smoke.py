@@ -275,6 +275,18 @@ Run from the repository root on a machine with one NVIDIA H100:
    error and no TMG201, no kernel launched. (d) the host-to-device rate
    from pageable and pinned memory and the device-to-device copy rate,
    beside the card's name and power limit.
+15. telemetry at text-200k (:func:`telemetry_phase`): phase 4's records
+   through the runner, Train four times in turns with telemetry off and
+   on (the same model and kernel launches every time; the trace's spans
+   nested ``run:Train`` ⊃ ``workflow:train`` ⊃ ``fit:layer`` ⊃ the
+   statistics pass, the stage fits and the layer transforms; bytes
+   scanned; one trace shard that merges), Evaluate with telemetry on
+   (phase 4's AuPR), Score with ``metricsFormat: "prometheus"`` (the file
+   parses, rows scored, predictions bitwise equal to a Score with
+   telemetry off), the ``mfu`` block (the card's name; the scoring and
+   statistics phases' CUDA-event device seconds, each within the wall
+   seconds of its spans; the f32 and bf16 shares) and the Train seconds
+   off and on, beside the card's name and power limit.
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
 boston-200k, mapprep-200k, mapprep-guarded-200k and eventlog-200k) once
@@ -299,12 +311,14 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–14).
+over the main paths' runs, phases 3–15).
 ``--serve-export-only`` runs phase 7 (without its comparison with phase
 4's AuPR) and phase 12 alone, and prints no result line.
 ``--every-surface-only`` runs phase 13 alone and prints no result line.
 ``--plan-only`` trains titanic and runs phase 14 alone (its pre-flight
 over the models it trains) and prints no result line.
+``--telemetry-only`` makes phase 4's records and runs phase 15 alone, and
+prints no result line.
 """
 import json
 import math
@@ -4415,6 +4429,236 @@ def plan_phase(H, BP, TT, records, text_aupr, titanic_out, card,
     return launches
 
 
+#: phase 15's checks: the kernels every Train and Score of text-200k
+#: launches
+TELEMETRY_KERNELS = ("cumhist", "cumhist_sparse01", "group_rows",
+                     "split_scan", "level_epilogue", "predict_trees")
+
+
+def span_rows(trace):
+    """A trace's spans per track in start order, each with its depth by
+    interval containment: {tid: [(name, depth, event)]}."""
+    spans = sorted((e for e in trace["traceEvents"] if e["ph"] == "X"),
+                   key=lambda e: (e["tid"], e["ts"], -e["dur"]))
+    out = {}
+    for e in spans:
+        rows = out.setdefault(e["tid"], [])
+        stack = [r for r in rows if r[2]["ts"] <= e["ts"]
+                 < r[2]["ts"] + r[2]["dur"]]
+        rows.append((e["name"], len(stack), e))
+    return out
+
+
+def span_seconds(traces, name):
+    """Wall seconds of every ``name`` span in ``traces``."""
+    return sum(e["dur"] for t in traces for e in t["traceEvents"]
+               if e["ph"] == "X" and e["name"] == name) / 1e6
+
+
+def check_train_trace(trace, what):
+    """``run:Train`` ⊃ ``workflow:train`` ⊃ ``fit:layer`` ⊃ the stats
+    pass, the stage fits and the layer transforms, on one track."""
+    tracks = span_rows(trace)
+    if len(tracks) != 1:
+        fail(f"{what}: spans on {len(tracks)} tracks")
+    rows = [(n, d) for n, d, _e in next(iter(tracks.values()))]
+    depth = {}
+    for n, d in rows:
+        depth.setdefault(n, set()).add(d)
+    want = {"run:Train": {0}, "run:preflight": {1}, "run:plan": {1},
+            "workflow:train": {1}, "fit:layer": {2}, "fit:stats_pass": {3},
+            "fit:stage": {3}, "fit:transform_layer": {3}}
+    for n, d in want.items():
+        if depth.get(n) != d:
+            fail(f"{what}: span {n} at depths {depth.get(n)}, expected {d}")
+    extra = set(depth) - set(want) - {"layer:fused_dispatch",
+                                      "fit:psum_merge"}
+    if extra:
+        fail(f"{what}: unexpected spans {sorted(extra)}")
+    return {n: sum(1 for m, _ in rows if m == n) for n in depth}
+
+
+def telemetry_phase(H, BP, records, text_aupr, card, dev="cuda"):
+    """Phase 15, telemetry at text-200k: BigPassenger's 200,000 records
+    through ``OpWorkflowRunner``.
+
+    (a) Train four times in turns, telemetry off, on, off, on (the on
+    runs with ``customParams.telemetry``, a ``traceLocation`` and a
+    ``traceDir``): every model's state digest and every Train's kernel
+    launches equal; the first on-run's trace parses and nests
+    ``run:Train`` ⊃ ``workflow:train`` ⊃ ``fit:layer`` ⊃
+    ``fit:stats_pass`` / ``fit:stage`` / ``fit:transform_layer`` on one
+    track, ``fitstats.bytes_scanned`` > 0, one shard written that
+    merges; Evaluate with telemetry on gives phase 4's AuPR. (b) Score
+    with ``metricsFormat: "prometheus"``: the file parses with no
+    duplicate ``# TYPE``, ``scoring_rows_scored`` is the record count, the
+    predictions bitwise equal to a Score with telemetry off. (c) The
+    ``mfu`` block: the card's name, the ``scoring`` and ``fitstats``
+    phases with dispatches and CUDA-event seconds, each no more than the
+    wall seconds of its enclosing spans (``fit:stats_pass`` of the
+    device tier; ``score:bucket``), ``mfu_f32_pct`` in (0, 100]. (d) The
+    Train seconds with telemetry off and on, printed (host seconds move
+    up to 40% between calls). Returns the phase's launches."""
+    import shutil
+
+    from transmogrifai_tpu_torch import telemetry
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.runner import (OpParams, OpWorkflowRunner,
+                                                RunType)
+    from transmogrifai_tpu_torch.workflow import Workflow
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "telemetry")
+    shutil.rmtree(work, ignore_errors=True)
+    survived, _checked, selector, prediction = BP.build_selection()
+    wf = (Workflow().set_result_features(prediction)
+          .set_splitter(selector.splitter))
+    reader = DataReaders.simple.records(records)
+    runner = OpWorkflowRunner(
+        wf, training_reader=reader, scoring_reader=reader,
+        evaluator=Evaluators.BinaryClassification.auPR().set_columns(
+            survived, prediction), device=dev)
+    n = len(records)
+
+    def params(name, on, **kw):
+        custom = {"telemetry": True} if on else {}
+        if on:
+            kw.setdefault("trace_location",
+                          os.path.join(work, f"{name}.trace.json"))
+        kw.setdefault("metrics_location",
+                      os.path.join(work, f"{name}.json"))
+        return OpParams(model_location=os.path.join(work, "model"),
+                        custom_params=custom, **kw)
+
+    telemetry.reset_device_cost()
+    H.reset_launch_counts()
+    trains = []
+    for i, on in enumerate((False, True, False, True)):
+        p = params(f"train{i}", on)
+        if on:
+            p.custom_params["traceDir"] = os.path.join(work, f"shards{i}")
+        t0 = time.perf_counter()
+        tr = runner.run(RunType.TRAIN, p)
+        torch.cuda.synchronize()
+        trains.append((on, time.perf_counter() - t0, tr, p))
+    digests = {tr.model.scoring_engine(dev, plan=None).state_digest()
+               for _on, _s, tr, _p in trains}
+    if len(digests) != 1:
+        fail(f"telemetry-200k: {len(digests)} different models from four "
+             "Trains (telemetry off and on)")
+    tree_launches = [tr.metrics["trees"]["launches"]
+                     for _on, _s, tr, _p in trains]
+    if any(t != tree_launches[0] for t in tree_launches):
+        fail(f"telemetry-200k: Train kernel launches differ with telemetry "
+             f"off and on: {tree_launches}")
+    _on, _s, first, p1 = trains[1]
+    with open(p1.trace_location) as fh:
+        train_trace = json.load(fh)
+    counts = check_train_trace(train_trace, "telemetry-200k Train trace")
+    scanned = first.metrics["telemetryMetrics"].get(
+        "fitstats.bytes_scanned", 0)
+    if not scanned > 0:
+        fail("telemetry-200k: fitstats.bytes_scanned is 0")
+    shard_dir = p1.custom_params["traceDir"]
+    shards = os.listdir(shard_dir)
+    merged = telemetry.merge_trace_shards(shard_dir)
+    if len(shards) != 1 or merged["mergedShards"] != 1:
+        fail(f"telemetry-200k: shards {shards}")
+    summ = first.metrics["telemetry"]
+    print(f"telemetry-200k Train trace: {counts}; fitstats.bytes_scanned "
+          f"{scanned:,.0f}; listener: {summ['layers']} layers, "
+          f"{summ['fittedStages']} stages fitted, {summ['statsPasses']} "
+          f"statistics passes ({summ['fitPassesSaved']} passes saved); "
+          f"shard {shards[0]} merged ({len(merged['traceEvents'])} events)")
+    print(f"telemetry-200k Train launches, each of the four: "
+          f"{tree_launches[0]}")
+
+    ev = runner.run(RunType.EVALUATE, params("evaluate", True))
+    aupr = ev.metrics["AuPR"]
+    if text_aupr is not None and aupr != text_aupr:
+        fail(f"telemetry-200k: Evaluate AuPR {aupr!r}, phase 4 {text_aupr!r}")
+
+    prom = os.path.join(work, "score.prom")
+    scored = runner.run(RunType.SCORE, params(
+        "score", False, metrics_format="prometheus", metrics_location=prom,
+        trace_location=os.path.join(work, "score.trace.json")))
+    with open(prom) as fh:
+        text = fh.read()
+    types = [ln.split()[2] for ln in text.splitlines()
+             if ln.startswith("# TYPE ")]
+    if len(types) != len(set(types)):
+        fail("telemetry-200k: duplicate # TYPE families in the Prometheus "
+             "file")
+    fams = telemetry.parse_prometheus(text)
+    rows = fams["scoring_rows_scored"]["samples"][("scoring_rows_scored",
+                                                   "")]
+    if rows != n:
+        fail(f"telemetry-200k: scoring_rows_scored {rows}, expected {n}")
+    plain = runner.run(RunType.SCORE, params("score-off", False))
+    torch.cuda.synchronize()
+    same_predictions(scored.scores[prediction.name],
+                     plain.scores[prediction.name],
+                     "Score with telemetry on against off")
+    mfu = scored.metrics["mfu"]
+    phases = mfu["phases"]
+    with open(os.path.join(work, "evaluate.trace.json")) as fh:
+        eval_trace = json.load(fh)
+    with open(os.path.join(work, "score.trace.json")) as fh:
+        score_trace = json.load(fh)
+    on_traces = [train_trace]
+    with open(trains[3][3].trace_location) as fh:
+        on_traces.append(json.load(fh))
+    device_pass_s = sum(
+        e["dur"] for t in on_traces for e in t["traceEvents"]
+        if e["ph"] == "X" and e["name"] == "fit:stats_pass"
+        and any(c["name"] == "fit:psum_merge" and e["ts"] <= c["ts"]
+                < e["ts"] + e["dur"] for c in t["traceEvents"])) / 1e6
+    walls = {"fitstats": device_pass_s,
+             "scoring": span_seconds(on_traces + [eval_trace, score_trace],
+                                     "score:bucket")}
+    if dev == "cuda" and "H100" not in mfu["device_kind"]:
+        fail(f"telemetry-200k: mfu device_kind {mfu['device_kind']!r}")
+    for ph in ("scoring", "fitstats"):
+        d = phases.get(ph)
+        if d is None or not d["dispatches"] > 0 or not d["seconds"] > 0:
+            fail(f"telemetry-200k: mfu phase {ph} {d}")
+        if d["seconds"] > walls[ph]:
+            fail(f"telemetry-200k: {ph} device seconds {d['seconds']} past "
+                 f"the wall seconds of its spans {walls[ph]}")
+    pct = mfu["mfu_f32_pct"]
+    if dev == "cuda" and not (pct is not None and 0 < pct <= 100):
+        fail(f"telemetry-200k: mfu_f32_pct {pct}")
+    for ph in ("fitstats", "scoring"):
+        d = phases[ph]
+        print(f"telemetry-200k mfu ({card}): {ph} {d['dispatches']} "
+              f"dispatches, {d['seconds']:.6f} device s (CUDA events) of "
+              f"{walls[ph]:.6f} wall s in its spans "
+              f"({100 * d['seconds'] / walls[ph]:.2f}%), "
+              f"{d['flops']:.6g} FLOPs, {d['achieved_tflops']} TFLOP/s")
+    print(f"telemetry-200k mfu ({card}): device {mfu['device_kind']}, "
+          f"{mfu['device_seconds']} device s, {mfu['achieved_tflops']} "
+          f"TFLOP/s, mfu f32 {pct}%, bf16 {mfu['mfu_bf16_pct']}%")
+    print(f"telemetry-200k Score ({card}): Prometheus file "
+          f"{len(text):,} bytes, {len(fams)} families, scoring_rows_scored "
+          f"{rows:,.0f}; predictions bitwise equal with telemetry off; "
+          f"Evaluate AuPR {aupr:.6f}")
+    off = [s for on, s, _tr, _p in trains if not on]
+    on_s = [s for on, s, _tr, _p in trains if on]
+    print(f"telemetry-200k Train seconds ({card}), in turns off/on/off/on: "
+          f"off {off[0]:.3f}, {off[1]:.3f}; on {on_s[0]:.3f}, "
+          f"{on_s[1]:.3f} (host seconds, not gated)")
+    launches = dict(H.KERNEL_LAUNCHES)
+    missing = [k for k in TELEMETRY_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"telemetry-200k never launched {missing}")
+    once_per_level(launches, "telemetry-200k")
+    print(f"telemetry-200k launches: {launches}")
+    print(f"phase 15: {time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4469,6 +4713,9 @@ def main():
     if "--plan-only" in sys.argv[1:]:
         plan_phase(H, BP, TT, BP.synthesize_records(N, seed=42), None,
                    TT.run(device="cuda"), card)
+        return 0
+    if "--telemetry-only" in sys.argv[1:]:
+        telemetry_phase(H, BP, BP.synthesize_records(N, seed=42), None, card)
         return 0
 
     rows = check_kernels(H, TF, dev)
@@ -4621,6 +4868,10 @@ def main():
     # -- phase 14: the pre-flight, the planner and the run summary --------
     path_launches["plan-200k"] = plan_phase(H, BP, TT, records, text_aupr,
                                             titanic_out, card)
+
+    # -- phase 15: telemetry at text-200k ---------------------------------
+    path_launches["telemetry-200k"] = telemetry_phase(H, BP, records,
+                                                      text_aupr, card)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

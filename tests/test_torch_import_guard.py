@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it never loads ``jax`` or the
 JAX package, and no source of it names either."""
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -168,3 +169,60 @@ def test_preflight_and_planner_modules_are_scanned(module):
     assert path in SOURCES
     dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
     assert dotted in _modules()
+
+
+@pytest.mark.parametrize("module", ["telemetry.py", "utils/locks.py"])
+def test_telemetry_modules_are_scanned(module):
+    """Telemetry and its lock-order witness are among the sources scanned
+    above and the modules imported with ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    assert dotted in _modules()
+
+
+def test_a_telemetry_on_train_runs_with_jax_blocked(tmp_path):
+    """With ``jax`` and the JAX package blocked, the port trains through
+    its runner on the CPU with telemetry on and writes its trace."""
+    trace = tmp_path / "t.json"
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'transmogrifai_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import json\n"
+        "import numpy as np\n"
+        "from transmogrifai_tpu_torch import FeatureBuilder as FB\n"
+        "from transmogrifai_tpu_torch import Workflow\n"
+        "from transmogrifai_tpu_torch.dsl import transmogrify\n"
+        "from transmogrifai_tpu_torch.models.linear import "
+        "LogisticRegressionFamily as LR\n"
+        "from transmogrifai_tpu_torch.models.selector import "
+        "BinaryClassificationModelSelector as S\n"
+        "from transmogrifai_tpu_torch.readers import DataReaders\n"
+        "from transmogrifai_tpu_torch.runner import (OpParams, "
+        "OpWorkflowRunner, RunType)\n"
+        "rng = np.random.default_rng(0)\n"
+        "y = rng.integers(0, 2, 80).astype(float)\n"
+        "recs = [{'label': float(v), 'x': float(rng.normal() + v)} "
+        "for v in y]\n"
+        "label = FB.RealNN('label').from_column().as_response()\n"
+        "fx = FB.Real('x').from_column().as_predictor()\n"
+        "sel = S.with_cross_validation(num_folds=2, families=[LR(grid=["
+        "{'regParam': 0.01, 'elasticNetParam': 0.0}])], splitter=None, "
+        "seed=5)\n"
+        "pred = label.transform_with(sel, transmogrify([fx]))\n"
+        "runner = OpWorkflowRunner(Workflow().set_result_features(pred), "
+        "training_reader=DataReaders.simple.records(recs), device='cpu')\n"
+        f"out = runner.run(RunType.TRAIN, OpParams(trace_location="
+        f"{str(trace)!r}))\n"
+        "assert out.metrics['telemetry']['fittedStages'] == 2\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'transmogrifai_tpu') and sys.modules[m]]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+    names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"run:Train", "workflow:train", "fit:stage"} <= names

@@ -180,7 +180,7 @@ def test_tmg101_mistyped_edge_in_both():
 def test_tmg101_clean_binary_workflow_and_workflow_check():
     (jwf, *_), (pwf, *_) = _both(_binary_flow)
     assert jlint.check_workflow(jwf) == [] == plint.check_workflow(pwf)
-    assert pwf.check() == []
+    assert pwf.validate() == []
 
 
 def test_tmg102_duplicate_uid_in_both():
@@ -450,7 +450,7 @@ def test_preflight_of_a_fitted_model_is_clean_and_launches_nothing():
         return _train(ns, wf)
     jm, pm = _both(build)
     before = dict(_hist.KERNEL_LAUNCHES)
-    assert pm.check(device=True) == [] == jm.validate(device=True)
+    assert pm.validate(device=True) == [] == jm.validate(device=True)
     assert dict(_hist.KERNEL_LAUNCHES) == before
     for m in pm.fitted_stages.values():
         for key in getattr(m, "__dict__", {}).get("_device_tables", {}):

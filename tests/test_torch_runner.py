@@ -36,11 +36,11 @@ from transmogrifai_tpu_torch.runner import (OpApp, OpParams,
 from transmogrifai_tpu_torch.utils import uid as puid
 
 #: metrics-document blocks of the JAX package's runner whose modules are
-#: not ported (all ROADMAP queue A, item 6: continual, fleet, lifecycle,
-#: parallel/mesh and multi-host, pipeline, resilience, server, telemetry's
-#: MFU, workload, config's effective knobs)
+#: not ported (ROADMAP queue A: continual, fleet, lifecycle, server and
+#: workload A6.8 (d); parallel/mesh and multi-host A6.6; pipeline A6.5;
+#: resilience A6.8 (b); config's effective knobs A6.8 (c))
 NOT_PORTED = {"continual", "effectiveConfig", "fleet", "lifecycle",
-              "mesh", "mfu", "pipeline", "process", "resilience", "server",
+              "mesh", "pipeline", "process", "resilience", "server",
               "workload"}
 RUNS = (RunType.TRAIN, RunType.SCORE, RunType.EVALUATE, RunType.FEATURES)
 
@@ -195,16 +195,13 @@ def test_the_runner_defaults_to_the_card():
 
 
 UNPORTED = {
-    "streaming": (lambda r, p: r.run(RunType.STREAMING_SCORE, p), "item 6"),
-    "trace": (lambda r, p: r.run(RunType.TRAIN, OpParams(
-        trace_location="t.json")), "item 6"),
-    "prometheus": (lambda r, p: r.run(RunType.TRAIN, OpParams(
-        metrics_format="prometheus")), "item 6"),
+    "streaming": (lambda r, p: r.run(RunType.STREAMING_SCORE, p),
+                  r"item A6\.5"),
     "quarantine": (lambda r, p: r.run(RunType.TRAIN, OpParams(
-        quarantine_location="q.jsonl")), "item 6"),
+        quarantine_location="q.jsonl")), r"item A6\.8 \(b\)"),
     "mesh": (lambda r, p: r.run(RunType.TRAIN, OpParams(
-        custom_params={"meshDevices": 4})), "item 6"),
-    "yaml": (lambda r, p: OpParams.from_file("p.yaml"), "item 6"),
+        custom_params={"meshDevices": 4})), r"item A6\.6"),
+    "yaml": (lambda r, p: OpParams.from_file("p.yaml"), r"item A7"),
 }
 
 
@@ -216,6 +213,112 @@ def test_unported_parts_raise_naming_their_item(what, tmp_path):
     call, item = UNPORTED[what]
     with pytest.raises(NotImplementedError, match=f"queue A,? {item}"):
         call(runner, params)
+
+
+#: the telemetry requests that raised before telemetry was ported: each
+#: now runs, with the sink it asks for written
+TELEMETRY_SINKS = {
+    "trace": lambda t: dict(trace_location=str(t / "run.trace.json")),
+    "prometheus": lambda t: dict(metrics_format="prometheus"),
+    "telemetry": lambda t: dict(custom_params={"telemetry": True}),
+    "traceDir": lambda t: dict(custom_params={"traceDir": str(t / "tr")}),
+}
+
+
+@pytest.mark.parametrize("what", sorted(TELEMETRY_SINKS))
+def test_telemetry_requests_run_and_write_their_sinks(what, tmp_path):
+    """``traceLocation``, ``metricsFormat: "prometheus"``,
+    ``customParams.telemetry`` and ``customParams.traceDir`` run a Train
+    with telemetry on for the run: the trace file, the Prometheus text,
+    the document's telemetry blocks or the shard is written, and the
+    run leaves telemetry off."""
+    from transmogrifai_tpu_torch import telemetry
+    runner, params, _pred = _port_runner(_records(n=60), tmp_path)
+    for k, v in TELEMETRY_SINKS[what](tmp_path).items():
+        setattr(params, k, v)
+    out = runner.run(RunType.TRAIN, params)
+    assert out.metrics["telemetry"]["fittedStages"] == 2
+    assert out.metrics["telemetryMetrics"] == {}   # no fused pass here
+    if what == "trace":
+        doc = json.load(open(tmp_path / "run.trace.json"))
+        assert "run:Train" in {e["name"] for e in doc["traceEvents"]}
+    elif what == "prometheus":
+        text = open(params.metrics_location).read()
+        assert "# TYPE run_appSeconds gauge" in text.splitlines()
+        assert telemetry.parse_prometheus(text)
+    elif what == "traceDir":
+        (shard,) = os.listdir(tmp_path / "tr")
+        assert shard.startswith("shard-run-train-")
+    else:
+        assert json.load(open(params.metrics_location))["telemetry"][
+            "runType"] == RunType.TRAIN
+    assert not telemetry.enabled()
+
+
+#: a malformed value of each out-of-core knob (ROADMAP C2)
+STREAM_KNOBS = ("streamFit", "streamFitPasses", "rssCapMb")
+
+
+@pytest.mark.parametrize("value", ["yes", 0, -1])
+@pytest.mark.parametrize("key", STREAM_KNOBS)
+def test_malformed_out_of_core_knobs_raise_naming_the_key(key, value,
+                                                          tmp_path):
+    """``streamFit`` (a tri-state), ``streamFitPasses`` (an integer >= 1)
+    and ``rssCapMb`` (a number >= 1) are validated on every run, in both
+    packages, before anything is read."""
+    runner, params, _pred = _port_runner(_records(n=60), tmp_path)
+    params.custom_params[key] = value
+    with pytest.raises(ValueError, match=f"customParams.{key}"):
+        runner.run(RunType.TRAIN, params)
+    juid.reset()
+    jwf, _jl, _jp = _flow(JFB, jtransmogrify, JS, JLR, JWorkflow)
+    jrunner = JRunner(jwf, training_reader=_ListReader(_records(n=60)))
+    with pytest.raises(ValueError, match=f"customParams.{key}"):
+        jrunner.run(RunType.TRAIN, JOpParams(custom_params={key: value}))
+
+
+def test_valid_out_of_core_knobs_change_nothing(tmp_path):
+    """With no directory reader a valid ``streamFit: true`` and its
+    budget train the same model as without them, as in the JAX
+    package."""
+    records = _records(n=60)
+    runner, params, pred = _port_runner(records, tmp_path)
+    base = runner.run(RunType.TRAIN, params).model
+    params.custom_params.update(streamFit=True, streamFitPasses=2,
+                                rssCapMb=512.5)
+    again = runner.run(RunType.TRAIN, params).model
+    for name in ("prediction", "probability"):
+        assert np.array_equal(
+            getattr(base.score(records, device="cpu")[pred.name], name),
+            getattr(again.score(records, device="cpu")[pred.name], name))
+
+
+def test_parameters_reach_the_saved_model_in_both_packages(tmp_path):
+    """``Workflow.set_parameters`` (ROADMAP C3) is carried into
+    ``WorkflowModel.parameters`` and its save; each package loads the
+    other's save with the same parameters. The pre-flight is
+    ``validate``, as in the JAX package, and ``check`` is gone."""
+    from transmogrifai_tpu.workflow import WorkflowModel as JWorkflowModel
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+    want = {"owner": "team-a", "version": 3, "tags": ["x", "y"]}
+    records = _records(n=60)
+    puid.reset()
+    wf, _label, _pred = _flow(PFB, ptransmogrify, PS, PLR, PWorkflow)
+    assert wf.set_parameters(want) is wf
+    assert not hasattr(wf, "check") and wf.validate() == []
+    pm = wf.set_input_records(records).train(device="cpu",
+                                             dtype=torch.float64)
+    assert pm.parameters == want
+    assert not hasattr(pm, "check") and pm.validate(device=True) == []
+    pm.save(str(tmp_path / "port"))
+    juid.reset()
+    jwf, _jl, _jp = _flow(JFB, jtransmogrify, JS, JLR, JWorkflow)
+    jm = jwf.set_parameters(want).set_input_records(records).train()
+    jm.save(str(tmp_path / "jax"))
+    assert jm.parameters == want
+    assert JWorkflowModel.load(str(tmp_path / "port")).parameters == want
+    assert WorkflowModel.load(str(tmp_path / "jax")).parameters == want
+    assert WorkflowModel.load(str(tmp_path / "port")).parameters == want
 
 
 def _guarded_flow(FB, transmogrify, S, LR, W, RFF):

@@ -30,8 +30,9 @@ miss to a build; nothing drops to the CPU or to a plain version.
 
 Not carried over: the JAX package's serialized XLA executables (the
 programs here are ``ExportedProgram`` files, which need torch and the
-port's ``tmog_torch::predict_trees`` registration to load) and the
-telemetry spans and counters (ROADMAP queue A, A6.8).
+port's ``tmog_torch::predict_trees`` registration to load). While
+telemetry is on, building and loading a bank are ``aot:*`` spans and
+every tally also counts in ``aot.<tally>``.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import telemetry
 from .lint import Finding
 from .models import _hist  # noqa: F401  (registers tmog_torch::predict_trees)
 from .models.base import resolve_device
@@ -90,6 +92,7 @@ def reset_aot_stats() -> None:
 def _tally(key: str, n: int = 1) -> None:
     with _TALLY_LOCK:
         _TALLY[key] += n
+    telemetry.counter(f"aot.{key}").inc(n)
 
 
 # ---------------------------------------------------------------------------
@@ -227,17 +230,18 @@ def build_program_bank(engine, blocks: List[Dict[str, Any]],
     bdir = bank_dir(path)
     os.makedirs(bdir, exist_ok=True)
     programs: Dict[str, Dict[str, Any]] = {}
-    for bucket in ladder:
-        ep = torch.export.export(
-            module, _spec_tensors(blocks, bucket, engine.device),
-            strict=False)
-        blob = save_program(ep)
-        fname = f"bucket_{bucket}.pt2"
-        with open(os.path.join(bdir, fname), "wb") as fh:
-            fh.write(blob)
-        programs[str(bucket)] = {"file": fname, "bytes": len(blob),
-                                 "digest": _program_digest(blob)}
-        _tally("programs_exported")
+    with telemetry.span("aot:build_program_bank", buckets=len(ladder)):
+        for bucket in ladder:
+            ep = torch.export.export(
+                module, _spec_tensors(blocks, bucket, engine.device),
+                strict=False)
+            blob = save_program(ep)
+            fname = f"bucket_{bucket}.pt2"
+            with open(os.path.join(bdir, fname), "wb") as fh:
+                fh.write(blob)
+            programs[str(bucket)] = {"file": fname, "bytes": len(blob),
+                                     "digest": _program_digest(blob)}
+            _tally("programs_exported")
     manifest = {
         "formatVersion": FORMAT_VERSION,
         "bucketLadder": ladder,
@@ -423,22 +427,25 @@ def load_program_bank(engine, path: str) -> Dict[str, Any]:
         _log(report["findings"])
         return report
     out_names = list(manifest["outNames"])
-    for bucket_s in sorted(manifest["programs"], key=int):
-        bucket = int(bucket_s)
-        try:
-            fn = _load_program(path, manifest, bucket)
-        except ValueError as e:
-            report["skipped"][bucket] = str(e)
-            report["findings"].append(Finding(
-                "TMG502", f"program bank bucket {bucket}: {e} — the engine "
-                "builds this bucket on first use",
-                location=manifest_path(path)))
-            _tally("programs_skipped")
-            continue
-        prepared, uploads = _spec_blocks(manifest["blocks"], bucket)
-        engine.preload(engine.program_key(prepared, uploads, out_names), fn)
-        report["loaded"].append(bucket)
-        _tally("programs_loaded")
+    with telemetry.span("aot:load_program_bank",
+                        buckets=len(manifest["programs"])):
+        for bucket_s in sorted(manifest["programs"], key=int):
+            bucket = int(bucket_s)
+            try:
+                fn = _load_program(path, manifest, bucket)
+            except ValueError as e:
+                report["skipped"][bucket] = str(e)
+                report["findings"].append(Finding(
+                    "TMG502", f"program bank bucket {bucket}: {e} — the "
+                    "engine builds this bucket on first use",
+                    location=manifest_path(path)))
+                _tally("programs_skipped")
+                continue
+            prepared, uploads = _spec_blocks(manifest["blocks"], bucket)
+            engine.preload(engine.program_key(prepared, uploads, out_names),
+                           fn)
+            report["loaded"].append(bucket)
+            _tally("programs_loaded")
     report["compatible"] = bool(report["loaded"])
     if report["compatible"]:
         _tally("banks_loaded")

@@ -48,6 +48,8 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import telemetry
+
 logger = logging.getLogger(__name__)
 
 __all__ = [
@@ -408,12 +410,22 @@ def _device_moment_bundles(store, col_kinds: Dict[str, Dict[str, List[Tuple]]],
     Vt, Bt = torch.from_numpy(V), torch.from_numpy(B)
     if pinned:
         Vt, Bt = Vt.pin_memory(), Bt.pin_memory()
-    Vd = Vt.to(dev, non_blocking=pinned)
-    Bd = Bt.to(dev, non_blocking=pinned)
-    parts = torch.stack([_moment_step(Vd[off:off + chunk],
-                                      Bd[off:off + chunk])
-                         for off in range(0, rows, chunk)])
-    cnt, mean, m2, mn, mx = _chan_combine(parts.cpu().numpy())
+    n_chunks = rows // chunk
+    # the device seconds of the upload and the fold (the analytic ~10
+    # operations a cell: count, sum, chunk mean, centered delta, M2, min,
+    # max), read after the pull below
+    with telemetry.device_timer("fitstats", dev,
+                                flops=10.0 * chunk * k * n_chunks):
+        Vd = Vt.to(dev, non_blocking=pinned)
+        Bd = Bt.to(dev, non_blocking=pinned)
+        parts = torch.stack([_moment_step(Vd[off:off + chunk],
+                                          Bd[off:off + chunk])
+                             for off in range(0, rows, chunk)])
+    parts = parts.cpu().numpy()
+    telemetry.settle_device_timers()
+    with telemetry.span("fit:psum_merge", chunks=n_chunks, columns=k,
+                        sharded=False):
+        cnt, mean, m2, mn, mx = _chan_combine(parts)
     out: Dict[str, Dict[Tuple, Any]] = {}
     states: Dict[str, SufficientStats] = {}
     for j, nm in enumerate(names):
@@ -470,6 +482,7 @@ class LayerStatsPlan:
             if warm is not None:
                 merged[nm] = warm.merge(fresh)
                 _tally("warm_state_merges")
+                telemetry.counter("fitstats.warm_state_merges").inc()
         return merged
 
     @staticmethod
@@ -563,12 +576,18 @@ class LayerStatsPlan:
                 touched.setdefault(r.label, _col_bytes(store[r.label]))
 
         scanned = sum(touched.values())
+        saved = max(self.n_stages - 1, 0)
         self.tier = "device" if use_device else "host"
         self.bytes_scanned = scanned
         _tally("layers_fused")
-        _tally("passes_saved", max(self.n_stages - 1, 0))
+        _tally("passes_saved", saved)
         _tally("bytes_scanned", scanned)
         _tally(f"{self.tier}_passes")
+        telemetry.counter("fitstats.layers_fused").inc()
+        telemetry.counter("fitstats.passes_saved").inc(saved)
+        telemetry.counter("fitstats.bytes_scanned").inc(scanned)
+        telemetry.counter("fitstats.device_passes" if use_device
+                          else "fitstats.host_passes").inc()
         logger.info(
             "fitstats: %d request(s) for %d stage(s) in one %s pass "
             "(%d column(s), %.1f MB scanned)", self.n_requests,

@@ -31,11 +31,11 @@ catalog, :data:`RULES`, whose ids mean the same in both packages:
 
 :func:`enforce` raises :class:`LintError` for findings at or above a
 severity (the runner's ``customParams.failOn``), and suppression lists
-(``lintSuppress``) mute rule ids. :func:`emit_findings` logs the findings;
-their mirror into telemetry (the ``lint.*`` counters and the ``on_lint``
-hook) waits for ``telemetry.py`` (ROADMAP queue A, A6.8), and the repo
+(``lintSuppress``) mute rule ids. :func:`emit_findings` logs the findings
+and mirrors them into telemetry (the ``lint.errors`` / ``lint.warnings``
+/ ``lint.info`` counters and one ``on_lint`` event a finding). The repo
 rules' linters (TMG3xx, TMG8xx) lint the JAX package's source tree; their
-counterpart for this package's tree is an A6.8 item.
+counterpart for this package's tree is ROADMAP queue A, item A6.8 (c).
 """
 from __future__ import annotations
 
@@ -353,12 +353,21 @@ def enforce(findings: Sequence[Finding], fail_on: str = Severity.ERROR
 def emit_findings(findings: Sequence[Finding], where: str = "lint"
                   ) -> None:
     """Log each finding at its severity's level (error, warning, info),
-    prefixed by ``where``."""
+    prefixed by ``where``, and mirror it into telemetry: the
+    ``lint.errors`` / ``lint.warnings`` / ``lint.info`` counters and one
+    ``on_lint`` event (free while telemetry is off)."""
+    from . import telemetry
+    names = {Severity.ERROR: "lint.errors", Severity.WARNING:
+             "lint.warnings", Severity.INFO: "lint.info"}
     for f in findings:
         log = (logger.error if f.severity == Severity.ERROR else
                logger.warning if f.severity == Severity.WARNING else
                logger.info)
         log("%s: %s", where, f.format())
+        telemetry.counter(names[f.severity]).inc()
+        telemetry.emit("lint", rule=f.rule, severity=f.severity,
+                       message=f.message, stage=f.stage,
+                       feature=f.feature, location=f.location)
 
 
 def _apply_suppress(findings: List[Finding],

@@ -33,9 +33,9 @@ measurement): ``host`` = bytes a row ÷ :data:`STATIC_HOST_GBPS`;
 :data:`LINK_PRIOR_MBPS`) + bytes a row ÷ :data:`STATIC_DEVICE_GBPS`.
 Each plan entry says which source (``measured`` / ``static``) decided.
 
-The JAX package's ``telemetry.emit`` calls wait for ``telemetry.py``
-(ROADMAP queue A, A6.8); the consumer of :func:`ingest_route_tier`, the
-streaming fit, comes with A6.5.
+Every plan is a ``plan`` event for the run listeners
+(``telemetry.emit``); the consumer of :func:`ingest_route_tier`, the
+streaming fit, comes with ROADMAP queue A, item A6.5.
 """
 from __future__ import annotations
 
@@ -47,6 +47,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -895,6 +897,9 @@ def plan_model(model, cost_db: Optional[CostDatabase] = None,
                 engine_tier or "unplanned", tier_reason,
                 plan.counts()["prunedColumns"], len(merges))
     _record_tallies(plan)
+    telemetry.emit("plan", stages=len(entries), engine_tier=engine_tier,
+                   pruned_columns=plan.counts()["prunedColumns"],
+                   cse_merges=len(merges))
     return plan
 
 
@@ -929,6 +934,8 @@ def plan_workflow(workflow, cost_db: Optional[CostDatabase] = None
         link_mbps=link_mbps, link_source=link_source,
         db_finding=cost_db.finding() if cost_db is not None else None)
     _record_tallies(plan)
+    telemetry.emit("plan", stages=len(entries), engine_tier=None,
+                   pruned_columns=0, cse_merges=0)
     return plan
 
 

@@ -432,7 +432,7 @@ class TemporalJoinReader(DataReader):
         return self.right.key_fn
 
     def read_records(self):
-        from .. import temporal
+        from .. import telemetry, temporal
         left = self.left.read_records()
         right = self.right.read_records()
         lkey = self.key_field or temporal.column_key_of(self._left_key())
@@ -454,9 +454,11 @@ class TemporalJoinReader(DataReader):
                 temporal.join_partitions(self.partitions),
                 temporal.join_table_max_rows(self.table_max_rows))
         temporal._tally("joins")
-        if isinstance(table, temporal._ColumnarBuildTable):
-            return table.probe(left, lkey, self.join_type)
-        return table.probe(left, self._left_key(), self.join_type)
+        telemetry.counter("temporal.joins").inc()
+        with telemetry.span("temporal:join", rows=len(left)):
+            if isinstance(table, temporal._ColumnarBuildTable):
+                return table.probe(left, lkey, self.join_type)
+            return table.probe(left, self._left_key(), self.join_type)
 
 
 class JoinedAggregateDataReader(AggregateReader):
@@ -504,16 +506,17 @@ def stream_score(model, batches: Iterable[Sequence[Mapping[str, Any]]],
 
     ``on_error``: a failing batch raises. Quarantining poison batches
     (``"quarantine"``) needs the dead-letter sink of ``resilience.py``,
-    which is not ported (ROADMAP queue A, item A6.8); asking for it
+    which is not ported (ROADMAP queue A, item A6.8 (b)); asking for it
     raises ``NotImplementedError``."""
     import itertools
 
+    from .. import telemetry
     from ..models.base import resolve_device
     if on_error not in (None, "raise"):
         raise NotImplementedError(
             f"stream_score(on_error={on_error!r}): quarantining batches "
             "needs the dead-letter sink of resilience.py, which is not "
-            "ported yet (ROADMAP queue A, item A6.8)")
+            "ported yet (ROADMAP queue A, item A6.8 (b))")
     dev = resolve_device(device)
     it = iter(batches)
     first = next(it, None)
@@ -526,6 +529,9 @@ def stream_score(model, batches: Iterable[Sequence[Mapping[str, Any]]],
         eng = model.scoring_engine(dev)
         use_overlap = eng.enabled() and (
             overlap is True or len(first) >= SCORING_MIN_ROWS)
+    # which streaming mode served the batches
+    telemetry.counter("stream.overlapped_streams" if use_overlap
+                      else "stream.plain_streams").inc()
     if use_overlap:
         from ..scoring import stream_score_overlapped
         yield from stream_score_overlapped(
@@ -533,8 +539,10 @@ def stream_score(model, batches: Iterable[Sequence[Mapping[str, Any]]],
             engine=eng, device=dev)
         return
     for batch in chained:
-        yield model.score(batch, keep_intermediate=keep_intermediate,
-                          device=dev)
+        with telemetry.span("stream:score_batch", rows=len(batch)):
+            out = model.score(batch, keep_intermediate=keep_intermediate,
+                              device=dev)
+        yield out
 
 
 class DataReaders:

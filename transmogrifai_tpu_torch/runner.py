@@ -34,15 +34,35 @@
   which is saved, and the model's full plan is the metrics document's
   ``plan`` block; after a Score the observations go in. A plan or a cost
   recording that fails raises.
+* Telemetry (``telemetry.py``), for the run only: a ``traceLocation``,
+  ``metricsFormat: "prometheus"``, ``customParams.telemetry`` or a trace
+  directory (``customParams.traceDir``, else the ``TMOG_TRACE_DIR``
+  environment variable) turns it on, and the run turns it off and drops
+  its events and metrics at its end (a ``telemetry.enable()`` made before
+  the run stays in force). The run is a ``run:<type>`` span around
+  ``run:preflight`` and ``run:plan``; one ``CollectingRunListener``
+  collects its events, and its summary and the metrics registry are the
+  document's ``telemetry`` and ``telemetryMetrics`` blocks. The trace is
+  written to ``traceLocation`` (Chrome trace-event JSON) and as a shard
+  into the trace directory, also when the run fails (the run's own
+  exception is raised after the flush). ``metricsFormat:
+  "prometheus"`` writes the registry as Prometheus text with the run
+  document's numbers as ``run_*`` gauges. Every document has the ``mfu``
+  block (``telemetry.device_cost_stats``: device seconds by phase while
+  telemetry is on) and ``peak_rss_mb``.
+* The out-of-core knobs (``streamFit``, ``streamFitPasses``,
+  ``rssCapMb``) are validated on every run, as in the JAX package; they
+  engage only with a directory stream reader, which is not ported
+  (ROADMAP queue A, item A6.5), so a valid value changes nothing.
 * ``OpApp`` (``OpApp.scala``): ``main(argv)`` parses ``--run-type``,
   ``--params``, the locations, ``--fail-on`` and ``--no-validate``, then
   runs.
 
 What the JAX package's runner adds and this one does not have yet raises
 ``NotImplementedError`` naming its ROADMAP queue A item when a run asks
-for it: the StreamingScore run type, telemetry sinks, the quarantine sink
-and mesh knobs (all item 6). Their blocks of the metrics document are
-left out.
+for it: the StreamingScore run type (A6.5), the quarantine sink (A6.8
+(b)), the mesh knobs (A6.6) and YAML parameter files (A7). Their blocks
+of the metrics document are left out.
 """
 from __future__ import annotations
 
@@ -53,30 +73,33 @@ import math
 import os
 import time
 from dataclasses import dataclass, field
+import logging
 from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from . import telemetry
 from .models import _hist
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["OpParams", "RunType", "RunnerResult", "OpWorkflowRunner",
            "OpApp"]
 
 #: customParams keys of the JAX package's runner whose module is not
-#: ported yet (all ROADMAP queue A, item 6), and what they ask for
+#: ported yet: what they ask for and the ROADMAP queue A item
 _UNPORTED_CUSTOM = {
-    "telemetry": "telemetry sinks (telemetry.py)",
-    "traceDir": "telemetry sinks (telemetry.py)",
-    "quarantineLocation": "the quarantine sink (resilience.py)",
-    "meshDevices": "multi-device runs (parallel/mesh.py)",
-    "meshGridSize": "multi-device runs (parallel/mesh.py)",
-    "featureShards": "multi-device runs (parallel/mesh.py)",
+    "quarantineLocation": ("the quarantine sink (resilience.py)",
+                           "A6.8 (b)"),
+    "meshDevices": ("multi-device runs (parallel/mesh.py)", "A6.6"),
+    "meshGridSize": ("multi-device runs (parallel/mesh.py)", "A6.6"),
+    "featureShards": ("multi-device runs (parallel/mesh.py)", "A6.6"),
 }
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A, item 6)")
+        f"{what} is not ported yet (ROADMAP queue A, item {item})")
 
 
 def _count_custom_param(params: "OpParams", key: str) -> Optional[int]:
@@ -97,6 +120,29 @@ def _count_custom_param(params: "OpParams", key: str) -> Optional[int]:
             f"customParams.{key} must be an integer, got {raw!r}") from None
     if v < 1:
         raise ValueError(f"customParams.{key} must be >= 1, got {raw!r}")
+    return v
+
+
+def _number_custom_param(params: "OpParams", key: str,
+                         minimum: float) -> Optional[float]:
+    """``customParams[key]`` as a finite number of at least ``minimum``;
+    None when absent or null. A malformed value raises a ``ValueError``
+    naming the key (a bool, a string, NaN, a value below the minimum)."""
+    raw = params.custom_params.get(key)
+    if raw is None:
+        return None
+    try:
+        if isinstance(raw, bool):
+            raise TypeError
+        v = float(raw)
+        if not math.isfinite(v):
+            raise TypeError
+    except (TypeError, ValueError, OverflowError):
+        raise ValueError(
+            f"customParams.{key} must be a number, got {raw!r}") from None
+    if v < minimum:
+        raise ValueError(
+            f"customParams.{key} must be >= {minimum:g}, got {raw!r}")
     return v
 
 
@@ -135,9 +181,12 @@ class OpParams:
     model_location: Optional[str] = None
     write_location: Optional[str] = None
     metrics_location: Optional[str] = None
-    #: a trace sink (not ported: a run that sets it raises)
+    #: Chrome trace-event JSON sink; setting it turns telemetry on
     trace_location: Optional[str] = None
-    #: "json" (the run document); "prometheus" is not ported
+    #: metrics sink format: "json" (the run document) or "prometheus"
+    #: (the telemetry registry in text exposition, with the run
+    #: document's numbers as ``run_*`` gauges); "prometheus" turns
+    #: telemetry on
     metrics_format: str = "json"
     #: the dead-letter sink (not ported: a run that sets it raises)
     quarantine_location: Optional[str] = None
@@ -148,7 +197,7 @@ class OpParams:
         """Parameters from a JSON file (the JAX package's keys)."""
         if path.endswith((".yaml", ".yml")):
             raise _not_ported("YAML parameter files (no YAML reader in "
-                              "this package)")
+                              "this package)", "A7")
         with open(path) as fh:
             doc = json.load(fh)
         return OpParams(
@@ -173,6 +222,13 @@ class OpParams:
                 "quarantineLocation": self.quarantine_location,
                 "customParams": self.custom_params}
 
+    def telemetry_requested(self) -> bool:
+        """True when this config asks for run telemetry (a trace sink,
+        Prometheus metrics, or ``customParams.telemetry``)."""
+        return bool(self.trace_location
+                    or self.metrics_format == "prometheus"
+                    or self.custom_params.get("telemetry"))
+
     def apply_to_workflow(self, workflow) -> None:
         """Push stage params into the workflow's DAG stages by uid or class
         name (OpWorkflow.setStageParameters :166-188)."""
@@ -185,18 +241,19 @@ class OpParams:
                     stage.set_params(**self.stage_params[key])
 
     def check_ported(self) -> None:
-        """Raise for anything this run asks of a module not ported yet."""
-        if self.trace_location:
-            raise _not_ported("trace sinks (telemetry.py)")
-        if self.metrics_format != "json":
-            raise _not_ported(f"the {self.metrics_format!r} metrics format "
-                              "(telemetry.py)")
+        """Raise for anything this run asks of a module not ported yet,
+        and for a metrics format that is neither "json" nor
+        "prometheus"."""
+        if self.metrics_format not in ("json", "prometheus"):
+            raise ValueError(f"metricsFormat must be 'json' or "
+                             f"'prometheus', got {self.metrics_format!r}")
         if self.quarantine_location:
-            raise _not_ported("the quarantine sink (resilience.py)")
-        for key, what in _UNPORTED_CUSTOM.items():
+            raise _not_ported("the quarantine sink (resilience.py)",
+                              "A6.8 (b)")
+        for key, (what, item) in _UNPORTED_CUSTOM.items():
             v = self.custom_params.get(key)
             if v is not None and v is not False and v != "false":
-                raise _not_ported(f"customParams.{key}: {what}")
+                raise _not_ported(f"customParams.{key}: {what}", item)
 
 
 class RunType:
@@ -217,17 +274,6 @@ class RunnerResult:
     scores: Any = None
     #: the WorkflowModel the run trained or loaded
     model: Any = None
-
-
-def _peak_rss_mb() -> Optional[float]:
-    """Peak resident set of this process and its reaped children, MB."""
-    try:
-        import resource
-    except ImportError:
-        return None
-    kb = max(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
-             resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss)
-    return round(kb / 1024.0, 1)
 
 
 class OpWorkflowRunner:
@@ -257,14 +303,42 @@ class OpWorkflowRunner:
         self._plan_db = None
 
     @staticmethod
-    def _write_metrics(location: Optional[str], doc: Dict[str, Any]) -> None:
+    def _write_metrics(location: Optional[str], doc: Dict[str, Any],
+                       fmt: str = "json") -> None:
+        """The metrics sink, written to a sibling temp file and moved in
+        by ``os.replace`` (a kill mid-write never leaves a truncated
+        file). ``fmt="prometheus"`` writes the telemetry registry in text
+        exposition with the document's numeric scalars as ``run_*``
+        gauges; the default writes the document as JSON."""
         if not location:
             return
         os.makedirs(os.path.dirname(location) or ".", exist_ok=True)
         tmp = location + ".tmp"
         with open(tmp, "w") as fh:
-            json.dump(doc, fh, indent=1, default=str)
+            if fmt == "prometheus":
+                extra = {f"run_{k}": float(v) for k, v in doc.items()
+                         if isinstance(v, (int, float))
+                         and not isinstance(v, bool)}
+                fh.write(telemetry.render_prometheus(extra))
+            else:
+                json.dump(doc, fh, indent=1, default=str)
         os.replace(tmp, location)
+
+    @staticmethod
+    def _shard_role(run_type: str) -> str:
+        """This run's row name in merged traces: an explicit
+        ``TMOG_TRACE_ROLE`` wins, else the run type."""
+        role = telemetry.trace_role()
+        return role if role != "proc" else f"run-{run_type.lower()}"
+
+    @classmethod
+    def _write_traces(cls, params: OpParams, trace_dir: Optional[str],
+                      run_type: str) -> None:
+        if params.trace_location:
+            telemetry.write_trace(params.trace_location)
+        if trace_dir:
+            telemetry.write_trace_shard(trace_dir,
+                                        role=cls._shard_role(run_type))
 
     def run(self, run_type: str, params: Optional[OpParams] = None
             ) -> RunnerResult:
@@ -273,6 +347,13 @@ class OpWorkflowRunner:
             raise ValueError(f"Unknown run type {run_type!r}; expected one "
                              f"of {RunType.ALL}")
         params.check_ported()
+        # a trace directory (customParams.traceDir, else TMOG_TRACE_DIR)
+        # asks the run to record spans and drop one shard there
+        trace_dir = (params.custom_params.get("traceDir")
+                     or os.environ.get(telemetry.TMOG_TRACE_DIR))
+        if trace_dir is not None and not isinstance(trace_dir, str):
+            raise ValueError("customParams.traceDir must be a path "
+                             f"string, got {trace_dir!r}")
         # the temporal tier's run-scoped knobs (docs/readers.md), all
         # validated before any is installed: a malformed value names its
         # key, and no half-installed configuration outlives the run
@@ -282,15 +363,62 @@ class OpWorkflowRunner:
             join_partitions=_count_custom_param(params, "joinPartitions"),
             join_table_max_rows=_count_custom_param(params,
                                                     "joinTableMaxRows"))
+        # the out-of-core knobs, validated as the JAX package does; they
+        # engage only with a directory stream reader (ROADMAP queue A,
+        # item A6.5), so a valid value changes nothing here
+        _tristate_custom_param(params, "streamFit")
+        _count_custom_param(params, "streamFitPasses")
+        _number_custom_param(params, "rssCapMb", minimum=1)
+        # run-scoped telemetry: on for this run only, unless it was on
+        # before the run
+        run_scoped = False
+        if (params.telemetry_requested() or trace_dir) \
+                and not telemetry.enabled():
+            telemetry.enable()
+            run_scoped = True
+        try:
+            result = self._run(run_type, params, knobs, trace_dir)
+        finally:
+            if run_scoped:
+                telemetry.disable()
+                telemetry.reset(keep_listeners=True)
+        return result
+
+    def _run(self, run_type: str, params: OpParams, knobs: Dict[str, Any],
+             trace_dir: Optional[str]) -> RunnerResult:
+        from . import temporal
+        # one collecting listener a run (OpSparkListener's AppMetrics)
+        collector = None
+        if telemetry.enabled():
+            collector = telemetry.add_listener(
+                telemetry.CollectingRunListener())
         launches = dict(_hist.KERNEL_LAUNCHES)
         self._last_preflight = None
         self._last_plan = None
         self._plan_db = None
         prev = temporal.set_run_defaults(**knobs)
+        t0 = time.perf_counter()
+        telemetry.emit("run_start", run_type=run_type)
         try:
-            t0 = time.perf_counter()
-            result = self._execute(run_type, params, t0)
+            with telemetry.span(f"run:{run_type}"):
+                result = self._execute(run_type, params, t0)
+        except BaseException as e:
+            # a failed run is the one whose trace is wanted most: flush the
+            # spans recorded so far, then raise the run's own exception
+            # (a flush that fails is noted on it)
+            if params.trace_location or trace_dir:
+                try:
+                    self._write_traces(params, trace_dir, run_type)
+                except Exception as flush_err:
+                    logger.exception("trace write after a failed run")
+                    e.add_note(f"the trace flush failed too: "
+                               f"{flush_err!r}")
+            raise
         finally:
+            telemetry.emit("run_end", run_type=run_type,
+                           seconds=time.perf_counter() - t0)
+            if collector is not None:
+                telemetry.remove_listener(collector)
             temporal.set_run_defaults(**prev)
         # the temporal tier's tallies (columnar and row-wise aggregates,
         # joins, spilled rows): zeros on runs that never touch it
@@ -307,8 +435,16 @@ class OpWorkflowRunner:
         # touch the serving tier
         from . import aot
         result.metrics["aot"] = aot.aot_stats()
-        result.metrics["peak_rss_mb"] = _peak_rss_mb()
-        self._write_metrics(params.metrics_location, result.metrics)
+        # device seconds and FLOPs by phase (process-wide, as in the JAX
+        # package; recorded while telemetry is on)
+        result.metrics["mfu"] = telemetry.device_cost_stats()
+        result.metrics["peak_rss_mb"] = telemetry.peak_rss_mb()
+        if collector is not None:
+            result.metrics["telemetry"] = collector.summary()
+            result.metrics["telemetryMetrics"] = telemetry.metrics_json()
+        self._write_metrics(params.metrics_location, result.metrics,
+                            fmt=params.metrics_format)
+        self._write_traces(params, trace_dir, run_type)
         return result
 
     # -- the pre-flight (lint.py), on by default ---------------------------
@@ -324,13 +460,14 @@ class OpWorkflowRunner:
             return None
         fail_on = str(params.custom_params.get("failOn", "error")).lower()
         suppress = params.custom_params.get("lintSuppress", ())
-        if workflow is not None:
-            findings = lint.check_workflow(workflow, suppress=suppress,
-                                           reader=reader)
-        else:
-            findings = lint.check_model(
-                model, device=not _off(params, "validateDevice"),
-                suppress=suppress, target=self.device)
+        with telemetry.span("run:preflight"):
+            if workflow is not None:
+                findings = lint.check_workflow(workflow, suppress=suppress,
+                                               reader=reader)
+            else:
+                findings = lint.check_model(
+                    model, device=not _off(params, "validateDevice"),
+                    suppress=suppress, target=self.device)
         lint.emit_findings(findings, "pre-flight")
         counts: Dict[str, int] = {}
         for f in findings:
@@ -368,12 +505,13 @@ class OpWorkflowRunner:
         fail_on = str(params.custom_params.get("failOn", "error")).lower()
         suppress = params.custom_params.get("lintSuppress", ())
         db = planner.CostDatabase.load(self._cost_db_path(params))
-        if model is not None:
-            plan = planner.plan_model(model, cost_db=db)
-            model.attach_plan(plan)
-        else:
-            plan = planner.plan_workflow(workflow, cost_db=db)
-            workflow.set_plan(plan)
+        with telemetry.span("run:plan"):
+            if model is not None:
+                plan = planner.plan_model(model, cost_db=db)
+                model.attach_plan(plan)
+            else:
+                plan = planner.plan_workflow(workflow, cost_db=db)
+                workflow.set_plan(plan)
         findings = list(plan.findings())
         # the measured aggregation route steers the "auto" route for this
         # run; a pinned aggregateColumnar wins, and a contradiction is a
@@ -458,7 +596,7 @@ class OpWorkflowRunner:
                                 model=model)
         if run_type == RunType.STREAMING_SCORE:
             raise _not_ported("the StreamingScore run type (readers/"
-                              "streaming.py, the stream readers)")
+                              "streaming.py, the stream readers)", "A6.5")
 
         from .workflow import WorkflowModel
         if params.model_location is None:

@@ -61,14 +61,24 @@ and IDF, stop words, Jaccard) run first; their columns feed
   ``serving.py`` exports (``torch.export``) and ``aot.py`` banks and
   preloads; a preload is not a build, so ``compile_count`` stays 0.
 
+* **Telemetry** (``telemetry.py``, while it is on): ``score:prepare``
+  and ``score:bucket`` spans, the ``scoring.*`` cache tallies (a program
+  build counts in ``scoring.compile_count``), ``scoring.rows_scored``,
+  the ``scoring.batch_seconds`` histogram and the ``score_batch`` event,
+  and the ``scoring`` phase of the ``mfu`` block: CUDA-event seconds
+  around each warm dispatch (a replay of a captured graph, or an eager
+  call after the program's first), read after the pull that follows.
+
 Not carried over from the JAX package: the circuit breaker to the host
-tier, the link-bandwidth gate, mesh sharding and telemetry spans.
+tier, the link-bandwidth gate, mesh sharding and the staged uploads of
+the input pipeline (``stage_batch``, ``pipeline:upload``).
 """
 from __future__ import annotations
 
 import hashlib
 import logging
 import threading
+import time
 import weakref
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
@@ -77,6 +87,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import telemetry
 from .columns import (ColumnStore, GeoColumn, MapColumn, NumericColumn,
                       PredictionColumn, RaggedColumn, TextColumn,
                       TextListColumn, TextSetColumn, VectorColumn,
@@ -262,6 +273,8 @@ class ScoringEngine:
         if self.graphs and not on_card:
             raise ValueError("CUDA graphs need a CUDA device")
         self._programs: "OrderedDict[Tuple, _Program]" = OrderedDict()
+        #: bucket -> the analytic FLOPs of one dispatch (``_analytic_flops``)
+        self._bucket_flops: Dict[int, float] = {}
         self._compile_count = 0
         self._graph_count = 0
         self._lock = threading.Lock()
@@ -539,24 +552,35 @@ class ScoringEngine:
             with self._lock:
                 hit = self._prep_cache.get(cache_key)
             if hit is not None and hit[0]() is data:
+                telemetry.counter("scoring.prep_cache_hits").inc()
                 return hit[1]
+            telemetry.counter("scoring.prep_cache_misses").inc()
         store = _raw_store(data, self._raw_features)
         n_total = store.n_rows
         chunks = []
-        for lo in range(0, max(n_total, 1), self.bucket_cap):
-            sub = store
-            if n_total > self.bucket_cap:
-                sub = store.take(np.arange(lo, min(lo + self.bucket_cap,
-                                                   n_total)))
-            n = sub.n_rows
-            bucket = bucket_for(n, self.bucket_cap)
-            host_store, prepared, uploads = self.host_blocks(sub)
-            prepared = {uid: {k: self._pad_rows(v, n, bucket)
-                              for k, v in blocks.items()}
-                        for uid, blocks in prepared.items()}
-            uploads = {k: self._pad_rows(v, n, bucket)
-                       for k, v in uploads.items()}
-            chunks.append((host_store, prepared, uploads, n, bucket))
+        with telemetry.span("score:prepare", rows=n_total):
+            for lo in range(0, max(n_total, 1), self.bucket_cap):
+                sub = store
+                if n_total > self.bucket_cap:
+                    sub = store.take(np.arange(
+                        lo, min(lo + self.bucket_cap, n_total)))
+                n = sub.n_rows
+                bucket = bucket_for(n, self.bucket_cap)
+                host_store, prepared, uploads = self.host_blocks(sub)
+                prepared = {uid: {k: self._pad_rows(v, n, bucket)
+                                  for k, v in blocks.items()}
+                            for uid, blocks in prepared.items()}
+                uploads = {k: self._pad_rows(v, n, bucket)
+                           for k, v in uploads.items()}
+                if telemetry.enabled():
+                    # padded bytes about to cross the host-to-device link
+                    nbytes = sum(int(np.asarray(v).nbytes)
+                                 for blocks in prepared.values()
+                                 for v in blocks.values())
+                    nbytes += sum(int(np.asarray(v).nbytes)
+                                  for v in uploads.values())
+                    telemetry.counter("device.bytes_h2d").inc(nbytes)
+                chunks.append((host_store, prepared, uploads, n, bucket))
         pb = _PreparedBatch(chunks, n_total)
         if cache_key is not None:
             with self._lock:
@@ -583,6 +607,10 @@ class ScoringEngine:
             if prog is None:
                 prog = _Program(bucket)
                 self._compile_count += 1
+                telemetry.counter("scoring.cache_misses").inc()
+                telemetry.counter("scoring.compile_count").inc()
+            else:
+                telemetry.counter("scoring.cache_hits").inc()
             self._programs[key] = prog          # most recently used
             self._evict_locked()
         return prog
@@ -592,6 +620,41 @@ class ScoringEngine:
         holds ``self._lock``)."""
         while len(self._programs) > PROGRAM_CACHE_CAP:
             self._programs.popitem(last=False)
+            telemetry.counter("scoring.cache_evictions").inc()
+
+    # -- executed-FLOP attribution (the mfu block) -------------------------
+    def _analytic_flops(self, bucket: int) -> float:
+        """A lower bound on one dispatch's FLOPs from the fused plan's
+        static widths, as the JAX package counts it: 2 a vectorizer
+        output element, 2 an element of the scaler's (x − mean) / std, 4
+        an input element of the predictor; vectorizer internals and
+        nonlinearities are not counted."""
+        f = self._bucket_flops.get(bucket)
+        if f is not None:
+            return f
+        w: Dict[str, int] = {}
+        per_row = 0.0
+        for it in self._plan:
+            if it.kind == "vec":
+                w[it.out] = it.model.vector_metadata().size
+                per_row += 2.0 * w[it.out]
+            elif it.kind == "combine":
+                w[it.out] = sum(w.get(nm) or 0 for nm in it.ins)
+            elif it.kind == "select":
+                w[it.out] = len(it.model.keep_indices)
+            elif it.kind == "scale":
+                w[it.out] = w.get(it.ins[0]) or 0
+                per_row += 2.0 * w[it.out]
+            elif it.kind == "predict":
+                per_row += 4.0 * (w.get(it.ins[0]) or 0)
+        f = self._bucket_flops[bucket] = per_row * max(int(bucket), 1)
+        return f
+
+    def _timer(self, bucket: int):
+        """The device timer of one warm dispatch at ``bucket`` (the
+        shared null timer while telemetry is off)."""
+        flops = self._analytic_flops(bucket) if telemetry.enabled() else 0.0
+        return telemetry.device_timer("scoring", self.device, flops=flops)
 
     def _body(self, prepared: Dict[str, Dict[str, torch.Tensor]],
               uploads: Dict[str, torch.Tensor], out_names,
@@ -692,16 +755,22 @@ class ScoringEngine:
                 ins_p[uid][k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
         for k, v in uploads.items():
             ins_u[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
-        prog.graph.replay()
+        with self._timer(prog.bucket):
+            prog.graph.replay()
         _hist.count_graph_replay(prog.launches)
         return prog.outputs
 
-    def _device_outputs(self, prepared, uploads, out_names, bucket: int):
-        prog = self._program(self.program_key(prepared, uploads, out_names),
-                             bucket)
+    def _device_outputs(self, prog: _Program, prepared, uploads, out_names,
+                        bucket: int):
+        """One run of ``prog`` on this chunk's blocks: its first call
+        eagerly (a warm-up, not timed), later calls as graph replays on
+        the card or eagerly, each timed (``_timer``)."""
         body = prog.fn or self.program_callable(out_names)
-        if not self.graphs or prog.calls == 0:
+        if prog.calls == 0:
             outs = body(*self._upload(prepared, uploads))
+        elif not self.graphs:
+            with self._timer(bucket):
+                outs = body(*self._upload(prepared, uploads))
         else:
             if prog.graph is None:
                 self._capture(prog, body, prepared, uploads, bucket)
@@ -775,8 +844,20 @@ class ScoringEngine:
         out_names = self._out_names(results_only)
         stores = []
         for host_store, prepared, uploads, n, bucket in prep.chunks:
-            outs = (self._device_outputs(prepared, uploads, out_names,
-                                         bucket) if out_names else {})
+            t0 = time.perf_counter()
+            was_compile = False
+            pulled: Dict[str, Any] = {}
+            if out_names:
+                before = self._compile_count
+                prog = self._program(
+                    self.program_key(prepared, uploads, out_names), bucket)
+                was_compile = self._compile_count > before
+                with telemetry.span("score:bucket", rows=n, bucket=bucket,
+                                    compiled=was_compile):
+                    outs = self._device_outputs(prog, prepared, uploads,
+                                                out_names, bucket)
+                    pulled = self._pull(outs, out_names, n)
+                telemetry.settle_device_timers()
             store = host_store
             meta_env: Dict[str, Any] = {}
             if not results_only:
@@ -785,25 +866,44 @@ class ScoringEngine:
                     meta_env[it.out] = self._meta_for(it, host_store,
                                                       meta_env, width_env)
             for nm in out_names:
-                val = outs[nm]
+                val = pulled[nm]
                 kind = self._by_out[nm].kind
                 if kind == "predict":
-                    pred, raw, prob = (v[:n].to("cpu", torch.float64).numpy()
-                                       for v in val)
-                    col = PredictionColumn(pred, raw, prob)
+                    col = PredictionColumn(*val)
                 elif kind == "deindex":
-                    col = self._by_out[nm].model.label_column(
-                        val[:n].cpu().numpy())
+                    col = self._by_out[nm].model.label_column(val)
                 else:
-                    col = VectorColumn(
-                        OPVector, val[:n].to("cpu", copy=True).numpy(),
-                        meta_env.get(nm))
+                    col = VectorColumn(OPVector, val, meta_env.get(nm))
                 store = store.with_column(nm, col)
+            chunk_s = time.perf_counter() - t0
+            if telemetry.enabled():
+                telemetry.counter("scoring.rows_scored").inc(n)
+                telemetry.histogram("scoring.batch_seconds").observe(chunk_s)
+                telemetry.emit("score_batch", n_rows=n, bucket=bucket,
+                               seconds=chunk_s, compiled=was_compile)
             if results_only and len(prep.chunks) > 1:
                 store = store.select([nm for nm in (*self._result_names,
                                                     *keep) if nm in store])
             stores.append(store)
         return stores[0] if len(stores) == 1 else _concat_stores(stores)
+
+    def _pull(self, outs, out_names, n: int) -> Dict[str, Any]:
+        """The chunk's outputs on the host, its first ``n`` rows: each
+        prediction as (prediction, raw, probability) f64 arrays, de-indexed
+        codes and vectors as numpy arrays. The copies wait for the
+        device."""
+        pulled: Dict[str, Any] = {}
+        for nm in out_names:
+            val = outs[nm]
+            kind = self._by_out[nm].kind
+            if kind == "predict":
+                pulled[nm] = tuple(v[:n].to("cpu", torch.float64).numpy()
+                                   for v in val)
+            elif kind == "deindex":
+                pulled[nm] = val[:n].cpu().numpy()
+            else:
+                pulled[nm] = val[:n].to("cpu", copy=True).numpy()
+        return pulled
 
     # -- public scoring ----------------------------------------------------
     def transform_store(self, data, use_cache: bool = True) -> ColumnStore:
@@ -865,6 +965,7 @@ class ScoringEngine:
         with self._lock:
             self._programs.pop(key, None)
             self._programs[key] = _Program(bucket, fn)
+            telemetry.counter("scoring.cache_preloads").inc()
             self._evict_locked()
 
     def export_manifest(self, sample_data) -> List[Dict[str, Any]]:

@@ -30,8 +30,9 @@ registration of ``tmog_torch::predict_trees``, the operator a tree
 model's program calls: importing ``transmogrifai_tpu_torch.models._hist``
 registers it, and this module imports it.
 
-Not carried over: the telemetry spans and counters (ROADMAP queue A,
-A6.8).
+While telemetry is on, each export and load is a ``serving:*`` span and
+counts in ``serving.exports`` / ``serving.loads``; a full-chain call
+counts in ``serving.bank_hits`` or ``serving.bank_misses``.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from . import aot as aot_mod
+from . import telemetry
 from .lint import Finding
 from .models import _hist  # noqa: F401  (registers tmog_torch::predict_trees)
 from .models.base import resolve_device
@@ -187,13 +189,16 @@ def export_prediction_fn(model, path: str, pred_feature=None,
     example = torch.zeros((BUCKET_MIN, feature_dim),
                           dtype=torch.float32, device=dev)
     head(example)                       # warm the device tables
-    ep = torch.export.export(head, (example,),
-                             dynamic_shapes=({0: _batch_dim()},),
-                             strict=False)
-    payload = aot_mod.save_program(ep)
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, _BLOB), "wb") as fh:
-        fh.write(payload)
+    with telemetry.span("serving:export_prediction_fn",
+                        feature_dim=int(feature_dim)):
+        ep = torch.export.export(head, (example,),
+                                 dynamic_shapes=({0: _batch_dim()},),
+                                 strict=False)
+        payload = aot_mod.save_program(ep)
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, _BLOB), "wb") as fh:
+            fh.write(payload)
+    telemetry.counter("serving.exports").inc()
     meta = {"featureDim": int(feature_dim),
             "predFeature": pred_feature.name,
             "coverage": "prediction_head",
@@ -216,9 +221,11 @@ def load_prediction_fn(path: str, device=None
     (default: the card). A truncated or corrupt artifact raises a
     descriptive ``ValueError``."""
     dev = resolve_device(device)
-    meta, payload = _load_verified_blob(path, _BLOB, _META)
-    _warn_version_skew(meta, path)
-    fn = _load_program(meta, payload, path, dev)
+    with telemetry.span("serving:load_prediction_fn"):
+        meta, payload = _load_verified_blob(path, _BLOB, _META)
+        _warn_version_skew(meta, path)
+        fn = _load_program(meta, payload, path, dev)
+    telemetry.counter("serving.loads").inc()
 
     def call(X: np.ndarray) -> Dict[str, Any]:
         X = np.asarray(X, dtype=np.float32)
@@ -280,14 +287,17 @@ def export_scoring_fn(model, path: str, sample_data,
         for s in manifest)
     module(*example)                    # warm the device tables
     b = _batch_dim()
-    ep = torch.export.export(module, example,
-                             dynamic_shapes=(tuple({0: b}
-                                                   for _ in example),),
-                             strict=False)
-    payload = aot_mod.save_program(ep)
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, _SCORE_BLOB), "wb") as fh:
-        fh.write(payload)
+    with telemetry.span("serving:export_scoring_fn",
+                        fused_stages=len(eng._plan), inputs=len(manifest)):
+        ep = torch.export.export(module, example,
+                                 dynamic_shapes=(tuple({0: b}
+                                                       for _ in example),),
+                                 strict=False)
+        payload = aot_mod.save_program(ep)
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, _SCORE_BLOB), "wb") as fh:
+            fh.write(payload)
+    telemetry.counter("serving.exports").inc()
     meta = {"coverage": "fused_chain",
             "fusedStages": len(eng._plan),
             "inputs": manifest,
@@ -354,9 +364,12 @@ def load_scoring_fn(path: str, prefer_bank: bool = True, device=None
     from .scoring import bucket_for, flatten_outputs
 
     dev = resolve_device(device)
-    meta, payload = _load_verified_blob(path, _SCORE_BLOB, _SCORE_META)
-    _warn_version_skew(meta, path)
-    fn = _load_program(meta, payload, path, dev)
+    with telemetry.span("serving:load_scoring_fn"):
+        meta, payload = _load_verified_blob(path, _SCORE_BLOB,
+                                            _SCORE_META)
+        _warn_version_skew(meta, path)
+        fn = _load_program(meta, payload, path, dev)
+    telemetry.counter("serving.loads").inc()
     manifest: List[Dict[str, Any]] = meta["inputs"]
 
     bank_programs: Dict[int, Any] = {}
@@ -405,7 +418,9 @@ def load_scoring_fn(path: str, prefer_bank: bool = True, device=None
             n = args[0].shape[0]
             bucket = bucket_for(n, bank_cap)
             if n <= bank_cap and bucket in bank_programs:
+                telemetry.counter("serving.bank_hits").inc()
                 return _bank_call(args, n, bucket)
+            telemetry.counter("serving.bank_misses").inc()
         out = fn(*[put(a) for a in args])
         return {k: _to_numpy(v) for k, v in out.items()}
 

@@ -55,6 +55,8 @@ from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
 
 import numpy as np
 
+from . import telemetry
+
 logger = logging.getLogger(__name__)
 
 __all__ = [
@@ -674,7 +676,8 @@ def route_aggregate(reader, records, raw_features):
         return None
     t0 = time.perf_counter()
     try:
-        store = _columnar_aggregate(reader, records, raw_features)
+        with telemetry.span("temporal:aggregate", rows=len(records)):
+            store = _columnar_aggregate(reader, records, raw_features)
     except TemporalError:
         # structurally unroutable (opaque extractors): this reader never
         # had a columnar option, whatever its record type
@@ -683,6 +686,7 @@ def route_aggregate(reader, records, raw_features):
             _tally("columnar_fallbacks")
         return None
     _tally("columnar_aggregates")
+    telemetry.counter("temporal.columnar_aggregates").inc()
     # the planner's cost database learns the columnar tier's cost
     # (phase:temporal.route_aggregate, planner.aggregate_route_tier)
     from . import planner
@@ -850,6 +854,7 @@ class _DictBuildTable:
             t.setdefault(k, {}).update(r)
         if spilled:
             _tally("join_spilled_rows", spilled)
+            telemetry.counter("temporal.join_spilled_rows").inc(spilled)
             logger.warning(
                 "join build table overflow: %d row(s) of new keys dropped "
                 "(%d partition(s) bounded at %s keys each)", spilled,

@@ -25,7 +25,7 @@
   the DAG; ``with_workflow_cv`` re-fits the label-aware feature stages
   inside every CV fold (``graph.cut_dag``), so the selector's validation
   metrics see no label leakage from feature engineering.
-* The pre-flight (``Workflow.check``, ``WorkflowModel.check``:
+* The pre-flight (``Workflow.validate``, ``WorkflowModel.validate``:
   ``lint.py``) finds mis-wired graphs before any data is read. A
   ``planner.ExecutionPlan`` steers a fit (``Workflow.set_plan``: the
   statistics pass's and the layer transform's measured tiers) and the
@@ -47,6 +47,7 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 
+from . import telemetry
 from .columns import ColumnStore
 from .features import Feature, copy_dag
 from .graph import StagesDAG, compute_dag, cut_dag
@@ -127,6 +128,30 @@ def _fused_vectors(vecs: Sequence[Transformer], store: ColumnStore, dev,
         preps.append(canonicalize_prepared(m.host_prepare(store)))
         seconds[m.uid] = seconds.get(m.uid, 0.0) + time.perf_counter() - t0
     t0 = time.perf_counter()
+    with telemetry.span("layer:fused_dispatch", rows=store.n_rows,
+                        vectorizers=len(vecs)):
+        host, outs, size = _fused_dispatch(vecs, preps, dev)
+    cols, off = {}, 0
+    for m, o in zip(vecs, outs):
+        mat = host[off:off + o.numel()].reshape(tuple(o.shape))
+        off += o.numel()
+        meta = m.vector_metadata()
+        assert mat.ndim == 2 and mat.shape[1] == meta.size, \
+            (type(m).__name__, mat.shape, meta.size)
+        cols[m.output_name] = VectorColumn(OPVector, mat, meta)
+    fused_s = time.perf_counter() - t0
+    for m in vecs:
+        seconds[m.uid] += fused_s / len(vecs)
+    return cols, {"vectorizers": len(vecs), "rows": store.n_rows,
+                  "seconds": round(fused_s, 4), "uploads": 1, "pulls": 1,
+                  "bytesUp": size, "bytesDown": 4 * off}
+
+
+def _fused_dispatch(vecs, preps, dev):
+    """``_fused_vectors``' device half: the blocks staged in one host
+    buffer (pinned on the card), one upload, each ``device_compute``, one
+    pull. Returns (the pulled host f32 array, the device outputs, the
+    staged bytes)."""
     pinned = dev.type == "cuda"
     layout, size = [], 0
     for prep in preps:
@@ -153,21 +178,7 @@ def _fused_vectors(vecs: Sequence[Transformer], store: ColumnStore, dev,
     pulled.copy_(flat, non_blocking=pinned)
     if pinned:
         torch.cuda.current_stream(dev).synchronize()
-    host = pulled.numpy()
-    cols, off = {}, 0
-    for m, o in zip(vecs, outs):
-        mat = host[off:off + o.numel()].reshape(tuple(o.shape))
-        off += o.numel()
-        meta = m.vector_metadata()
-        assert mat.ndim == 2 and mat.shape[1] == meta.size, \
-            (type(m).__name__, mat.shape, meta.size)
-        cols[m.output_name] = VectorColumn(OPVector, mat, meta)
-    fused_s = time.perf_counter() - t0
-    for m in vecs:
-        seconds[m.uid] += fused_s / len(vecs)
-    return cols, {"vectorizers": len(vecs), "rows": store.n_rows,
-                  "seconds": round(fused_s, 4), "uploads": 1, "pulls": 1,
-                  "bytesUp": size, "bytesDown": 4 * flat.numel()}
+    return pulled.numpy(), outs, size
 
 
 def apply_layer(models: Sequence[Transformer], store: ColumnStore, device,
@@ -245,6 +256,9 @@ class Workflow:
         self._stage_metrics: Dict[str, Dict[str, Any]] = {}
         #: the planner.ExecutionPlan this fit follows (``set_plan``)
         self._exec_plan = None
+        #: free-form parameters carried into the model and its saves
+        #: (``set_parameters``)
+        self.parameters: Dict[str, Any] = {}
 
     def set_result_features(self, *features: Feature) -> "Workflow":
         if not features:
@@ -323,7 +337,13 @@ class Workflow:
         self._exec_plan = plan
         return self
 
-    def check(self, suppress=()) -> list:
+    def set_parameters(self, params: Dict[str, Any]) -> "Workflow":
+        """Parameters the trained model carries
+        (``WorkflowModel.parameters``, saved with it)."""
+        self.parameters = dict(params)
+        return self
+
+    def validate(self, suppress=()) -> list:
         """The pre-flight graph rules (``lint.check_workflow``: TMG1xx,
         and TMG7xx when a reader is set) before any data is read: a list
         of ``lint.Finding``; gate on it with ``lint.enforce``."""
@@ -411,13 +431,16 @@ class Workflow:
         seconds: Dict[str, float] = {}
         fit_state: Dict[str, Any] = {}
         self._warm_matched = 0
-        if self._workflow_cv:
-            self._fit_dag_workflow_cv(result_features, dag, train, test,
-                                      fitted, dev, dtype, seconds,
-                                      fit_state)
-        else:
-            self._fit_dag(dag, train, test, fitted, dev, dtype, seconds,
-                          fit_state=fit_state)
+        with telemetry.span("workflow:train", layers=len(dag),
+                            rows=train.n_rows,
+                            workflow_cv=self._workflow_cv):
+            if self._workflow_cv:
+                self._fit_dag_workflow_cv(result_features, dag, train,
+                                          test, fitted, dev, dtype,
+                                          seconds, fit_state)
+            else:
+                self._fit_dag(dag, train, test, fitted, dev, dtype,
+                              seconds, fit_state=fit_state)
         train_time = time.perf_counter() - t0
         if self._warm_fit_stats and not self._warm_matched:
             logger.warning("train: the warm-start sufficient statistics "
@@ -427,6 +450,7 @@ class Workflow:
                     len(dag), train_time,
                     " [workflow-level CV]" if self._workflow_cv else "")
         model = WorkflowModel(result_features, fitted, dag,
+                              parameters=self.parameters,
                               train_time_s=train_time,
                               stage_seconds=seconds,
                               stage_metrics=self._stage_metrics,
@@ -477,45 +501,12 @@ class Workflow:
         the transformed splits."""
         for li, layer in enumerate(dag):
             n_before = len(fitted)
-            stats, fused, pass_info = self._layer_stats_pass(
-                li, layer, train, dev, dtype, fit_state)
-            models: List[Transformer] = []
-            for stage in layer:
-                metrics = self._stage_metrics.setdefault(
-                    stage.uid, {"stageName": stage.stage_name()})
-                if isinstance(stage, Estimator):
-                    model = self._fit_stage(
-                        stage, train, dev, dtype, metrics, seconds,
-                        stats if stage.uid in fused else None)
-                    if stage.uid in fused:
-                        # the pass's seconds, shared by the stages it fed
-                        seconds[stage.uid] += \
-                            pass_info["seconds"] / len(fused)
-                        metrics["statsPass"] = pass_info
-                    fitted[stage.uid] = model
-                    if model.has_test_eval() and test is not None:
-                        model.evaluate_model(test, **_device_kw(model, dev))
-                    models.append(model)
-                elif isinstance(stage, Transformer):
-                    models.append(stage)
-                else:
-                    raise WorkflowError(f"Unfittable stage {stage!r}")
-            if transform_last or li < len(dag) - 1:
-                tt = time.perf_counter()
-                info: Dict[str, Any] = {}
-                tier = self._tier("transform_tier")
-                train = apply_layer(models, train, dev, seconds, info=info,
-                                    tier=tier)
-                if test is not None:
-                    test = apply_layer(models, test, dev, seconds,
-                                       tier=tier)
-                for m in models:
-                    metrics = self._stage_metrics.setdefault(
-                        m.uid, {"stageName": m.stage_name()})
-                    metrics["layerTransformSeconds"] = round(
-                        time.perf_counter() - tt, 4)
-                    if info:
-                        metrics["fusedTransform"] = info
+            telemetry.emit("layer_start", index=li, n_stages=len(layer))
+            with telemetry.span("fit:layer", layer=li, stages=len(layer),
+                                rows=train.n_rows):
+                train, test = self._fit_layer(
+                    li, layer, len(dag), train, test, fitted, dev, dtype,
+                    seconds, transform_last, fit_state)
             if checkpoint and self._checkpoint_dir \
                     and len(fitted) > n_before:
                 from .model_io import _atomic_checkpoint
@@ -524,6 +515,57 @@ class Workflow:
                     self._checkpoint_dir)
                 logger.info("layer %d: checkpointed %d fitted stage(s) to "
                             "%s", li, len(fitted), self._checkpoint_dir)
+        return train, test
+
+    def _fit_layer(self, li: int, layer, n_layers: int, train: ColumnStore,
+                   test: Optional[ColumnStore],
+                   fitted: Dict[str, FittedModel], dev, dtype,
+                   seconds: Dict[str, float], transform_last: bool,
+                   fit_state: Optional[Dict[str, Any]]
+                   ) -> Tuple[ColumnStore, Optional[ColumnStore]]:
+        """One layer of :meth:`_fit_dag`: its statistics pass, its
+        estimators' fits into ``fitted``, then both splits transformed
+        (the last layer only with ``transform_last``)."""
+        stats, fused, pass_info = self._layer_stats_pass(
+            li, layer, train, dev, dtype, fit_state)
+        models: List[Transformer] = []
+        for stage in layer:
+            metrics = self._stage_metrics.setdefault(
+                stage.uid, {"stageName": stage.stage_name()})
+            if isinstance(stage, Estimator):
+                model = self._fit_stage(
+                    stage, train, dev, dtype, metrics, seconds, li,
+                    stats if stage.uid in fused else None)
+                if stage.uid in fused:
+                    # the pass's seconds, shared by the stages it fed
+                    seconds[stage.uid] += pass_info["seconds"] / len(fused)
+                    metrics["statsPass"] = pass_info
+                fitted[stage.uid] = model
+                if model.has_test_eval() and test is not None:
+                    model.evaluate_model(test, **_device_kw(model, dev))
+                models.append(model)
+            elif isinstance(stage, Transformer):
+                models.append(stage)
+            else:
+                raise WorkflowError(f"Unfittable stage {stage!r}")
+        if transform_last or li < n_layers - 1:
+            tt = time.perf_counter()
+            info: Dict[str, Any] = {}
+            tier = self._tier("transform_tier")
+            with telemetry.span("fit:transform_layer", layer=li,
+                                stages=len(models)):
+                train = apply_layer(models, train, dev, seconds, info=info,
+                                    tier=tier)
+                if test is not None:
+                    test = apply_layer(models, test, dev, seconds,
+                                       tier=tier)
+            for m in models:
+                metrics = self._stage_metrics.setdefault(
+                    m.uid, {"stageName": m.stage_name()})
+                metrics["layerTransformSeconds"] = round(
+                    time.perf_counter() - tt, 4)
+                if info:
+                    metrics["fusedTransform"] = info
         return train, test
 
     def _fit_dag_workflow_cv(self, result_features, dag: StagesDAG,
@@ -632,9 +674,15 @@ class Workflow:
             n_stages=n_scanning)
         state_out: Dict[str, Any] = {}
         t0 = time.perf_counter()
-        stats = plan.run(train, state_out=state_out, warm_state=warm,
-                         workflow_device=dev, dtype=dtype,
-                         tier_hint=self._tier("fitstats_tier"))
+        with telemetry.span("fit:stats_pass", layer=li, stages=n_scanning,
+                            requests=plan.n_requests, rows=train.n_rows):
+            stats = plan.run(train, state_out=state_out, warm_state=warm,
+                             workflow_device=dev, dtype=dtype,
+                             tier_hint=self._tier("fitstats_tier"))
+        telemetry.emit("stats_pass", layer=li, n_stages=n_scanning,
+                       n_requests=plan.n_requests,
+                       passes_saved=n_scanning - 1,
+                       seconds=time.perf_counter() - t0)
         info = {"tier": plan.tier, "stages": n_scanning,
                 "requests": plan.n_requests,
                 "seconds": time.perf_counter() - t0,
@@ -649,11 +697,13 @@ class Workflow:
 
     def _fit_stage(self, stage: Estimator, train: ColumnStore, dev, dtype,
                    metrics: Dict[str, Any], seconds: Dict[str, float],
-                   stats=None) -> FittedModel:
+                   li: int, stats=None) -> FittedModel:
         """The estimator's fitted model: the warm-start stage of its uid
         (a shallow copy rewired to this DAG, so the donor model's stages
         stay as they are), else a fit on ``train``, from the layer's
-        ``stats`` where the statistics pass fed it."""
+        ``stats`` where the statistics pass fed it. A fit's seconds are
+        all execute seconds: the port compiles nothing
+        (``telemetry.compile_clock_s``)."""
         warm = self._warm_stages.get(stage.uid)
         if warm is not None:
             model = _copy.copy(warm)
@@ -662,6 +712,9 @@ class Workflow:
             metrics["warmStarted"] = True
             metrics["fitSeconds"] = 0.0
             seconds[stage.uid] = 0.0
+            telemetry.emit("stage_fit", uid=stage.uid,
+                           stage_name=stage.stage_name(), fit_s=0.0,
+                           warm_started=True)
             logger.info("%s [%s] warm-started", stage.stage_name(),
                         stage.uid)
             return model
@@ -669,14 +722,20 @@ class Workflow:
         if kw:
             kw["dtype"] = dtype
         ts = time.perf_counter()
-        if stats is not None:
-            model = stage.fit(train, stats=stats)
-            metrics["fusedStats"] = True
-        else:
-            model = stage.fit(train, **kw)
+        with telemetry.span("fit:stage", uid=stage.uid,
+                            stage=stage.stage_name(), layer=li,
+                            fused=stats is not None):
+            if stats is not None:
+                model = stage.fit(train, stats=stats)
+                metrics["fusedStats"] = True
+            else:
+                model = stage.fit(train, **kw)
         fit_s = time.perf_counter() - ts
         seconds[stage.uid] = fit_s
         metrics["fitSeconds"] = round(fit_s, 4)
+        telemetry.emit("stage_fit", uid=stage.uid,
+                       stage_name=stage.stage_name(), fit_s=fit_s,
+                       compile_s=0.0, execute_s=fit_s)
         return model
 
 
@@ -757,7 +816,7 @@ class WorkflowModel:
         from .insights import ModelInsights
         return ModelInsights.extract(self, pred_feature, store, device)
 
-    def check(self, device: bool = True, suppress=()) -> list:
+    def validate(self, device: bool = True, suppress=()) -> list:
         """The pre-flight over the fitted model (``lint.check_model``):
         the graph rules, with the unfitted-estimator and dead-stage rules,
         and with ``device`` the TMG2xx shape propagation on the meta
