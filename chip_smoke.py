@@ -240,7 +240,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    200,000 rows scored through the engine against the layer path, rows/s
    and graphs captured), each at 2,000 rows on the card and the CPU (the
    same winner; every family's fold RMSE within 1e-4 relative, F1 within
-   ``MLP_AGREE``); every-surface-200k (``every_surface.py``: 200,000
+   ``MLP_AGREE``); every-surface-100k (``every_surface.py``: 100,000
    records, seed 13, through every new DSL surface → SanityChecker → LR
    and GBT at one grid point, the MLP at its default grid, 3-fold CV;
    counted: GBT's fits must launch the tree kernels; ``random.categorical``'s
@@ -276,8 +276,8 @@ Run from the repository root on a machine with one NVIDIA H100:
    from pageable and pinned memory and the device-to-device copy rate,
    beside the card's name and power limit.
 15. telemetry at text-200k (:func:`telemetry_phase`): phase 4's records
-   through the runner, Train four times in turns with telemetry off and
-   on (the same model and kernel launches every time; the trace's spans
+   through the runner, Train twice, telemetry off then on (the same model
+   and kernel launches both times; the trace's spans
    nested ``run:Train`` ⊃ ``workflow:train`` ⊃ ``fit:layer`` ⊃ the
    statistics pass, the stage fits and the layer transforms; bytes
    scanned; one trace shard that merges), Evaluate with telemetry on
@@ -287,6 +287,30 @@ Run from the repository root on a machine with one NVIDIA H100:
    statistics phases' CUDA-event device seconds, each within the wall
    seconds of its spans; the f32 and bf16 shares) and the Train seconds
    off and on, beside the card's name and power limit.
+16. out-of-core ingest at ooc-1m (:func:`ooc_phase`): 1,000,000
+   BigPassenger records (text-200k's schema and widths) written as 10
+   Avro shards of 100,000 on a process pool, one seed each, and a 20,000
+   record holdout. In a fresh process text-200k's workflow is trained
+   through ``OpWorkflowRunner`` with ``streamFit`` false on all of them;
+   in another with ``streamFit`` null (auto), ``streamFitPasses`` 1 and
+   ``rssCapMb`` at 0.8 of the first's peak RSS: the streamed fold's
+   statistics over the 1,000,000 rows bitwise the device pass's over the
+   materialized store, a 262,144-row subsample, the peak RSS under the
+   cap, the streamed leg's median RSS step a file over the last 500,000
+   ingested rows at most 0.25 of the materialized leg's, the holdout AuPR
+   within 0.02, one ``level_epilogue`` and one ``group_rows`` a level in
+   both. Then StreamingScore of 200,000 records in 20 Avro files and one
+   cut short, with a ``quarantineLocation``, at ``pipelineWorkers`` 1 and
+   4: the cut file quarantined, the predictions bitwise equal to each
+   other and to a plain Score, ``predict_trees`` launched; a
+   ``stream.score_batch`` fault on batch 3 quarantines that batch alone,
+   a ``scoring.device_dispatch`` fault raises. Last, the streamed fit at 20,000 rows in 4 shards (a
+   subsample of 8,192) on the card and the CPU: the same winner, fold
+   metrics within 1e-4. Rows/s, the legs' peak RSS and Train seconds
+   and the phase's seconds, beside the card's name and power limit.
+   Phase 11 also runs the temporal directory tier
+   (``join_aggregate_directory`` at 1 and 4 workers, bitwise the row-wise
+   fold, events/s).
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
 boston-200k, mapprep-200k, mapprep-guarded-200k and eventlog-200k) once
@@ -311,7 +335,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–15).
+over the main paths' runs, phases 3–16).
 ``--serve-export-only`` runs phase 7 (without its comparison with phase
 4's AuPR) and phase 12 alone, and prints no result line.
 ``--every-surface-only`` runs phase 13 alone and prints no result line.
@@ -319,6 +343,8 @@ over the main paths' runs, phases 3–15).
 over the models it trains) and prints no result line.
 ``--telemetry-only`` makes phase 4's records and runs phase 15 alone, and
 prints no result line.
+``--ooc-only`` runs phase 16 alone and prints no result line (it starts
+its two training legs as ``chip_smoke.py --ooc-leg <spec>``).
 """
 import json
 import math
@@ -2912,11 +2938,27 @@ def bench_event_log(DP, root):
         fail("event log: a file did not decode by the columnar path")
     same_store(row, col, [f.name for f in feats],
                "event log: row-wise against columnar")
+    # the directory tier: decode, join and filter each file inside the
+    # ordered worker pool, one fold after the merge
+    dir_s = {}
+    for w in (1, 4):
+        t0 = time.perf_counter()
+        got = temporal.join_aggregate_directory(
+            work, feats, temporal.table_from_records(users), ts,
+            temporal.field("user"), cutoff_ms=DP.CUTOFF, pattern="*.avro",
+            workers=w)
+        dir_s[w] = time.perf_counter() - t0
+        same_store(row, got, [f.name for f in feats],
+                   f"event log: the directory tier at {w} worker(s) "
+                   "against the row-wise fold")
     print(f"event log (bench.py's: {BENCH_FILES} Avro files x "
           f"{BENCH_FILE_ROWS} rows, {BENCH_USERS} users): written in "
           f"{write_s:.2f} s; decode + join + aggregate row-wise {row_s:.3f} s"
           f" = {rows / row_s:,.0f} events/s, columnar {col_s:.3f} s = "
-          f"{rows / col_s:,.0f} events/s ({row_s / col_s:.2f}x); {row.n_rows}"
+          f"{rows / col_s:,.0f} events/s ({row_s / col_s:.2f}x), the "
+          f"directory tier (join_aggregate_directory) at 1 worker "
+          f"{dir_s[1]:.3f} s = {rows / dir_s[1]:,.0f} events/s, at 4 "
+          f"{dir_s[4]:.3f} s = {rows / dir_s[4]:,.0f} events/s; {row.n_rows}"
           f" keys, every column's values and mask bitwise equal")
     shutil.rmtree(work, ignore_errors=True)
 
@@ -3761,10 +3803,12 @@ def timings(H, dev, BP, run):
 
 
 # -- phase 13: the remaining estimators and the rich DSL -----------------
-#: every-surface-200k's records, and the rows of each card/CPU agreement
+#: every-surface-100k's records (cut from 200,000 to make room for phase
+#: 16), and the rows of each card/CPU agreement
+SURFACE_N = 100_000
 SURFACE_SEED = 13
 SURFACE_AGREE_N = 2_000
-#: every-surface-200k's records compared engine against layer path
+#: every-surface-100k's records compared engine against layer path
 SURFACE_SERVE_N = 20_000
 #: taggers-20k's records: both packages tag one Python call a token on
 #: the host (NER ~0.7 ms and POS ~0.3 ms a 20-token note), so this path
@@ -3979,7 +4023,7 @@ def surface_agreement(ES, dev="cuda"):
 
 
 def surface_path(H, TF, ES, root, dev="cuda"):
-    """every-surface-200k: the rich-DSL workflow trained on 200,000
+    """every-surface-100k: the rich-DSL workflow trained on 100,000
     records with every launch counted (GBT's histogram, scan and epilogue
     kernels), its stage and family seconds, LDA's and Word2Vec's fits,
     Word2Vec's pairs, chunk and peak memory, the width, winner, AuPR and
@@ -3996,8 +4040,8 @@ def surface_path(H, TF, ES, root, dev="cuda"):
     from transmogrifai_tpu_torch.ops import topics as TP
     t0 = time.perf_counter()
     check_gumbel_noise(dev)
-    raw = ES.make_raw(N, SURFACE_SEED)
-    print(f"every-surface-200k: {N} records made in "
+    raw = ES.make_raw(SURFACE_N, SURFACE_SEED)
+    print(f"every-surface-100k: {SURFACE_N} records made in "
           f"{time.perf_counter() - t0:.2f} s")
     t0_store = time.perf_counter()
     store = ES.raw_store(raw)
@@ -4012,32 +4056,33 @@ def surface_path(H, TF, ES, root, dev="cuda"):
             ("cumhist", "group_rows", "split_scan", "level_epilogue"))
     finally:
         TP.w2v_train = inner
-    once_per_level(launches, "every-surface-200k")
+    once_per_level(launches, "every-surface-100k")
     model, s = out["model"], out["summary"]
     aupr, brier = out["metrics"]["AuPR"], out["bin_score"]["BrierScore"]
     if not (0.5 < aupr <= 1.0 and 0.0 < brier < 0.25):
-        fail(f"every-surface-200k: AuPR {aupr} / Brier {brier} out of range")
+        fail(f"every-surface-100k: AuPR {aupr} / Brier {brier} out of range")
     st = out["workflow"]["stages"]
     fit = {k: model.stage_metrics.get(st[k].origin_stage.uid, {}).get(
         "fitSeconds") for k in ("counts_vec", "topics", "embedding")}
-    print(f"every-surface-200k {N} records: store {store_s:.2f} s, train "
+    print(f"every-surface-100k {SURFACE_N} records: store {store_s:.2f} s, "
+          f"train "
           f"{out['train_s']:.2f} s, "
           f"evaluate {out['eval_s']:.2f} s, width {out['width']}, best "
           f"{s.best_model_name} {s.best_model_params}, AuPR {aupr:.6f}, "
           f"Brier {brier:.6f}; CV seconds by family "
           f"{s.validator_summary.family_seconds}")
-    print(f"every-surface-200k fits: count vectorizer {fit['counts_vec']} "
+    print(f"every-surface-100k fits: count vectorizer {fit['counts_vec']} "
           f"s, LDA {fit['topics']} s, Word2Vec {fit['embedding']} s "
           f"(training {stats.get('train_s', 0.0):.2f} s: "
           f"{stats.get('pairs')} pairs, {stats.get('chunk_pairs')} a chunk, "
           f"{stats.get('chunks_per_epoch')} chunks an epoch, peak "
           f"{stats.get('peak_bytes', 0) / 2**20:.1f} MiB over the "
           f"allocations before it)")
-    print(f"every-surface-200k training launches: {launches}")
-    stage_table(model, "every-surface-200k")
+    print(f"every-surface-100k training launches: {launches}")
+    stage_table(model, "every-surface-100k")
 
     # the prediction alone as the result (the same fitted stages): the
-    # engine's fused program, timed over the 200,000 records; then the
+    # engine's fused program, timed over the 100,000 records; then the
     # model as trained, whose tupled columns are host stages that read
     # the prediction (so nothing upstream of them fuses), and the layer
     # path, each on SURFACE_SERVE_N records: the host stages dominate
@@ -4088,7 +4133,7 @@ def surface_path(H, TF, ES, root, dev="cuda"):
             fail(f"every-surface serve: tupled {part} differs")
     print(f"every-surface serve: Score of the loaded model, prediction "
           f"alone, through the engine {score_s:.2f} s = "
-          f"{N / score_s:,.0f} records/s; plan "
+          f"{SURFACE_N / score_s:,.0f} records/s; plan "
           f"{ {k: sorted(v) for k, v in plan.items()} }; host stages "
           f"{sorted(host)}; graphs {eng.graphs_captured}; on "
           f"{SURFACE_SERVE_N} records a replay, the layer path and the "
@@ -4100,15 +4145,15 @@ def surface_path(H, TF, ES, root, dev="cuda"):
     torch.cuda.synchronize()
     launches = dict(H.KERNEL_LAUNCHES)
     if not launches["predict_trees"]:
-        fail("every-surface-200k: predict_trees never launched")
+        fail("every-surface-100k: predict_trees never launched")
     print(f"every-surface GBT refit on {SURFACE_SERVE_N} records (so "
           f"predict_trees runs whichever family won): AuPR {refits}; "
           f"launches over training, serving and the refit: {launches}")
     if not fold0:
-        fail("every-surface-200k: the selector's CV kept no fold")
+        fail("every-surface-100k: the selector's CV kept no fold")
     worst = check_mapprep_kernels(H, TF, dev, fold0.pop("X"),
                                   fold0.pop("y"),
-                                  "every-surface-200k CV fold 0")
+                                  "every-surface-100k CV fold 0")
     surface_agreement(ES, dev)
     return launches, time.perf_counter() - t0, worst
 
@@ -4129,9 +4174,9 @@ def tagger_path(ES, dev="cuda"):
 
 
 def rich_dsl_paths(H, TF, BO, IR, root, dev="cuda"):
-    """Phase 13: boston-glm-200k, iris-mlp-200k, every-surface-200k and
+    """Phase 13: boston-glm-200k, iris-mlp-200k, every-surface-100k and
     taggers-20k, with each path's seconds. Returns ({path: launches},
-    each kernel's max abs error at every-surface-200k's fold shapes)."""
+    each kernel's max abs error at every-surface-100k's fold shapes)."""
     from transmogrifai_tpu_torch import every_surface as ES
     data_dir = os.path.join(root, "build", "data")
     seconds, launches_by = {}, {}
@@ -4141,7 +4186,7 @@ def rich_dsl_paths(H, TF, BO, IR, root, dev="cuda"):
                                                         root, dev))):
         out, launches = counted(H, fn, ())
         seconds[name], launches_by[name] = out, launches
-    (launches_by["every-surface-200k"], seconds["every-surface-200k"],
+    (launches_by["every-surface-100k"], seconds["every-surface-100k"],
      worst) = surface_path(H, TF, ES, root, dev)
     out, launches_by["taggers-20k"] = counted(H, lambda: tagger_path(ES,
                                                                      dev), ())
@@ -4482,10 +4527,9 @@ def telemetry_phase(H, BP, records, text_aupr, card, dev="cuda"):
     """Phase 15, telemetry at text-200k: BigPassenger's 200,000 records
     through ``OpWorkflowRunner``.
 
-    (a) Train four times in turns, telemetry off, on, off, on (the on
-    runs with ``customParams.telemetry``, a ``traceLocation`` and a
-    ``traceDir``): every model's state digest and every Train's kernel
-    launches equal; the first on-run's trace parses and nests
+    (a) Train twice, telemetry off then on (the on run with
+    ``customParams.telemetry``, a ``traceLocation`` and a ``traceDir``):
+    both models' state digests and both Trains' kernel launches equal; the first on-run's trace parses and nests
     ``run:Train`` ⊃ ``workflow:train`` ⊃ ``fit:layer`` ⊃
     ``fit:stats_pass`` / ``fit:stage`` / ``fit:transform_layer`` on one
     track, ``fitstats.bytes_scanned`` > 0, one shard written that
@@ -4535,7 +4579,7 @@ def telemetry_phase(H, BP, records, text_aupr, card, dev="cuda"):
     telemetry.reset_device_cost()
     H.reset_launch_counts()
     trains = []
-    for i, on in enumerate((False, True, False, True)):
+    for i, on in enumerate((False, True)):
         p = params(f"train{i}", on)
         if on:
             p.custom_params["traceDir"] = os.path.join(work, f"shards{i}")
@@ -4546,7 +4590,7 @@ def telemetry_phase(H, BP, records, text_aupr, card, dev="cuda"):
     digests = {tr.model.scoring_engine(dev, plan=None).state_digest()
                for _on, _s, tr, _p in trains}
     if len(digests) != 1:
-        fail(f"telemetry-200k: {len(digests)} different models from four "
+        fail(f"telemetry-200k: {len(digests)} different models from two "
              "Trains (telemetry off and on)")
     tree_launches = [tr.metrics["trees"]["launches"]
                      for _on, _s, tr, _p in trains]
@@ -4572,7 +4616,7 @@ def telemetry_phase(H, BP, records, text_aupr, card, dev="cuda"):
           f"{summ['fittedStages']} stages fitted, {summ['statsPasses']} "
           f"statistics passes ({summ['fitPassesSaved']} passes saved); "
           f"shard {shards[0]} merged ({len(merged['traceEvents'])} events)")
-    print(f"telemetry-200k Train launches, each of the four: "
+    print(f"telemetry-200k Train launches, each of the two: "
           f"{tree_launches[0]}")
 
     ev = runner.run(RunType.EVALUATE, params("evaluate", True))
@@ -4608,8 +4652,6 @@ def telemetry_phase(H, BP, records, text_aupr, card, dev="cuda"):
     with open(os.path.join(work, "score.trace.json")) as fh:
         score_trace = json.load(fh)
     on_traces = [train_trace]
-    with open(trains[3][3].trace_location) as fh:
-        on_traces.append(json.load(fh))
     device_pass_s = sum(
         e["dur"] for t in on_traces for e in t["traceEvents"]
         if e["ph"] == "X" and e["name"] == "fit:stats_pass"
@@ -4644,11 +4686,9 @@ def telemetry_phase(H, BP, records, text_aupr, card, dev="cuda"):
           f"{len(text):,} bytes, {len(fams)} families, scoring_rows_scored "
           f"{rows:,.0f}; predictions bitwise equal with telemetry off; "
           f"Evaluate AuPR {aupr:.6f}")
-    off = [s for on, s, _tr, _p in trains if not on]
-    on_s = [s for on, s, _tr, _p in trains if on]
-    print(f"telemetry-200k Train seconds ({card}), in turns off/on/off/on: "
-          f"off {off[0]:.3f}, {off[1]:.3f}; on {on_s[0]:.3f}, "
-          f"{on_s[1]:.3f} (host seconds, not gated)")
+    print(f"telemetry-200k Train seconds ({card}), off then on: "
+          f"off {trains[0][1]:.3f}, on {trains[1][1]:.3f} (host seconds, "
+          "not gated)")
     launches = dict(H.KERNEL_LAUNCHES)
     missing = [k for k in TELEMETRY_KERNELS if launches[k] == 0]
     if missing:
@@ -4659,7 +4699,568 @@ def telemetry_phase(H, BP, records, text_aupr, card, dev="cuda"):
     return launches
 
 
+#: phase 16, ooc-1m: BigPassenger records as Avro shards (one seed each)
+OOC_ROWS, OOC_SHARDS, OOC_SEED = 1_000_000, 10, 1600
+OOC_HOLDOUT, OOC_HOLDOUT_SEED = 20_000, 1599
+#: the streamed fit's subsample (``workflow.STREAM_SAMPLE_ROWS``' default)
+OOC_SAMPLE = 262_144
+#: the streamed leg's peak RSS cap, as a share of the materialized leg's:
+#: below it, with room for the streamed leg's fixed part (the card's
+#: context and the Train on the 262,144-row subsample: 60% of the
+#: materialized peak)
+OOC_RSS_SHARE = 0.8
+#: the bound's scale check: over the last 500,000 ingested rows, the
+#: median step of the streamed leg's RSS from one file to the next is at
+#: most this share of the materialized leg's (a stream that kept its
+#: records would step as much). The median, since the allocator grows
+#: the heap in single jumps a file's worth or larger
+OOC_RSS_STEP_SHARE = 0.25
+#: holdout AuPR of the streamed model within this of the materialized
+#: model's (the JAX package's own out-of-core proof, ``bench.py``)
+OOC_AUPR_TOL = 0.02
+#: StreamingScore's directory: 20 files of 10,000 records and one cut short
+STREAM_FILES, STREAM_FILE_ROWS, STREAM_SEED = 20, 10_000, 1700
+#: card against CPU: 20,000 rows in 4 shards, a subsample of 8,192
+OOC_AGREE_ROWS, OOC_AGREE_SHARDS, OOC_AGREE_SAMPLE = 20_000, 4, 8_192
+OOC_KERNELS = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
+               "level_epilogue", "predict_trees")
+
+
+def _write_shard(job):
+    """Process-pool worker: synthesize one shard's BigPassenger records
+    from its seed and write them as an Avro container."""
+    path, n, seed = job
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from transmogrifai_tpu_torch import big_passenger as BP
+    from transmogrifai_tpu_torch.readers.avro import write_avro_records
+    write_avro_records(path, BP.synthesize_records(n, seed=seed))
+    return path
+
+
+def write_shards(pool, jobs):
+    """Write every (path, rows, seed) shard on the process pool."""
+    for fp in pool.map(_write_shard, jobs):
+        if not os.path.getsize(fp):
+            fail(f"ooc-1m: empty shard {fp}")
+
+
+def state_hex(states):
+    """SufficientStats by column as exact hex floats (bitwise compare)."""
+    return {nm: [float(v).hex() for v in (st.count, st.mean, st.m2,
+                                          st.min, st.max)]
+            for nm, st in sorted(states.items())}
+
+
+def rss_now_mb():
+    """This process's resident set now (``VmRSS`` of ``/proc/self/status``),
+    in MB."""
+    with open("/proc/self/status") as fh:
+        for ln in fh:
+            if ln.startswith("VmRSS:"):
+                return round(int(ln.split()[1]) / 1024.0, 1)
+    fail("no VmRSS in /proc/self/status")
+
+
+class RssPeak:
+    """This process's own peak resident set in MB: ``VmRSS`` sampled every
+    ``period_s`` on a daemon thread, and at each :meth:`read`. Not
+    ``ru_maxrss``: a process started by ``subprocess`` carries its parent's
+    high-water mark across the fork and the exec, so in the whole script
+    each leg's ``ru_maxrss`` reads at least the parent's peak."""
+
+    def __init__(self, period_s=0.01):
+        import threading
+        self.mb = rss_now_mb()
+        self._period_s = period_s
+        self._stop = threading.Event()
+        threading.Thread(target=self._run, name="rss-peak",
+                         daemon=True).start()
+
+    def _run(self):
+        while not self._stop.wait(self._period_s):
+            self.mb = max(self.mb, rss_now_mb())
+
+    def read(self):
+        self.mb = max(self.mb, rss_now_mb())
+        return self.mb
+
+    def stop(self):
+        self._stop.set()
+
+
+def ooc_leg(spec):
+    """One leg of phase 16 in a fresh process (``--ooc-leg``): text-200k's
+    workflow trained through ``OpWorkflowRunner`` on the shard directory,
+    its kernel launches counted, its model's digest, its holdout AuPR,
+    Train s and peak RSS (:class:`RssPeak`; ``ru_maxrss`` beside it)
+    printed as one ``OOC_LEG`` JSON line, with where the RSS went: before
+    the run (the card's context up), after each file the ingest consumed,
+    the peak at the ingest's end.
+    ``spec["mode"]``: "materialized" (``streamFit`` false: the directory
+    reader's ``read_records``; the full store's device-pass statistics of
+    the fold's columns) or "streamed" (``streamFit`` null with
+    ``rssCapMb``: the out-of-core fit at ``streamFitPasses`` 1)."""
+    peak = RssPeak()
+    from transmogrifai_tpu_torch import big_passenger as BP
+    from transmogrifai_tpu_torch import fitstats, telemetry
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.models import _hist as H
+    from transmogrifai_tpu_torch.ops.hashing import load_native
+    from transmogrifai_tpu_torch.readers import DirectoryStreamReader
+    from transmogrifai_tpu_torch.readers.avro import read_avro_records
+    from transmogrifai_tpu_torch.runner import (OpParams, OpWorkflowRunner,
+                                                RunType)
+    from transmogrifai_tpu_torch.workflow import (Workflow,
+                                                  _raw_features_of,
+                                                  _raw_store,
+                                                  _stream_fold_columns)
+    dev = torch.device(spec["dev"])
+    if dev.type == "cuda":
+        H.build_kernels()
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+    load_native()
+    holdout = read_avro_records(spec["holdout"])
+    rss = {"probes": []}
+
+    class Kept(DirectoryStreamReader):
+        """The directory reader, keeping what ``read_records`` read, and
+        the RSS after each file the ingest consumed: [rows so far, MB]."""
+
+        rows = 0
+        streaming = False
+
+        def probe(self, n):
+            self.rows += n
+            rss["probes"].append([self.rows, rss_now_mb()])
+
+        def _take_next(self):
+            recs = super()._take_next()
+            if recs and not self.streaming:
+                self.probe(len(recs))
+            return recs
+
+        def stream(self, *a, **kw):
+            self.streaming = True
+            try:
+                for batch in super().stream(*a, **kw):
+                    yield batch
+                    self.probe(len(batch))
+            finally:
+                self.streaming = False
+
+        def read_records(self):
+            self.records = super().read_records()
+            rss["ingest_peak_mb"] = peak.read()
+            return self.records
+
+    survived, _checked, selector, prediction = BP.build_selection()
+    wf = (Workflow().set_result_features(prediction)
+          .set_splitter(selector.splitter))
+
+    stream_raw_store = wf._stream_raw_store
+
+    def stream_ingest(*a):
+        """The streamed ingest, then its high-water mark (before the fit)."""
+        out = stream_raw_store(*a)
+        rss["ingest_peak_mb"] = peak.read()
+        return out
+
+    wf._stream_raw_store = stream_ingest
+
+    def train(custom, model_dir):
+        reader = Kept(spec["dir"], settle_s=0.0)
+        runner = OpWorkflowRunner(wf, training_reader=reader, device=dev)
+        rss["base_mb"] = rss_now_mb()
+        rss["startup_peak_mb"] = peak.read()
+        H.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = runner.run(RunType.TRAIN, OpParams(
+            model_location=model_dir, custom_params=custom))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(H.KERNEL_LAUNCHES)
+        model = out.model
+        ev = Evaluators.BinaryClassification.auPR().set_columns(
+            survived, prediction)
+        aupr = model.evaluate(holdout, ev, device=dev)["AuPR"]
+        summ = model.fitted_stages[selector.uid].selector_summary
+        return {"digest": model.scoring_engine(dev, plan=None)
+                .state_digest(), "aupr": aupr, "train_s": train_s,
+                "launches": launches, "train_rows": model.train_rows,
+                "best": f"{summ.best_model_name} {summ.best_model_params}",
+                "ingest_s": model.phase_seconds.get("ingest")}, wf, reader
+
+    if spec["mode"] == "materialized":
+        res, wf, reader = train({"streamFit": False}, spec["model"])
+        raw = _raw_store(reader.records,
+                         _raw_features_of(wf.result_features))
+        cols = _stream_fold_columns(raw)
+        _b, states = fitstats._device_moment_bundles(
+            raw, {c: {"count": [()]} for c in cols}, dev, torch.float32)
+        res.update(rows=raw.n_rows, states=state_hex(states))
+    else:
+        custom = {"streamFit": None, "rssCapMb": spec["rss_cap_mb"],
+                  "streamFitPasses": 1}
+        res, wf, _reader = train(custom, spec["model"])
+        res.update(states=state_hex(wf._stream_state or {}),
+                   stream_rows=list(wf._stream_rows))
+    res["peak_rss_mb"] = peak.read()
+    peak.stop()
+    res["ru_maxrss_mb"] = telemetry.peak_rss_mb()
+    res["rss"] = rss
+    print("OOC_LEG " + json.dumps(res))
+    return 0
+
+
+def run_leg(spec):
+    """Run :func:`ooc_leg` in a fresh interpreter; its parsed result."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--ooc-leg",
+         json.dumps(spec)], capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("OOC_LEG ")]
+    if proc.returncode != 0 or len(lines) != 1:
+        sys.stderr.write(proc.stderr[-6000:])
+        fail(f"ooc-1m: the {spec['mode']} leg exited {proc.returncode}")
+    res = json.loads(lines[0][len("OOC_LEG "):])
+    res["process_s"] = time.perf_counter() - t0
+    return res
+
+
+def sink_rows(path):
+    """The rows a StreamingScore or Score wrote to a CSV sink (a float's
+    text is its shortest round-trip repr, so equal rows are bitwise equal
+    predictions)."""
+    with open(path) as fh:
+        return fh.read().splitlines()
+
+
+def streaming_score_runs(H, model_dir, score_dir, work, records, card,
+                         dev):
+    """(d) StreamingScore over ``score_dir`` (20 good files and one cut
+    short) at ``pipelineWorkers`` 1 and 4 with a ``quarantineLocation``,
+    against a plain Score of the same records; (e) a ``stream.score_batch``
+    fault on batch 3 quarantined alone, a ``scoring.device_dispatch``
+    fault raised out of the run. Returns the launches of the streamed
+    runs, their rows/s and the written rows."""
+    from transmogrifai_tpu_torch import resilience
+    from transmogrifai_tpu_torch.readers import (DataReaders,
+                                                 DirectoryStreamReader)
+    from transmogrifai_tpu_torch.runner import (OpParams, OpWorkflowRunner,
+                                                RunType)
+
+    def run(workers, name, plan=None):
+        reader = DirectoryStreamReader(score_dir, settle_s=0.0)
+        runner = OpWorkflowRunner(None, scoring_reader=reader, device=dev)
+        params = OpParams(
+            model_location=model_dir,
+            write_location=os.path.join(work, f"{name}.csv"),
+            quarantine_location=os.path.join(work, f"{name}.dead.jsonl"),
+            custom_params={"pipelineWorkers": workers,
+                           "maxBatches": STREAM_FILES})
+        t0 = time.perf_counter()
+        if plan is None:
+            out = runner.run(RunType.STREAMING_SCORE, params)
+        else:
+            with resilience.fault_plan(plan):
+                out = runner.run(RunType.STREAMING_SCORE, params)
+        torch.cuda.synchronize()
+        return out.metrics, time.perf_counter() - t0, params
+
+    H.reset_launch_counts()
+    runs = {w: run(w, f"stream-w{w}") for w in (1, 4)}
+    torch.cuda.synchronize()
+    launches = dict(H.KERNEL_LAUNCHES)
+    if launches["predict_trees"] == 0:
+        fail("ooc-1m StreamingScore: predict_trees never launched")
+    n = STREAM_FILES * STREAM_FILE_ROWS
+    written = {}
+    for w, (m, secs, params) in runs.items():
+        if (m["rowsScored"], m["quarantinedFiles"], m["batches"],
+                m["quarantinedBatches"]) != (n, 1, STREAM_FILES, 0):
+            fail(f"ooc-1m StreamingScore at {w} worker(s): {m}")
+        if m["pipelineWorkers"] != w:
+            fail(f"ooc-1m StreamingScore pipelineWorkers "
+                 f"{m['pipelineWorkers']}, asked {w}")
+        dead = resilience.Quarantine(params.quarantine_location).entries()
+        if [(e["site"], e["kind"]) for e in dead] != [
+                ("stream.read_file", "files")]:
+            fail(f"ooc-1m StreamingScore quarantine: {dead}")
+        written[w] = sink_rows(params.write_location)
+    if written[1] != written[4]:
+        fail("ooc-1m StreamingScore: predictions differ between 1 and 4 "
+             "workers")
+    plain = OpWorkflowRunner(None, scoring_reader=DataReaders.simple.records(
+        records), device=dev)
+    plain_out = os.path.join(work, "score.csv")
+    plain.run(RunType.SCORE, OpParams(model_location=model_dir,
+                                      write_location=plain_out))
+    if sink_rows(plain_out) != written[1]:
+        fail("ooc-1m StreamingScore: predictions differ from a plain "
+             "Score of the same records")
+    rates = {w: n / runs[w][1] for w in runs}
+    m1 = runs[1][0]
+    print(f"ooc-1m StreamingScore ({card}): {n:,} records in "
+          f"{STREAM_FILES} files + "
+          f"1 truncated file quarantined; workers 1: {runs[1][1]:.2f} s "
+          f"({rates[1]:,.0f} rows/s), workers 4: {runs[4][1]:.2f} s "
+          f"({rates[4]:,.0f} rows/s); predictions bitwise equal to each "
+          f"other and to Score; prefetch depth {m1['prefetchDepth']}, "
+          f"starvations {m1['pipelineStarvations']}, buffer reuses "
+          f"{m1['bufferReuses']}; launches {launches}")
+
+    # (e) faults: a poison batch is quarantined alone; a device fault raises
+    plan = resilience.FaultPlan().on("stream.score_batch", at=[3])
+    m, _s, params = run(1, "stream-fault", plan)
+    if (m["quarantinedBatches"], m["rowsScored"]) != (
+            1, n - STREAM_FILE_ROWS):
+        fail(f"ooc-1m stream.score_batch fault: {m}")
+    got = sink_rows(params.write_location)
+    # the header, then batch k's rows at 1 + k·rows
+    lo, hi = 1 + 3 * STREAM_FILE_ROWS, 1 + 4 * STREAM_FILE_ROWS
+    if got != written[1][:lo] + written[1][hi:]:
+        fail("ooc-1m stream.score_batch fault: the other batches differ")
+    dead = [e for e in resilience.Quarantine(
+        params.quarantine_location).entries() if e["kind"] == "batches"]
+    if [(e["index"], e["rows"]) for e in dead] != [(3, STREAM_FILE_ROWS)]:
+        fail(f"ooc-1m stream.score_batch fault quarantined {dead}")
+    before = resilience.resilience_stats()["quarantined_batches"]
+    # the first chunk of batch 3 (a batch runs in chunks of the engine's
+    # largest bucket)
+    from transmogrifai_tpu_torch.scoring import DEFAULT_BUCKET_CAP
+    chunks = -(-STREAM_FILE_ROWS // DEFAULT_BUCKET_CAP)
+    plan = resilience.FaultPlan().on("scoring.device_dispatch",
+                                     at=[3 * chunks])
+    try:
+        run(4, "stream-device-fault", plan)
+    except OSError as e:
+        if not resilience.is_device_failure(e):
+            fail(f"ooc-1m device fault raised unmarked: {e!r}")
+    else:
+        fail("ooc-1m: a scoring.device_dispatch fault did not raise")
+    if resilience.resilience_stats()["quarantined_batches"] != before:
+        fail("ooc-1m: a device fault was quarantined")
+    print(f"ooc-1m faults: a stream.score_batch fault on batch 3 "
+          f"quarantined that batch alone (the other {n - STREAM_FILE_ROWS:,}"
+          f" predictions bitwise); a scoring.device_dispatch fault on "
+          f"batch 3 raised out of the run, nothing quarantined")
+    return launches, rates
+
+
+def ooc_small(H, BP, directory, holdout, dev, passes=(2,)):
+    """Streamed fits at OOC_AGREE_ROWS rows on ``dev``, one a directory
+    pass count in ``passes``, of one workflow (so their digests compare):
+    the smaller grid of phase 4's agreement, the subsample
+    OOC_AGREE_SAMPLE rows. Each fit's summary, holdout metrics, model
+    digest and fold states."""
+    from transmogrifai_tpu_torch import workflow as PW
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.readers import DirectoryStreamReader
+    from transmogrifai_tpu_torch.synthetic_trees import default_families
+    from transmogrifai_tpu_torch.workflow import Workflow
+    survived, _c, selector, prediction = BP.build_selection(
+        default_families((3,), (3,), rounds=5), num_folds=2)
+    wf = (Workflow().set_result_features(prediction)
+          .set_splitter(selector.splitter))
+    ev = Evaluators.BinaryClassification.auPR().set_columns(survived,
+                                                            prediction)
+    out = []
+    for p in passes:
+        wf.set_reader(DirectoryStreamReader(directory, settle_s=0.0))
+        prev = PW.set_stream_fit(stream=True, passes=p,
+                                 sample_rows=OOC_AGREE_SAMPLE)
+        try:
+            model = wf.train(device=dev)
+        finally:
+            PW.set_stream_fit(**prev)
+        if wf._stream_rows != (OOC_AGREE_ROWS, OOC_AGREE_SAMPLE):
+            fail(f"ooc-20k on {dev}: streamed rows {wf._stream_rows}")
+        out.append({
+            "summary": model.fitted_stages[selector.uid].selector_summary,
+            "metrics": model.evaluate(holdout, ev, device=dev),
+            "digest": model.scoring_engine(dev, plan=None).state_digest(),
+            "states": state_hex(wf._stream_state)})
+    return out
+
+
+def ooc_phase(H, BP, card, dev="cuda"):
+    """Phase 16, ooc-1m: out-of-core ingest on the card.
+
+    1,000,000 BigPassenger records (text-200k's schema and widths) as 10
+    Avro shards of 100,000, one seed each, written on a process pool, and
+    a 20,000-record holdout. (a) A fresh process trains text-200k's
+    workflow through ``OpWorkflowRunner`` with ``streamFit`` false on all
+    of them (the directory reader's ``read_records``) and computes the
+    full store's device-pass statistics of the streamed fold's columns.
+    (b) Another fresh process trains it with ``streamFit`` null and
+    ``rssCapMb`` at OOC_RSS_SHARE of (a)'s peak RSS: the fold's states
+    bitwise (a)'s, the subsample OOC_SAMPLE rows, the peak RSS under the
+    cap, the holdout AuPR within OOC_AUPR_TOL of (a)'s, one
+    ``level_epilogue`` and one ``group_rows`` a level. (d), (e)
+    :func:`streaming_score_runs` with (b)'s model. (f) The streamed fit
+    at 20,000 rows (4 shards, a subsample of 8,192) on the card and the
+    CPU: the same winner, fold metrics within 1e-4; (c) on the card at
+    ``streamFitPasses`` 1 and 2: the same model digest and fold states.
+    Returns the phase's launches (the legs', the streamed scores' and the
+    20,000-row card fits')."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    from transmogrifai_tpu_torch.readers.avro import read_avro_records
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "ooc")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "shards")
+    small = os.path.join(work, "shards-20k")
+    score_dir = os.path.join(work, "score")
+    for d in (data, small, score_dir, os.path.join(work, "holdout")):
+        os.makedirs(d)
+    holdout_fp = os.path.join(work, "holdout", "holdout.avro")
+    per = OOC_ROWS // OOC_SHARDS
+    jobs = [(os.path.join(data, f"part-{i:02d}.avro"), per, OOC_SEED + i)
+            for i in range(OOC_SHARDS)]
+    jobs.append((holdout_fp, OOC_HOLDOUT, OOC_HOLDOUT_SEED))
+    jobs += [(os.path.join(small, f"part-{i:02d}.avro"),
+              OOC_AGREE_ROWS // OOC_AGREE_SHARDS, OOC_SEED + i)
+             for i in range(OOC_AGREE_SHARDS)]
+    jobs += [(os.path.join(score_dir, f"part-{i:02d}.avro"),
+              STREAM_FILE_ROWS, STREAM_SEED + i)
+             for i in range(STREAM_FILES)]
+    t0 = time.perf_counter()
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        write_shards(pool, jobs)
+    gen_s = time.perf_counter() - t0
+    # one file cut short in the middle of the scoring directory
+    cut = os.path.join(score_dir, f"part-{STREAM_FILES // 4:02d}")
+    with open(cut + ".avro", "rb") as fh:
+        blob = fh.read()
+    with open(cut + "-cut.avro", "wb") as fh:
+        fh.write(blob[:len(blob) * 3 // 5])
+    print(f"ooc-1m data: {OOC_ROWS:,} records in {OOC_SHARDS} shards, "
+          f"{OOC_HOLDOUT:,} holdout, {STREAM_FILES * STREAM_FILE_ROWS:,} "
+          f"to score, {OOC_AGREE_ROWS:,} for the agreement, written in "
+          f"{gen_s:.2f} s on {workers} processes")
+
+    spec = {"dir": data, "holdout": holdout_fp, "dev": dev}
+    mat = run_leg(dict(spec, mode="materialized",
+                       model=os.path.join(work, "model-materialized")))
+    cap = round(OOC_RSS_SHARE * mat["peak_rss_mb"], 1)
+    st = run_leg(dict(spec, mode="streamed", rss_cap_mb=cap,
+                      model=os.path.join(work, "model-streamed")))
+    for what, leg in (("materialized", mat), ("streamed", st)):
+        missing = [k for k in OOC_KERNELS if leg["launches"][k] == 0]
+        if missing:
+            fail(f"ooc-1m {what} leg never launched {missing}")
+        once_per_level(leg["launches"], f"ooc-1m {what} leg")
+        print(f"ooc-1m {what} leg ({card}): Train {leg['train_s']:.2f} s "
+              f"(ingest {leg['ingest_s']}), process {leg['process_s']:.2f} "
+              f"s, peak RSS {leg['peak_rss_mb']:.1f} MB, {leg['train_rows']:,}"
+              f" training rows, best {leg['best']}, holdout AuPR "
+              f"{leg['aupr']:.6f}, launches {leg['launches']}")
+    if mat["rows"] != OOC_ROWS:
+        fail(f"ooc-1m: the materialized leg read {mat['rows']} rows")
+    if st["stream_rows"] != [OOC_ROWS, OOC_SAMPLE]:
+        fail(f"ooc-1m: streamed rows {st['stream_rows']}")
+    if st["states"] != mat["states"]:
+        bad = [nm for nm in mat["states"]
+               if st["states"].get(nm) != mat["states"][nm]]
+        fail(f"ooc-1m: the streamed fold's states differ from the device "
+             f"pass's over the full store: {bad}")
+    if not st["peak_rss_mb"] < cap:
+        fail(f"ooc-1m: streamed peak RSS {st['peak_rss_mb']} MB not under "
+             f"rssCapMb {cap}")
+    growth, step = {}, {}
+    for what, leg in (("materialized", mat), ("streamed", st)):
+        probes = leg["rss"]["probes"]
+        at = dict((r, mb) for r, mb in probes)
+        if OOC_ROWS // 2 not in at or OOC_ROWS not in at:
+            fail(f"ooc-1m {what} leg: no RSS probe at {OOC_ROWS // 2:,} and "
+                 f"{OOC_ROWS:,} rows: {probes}")
+        growth[what] = at[OOC_ROWS] - at[OOC_ROWS // 2]
+        step[what] = float(np.median([
+            b[1] - a[1] for a, b in zip(probes, probes[1:])
+            if a[0] >= OOC_ROWS // 2]))
+        print(f"ooc-1m {what} leg RSS ({card}): {leg['rss']['base_mb']:.1f} "
+              f"MB before the run, {at[OOC_ROWS // 2]:.1f} MB at "
+              f"{OOC_ROWS // 2:,} rows ingested, {at[OOC_ROWS]:.1f} MB at "
+              f"{OOC_ROWS:,}; peak {leg['rss']['startup_peak_mb']:.1f} MB "
+              f"before the run, {leg['rss']['ingest_peak_mb']:.1f} MB at "
+              f"the ingest's end, {leg['peak_rss_mb']:.1f} MB at the end "
+              f"(ru_maxrss {leg['ru_maxrss_mb']:.1f} MB); by file "
+              f"{leg['rss']['probes']}")
+    if not step["streamed"] <= OOC_RSS_STEP_SHARE * step["materialized"]:
+        fail(f"ooc-1m: the streamed leg's RSS stepped a median "
+             f"{step['streamed']:.1f} MB a file over the last "
+             f"{OOC_ROWS // 2:,} rows, against {step['materialized']:.1f} MB "
+             f"materialized")
+    d_aupr = abs(st["aupr"] - mat["aupr"])
+    if not d_aupr <= OOC_AUPR_TOL:
+        fail(f"ooc-1m: holdout AuPR {st['aupr']} against {mat['aupr']}")
+    print(f"ooc-1m ({card}): the fold's states over {OOC_ROWS:,} rows "
+          f"bitwise the device pass's ({len(st['states'])} columns); "
+          f"subsample {OOC_SAMPLE:,}; peak RSS streamed "
+          f"{st['peak_rss_mb']:.1f} MB < rssCapMb {cap} "
+          f"({OOC_RSS_SHARE:g} of the materialized {mat['peak_rss_mb']:.1f}"
+          f" MB); over the last {OOC_ROWS // 2:,} rows RSS grew "
+          f"{growth['streamed']:.1f} MB streamed (median step "
+          f"{step['streamed']:.1f} MB a file), "
+          f"{growth['materialized']:.1f} MB materialized (median step "
+          f"{step['materialized']:.1f}); holdout |dAuPR| "
+          f"{d_aupr:.6f}; "
+          f"{OOC_ROWS / st['train_s']:,.0f} rows/s streamed Train, "
+          f"{OOC_ROWS / mat['train_s']:,.0f} materialized")
+
+    score_records = [r for i in range(STREAM_FILES)
+                     for r in read_avro_records(
+                         os.path.join(score_dir, f"part-{i:02d}.avro"))]
+    stream_launches, _rates = streaming_score_runs(
+        H, os.path.join(work, "model-streamed"), score_dir, work,
+        score_records, card, dev)
+
+    holdout = read_avro_records(holdout_fp)
+    H.reset_launch_counts()
+    two_pass, one_pass = ooc_small(H, BP, small, holdout, dev, (2, 1))
+    runs = {"cuda": two_pass}
+    torch.cuda.synchronize()
+    small_launches = dict(H.KERNEL_LAUNCHES)
+    if (one_pass["digest"], one_pass["states"]) != (
+            runs["cuda"]["digest"], runs["cuda"]["states"]):
+        fail("ooc-20k: streamFitPasses 1 and 2 trained different models")
+    runs["cpu"] = ooc_small(H, BP, small, holdout, "cpu")[0]
+    agree_metric(runs, "AuPR", 1e-4,
+                 f"ooc-20k ({OOC_AGREE_SHARDS} shards, subsample "
+                 f"{OOC_AGREE_SAMPLE:,})")
+    print(f"ooc-20k on the card: streamFitPasses 1 and 2 the same model "
+          f"digest and fold states")
+    launches = {k: (mat["launches"][k] + st["launches"][k]
+                    + stream_launches[k] + small_launches[k])
+                for k in H.KERNEL_LAUNCHES}
+    print(f"ooc-1m launches: {launches}")
+    print(f"phase 16: {time.perf_counter() - t_phase:.2f} s ({card})")
+    return launches
+
+
+def phase_seconds(n, t0):
+    """Print phase ``n``'s wall seconds since ``t0``; the time now."""
+    t = time.perf_counter()
+    print(f"phase {n}: {t - t0:.2f} s")
+    return t
+
+
 def main():
+    if "--ooc-leg" in sys.argv[1:]:
+        # one leg of phase 16 in its own process (its spec names the device)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return ooc_leg(json.loads(sys.argv[sys.argv.index("--ooc-leg") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -4717,9 +5318,14 @@ def main():
     if "--telemetry-only" in sys.argv[1:]:
         telemetry_phase(H, BP, BP.synthesize_records(N, seed=42), None, card)
         return 0
+    if "--ooc-only" in sys.argv[1:]:
+        ooc_phase(H, BP, card)
+        return 0
 
+    t_ph = time.perf_counter()
     rows = check_kernels(H, TF, dev)
     path_launches = {}
+    t_ph = phase_seconds(2, t_ph)
 
     # -- phase 3: the synthetic tree sweep, every launch counted ----------
     tree_kernels = ("cumhist", "group_rows", "split_scan", "level_epilogue",
@@ -4740,6 +5346,7 @@ def main():
                   families=default_families((3, 6), (3, 6)))
            for d in ("cuda", "cpu")}, "synthetic sweep, 20000 rows")
 
+    t_ph = phase_seconds(3, t_ph)
     # -- phase 4: the BigPassenger workflow, every launch counted ---------
     t0 = time.perf_counter()
     records = BP.synthesize_records(N, seed=42)
@@ -4774,6 +5381,7 @@ def main():
                      families=default_families((3,), (3,), rounds=5))
            for d in ("cuda", "cpu")}, "BigPassenger, 2000 rows")
 
+    t_ph = phase_seconds(4, t_ph)
     # -- phase 5: rf-200k, the random forest and decision tree sweep -----
     out, launches = counted(H, lambda: run(N, device="cuda",
                                            families=forest_families()),
@@ -4795,6 +5403,7 @@ def main():
                   families=forest_families((3, 6), num_trees=5))
            for d in ("cuda", "cpu")}, "rf-200k, 20000 rows (RF 5 trees, DT)")
 
+    t_ph = phase_seconds(5, t_ph)
     # -- phase 6: titanic with the default families ------------------------
     out, launches = counted(H, lambda: TT.run(device="cuda"),
                             tree_kernels + ("cumhist_sparse01",))
@@ -4817,10 +5426,12 @@ def main():
            for d in ("cuda", "cpu")},
           "titanic, one grid point a family")
 
+    t_ph = phase_seconds(6, t_ph)
     # -- phase 7: save, load and serve (the runner, the scoring engine) --
     path_launches["serve-200k"], score_col = serve(H, BP, records, text_aupr,
                                                    profile=profile)
 
+    t_ph = phase_seconds(7, t_ph)
     # -- phase 8: multiclass and regression (iris, boston) ---------------
     wide = check_multiclass_kernels(H, dev)
     data_dir = os.path.join(root, "build", "data")
@@ -4829,6 +5440,7 @@ def main():
     (path_launches["serve-iris"],
      path_launches["serve-iris-coded"]) = serve_iris(H, iris, root)
 
+    t_ph = phase_seconds(8, t_ph)
     # -- phase 9: every feature type; mapprep-200k ------------------------
     t0 = time.perf_counter()
     check_every_type()
@@ -4859,12 +5471,14 @@ def main():
     path_launches["serve-export"] = serve_export(H, records, score_col)
     check_predict_op(H, dev)
 
+    t_ph = time.perf_counter()
     # -- phase 13: GLM, the MLP and the rich DSL --------------------------
     surface_launches, worst = rich_dsl_paths(H, TF, BO, IR, root)
     path_launches.update(surface_launches)
     for name, err in worst.items():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
 
+    t_ph = phase_seconds(13, t_ph)
     # -- phase 14: the pre-flight, the planner and the run summary --------
     path_launches["plan-200k"] = plan_phase(H, BP, TT, records, text_aupr,
                                             titanic_out, card)
@@ -4872,6 +5486,9 @@ def main():
     # -- phase 15: telemetry at text-200k ---------------------------------
     path_launches["telemetry-200k"] = telemetry_phase(H, BP, records,
                                                       text_aupr, card)
+
+    # -- phase 16: out-of-core ingest at ooc-1m ---------------------------
+    path_launches["ooc-1m"] = ooc_phase(H, BP, card)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

@@ -805,6 +805,40 @@ def test_runner_installs_the_aggregate_hint_and_raises_tmg405(tmp_path):
     assert temporal.aggregate_tier_hint() is None
 
 
+def test_runner_installs_the_ingest_hint_and_raises_tmg405(tmp_path):
+    """A database that measured materializing faster: ``streamFit`` null
+    (auto) follows it during the run and the hint is gone after; a pinned
+    ``streamFit: true`` contradicting it is a TMG405 warning (failOn
+    warning stops the run), as in the JAX package's runner."""
+    from transmogrifai_tpu_torch import workflow as pworkflow
+    db_path = str(tmp_path / "cost.json")
+    db = CostDatabase(path=db_path)
+    db.record_stage("phase:workflow.ingest", "stream", 0.9, 100_000)
+    db.record_stage("phase:workflow.ingest", "materialize", 0.1, 100_000)
+    db.save()
+    assert planner.ingest_route_tier(CostDatabase.load(db_path)) \
+        == "materialize"
+    wf, _ = _flow()
+    seen = {}
+
+    class Reader(_CountingReader):
+        def read_records(self):
+            seen["hint"] = pworkflow._INGEST_TIER_HINT
+            return super().read_records()
+    runner = _runner(wf, training_reader=Reader(_records()))
+    runner.run(RunType.TRAIN, OpParams(
+        model_location=str(tmp_path / "m"),
+        custom_params={"costDb": db_path}))
+    assert seen["hint"] == "materialize"
+    assert pworkflow._INGEST_TIER_HINT is None
+    with pytest.raises(lint.LintError, match="TMG405"):
+        runner.run(RunType.TRAIN, OpParams(
+            model_location=str(tmp_path / "m"),
+            custom_params={"costDb": db_path, "streamFit": True,
+                           "failOn": "warning"}))
+    assert pworkflow._INGEST_TIER_HINT is None
+
+
 def test_plan_workflow_before_the_fit():
     wf, _ = _flow()
     plan = planner.plan_workflow(wf)

@@ -2,7 +2,8 @@
 against the JAX package's on the same files and records: the
 header-inferring CSV reader, Parquet, Avro, the time filter and the
 filtered reader, the joined readers and the factories; ``stream_score``
-equal to scoring each batch on its own; and the dataprep walkthrough's
+equal to scoring each batch on its own, and its poison batches
+quarantined; and the dataprep walkthrough's
 rows equal to ``examples/dataprep.py``'s."""
 import os
 import sys
@@ -196,11 +197,38 @@ def test_stream_score_equals_scoring_each_batch(small_model, overlap):
                                   getattr(want[pred.name], col))
 
 
-def test_stream_score_quarantine_waits_for_its_module(small_model):
-    model, recs, _pred = small_model
-    with pytest.raises(NotImplementedError, match="A6.8"):
-        list(PR.stream_score(model, [recs], on_error="quarantine",
-                             device="cpu"))
+def test_stream_score_quarantine_waits_for_its_module(small_model,
+                                                     tmp_path):
+    """``on_error="quarantine"`` (its module, ``resilience.py``, is
+    ported) sends a failing batch past the first to the dead-letter sink
+    with its records and the stream goes on; the first batch raises; an
+    empty stream yields nothing."""
+    from transmogrifai_tpu_torch import resilience
+    model, recs, pred = small_model
+    batches = [recs[:100], recs[100:200], recs[200:]]
+    sink = str(tmp_path / "dead.jsonl")
+    prev = resilience.set_quarantine(sink)
+    plan = resilience.FaultPlan().on("stream.score_batch", at=[1])
+    try:
+        with resilience.fault_plan(plan):
+            got = list(PR.stream_score(model, batches, overlap=False,
+                                       on_error="quarantine", device="cpu"))
+        with resilience.fault_plan(
+                resilience.FaultPlan().on("stream.score_batch", at=[0])), \
+                pytest.raises(OSError, match="injected"):
+            list(PR.stream_score(model, batches, overlap=False,
+                                 on_error="quarantine", device="cpu"))
+    finally:
+        resilience.set_quarantine(prev)
+    assert len(got) == 2
+    for store, batch in zip(got, (batches[0], batches[2])):
+        want = model.score(batch, device="cpu")
+        assert np.array_equal(store[pred.name].probability,
+                              want[pred.name].probability)
+    (entry,) = resilience.Quarantine(sink).entries()
+    assert (entry["site"], entry["kind"], entry["index"], entry["rows"]) \
+        == ("stream.score_batch", "batches", 1, 100)
+    assert entry["records"] == batches[1]
     assert list(PR.stream_score(model, [], device="cpu")) == []
 
 

@@ -3,7 +3,9 @@ package's: Train → Score → Evaluate → Features on the CPU with the same
 records, the metrics documents' keys, stage-parameter overrides, the
 ``OpApp`` entry, the written CSV, a workflow with the RawFeatureFilter
 and workflow-level CV (the filter's verdict in Train's metrics), and what
-is not ported raising with its ROADMAP queue A item."""
+StreamingScore, the quarantine sink and YAML parameter files running and
+writing what they write, and what is not ported raising with its ROADMAP
+queue A item."""
 import csv
 import json
 import os
@@ -37,11 +39,10 @@ from transmogrifai_tpu_torch.utils import uid as puid
 
 #: metrics-document blocks of the JAX package's runner whose modules are
 #: not ported (ROADMAP queue A: continual, fleet, lifecycle, server and
-#: workload A6.8 (d); parallel/mesh and multi-host A6.6; pipeline A6.5;
-#: resilience A6.8 (b); config's effective knobs A6.8 (c))
+#: workload A6.8 (d); parallel/mesh and multi-host A6.6; config's
+#: effective knobs A6.8 (c))
 NOT_PORTED = {"continual", "effectiveConfig", "fleet", "lifecycle",
-              "mesh", "pipeline", "process", "resilience", "server",
-              "workload"}
+              "mesh", "process", "server", "workload"}
 RUNS = (RunType.TRAIN, RunType.SCORE, RunType.EVALUATE, RunType.FEATURES)
 
 
@@ -195,13 +196,8 @@ def test_the_runner_defaults_to_the_card():
 
 
 UNPORTED = {
-    "streaming": (lambda r, p: r.run(RunType.STREAMING_SCORE, p),
-                  r"item A6\.5"),
-    "quarantine": (lambda r, p: r.run(RunType.TRAIN, OpParams(
-        quarantine_location="q.jsonl")), r"item A6\.8 \(b\)"),
     "mesh": (lambda r, p: r.run(RunType.TRAIN, OpParams(
         custom_params={"meshDevices": 4})), r"item A6\.6"),
-    "yaml": (lambda r, p: OpParams.from_file("p.yaml"), r"item A7"),
 }
 
 
@@ -395,3 +391,133 @@ def test_runner_trains_with_workflow_cv(tmp_path):
             if r.excluded] == ["dead"]
     want = jr.run(RunType.EVALUATE, jp).metrics["AuPR"]
     assert abs(pr.run(RunType.EVALUATE, pp).metrics["AuPR"] - want) < 1e-9
+
+
+def _scores_of(path):
+    with open(path, newline="") as fh:
+        return list(csv.reader(fh))
+
+
+def _run_streaming(runner, params, tmp_path, records):
+    """StreamingScore over the records in batches of 25 with a sink: every
+    row written as Score writes it."""
+    runner.run(RunType.TRAIN, params)
+    params.write_location = str(tmp_path / "stream.csv")
+    params.quarantine_location = str(tmp_path / "dead.jsonl")
+    params.custom_params.update(batchSize=25, pipelineWorkers=2)
+    out = runner.run(RunType.STREAMING_SCORE, params)
+    assert out.metrics["rowsScored"] == len(records)
+    assert out.metrics["batches"] == -(-len(records) // 25)
+    assert out.metrics["quarantinedBatches"] == 0
+    params.write_location = str(tmp_path / "score.csv")
+    runner.run(RunType.SCORE, params)
+    assert _scores_of(tmp_path / "stream.csv") \
+        == _scores_of(tmp_path / "score.csv")
+
+
+def _run_quarantine(runner, params, tmp_path, records):
+    """A poison batch (an injected ``stream.score_batch`` fault on the
+    second) lands in ``quarantineLocation`` with its records; the run
+    scores the rest and counts it in both blocks."""
+    from transmogrifai_tpu_torch import resilience
+    runner.run(RunType.TRAIN, params)
+    params.quarantine_location = str(tmp_path / "dead.jsonl")
+    params.write_location = str(tmp_path / "stream.csv")
+    params.custom_params.update(batchSize=20)
+    plan = resilience.FaultPlan().on("stream.score_batch", at=[1])
+    with resilience.fault_plan(plan):
+        out = runner.run(RunType.STREAMING_SCORE, params)
+    assert out.metrics["quarantinedBatches"] == 1
+    assert out.metrics["resilience"]["quarantined_batches"] == 1
+    assert out.metrics["rowsScored"] == len(records) - 20
+    (entry,) = resilience.Quarantine(params.quarantine_location).entries()
+    assert entry["index"] == 1 and entry["records"] == records[20:40]
+    assert resilience.get_quarantine() is None      # the run's sink is gone
+
+
+def _run_yaml(runner, params, tmp_path, records):
+    """A YAML parameter file reads as the same JSON file does, in both
+    packages, and drives a Train."""
+    yaml = pytest.importorskip("yaml")
+    doc = {"modelLocation": params.model_location,
+           "metricsLocation": params.metrics_location,
+           "customParams": {"streamFitPasses": 1, "plan": False},
+           "stageParams": {}}
+    (tmp_path / "p.yaml").write_text(yaml.safe_dump(doc))
+    (tmp_path / "p.json").write_text(json.dumps(doc))
+    got = OpParams.from_file(str(tmp_path / "p.yaml"))
+    assert got == OpParams.from_file(str(tmp_path / "p.json"))
+    assert got.to_json() == JOpParams.from_file(
+        str(tmp_path / "p.yaml")).to_json()
+    out = runner.run(RunType.TRAIN, got)
+    assert out.metrics["plan"] is None
+    assert json.load(open(params.metrics_location))["rawFeatureFilter"] \
+        is None
+
+
+FORMERLY_UNPORTED = {"streaming": _run_streaming,
+                     "quarantine": _run_quarantine, "yaml": _run_yaml}
+
+
+@pytest.mark.parametrize("what", sorted(FORMERLY_UNPORTED))
+def test_formerly_unported_parts_run_and_write(what, tmp_path):
+    """StreamingScore, the quarantine sink and YAML parameter files (they
+    raised "not ported" until their modules came) each run and write what
+    they write."""
+    records = _records(n=60)
+    runner, params, _pred = _port_runner(records, tmp_path)
+    FORMERLY_UNPORTED[what](runner, params, tmp_path, records)
+
+
+def test_streaming_score_metrics_keys_equal_the_jax_runners(tmp_path):
+    """StreamingScore's metrics document has the JAX runner's keys (but
+    the unported blocks) and the same counts; a malformed key is named
+    before anything is read, in both packages."""
+    records = _records(n=90)
+    runner, params, _pred = _port_runner(records, tmp_path)
+    juid.reset()
+    jwf, jlabel, jpred = _flow(JFB, jtransmogrify, JS, JLR, JWorkflow)
+    jrunner = JRunner(jwf, training_reader=_ListReader(records),
+                      scoring_reader=_ListReader(records))
+    jparams = JOpParams(model_location=str(tmp_path / "jax" / "model"),
+                        custom_params={"batchSize": 40})
+    jrunner.run(RunType.TRAIN, jparams)
+    runner.run(RunType.TRAIN, params)
+    params.custom_params["batchSize"] = 40
+    want = jrunner.run(RunType.STREAMING_SCORE, jparams).metrics
+    got = runner.run(RunType.STREAMING_SCORE, params).metrics
+    assert set(got) == set(want) - NOT_PORTED
+    for key in ("rowsScored", "batches", "batchSize", "overlap",
+                "quarantinedBatches", "quarantinedFiles"):
+        assert got[key] == want[key], key
+    for key, bad in (("maxBatches", 0), ("timeoutS", -1.0),
+                     ("overlap", "yes"), ("pipelineWorkers", "two"),
+                     ("onBatchError", "drop")):
+        p = OpParams(model_location=params.model_location,
+                     custom_params={key: bad})
+        with pytest.raises(ValueError, match=key):
+            runner.run(RunType.STREAMING_SCORE, p)
+
+
+def test_random_param_builder_grids_equal_the_jax_packages():
+    """The same seed gives the same grid points as the JAX package's
+    builder, and a family takes them as its grid."""
+    from transmogrifai_tpu.models.tuning import RandomParamBuilder as JB
+    from transmogrifai_tpu_torch.models import RandomParamBuilder as PB
+
+    def build(B, seed):
+        return (B(seed=seed).exponential("regParam", 1e-4, 1e-1)
+                .uniform("elasticNetParam", 0.0, 1.0)
+                .choice("fitIntercept", [True, False]).build(25))
+
+    for seed in (1, 42):
+        assert build(PB, seed) == build(JB, seed)
+    grid = build(PB, 1)
+    assert {g["fitIntercept"] for g in grid} == {True, False}
+    with pytest.raises(ValueError, match="positive"):
+        PB().exponential("regParam", 0.0, 1.0)
+    with pytest.raises(ValueError, match="at least one"):
+        PB().choice("x", [])
+    fam = PLR(grid=[{k: g[k] for k in ("regParam", "elasticNetParam")}
+                    for g in grid[:3]])
+    assert len(list(fam.grid)) == 3

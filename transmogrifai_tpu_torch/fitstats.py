@@ -54,6 +54,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = [
     "StatRequest", "StatResults", "LayerStatsPlan", "SufficientStats",
+    "StreamingMomentFold",
     "FITSTATS_ENABLED", "FITSTATS_MIN_STAGES", "FITSTATS_CHUNK_ROWS",
     "fitstats_stats", "reset_fitstats_stats", "collect_column_state",
     "sufficient_stats_to_json", "sufficient_stats_from_json",
@@ -438,6 +439,169 @@ def _device_moment_bundles(store, col_kinds: Dict[str, Dict[str, List[Tuple]]],
     return out, states
 
 
+class StreamingMomentFold:
+    """The device fold over row batches as they stream off a directory
+    reader, with no materialized store: host memory stays at the staging
+    chunks.
+
+    Bitwise :func:`_device_moment_bundles` over the same rows, by
+    construction: the batches are re-buffered into exactly the chunks the
+    materialized pass would cut the concatenated rows into —
+    ``FITSTATS_CHUNK_ROWS`` rows once the stream passes one chunk, else
+    the one zero-padded ``_chunk_rows(n)`` chunk — each chunk runs the
+    same :func:`_moment_step` on ``device`` in ``dtype`` at the same shape,
+    and the chunks' partials are Chan-combined on the host in stream
+    order. So :meth:`finalize` gives the :class:`SufficientStats` the
+    materialized device pass reports for the same column set. There is no
+    host tier: a device failure raises (``fitstats.device_pass``).
+
+    Usage: construct with the column names, ``update(batch_store)`` for
+    each streamed batch (a ColumnStore with those columns), then
+    ``finalize()`` once the stream is drained.
+    """
+
+    def __init__(self, columns: Sequence[str], device=None,
+                 dtype: torch.dtype = torch.float32):
+        from .models.base import resolve_device
+        from .pipeline import BufferPool
+        self.columns = sorted(columns)
+        self._k = len(self.columns)
+        self._dev = resolve_device(device)
+        self._dtype = dtype
+        self._np_dtype = np.float64 if dtype == torch.float64 \
+            else np.float32
+        self._pool = BufferPool(max_per_key=4,
+                                pin=self._dev.type == "cuda")
+        self._parts: List[torch.Tensor] = []
+        #: chunks whose upload may still read their staging buffers
+        self._inflight: List[Tuple[List[np.ndarray], Any]] = []
+        self._V: Optional[np.ndarray] = None
+        self._B: Optional[np.ndarray] = None
+        self._fill = 0
+        self._n = 0
+        self._flushed = 0
+
+    @property
+    def n_rows(self) -> int:
+        return self._n
+
+    def _ensure_buffers(self) -> None:
+        if self._V is None:
+            shape = (FITSTATS_CHUNK_ROWS, self._k)
+            self._V = self._pool.take(shape, self._np_dtype)
+            self._B = self._pool.take(shape, bool)
+
+    def _fold_chunk(self, V: np.ndarray, B: np.ndarray,
+                    staged: List[np.ndarray]) -> None:
+        """Upload one full-shaped chunk and fold it on the device; the
+        staging buffers return to the pool once the copy has read them."""
+        from . import resilience
+        resilience.inject("fitstats.device_pass", rows=int(V.shape[0]))
+        card = self._dev.type == "cuda"
+        with telemetry.device_timer("fitstats", self._dev,
+                                    flops=10.0 * V.shape[0] * self._k):
+            Vd = torch.from_numpy(V).to(self._dev, non_blocking=card)
+            Bd = torch.from_numpy(B).to(self._dev, non_blocking=card)
+            self._parts.append(_moment_step(Vd, Bd))
+        if not card:
+            for buf in staged:
+                self._pool.give(buf)
+            return
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self._dev))
+        self._inflight.append((staged, ev))
+        # two chunks in flight at most: the older copy has read its
+        # buffers once its event completes
+        while len(self._inflight) > 1:
+            bufs, old = self._inflight.pop(0)
+            old.synchronize()
+            for buf in bufs:
+                self._pool.give(buf)
+
+    def _flush_full(self) -> None:
+        V, B = self._V, self._B
+        self._V = self._B = None
+        self._fill = 0
+        self._flushed += 1
+        self._fold_chunk(V, B, [V, B])
+
+    def update(self, store) -> None:
+        """Fold one streamed batch (a ColumnStore with the columns)."""
+        if not self.columns:
+            return
+        m = store.n_rows
+        if m == 0:
+            return
+        Vb = np.empty((m, self._k), self._np_dtype)
+        Bb = np.empty((m, self._k), bool)
+        for j, nm in enumerate(self.columns):
+            col = store[nm]
+            Bb[:, j] = col.mask
+            Vb[:, j] = np.where(col.mask, col.values.astype(np.float64), 0.0)
+        off = 0
+        while off < m:
+            if self._fill == FITSTATS_CHUNK_ROWS:
+                # full and more rows follow: only now is it an interior
+                # chunk (a stream of exactly one chunk stays the padded
+                # single chunk)
+                self._flush_full()
+            self._ensure_buffers()
+            take = min(FITSTATS_CHUNK_ROWS - self._fill, m - off)
+            self._V[self._fill:self._fill + take] = Vb[off:off + take]
+            self._B[self._fill:self._fill + take] = Bb[off:off + take]
+            self._fill += take
+            off += take
+        self._n += m
+
+    def finalize(self) -> Dict[str, SufficientStats]:
+        """Drain the fold: each column's full-stream state (the merged
+        partials, what the materialized device pass reports)."""
+        if not self.columns:
+            return {}
+        if self._flushed == 0:
+            # one padded chunk of _chunk_rows(n) rows, as the materialized
+            # pass's single chunk
+            chunk = _chunk_rows(self._n)
+            vp = np.zeros((chunk, self._k), self._np_dtype)
+            bp = np.zeros((chunk, self._k), bool)
+            staged: List[np.ndarray] = []
+            if self._V is not None:
+                vp[:self._fill] = self._V[:self._fill]
+                bp[:self._fill] = self._B[:self._fill]
+                staged = [self._V, self._B]
+                self._V = self._B = None
+            if self._dev.type == "cuda":
+                vp = torch.from_numpy(vp).pin_memory().numpy()
+                bp = torch.from_numpy(bp).pin_memory().numpy()
+            for buf in staged:
+                self._pool.give(buf)
+            self._fold_chunk(vp, bp, [])
+        elif self._V is not None:
+            # the tail chunk, zero-mask-padded to the full shape
+            self._V[self._fill:] = 0
+            self._B[self._fill:] = False
+            self._flush_full()
+        parts = torch.stack(self._parts).cpu().numpy()
+        for bufs, ev in self._inflight:
+            ev.synchronize()
+            for buf in bufs:
+                self._pool.give(buf)
+        self._inflight = []
+        telemetry.settle_device_timers()
+        n_chunks = len(self._parts)
+        _tally("device_passes")
+        _tally("bytes_scanned", int(self._n) * self._k
+               * (np.dtype(self._np_dtype).itemsize + 1))
+        with telemetry.span("fit:psum_merge", chunks=n_chunks,
+                            columns=self._k, sharded=False, streamed=True):
+            cnt, mean, m2, mn, mx = _chan_combine(parts)
+        self._parts = []
+        return {nm: SufficientStats(float(cnt[j]), float(mean[j]),
+                                    float(m2[j]), float(mn[j]),
+                                    float(mx[j]))
+                for j, nm in enumerate(self.columns)}
+
+
 def _col_bytes(col) -> int:
     """Host bytes behind one column (values and a stored mask), the unit
     of ``bytes_scanned``."""
@@ -475,14 +639,26 @@ class LayerStatsPlan:
                     warm_state: Optional[Mapping[str, SufficientStats]]
                     ) -> Dict[str, SufficientStats]:
         """Each column's fresh state Chan-merged with its persisted warm
-        state, where there is one."""
+        state, where there is one, through the ``continual.merge_stats``
+        fault site. A failed merge (a fault, a malformed warm record)
+        leaves that column fresh-only, logged: a warm start is an
+        optimization of the host merge, never a dependency."""
+        from . import resilience
         merged: Dict[str, SufficientStats] = {}
         for nm, fresh in states.items():
             warm = (warm_state or {}).get(nm)
-            if warm is not None:
+            if warm is None:
+                continue
+            try:
+                resilience.inject("continual.merge_stats", column=nm)
                 merged[nm] = warm.merge(fresh)
-                _tally("warm_state_merges")
-                telemetry.counter("fitstats.warm_state_merges").inc()
+            except (OSError, ValueError, TypeError, AttributeError):
+                logger.exception("warm-state merge for column %r failed; "
+                                 "the refit uses fresh-slice stats for it",
+                                 nm)
+                continue
+            _tally("warm_state_merges")
+            telemetry.counter("fitstats.warm_state_merges").inc()
         return merged
 
     @staticmethod
@@ -503,7 +679,9 @@ class LayerStatsPlan:
             state_out: Optional[Dict[str, SufficientStats]] = None,
             warm_state: Optional[Mapping[str, SufficientStats]] = None,
             workflow_device=None, dtype: torch.dtype = torch.float32,
-            tier_hint: Optional[str] = None) -> StatResults:
+            tier_hint: Optional[str] = None,
+            stream_state: Optional[Mapping[str, SufficientStats]] = None
+            ) -> StatResults:
         """Compute every request in one pass.
 
         ``device`` picks the moment kinds' tier (None: the device tier
@@ -516,7 +694,14 @@ class LayerStatsPlan:
         :class:`SufficientStats`; ``warm_state`` maps columns to persisted
         states, each Chan-merged with the fresh one, and the moment
         values of those columns finalize from the merged state (non-moment
-        kinds always compute over ``store``)."""
+        kinds always compute over ``store``).
+
+        ``stream_state`` (the out-of-core fit's) maps columns to the
+        full-stream states a :class:`StreamingMomentFold` folded: a moment
+        request on such a column finalizes from it (bitwise a materialized
+        device pass over every streamed row) and the subsample ``store``
+        is not scanned for it; it persists and warm-merges like a fresh
+        state."""
         from .models.base import resolve_device
         dev = None
 
@@ -534,6 +719,10 @@ class LayerStatsPlan:
                     .setdefault(r.kind, []).append(tuple(r.params))
             else:
                 other.append(r)
+        stream_cols: Dict[str, Dict[str, List[Tuple]]] = {}
+        if stream_state:
+            stream_cols = {nm: moment_cols.pop(nm) for nm in list(moment_cols)
+                           if nm in stream_state}
         if device is None:
             device = self._gate_device(store, workflow_device, tier_hint)
         use_device = bool(moment_cols) and bool(device)
@@ -541,8 +730,14 @@ class LayerStatsPlan:
 
         values: Dict[Tuple, Any] = {}
         touched: Dict[str, int] = {}
-        if moment_cols:
-            if use_device:
+        if moment_cols or stream_cols:
+            if not moment_cols:
+                bundles, states = {}, {}
+            elif use_device:
+                # the device tier's fault site: a fault raises to the
+                # caller (no host tier takes the pass over)
+                from . import resilience
+                resilience.inject("fitstats.device_pass", rows=store.n_rows)
                 bundles, states = _device_moment_bundles(
                     store, moment_cols, target(), dtype)
             else:
@@ -550,6 +745,8 @@ class LayerStatsPlan:
                 for nm, kinds in moment_cols.items():
                     bundles[nm], states[nm] = _host_moment_bundle(
                         store[nm], kinds)
+            for nm in stream_cols:
+                states[nm] = stream_state[nm]
             merged = self._warm_merge(states, warm_state)
             for r in self.requests:
                 if r.kind not in _MOMENT_KINDS:
@@ -557,6 +754,9 @@ class LayerStatsPlan:
                 touched.setdefault(r.column, _col_bytes(store[r.column]))
                 if r.column in merged:
                     values[r.key()] = merged[r.column].finalize(
+                        r.kind, tuple(r.params))
+                elif r.column in stream_cols:
+                    values[r.key()] = stream_state[r.column].finalize(
                         r.kind, tuple(r.params))
                 else:
                     values[r.key()] = \

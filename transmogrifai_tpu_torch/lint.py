@@ -862,8 +862,8 @@ def preflight_device(model, n_rows: int = 8, target=None) -> List[Finding]:
                             " with feature sharding off: "
                             "customParams.featureShards (columns 1/G per "
                             "device, ROADMAP A6.6) and "
-                            "customParams.streamFit (A6.5) are the "
-                            "remedies", stage=m.uid))
+                            "customParams.streamFit (the out-of-core "
+                            "fit) are the remedies", stage=m.uid))
                 store = store.with_column(
                     m.output_name,
                     VectorColumn(OPVector,

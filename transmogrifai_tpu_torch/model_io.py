@@ -432,16 +432,26 @@ def _atomic_checkpoint(model, directory: str) -> None:
     """Write a checkpoint crash-consistently: save into ``<dir>.tmp``,
     then swap it in by renames (the previous save parked at ``<dir>.old``
     until the swap is done). A crash at any point leaves a loadable
-    checkpoint; :func:`_recover_checkpoint` repairs a torn swap."""
+    checkpoint; :func:`_recover_checkpoint` repairs a torn swap. The write
+    rides ``resilience.CHECKPOINT_RETRY`` (a transient filesystem failure
+    does not kill a long fit) behind the ``checkpoint.write`` fault site;
+    the swap carries ``checkpoint.rename``."""
+    from . import resilience
     tmp, old = f"{directory}.tmp", f"{directory}.old"
     # adopt a predecessor's mid-swap save first, so the cleanup below only
     # deletes a torn .tmp or a superseded .old, never the only good save
     _recover_checkpoint(directory)
-    shutil.rmtree(tmp, ignore_errors=True)
-    save_workflow_model(model, tmp, overwrite=True)
+
+    def save_tmp() -> None:
+        resilience.inject("checkpoint.write", directory=directory)
+        shutil.rmtree(tmp, ignore_errors=True)
+        save_workflow_model(model, tmp, overwrite=True)
+
+    resilience.CHECKPOINT_RETRY.call("checkpoint.write", save_tmp)
     shutil.rmtree(old, ignore_errors=True)
     if os.path.exists(directory):
         os.rename(directory, old)
+    resilience.inject("checkpoint.rename", directory=directory)
     os.rename(tmp, directory)
     shutil.rmtree(old, ignore_errors=True)
 

@@ -21,4 +21,5 @@ from .trees import (DecisionTreeFamily, GBTFamily,  # noqa: F401
                     RandomForestFamily, TreeEnsembleModel, XGBoostFamily,
                     tree_model_from_numpy)
 from .tuning import (CrossValidation, DataBalancer,  # noqa: F401
-                     DataCutter, DataSplitter, TrainValidationSplit)
+                     DataCutter, DataSplitter, RandomParamBuilder,
+                     TrainValidationSplit)

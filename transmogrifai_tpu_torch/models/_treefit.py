@@ -122,10 +122,25 @@ def quantile_bin_edges(X: torch.Tensor, n_bins: int) -> torch.Tensor:
     return _fma(v_lo, w_lo, v_hi * w_hi).t().contiguous()
 
 
+#: bytes of the [rows, F, bins] comparison :func:`binarize` holds at once
+#: (a million rows of a 451-wide vector would take ~50 GB in one piece)
+BINARIZE_CHUNK_BYTES = 1 << 30
+
+
 def binarize(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """bin[i, f] = #{edges[f] < x[i, f]} ∈ [0, n_bins−1] (int32); bin ≤ t
-    ⟺ x ≤ edges[f, t], the stored split threshold."""
-    return (X[:, :, None] > edges[None, :, :]).sum(2, dtype=torch.int32)
+    ⟺ x ≤ edges[f, t], the stored split threshold. Rows go in chunks of
+    at most ``BINARIZE_CHUNK_BYTES`` of comparisons (the counts are
+    exact, so the chunking changes no bin)."""
+    n, f = X.shape
+    step = max(1, BINARIZE_CHUNK_BYTES // max(1, 4 * f * edges.shape[1]))
+    if n <= step:
+        return (X[:, :, None] > edges[None, :, :]).sum(2, dtype=torch.int32)
+    out = torch.empty((n, f), dtype=torch.int32, device=X.device)
+    for lo in range(0, n, step):
+        out[lo:lo + step] = (X[lo:lo + step, :, None]
+                             > edges[None, :, :]).sum(2, dtype=torch.int32)
+    return out
 
 
 def _mask_or_none(binary_mask) -> Optional[np.ndarray]:

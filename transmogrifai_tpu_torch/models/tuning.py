@@ -6,7 +6,8 @@ Parity: ``core/.../impl/tuning/*`` — ``Splitter`` / ``DataSplitter`` /
 ``OpTrainValidationSplit``. Folds are 0/1 weight vectors
 over one device-resident (X, y); all randomness is numpy's
 ``default_rng``, seeded as in the JAX package, so the holdout, the
-balancer's sample and the folds are the same rows.
+balancer's sample and the folds are the same rows, and
+:class:`RandomParamBuilder`'s random grids are the same points.
 
 The engine bins the data once per family, then for every fold fits each
 grid point, predicts the training matrix from the fit-time margin cache,
@@ -32,7 +33,7 @@ from .base import ModelFamily, resolve_device, to_f64
 
 __all__ = ["Splitter", "DataSplitter", "DataBalancer", "DataCutter",
            "CrossValidation", "TrainValidationSplit", "ValidationResult",
-           "ValidatorSummary"]
+           "ValidatorSummary", "RandomParamBuilder"]
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +225,56 @@ class DataCutter(Splitter):
                 self._kept_labels, np.arange(len(self._kept_labels))):
             return None                   # the identity needs no mapping
         return [float(v) for v in self._kept_labels]
+
+
+class RandomParamBuilder:
+    """Random hyperparameter grids (RandomParamBuilder.scala): declare a
+    distribution per parameter, then ``build(n)`` draws n grid points for
+    a ModelFamily's ``grid``, from ``np.random.default_rng(seed)`` as the
+    JAX package draws them.
+
+    ``uniform``: a linear range; ``exponential``: log-uniform over
+    positive bounds (the reference's choice for regularization);
+    ``choice``: one of the given values."""
+
+    def __init__(self, seed: int = 42):
+        self.seed = seed
+        self._dists: List[Tuple[str, str, Any]] = []
+
+    def uniform(self, name: str, lo: float, hi: float) -> "RandomParamBuilder":
+        self._dists.append((name, "uniform", (float(lo), float(hi))))
+        return self
+
+    def exponential(self, name: str, lo: float, hi: float
+                    ) -> "RandomParamBuilder":
+        if lo <= 0 or hi <= 0:
+            raise ValueError("exponential bounds must be positive")
+        self._dists.append((name, "exponential", (float(lo), float(hi))))
+        return self
+
+    def choice(self, name: str, values: Sequence[Any]) -> "RandomParamBuilder":
+        if not values:
+            raise ValueError(f"choice({name!r}) needs at least one value")
+        self._dists.append((name, "choice", list(values)))
+        return self
+
+    def build(self, n: int) -> List[Dict[str, Any]]:
+        rng = np.random.default_rng(self.seed)
+        grid = []
+        for _ in range(n):
+            point: Dict[str, Any] = {}
+            for name, kind, spec in self._dists:
+                if kind == "uniform":
+                    lo, hi = spec
+                    point[name] = float(rng.uniform(lo, hi))
+                elif kind == "exponential":
+                    lo, hi = spec
+                    point[name] = float(np.exp(
+                        rng.uniform(np.log(lo), np.log(hi))))
+                else:
+                    point[name] = spec[int(rng.integers(len(spec)))]
+            grid.append(point)
+        return grid
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,11 @@ measurement): ``host`` = bytes a row ÷ :data:`STATIC_HOST_GBPS`;
 Each plan entry says which source (``measured`` / ``static``) decided.
 
 Every plan is a ``plan`` event for the run listeners
-(``telemetry.emit``); the consumer of :func:`ingest_route_tier`, the
-streaming fit, comes with ROADMAP queue A, item A6.5.
+(``telemetry.emit``). :func:`ingest_route_tier` steers the streamed fit's
+auto mode (``streamFit: null``; the runner installs it with
+``workflow.set_stream_fit(ingest_hint=)``), from the
+``phase:workflow.ingest`` observations ``Workflow.train`` makes over a
+directory reader.
 """
 from __future__ import annotations
 
@@ -974,8 +977,8 @@ def aggregate_route_tier(db: Optional[CostDatabase]) -> Optional[str]:
 def ingest_route_tier(db: Optional[CostDatabase]) -> Optional[str]:
     """The measured stream-against-materialize tier of the workflow's
     raw-store ingest (``phase:workflow.ingest``): "stream" or
-    "materialize" when both were measured, else None. Its consumer, the
-    streaming fit's auto mode, comes with ROADMAP A6.5."""
+    "materialize" when both were measured, else None; the streamed fit's
+    auto mode follows it (``workflow.set_stream_fit(ingest_hint=)``)."""
     return _measured_tier(db, "workflow.ingest", "stream", "materialize")
 
 

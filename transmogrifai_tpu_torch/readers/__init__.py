@@ -1,7 +1,7 @@
 """Data readers: host-side ingestion into record dicts and raw feature
-stores, the event-time aggregating and joining readers, and the Avro
-codec. The streaming directory reader comes with ``readers/streaming.py``
-(ROADMAP queue A, item A6.5)."""
+stores, the event-time aggregating and joining readers, the Avro codec
+and the directory-watching stream reader (``DirectoryStreamReader``,
+``readers/streaming.py``)."""
 from .avro import (ColumnarRecords, read_avro_records,  # noqa: F401
                    read_avro_table)
 from .data_readers import (AggregateReader, AvroReader,  # noqa: F401
@@ -11,10 +11,11 @@ from .data_readers import (AggregateReader, AvroReader,  # noqa: F401
                            JoinedDataReader, ParquetReader,
                            TemporalJoinReader, TimeBasedFilter,
                            stream_score)
+from .streaming import DirectoryStreamReader  # noqa: F401
 
 __all__ = ["DataReader", "CSVReader", "CSVAutoReader", "ParquetReader",
            "AvroReader", "AggregateReader", "ConditionalReader",
            "DataReaders", "JoinedDataReader", "JoinedAggregateDataReader",
            "TemporalJoinReader", "TimeBasedFilter", "FilteredReader",
            "CutOffTime", "stream_score", "ColumnarRecords",
-           "read_avro_records", "read_avro_table"]
+           "read_avro_records", "read_avro_table", "DirectoryStreamReader"]

@@ -165,12 +165,15 @@ def _register(schema: Dict[str, Any], named: Dict[str, Any]) -> None:
 
 
 def _read_container(path: str, decode) -> Any:
-    """The one I/O and error ladder both decoders share: the magic
-    check and the poison-file translation — a truncated varint
-    (``IndexError``), a short struct read or a bad deflate stream are all
-    the same :class:`AvroDecodeError` to the caller. Keeping it in one
-    place keeps the two decode paths' error contracts from drifting
-    apart."""
+    """The one I/O and error ladder both decoders share: the
+    ``avro.decode`` fault site, the magic check and the poison-file
+    translation — a truncated varint (``IndexError``), a short struct
+    read or a bad deflate stream are all the same :class:`AvroDecodeError`
+    to the caller, naming the file (the streaming reader's quarantine
+    routes on it). Keeping it in one place keeps the two decode paths'
+    error contracts from drifting apart."""
+    from .. import resilience
+    resilience.inject("avro.decode", path=path)
     with open(path, "rb") as fh:
         data = fh.read()
     if data[:4] != _MAGIC:

@@ -114,6 +114,8 @@ class CSVReader(DataReader):
         self.delimiter = delimiter
 
     def read_records(self) -> List[Dict[str, Any]]:
+        from .. import resilience
+        resilience.inject("csv.decode", path=self.path)
         with open(self.path, newline="") as fh:
             return [{name: (v if v != "" else None)
                      for name, v in zip(self.schema, row)}
@@ -432,7 +434,7 @@ class TemporalJoinReader(DataReader):
         return self.right.key_fn
 
     def read_records(self):
-        from .. import telemetry, temporal
+        from .. import resilience, telemetry, temporal
         left = self.left.read_records()
         right = self.right.read_records()
         lkey = self.key_field or temporal.column_key_of(self._left_key())
@@ -444,15 +446,22 @@ class TemporalJoinReader(DataReader):
         columnar = (temporal._is_table(left) and temporal._is_table(right)
                     and lkey is not None and rkey is not None
                     and temporal.columnar_mode() is not False)
-        if columnar:
-            table = temporal.build_join_table(
-                right, rkey, partitions=self.partitions,
-                table_max_rows=self.table_max_rows)
-        else:
-            table = temporal._DictBuildTable(
+
+        def build():
+            resilience.inject("temporal.join", join_type=self.join_type,
+                              rows=len(right))
+            if columnar:
+                return temporal.build_join_table(
+                    right, rkey, partitions=self.partitions,
+                    table_max_rows=self.table_max_rows)
+            return temporal._DictBuildTable(
                 right, self._right_key(),
                 temporal.join_partitions(self.partitions),
                 temporal.join_table_max_rows(self.table_max_rows))
+
+        # the build is pure compute over records already read, so a
+        # transient failure retries it
+        table = resilience.READER_RETRY.call("temporal.join", build)
         temporal._tally("joins")
         telemetry.counter("temporal.joins").inc()
         with telemetry.span("temporal:join", rows=len(left)):
@@ -491,32 +500,38 @@ class JoinedAggregateDataReader(AggregateReader):
 
 def stream_score(model, batches: Iterable[Sequence[Mapping[str, Any]]],
                  keep_intermediate: bool = False, overlap: Any = "auto",
-                 on_error: Optional[str] = None, device=None):
+                 on_error: Optional[str] = None, device=None,
+                 workers: Optional[int] = None,
+                 prefetch: Optional[int] = None):
     """Incremental scoring over record batches (the StreamingScore run
     type, StreamingReaders.scala analog): yields one scored ColumnStore
     per batch, reusing the fitted DAG.
 
-    ``overlap`` engages the scoring engine's overlapped stream
-    (``scoring.stream_score_overlapped``: the host half of batch k+1
-    runs while batch k runs on the device). ``"auto"`` (the default)
+    ``overlap`` engages the input pipeline of the scoring engine
+    (``scoring.stream_score_overlapped``: host preparation on ``workers``
+    threads with an autotuned prefetch depth capped at ``prefetch``,
+    while the device runs the batches in order). ``"auto"`` (the default)
     takes it when the model's engine serves and the first batch has
     ``scoring.SCORING_MIN_ROWS`` rows; ``True`` / ``False`` force or
-    forbid it. Otherwise each batch is scored on its own
-    (``model.score``). Both give the same stores.
+    forbid it; ``TMOG_PIPELINE=0`` forbids it. Otherwise each batch is
+    scored on its own (``model.score``). Both give the same stores.
 
-    ``on_error``: a failing batch raises. Quarantining poison batches
-    (``"quarantine"``) needs the dead-letter sink of ``resilience.py``,
-    which is not ported (ROADMAP queue A, item A6.8 (b)); asking for it
-    raises ``NotImplementedError``."""
+    ``on_error`` governs poison batches (tf.data's graceful degradation):
+    ``"quarantine"`` sends a batch whose scoring raises to the dead-letter
+    sink (``resilience.quarantine``: the reason and the records
+    themselves) and the stream goes on; ``"raise"`` propagates. The
+    default (None) quarantines when a sink is installed
+    (``resilience.set_quarantine``, the runner's ``quarantineLocation``)
+    and raises without one: a dropped batch whose records land nowhere
+    would be silent loss. The first batch always raises (a head-of-stream
+    failure is a configuration error, not poison), and so does a device
+    failure (``resilience.is_device_failure``)."""
     import itertools
 
-    from .. import telemetry
+    from .. import pipeline as _pipeline
+    from .. import resilience, telemetry
     from ..models.base import resolve_device
-    if on_error not in (None, "raise"):
-        raise NotImplementedError(
-            f"stream_score(on_error={on_error!r}): quarantining batches "
-            "needs the dead-letter sink of resilience.py, which is not "
-            "ported yet (ROADMAP queue A, item A6.8 (b))")
+    on_error = resilience.resolve_on_error(on_error)
     dev = resolve_device(device)
     it = iter(batches)
     first = next(it, None)
@@ -524,7 +539,8 @@ def stream_score(model, batches: Iterable[Sequence[Mapping[str, Any]]],
         return
     chained = itertools.chain([first], it)
     use_overlap = False
-    if overlap is not False and hasattr(model, "scoring_engine"):
+    if overlap is not False and _pipeline.PIPELINE_ENABLED \
+            and hasattr(model, "scoring_engine"):
         from ..scoring import SCORING_MIN_ROWS
         eng = model.scoring_engine(dev)
         use_overlap = eng.enabled() and (
@@ -536,12 +552,22 @@ def stream_score(model, batches: Iterable[Sequence[Mapping[str, Any]]],
         from ..scoring import stream_score_overlapped
         yield from stream_score_overlapped(
             model, chained, keep_intermediate=keep_intermediate,
-            engine=eng, device=dev)
+            engine=eng, device=dev, on_error=on_error, workers=workers,
+            prefetch=prefetch)
         return
-    for batch in chained:
-        with telemetry.span("stream:score_batch", rows=len(batch)):
-            out = model.score(batch, keep_intermediate=keep_intermediate,
-                              device=dev)
+    for i, batch in enumerate(chained):
+        try:
+            resilience.inject("stream.score_batch", index=i,
+                              rows=len(batch))
+            with telemetry.span("stream:score_batch", rows=len(batch)):
+                out = model.score(_pipeline.concrete_batch(batch),
+                                  keep_intermediate=keep_intermediate,
+                                  device=dev)
+        except Exception as e:  # lint: broad-except — the poison-batch policy decides (device failures re-raise)
+            # the records ride in the dead letter: a consumed stream
+            # batch exists nowhere else
+            resilience.quarantine_batch_or_raise(on_error, i, e, batch)
+            continue
         yield out
 
 

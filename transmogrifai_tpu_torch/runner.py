@@ -5,9 +5,10 @@
   (by stage class name or uid, applied reflectively), reader paths,
   model / write / metrics locations and custom parameters, from JSON.
 * ``OpWorkflowRunner`` (``OpWorkflowRunner.scala:296,358-366``): the run
-  types Train (fit, save), Score (load, score, write CSV), Evaluate (load,
-  evaluate) and Features (load, materialize), each writing a metrics
-  document. Runs go to the card unless the runner is given
+  types Train (fit, save), Score (load, score, write CSV), StreamingScore
+  (load, score batch by batch, each batch written and dropped), Evaluate
+  (load, evaluate) and Features (load, materialize), each writing a
+  metrics document. Runs go to the card unless the runner is given
   ``device="cpu"``. The temporal tier's ``customParams``
   (``aggregateColumnar``, ``joinPartitions``, ``joinTableMaxRows``) are
   validated before anything is installed and hold for the run; the
@@ -50,19 +51,38 @@
   document's numbers as ``run_*`` gauges. Every document has the ``mfu``
   block (``telemetry.device_cost_stats``: device seconds by phase while
   telemetry is on) and ``peak_rss_mb``.
-* The out-of-core knobs (``streamFit``, ``streamFitPasses``,
-  ``rssCapMb``) are validated on every run, as in the JAX package; they
-  engage only with a directory stream reader, which is not ported
-  (ROADMAP queue A, item A6.5), so a valid value changes nothing.
+* The out-of-core knobs (``streamFit``: true, false, or null / "auto" for
+  the auto mode; ``streamFitPasses``; ``rssCapMb``) are validated on
+  every run and installed for it (``workflow.set_stream_fit``, restored in
+  ``finally``); they engage with a directory stream reader
+  (``readers.DirectoryStreamReader``) as the training reader. The plan
+  step installs the cost database's measured ingest tier for the auto
+  mode, and a pinned ``streamFit`` that contradicts it is a TMG405.
+* StreamingScore (``OpWorkflowRunner`` StreamingScore, the
+  ``StreamingReaders`` analog): a reader with ``stream()`` (the directory
+  reader: one batch a new file, decoded on ``pipelineWorkers`` threads)
+  or fixed ``batchSize`` slices of ``read_records()``, through
+  ``readers.stream_score``. Its keys, validated before anything is read:
+  ``batchSize``, ``maxBatches``, ``timeoutS``, ``overlap`` (tri-state),
+  ``pipeline`` (false: one worker, no overlap, the per-record Avro
+  decode), ``pipelineWorkers``, ``pipelineDepth`` and ``onBatchError``.
+* The dead-letter sink: ``quarantineLocation`` (or
+  ``customParams.quarantineLocation``) installs a
+  ``resilience.Quarantine`` for the run (the previous sink restored at
+  its end); unreadable stream files and poison batches land there. Every
+  metrics document has the ``resilience`` block (this run's quarantine,
+  retry and fault tallies) and the ``pipeline`` block
+  (``pipeline.pipeline_stats()``).
+* ``OpParams.from_file`` reads JSON, or YAML (``.yaml`` / ``.yml``,
+  PyYAML imported only then).
 * ``OpApp`` (``OpApp.scala``): ``main(argv)`` parses ``--run-type``,
   ``--params``, the locations, ``--fail-on`` and ``--no-validate``, then
   runs.
 
 What the JAX package's runner adds and this one does not have yet raises
 ``NotImplementedError`` naming its ROADMAP queue A item when a run asks
-for it: the StreamingScore run type (A6.5), the quarantine sink (A6.8
-(b)), the mesh knobs (A6.6) and YAML parameter files (A7). Their blocks
-of the metrics document are left out.
+for it: the mesh knobs (A6.6). The blocks of the metrics document whose
+modules are not ported are left out.
 """
 from __future__ import annotations
 
@@ -89,8 +109,6 @@ __all__ = ["OpParams", "RunType", "RunnerResult", "OpWorkflowRunner",
 #: customParams keys of the JAX package's runner whose module is not
 #: ported yet: what they ask for and the ROADMAP queue A item
 _UNPORTED_CUSTOM = {
-    "quarantineLocation": ("the quarantine sink (resilience.py)",
-                           "A6.8 (b)"),
     "meshDevices": ("multi-device runs (parallel/mesh.py)", "A6.6"),
     "meshGridSize": ("multi-device runs (parallel/mesh.py)", "A6.6"),
     "featureShards": ("multi-device runs (parallel/mesh.py)", "A6.6"),
@@ -170,6 +188,37 @@ def _tristate_custom_param(params: "OpParams", key: str) -> Any:
                      f'or "auto", got {raw!r}')
 
 
+def _streaming_knobs(params: "OpParams") -> Dict[str, Any]:
+    """StreamingScore's ``customParams``, each validated (a malformed value
+    raises a ``ValueError`` naming its key): ``batchSize`` (default
+    1,024), ``maxBatches``, ``timeoutS`` (>= 0), ``overlap`` (true, false
+    or "auto", the default), ``pipeline`` (default true),
+    ``pipelineWorkers``, ``pipelineDepth`` and ``onBatchError``
+    ("quarantine" or "raise"; null follows the sink)."""
+    from . import resilience
+    overlap = _tristate_custom_param(params, "overlap")
+    pipe = _tristate_custom_param(params, "pipeline")
+    if pipe == "auto":
+        raise ValueError('customParams.pipeline must be a boolean '
+                         '(true/false), got "auto"')
+    on_error = params.custom_params.get("onBatchError")
+    try:
+        resilience.resolve_on_error(on_error)
+    except ValueError:
+        raise ValueError("customParams.onBatchError must be 'quarantine' "
+                         f"or 'raise', got {on_error!r}") from None
+    batch = _count_custom_param(params, "batchSize")
+    return {"batchSize": 1024 if batch is None else batch,
+            "maxBatches": _count_custom_param(params, "maxBatches"),
+            "timeoutS": _number_custom_param(params, "timeoutS", minimum=0),
+            "overlap": "auto" if overlap is None else overlap,
+            "pipeline": True if pipe is None else pipe,
+            "pipelineWorkers": _count_custom_param(params,
+                                                   "pipelineWorkers"),
+            "pipelineDepth": _count_custom_param(params, "pipelineDepth"),
+            "onBatchError": on_error}
+
+
 @dataclass
 class OpParams:
     """File-driven workflow configuration (OpParams.scala:30-150)."""
@@ -188,18 +237,23 @@ class OpParams:
     #: document's numbers as ``run_*`` gauges); "prometheus" turns
     #: telemetry on
     metrics_format: str = "json"
-    #: the dead-letter sink (not ported: a run that sets it raises)
+    #: the dead-letter sink (JSONL, ``resilience.Quarantine``): unreadable
+    #: stream files and poison batches land here with a reason; installed
+    #: for the run
     quarantine_location: Optional[str] = None
     custom_params: Dict[str, Any] = field(default_factory=dict)
 
     @staticmethod
     def from_file(path: str) -> "OpParams":
-        """Parameters from a JSON file (the JAX package's keys)."""
-        if path.endswith((".yaml", ".yml")):
-            raise _not_ported("YAML parameter files (no YAML reader in "
-                              "this package)", "A7")
+        """Parameters from a JSON file, or a YAML one (``.yaml`` /
+        ``.yml``, read by PyYAML, imported only then), with the JAX
+        package's keys."""
         with open(path) as fh:
-            doc = json.load(fh)
+            if path.endswith((".yaml", ".yml")):
+                import yaml
+                doc = yaml.safe_load(fh)
+            else:
+                doc = json.load(fh)
         return OpParams(
             stage_params=doc.get("stageParams", {}),
             reader_params=doc.get("readerParams", {}),
@@ -247,9 +301,6 @@ class OpParams:
         if self.metrics_format not in ("json", "prometheus"):
             raise ValueError(f"metricsFormat must be 'json' or "
                              f"'prometheus', got {self.metrics_format!r}")
-        if self.quarantine_location:
-            raise _not_ported("the quarantine sink (resilience.py)",
-                              "A6.8 (b)")
         for key, (what, item) in _UNPORTED_CUSTOM.items():
             v = self.custom_params.get(key)
             if v is not None and v is not False and v != "false":
@@ -363,12 +414,19 @@ class OpWorkflowRunner:
             join_partitions=_count_custom_param(params, "joinPartitions"),
             join_table_max_rows=_count_custom_param(params,
                                                     "joinTableMaxRows"))
-        # the out-of-core knobs, validated as the JAX package does; they
-        # engage only with a directory stream reader (ROADMAP queue A,
-        # item A6.5), so a valid value changes nothing here
-        _tristate_custom_param(params, "streamFit")
-        _count_custom_param(params, "streamFitPasses")
-        _number_custom_param(params, "rssCapMb", minimum=1)
+        # the out-of-core knobs: streamFit (true, false, or null / "auto"
+        # for the auto mode), the directory passes and the memory cap;
+        # they engage with a directory stream reader
+        stream = _tristate_custom_param(params, "streamFit")
+        stream_knobs = dict(
+            stream=None if stream == "auto" else stream,
+            passes=_count_custom_param(params, "streamFitPasses"),
+            rss_cap_mb=_number_custom_param(params, "rssCapMb", minimum=1))
+        qloc = (params.quarantine_location
+                or params.custom_params.get("quarantineLocation"))
+        if qloc is not None and not isinstance(qloc, str):
+            raise ValueError("quarantineLocation must be a path string, "
+                             f"got {qloc!r}")
         # run-scoped telemetry: on for this run only, unless it was on
         # before the run
         run_scoped = False
@@ -377,7 +435,8 @@ class OpWorkflowRunner:
             telemetry.enable()
             run_scoped = True
         try:
-            result = self._run(run_type, params, knobs, trace_dir)
+            result = self._run(run_type, params, knobs, stream_knobs, qloc,
+                               trace_dir)
         finally:
             if run_scoped:
                 telemetry.disable()
@@ -385,8 +444,12 @@ class OpWorkflowRunner:
         return result
 
     def _run(self, run_type: str, params: OpParams, knobs: Dict[str, Any],
+             stream_knobs: Dict[str, Any], qloc: Optional[str],
              trace_dir: Optional[str]) -> RunnerResult:
-        from . import temporal
+        """One run with the temporal ``knobs``, the out-of-core
+        ``stream_knobs`` and the dead-letter sink ``qloc`` installed for
+        it (each restored at its end)."""
+        from . import pipeline, resilience, temporal, workflow
         # one collecting listener a run (OpSparkListener's AppMetrics)
         collector = None
         if telemetry.enabled():
@@ -396,7 +459,11 @@ class OpWorkflowRunner:
         self._last_preflight = None
         self._last_plan = None
         self._plan_db = None
+        # the tallies are process-wide; the document reports this run's
+        res_before = resilience.resilience_stats()
+        prev_sink = resilience.set_quarantine(qloc) if qloc else None
         prev = temporal.set_run_defaults(**knobs)
+        prev_stream = workflow.set_stream_fit(**stream_knobs)
         t0 = time.perf_counter()
         telemetry.emit("run_start", run_type=run_type)
         try:
@@ -420,9 +487,19 @@ class OpWorkflowRunner:
             if collector is not None:
                 telemetry.remove_listener(collector)
             temporal.set_run_defaults(**prev)
+            workflow.set_stream_fit(**prev_stream)
+            if qloc:
+                resilience.set_quarantine(prev_sink)
         # the temporal tier's tallies (columnar and row-wise aggregates,
         # joins, spilled rows): zeros on runs that never touch it
         result.metrics["temporal"] = temporal.temporal_stats()
+        # this run's quarantines, retries and injected faults, and the
+        # input pipeline's tallies (converged prefetch depth, workers,
+        # buffer reuse; process-wide, as in the JAX package)
+        result.metrics["resilience"] = {
+            k: v - res_before.get(k, 0)
+            for k, v in resilience.resilience_stats().items()}
+        result.metrics["pipeline"] = pipeline.pipeline_stats()
         result.metrics["compileCacheDir"] = None
         # the pre-flight's verdict and the plan the run followed (None:
         # switched off for the run)
@@ -513,6 +590,23 @@ class OpWorkflowRunner:
                 plan = planner.plan_workflow(workflow, cost_db=db)
                 workflow.set_plan(plan)
         findings = list(plan.findings())
+        # the measured ingest route steers the streamed fit's auto mode
+        # (streamFit null) for this run (the run restores the knobs); a
+        # pinned streamFit wins, and a contradiction is a TMG405
+        ingest_tier = planner.ingest_route_tier(db)
+        if ingest_tier is not None:
+            from . import workflow as _workflow
+            _workflow.set_stream_fit(ingest_hint=ingest_tier)
+            forced_sf = _tristate_custom_param(params, "streamFit")
+            if (forced_sf is True and ingest_tier == "materialize") \
+                    or (forced_sf is False and ingest_tier == "stream"):
+                findings.append(lint.Finding(
+                    "TMG405",
+                    f"streamFit={str(forced_sf).lower()} is pinned but "
+                    f"the cost database measured the {ingest_tier} ingest "
+                    "tier faster (phase:workflow.ingest) — the knob wins; "
+                    "drop it to let the auto-route follow the "
+                    "measurement"))
         # the measured aggregation route steers the "auto" route for this
         # run; a pinned aggregateColumnar wins, and a contradiction is a
         # TMG405 advisory
@@ -568,6 +662,86 @@ class OpWorkflowRunner:
             raise ValueError(f"{what} needs a reader")
         return reader.read_records()
 
+    def _stream_score(self, model, params: OpParams,
+                      knobs: Dict[str, Any]) -> Dict[str, Any]:
+        """StreamingScore: the scoring reader's batches through
+        ``readers.stream_score``, each batch written to the sink and
+        dropped (peak memory is a batch, not the data). A reader with
+        ``stream()`` gives one batch a file; any other is sliced into
+        ``batchSize`` records. Returns the run's metrics."""
+        from . import pipeline, resilience
+        from .readers import stream_score
+        reader = self.scoring_reader
+        if reader is None:
+            raise ValueError("StreamingScore needs a scoring reader")
+        workers, depth = knobs["pipelineWorkers"], knobs["pipelineDepth"]
+        overlap = knobs["overlap"]
+        restore_columnar = None
+        if not knobs["pipeline"]:
+            # the run's kill switch, as TMOG_PIPELINE=0: one worker, no
+            # overlap, the per-record decode (the reader's flag restored
+            # at the end)
+            workers, depth, overlap = 1, 1, False
+            if hasattr(reader, "columnar"):
+                restore_columnar = bool(reader.columnar)
+                reader.columnar = False
+        rows = n_batches = 0
+        q_before = resilience.resilience_stats()
+        pipe_before = pipeline.pipeline_stats()
+        try:
+            if hasattr(reader, "stream"):
+                batch: Any = "per-file"
+                batches = reader.stream(
+                    max_batches=knobs["maxBatches"],
+                    timeout_s=knobs["timeoutS"],
+                    workers=pipeline.resolve_workers(workers))
+            else:
+                data = reader.read_records()
+                batch = knobs["batchSize"]
+                batches = (data[i:i + batch]
+                           for i in range(0, len(data), batch))
+            sink = (_make_sink(params.write_location)
+                    if params.write_location else None)
+            try:
+                for scored in stream_score(
+                        model, batches, overlap=overlap,
+                        on_error=knobs["onBatchError"], device=self.device,
+                        workers=workers, prefetch=depth):
+                    rows += scored.n_rows
+                    n_batches += 1
+                    if sink is not None:
+                        sink.write(scored)
+                if sink is not None and n_batches == 0:
+                    # header-only output, as Score writes on empty input
+                    sink.write_header(
+                        [f.name for f in model.result_features])
+            finally:
+                if sink is not None:
+                    sink.close()
+        finally:
+            if restore_columnar is not None:
+                reader.columnar = restore_columnar
+        self._record_score_costs()
+        q_after = resilience.resilience_stats()
+        pipe_after = pipeline.pipeline_stats()
+        # the last_* tallies are this run's only when it streamed through
+        # the pipeline
+        piped = pipe_after["streams"] > pipe_before["streams"]
+        return {
+            "rowsScored": rows, "batches": n_batches, "batchSize": batch,
+            "overlap": overlap,
+            "pipelineWorkers": pipe_after["last_workers"] if piped else None,
+            "prefetchDepth": (pipe_after["last_prefetch_depth"]
+                              if piped else None),
+            "pipelineStarvations": (pipe_after["starvations"]
+                                    - pipe_before["starvations"]),
+            "bufferReuses": (pipe_after["buffer_reuses"]
+                             - pipe_before["buffer_reuses"]),
+            "quarantinedBatches": (q_after["quarantined_batches"]
+                                   - q_before["quarantined_batches"]),
+            "quarantinedFiles": (q_after["quarantined_files"]
+                                 - q_before["quarantined_files"])}
+
     def _execute(self, run_type: str, params: OpParams,
                  t0: float) -> RunnerResult:
         if run_type == RunType.TRAIN:
@@ -595,8 +769,9 @@ class OpWorkflowRunner:
                                 model_location=params.model_location,
                                 model=model)
         if run_type == RunType.STREAMING_SCORE:
-            raise _not_ported("the StreamingScore run type (readers/"
-                              "streaming.py, the stream readers)", "A6.5")
+            # the keys are validated before the model is loaded or
+            # anything is read: a malformed value names its key
+            knobs = _streaming_knobs(params)
 
         from .workflow import WorkflowModel
         if params.model_location is None:
@@ -617,6 +792,11 @@ class OpWorkflowRunner:
                        "appSeconds": round(time.perf_counter() - t0, 3)}
             return RunnerResult(run_type, metrics=metrics, scores=scores,
                                 model=model)
+
+        if run_type == RunType.STREAMING_SCORE:
+            metrics = self._stream_score(model, params, knobs)
+            metrics["appSeconds"] = round(time.perf_counter() - t0, 3)
+            return RunnerResult(run_type, metrics=metrics, model=model)
 
         if run_type == RunType.EVALUATE:
             data = self._read(self.evaluation_reader, "Evaluate")
@@ -720,10 +900,15 @@ class _AvroSink:
                            for n in self._names]}).close()
 
 
+def _make_sink(path: str):
+    """The incremental sink for ``path``: an Avro container where the path
+    ends in ``.avro`` (the reference's saveScores), else CSV."""
+    return _AvroSink(path) if path.endswith(".avro") else _CsvSink(path)
+
+
 def _write_store(store, path: str) -> None:
-    """One store to ``path``: an Avro container where the path ends in
-    ``.avro`` (the reference's saveScores), else CSV."""
-    sink = _AvroSink(path) if path.endswith(".avro") else _CsvSink(path)
+    """One store to ``path`` (:func:`_make_sink`)."""
+    sink = _make_sink(path)
     try:
         sink.write(store)
     finally:

@@ -24,8 +24,15 @@ crosses once: prepared host blocks in, result columns out.
   records; nothing in the program reads back to the host. A capture that
   fails raises: the engine never drops to eager execution or to the CPU.
   On the CPU (the tests) every call runs the program eagerly.
-* **Overlapped streaming.** :func:`stream_score_overlapped` prepares batch
-  k+1 on a worker thread while batch k runs on the card.
+* **Overlapped streaming.** :func:`stream_score_overlapped` prepares the
+  next batches on the input pipeline's ordered worker pool
+  (``pipeline.map_ordered`` with autotuned prefetch, the padding in a
+  ``pipeline.BufferPool`` of pinned buffers) while the current batch runs
+  on the card; the stores are bitwise those of scoring each batch alone.
+  A host-side failure of a batch (``stream.score_batch``) follows the
+  poison policy (``resilience.quarantine_batch_or_raise``); a failure of
+  a chunk's upload or dispatch (the ``pipeline.upload`` and
+  ``scoring.device_dispatch`` fault sites, or the card's own) raises.
 
 Host/device split: a fitted stage is device-capable when the engine knows
 its array form — a ``VectorizerModel`` (``host_prepare`` →
@@ -70,8 +77,9 @@ and IDF, stop words, Jaccard) run first; their columns feed
   call after the program's first), read after the pull that follows.
 
 Not carried over from the JAX package: the circuit breaker to the host
-tier, the link-bandwidth gate, mesh sharding and the staged uploads of
-the input pipeline (``stage_batch``, ``pipeline:upload``).
+tier, the link-bandwidth gate, mesh sharding and the staged uploads issued
+a batch ahead (``stage_batch``): a chunk's blocks are copied into the
+graph's static inputs when it runs.
 """
 from __future__ import annotations
 
@@ -81,13 +89,12 @@ import threading
 import time
 import weakref
 from collections import OrderedDict
-from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import telemetry
+from . import resilience, telemetry
 from .columns import (ColumnStore, GeoColumn, MapColumn, NumericColumn,
                       PredictionColumn, RaggedColumn, TextColumn,
                       TextListColumn, TextSetColumn, VectorColumn,
@@ -225,11 +232,21 @@ class _PreparedBatch:
     per chunk, (host store, prepared blocks, uploads, rows, bucket), the
     blocks padded to the bucket."""
 
-    __slots__ = ("chunks", "n_rows")
+    __slots__ = ("chunks", "n_rows", "_pool", "_taken")
 
-    def __init__(self, chunks, n_rows: int):
+    def __init__(self, chunks, n_rows: int, pool=None, taken=None):
         self.chunks = chunks
         self.n_rows = n_rows
+        self._pool = pool
+        self._taken = taken or []
+
+    def release(self) -> None:
+        """Give the pooled padding buffers back (after the batch ran:
+        the next batch overwrites them)."""
+        if self._pool is not None:
+            for buf in self._taken:
+                self._pool.give(buf)
+        self._taken = []
 
 
 class _Program:
@@ -540,11 +557,14 @@ class ScoringEngine:
         pad = np.zeros((bucket - n,) + a.shape[1:], dtype=a.dtype)
         return np.concatenate([a, pad], axis=0)
 
-    def prepare_batch(self, data, use_cache: bool = True) -> _PreparedBatch:
+    def prepare_batch(self, data, use_cache: bool = True,
+                      pool=None) -> _PreparedBatch:
         """Host half of a scoring call, padded to the ladder: host stages,
         ``host_prepare`` and padding, chunk by chunk (numpy and Python
         only, so it may run on a worker thread). Re-scoring the same
-        ColumnStore object reuses its prepared blocks (``use_cache``)."""
+        ColumnStore object reuses its prepared blocks (``use_cache``).
+        ``pool`` (a ``pipeline.BufferPool``) pads into reused buffers, the
+        same values; ``release()`` on the result gives them back."""
         from .workflow import _raw_store
         cache_key = None
         if use_cache and isinstance(data, ColumnStore):
@@ -558,6 +578,13 @@ class ScoringEngine:
         store = _raw_store(data, self._raw_features)
         n_total = store.n_rows
         chunks = []
+        taken: List[np.ndarray] = []
+
+        def pad(v, n, bucket):
+            if pool is None:
+                return self._pad_rows(v, n, bucket)
+            return pool.pad_rows(v, n, bucket, taken)
+
         with telemetry.span("score:prepare", rows=n_total):
             for lo in range(0, max(n_total, 1), self.bucket_cap):
                 sub = store
@@ -567,11 +594,10 @@ class ScoringEngine:
                 n = sub.n_rows
                 bucket = bucket_for(n, self.bucket_cap)
                 host_store, prepared, uploads = self.host_blocks(sub)
-                prepared = {uid: {k: self._pad_rows(v, n, bucket)
+                prepared = {uid: {k: pad(v, n, bucket)
                                   for k, v in blocks.items()}
                             for uid, blocks in prepared.items()}
-                uploads = {k: self._pad_rows(v, n, bucket)
-                           for k, v in uploads.items()}
+                uploads = {k: pad(v, n, bucket) for k, v in uploads.items()}
                 if telemetry.enabled():
                     # padded bytes about to cross the host-to-device link
                     nbytes = sum(int(np.asarray(v).nbytes)
@@ -581,7 +607,7 @@ class ScoringEngine:
                                   for v in uploads.values())
                     telemetry.counter("device.bytes_h2d").inc(nbytes)
                 chunks.append((host_store, prepared, uploads, n, bucket))
-        pb = _PreparedBatch(chunks, n_total)
+        pb = _PreparedBatch(chunks, n_total, pool, taken)
         if cache_key is not None:
             with self._lock:
                 self._prep_cache[cache_key] = (weakref.ref(data), pb)
@@ -728,13 +754,18 @@ class ScoringEngine:
         """Capture the program as a CUDA graph over static input buffers
         holding this chunk's blocks. The wrappers count the launches they
         record; a capture launches nothing, so those counts are taken back
-        and added again at each replay."""
+        and added again at each replay. The capture is thread-local: the
+        streaming prep workers allocate and recycle pinned host buffers
+        (event queries, host allocations) while the consumer captures,
+        and in the global mode any such call on another thread
+        invalidates the capture."""
         ins = self._upload(prepared, uploads)
         before = dict(_hist.KERNEL_LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         torch.cuda.synchronize(self.device)
         try:
-            with torch.cuda.device(self.device), torch.cuda.graph(graph):
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 outs = body(*ins)
         except Exception as e:
             raise RuntimeError(
@@ -854,9 +885,20 @@ class ScoringEngine:
                 was_compile = self._compile_count > before
                 with telemetry.span("score:bucket", rows=n, bucket=bucket,
                                     compiled=was_compile):
-                    outs = self._device_outputs(prog, prepared, uploads,
-                                                out_names, bucket)
-                    pulled = self._pull(outs, out_names, n)
+                    try:
+                        # the device sites: an injected fault or the
+                        # card's own failure raises to the caller, never
+                        # quarantined as a poison batch
+                        resilience.inject("pipeline.upload", rows=n,
+                                          bucket=bucket)
+                        resilience.inject("scoring.device_dispatch",
+                                          rows=n, bucket=bucket)
+                        outs = self._device_outputs(prog, prepared, uploads,
+                                                    out_names, bucket)
+                        pulled = self._pull(outs, out_names, n)
+                    except BaseException as e:
+                        resilience.mark_device_failure(e)
+                        raise
                 telemetry.settle_device_timers()
             store = host_store
             meta_env: Dict[str, Any] = {}
@@ -1159,37 +1201,71 @@ def _concat_stores(stores: List[ColumnStore]) -> ColumnStore:
     return ColumnStore(cols, sum(s.n_rows for s in stores))
 
 
-_END = object()
-
-
 def stream_score_overlapped(model, batches, keep_intermediate: bool = False,
                             engine: Optional[ScoringEngine] = None,
-                            device=None):
+                            device=None, on_error: Optional[str] = None,
+                            workers: Optional[int] = None,
+                            prefetch: Optional[int] = None):
     """Score a stream of batches (record lists or ColumnStores), one
-    ColumnStore each, in order: the host half of batch k+1
-    (``prepare_batch``) runs on a worker thread while batch k runs on the
-    device. The same stores as scoring each batch on its own. A model the
-    engine fuses nothing of scores by layers."""
+    ColumnStore each, in order, through the input pipeline: the host half
+    (``prepare_batch``, padded into a pinned ``pipeline.BufferPool``) runs
+    on ``workers`` threads (``pipeline.map_ordered``, default
+    ``pipeline.DEFAULT_WORKERS``) with an autotuned prefetch depth capped
+    at ``prefetch``, while the consumer runs each prepared batch on the
+    device in order. The stores are bitwise those of scoring each batch
+    alone, at any worker count. A model the engine fuses nothing of scores
+    by layers (``readers.stream_score``'s per-batch loop).
+
+    ``on_error`` follows ``resilience.resolve_on_error``: a batch whose
+    host half fails (``stream.score_batch``) is quarantined with its
+    records, but the first batch, and without a sink every batch, raises.
+    A device failure (an upload or dispatch) raises. The always-on
+    ``pipeline.pipeline_stats()`` tallies record the stream (batches,
+    workers, prefetch depth, starvations, buffer reuses)."""
+    from . import pipeline as pl
+    on_error = resilience.resolve_on_error(on_error)
     eng = engine if engine is not None else model.scoring_engine(device)
     if not eng.enabled():
-        for batch in batches:
-            yield model.score(batch, keep_intermediate=keep_intermediate,
-                              device=eng.device, engine=False)
+        from .readers.data_readers import stream_score
+        yield from stream_score(model, batches,
+                                keep_intermediate=keep_intermediate,
+                                overlap=False, on_error=on_error,
+                                device=eng.device)
         return
     results_only = not keep_intermediate
-    it = iter(batches)
-    with ThreadPoolExecutor(max_workers=1,
-                            thread_name_prefix="score-prep") as pool:
-        nxt = next(it, _END)
-        fut = (None if nxt is _END
-               else pool.submit(eng.prepare_batch, nxt, False))
-        while fut is not None:
-            prep = fut.result()
-            nxt = next(it, _END)
-            fut = (None if nxt is _END
-                   else pool.submit(eng.prepare_batch, nxt, False))
-            store = eng.run_batch(prep, results_only=results_only)
+    n_workers = pl.resolve_workers(workers)
+    tuner = pl.PrefetchAutotuner(
+        max_depth=(int(prefetch) if prefetch is not None
+                   else pl.DEFAULT_MAX_PREFETCH))
+    pool = pl.BufferPool(pin=eng.device.type == "cuda")
+    n_batches = 0
+
+    def prep(item):
+        i, batch = item
+        resilience.inject("stream.score_batch", index=i, rows=len(batch))
+        with telemetry.span("pipeline:host_prep", rows=len(batch)):
+            return eng.prepare_batch(batch, use_cache=False, pool=pool)
+
+    items = ((i, pl.concrete_batch(b)) for i, b in enumerate(batches))
+    try:
+        for (i, batch), prepared, exc in pl.map_ordered(
+                prep, items, workers=n_workers, tuner=tuner,
+                name="score-prep"):
+            if exc is not None:
+                resilience.quarantine_batch_or_raise(on_error, i, exc,
+                                                     batch)
+                continue
+            try:
+                with telemetry.span("stream:device_compute",
+                                    rows=prepared.n_rows):
+                    store = eng.run_batch(prepared,
+                                          results_only=results_only)
+            finally:
+                prepared.release()
+            n_batches += 1
             if results_only:
                 store = store.select([nm for nm in eng._result_names
                                       if nm in store])
             yield store
+    finally:
+        pl.record_stream(n_batches, n_workers, tuner=tuner, pool=pool)

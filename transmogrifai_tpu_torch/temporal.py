@@ -22,11 +22,17 @@ columnar tier:
   columnar pass raises.
 * **The hash join** — ``readers.data_readers.TemporalJoinReader``
   partitions the build side by a consistent hash into bounded
-  per-partition tables (a new key at a full partition drops its row,
-  counted in ``join_spilled_rows`` with a warning), probes the left
+  per-partition tables (a new key at a full partition sends its row to
+  the dead-letter quarantine, ``resilience.quarantine("temporal.join")``,
+  counted in ``join_spilled_rows``), probes the left
   side in order, and takes a vectorized path (one stable argsort and one
   searchsorted probe) when both sides are columnar, so a
   ``JoinedAggregateDataReader`` stays columnar end to end.
+* **The directory tier** — :func:`aggregate_tables`,
+  :func:`aggregate_directory` and :func:`join_aggregate_directory`
+  decode, join and filter each table or event file inside the ordered
+  worker pool (``pipeline.map_ordered``) and fold the partials once after
+  the ordered merge, so the store is bitwise the serial pass's.
 
 Cutoff semantics (pinned; ``docs/readers.md`` has the table): with a
 cutoff ``c``, predictors fold events with ``ts < c`` (within
@@ -46,8 +52,10 @@ pre-flight (``lint.check_workflow``) runs over a workflow's reader.
 """
 from __future__ import annotations
 
+import glob as _glob
 import hashlib
 import logging
+import os
 import threading
 import time
 from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
@@ -55,7 +63,7 @@ from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional,
 
 import numpy as np
 
-from . import telemetry
+from . import resilience, telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -68,6 +76,7 @@ __all__ = [
     "set_run_defaults", "columnar_mode", "join_partitions",
     "join_table_max_rows", "temporal_stats", "reset_temporal_stats",
     "DEFAULT_JOIN_PARTITIONS", "DEFAULT_JOIN_TABLE_MAX_ROWS",
+    "aggregate_tables", "aggregate_directory", "join_aggregate_directory",
 ]
 
 #: default consistent-hash partition count for the join's build-side
@@ -172,7 +181,8 @@ def join_table_max_rows(explicit: Optional[int] = None) -> Optional[int]:
 _TALLY_LOCK = threading.Lock()
 _TALLY: Dict[str, int] = {
     "columnar_aggregates": 0, "rowwise_aggregates": 0,
-    "columnar_fallbacks": 0, "hint_fallbacks": 0,
+    "parallel_aggregates": 0, "columnar_fallbacks": 0,
+    "hint_fallbacks": 0,
     "aggregate_rows": 0, "aggregate_keys": 0,
     "joins": 0, "columnar_joins": 0, "join_rows": 0,
     "join_matched": 0, "join_unmatched": 0, "join_spilled_rows": 0,
@@ -675,6 +685,10 @@ def route_aggregate(reader, records, raw_features):
         _tally("hint_fallbacks")
         return None
     t0 = time.perf_counter()
+    # the columnar tier's fault site: a fault raises to the caller (the
+    # row-wise fold does not take the pass over)
+    resilience.inject("temporal.aggregate", reader=type(reader).__name__,
+                      rows=len(records))
     try:
         with telemetry.span("temporal:aggregate", rows=len(records)):
             store = _columnar_aggregate(reader, records, raw_features)
@@ -835,8 +849,10 @@ class _ColumnarBuildTable:
 class _DictBuildTable:
     """Row-wise build side: consistent-hash partitioned, bounded
     per-partition hash tables. A new key arriving at a full partition
-    drops its row instead of growing the heap; the drops are counted in
-    ``join_spilled_rows`` and logged once per build."""
+    sends its row to the dead-letter quarantine (kind ``records``, site
+    ``temporal.join``) instead of growing the heap, counted in
+    ``join_spilled_rows``: the join stays bounded and the loss is loud
+    and replayable."""
 
     def __init__(self, records: Iterable[Mapping[str, Any]], key_fn,
                  partitions: int, max_rows: Optional[int]):
@@ -850,6 +866,11 @@ class _DictBuildTable:
             if k not in t and max_rows is not None \
                     and len(t) >= max_rows:
                 spilled += 1
+                resilience.quarantine(
+                    "temporal.join",
+                    f"join build table overflow (partition bound "
+                    f"{max_rows})", kind="records", key=repr(k),
+                    records=[dict(r)])
                 continue
             t.setdefault(k, {}).update(r)
         if spilled:
@@ -857,8 +878,8 @@ class _DictBuildTable:
             telemetry.counter("temporal.join_spilled_rows").inc(spilled)
             logger.warning(
                 "join build table overflow: %d row(s) of new keys dropped "
-                "(%d partition(s) bounded at %s keys each)", spilled,
-                self.partitions, max_rows)
+                "to the quarantine (%d partition(s) bounded at %s keys "
+                "each)", spilled, self.partitions, max_rows)
 
     def get(self, key: Any) -> Optional[Dict[str, Any]]:
         return self.tables[partition_of(key, self.partitions)].get(key)
@@ -911,6 +932,257 @@ def build_join_table(right_records, key_field_or_fn,
             # sanctioned memory-bounded behavior
     key_fn = kf if callable(kf) else field(key_field)
     return _DictBuildTable(right_records, key_fn, p, cap)
+
+
+# ---------------------------------------------------------------------------
+# the directory tier: partial aggregation inside the ordered worker pool
+# ---------------------------------------------------------------------------
+
+
+class _Partial:
+    """One table's partial aggregate: the file's key universe plus, per
+    feature, the filtered (key, value) arrays in original record order —
+    no folding, no per-key Python loop. Folding happens once after the
+    ordered merge, so the float fold order (and the bits) match the
+    serial pass; the worker side stays vectorized, so N decode workers
+    scale (numpy releases the GIL, per-key Python loops do not)."""
+
+    __slots__ = ("keys", "filtered", "n_rows")
+
+    def __init__(self, keys: np.ndarray,
+                 filtered: List[Tuple[Optional[np.ndarray],
+                                      Optional[np.ndarray]]],
+                 n_rows: int):
+        self.keys = keys            # unique keys present in this table
+        self.filtered = filtered    # [per spec] -> (keys, values) arrays
+        self.n_rows = n_rows
+
+
+def _partial_aggregate(records, specs: List[_FeatureSpec], key_key: str,
+                       ts_key: str, cutoff_ms: Optional[float]) -> _Partial:
+    """Filter ONE table (runs inside a worker): vectorized cutoff /
+    window / validity masks over the original row order — the grouping
+    happens once, later, over the merged survivors."""
+    n = len(records)
+    keys, kmask = _column_of(records, key_key, n)
+    ts, tmask = _column_of(records, ts_key, n)
+    if keys is None or ts is None or kmask is not None or tmask is not None:
+        raise TemporalError(
+            f"key column {key_key!r} / timestamp column {ts_key!r} must "
+            "be present and fully valid in the columnar batch")
+    tsf = np.asarray(ts, dtype=np.float64)
+    if cutoff_ms is None:
+        pred_base = resp_mask = np.ones(n, dtype=bool)
+        nan_ts = None
+    else:
+        c = float(cutoff_ms)
+        # NaN event times fold into BOTH sides and bypass windows — the
+        # row-wise loop's guards are all False for NaN (see _time_masks)
+        nan_ts = np.isnan(tsf)
+        pred_base = nan_ts | (tsf < c)
+        resp_mask = nan_ts | (tsf > c)
+    filtered: List[Tuple[Optional[np.ndarray], Optional[np.ndarray]]] = []
+    for spec in specs:
+        if spec.is_response:
+            mask = resp_mask
+        elif spec.window_ms is not None and cutoff_ms is not None:
+            mask = pred_base & (
+                nan_ts | (tsf >= float(cutoff_ms) - spec.window_ms))
+        else:
+            mask = pred_base
+        vals, valid = _column_of(records, spec.column, n)
+        if vals is None:
+            filtered.append((None, None))
+            continue
+        if valid is not None:
+            mask = mask & valid
+        filtered.append((keys[mask], vals[mask]))
+    return _Partial(np.unique(keys), filtered, n)
+
+
+def _concat_parts(parts: List[Optional[np.ndarray]]) -> Optional[np.ndarray]:
+    real = [p for p in parts if p is not None]
+    if not real:
+        return None
+    return np.concatenate(real) if len(real) > 1 else real[0]
+
+
+def _finalize_partials(partials: List[_Partial],
+                       specs: List[_FeatureSpec]):
+    """Ordered monoid merge: per feature, concatenate the survivors'
+    (key, value) arrays in submission order (= record order of the
+    serial pass), group with ONE stable argsort — within a key the
+    concat order survives, so each key's value sequence is exactly what
+    the serial fold sees — and fold once per key."""
+    from .columns import ColumnStore, column_from_values
+    all_keys = np.unique(_concat_parts([p.keys for p in partials])
+                         if partials else np.zeros(0))
+    n_keys = len(all_keys)
+    cols: Dict[str, Any] = {}
+    for j, spec in enumerate(specs):
+        fk = _concat_parts([p.filtered[j][0] for p in partials])
+        fv = _concat_parts([p.filtered[j][1] for p in partials])
+        if fk is None or fv is None or not len(fk):
+            if spec.aggregator is None:
+                values = [None] * n_keys
+            else:
+                values = [spec.aggregator.fold([]) for _ in range(n_keys)]
+            cols[spec.name] = column_from_values(spec.ftype, values)
+            continue
+        order = np.argsort(fk, kind="stable")
+        sk = fk[order]
+        sv = fv[order]
+        starts = np.searchsorted(sk, all_keys, side="left")
+        ends = np.searchsorted(sk, all_keys, side="right")
+        values = []
+        for ki in range(n_keys):
+            vals = sv[int(starts[ki]):int(ends[ki])].tolist()
+            if spec.aggregator is None:
+                values.append(vals[-1] if vals else None)
+            else:
+                values.append(spec.aggregator.fold(vals))
+        cols[spec.name] = column_from_values(spec.ftype, values)
+    rows = sum(p.n_rows for p in partials)
+    _tally("aggregate_rows", rows)
+    _tally("aggregate_keys", n_keys)
+    _tally("parallel_aggregates")
+    telemetry.counter("temporal.parallel_aggregates").inc()
+    return ColumnStore(cols, n_keys)
+
+
+def aggregate_tables(tables: Sequence[Any], raw_features,
+                     timestamp_fn, key_fn,
+                     cutoff_ms: Optional[float] = None,
+                     workers: Optional[int] = None):
+    """Aggregate a sequence of columnar tables with a global cutoff,
+    partial-aggregating each table on the pipeline's ordered worker
+    pool (:func:`pipeline.map_ordered`) — filtering/grouping overlaps
+    across tables while the consumer merges partials in submission
+    order. Bit-identical to aggregating the concatenated table (and to
+    the row-wise reader) by the ordered-merge construction."""
+    from . import pipeline
+    key_key = column_key_of(key_fn) if not isinstance(key_fn, str) \
+        else key_fn
+    ts_key = column_key_of(timestamp_fn) \
+        if not isinstance(timestamp_fn, str) else timestamp_fn
+    if key_key is None or ts_key is None:
+        raise TemporalError("aggregate_tables needs column-keyed key/"
+                            "timestamp extractors (temporal.field)")
+    specs = _resolve_specs(raw_features)
+    tables = list(tables)
+
+    def work(t):
+        # the columnar tier's fault site: a fault raises to the caller
+        resilience.inject("temporal.aggregate", rows=len(t))
+        return _partial_aggregate(t, specs, key_key, ts_key, cutoff_ms)
+
+    partials: List[_Partial] = []
+    with telemetry.span("temporal:aggregate_tables", tables=len(tables)):
+        for _t, part, exc in pipeline.map_ordered(
+                work, tables, workers=workers, name="temporal-agg"):
+            if exc is not None:
+                raise exc
+            partials.append(part)
+    return _finalize_partials(partials, specs)
+
+
+def aggregate_directory(path: str, raw_features, timestamp_fn, key_fn,
+                        cutoff_ms: Optional[float] = None,
+                        pattern: str = "*.avro",
+                        workers: Optional[int] = None):
+    """Decode + partial-aggregate every event file of a directory INSIDE
+    the ordered worker pool (decode and aggregation overlap file IO —
+    the tf.data map-stage shape), then merge/fold. Files are processed
+    in sorted order, matching a serial read of the same directory."""
+    from . import pipeline
+    from .readers.avro import read_avro_table
+    key_key = column_key_of(key_fn) if not isinstance(key_fn, str) \
+        else key_fn
+    ts_key = column_key_of(timestamp_fn) \
+        if not isinstance(timestamp_fn, str) else timestamp_fn
+    if key_key is None or ts_key is None:
+        raise TemporalError("aggregate_directory needs column-keyed "
+                            "key/timestamp extractors (temporal.field)")
+    specs = _resolve_specs(raw_features)
+    files = sorted(_glob.glob(os.path.join(path, pattern)))
+
+    def work(fp):
+        resilience.inject("temporal.aggregate", path=fp)
+        return _partial_aggregate(read_avro_table(fp), specs, key_key,
+                                  ts_key, cutoff_ms)
+
+    partials: List[_Partial] = []
+    with telemetry.span("temporal:aggregate_directory", files=len(files)):
+        for _fp, part, exc in pipeline.map_ordered(
+                work, files, workers=workers, name="temporal-agg"):
+            if exc is not None:
+                raise exc
+            partials.append(part)
+    return _finalize_partials(partials, specs)
+
+
+def join_aggregate_directory(path: str, raw_features, right_records,
+                             timestamp_fn, key_fn,
+                             cutoff_ms: Optional[float] = None,
+                             join_type: str = "left_outer",
+                             pattern: str = "*.avro",
+                             workers: Optional[int] = None,
+                             right_key_fn=None):
+    """The joined-then-aggregate composition on the worker pool: each
+    event file decodes, hash-joins against the (small, broadcast) right
+    table and partial-aggregates — all inside ``map_ordered`` workers —
+    then partials merge/fold once. The per-file join is the same probe
+    the whole-dataset join runs, so the result is bit-identical to
+    joining the concatenated left table first."""
+    from . import pipeline
+    from .readers.avro import read_avro_table
+    key_key = column_key_of(key_fn) if not isinstance(key_fn, str) \
+        else key_fn
+    ts_key = column_key_of(timestamp_fn) \
+        if not isinstance(timestamp_fn, str) else timestamp_fn
+    if key_key is None or ts_key is None:
+        raise TemporalError("join_aggregate_directory needs column-keyed "
+                            "key/timestamp extractors (temporal.field)")
+    rk = right_key_fn or key_fn
+    rkey = column_key_of(rk) if not isinstance(rk, str) else rk
+    specs = _resolve_specs(raw_features)
+    if not _is_table(right_records):
+        # a plain list of dicts (the usual small dimension table) lifts
+        # to a columnar Table so the vectorized probe works
+        right_records = table_from_records(list(right_records))
+    build = build_join_table(right_records, rkey or key_key)
+    if not isinstance(build, _ColumnarBuildTable):
+        # over the partition bound, a masked key column, or columnar mode
+        # forced off: the workers' vectorized probe cannot run; the
+        # bounded spill-to-quarantine path is TemporalJoinReader's
+        raise TemporalError(
+            "join_aggregate_directory needs a vectorizable build side "
+            "(fully valid key column, unique keys within joinPartitions "
+            "× joinTableMaxRows, columnar mode not forced off) — use "
+            "TemporalJoinReader + AggregateReader for the bounded/spill "
+            "path")
+    files = sorted(_glob.glob(os.path.join(path, pattern)))
+
+    def work(fp):
+        # per-file decode → join → partial is idempotent pure compute
+        # over one file: a transient failure rides READER_RETRY (the
+        # documented temporal.join contract) instead of killing the
+        # whole directory aggregate
+        def attempt():
+            resilience.inject("temporal.join", path=fp)
+            joined = build.probe(read_avro_table(fp), key_key, join_type)
+            return _partial_aggregate(joined, specs, key_key, ts_key,
+                                      cutoff_ms)
+        return resilience.READER_RETRY.call("temporal.join", attempt)
+
+    partials: List[_Partial] = []
+    with telemetry.span("temporal:join_aggregate", files=len(files)):
+        for _fp, part, exc in pipeline.map_ordered(
+                work, files, workers=workers, name="temporal-join"):
+            if exc is not None:
+                raise exc
+            partials.append(part)
+    return _finalize_partials(partials, specs)
 
 
 # ---------------------------------------------------------------------------

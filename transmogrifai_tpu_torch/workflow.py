@@ -25,6 +25,15 @@
   the DAG; ``with_workflow_cv`` re-fits the label-aware feature stages
   inside every CV fold (``graph.cut_dag``), so the selector's validation
   metrics see no label leakage from feature engineering.
+* The out-of-core fit (``set_stream_fit``; the runner's ``streamFit``,
+  ``streamFitPasses`` and ``rssCapMb``): from a
+  ``readers.DirectoryStreamReader`` the raw store is never materialized.
+  The stream folds every numeric raw column's moments on the device
+  (``fitstats.StreamingMomentFold``, bitwise a materialized device pass)
+  and keeps a seeded bounded subsample (``pipeline.SeededRowSample``,
+  ``STREAM_SAMPLE_ROWS`` rows) that the rest of the fit runs on; every
+  statistics pass takes the streamed moments for those columns. The
+  result does not depend on the pass count or the reader's workers.
 * The pre-flight (``Workflow.validate``, ``WorkflowModel.validate``:
   ``lint.py``) finds mis-wired graphs before any data is read. A
   ``planner.ExecutionPlan`` steers a fit (``Workflow.set_plan``: the
@@ -104,6 +113,81 @@ FUSE_MIN_ROWS = 20_000
 
 #: byte alignment of each block in the fused transform's staging buffer
 _STAGE_ALIGN = 64
+
+#: the out-of-core fit's run-scoped knobs (the runner installs them with
+#: :func:`set_stream_fit` and restores them in ``finally``). ``STREAM_FIT``
+#: is tri-state: None streams when the input is a directory stream reader
+#: (unless the planner's measured ingest tier says materializing is
+#: cheaper and no memory cap is declared), True forces streaming, False
+#: the materialized path.
+STREAM_FIT: Optional[bool] = None
+
+#: directory passes of the streamed ingest: 1 folds the statistics and
+#: gathers the subsample in one pass; 2 folds in pass 1 and gathers in
+#: pass 2 (a reader ``rescan``). The results are the same.
+STREAM_FIT_PASSES = 2
+
+#: decode workers of the streamed ingest: one, since each worker holds a
+#: decoded file in flight (host memory the stream exists to bound) and
+#: the per-record decode holds the GIL. The batches arrive in file order
+#: at any count, so the model does not depend on it.
+STREAM_FIT_WORKERS = 1
+
+#: the streamed fit's bounded working set: the subsample's rows (trees,
+#: quantiles and top-K statistics see at most this many)
+STREAM_SAMPLE_ROWS = int(os.environ.get("TMOG_STREAM_SAMPLE_ROWS",
+                                        262_144))
+
+#: the planner's measured ingest tier ("stream" / "materialize" / None),
+#: read only by the ``STREAM_FIT is None`` auto mode
+_INGEST_TIER_HINT: Optional[str] = None
+
+#: the declared host-memory budget in MB (``customParams.rssCapMb``): with
+#: one, the auto mode streams a directory reader whatever the tier hint
+#: (the hint optimizes time, the cap protects the heap)
+STREAM_RSS_CAP_MB: Optional[float] = None
+
+_KEEP = object()
+
+
+def set_stream_fit(stream=_KEEP, passes=_KEEP, sample_rows=_KEEP,
+                   ingest_hint=_KEEP, rss_cap_mb=_KEEP) -> Dict[str, Any]:
+    """Install run-scoped out-of-core knobs; returns the previous values
+    (same keyword names) for the caller to restore in ``finally``."""
+    global STREAM_FIT, STREAM_FIT_PASSES, STREAM_SAMPLE_ROWS, \
+        _INGEST_TIER_HINT, STREAM_RSS_CAP_MB
+    prev: Dict[str, Any] = {
+        "stream": STREAM_FIT, "passes": STREAM_FIT_PASSES,
+        "sample_rows": STREAM_SAMPLE_ROWS,
+        "ingest_hint": _INGEST_TIER_HINT,
+        "rss_cap_mb": STREAM_RSS_CAP_MB}
+    if stream is not _KEEP:
+        STREAM_FIT = None if stream is None else bool(stream)
+    if passes is not _KEEP and passes is not None:
+        STREAM_FIT_PASSES = max(1, int(passes))
+    if sample_rows is not _KEEP and sample_rows is not None:
+        STREAM_SAMPLE_ROWS = max(1, int(sample_rows))
+    if ingest_hint is not _KEEP:
+        _INGEST_TIER_HINT = ingest_hint
+    if rss_cap_mb is not _KEEP:
+        STREAM_RSS_CAP_MB = (None if rss_cap_mb is None
+                             else float(rss_cap_mb))
+    return prev
+
+
+def _stream_fold_columns(store: ColumnStore) -> List[str]:
+    """The raw columns the streamed fold tracks: one-dimensional numeric
+    or boolean values with a mask."""
+    out = []
+    for nm in store.names():
+        col = store[nm]
+        vals = getattr(col, "values", None)
+        if isinstance(vals, np.ndarray) and vals.ndim == 1 \
+                and isinstance(getattr(col, "mask", None), np.ndarray) \
+                and (np.issubdtype(vals.dtype, np.number)
+                     or vals.dtype == bool):
+            out.append(nm)
+    return out
 
 
 def _fused_vectors(vecs: Sequence[Transformer], store: ColumnStore, dev,
@@ -382,7 +466,9 @@ class Workflow:
                     logger.exception("checkpoint at %s is unusable; "
                                      "fitting from scratch", resume_from)
             if partial is not None and partial.fitted_stages:
+                from . import resilience
                 self.with_model_stages(partial)
+                resilience.record_resumed_fit()
                 logger.info("resuming fit from %s: %d fitted stage(s) "
                             "warm-start", resume_from,
                             len(partial.fitted_stages))
@@ -395,6 +481,9 @@ class Workflow:
         raw_features = _raw_features_of(self.result_features)
         self._stage_metrics = {}
         self._phase_seconds: Dict[str, float] = {}
+        #: the full-stream states of the streamed ingest (injected into
+        #: every statistics pass); None on the materialized path
+        self._stream_state = None
         data = self._input_data
         if data is None and self._reader is not None:
             if getattr(self._reader, "is_aggregating", False):
@@ -405,8 +494,13 @@ class Workflow:
                 t0 = time.perf_counter()
                 data = self._reader.generate_store(raw_features)
                 self._phase_seconds["aggregate"] = time.perf_counter() - t0
+            elif self._use_stream_fit():
+                data = self._stream_raw_store(raw_features, dev, dtype)
             else:
+                t0 = time.perf_counter()
                 data = self._reader.read_records()
+                self._observe_ingest("materialize",
+                                     time.perf_counter() - t0, len(data))
         if data is None:
             raise WorkflowError("No input data: call set_input_store, "
                                 "set_input_records or set_reader")
@@ -459,6 +553,97 @@ class Workflow:
                               rff_results=rff_results, fit_stats=fit_state)
         model.phase_seconds = dict(self._phase_seconds)
         return model
+
+    # -- the out-of-core ingest (streamFit) ---------------------------------
+    def _use_stream_fit(self) -> bool:
+        """Stream the ingest? Only a directory stream reader can; an
+        explicit ``STREAM_FIT`` wins, a declared ``STREAM_RSS_CAP_MB``
+        streams, else the planner's measured tier decides (streaming
+        unless it measured materializing cheaper)."""
+        from .readers.streaming import DirectoryStreamReader
+        if not isinstance(self._reader, DirectoryStreamReader):
+            return False
+        if STREAM_FIT is not None:
+            return bool(STREAM_FIT)
+        if STREAM_RSS_CAP_MB is not None:
+            return True
+        return _INGEST_TIER_HINT != "materialize"
+
+    def _observe_ingest(self, tier: str, seconds: float, rows: int) -> None:
+        """A directory reader's ingest seconds (``phase_seconds["ingest"]``)
+        and the planner's stream-against-materialize cost observation
+        (``phase:workflow.ingest``) at row counts where the decision
+        matters."""
+        from .readers.streaming import DirectoryStreamReader
+        if not isinstance(self._reader, DirectoryStreamReader):
+            return
+        self._phase_seconds["ingest"] = seconds
+        if rows >= FUSE_MIN_ROWS:
+            from . import planner
+            planner.observe_phase("workflow.ingest", tier, seconds, rows)
+
+    def _stream_raw_store(self, raw_features, dev, dtype) -> ColumnStore:
+        """The out-of-core ingest: the directory reader's batches fold the
+        full-stream statistics on ``dev`` (``fitstats.StreamingMomentFold``)
+        and feed the seeded bounded subsample
+        (``pipeline.SeededRowSample``, ``STREAM_SAMPLE_ROWS`` rows); the
+        whole store is never materialized. Returns the subsample's raw
+        store (for a stream within the budget, the whole stream in
+        order). ``self._stream_state`` gets each tracked column's
+        full-stream state from ``workflow.FUSE_MIN_ROWS`` streamed rows
+        (below it the subsample is the data and the statistics pass covers
+        it). ``STREAM_FIT_PASSES`` >= 2 folds in pass 1 and gathers in
+        pass 2; the results are the same."""
+        from . import fitstats, pipeline
+        reader = self._reader
+        passes = max(1, int(STREAM_FIT_PASSES))
+        two_pass = passes >= 2
+        sample = pipeline.SeededRowSample(STREAM_SAMPLE_ROWS)
+        fold: Optional[fitstats.StreamingMomentFold] = None
+        t0 = time.perf_counter()
+        n_batches = 0
+
+        def fold_batch(batch) -> None:
+            nonlocal fold
+            bstore = _raw_store(batch, raw_features)
+            if fold is None:
+                fold = fitstats.StreamingMomentFold(
+                    _stream_fold_columns(bstore), device=dev, dtype=dtype)
+            fold.update(bstore)
+
+        def sample_batch(batch) -> None:
+            loc = sample.offer(len(batch))
+            sample.keep([batch[int(i)] for i in loc])
+
+        with telemetry.span("workflow:stream_ingest", passes=passes):
+            for batch in reader.stream(passes=1,
+                                       workers=STREAM_FIT_WORKERS):
+                n_batches += 1
+                fold_batch(batch)
+                if not two_pass:
+                    sample_batch(batch)
+            if two_pass:
+                reader.rescan()
+                for batch in reader.stream(passes=1,
+                                           workers=STREAM_FIT_WORKERS):
+                    sample_batch(batch)
+        records = sample.result()
+        n_total = sample.total_rows
+        store = _raw_store(records, raw_features)
+        #: (rows streamed, rows in the subsample) of the last streamed fit
+        self._stream_rows = (n_total, store.n_rows)
+        self._observe_ingest("stream", time.perf_counter() - t0, n_total)
+        self._stream_state = (fold.finalize()
+                              if fold is not None
+                              and n_total >= FUSE_MIN_ROWS else None)
+        logger.info("train: streamed ingest %d row(s) in %d batch(es) "
+                    "(%d pass(es)); subsample %d row(s), %d streamed stat "
+                    "column(s)", n_total, n_batches, passes, store.n_rows,
+                    len(self._stream_state or ()))
+        telemetry.emit("stream_ingest", rows=n_total, batches=n_batches,
+                       passes=passes, sample_rows=store.n_rows,
+                       stream_stat_columns=len(self._stream_state or ()))
+        return store
 
     def _filter(self, store: ColumnStore, raw_features: List[Feature]):
         """The RawFeatureFilter's (clean store, result features, results):
@@ -678,7 +863,9 @@ class Workflow:
                             requests=plan.n_requests, rows=train.n_rows):
             stats = plan.run(train, state_out=state_out, warm_state=warm,
                              workflow_device=dev, dtype=dtype,
-                             tier_hint=self._tier("fitstats_tier"))
+                             tier_hint=self._tier("fitstats_tier"),
+                             stream_state=getattr(self, "_stream_state",
+                                                  None))
         telemetry.emit("stats_pass", layer=li, n_stages=n_scanning,
                        n_requests=plan.n_requests,
                        passes_saved=n_scanning - 1,
