@@ -54,8 +54,8 @@ Run from the repository root on a machine with one NVIDIA H100:
    ``Workflow.train`` and ``WorkflowModel.evaluate`` on 200,000 rows, with
    every kernel launch counted (one ``level_epilogue`` and one
    ``group_rows`` a level, no route-only ``route_level``, no
-   ``cumhist(bc=)``); then the same sweep at 20,000 rows (depths {3, 6})
-   on the card and on the CPU, which must pick the same model with AuPR
+   ``cumhist(bc=)``); then the same sweep at 5,000 rows (depths {3, 6};
+   ``SWEEP_AGREE_N``) on the card and on the CPU, which must pick the same model with AuPR
    within 1e-4.
 4. The BigPassenger workflow (``big_passenger.py``): 200,000 typed records
    → transmogrify → SanityChecker → GBT + XGBoost maxDepth {3, 6}, 20
@@ -311,6 +311,24 @@ Run from the repository root on a machine with one NVIDIA H100:
    Phase 11 also runs the temporal directory tier
    (``join_aggregate_directory`` at 1 and 4 workers, bitwise the row-wise
    fold, events/s).
+17. the command line at gen-200k (:func:`gen_phase`): text-200k's
+   200,000 records written as a headed CSV into a temporary directory;
+   ``python -m transmogrifai_tpu_torch gen --response survived`` (the
+   inferred types and problem kind printed); the generated ``app.py``
+   with its own ``params.json`` (the binary selector's default families
+   at their full grids; ``traceDir`` set) run as a Train and a Score, each
+   a process on the card, whose metrics documents give the phase's
+   launches (the Train must launch the five training kernels, one
+   ``level_epilogue`` and one ``group_rows`` a level; a tree winner's
+   Score ``predict_trees``); then ``check`` (the params and the saved
+   model, the device pass on), ``plan``, ``lint`` over the package and
+   ``trace merge`` over the two runs' shards, each exiting 0 with its
+   summary line. Last, the project generated from the first 2,000
+   records (the same files but the data's name) trained on the card and
+   the CPU at one grid point a family: the same winner, every family's
+   fold AuPR, the training AuPR and Evaluate's AuPR within 1e-4 (the
+   full grids take about twenty minutes on a CPU at 2,000 rows, on the
+   tree kernels' plain versions).
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
 boston-200k, mapprep-200k, mapprep-guarded-200k and eventlog-200k) once
@@ -335,7 +353,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–16).
+over the main paths' runs, phases 3–17).
 ``--serve-export-only`` runs phase 7 (without its comparison with phase
 4's AuPR) and phase 12 alone, and prints no result line.
 ``--every-surface-only`` runs phase 13 alone and prints no result line.
@@ -345,6 +363,7 @@ over the models it trains) and prints no result line.
 prints no result line.
 ``--ooc-only`` runs phase 16 alone and prints no result line (it starts
 its two training legs as ``chip_smoke.py --ooc-leg <spec>``).
+``--gen-only`` runs phase 17 alone and prints no result line.
 """
 import json
 import math
@@ -357,6 +376,9 @@ import numpy as np
 import torch
 
 N, F, B = 200_000, 20, 32
+#: the sweep's card/CPU agreement (cut from 20,000 rows to make room for
+#: phase 17: the CPU's plain tree kernels take most of phase 3)
+SWEEP_AGREE_N = 5_000
 #: the indicator block of the sparse01 check: BigPassenger's hash width,
 #: at the density of its hashed buckets (one voyage token in ~1,000)
 FB, DENSITY = 512, 0.016
@@ -5249,6 +5271,253 @@ def ooc_phase(H, BP, card, dev="cuda"):
     return launches
 
 
+GEN_N = 200_000
+GEN_AGREE_N = 2_000
+#: the kernels the generated project's Train must launch (its binary
+#: default families over a 32-bin block and a 2-bin indicator block)
+GEN_KERNELS = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
+               "level_epilogue")
+#: each step's wall-clock limit (a step that hangs fails the phase)
+GEN_STEP_TIMEOUT_S = 600
+
+
+def write_headed_csv(path, records):
+    """``records`` as a CSV with a header row (None as an empty cell)."""
+    import csv
+    names = list(records[0])
+    with open(path, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(names)
+        for r in records:
+            w.writerow(["" if r[k] is None else r[k] for k in names])
+
+
+def gen_start(args, cwd, module=True):
+    """Start ``python -m transmogrifai_tpu_torch <args>`` (or ``python
+    <args>``) in ``cwd`` with this checkout importable; (process, start
+    time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable] + (["-m", "transmogrifai_tpu_torch"] if module
+                              else []) + list(args)
+    return subprocess.Popen(cmd, cwd=cwd, env=env, text=True,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE), time.perf_counter()
+
+
+def gen_finish(started, what):
+    """Wait for a :func:`gen_start` process; fail unless it exits 0 within
+    ``GEN_STEP_TIMEOUT_S``. Returns (stdout, seconds)."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=GEN_STEP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"gen-200k: {what} did not finish within "
+             f"{GEN_STEP_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        sys.stderr.write(out[-3000:] + err[-6000:])
+        fail(f"gen-200k: {what} exited {proc.returncode}")
+    return out, time.perf_counter() - t0
+
+
+def gen_step(args, cwd, what, module=True):
+    """:func:`gen_start` then :func:`gen_finish`."""
+    return gen_finish(gen_start(args, cwd, module), what)
+
+
+def summary_line(out, prefix, what):
+    """The line of ``out`` that starts with ``prefix``; fail without it."""
+    lines = [ln for ln in out.splitlines() if ln.startswith(prefix)]
+    if not lines:
+        fail(f"gen-200k: {what} printed no '{prefix}' line")
+    return lines[-1]
+
+
+def gen_agreement(proj, data_csv, dev_pair=("cuda", "cpu")):
+    """The generated project's workflow at one grid point a family, trained
+    on ``data_csv`` through ``OpWorkflowRunner`` on each device of
+    ``dev_pair`` in this process; the runs as :func:`agree_metric` reads
+    them, keyed "cuda" and "cpu" in ``dev_pair``'s order (the AuPR is
+    Evaluate's over the same rows: the default splitter keeps no
+    holdout)."""
+    import runpy
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.runner import (OpParams, OpWorkflowRunner,
+                                                RunType)
+    app = os.path.join(proj, "app.py")
+    src = open(app).read()
+    call = "BinaryClassificationModelSelector.with_cross_validation()"
+    if call not in src:
+        fail("gen-200k: the generated app.py builds no default selector")
+    runs = {}
+    for role, dev in zip(("cuda", "cpu"), dev_pair):
+        shrunk = os.path.join(proj, f"app_one_point_{role}.py")
+        with open(shrunk, "w") as fh:
+            fh.write(src.replace(call, call[:-1] + "families=FAMILIES)"))
+        sys.modules.pop("features", None)
+        sys.path.insert(0, proj)
+        try:
+            g = runpy.run_path(shrunk, init_globals={
+                "FAMILIES": titanic_one_point()}, run_name="gen_app")
+        finally:
+            sys.path.remove(proj)
+        reader = DataReaders.simple.csv_auto(data_csv)
+        res = OpWorkflowRunner(
+            g["workflow"], training_reader=reader, scoring_reader=reader,
+            evaluator=g["evaluator"], device=dev).run(
+                RunType.TRAIN, OpParams(
+                    model_location=os.path.join(proj, f"model_{role}")))
+        model = res.model
+        summary = model.fitted_stages[
+            g["prediction"].origin_stage.uid].selector_summary
+        aupr = model.evaluate(reader.read_records(), g["evaluator"],
+                              device=dev)["AuPR"]
+        runs[role] = {"summary": summary, "metrics": {
+            "AuPR": aupr, "trainAuPR": summary.train_evaluation["AuPR"]}}
+    return runs
+
+
+def gen_phase(H, BP, card, dev="cuda"):
+    """Phase 17, gen-200k: the command line end to end on the card. A
+    headed CSV of text-200k's 200,000 records; ``python -m
+    transmogrifai_tpu_torch gen``; the generated ``app.py`` with its own
+    ``params.json`` (the full default grid, a trace directory) as a Train
+    and a Score, each a process on the card; then ``check`` (the params
+    and the saved model, the device pass on), ``plan``, ``lint`` and
+    ``trace merge``, each exiting 0. The launches of each kernel are read
+    from the Train's and the Score's metrics documents. Then the same
+    project generated from the first 2,000 records (the same types: gen
+    samples 1,000 rows) trained at one grid point a family on the card and
+    the CPU. Everything is written under a temporary directory, removed
+    at the end. Returns the phase's launches."""
+    import shutil
+    import tempfile
+    from transmogrifai_tpu_torch import cli
+    work = tempfile.mkdtemp(prefix="gen200k-")
+    try:
+        t0 = time.perf_counter()
+        records = BP.synthesize_records(GEN_N, seed=42)
+        data_csv = os.path.join(work, "passengers.csv")
+        write_headed_csv(data_csv, records)
+        small_csv = os.path.join(work, "passengers2k.csv")
+        write_headed_csv(small_csv, records[:GEN_AGREE_N])
+        del records
+        data_s = time.perf_counter() - t0
+        proj = os.path.join(work, "proj")
+        out, gen_s = gen_step(["gen", "--input", data_csv, "--response",
+                               "survived", "--name", "GenApp", "--output",
+                               proj], work, "gen")
+        if out.count("generated ") != 4:
+            fail(f"gen-200k: gen wrote {out.count('generated ')} files")
+        header, types = cli.infer_feature_types(data_csv)
+        kind = cli.infer_problem_kind(data_csv, "survived", types)
+        print(f"gen-200k (card {card}): {GEN_N:,} records written as a "
+              f"headed CSV in {data_s:.2f} s; gen {gen_s:.2f} s inferred "
+              f"{types}, problem kind {kind}")
+        if kind != "binary":
+            fail(f"gen-200k: problem kind {kind}, expected binary")
+        params_path = os.path.join(proj, "params.json")
+        generated = {f: open(os.path.join(proj, f)).read()
+                     for f in ("features.py", "params.json", "README.md")}
+        params = json.load(open(params_path))
+        traces = os.path.join(work, "traces")
+        params["customParams"]["traceDir"] = traces
+        with open(params_path, "w") as fh:
+            json.dump(params, fh, indent=1)
+        launches = {k: 0 for k in H.KERNEL_LAUNCHES}
+        docs = {}
+        for run_type, extra in (("Train", []), ("Score", [
+                "--write-location", "scores.csv"])):
+            _out, secs = gen_step(["app.py", "--run-type", run_type,
+                                   "--params", "params.json", "--quiet",
+                                   *extra], proj, f"app.py {run_type}",
+                                  module=False)
+            doc = json.load(open(os.path.join(proj, "metrics.json")))
+            docs[run_type] = doc
+            got = doc["trees"]["launches"]
+            for k in launches:
+                launches[k] += got[k]
+            print(f"gen-200k {run_type} (card {card}): process {secs:.2f} s, "
+                  f"appSeconds {doc['appSeconds']}, launches {got}")
+        once_per_level(docs["Train"]["trees"]["launches"], "gen-200k Train")
+        missing = [k for k in GEN_KERNELS
+                   if docs["Train"]["trees"]["launches"][k] == 0]
+        if missing:
+            fail(f"gen-200k: the Train never launched {missing}")
+        if docs["Score"]["rowsScored"] != GEN_N:
+            fail(f"gen-200k: Score scored {docs['Score']['rowsScored']} "
+                 "rows")
+        if docs["Train"]["effectiveConfig"]["traceDir"] != traces:
+            fail("gen-200k: effectiveConfig does not hold the traceDir")
+        sel = [v for v in docs["Train"]["stages"].values()
+               if v.get("model") == "SelectedModel"]
+        if len(sel) != 1:
+            fail("gen-200k: the Train's metrics hold no selected model")
+        best = sel[0]["bestModelName"]
+        with open(os.path.join(proj, "scores.csv")) as fh:
+            n_scores = sum(1 for _ in fh) - 1
+        print(f"gen-200k: best {best} {sel[0]['bestModelParams']}, train "
+              f"AuPR {sel[0]['trainEvaluation']['AuPR']:.6f}, "
+              f"{len(sel[0]['validationResults']['results'])} grid points "
+              f"validated; "
+              f"trainTimeSeconds {docs['Train']['trainTimeSeconds']:.2f}; "
+              f"{n_scores:,} rows in scores.csv")
+        if n_scores != GEN_N:
+            fail(f"gen-200k: scores.csv holds {n_scores} rows")
+        if best in ("OpRandomForestClassifier", "OpGBTClassifier") and \
+                docs["Score"]["trees"]["launches"]["predict_trees"] == 0:
+            fail("gen-200k: a tree winner scored without predict_trees")
+        # check, plan, lint, trace merge and the 2,000-row project's gen
+        # are independent: one process each, all at once
+        small = os.path.join(work, "proj2k")
+        steps = [(["check", "params.json"], proj, "check: "),
+                 (["plan", "params.json"], proj, None),
+                 (["lint"], proj, "lint: "),
+                 (["trace", "merge", traces], proj, "trace merge: "),
+                 (["gen", "--input", small_csv, "--response", "survived",
+                   "--name", "GenApp", "--output", small], work,
+                  "generated ")]
+        started = [gen_start(args, cwd) for args, cwd, _p in steps]
+        for (args, _cwd, prefix), st in zip(steps, started):
+            what = " ".join(args[:2])
+            out, secs = gen_finish(st, what)
+            line = (summary_line(out, prefix, args[0]) if prefix
+                    else out.strip().splitlines()[0])
+            print(f"gen-200k {what}: {secs:.2f} s; {line}")
+            if prefix == "check: " and not line.startswith(
+                    "check: 0 error(s)"):
+                fail(f"gen-200k: check found errors: {line}")
+        merged = json.load(open(os.path.join(traces,
+                                             "merged.trace.json")))
+        if merged["mergedShards"] < 2:
+            fail(f"gen-200k: {merged['mergedShards']} shard(s) merged, "
+                 "expected the Train's and the Score's")
+        print(f"gen-200k launches (Train + Score): {launches}")
+        # the same project at 2,000 rows, one grid point a family, on the
+        # card and on the CPU
+        for fname, text in generated.items():
+            if open(os.path.join(small, fname)).read() != text.replace(
+                    "passengers.csv", "passengers2k.csv"):
+                fail(f"gen-200k: the 2,000-row project's {fname} differs")
+        t0 = time.perf_counter()
+        runs = gen_agreement(small, small_csv, (dev, "cpu"))
+        agree_metric(runs, "AuPR", 1e-4, f"gen-{GEN_AGREE_N} (one grid "
+                     "point a family)")
+        d_train = abs(runs["cuda"]["metrics"]["trainAuPR"]
+                      - runs["cpu"]["metrics"]["trainAuPR"])
+        if d_train > 1e-4:
+            fail(f"gen-{GEN_AGREE_N}: training AuPR differs by {d_train}")
+        print(f"gen-{GEN_AGREE_N}: training AuPR |d| = {d_train:.3g}; "
+              f"card and CPU in {time.perf_counter() - t0:.2f} s")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def phase_seconds(n, t0):
     """Print phase ``n``'s wall seconds since ``t0``; the time now."""
     t = time.perf_counter()
@@ -5321,6 +5590,9 @@ def main():
     if "--ooc-only" in sys.argv[1:]:
         ooc_phase(H, BP, card)
         return 0
+    if "--gen-only" in sys.argv[1:]:
+        gen_phase(H, BP, card)
+        return 0
 
     t_ph = time.perf_counter()
     rows = check_kernels(H, TF, dev)
@@ -5342,9 +5614,10 @@ def main():
     layer_evaluate(out, "sweep-200k")
     if profile:
         profile_path(H, "sweep", lambda: run(N, device="cuda"))
-    agree({d: run(20_000, device=d,
+    agree({d: run(SWEEP_AGREE_N, device=d,
                   families=default_families((3, 6), (3, 6)))
-           for d in ("cuda", "cpu")}, "synthetic sweep, 20000 rows")
+           for d in ("cuda", "cpu")},
+          f"synthetic sweep, {SWEEP_AGREE_N} rows")
 
     t_ph = phase_seconds(3, t_ph)
     # -- phase 4: the BigPassenger workflow, every launch counted ---------
@@ -5489,6 +5762,11 @@ def main():
 
     # -- phase 16: out-of-core ingest at ooc-1m ---------------------------
     path_launches["ooc-1m"] = ooc_phase(H, BP, card)
+
+    # -- phase 17: the command line end to end (gen-200k) -----------------
+    t_ph = time.perf_counter()
+    path_launches["gen-200k"] = gen_phase(H, BP, card)
+    phase_seconds(17, t_ph)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

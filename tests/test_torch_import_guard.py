@@ -239,3 +239,44 @@ def test_a_telemetry_on_train_runs_with_jax_blocked(tmp_path):
     assert res.stdout.strip().endswith("ok")
     names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
     assert {"run:Train", "workflow:train", "fit:stage"} <= names
+
+
+@pytest.mark.parametrize("module", [
+    "config.py", "cli.py", "__main__.py", "testkit/__init__.py",
+    "repo_lint/__init__.py", "repo_lint/tmoglint.py",
+    "repo_lint/concurrency_lint.py"])
+def test_command_line_modules_are_scanned(module):
+    """The knob registry, the command line, the testkit and the repo-rule
+    linters are among the sources scanned above and the modules imported
+    with ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    if dotted.endswith(".__init__"):
+        dotted = dotted[:-len(".__init__")]
+    assert dotted in _modules()
+
+
+def test_the_command_line_runs_with_jax_blocked(tmp_path):
+    """``gen``, ``check`` and ``lint`` in a process where ``jax`` and the
+    JAX package cannot be imported."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'transmogrifai_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from transmogrifai_tpu_torch import cli\n"
+        f"csv_path = {str(tmp_path / 'd.csv')!r}\n"
+        "open(csv_path, 'w').write('x,y\\n1.5,0\\n2.5,1\\n3.5,0\\n')\n"
+        f"out = {str(tmp_path / 'p')!r}\n"
+        "assert cli.main(['gen', '--input', csv_path, '--response', 'y', "
+        "'--output', out]) == 0\n"
+        "assert cli.main(['check', out + '/params.json']) == 0\n"
+        "assert cli.main(['lint', '--no-tests-check']) == 0\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'transmogrifai_tpu') and sys.modules[m]]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().endswith("ok")

@@ -39,10 +39,9 @@ from transmogrifai_tpu_torch.utils import uid as puid
 
 #: metrics-document blocks of the JAX package's runner whose modules are
 #: not ported (ROADMAP queue A: continual, fleet, lifecycle, server and
-#: workload A6.8 (d); parallel/mesh and multi-host A6.6; config's
-#: effective knobs A6.8 (c))
-NOT_PORTED = {"continual", "effectiveConfig", "fleet", "lifecycle",
-              "mesh", "process", "server", "workload"}
+#: workload A6.8 (d); parallel/mesh and multi-host A6.6)
+NOT_PORTED = {"continual", "fleet", "lifecycle", "mesh", "process",
+              "server", "workload"}
 RUNS = (RunType.TRAIN, RunType.SCORE, RunType.EVALUATE, RunType.FEATURES)
 
 
@@ -184,7 +183,7 @@ def test_op_app_main(tmp_path):
     assert out.metrics["rowsScored"] == len(records)
     assert os.path.exists(str(tmp_path / "s.csv"))
     with pytest.raises(SystemExit):
-        app.main(["--run-type", "Train", "--trace-out", "x"])
+        app.main(["--run-type", "Train", "--no-such-flag", "x"])
 
 
 def test_the_runner_defaults_to_the_card():
@@ -198,6 +197,9 @@ def test_the_runner_defaults_to_the_card():
 UNPORTED = {
     "mesh": (lambda r, p: r.run(RunType.TRAIN, OpParams(
         custom_params={"meshDevices": 4})), r"item A6\.6"),
+    "mesh-devices flag": (lambda r, p: _App(r).main(
+        ["--run-type", "Train", "--quiet", "--mesh-devices", "2"]),
+        r"item A6\.6"),
 }
 
 

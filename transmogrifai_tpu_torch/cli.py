@@ -1,0 +1,612 @@
+"""The command line; the port of ``transmogrifai_tpu/cli.py``.
+
+``python -m transmogrifai_tpu_torch <command>``:
+
+* ``gen`` (the reference's ``op gen``, ``cli/.../CLI.scala``): from a CSV
+  with a header and a response column, infer the problem kind (binary,
+  multiclass, regression) and a feature type a column, and scaffold a
+  runnable project on this package::
+
+      <output>/
+        features.py     feature declarations (FeatureBuilder per column)
+        app.py          OpApp subclass wiring reader + selector + runner
+        params.json     OpParams skeleton (customParams from config.py)
+        README.md       how to run
+
+  The files are the JAX package's with this package's name.
+* ``check``: validate a params file against the knob registry (TMG001)
+  and pre-flight a saved model (the graph rules, and the device shape
+  pass on the ``meta`` device) without reading data.
+* ``plan``: a saved model's execution plan from the cost database, with
+  its TMG4xx advisories; no data read, nothing launched.
+* ``lint``: the repo rules over this package's tree (``repo_lint/``: the
+  per-line TMG3xx rules and the whole-program TMG8xx pass).
+* ``trace merge``: the trace shards a run wrote into ``traceDir`` merged
+  into one Perfetto-loadable file.
+
+``serve``, ``fleet``, ``workload``, ``tune``, ``registry`` and ``trace
+analyze`` take the JAX parser's arguments and exit non-zero naming their
+ROADMAP queue A item (A6.8 (d)): their modules are not ported yet.
+
+Usage::
+
+    python -m transmogrifai_tpu_torch gen --input data.csv --response label \\
+        --id id --name MyApp --output ./myapp
+    python -m transmogrifai_tpu_torch check params.json --model ./model
+    python -m transmogrifai_tpu_torch plan params.json --model ./model
+    python -m transmogrifai_tpu_torch lint
+    python -m transmogrifai_tpu_torch trace merge ./traces
+"""
+from __future__ import annotations
+
+import argparse
+import csv as _csv
+import json
+import os
+import re
+import sys
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from . import config
+
+__all__ = ["infer_feature_types", "infer_problem_kind", "generate_project",
+           "main"]
+
+_SAMPLE_ROWS = 1000
+
+
+def _is_int(v: str) -> bool:
+    try:
+        int(v)
+        return True
+    except ValueError:
+        return False
+
+
+def _is_float(v: str) -> bool:
+    try:
+        float(v)
+        return True
+    except ValueError:
+        return False
+
+
+def infer_feature_types(path: str) -> Tuple[List[str], Dict[str, str]]:
+    """(header, {column: feature type name}) from a sampled read
+    (``AvroField`` → feature template mapping analog, cli/.../gen)."""
+    with open(path, newline="") as fh:
+        reader = _csv.reader(fh)
+        header = next(reader)
+        samples: Dict[str, List[str]] = {h: [] for h in header}
+        for i, row in enumerate(reader):
+            if i >= _SAMPLE_ROWS:
+                break
+            for h, v in zip(header, row):
+                if v != "":
+                    samples[h].append(v)
+
+    types: Dict[str, str] = {}
+    for h in header:
+        vals = samples[h]
+        if not vals:
+            types[h] = "Text"
+            continue
+        uniq = set(vals)
+        if uniq <= {"0", "1"} or {v.lower() for v in uniq} <= \
+                {"true", "false"}:
+            types[h] = "Binary"
+        elif all(_is_int(v) for v in vals):
+            types[h] = "Integral"
+        elif all(_is_float(v) for v in vals):
+            types[h] = "Real"
+        elif len(uniq) <= max(20, len(vals) // 10):
+            types[h] = "PickList"
+        else:
+            types[h] = "Text"
+    return header, types
+
+
+def infer_problem_kind(path: str, response: str,
+                       types: Optional[Dict[str, str]] = None) -> str:
+    """binary / multiclass / regression from the response column's values
+    (``ProblemKind`` inference, cli/.../ProblemSchema)."""
+    if types is None:
+        _header, types = infer_feature_types(path)
+    if response not in types:
+        raise ValueError(f"Response column {response!r} not in {path}")
+    with open(path, newline="") as fh:
+        reader = _csv.DictReader(fh)
+        vals = {row[response] for i, row in enumerate(reader)
+                if i < _SAMPLE_ROWS and row.get(response)}
+    if {v.lower() for v in vals} <= {"0", "1", "0.0", "1.0", "true",
+                                     "false"}:
+        return "binary"
+    if types[response] in ("Integral", "PickList", "Text", "Binary") \
+            and len(vals) <= 30:
+        return "multiclass"
+    return "regression"
+
+
+_SELECTOR = {
+    "binary": ("BinaryClassificationModelSelector", "auPR",
+               "BinaryClassification"),
+    "multiclass": ("MultiClassificationModelSelector", "f1",
+                   "MultiClassification"),
+    "regression": ("RegressionModelSelector", "rmse", "Regression"),
+}
+
+
+def _safe(name: str) -> str:
+    return re.sub(r"\W+", "_", name)
+
+
+def generate_project(input_csv: str, response: str, output: str,
+                     name: str = "OpApp", id_column: Optional[str] = None
+                     ) -> Dict[str, str]:
+    """Scaffold the project; returns {filename: path}."""
+    header, types = infer_feature_types(input_csv)
+    kind = infer_problem_kind(input_csv, response, types=types)
+    selector_cls, metric_fn, eval_factory = _SELECTOR[kind]
+    os.makedirs(output, exist_ok=True)
+
+    predictors = [h for h in header if h != response and h != id_column]
+    response_type = "RealNN" if kind != "multiclass" else "Text"
+
+    lines = [
+        '"""Feature declarations — generated by transmogrifai_tpu_torch gen."""',
+        "from transmogrifai_tpu_torch import FeatureBuilder",
+        "",
+        f"response = (FeatureBuilder.{response_type}({response!r})",
+        "            .from_column().as_response())",
+        "",
+    ]
+    for h in predictors:
+        lines.append(
+            f"{_safe(h)} = (FeatureBuilder.{types[h]}({h!r})"
+            f".from_column().as_predictor())")
+    lines += ["", "predictors = [" +
+              ", ".join(_safe(h) for h in predictors) + "]", ""]
+    features_py = "\n".join(lines)
+
+    indexed = (kind == "multiclass")
+    app_py = f'''"""{name} — generated by transmogrifai_tpu_torch gen ({kind})."""
+import sys
+
+from transmogrifai_tpu_torch import Workflow
+from transmogrifai_tpu_torch.dsl import transmogrify
+from transmogrifai_tpu_torch.evaluators import Evaluators
+from transmogrifai_tpu_torch.models import {selector_cls}
+from transmogrifai_tpu_torch.readers import DataReaders
+from transmogrifai_tpu_torch.runner import OpApp, OpWorkflowRunner
+
+from features import predictors, response
+
+INPUT_CSV = {input_csv!r}
+
+{"label = response.indexed()" if indexed else "label = response"}
+features = transmogrify(predictors)
+checked = label.sanity_check(features)
+prediction = label.transform_with(
+    {selector_cls}.with_cross_validation(), checked)
+{"deindexed = label.deindexed(prediction)" if indexed else ""}
+
+workflow = Workflow().set_result_features(
+    prediction{", deindexed" if indexed else ""})
+evaluator = Evaluators.{eval_factory}.{metric_fn}().set_columns(
+    label, prediction)
+
+
+class {_safe(name)}(OpApp):
+    def runner(self, params):
+        reader = DataReaders.simple.csv_auto(INPUT_CSV)
+        return OpWorkflowRunner(
+            workflow, training_reader=reader, scoring_reader=reader,
+            evaluator=evaluator)
+
+
+if __name__ == "__main__":
+    result = {_safe(name)}().main(sys.argv[1:])
+    print(result.metrics)
+'''
+
+    params = {"stageParams": {}, "readerParams": {},
+              "modelLocation": "./model",
+              "metricsLocation": "./metrics.json",
+              "quarantineLocation": "./quarantine.jsonl",
+              # the block is emitted from the knob registry (config.py):
+              # every non-serving knob at its declared default, in
+              # declaration order, so the scaffold names the whole
+              # surface `check` validates
+              "customParams": config.default_custom_params()}
+
+    readme = (f"# {name}\n\nGenerated by `transmogrifai_tpu_torch gen` from "
+              f"`{os.path.basename(input_csv)}` ({kind}).\n\n"
+              "```bash\npython app.py --run-type Train --params params.json\n"
+              "python app.py --run-type Score --params params.json "
+              "--write-location scores.csv\n```\n\n"
+              "Malformed input files and failed scoring batches are "
+              "quarantined to `quarantine.jsonl` (one JSON line per "
+              "item, with the reason) and counted in the run's metrics "
+              "doc under `resilience` — see docs/robustness.md.\n")
+
+    out: Dict[str, str] = {}
+    for fname, content in [("features.py", features_py), ("app.py", app_py),
+                           ("params.json", json.dumps(params, indent=1)),
+                           ("README.md", readme)]:
+        p = os.path.join(output, fname)
+        with open(p, "w") as fh:
+            fh.write(content)
+        out[fname] = p
+    return out
+
+
+def _populate_stage_registry() -> None:
+    """Standalone CLI: populate the stage registry the way an app's own
+    imports would, so any saved model loads (shared by ``check`` and
+    ``plan``)."""
+    from . import models as _models  # noqa: F401
+    from . import ops as _ops  # noqa: F401
+    from .ops import (calibrators, dt_bucketizer,  # noqa: F401
+                      sanity_checker, scalers)
+
+
+def _suppressed(params, suppress: Sequence[str]) -> Tuple[str, ...]:
+    """``suppress`` and the params file's ``lintSuppress`` (a list of rule
+    ids, or one bare id)."""
+    extra = config.raw_param(params.custom_params, "lintSuppress", ())
+    if isinstance(extra, str):
+        extra = (extra,)
+    return tuple(suppress) + tuple(extra)
+
+
+def _load_params(params_path: str, what: str):
+    """The OpParams file, or None after printing why it cannot be read."""
+    from .runner import OpParams
+    try:
+        return OpParams.from_file(params_path)
+    except (OSError, ValueError, KeyError, AttributeError) as e:
+        print(f"{what}: cannot load {params_path!r}: {e}")
+        return None
+
+
+def run_check(params_path: Optional[str] = None,
+              model_location: Optional[str] = None,
+              fail_on: str = "error", device: bool = True,
+              suppress: Sequence[str] = ()) -> int:
+    """The ``check`` subcommand: validate an OpParams file (structure and
+    every registry knob present, ``config.check_custom_params``) and, when
+    a saved model is named, run the static pre-flight over it (the graph
+    rules TMG1xx and the device shape pass TMG2xx on the ``meta``
+    device), without reading any data or launching a kernel. Returns a
+    process exit code; findings print one a line with their rule ids."""
+    from . import lint
+    from .runner import OpParams
+
+    findings = []
+    params = OpParams()
+    if params_path:
+        params = _load_params(params_path, "check")
+        if params is None:
+            return 1
+        for key, msg in config.check_custom_params(params.custom_params):
+            findings.append(lint.Finding(
+                "TMG001", f"params file: {msg}",
+                location=f"{params_path}:customParams.{key}"))
+        suppress = _suppressed(params, suppress)
+    model_dir = model_location or params.model_location
+    if model_dir and os.path.isdir(model_dir):
+        _populate_stage_registry()
+        from .workflow import WorkflowModel
+        model = WorkflowModel.load(model_dir)
+        findings.extend(model.validate(device=device, suppress=suppress))
+    elif model_dir:
+        print(f"check: no saved model at {model_dir!r} — graph/device "
+              "pre-flight skipped (params-only check)")
+    for f in findings:
+        print(f.format())
+    n_err = sum(1 for f in findings if f.severity == "error")
+    n_warn = sum(1 for f in findings if f.severity == "warning")
+    print(f"check: {n_err} error(s), {n_warn} warning(s), "
+          f"{len(findings) - n_err - n_warn} info(s)")
+    try:
+        lint.enforce(findings, fail_on=fail_on)
+    except lint.LintError:
+        return 1
+    return 0
+
+
+def run_plan(params_path: Optional[str] = None,
+             model_location: Optional[str] = None,
+             cost_db: Optional[str] = None, as_json: bool = False,
+             suppress: Sequence[str] = ()) -> int:
+    """The ``plan`` subcommand: build and render a saved model's
+    :class:`~transmogrifai_tpu_torch.planner.ExecutionPlan` standalone —
+    no data is read and nothing is launched. Prints the plan report (or
+    its JSON with ``--json``) and the TMG4xx advisories, muting the
+    params file's ``lintSuppress`` rules (and ``--suppress``) as ``check``
+    and the runner do; returns a process exit code."""
+    from . import lint, planner
+    from .runner import OpParams
+
+    params = OpParams()
+    if params_path:
+        params = _load_params(params_path, "plan")
+        if params is None:
+            return 1
+        suppress = _suppressed(params, suppress)
+    db_path = (cost_db or config.raw_param(params.custom_params, "costDb")
+               or planner.default_cost_db_path(config.raw_param(
+                   params.custom_params, "compileCacheDir")))
+    db = planner.CostDatabase.load(db_path)
+    model_dir = model_location or params.model_location
+    if not model_dir or not os.path.isdir(model_dir):
+        print(f"plan: no saved model at {model_dir!r} — pass --model or "
+              "set modelLocation in the params file")
+        return 1
+    _populate_stage_registry()
+    from .workflow import WorkflowModel
+    model = WorkflowModel.load(model_dir)
+    plan = planner.plan_model(model, cost_db=db)
+    if as_json:
+        print(json.dumps(plan.to_json(), indent=1, sort_keys=True))
+    else:
+        print(plan.report())
+    for f in lint._apply_suppress(list(plan.findings()), suppress):
+        print(f.format())
+    return 0
+
+
+def run_trace(action: str, trace_dir: str, out: Optional[str] = None,
+              strict: bool = False) -> int:
+    """The ``trace merge`` subcommand: stitch the per-process shards a
+    run wrote into ``traceDir`` into ONE Perfetto-loadable file, clock
+    offsets aligned, one process row per (role, pid). Unreadable shards
+    are reported on stderr, and ``--strict`` makes any skipped shard a
+    non-zero exit. ``trace analyze`` is not ported (A6.8 (d)).
+
+        python -m transmogrifai_tpu_torch trace merge <dir> [-o merged.json] [--strict]
+    """
+    from . import telemetry
+
+    if action != "merge":
+        return _unported(f"trace {action}", "request critical-path "
+                         "analysis (workload.py)")
+    out = out or os.path.join(trace_dir, "merged.trace.json")
+    try:
+        doc = telemetry.write_merged_trace(trace_dir, out)
+    except (OSError, ValueError) as e:
+        print(f"trace merge: {e}")
+        return 1
+    spans = sum(1 for ev in doc["traceEvents"] if ev.get("ph") == "X")
+    traces = {ev["args"]["trace_id"] for ev in doc["traceEvents"]
+              if isinstance(ev.get("args"), dict)
+              and ev["args"].get("trace_id")}
+    print(f"trace merge: {doc['mergedShards']} shard(s), {spans} "
+          f"span(s), {len(traces)} distinct trace id(s) -> {out}")
+    errors = doc.get("mergeErrors", ())
+    if errors:
+        print(f"trace merge: {len(errors)} shard(s) skipped as "
+              "unreadable:", file=sys.stderr)
+        for err in errors:
+            print(f"trace merge: skipped shard: {err}", file=sys.stderr)
+        if strict:
+            print("trace merge: failing (--strict)", file=sys.stderr)
+            return 1
+    return 0
+
+
+def run_lint(paths: Sequence[str] = (), fail_on: str = "warning",
+             stale_markers: bool = True, tests_check: bool = True) -> int:
+    """The ``lint`` subcommand: the repo rules over this package's tree
+    (or the given paths) — the per-line TMG3xx pass
+    (``repo_lint/tmoglint.py``) and the whole-program TMG8xx pass
+    (``repo_lint/concurrency_lint.py``, whose TMG805 reads the
+    repository's ``tests/test_torch_*.py``). Same exit-code contract as
+    ``check``: findings print one a line, non-zero when any reaches
+    ``fail_on``."""
+    from . import lint as lint_mod
+    from .repo_lint import concurrency_lint, tmoglint
+    paths = [os.path.abspath(p) for p in paths] or [tmoglint.PACKAGE_DIR]
+    tests_dir = concurrency_lint.TESTS_DIR
+    findings = list(tmoglint.lint_paths(paths, stale_markers=stale_markers))
+    findings.extend(concurrency_lint.lint_paths(
+        paths,
+        tests_dir=tests_dir if tests_check and os.path.isdir(tests_dir)
+        else None,
+        stale_markers=stale_markers))
+    findings.sort(key=lambda f: f.location or "")
+    for f in findings:
+        print(f.format())
+    counts = {s: sum(1 for f in findings if f.severity == s)
+              for s in ("error", "warning", "info")}
+    print(f"lint: {counts['error']} error(s), "
+          f"{counts['warning']} warning(s), {counts['info']} info(s)")
+    try:
+        lint_mod.enforce(findings, fail_on=fail_on)
+    except lint_mod.LintError:
+        return 1
+    return 0
+
+
+#: the subcommands whose modules are not ported yet: what they run
+_UNPORTED_COMMANDS = {
+    "serve": "the multi-tenant model server (server.py)",
+    "fleet": "the horizontal serving fleet (fleet.py)",
+    "workload": "the workload flight recorder and replay (workload.py)",
+    "tune": "the offline autotuner (tuner.py)",
+    "registry": "the versioned model registry (lifecycle.py)",
+}
+
+
+def _unported(cmd: str, what: str) -> int:
+    """Exit code 2 with the message of a part not ported yet."""
+    from .runner import _not_ported
+    print(f"{cmd}: {_not_ported(what, 'A6.8 (d)')}", file=sys.stderr)
+    return 2
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(prog="transmogrifai_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    gen = sub.add_parser("gen", help="scaffold a project from a CSV")
+    gen.add_argument("--input", required=True, help="CSV with header")
+    gen.add_argument("--response", required=True)
+    gen.add_argument("--id", dest="id_column")
+    gen.add_argument("--name", default="OpApp")
+    gen.add_argument("--output", required=True)
+    chk = sub.add_parser(
+        "check", help="static pre-flight: validate a params file and/or "
+                      "a saved model without reading data")
+    chk.add_argument("params", nargs="?", help="OpParams json/yaml file")
+    chk.add_argument("--model", dest="model_location",
+                     help="saved WorkflowModel directory (default: the "
+                          "params file's modelLocation)")
+    chk.add_argument("--fail-on", choices=("error", "warning"),
+                     default="error",
+                     help="exit non-zero when findings reach this "
+                          "severity (default: error)")
+    chk.add_argument("--no-device", action="store_true",
+                     help="skip the device shape pre-flight on the meta "
+                          "device (TMG2xx rules)")
+    chk.add_argument("--suppress", action="append", default=[],
+                     metavar="RULE", help="mute a rule id (repeatable)")
+    lnt = sub.add_parser(
+        "lint", help="repo self-lint of this package's tree: per-line "
+                     "TMG3xx rules plus the whole-program TMG8xx "
+                     "concurrency & crash-safety pass")
+    lnt.add_argument("paths", nargs="*",
+                     help="files/directories to lint (default: the "
+                          "installed transmogrifai_tpu_torch package)")
+    lnt.add_argument("--fail-on", choices=("error", "warning"),
+                     default="warning", dest="lint_fail_on",
+                     help="exit non-zero when findings reach this "
+                          "severity (default: warning — the repo "
+                          "self-lint is zero-tolerance)")
+    lnt.add_argument("--no-stale-markers", action="store_true",
+                     help="skip TMG399 stale-suppression detection")
+    lnt.add_argument("--no-tests-check", action="store_true",
+                     help="skip the TMG805 fault-site test-coverage "
+                          "cross-check")
+    pln = sub.add_parser(
+        "plan", help="cost-based whole-DAG execution plan for a saved "
+                     "model: tiers, dead columns, CSE — no data read, "
+                     "nothing launched")
+    pln.add_argument("params", nargs="?", help="OpParams json/yaml file")
+    pln.add_argument("--model", dest="model_location",
+                     help="saved WorkflowModel directory (default: the "
+                          "params file's modelLocation)")
+    pln.add_argument("--cost-db", dest="cost_db", metavar="PATH",
+                     help="measured cost database (default: "
+                          "customParams.costDb, else alongside "
+                          "compileCacheDir)")
+    pln.add_argument("--json", action="store_true",
+                     help="print the plan's JSON form instead of the "
+                          "text report")
+    pln.add_argument("--suppress", action="append", default=[],
+                     metavar="RULE", help="mute a TMG4xx advisory rule "
+                                          "id (repeatable)")
+    srv = sub.add_parser("serve", help="multi-tenant model server (not "
+                                       "ported yet: A6.8 (d))")
+    srv.add_argument("params", nargs="?", help="OpParams json/yaml file")
+    srv.add_argument("--model", dest="model_location")
+    srv.add_argument("--port", type=int, default=None)
+    srv.add_argument("--host", default="127.0.0.1")
+    srv.add_argument("--port-file", dest="port_file", metavar="PATH")
+    flt = sub.add_parser("fleet", help="horizontal serving fleet (not "
+                                       "ported yet: A6.8 (d))")
+    flt.add_argument("params", nargs="?", help="OpParams json/yaml file")
+    flt.add_argument("--workers", type=int, default=None)
+    flt.add_argument("--base-port", dest="base_port", type=int,
+                     default=None)
+    flt.add_argument("--port", type=int, default=None)
+    flt.add_argument("--host", default="127.0.0.1")
+    trc = sub.add_parser(
+        "trace", help="merge the per-process trace shards a run wrote "
+                      "into one Perfetto file (analyze: not ported yet, "
+                      "A6.8 (d))")
+    trc.add_argument("action", choices=("merge", "analyze"))
+    trc.add_argument("trace_dir", metavar="DIR",
+                     help="the traceDir the run wrote shards into")
+    trc.add_argument("-o", "--out", default=None,
+                     help="output path (merge default: "
+                          "DIR/merged.trace.json)")
+    trc.add_argument("--strict", action="store_true",
+                     help="merge: exit non-zero when any shard was "
+                          "skipped as unreadable")
+    trc.add_argument("--top-k", dest="top_k", type=int, default=5)
+    trc.add_argument("--baseline", default=None, metavar="JSON")
+    trc.add_argument("--threshold", type=float, default=0.25)
+    wlp = sub.add_parser("workload", help="workload flight-recorder "
+                                          "tooling (not ported yet: "
+                                          "A6.8 (d))")
+    wlp.add_argument("action", choices=("merge", "replay"))
+    wlp.add_argument("path", metavar="DIR_OR_FILE")
+    wlp.add_argument("-o", "--out", default=None)
+    wlp.add_argument("--strict", action="store_true")
+    wlp.add_argument("--url", default=None)
+    wlp.add_argument("--speed", type=float, default=1.0)
+    wlp.add_argument("--parity-tol", dest="parity_tol", type=float,
+                     default=1e-4)
+    wlp.add_argument("--timeout", dest="timeout_s", type=float,
+                     default=30.0)
+    wlp.add_argument("--duration-s", dest="duration_s", type=float,
+                     default=None)
+    wlp.add_argument("--max-requests", dest="max_requests", type=int,
+                     default=None)
+    tun = sub.add_parser("tune", help="offline autotuner (not ported "
+                                      "yet: A6.8 (d))")
+    tun.add_argument("params", help="baseline OpParams json/yaml file")
+    tun.add_argument("--workload", required=True, metavar="DIR_OR_FILE")
+    tun.add_argument("-o", "--out", default=None)
+    tun.add_argument("--report", default=None)
+    tun.add_argument("--budget-s", dest="budget_s", type=float,
+                     default=120.0)
+    tun.add_argument("--objective", choices=("p99", "throughput"),
+                     default="p99")
+    tun.add_argument("--knobs", default=None)
+    tun.add_argument("--speed", type=float, default=1.0)
+    tun.add_argument("--parity-tol", dest="parity_tol", type=float,
+                     default=1e-4)
+    tun.add_argument("--duration-s", dest="duration_s", type=float,
+                     default=None)
+    tun.add_argument("--max-requests", dest="max_requests", type=int,
+                     default=None)
+    reg = sub.add_parser("registry", help="versioned model registry (not "
+                                          "ported yet: A6.8 (d))")
+    reg.add_argument("action",
+                     choices=("list", "register", "promote", "rollback",
+                              "current"))
+    reg.add_argument("--registry", required=True, metavar="DIR")
+    reg.add_argument("--model")
+    reg.add_argument("--model-dir", dest="reg_model_dir")
+    reg.add_argument("--bank")
+    reg.add_argument("--version")
+    reg.add_argument("--promote", action="store_true")
+    reg.add_argument("--json", action="store_true", dest="reg_json")
+    args = ap.parse_args(argv)
+    if args.cmd == "check":
+        return run_check(args.params, model_location=args.model_location,
+                         fail_on=args.fail_on, device=not args.no_device,
+                         suppress=args.suppress)
+    if args.cmd == "lint":
+        return run_lint(args.paths, fail_on=args.lint_fail_on,
+                        stale_markers=not args.no_stale_markers,
+                        tests_check=not args.no_tests_check)
+    if args.cmd == "plan":
+        return run_plan(args.params, model_location=args.model_location,
+                        cost_db=args.cost_db, as_json=args.json,
+                        suppress=args.suppress)
+    if args.cmd == "trace":
+        return run_trace(args.action, args.trace_dir, out=args.out,
+                         strict=args.strict)
+    if args.cmd in _UNPORTED_COMMANDS:
+        return _unported(args.cmd, _UNPORTED_COMMANDS[args.cmd])
+    files = generate_project(args.input, args.response, args.output,
+                             name=args.name, id_column=args.id_column)
+    for f, p in files.items():
+        print(f"generated {p}")
+    return 0
+
+
+if __name__ == "__main__":   # pragma: no cover
+    raise SystemExit(main())

@@ -786,8 +786,10 @@ class LayerStatsPlan:
         telemetry.counter("fitstats.layers_fused").inc()
         telemetry.counter("fitstats.passes_saved").inc(saved)
         telemetry.counter("fitstats.bytes_scanned").inc(scanned)
-        telemetry.counter("fitstats.device_passes" if use_device
-                          else "fitstats.host_passes").inc()
+        if use_device:
+            telemetry.counter("fitstats.device_passes").inc()
+        else:
+            telemetry.counter("fitstats.host_passes").inc()
         logger.info(
             "fitstats: %d request(s) for %d stage(s) in one %s pass "
             "(%d column(s), %.1f MB scanned)", self.n_requests,

@@ -34,8 +34,9 @@ severity (the runner's ``customParams.failOn``), and suppression lists
 (``lintSuppress``) mute rule ids. :func:`emit_findings` logs the findings
 and mirrors them into telemetry (the ``lint.errors`` / ``lint.warnings``
 / ``lint.info`` counters and one ``on_lint`` event a finding). The repo
-rules' linters (TMG3xx, TMG8xx) lint the JAX package's source tree; their
-counterpart for this package's tree is ROADMAP queue A, item A6.8 (c).
+rules' linters for this package's tree are ``repo_lint/tmoglint.py``
+(TMG3xx) and ``repo_lint/concurrency_lint.py`` (TMG8xx), run by
+``python -m transmogrifai_tpu_torch lint``.
 """
 from __future__ import annotations
 
@@ -111,7 +112,7 @@ RULES: Dict[str, Tuple[str, str]] = {
                "envelope (the card's total memory as "
                "torch.cuda.get_device_properties reports it, or "
                "TMOG_VMEM_BYTES) and feature-axis sharding is not engaged"),
-    # -- TMG3xx: repo rules (the JAX package's tools/tmoglint.py) ----------
+    # -- TMG3xx: repo rules (repo_lint/tmoglint.py) ------------------------
     "TMG301": (Severity.ERROR,
                "time.time() used for a duration — monotonic timing must "
                "use time.perf_counter() (allow: '# lint: wall-clock')"),
@@ -128,8 +129,10 @@ RULES: Dict[str, Tuple[str, str]] = {
                "source file does not parse — the self-lint could not "
                "analyze it"),
     "TMG306": (Severity.ERROR,
-               "direct make_mesh() call outside parallel/ — runtime code "
-               "must go through process_default_mesh()/set_process_mesh "
+               "direct mesh construction outside parallel/ — the JAX "
+               "package's make_mesh() is here torch.distributed's "
+               "init_device_mesh()/DeviceMesh() (or a mesh module's "
+               "make_mesh()); runtime code shares the one process mesh "
                "(allow: '# lint: explicit-mesh — reason')"),
     "TMG307": (Severity.ERROR,
                "threading.Thread() without explicit name= and daemon= — "
@@ -155,14 +158,20 @@ RULES: Dict[str, Tuple[str, str]] = {
                "(allow: '# lint: thread-loop — reason')"),
     "TMG311": (Severity.ERROR,
                "np.argsort() without kind= / np.searchsorted() without "
-               "side= in product code — order-dependent monoid folds "
+               "side=, or torch.argsort() / torch.sort() without "
+               "stable=True, in product code — order-dependent monoid "
+               "folds "
                "silently change under unstable sort ties, and an "
                "implicit side= hides which boundary a temporal window "
                "includes (allow: '# lint: sort — reason')"),
     "TMG312": (Severity.ERROR,
-               "pl.pallas_call() outside models/_pallas_hist.py — every "
-               "kernel must live behind that module's probe/fallback "
-               "gate (allow: '# lint: pallas — reason')"),
+               "device kernel bound outside models/_hist.py — the JAX "
+               "package's pl.pallas_call() outside _pallas_hist.py is "
+               "here a ctypes.CDLL, torch.library registration, "
+               "cpp_extension build or @triton.jit outside the kernels' "
+               "module, which holds the build, the launch counts and the "
+               "tmog_torch::predict_trees operator (allow: "
+               "'# lint: pallas — reason')"),
     "TMG313": (Severity.ERROR,
                "telemetry.counter/gauge/histogram() with a non-literal "
                "metric name outside telemetry.py — a dynamic name is "
@@ -250,8 +259,8 @@ RULES: Dict[str, Tuple[str, str]] = {
                "temporal leakage: join key derived from a response-side "
                "(post-cutoff) field routes outcome information into the "
                "joined predictors"),
-    # -- TMG8xx: concurrency and crash-safety rules (the JAX package's
-    #    tools/concurrency_lint.py) ------------------------------------------
+    # -- TMG8xx: concurrency and crash-safety rules
+    #    (repo_lint/concurrency_lint.py) -------------------------------------
     "TMG801": (Severity.ERROR,
                "lock-order cycle: two lock acquisition paths take the "
                "same locks in opposite orders (allow: "
@@ -270,7 +279,9 @@ RULES: Dict[str, Tuple[str, str]] = {
                "reason')"),
     "TMG805": (Severity.ERROR,
                "fault-site coverage gap: a site registered in "
-               "resilience.FAULT_SITES is exercised by no test"),
+               "resilience.FAULT_SITES is exercised by no test "
+               "(tests/test_torch_*.py; the sites in "
+               "resilience.UNPORTED_SITES come with their modules)"),
 }
 
 
@@ -357,14 +368,16 @@ def emit_findings(findings: Sequence[Finding], where: str = "lint"
     ``lint.errors`` / ``lint.warnings`` / ``lint.info`` counters and one
     ``on_lint`` event (free while telemetry is off)."""
     from . import telemetry
-    names = {Severity.ERROR: "lint.errors", Severity.WARNING:
-             "lint.warnings", Severity.INFO: "lint.info"}
     for f in findings:
-        log = (logger.error if f.severity == Severity.ERROR else
-               logger.warning if f.severity == Severity.WARNING else
-               logger.info)
-        log("%s: %s", where, f.format())
-        telemetry.counter(names[f.severity]).inc()
+        if f.severity == Severity.ERROR:
+            logger.error("%s: %s", where, f.format())
+            telemetry.counter("lint.errors").inc()
+        elif f.severity == Severity.WARNING:
+            logger.warning("%s: %s", where, f.format())
+            telemetry.counter("lint.warnings").inc()
+        else:
+            logger.info("%s: %s", where, f.format())
+            telemetry.counter("lint.info").inc()
         telemetry.emit("lint", rule=f.rule, severity=f.severity,
                        message=f.message, stage=f.stage,
                        feature=f.feature, location=f.location)
@@ -765,7 +778,7 @@ def preflight_device(model, n_rows: int = 8, target=None) -> List[Finding]:
                                      and not isinstance(v, bool))
                     prep = canonicalize_prepared(raw_prep)
                     prep2 = canonicalize_prepared(m.host_prepare(store2))
-                except Exception as e:  # the failure is the finding
+                except Exception as e:  # lint: broad-except — any failure IS the finding, reported and pre-flight stops
                     halt(m, e)
                     return findings
                 if scalars:
@@ -790,7 +803,7 @@ def preflight_device(model, n_rows: int = 8, target=None) -> List[Finding]:
                         stage=m.uid))
                 try:
                     out = m.device_compute(_meta_blocks(prep))
-                except Exception as e:  # a propagation failure is the finding
+                except Exception as e:  # lint: broad-except — a propagation failure IS the finding
                     findings.append(Finding(
                         "TMG201", f"{_stage_label(m)} device_compute fails "
                         f"shape propagation: {type(e).__name__}: {e}",
@@ -815,7 +828,7 @@ def preflight_device(model, n_rows: int = 8, target=None) -> List[Finding]:
                     try:
                         shape2 = tuple(m.device_compute(
                             _meta_blocks(prep2)).shape)
-                    except Exception as e:  # the failure is the finding
+                    except Exception as e:  # lint: broad-except — any failure IS the finding, reported and pre-flight stops
                         shape2 = None
                         findings.append(Finding(
                             "TMG205", f"{_stage_label(m)} device_compute "
@@ -884,7 +897,7 @@ def preflight_device(model, n_rows: int = 8, target=None) -> List[Finding]:
                     pred, raw, _prob = m.predict_device(torch.empty(
                         (n_rows, width), dtype=torch.float32,
                         device="meta"))
-                except Exception as e:  # the failure is the finding
+                except Exception as e:  # lint: broad-except — any failure IS the finding, reported and pre-flight stops
                     halt(m, e)
                     return findings
                 if tuple(pred.shape) != (n_rows,):
@@ -905,7 +918,7 @@ def preflight_device(model, n_rows: int = 8, target=None) -> List[Finding]:
                 try:
                     store = m.transform(store, **_device_kw(m, cpu))
                     store2 = m.transform(store2, **_device_kw(m, cpu))
-                except Exception as e:  # the failure is the finding
+                except Exception as e:  # lint: broad-except — any failure IS the finding, reported and pre-flight stops
                     halt(m, e)
                     return findings
     return findings

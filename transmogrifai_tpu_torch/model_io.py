@@ -328,7 +328,7 @@ def save_workflow_model(model, path: str, overwrite: bool = False) -> None:
         os.remove(pending)
     except OSError:
         pass
-    now = time.time()
+    now = time.time()   # lint: wall-clock — compared against file mtimes
     for fn in os.listdir(path):
         full = os.path.join(path, fn)
         try:

@@ -166,45 +166,76 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_kernels() -> float:
-    """Build (when their sources changed) and load all the kernel
-    libraries; returns the seconds spent. One ``nvcc`` per source, all
-    started together; outputs are keyed by a hash of the source, the
-    shared headers and the flags."""
-    t0 = time.perf_counter()
-    with _BUILD_LOCK:
-        if len(_LIBS) == len(_STEMS):
-            return 0.0
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        headers = b"".join(p.read_bytes()
-                           for p in sorted(_CSRC.glob("*.cuh")))
-        nvcc = None
-        jobs = []
-        targets = {}
-        for stem in _STEMS:
-            src = _CSRC / f"{stem}.cu"
-            tag = hashlib.sha1(src.read_bytes() + headers
-                               + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-            out = _BUILD_DIR / f"{stem}-{tag[:16]}.so"
-            targets[stem] = out
-            if out.exists():
-                continue
-            nvcc = nvcc or _nvcc()
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.Popen(
+#: seconds one ``nvcc`` may take before the build raises naming its
+#: source (a source compiles in seconds)
+NVCC_TIMEOUT_S = 600
+
+
+def _compile(jobs) -> None:
+    """Run one ``nvcc`` per ``(stem, src, out)`` job, all started
+    together, each into its own temporary file moved into place when it
+    succeeds. A compiler that fails or outlives ``NVCC_TIMEOUT_S`` raises
+    naming its source. Runs outside ``_BUILD_LOCK``: two threads that
+    build at once each write their own file and move the same bytes in."""
+    nvcc = _nvcc()
+    procs = []
+    try:
+        for stem, src, out in jobs:
+            tmp = out.with_suffix(
+                f".{os.getpid()}.{threading.get_ident()}.tmp")
+            procs.append((stem, src, tmp, out, subprocess.Popen(
                 [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            jobs.append((stem, proc, tmp, out))
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        deadline = time.monotonic() + NVCC_TIMEOUT_S
         errors = []
-        for stem, proc, tmp, out in jobs:
-            log, _ = proc.communicate()
+        for stem, src, tmp, out, proc in procs:
+            try:
+                log, _ = proc.communicate(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(
+                    f"CUDA kernel build of {src} did not finish within "
+                    f"{NVCC_TIMEOUT_S} s (nvcc killed)") from None
             if proc.returncode != 0:
-                errors.append(f"{stem}.cu:\n{log.decode(errors='replace')}")
+                errors.append(f"{src}:\n{log.decode(errors='replace')}")
             else:
                 os.replace(tmp, out)
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(errors))
+    finally:
+        for _stem, _src, tmp, _out, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+            tmp.unlink(missing_ok=True)
+
+
+def build_kernels() -> float:
+    """Build (when their sources changed) and load all the kernel
+    libraries; returns the seconds spent. One ``nvcc`` per source, all
+    started together and waited for outside the lock; outputs are keyed
+    by a hash of the source, the shared headers and the flags."""
+    t0 = time.perf_counter()
+    with _BUILD_LOCK:
+        if len(_LIBS) == len(_STEMS):
+            return 0.0
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
+    targets = {}
+    jobs = []
+    for stem in _STEMS:
+        src = _CSRC / f"{stem}.cu"
+        tag = hashlib.sha1(src.read_bytes() + headers
+                           + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+        targets[stem] = _BUILD_DIR / f"{stem}-{tag[:16]}.so"
+        if not targets[stem].exists():
+            jobs.append((stem, src, targets[stem]))
+    if jobs:
+        _compile(jobs)
+    with _BUILD_LOCK:
+        if len(_LIBS) == len(_STEMS):
+            return time.perf_counter() - t0
         libs = {stem: ctypes.CDLL(str(targets[stem])) for stem in _STEMS}
         for fn_name, (stem, argtypes) in _ENTRY.items():
             fn = getattr(libs[stem], fn_name)

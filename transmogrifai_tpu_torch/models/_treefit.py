@@ -115,7 +115,7 @@ def quantile_bin_edges(X: torch.Tensor, n_bins: int) -> torch.Tensor:
     lo, hi = torch.floor(q), torch.ceil(q)
     w_hi = q - lo
     w_lo = 1.0 - w_hi
-    Xs = torch.sort(X, dim=0).values
+    Xs = torch.sort(X, dim=0).values  # lint: sort — values only: equal keys are equal values, so order cannot show
     v_lo = Xs[lo.clamp(0, m - 1).long()]                   # [Q, F]
     v_hi = Xs[hi.clamp(0, m - 1).long()]
     w_lo, w_hi = w_lo[:, None].expand_as(v_lo), w_hi[:, None]

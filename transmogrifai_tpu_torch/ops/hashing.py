@@ -45,40 +45,49 @@ _native_lock = threading.Lock()
 
 def load_native():
     """The native hasher library (built on first use), or False where it
-    cannot be built — the callers then take the Python hasher."""
+    cannot be built — the callers then take the Python hasher. The
+    compiler runs outside ``_native_lock``: two threads that build at
+    once each write their own file and move the same bytes in."""
     global _native
     with _native_lock:
         if _native is not None:
             return _native
-        _native = False
-        if not _SRC.exists():
-            return _native
-        tag = hashlib.sha1(_SRC.read_bytes()
-                           + " ".join(_CXXFLAGS).encode()).hexdigest()[:16]
-        path = _BUILD_DIR / f"fasthash-{tag}.so"
-        if not path.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            try:
-                subprocess.run(
-                    [os.environ.get("CXX", "g++"), *_CXXFLAGS, "-o", str(tmp),
-                     str(_SRC)], check=True, capture_output=True,
-                    timeout=300)
-                os.replace(tmp, path)
-            except (OSError, subprocess.SubprocessError):
-                tmp.unlink(missing_ok=True)
-                return _native
-        lib = ctypes.CDLL(str(path))
-        lib.murmur3_batch.argtypes = [
-            ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.c_uint32, ctypes.POINTER(ctypes.c_uint32)]
-        lib.tokenized_hash_counts.argtypes = [
-            ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int32, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32]
-        _native = lib
+    lib = _build_native()
+    with _native_lock:
+        if _native is None:
+            _native = lib
         return _native
+
+
+def _build_native():
+    """Compile (when the source changed) and bind ``native/fasthash.cc``;
+    False where that cannot be done."""
+    if not _SRC.exists():
+        return False
+    tag = hashlib.sha1(_SRC.read_bytes()
+                       + " ".join(_CXXFLAGS).encode()).hexdigest()[:16]
+    path = _BUILD_DIR / f"fasthash-{tag}.so"
+    if not path.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        try:
+            subprocess.run(
+                [os.environ.get("CXX", "g++"), *_CXXFLAGS, "-o", str(tmp),
+                 str(_SRC)], check=True, capture_output=True, timeout=300)
+            os.replace(tmp, path)
+        except (OSError, subprocess.SubprocessError):
+            tmp.unlink(missing_ok=True)
+            return False
+    lib = ctypes.CDLL(str(path))  # lint: pallas — the native text hasher is host C++, no device kernel
+    lib.murmur3_batch.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.c_uint32, ctypes.POINTER(ctypes.c_uint32)]
+    lib.tokenized_hash_counts.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32]
+    return lib
 
 
 def murmur3_32(data: bytes, seed: int = 42) -> int:

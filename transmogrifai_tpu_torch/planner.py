@@ -729,7 +729,7 @@ def _stage_bytes_per_row(model, kind: str, store, widths: Dict[str, int]
         n = store.n_rows
         try:
             prep = canonicalize_prepared(model.host_prepare(store))
-        except Exception:  # an estimate only: the stage's width stands in
+        except Exception:  # lint: broad-except — unpreparable stage: width-based fallback estimate
             return 4.0 * model.vector_metadata().size
         total = 0.0
         for v in prep.values():
@@ -823,7 +823,7 @@ def _host_transforms(store, host_layers):
         for m in layer:
             try:
                 store = m.transform(store, **_device_kw(m, cpu))
-            except Exception:  # an estimate: its columns stay absent
+            except Exception:  # lint: broad-except — a host stage without a static form only degrades its own byte estimate
                 logger.debug("planner: host stage %s has no static form",
                              m.uid)
     return store

@@ -546,8 +546,10 @@ def stream_score(model, batches: Iterable[Sequence[Mapping[str, Any]]],
         use_overlap = eng.enabled() and (
             overlap is True or len(first) >= SCORING_MIN_ROWS)
     # which streaming mode served the batches
-    telemetry.counter("stream.overlapped_streams" if use_overlap
-                      else "stream.plain_streams").inc()
+    if use_overlap:
+        telemetry.counter("stream.overlapped_streams").inc()
+    else:
+        telemetry.counter("stream.plain_streams").inc()
     if use_overlap:
         from ..scoring import stream_score_overlapped
         yield from stream_score_overlapped(

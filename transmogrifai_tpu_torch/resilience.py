@@ -46,7 +46,7 @@ from . import telemetry
 logger = logging.getLogger(__name__)
 
 __all__ = [
-    "FAULT_SITES", "DEVICE_SITES", "mark_device_failure",
+    "FAULT_SITES", "UNPORTED_SITES", "DEVICE_SITES", "mark_device_failure",
     "is_device_failure",
     "FaultPlan", "inject", "install_plan", "clear_plan", "fault_plan",
     "active_plan",
@@ -161,6 +161,19 @@ FAULT_SITES = frozenset({
     "checkpoint.write",          # layer-checkpoint save (model_io.py)
     "checkpoint.rename",         # layer-checkpoint swap (model_io.py)
 })
+
+#: the registered sites whose modules are not ported yet, with the ROADMAP
+#: queue A item that brings each: no code of this package injects them,
+#: so the fault-site coverage rule (TMG805, ``repo_lint``) waits for their
+#: modules, which bring their chaos tests
+UNPORTED_SITES = {
+    "server.dispatch": "A6.8 (d)",
+    "fleet.forward": "A6.8 (d)",
+    "fleet.spawn": "A6.8 (d)",
+    "lifecycle.promote": "A6.8 (d)",
+    "continual.retrain": "A6.8 (d)",
+    "continual.register": "A6.8 (d)",
+}
 
 
 #: the device sites: a fault at one raises to the caller, whatever the

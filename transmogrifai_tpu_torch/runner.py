@@ -75,9 +75,15 @@
   (``pipeline.pipeline_stats()``).
 * ``OpParams.from_file`` reads JSON, or YAML (``.yaml`` / ``.yml``,
   PyYAML imported only then).
+* ``customParams`` are read through the knob registry (``config.py``):
+  a malformed value raises a ``ValueError`` naming its key, and every
+  metrics document stamps ``effectiveConfig``, each registry knob at its
+  supplied or default value, and ``compileCacheDir``.
 * ``OpApp`` (``OpApp.scala``): ``main(argv)`` parses ``--run-type``,
-  ``--params``, the locations, ``--fail-on`` and ``--no-validate``, then
-  runs.
+  ``--params``, the locations, ``--trace-out``, ``--metrics-format``,
+  ``--compile-cache-dir`` (here the cost database's directory when
+  ``costDb`` is unset), ``--quarantine-out``, ``--fail-on`` and
+  ``--no-validate``, then runs; ``--mesh-devices`` raises (A6.6).
 
 What the JAX package's runner adds and this one does not have yet raises
 ``NotImplementedError`` naming its ROADMAP queue A item when a run asks
@@ -89,7 +95,6 @@ from __future__ import annotations
 import argparse
 import csv
 import json
-import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -98,7 +103,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from . import telemetry
+from . import config, telemetry
 from .models import _hist
 
 logger = logging.getLogger(__name__)
@@ -106,8 +111,10 @@ logger = logging.getLogger(__name__)
 __all__ = ["OpParams", "RunType", "RunnerResult", "OpWorkflowRunner",
            "OpApp"]
 
-#: customParams keys of the JAX package's runner whose module is not
-#: ported yet: what they ask for and the ROADMAP queue A item
+#: registry knobs the runner reads whose module is not ported yet: what
+#: they ask for and the ROADMAP queue A item (the server, fleet,
+#: lifecycle, continual and workload knobs are read by no run; ``check``
+#: validates them and ``serve``, ``fleet`` and ``tune`` raise, A6.8 (d))
 _UNPORTED_CUSTOM = {
     "meshDevices": ("multi-device runs (parallel/mesh.py)", "A6.6"),
     "meshGridSize": ("multi-device runs (parallel/mesh.py)", "A6.6"),
@@ -120,102 +127,55 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP queue A, item {item})")
 
 
-def _count_custom_param(params: "OpParams", key: str) -> Optional[int]:
-    """``customParams[key]`` as an int of at least 1; None when absent or
-    null. A malformed value raises a ``ValueError`` naming the key (a
-    float that is not whole, a bool, NaN, a string, zero)."""
-    raw = params.custom_params.get(key)
-    if raw is None:
-        return None
-    try:
-        if isinstance(raw, bool):
-            raise TypeError
-        v = int(raw)
-        if float(raw) != v or not math.isfinite(float(raw)):
-            raise TypeError
-    except (TypeError, ValueError, OverflowError):
-        raise ValueError(
-            f"customParams.{key} must be an integer, got {raw!r}") from None
-    if v < 1:
-        raise ValueError(f"customParams.{key} must be >= 1, got {raw!r}")
-    return v
+def _numeric_custom_param(params: "OpParams", key: str,
+                          default: Any = None) -> Any:
+    """``customParams[key]`` through the knob registry
+    (``config.numeric_param``): the declared cast (an int refuses a float
+    that is not whole) and minimum; ``default`` when absent or null. A
+    malformed value raises a ``ValueError`` naming the key."""
+    return config.numeric_param(params.custom_params, key, default)
 
 
-def _number_custom_param(params: "OpParams", key: str,
-                         minimum: float) -> Optional[float]:
-    """``customParams[key]`` as a finite number of at least ``minimum``;
-    None when absent or null. A malformed value raises a ``ValueError``
-    naming the key (a bool, a string, NaN, a value below the minimum)."""
-    raw = params.custom_params.get(key)
-    if raw is None:
-        return None
-    try:
-        if isinstance(raw, bool):
-            raise TypeError
-        v = float(raw)
-        if not math.isfinite(v):
-            raise TypeError
-    except (TypeError, ValueError, OverflowError):
-        raise ValueError(
-            f"customParams.{key} must be a number, got {raw!r}") from None
-    if v < minimum:
-        raise ValueError(
-            f"customParams.{key} must be >= {minimum:g}, got {raw!r}")
-    return v
+def _bool_custom_param(params: "OpParams", key: str,
+                       default: Any = None) -> Any:
+    """``customParams[key]`` through the knob registry
+    (``config.bool_param``): JSON booleans or the strings "true" and
+    "false", and "auto" where the knob is declared a tri-state;
+    ``default`` when absent or null. Anything else raises a
+    ``ValueError`` naming the key."""
+    return config.bool_param(params.custom_params, key, default)
 
 
 def _off(params: "OpParams", key: str) -> bool:
-    """``customParams[key]`` switched off (false, 0 or "false"); absent
-    means on."""
-    v = params.custom_params.get(key, True)
+    """A registered gate (``validate``, ``validateDevice``, ``plan``)
+    switched off: false, 0 or "false", as the JAX runner reads them;
+    absent means on."""
+    v = config.raw_param(params.custom_params, key, True)
     return v in (False, 0) or str(v).lower() == "false"
 
 
-def _tristate_custom_param(params: "OpParams", key: str) -> Any:
-    """``customParams[key]`` as True, False or ``"auto"`` (JSON booleans,
-    or the strings "true", "false" and "auto"); None when absent or null.
-    Anything else raises a ``ValueError`` naming the key."""
-    raw = params.custom_params.get(key)
-    if raw is None or isinstance(raw, bool):
-        return raw
-    if isinstance(raw, str):
-        v = raw.strip().lower()
-        if v in ("true", "false"):
-            return v == "true"
-        if v == "auto":
-            return "auto"
-    raise ValueError(f'customParams.{key} must be a boolean (true/false) '
-                     f'or "auto", got {raw!r}')
-
-
 def _streaming_knobs(params: "OpParams") -> Dict[str, Any]:
-    """StreamingScore's ``customParams``, each validated (a malformed value
-    raises a ``ValueError`` naming its key): ``batchSize`` (default
-    1,024), ``maxBatches``, ``timeoutS`` (>= 0), ``overlap`` (true, false
-    or "auto", the default), ``pipeline`` (default true),
-    ``pipelineWorkers``, ``pipelineDepth`` and ``onBatchError``
-    ("quarantine" or "raise"; null follows the sink)."""
+    """StreamingScore's ``customParams``, each validated through the knob
+    registry (a malformed value raises a ``ValueError`` naming its key):
+    ``batchSize`` (default 1,024), ``maxBatches``, ``timeoutS``,
+    ``overlap`` (true, false or "auto", the default), ``pipeline``
+    (default true), ``pipelineWorkers``, ``pipelineDepth`` and
+    ``onBatchError`` ("quarantine" or "raise"; null follows the sink)."""
     from . import resilience
-    overlap = _tristate_custom_param(params, "overlap")
-    pipe = _tristate_custom_param(params, "pipeline")
-    if pipe == "auto":
-        raise ValueError('customParams.pipeline must be a boolean '
-                         '(true/false), got "auto"')
-    on_error = params.custom_params.get("onBatchError")
+    on_error = config.raw_param(params.custom_params, "onBatchError")
     try:
         resilience.resolve_on_error(on_error)
     except ValueError:
         raise ValueError("customParams.onBatchError must be 'quarantine' "
                          f"or 'raise', got {on_error!r}") from None
-    batch = _count_custom_param(params, "batchSize")
-    return {"batchSize": 1024 if batch is None else batch,
-            "maxBatches": _count_custom_param(params, "maxBatches"),
-            "timeoutS": _number_custom_param(params, "timeoutS", minimum=0),
-            "overlap": "auto" if overlap is None else overlap,
-            "pipeline": True if pipe is None else pipe,
-            "pipelineWorkers": _count_custom_param(params,
-                                                   "pipelineWorkers"),
-            "pipelineDepth": _count_custom_param(params, "pipelineDepth"),
+    return {"batchSize": _numeric_custom_param(params, "batchSize", 1024),
+            "maxBatches": _numeric_custom_param(params, "maxBatches"),
+            "timeoutS": _numeric_custom_param(params, "timeoutS"),
+            "overlap": _bool_custom_param(params, "overlap", "auto"),
+            "pipeline": _bool_custom_param(params, "pipeline", True),
+            "pipelineWorkers": _numeric_custom_param(params,
+                                                     "pipelineWorkers"),
+            "pipelineDepth": _numeric_custom_param(params, "pipelineDepth"),
             "onBatchError": on_error}
 
 
@@ -281,7 +241,7 @@ class OpParams:
         Prometheus metrics, or ``customParams.telemetry``)."""
         return bool(self.trace_location
                     or self.metrics_format == "prometheus"
-                    or self.custom_params.get("telemetry"))
+                    or config.raw_param(self.custom_params, "telemetry"))
 
     def apply_to_workflow(self, workflow) -> None:
         """Push stage params into the workflow's DAG stages by uid or class
@@ -302,7 +262,7 @@ class OpParams:
             raise ValueError(f"metricsFormat must be 'json' or "
                              f"'prometheus', got {self.metrics_format!r}")
         for key, (what, item) in _UNPORTED_CUSTOM.items():
-            v = self.custom_params.get(key)
+            v = config.raw_param(self.custom_params, key)
             if v is not None and v is not False and v != "false":
                 raise _not_ported(f"customParams.{key}: {what}", item)
 
@@ -400,7 +360,7 @@ class OpWorkflowRunner:
         params.check_ported()
         # a trace directory (customParams.traceDir, else TMOG_TRACE_DIR)
         # asks the run to record spans and drop one shard there
-        trace_dir = (params.custom_params.get("traceDir")
+        trace_dir = (config.raw_param(params.custom_params, "traceDir")
                      or os.environ.get(telemetry.TMOG_TRACE_DIR))
         if trace_dir is not None and not isinstance(trace_dir, str):
             raise ValueError("customParams.traceDir must be a path "
@@ -410,20 +370,20 @@ class OpWorkflowRunner:
         # key, and no half-installed configuration outlives the run
         from . import temporal
         knobs = dict(
-            columnar=_tristate_custom_param(params, "aggregateColumnar"),
-            join_partitions=_count_custom_param(params, "joinPartitions"),
-            join_table_max_rows=_count_custom_param(params,
-                                                    "joinTableMaxRows"))
+            columnar=_bool_custom_param(params, "aggregateColumnar"),
+            join_partitions=_numeric_custom_param(params, "joinPartitions"),
+            join_table_max_rows=_numeric_custom_param(params,
+                                                      "joinTableMaxRows"))
         # the out-of-core knobs: streamFit (true, false, or null / "auto"
         # for the auto mode), the directory passes and the memory cap;
         # they engage with a directory stream reader
-        stream = _tristate_custom_param(params, "streamFit")
+        stream = _bool_custom_param(params, "streamFit")
         stream_knobs = dict(
             stream=None if stream == "auto" else stream,
-            passes=_count_custom_param(params, "streamFitPasses"),
-            rss_cap_mb=_number_custom_param(params, "rssCapMb", minimum=1))
+            passes=_numeric_custom_param(params, "streamFitPasses"),
+            rss_cap_mb=_numeric_custom_param(params, "rssCapMb"))
         qloc = (params.quarantine_location
-                or params.custom_params.get("quarantineLocation"))
+                or params.custom_params.get("quarantineLocation"))  # lint: knob — a sink path, not a knob
         if qloc is not None and not isinstance(qloc, str):
             raise ValueError("quarantineLocation must be a path string, "
                              f"got {qloc!r}")
@@ -469,14 +429,14 @@ class OpWorkflowRunner:
         try:
             with telemetry.span(f"run:{run_type}"):
                 result = self._execute(run_type, params, t0)
-        except BaseException as e:
+        except BaseException as e:  # lint: broad-except — flushed and re-raised, nothing swallowed
             # a failed run is the one whose trace is wanted most: flush the
             # spans recorded so far, then raise the run's own exception
             # (a flush that fails is noted on it)
             if params.trace_location or trace_dir:
                 try:
                     self._write_traces(params, trace_dir, run_type)
-                except Exception as flush_err:
+                except Exception as flush_err:  # lint: broad-except — best-effort crash trace, noted on the run's own error
                     logger.exception("trace write after a failed run")
                     e.add_note(f"the trace flush failed too: "
                                f"{flush_err!r}")
@@ -500,7 +460,14 @@ class OpWorkflowRunner:
             k: v - res_before.get(k, 0)
             for k, v in resilience.resilience_stats().items()}
         result.metrics["pipeline"] = pipeline.pipeline_stats()
-        result.metrics["compileCacheDir"] = None
+        # the cost database's directory (--compile-cache-dir), and every
+        # registry knob at its supplied or default value: what config
+        # produced this result
+        cache_dir = config.raw_param(params.custom_params, "compileCacheDir")
+        result.metrics["compileCacheDir"] = (str(cache_dir) if cache_dir
+                                             else None)
+        result.metrics["effectiveConfig"] = config.effective_config(
+            params.custom_params)
         # the pre-flight's verdict and the plan the run followed (None:
         # switched off for the run)
         result.metrics["preflight"] = self._last_preflight
@@ -535,8 +502,9 @@ class OpWorkflowRunner:
         from . import lint
         if _off(params, "validate"):
             return None
-        fail_on = str(params.custom_params.get("failOn", "error")).lower()
-        suppress = params.custom_params.get("lintSuppress", ())
+        fail_on = str(config.raw_param(params.custom_params, "failOn",
+                                       "error")).lower()
+        suppress = config.raw_param(params.custom_params, "lintSuppress", ())
         with telemetry.span("run:preflight"):
             if workflow is not None:
                 findings = lint.check_workflow(workflow, suppress=suppress,
@@ -561,11 +529,11 @@ class OpWorkflowRunner:
         ``compileCacheDir``, else None (an in-memory database: the static
         estimates still make a plan)."""
         from . import planner
-        db = params.custom_params.get("costDb")
+        db = config.raw_param(params.custom_params, "costDb")
         if db:
             return str(db)
         return planner.default_cost_db_path(
-            params.custom_params.get("compileCacheDir"))
+            config.raw_param(params.custom_params, "compileCacheDir"))
 
     def _plan_step(self, params: OpParams, workflow=None, model=None):
         """The plan before any reader I/O, installed for the run: the
@@ -579,8 +547,9 @@ class OpWorkflowRunner:
             if workflow is not None:
                 workflow.set_plan(None)
             return None
-        fail_on = str(params.custom_params.get("failOn", "error")).lower()
-        suppress = params.custom_params.get("lintSuppress", ())
+        fail_on = str(config.raw_param(params.custom_params, "failOn",
+                                       "error")).lower()
+        suppress = config.raw_param(params.custom_params, "lintSuppress", ())
         db = planner.CostDatabase.load(self._cost_db_path(params))
         with telemetry.span("run:plan"):
             if model is not None:
@@ -597,7 +566,7 @@ class OpWorkflowRunner:
         if ingest_tier is not None:
             from . import workflow as _workflow
             _workflow.set_stream_fit(ingest_hint=ingest_tier)
-            forced_sf = _tristate_custom_param(params, "streamFit")
+            forced_sf = _bool_custom_param(params, "streamFit")
             if (forced_sf is True and ingest_tier == "materialize") \
                     or (forced_sf is False and ingest_tier == "stream"):
                 findings.append(lint.Finding(
@@ -613,7 +582,7 @@ class OpWorkflowRunner:
         agg_tier = planner.aggregate_route_tier(db)
         if agg_tier is not None:
             temporal.set_aggregate_tier_hint(agg_tier)
-            forced = _tristate_custom_param(params, "aggregateColumnar")
+            forced = _bool_custom_param(params, "aggregateColumnar")
             if (forced is True and agg_tier == "rowwise") \
                     or (forced is False and agg_tier == "columnar"):
                 findings.append(lint.Finding(
@@ -929,6 +898,25 @@ class OpApp:
         ap.add_argument("--model-location")
         ap.add_argument("--write-location")
         ap.add_argument("--metrics-location")
+        ap.add_argument("--trace-out", metavar="PATH",
+                        help="turn telemetry on and write a Chrome "
+                             "trace-event JSON here (Perfetto-loadable)")
+        ap.add_argument("--metrics-format", choices=("json", "prometheus"),
+                        help="metrics sink format; prometheus turns "
+                             "telemetry on and writes the registry in "
+                             "text exposition format")
+        ap.add_argument("--compile-cache-dir", metavar="DIR",
+                        help="customParams.compileCacheDir: the cost "
+                             "database's directory when costDb is unset "
+                             "(nothing is compiled ahead in this package)")
+        ap.add_argument("--mesh-devices", type=int, metavar="N",
+                        help="devices in the run's mesh "
+                             "(customParams.meshDevices); multi-device "
+                             "runs are not ported yet")
+        ap.add_argument("--quarantine-out", metavar="PATH",
+                        help="dead-letter sink (JSONL): unreadable stream "
+                             "files and failed scoring batches land here "
+                             "with a reason")
         ap.add_argument("--fail-on", choices=("error", "warning"),
                         help="pre-flight gating severity (lint.py): "
                              "'error' (default) stops only on errors, "
@@ -944,9 +932,20 @@ class OpApp:
             logging.basicConfig(level=logging.INFO)
         params = (OpParams.from_file(args.params) if args.params
                   else OpParams())
+        if args.mesh_devices is not None:
+            raise _not_ported("--mesh-devices: multi-device runs "
+                              "(parallel/mesh.py)", "A6.6")
         for key in ("model_location", "write_location", "metrics_location"):
             if getattr(args, key):
                 setattr(params, key, getattr(args, key))
+        if args.trace_out:
+            params.trace_location = args.trace_out
+        if args.metrics_format:
+            params.metrics_format = args.metrics_format
+        if args.compile_cache_dir:
+            params.custom_params["compileCacheDir"] = args.compile_cache_dir
+        if args.quarantine_out:
+            params.quarantine_location = args.quarantine_out
         if args.fail_on:
             params.custom_params["failOn"] = args.fail_on
         if args.no_validate:

@@ -767,7 +767,7 @@ class ScoringEngine:
             with torch.cuda.device(self.device), torch.cuda.graph(
                     graph, capture_error_mode="thread_local"):
                 outs = body(*ins)
-        except Exception as e:
+        except Exception as e:  # lint: broad-except — wrapped and re-raised naming the bucket, nothing swallowed
             raise RuntimeError(
                 f"scoring engine: CUDA graph capture failed at bucket "
                 f"{bucket} ({type(e).__name__}: {e})") from e
@@ -896,7 +896,7 @@ class ScoringEngine:
                         outs = self._device_outputs(prog, prepared, uploads,
                                                     out_names, bucket)
                         pulled = self._pull(outs, out_names, n)
-                    except BaseException as e:
+                    except BaseException as e:  # lint: broad-except — tagged as a device failure and re-raised
                         resilience.mark_device_failure(e)
                         raise
                 telemetry.settle_device_timers()
