@@ -329,6 +329,38 @@ Run from the repository root on a machine with one NVIDIA H100:
    fold AuPR, the training AuPR and Evaluate's AuPR within 1e-4 (the
    full grids take about twenty minutes on a CPU at 2,000 rows, on the
    tree kernels' plain versions).
+18. the model server and the model lifecycle at serve-tenants
+   (:func:`serve_tenants_phase`): two versions of text-200k's model (GBT
+   maxDepth 6 at selector seeds 42 and 43, a RawFeatureFilter at its
+   defaults so the training distributions persist, the 451-column
+   vector) trained on its 200,000 records, saved, exported with a
+   program bank over the buckets 8 ... 1,024 and registered in a
+   temporary registry (v1 promoted). One in-process ``ModelServer`` on
+   the card (``drift_window`` 4,096, a 2 ms hold) serves the registry's
+   ``churn`` and phase 7's saved serve-200k model: 8 client threads of
+   200 requests of 1-64 seeded records (every response bitwise equal to
+   a solo ``score_store(bucket_min=bucket)`` on the tenant's engine; the
+   mean requests merged a dispatch, the bank-hit dispatches, no program
+   built for a banked bucket); a canary of v2 (fraction 0.5, windows of
+   64, 3 clean windows) that promotes and moves the pointer, the stable
+   traffic bitwise solo v1; a rollback; a shadow of v1 with parity and no
+   mismatch; a canary under a ``lifecycle.promote`` fault that rolls back
+   with no request dropped; a ``server.dispatch`` fault that quarantines
+   one request of a merged batch while its co-riders are answered
+   through the engine, bitwise; a device-marked failure that fails its
+   batch with nothing scored by layers; in-distribution traffic that
+   raises no drift advisory and ``age`` + 40 that raises TMG601 within
+   one window, its scores bitwise. Then ``python -m
+   transmogrifai_tpu_torch serve`` as a process on the card over the
+   registry and phase 7's model (``--port 0 --port-file``,
+   ``serveMetrics``, ``traceDir``): its time to become ready and first
+   request's ms, requests over HTTP with minted trace headers (bitwise
+   equal to solo at their buckets), ``/metrics`` and ``/stats``,
+   ``registry list`` / ``current`` / ``promote``, a SIGTERM that drains
+   every accepted request, and ``trace merge`` with ``server:request``
+   and ``server:dispatch`` under the minted trace id. Requests/s, rows/s,
+   p50/p95/p99 and each decomposition phase, beside the card's name and
+   power limit; the launches of training, export and served traffic.
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
 boston-200k, mapprep-200k, mapprep-guarded-200k and eventlog-200k) once
@@ -353,7 +385,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–17).
+over the main paths' runs, phases 3–18).
 ``--serve-export-only`` runs phase 7 (without its comparison with phase
 4's AuPR) and phase 12 alone, and prints no result line.
 ``--every-surface-only`` runs phase 13 alone and prints no result line.
@@ -364,12 +396,16 @@ prints no result line.
 ``--ooc-only`` runs phase 16 alone and prints no result line (it starts
 its two training legs as ``chip_smoke.py --ooc-leg <spec>``).
 ``--gen-only`` runs phase 17 alone and prints no result line.
+``--serve-tenants-only`` runs phase 18 alone (training and saving phase
+7's model first when its save is missing) and prints no result line.
 """
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -5518,6 +5554,738 @@ def gen_phase(H, BP, card, dev="cuda"):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- phase 18: the model server and the model lifecycle (serve-tenants) -----
+
+#: text-200k's records, at the width phase 4's vector has
+TENANT_N = 200_000
+TENANT_WIDTH = 451
+#: the engines' bucket cap and the bank's ladder (8 ... 1,024)
+TENANT_CAP = 1024
+#: merged batches: client threads, requests each, records a request
+TENANT_CLIENTS = 8
+TENANT_REQUESTS = 200
+TENANT_MAX_ROWS = 64
+TENANT_DEADLINE_S = 0.002
+TENANT_DRIFT_WINDOW = 4_096
+#: the fault steps' hold: their three requests merge into one dispatch
+TENANT_HOLD_S = 0.2
+#: the rollouts' evaluation windows (requests) and clean windows
+TENANT_WINDOW = 64
+TENANT_PROMOTE_WINDOWS = 3
+#: requests over HTTP to the serve process, and the burst SIGTERM drains
+TENANT_HTTP_CLIENTS = 4
+TENANT_HTTP_REQUESTS = 25
+TENANT_DRAIN_BURST = 16
+TENANT_DRAIN_ROWS = 1024
+TENANT_STEP_TIMEOUT_S = 300
+#: the kernels phase 18 must launch: the versions' training, and every
+#: batch the server scores (``predict_trees``)
+TENANT_KERNELS = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
+                  "level_epilogue", "predict_trees")
+#: the serve process's command after the interpreter
+SERVE_CMD = ["-m", "transmogrifai_tpu_torch", "serve"]
+
+
+class PathLaunches:
+    """Kernel launches summed over the blocks run under :meth:`count`
+    (the main path's traffic); the oracle checks between them are not
+    counted."""
+
+    def __init__(self, H):
+        self.H = H
+        self.total = {k: 0 for k in H.KERNEL_LAUNCHES}
+
+    @contextlib.contextmanager
+    def count(self):
+        torch.cuda.synchronize()
+        before = dict(self.H.KERNEL_LAUNCHES)
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            for k, v in self.H.KERNEL_LAUNCHES.items():
+                self.total[k] += v - before[k]
+
+
+def tenant_version(BP, records, seed, root, dev):
+    """One version of the churn tenant: text-200k's workflow at one grid
+    point (GBT maxDepth 6, 3-fold CV, selector seed ``seed``) behind a
+    RawFeatureFilter at its defaults, trained on ``records``, saved and
+    exported with a program bank over the ladder up to ``TENANT_CAP``."""
+    from transmogrifai_tpu_torch import serving
+    from transmogrifai_tpu_torch.filters import RawFeatureFilter
+    from transmogrifai_tpu_torch.synthetic_trees import default_families
+    from transmogrifai_tpu_torch.workflow import Workflow
+    _, checked, selector, prediction = BP.build_selection(
+        [default_families((6,), ())[0]], num_folds=3, seed=seed)
+    wf = (Workflow().set_input_records(records)
+          .set_result_features(prediction)
+          .set_splitter(selector.splitter)
+          .with_raw_feature_filter(RawFeatureFilter()))
+    t0 = time.perf_counter()
+    model = wf.train(device=dev)
+    train_s = time.perf_counter() - t0
+    excluded = model.rff_results.summary()["excluded"]
+    width = len(model.fitted_stages[checked.origin_stage.uid].keep_indices)
+    mdir = os.path.join(root, f"model_{seed}")
+    edir = os.path.join(root, f"export_{seed}")
+    t0 = time.perf_counter()
+    model.save(mdir, overwrite=True)
+    meta = serving.export_scoring_fn(model, edir, records[:64],
+                                     bucket_cap=TENANT_CAP, device=dev)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    return {"model": model, "pred": prediction.name, "model_dir": mdir,
+            "export_dir": edir, "train_s": train_s, "export_s": export_s,
+            "width": width, "excluded": excluded, "seed": seed,
+            "bank": meta["aot"]}
+
+
+def draw_request(rng, records):
+    n = int(rng.integers(1, TENANT_MAX_ROWS + 1))
+    lo = int(rng.integers(0, len(records) - n))
+    return records[lo:lo + n]
+
+
+def solo_equal(eng, records, res, pred, what):
+    """``res`` (a RequestResult) bitwise equal to a solo score of its
+    records through ``eng`` at the dispatch's bucket."""
+    want = eng.score_store(records, use_cache=False,
+                           bucket_min=res.bucket)[pred]
+    same_predictions(res.store[pred], want, what)
+
+
+def run_clients(fn, n_clients, what):
+    """``fn(k)`` on ``n_clients`` threads; fail if one raised. Returns
+    the wall seconds."""
+    errors = []
+
+    def body(k):
+        try:
+            fn(k)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(k,), daemon=True,
+                                name=f"{what}-{k}")
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=TENANT_STEP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"serve-tenants: {what}: a client failed: {errors[:1]!r}")
+    return wall
+
+
+def latency_line(stats, what):
+    lat = stats["latency"]
+    parts = [f"e2e p50 {lat['e2e'].get('p50_ms')} / p95 "
+             f"{lat['e2e'].get('p95_ms')} / p99 {lat['e2e'].get('p99_ms')} ms"]
+    for ph in ("queueWait", "coalesceHold", "deviceDispatch", "scatter"):
+        d = lat.get(ph) or {}
+        parts.append(f"{ph} p50 {d.get('p50_ms')} / p99 {d.get('p99_ms')}")
+    print(f"serve-tenants {what}: " + "; ".join(parts))
+
+
+def sequential(srv, name, records, rng, n, stop=None):
+    """``n`` one-at-a-time requests to ``name`` (until ``stop()``);
+    [(records, result)]."""
+    out = []
+    for _ in range(n):
+        recs = draw_request(rng, records)
+        out.append((recs, srv.score(name, recs, timeout_s=120)))
+        if stop is not None and stop():
+            break
+    return out
+
+
+def wait_for(cond, what, timeout_s=60.0):
+    """Poll ``cond()`` until it holds; fail after ``timeout_s``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout_s:
+            fail(f"serve-tenants: {what} did not happen within "
+                 f"{timeout_s:g} s")
+            return
+        time.sleep(0.01)
+
+
+def merged_pair(srv, name, records, rng):
+    """Three requests that merge into one dispatch (the server holds the
+    first for ``TENANT_HOLD_S``): [(records, future)]."""
+    reqs = [draw_request(rng, records) for _ in range(3)]
+    return [(r, srv.submit(name, r)) for r in reqs]
+
+
+def serve_tenants_inprocess(H, v1, v2, reg, serve200k_dir, records, acc,
+                            card, dev):
+    """Phase 18's in-process steps on one ``ModelServer``; returns the
+    engines the HTTP step's oracle uses."""
+    from transmogrifai_tpu_torch import lifecycle, resilience
+    from transmogrifai_tpu_torch.server import ModelServer, server_stats
+    from transmogrifai_tpu_torch.workflow import WorkflowModel
+
+    srv = ModelServer(registry=reg, drift_window=TENANT_DRIFT_WINDOW,
+                      batch_deadline_s=TENANT_DEADLINE_S,
+                      bucket_cap=TENANT_CAP, device=dev)
+    try:
+        t0 = time.perf_counter()
+        with acc.count():
+            srv.register_from_registry("churn", preload=True)
+            srv.register("serve200k", model_dir=serve200k_dir, preload=True)
+        print(f"serve-tenants: two tenants loaded in "
+              f"{time.perf_counter() - t0:.2f} s (churn from the registry "
+              f"at {reg.current('churn')[:12]}, banked buckets "
+              f"{srv._entries['churn'].bank_buckets}; serve200k pinned "
+              "from phase 7's save, no bank)")
+        preds = {"churn": v1["pred"], "serve200k": srv._entries[
+            "serve200k"].model.result_features[0].name}
+        names = ("churn", "serve200k")
+
+        # -- merged batches -------------------------------------------------
+        results, lock = [], threading.Lock()
+
+        def client(k):
+            rng = np.random.default_rng(1800 + k)
+            for i in range(TENANT_REQUESTS):
+                name = names[(k + i) % 2]
+                recs = draw_request(rng, records)
+                res = srv.submit(name, recs).result(timeout=120)
+                with lock:
+                    results.append((name, recs, res))
+
+        before = server_stats()
+        with acc.count():
+            wall = run_clients(client, TENANT_CLIENTS, "merged")
+        after = server_stats()
+        d = {k: after[k] - before[k] for k in after
+             if isinstance(after[k], int)}
+        n_req = len(results)
+        rows = sum(res.rows for _, _, res in results)
+        for name, recs, res in results:
+            solo_equal(srv._entries[name].engine, recs, res, preds[name],
+                       f"merged batch ({name})")
+        churn = srv._entries["churn"]
+        banked_builds = churn.engine.compile_count
+        if banked_builds:
+            fail(f"serve-tenants: {banked_builds} programs built for "
+                 "banked buckets")
+        stats = srv.stats()["models"]
+        print(f"serve-tenants merged ({card}): {TENANT_CLIENTS} clients x "
+              f"{TENANT_REQUESTS} requests of 1-{TENANT_MAX_ROWS} records: "
+              f"{n_req} requests, {rows} rows in {wall:.3f} s = "
+              f"{n_req / wall:.1f} requests/s, {rows / wall:.1f} rows/s; "
+              f"{d['batches']} dispatches, {d['requests'] / d['batches']:.3f}"
+              f" requests merged a dispatch; bank-hit dispatches "
+              f"{d['bank_hit_batches']} (churn {stats['churn']['bankHitBatches']}"
+              f" of {stats['churn']['batches']}); programs built for banked "
+              f"buckets {banked_builds}; serve200k's engine built "
+              f"{srv._entries['serve200k'].engine.compile_count} programs; "
+              "every response bitwise equal to solo score_store(bucket_min=)")
+        for name in names:
+            latency_line(stats[name], f"merged {name}")
+
+        # -- canary of v2: promotes and moves the pointer -------------------
+        eng_v1 = churn.engine
+        srv.deploy("churn", v2["vid"], mode="canary", fraction=0.5,
+                   window_requests=TENANT_WINDOW,
+                   promote_windows=TENANT_PROMOTE_WINDOWS)
+        eng_v2 = churn.rollout.engine
+        rng = np.random.default_rng(1810)
+        t0 = time.perf_counter()
+        with acc.count():
+            seen = sequential(srv, "churn", records, rng, 2_000,
+                              stop=lambda: reg.current("churn") == v2["vid"])
+        canary_s = time.perf_counter() - t0
+        if reg.current("churn") != v2["vid"] or churn.rollout is not None:
+            fail("serve-tenants: the canary of v2 did not promote")
+        # a response names its version's prediction column: v1 before the
+        # promote (unless sent to the candidate), v2 after it
+        promoted = False
+        n_canary = 0
+        for recs, res in seen:
+            by_v2 = v2["pred"] in res.store.names()
+            n_canary += res.canary
+            if res.canary and not by_v2:
+                fail("serve-tenants: a canaried request was not scored by v2")
+            if not res.canary:
+                if promoted and not by_v2:
+                    fail("serve-tenants: v1 served after the promote")
+                promoted = promoted or by_v2
+            eng, pred = (eng_v2, v2["pred"]) if by_v2 \
+                else (eng_v1, v1["pred"])
+            solo_equal(eng, recs, res, pred, "canary rollout")
+        print(f"serve-tenants canary: v2 at fraction 0.5, windows of "
+              f"{TENANT_WINDOW}, promoted after {len(seen)} requests "
+              f"({n_canary} to the candidate) in {canary_s:.2f} s; the "
+              "pointer moved; requests not sent to the candidate bitwise "
+              "equal to solo v1")
+        out = srv.rollback("churn")
+        if out.get("rolledBackTo") != v1["vid"] or \
+                reg.current("churn") != v1["vid"]:
+            fail(f"serve-tenants: rollback gave {out}")
+        with acc.count():
+            back = sequential(srv, "churn", records, rng, 8)
+        for recs, res in back:
+            solo_equal(eng_v1, recs, res, v1["pred"], "after the rollback")
+        print("serve-tenants rollback: the pointer is back on v1; the "
+              "reloaded tenant scores bitwise as v1")
+
+        # -- shadow of v1 (the weights it serves): parity, no mismatch -----
+        before = lifecycle.lifecycle_stats()
+        srv.deploy("churn", v1["vid"], mode="shadow",
+                   window_requests=TENANT_WINDOW,
+                   promote_windows=TENANT_PROMOTE_WINDOWS)
+        rollout = churn.rollout
+        with acc.count():
+            seen = sequential(srv, "churn", records, rng,
+                              TENANT_WINDOW * TENANT_PROMOTE_WINDOWS)
+            # a response resolves before its batch is mirrored and the
+            # window ticks: wait for the worker to finish the last one
+            wait_for(lambda: churn.rollout is None, "the shadow's promote")
+        after = lifecycle.lifecycle_stats()
+        st = rollout.status()
+        for recs, res in seen:
+            solo_equal(eng_v1, recs, res, v1["pred"], "shadow (primary)")
+        if st["parityOk"] < len(seen) or st["parityMismatch"] or \
+                after["shadow_parity_mismatch"] != \
+                before["shadow_parity_mismatch"]:
+            fail(f"serve-tenants: shadow parity {st}")
+        print(f"serve-tenants shadow: v1 mirrored on {st['shadowRequests']} "
+              f"requests, parity ok {st['parityOk']}, mismatches "
+              f"{st['parityMismatch']}, latency delta "
+              f"{st['shadowLatencyDeltaMs']} ms a batch; promoted "
+              f"{after['auto_promotions'] - before['auto_promotions']} "
+              "(same version, pointer unchanged)")
+
+        # -- a lifecycle.promote fault: rolls back, drops nothing ----------
+        before = lifecycle.lifecycle_stats()
+        q0 = resilience.resilience_stats()
+        plan = resilience.FaultPlan(seed=18).on("lifecycle.promote",
+                                                error=RuntimeError)
+        srv.deploy("churn", v2["vid"], mode="canary", fraction=1.0,
+                   window_requests=16, promote_windows=1)
+        with resilience.fault_plan(plan), acc.count():
+            seen = sequential(srv, "churn", records, rng, 40)
+        after = lifecycle.lifecycle_stats()
+        q1 = resilience.resilience_stats()
+        if (plan.fired("lifecycle.promote") != 1 or len(seen) != 40
+                or after["auto_rollbacks"] - before["auto_rollbacks"] != 1
+                or after["auto_promotions"] != before["auto_promotions"]
+                or reg.current("churn") != v1["vid"]
+                or churn.rollout is not None
+                or q1["quarantined_batches"] != q0["quarantined_batches"]):
+            fail("serve-tenants: the promote fault did not roll back "
+                 "cleanly")
+        for recs, res in seen:
+            eng, pred = (eng_v2, v2["pred"]) if res.canary \
+                else (eng_v1, v1["pred"])
+            solo_equal(eng, recs, res, pred, "promote fault")
+        print(f"serve-tenants promote fault: 40 requests, all answered "
+              f"({sum(r.canary for _, r in seen)} by the candidate), "
+              "rolled back, the pointer stayed on v1, nothing quarantined")
+
+        # -- a server.dispatch fault on one merged batch --------------------
+        srv.batch_deadline_s = TENANT_HOLD_S
+        q0 = resilience.resilience_stats()["quarantined_batches"]
+        plan = resilience.FaultPlan(seed=19).on(
+            "server.dispatch", error=RuntimeError, at=[0, 1])
+        with resilience.fault_plan(plan), acc.count():
+            pair = merged_pair(srv, "churn", records, rng)
+            try:
+                pair[0][1].result(timeout=120)
+                fail("serve-tenants: the poisoned request was answered")
+            except RuntimeError:
+                pass
+            riders = [(r, f.result(timeout=120)) for r, f in pair[1:]]
+        for recs, res in riders:
+            if not res.engine_tier or res.coalesced != 3:
+                fail(f"serve-tenants: a co-rider was not retried through "
+                     f"the engine ({res.engine_tier}, {res.coalesced})")
+            solo_equal(eng_v1, recs, res, v1["pred"], "dispatch fault")
+        if resilience.resilience_stats()["quarantined_batches"] - q0 != 1:
+            fail("serve-tenants: the poisoned request was not quarantined")
+        print("serve-tenants dispatch fault: the poisoned request of a "
+              "3-request batch quarantined, its co-riders answered through "
+              "the engine one at a time, bitwise")
+
+        # -- a device failure: the batch fails, nothing on the host --------
+        layer_calls = []
+        real_score = WorkflowModel.score
+
+        def spy(self, data, *a, **kw):
+            if kw.get("engine") is False:
+                layer_calls.append(kw)
+            return real_score(self, data, *a, **kw)
+
+        WorkflowModel.score = spy
+        s0 = server_stats()
+        q0 = resilience.resilience_stats()["quarantined_batches"]
+        plan = resilience.FaultPlan(seed=20).on(
+            "scoring.device_dispatch", error=RuntimeError, at=[0])
+        try:
+            with resilience.fault_plan(plan), acc.count():
+                pair = merged_pair(srv, "churn", records, rng)
+                errs = []
+                for _, f in pair:
+                    try:
+                        f.result(timeout=120)
+                    except RuntimeError as e:
+                        errs.append(e)
+        finally:
+            WorkflowModel.score = real_score
+        s1 = server_stats()
+        if (len(errs) != 3 or len({id(e) for e in errs}) != 1
+                or not resilience.is_device_failure(errs[0])
+                or layer_calls or s1["requests_failed"]
+                - s0["requests_failed"] != 3
+                or resilience.resilience_stats()["quarantined_batches"]
+                != q0):
+            fail("serve-tenants: a device failure did not fail its batch "
+                 "alone")
+        srv.batch_deadline_s = TENANT_DEADLINE_S
+        print("serve-tenants device failure: the batch's 3 futures failed "
+              "with the device error, nothing quarantined, nothing scored "
+              "by layers (WorkflowModel.score(engine=False) never called)")
+
+        # -- drift: in-distribution silence, age + 40 flags TMG601 ---------
+        # the sentinel thread folds what is queued in one pass (a ring
+        # entry); draining after each quarter window makes every entry
+        # one sub-window, so the ring is one window of the stream
+        sub = TENANT_DRIFT_WINDOW // 4
+
+        def drift_stream(stream):
+            seen, marks = [], []
+            for at in range(0, len(stream), sub):
+                with acc.count():
+                    for lo in range(at, at + sub, 64):
+                        recs = stream[lo:lo + 64]
+                        seen.append((recs, srv.score("churn", recs,
+                                                     timeout_s=120)))
+                srv.drain_drift()
+                marks.append((at + sub, list(sentinel.last_findings),
+                              sentinel.advisories))
+            return seen, marks
+
+        srv.drain_drift()
+        sentinel = churn.sentinel
+        adv0 = sentinel.advisories
+        quiet_at = len(records) // 4
+        _, marks = drift_stream(
+            records[quiet_at:quiet_at + TENANT_DRIFT_WINDOW])
+        quiet = sentinel.stats()
+        if marks[-1][2] != adv0 or not quiet["windowsCompared"]:
+            fail(f"serve-tenants: in-distribution traffic drifted: {quiet}")
+        shift_at = len(records) // 2
+        shifted = [dict(r, age=None if r["age"] is None else r["age"] + 40.0)
+                   for r in records[shift_at:shift_at + TENANT_DRIFT_WINDOW]]
+        drift_seen, marks = drift_stream(shifted)
+        first = next(((rows, [f for f in fs if f.rule == "TMG601"
+                              and f.feature == "age"])
+                      for rows, fs, _ in marks
+                      if any(f.rule == "TMG601" and f.feature == "age"
+                             for f in fs)), None)
+        if first is None:
+            fail(f"serve-tenants: age + 40 raised no TMG601 within one "
+                 f"window: {sentinel.stats()}")
+        for recs, res in drift_seen:
+            solo_equal(eng_v1, recs, res, v1["pred"], "shifted traffic")
+        print(f"serve-tenants drift: {TENANT_DRIFT_WINDOW} in-distribution "
+              f"rows raised no TMG601/602 ({quiet['windowsCompared']} "
+              f"windows compared); age + 40 raised TMG601 after {first[0]} "
+              f"shifted rows (window {TENANT_DRIFT_WINDOW}): "
+              f"{first[1][0].message!r}; the shifted scores bitwise")
+        return {"churn": eng_v1, "serve200k":
+                srv._entries["serve200k"].engine}, preds
+    finally:
+        srv.batch_deadline_s = TENANT_DEADLINE_S
+        srv.shutdown(drain=True)
+
+
+def http_call(port, method, path, body=None, headers=None, timeout=120):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json", **(headers or {})})
+        r = conn.getresponse()
+        raw = r.read()
+        return r.status, raw, dict(r.getheaders())
+    finally:
+        conn.close()
+
+
+def http_equal(doc, recs, eng, pred, what):
+    """An HTTP score response's outputs equal a solo score of its records
+    at its bucket, value for value (JSON floats round-trip exactly)."""
+    want = eng.score_store(recs, use_cache=False,
+                           bucket_min=doc["bucket"])[pred]
+    got = [o[pred] for o in doc["outputs"]]
+    if got != [want.get_raw(i) for i in range(len(recs))]:
+        fail(f"serve-tenants: {what}: the response differs from solo")
+
+
+def serve_process_step(reg_dir, serve200k_dir, engines, preds, records,
+                       work, card):
+    """Phase 18's serve process: ``python -m transmogrifai_tpu_torch serve``
+    on the card over the registry and phase 7's model, driven over HTTP,
+    then ``registry`` and ``trace merge``; SIGTERM drains."""
+    import signal
+    from transmogrifai_tpu_torch import cli, telemetry
+    from transmogrifai_tpu_torch.lifecycle import ModelRegistry
+    trace_dir = os.path.join(work, "traces")
+    params = os.path.join(work, "serve_params.json")
+    port_file = os.path.join(work, "port.txt")
+    with open(params, "w") as fh:
+        json.dump({"customParams": {
+            "registryDir": reg_dir,
+            "serveModels": {"serve200k": serve200k_dir},
+            "serveBucketCap": TENANT_CAP, "serveMetrics": True,
+            "traceDir": trace_dir}}, fh)
+    log = open(os.path.join(work, "serve.log"), "w")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable] + SERVE_CMD + [params, "--port", "0",
+                                        "--port-file", port_file],
+        cwd=work, env=env,
+        stdout=log, stderr=subprocess.STDOUT, text=True)
+    try:
+        port = None
+        while time.perf_counter() - t0 < TENANT_STEP_TIMEOUT_S:
+            if proc.poll() is not None:
+                break
+            if os.path.exists(port_file):
+                port = int(open(port_file).read())
+                if http_call(port, "GET", "/readyz")[0] == 200:
+                    break
+            time.sleep(0.05)
+        if port is None or proc.poll() is not None:
+            log.flush()
+            sys.stderr.write(open(log.name).read()[-6000:])
+            fail("serve-tenants: the serve process never became ready")
+        ready_s = time.perf_counter() - t0
+        trace_id, span_id = telemetry.mint_trace()
+        hdr = {telemetry.TRACE_HEADER:
+               telemetry.format_traceparent(trace_id, span_id)}
+        rng = np.random.default_rng(1830)
+        first = records[:17]
+        t1 = time.perf_counter()
+        status, raw, headers = http_call(port, "POST",
+                                         "/v1/models/churn:score",
+                                         {"records": first}, hdr)
+        first_ms = 1e3 * (time.perf_counter() - t1)
+        if status != 200 or headers.get(telemetry.TRACE_HEADER) != \
+                hdr[telemetry.TRACE_HEADER]:
+            fail(f"serve-tenants: the first request answered {status}")
+        http_equal(json.loads(raw), first, engines["churn"], preds["churn"],
+                   "first request")
+        lock, answered = threading.Lock(), []
+
+        def client(k):
+            crng = np.random.default_rng(1840 + k)
+            for i in range(TENANT_HTTP_REQUESTS):
+                name = ("churn", "serve200k")[(k + i) % 2]
+                recs = draw_request(crng, records)
+                tid, sid = telemetry.mint_trace()
+                st, body, _ = http_call(
+                    port, "POST", f"/v1/models/{name}:score",
+                    {"records": recs}, {telemetry.TRACE_HEADER:
+                                        telemetry.format_traceparent(
+                                            tid, sid)})
+                if st != 200:
+                    raise RuntimeError(f"{name} answered {st}")
+                with lock:
+                    answered.append((name, recs, json.loads(body)))
+
+        wall = run_clients(client, TENANT_HTTP_CLIENTS, "http")
+        for name, recs, doc in answered:
+            http_equal(doc, recs, engines[name], preds[name], f"HTTP {name}")
+        n = len(answered)
+        rows = sum(len(r) for _, r, _ in answered)
+        status, raw, _ = http_call(port, "GET", "/metrics")
+        parsed = telemetry.parse_prometheus(raw.decode())
+        if status != 200 or "server_tally_requests" not in parsed:
+            fail("serve-tenants: /metrics did not parse")
+        status, raw, _ = http_call(port, "GET", "/stats")
+        stats = json.loads(raw)
+        for name in ("churn", "serve200k"):
+            if not stats["models"][name]["latency"]["deviceDispatch"]:
+                fail(f"serve-tenants: /stats has no decomposition ({name})")
+        print(f"serve-tenants serve process ({card}): ready in "
+              f"{ready_s:.2f} s, first request {first_ms:.1f} ms; "
+              f"{n} requests over HTTP ({TENANT_HTTP_CLIENTS} clients), "
+              f"{rows} rows in {wall:.3f} s = {n / wall:.1f} requests/s, "
+              f"{rows / wall:.1f} rows/s, each bitwise equal to solo at "
+              f"its bucket; /metrics parses ({len(parsed)} families), "
+              f"/stats has the latency decomposition")
+        for name in ("churn", "serve200k"):
+            latency_line(stats["models"][name], f"serve process {name}")
+        # -- the registry command line --------------------------------------
+        for argv in (["registry", "list", "--registry", reg_dir],
+                     ["registry", "list", "--registry", reg_dir,
+                      "--model", "churn", "--json"],
+                     ["registry", "current", "--registry", reg_dir,
+                      "--model", "churn"],
+                     ["registry", "promote", "--registry", reg_dir,
+                      "--model", "churn", "--version",
+                      ModelRegistry(reg_dir).current("churn")]):
+            if cli.main(argv) != 0:
+                fail(f"serve-tenants: {' '.join(argv[:2])} exited non-zero")
+        # -- SIGTERM drains every accepted request --------------------------
+        # each client sends a request of a full bucket and says so; the
+        # signal follows once every request is sent, while the server
+        # still holds most of them
+        import http.client
+        burst_at = 3 * len(records) // 4
+        burst, sent = [], threading.Semaphore(0)
+
+        def burst_client(k):
+            recs = records[burst_at + TENANT_DRAIN_ROWS * k:
+                           burst_at + TENANT_DRAIN_ROWS * (k + 1)]
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            try:
+                conn.request("POST", "/v1/models/churn:score",
+                             json.dumps({"records": recs}),
+                             {"Content-Type": "application/json"})
+                sent.release()
+                r = conn.getresponse()
+                burst.append((recs, r.status, r.read(), time.perf_counter()))
+            finally:
+                conn.close()
+
+        def churn_stats():
+            return json.loads(http_call(port, "GET", "/stats")[1])[
+                "models"]["churn"]
+
+        base = churn_stats()["requests"]
+        threads = [threading.Thread(target=burst_client, args=(k,),
+                                    daemon=True, name=f"burst-{k}")
+                   for k in range(TENANT_DRAIN_BURST)]
+        for t in threads:
+            t.start()
+        for _ in threads:
+            if not sent.acquire(timeout=TENANT_STEP_TIMEOUT_S):
+                fail("serve-tenants: a drain request was never sent")
+        # admitted: answered or queued, but for the one in its dispatch
+        wait_for(lambda: (lambda st: st["requests"] - base + st["queueDepth"]
+                          >= TENANT_DRAIN_BURST - 1)(churn_stats()),
+                 "the drain requests' admission")
+        time.sleep(0.05)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        for t in threads:
+            t.join(timeout=TENANT_STEP_TIMEOUT_S)
+        rc = proc.wait(timeout=TENANT_STEP_TIMEOUT_S)
+        log.flush()
+        out = open(log.name).read()
+        if rc != 0 or "draining" not in out:
+            sys.stderr.write(out[-6000:])
+            fail(f"serve-tenants: the serve process exited {rc}")
+        ok = [(recs, json.loads(raw)) for recs, st, raw, _ in burst
+              if st == 200]
+        if len(ok) != TENANT_DRAIN_BURST:
+            fail(f"serve-tenants: SIGTERM dropped "
+                 f"{TENANT_DRAIN_BURST - len(ok)} accepted requests")
+        for recs, doc in ok:
+            http_equal(doc, recs, engines["churn"], preds["churn"], "drain")
+        after_sig = sum(t > t_sig for *_, t in burst)
+        if cli.main(["trace", "merge", trace_dir]) != 0:
+            fail("serve-tenants: trace merge exited non-zero")
+        merged = json.load(open(os.path.join(trace_dir,
+                                             "merged.trace.json")))
+        spans = {ev["name"] for ev in merged["traceEvents"]
+                 if isinstance(ev.get("args"), dict)
+                 and ev["args"].get("trace_id") == trace_id}
+        if not {"server:request", "server:dispatch"} <= spans:
+            fail(f"serve-tenants: the minted trace holds {sorted(spans)}")
+        print(f"serve-tenants serve process: SIGTERM with "
+              f"{TENANT_DRAIN_BURST} requests of {TENANT_DRAIN_ROWS} "
+              f"records sent, "
+              f"{after_sig} of them answered after the signal; all 200, "
+              f"bitwise, "
+              f"exit 0; registry list / current / promote exit 0; trace "
+              f"merge exit 0, server:request and server:dispatch share "
+              f"the minted trace id")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def serve_tenants_phase(H, BP, card, records=None, serve200k_dir=None,
+                        dev="cuda"):
+    """Phase 18, serve-tenants: the model server and the model lifecycle
+    on the card. Two versions of text-200k's model (v1 and v2: GBT
+    maxDepth 6 at selector seeds 42 and 43, a RawFeatureFilter at its
+    defaults, the 451-column vector) trained on 200,000 records, saved,
+    exported with banks over 8 ... 1,024 and registered (v1 promoted);
+    then one in-process ``ModelServer`` with the registry tenant and
+    phase 7's saved model: merged batches from 8 client threads, a canary
+    of v2 that promotes, a rollback, a shadow of v1, a ``lifecycle.
+    promote`` fault, a ``server.dispatch`` fault, a device failure and
+    the drift sentinel; then a ``serve`` process over HTTP. Every response
+    is held bitwise against a solo score at its bucket. Returns the
+    phase's launches (training, export and served traffic; the oracle
+    checks are not counted)."""
+    import shutil
+    import tempfile
+    from transmogrifai_tpu_torch.lifecycle import ModelRegistry
+    t_phase = time.perf_counter()
+    if records is None:
+        records = BP.synthesize_records(TENANT_N, seed=42)
+    root = os.path.dirname(os.path.abspath(__file__))
+    serve200k_dir = serve200k_dir or os.path.join(root, "build", "serve",
+                                                  "big_passenger")
+    work = tempfile.mkdtemp(prefix="serve-tenants-")
+    acc = PathLaunches(H)
+    try:
+        versions = {}
+        for tag, seed in (("v1", 42), ("v2", 43)):
+            with acc.count():
+                v = tenant_version(BP, records, seed, work, dev)
+            versions[tag] = v
+            print(f"serve-tenants {tag}: train {v['train_s']:.2f} s, save "
+                  f"and export (bank {v['bank']['programs']} programs, "
+                  f"{v['bank']['bytes']} bytes) {v['export_s']:.2f} s; "
+                  f"served width {v['width']}, filter excluded "
+                  f"{v['excluded']}")
+            if len(records) == TENANT_N and v["width"] != TENANT_WIDTH:
+                fail(f"serve-tenants: served width {v['width']}, not "
+                     f"{TENANT_WIDTH}")
+        reg_dir = os.path.join(work, "registry")
+        reg = ModelRegistry(reg_dir)
+        for tag in ("v1", "v2"):
+            v = versions[tag]
+            v["vid"] = reg.register("churn", v["model_dir"],
+                                    bank_dir=v["export_dir"],
+                                    train_metrics={"seed": v["seed"]},
+                                    promote=(tag == "v1"))
+        engines, preds = serve_tenants_inprocess(
+            H, versions["v1"], versions["v2"], reg, serve200k_dir, records,
+            acc, card, dev)
+        serve_process_step(reg_dir, serve200k_dir, engines, preds, records,
+                           work, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = acc.total
+    missing = [k for k in TENANT_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"serve-tenants never launched {missing}")
+    print(f"serve-tenants launches: {launches}")
+    print(f"serve-tenants ({card}): phase 18 took "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return launches
+
+
 def phase_seconds(n, t0):
     """Print phase ``n``'s wall seconds since ``t0``; the time now."""
     t = time.perf_counter()
@@ -5592,6 +6360,14 @@ def main():
         return 0
     if "--gen-only" in sys.argv[1:]:
         gen_phase(H, BP, card)
+        return 0
+    if "--serve-tenants-only" in sys.argv[1:]:
+        records = BP.synthesize_records(N, seed=42)
+        saved = os.path.join(root, "build", "serve", "big_passenger")
+        if not os.path.isdir(saved):
+            BP.run(N, device="cuda", records=records)["model"].save(
+                saved, overwrite=True)
+        serve_tenants_phase(H, BP, card, records=records)
         return 0
 
     t_ph = time.perf_counter()
@@ -5766,7 +6542,12 @@ def main():
     # -- phase 17: the command line end to end (gen-200k) -----------------
     t_ph = time.perf_counter()
     path_launches["gen-200k"] = gen_phase(H, BP, card)
-    phase_seconds(17, t_ph)
+    t_ph = phase_seconds(17, t_ph)
+
+    # -- phase 18: the model server and the lifecycle (serve-tenants) -----
+    path_launches["serve-tenants"] = serve_tenants_phase(
+        H, BP, card, records=records)
+    phase_seconds(18, t_ph)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

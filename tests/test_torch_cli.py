@@ -216,13 +216,12 @@ def test_trace_merge_merges_the_runs_shards(trained, capsys, tmp_path):
 
 
 #: each subcommand whose module is not ported, with arguments the JAX
-#: parser takes
+#: parser takes (``serve`` and ``registry`` are ported:
+#: tests/test_torch_server.py, tests/test_torch_lifecycle.py)
 UNPORTED = {
-    "serve": ["serve", "params.json", "--port", "0"],
     "fleet": ["fleet", "params.json", "--workers", "2"],
     "workload": ["workload", "merge", "dir"],
     "tune": ["tune", "params.json", "--workload", "w.json"],
-    "registry": ["registry", "list", "--registry", "reg"],
     "trace analyze": ["trace", "analyze", "dir", "--top-k", "3"],
 }
 
@@ -234,9 +233,15 @@ def test_unported_subcommands_exit_nonzero_naming_their_item(name, capsys):
     assert "not ported yet" in err and "A6.8 (d)" in err
 
 
-def test_python_dash_m_runs_the_command_line():
+def test_python_dash_m_runs_the_command_line(tmp_path):
     res = subprocess.run([sys.executable, "-m", "transmogrifai_tpu_torch",
-                          "registry", "current", "--registry", "r"],
+                          "fleet", "params.json"],
                          capture_output=True, text=True, env=_env(),
                          timeout=300)
     assert res.returncode == 2 and "A6.8 (d)" in res.stderr
+    res = subprocess.run([sys.executable, "-m", "transmogrifai_tpu_torch",
+                          "registry", "list", "--registry",
+                          str(tmp_path / "reg")],
+                         capture_output=True, text=True, env=_env(),
+                         timeout=300)
+    assert res.returncode == 0 and "registry: empty" in res.stdout

@@ -194,6 +194,17 @@ def test_ingest_modules_are_scanned(module):
     assert dotted in _modules()
 
 
+@pytest.mark.parametrize("module", ["server.py", "lifecycle.py", "cli.py"])
+def test_serving_tier_modules_are_scanned(module):
+    """The model server, the model lifecycle and the command line that
+    serves them are among the sources scanned above and the modules
+    imported with ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)
+    assert dotted in _modules()
+
+
 def test_a_telemetry_on_train_runs_with_jax_blocked(tmp_path):
     """With ``jax`` and the JAX package blocked, the port trains through
     its runner on the CPU with telemetry on and writes its trace."""

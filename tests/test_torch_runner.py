@@ -38,10 +38,9 @@ from transmogrifai_tpu_torch.runner import (OpApp, OpParams,
 from transmogrifai_tpu_torch.utils import uid as puid
 
 #: metrics-document blocks of the JAX package's runner whose modules are
-#: not ported (ROADMAP queue A: continual, fleet, lifecycle, server and
-#: workload A6.8 (d); parallel/mesh and multi-host A6.6)
-NOT_PORTED = {"continual", "fleet", "lifecycle", "mesh", "process",
-              "server", "workload"}
+#: not ported (ROADMAP queue A: continual, fleet and workload A6.8 (d);
+#: parallel/mesh and multi-host A6.6)
+NOT_PORTED = {"continual", "fleet", "mesh", "process", "workload"}
 RUNS = (RunType.TRAIN, RunType.SCORE, RunType.EVALUATE, RunType.FEATURES)
 
 
@@ -116,6 +115,9 @@ def test_train_score_evaluate_features_and_the_metrics_keys(tmp_path):
     assert set(train["plan"]) == set(jtrain["plan"])
     assert train["plan"]["counts"]["stages"] \
         == jtrain["plan"]["counts"]["stages"]
+    # the model server's and the lifecycle's tallies, with the JAX keys
+    for block in ("server", "lifecycle"):
+        assert set(train[block]) == set(jtrain[block]), block
     assert outs[RunType.SCORE].metrics["rowsScored"] == len(records)
     assert outs[RunType.FEATURES].metrics["rows"] == len(records)
     # the same model as the JAX package's: AuPR within 1e-9 (f64)

@@ -177,6 +177,48 @@ def test_stream_score_overlapped_equals_serial_scores(port_gbt):
         assert got.names() == [pred.name]
 
 
+@pytest.mark.parametrize("which", ["lr", "gbt"])
+def test_bucket_min_pins_the_rung_bitwise_and_keys_the_prep_cache(
+        which, big_passenger, port_gbt):
+    """``bucket_min`` (the model server's solo oracle) pads a batch to at
+    least that rung, capped, as the JAX engine's ``prepare_batch`` does;
+    the scores are bitwise those at the batch's own rung, and the prep
+    cache keeps the two apart (a repeat call hits its own entry)."""
+    from transmogrifai_tpu_torch.columns import ColumnStore
+    from transmogrifai_tpu_torch.workflow import _raw_store
+    if which == "lr":
+        records, jm, model, pred = big_passenger
+        jeng = jm.scoring_engine(gate_bandwidth=False, bucket_cap=64)
+    else:
+        (records, model, pred), jeng = port_gbt, None
+    eng = model.scoring_engine("cpu", bucket_cap=64)
+    rows = records[:5]
+    own = eng.score_store(rows, use_cache=False)[pred.name]
+    for bmin, rung in ((None, 8), (32, 32), (64, 64), (4096, 64)):
+        pb = eng.prepare_batch(rows, use_cache=False, bucket_min=bmin)
+        assert [c[4] for c in pb.chunks] == [rung]
+        if jeng is not None:
+            jpb = jeng.prepare_batch(rows, use_cache=False, bucket_min=bmin)
+            assert [c[4] for c in jpb.chunks] == [rung]
+        got = eng.score_store(rows, use_cache=False,
+                              bucket_min=bmin)[pred.name]
+        for col in ("prediction", "raw_prediction", "probability"):
+            np.testing.assert_array_equal(getattr(got, col),
+                                          getattr(own, col))
+    store = _raw_store(rows, eng._raw_features)
+    assert isinstance(store, ColumnStore)
+    plain = eng.prepare_batch(store)
+    pinned = eng.prepare_batch(store, bucket_min=32)
+    assert pinned is not plain
+    assert plain.chunks[0][4] == 8 and pinned.chunks[0][4] == 32
+    assert eng.prepare_batch(store, bucket_min=32) is pinned
+    assert eng.prepare_batch(store) is plain
+    # past the cap every chunk runs at the cap's rung
+    many = records[:150]
+    pb = eng.prepare_batch(many, use_cache=False, bucket_min=16)
+    assert [c[4] for c in pb.chunks] == [64, 64, 32]
+
+
 def test_port_engine_equals_the_jax_engine(big_passenger):
     """The same carried-over model through both packages' engines: the
     predictions equal, the probabilities within 1e-12 (f64)."""

@@ -360,11 +360,17 @@ def _compat_findings(manifest: Dict[str, Any], path: str, engine=None,
     return out
 
 
+#: held around ``torch.export.load`` and the module it returns: the
+#: deserializer keeps process-wide state, so two threads loading at once
+#: (the model server's tenants loading their banks) fail
+_LOAD_LOCK = threading.RLock()
+
+
 def load_program_file(blob: bytes, what: str):
-    """``torch.export.load`` of ``blob``; a failure is a ``ValueError``
-    naming ``what``."""
+    """``torch.export.load`` of ``blob`` (one load at a time in the
+    process); a failure is a ``ValueError`` naming ``what``."""
     try:
-        with warnings.catch_warnings():
+        with _LOAD_LOCK, warnings.catch_warnings():
             # the constants are read from the verified bytes in memory,
             # which torch may view without copying
             warnings.filterwarnings(
@@ -395,8 +401,10 @@ def _load_program(path: str, manifest: Dict[str, Any], bucket: int
     if digest is not None and _program_digest(blob) != digest:
         raise ValueError(
             "program digest mismatch (bytes altered since export)")
-    ep = load_program_file(blob, f"bucket {bucket}")
-    return BankProgram(ep.module(), manifest["blocks"])
+    with _LOAD_LOCK:
+        ep = load_program_file(blob, f"bucket {bucket}")
+        module = ep.module()
+    return BankProgram(module, manifest["blocks"])
 
 
 def load_program_bank(engine, path: str) -> Dict[str, Any]:

@@ -23,10 +23,17 @@
   per-line TMG3xx rules and the whole-program TMG8xx pass).
 * ``trace merge``: the trace shards a run wrote into ``traceDir`` merged
   into one Perfetto-loadable file.
+* ``serve``: the params file's roster in a multi-tenant
+  :class:`~transmogrifai_tpu_torch.server.ModelServer` on the card, behind
+  the stdlib HTTP front end, drained on SIGINT and SIGTERM.
+* ``registry``: list, register, promote, roll back or read the current
+  version of the versioned model registry (``lifecycle.py``).
 
-``serve``, ``fleet``, ``workload``, ``tune``, ``registry`` and ``trace
-analyze`` take the JAX parser's arguments and exit non-zero naming their
-ROADMAP queue A item (A6.8 (d)): their modules are not ported yet.
+``fleet``, ``workload``, ``tune`` and ``trace analyze`` take the JAX
+parser's arguments and exit non-zero naming their ROADMAP queue A item
+(A6.8 (d)): their modules are not ported yet. So do the ``workloadDir``
+and ``retrainOnDrift`` knobs of ``serve`` (``workload.py``,
+``continual.py``).
 
 Usage::
 
@@ -36,6 +43,8 @@ Usage::
     python -m transmogrifai_tpu_torch plan params.json --model ./model
     python -m transmogrifai_tpu_torch lint
     python -m transmogrifai_tpu_torch trace merge ./traces
+    python -m transmogrifai_tpu_torch serve params.json --port 0 --port-file port.txt
+    python -m transmogrifai_tpu_torch registry list --registry ./registry
 """
 from __future__ import annotations
 
@@ -44,13 +53,15 @@ import csv as _csv
 import json
 import os
 import re
+import signal
 import sys
-from typing import Dict, List, Optional, Sequence, Tuple
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from . import config
 
 __all__ = ["infer_feature_types", "infer_problem_kind", "generate_project",
-           "main"]
+           "build_server_from_params", "run_registry", "run_serve", "main"]
 
 _SAMPLE_ROWS = 1000
 
@@ -428,13 +439,260 @@ def run_lint(paths: Sequence[str] = (), fail_on: str = "warning",
     return 0
 
 
+def build_server_from_params(params, device=None) -> Any:
+    """Build (but do not serve HTTP on) a
+    :class:`~transmogrifai_tpu_torch.server.ModelServer` on ``device``
+    (None: the card) from an OpParams.
+
+    The roster: ``customParams.serveModels`` (``{name: dir}`` or ``{name:
+    {"model": dir, "bank": export_dir}}``), plus a ``default`` tenant when
+    ``modelLocation`` is set (its program bank at ``customParams.serveBank``
+    when given), plus every model of ``customParams.registryDir`` with a
+    promoted version. Every knob goes through the registry
+    (``config.py``), so a malformed value names its key before any model
+    loads. ``workloadDir`` and ``retrainOnDrift`` raise: their modules are
+    not ported yet."""
+    from . import server as server_mod
+    from .runner import (_bool_custom_param, _not_ported,
+                         _numeric_custom_param)
+
+    if config.raw_param(params.custom_params, "workloadDir") is not None:
+        raise _not_ported("customParams.workloadDir: the workload flight "
+                          "recorder (workload.py)", "A6.8 (d)")
+    if _bool_custom_param(params, "retrainOnDrift", default=False):
+        raise _not_ported("customParams.retrainOnDrift: drift-triggered "
+                          "continuous training (continual.py)", "A6.8 (d)")
+    deadline_ms = _numeric_custom_param(
+        params, "serveBatchDeadlineMs", server_mod.DEFAULT_BATCH_DEADLINE_MS)
+    max_queue = _numeric_custom_param(params, "serveMaxQueue",
+                                      server_mod.DEFAULT_MAX_QUEUE)
+    max_models = _numeric_custom_param(params, "serveMaxModels",
+                                       server_mod.DEFAULT_MAX_MODELS)
+    capacity_mb = _numeric_custom_param(params, "serveCapacityMB")
+    slo_ms = _numeric_custom_param(params, "serveSloMs")
+    bucket_cap = _numeric_custom_param(params, "serveBucketCap")
+    # the lifecycle: registryDir attaches the versioned registry (its
+    # promoted models serve and resolve the pointer again on reload),
+    # driftWindow turns the drift sentinel on, canaryFraction is deploy's
+    # default routing fraction
+    drift_window = _numeric_custom_param(params, "driftWindow")
+    adapt = _bool_custom_param(params, "adaptDeadline", default=False)
+    drift_js = _numeric_custom_param(params, "driftJsThreshold")
+    canary_frac = _numeric_custom_param(params, "canaryFraction")
+    if canary_frac is not None and not 0 < canary_frac <= 1:
+        raise ValueError("customParams.canaryFraction must be in (0, 1], "
+                         f"got {canary_frac!r}")
+    registry = None
+    reg_dir = config.string_param(params.custom_params, "registryDir")
+    if reg_dir:
+        from .lifecycle import ModelRegistry
+        registry = ModelRegistry(str(reg_dir))
+    kw: Dict[str, Any] = {}
+    if drift_js is not None:
+        kw["drift_js_threshold"] = drift_js
+    if canary_frac is not None:
+        kw["canary_fraction"] = canary_frac
+    srv = server_mod.ModelServer(
+        max_models=max_models,
+        capacity_bytes=(None if capacity_mb is None
+                        else int(capacity_mb * (1 << 20))),
+        batch_deadline_s=deadline_ms / 1e3,
+        max_queue=max_queue, slo_ms=slo_ms, bucket_cap=bucket_cap,
+        registry=registry, drift_window=drift_window,
+        adapt_deadline=bool(adapt), device=device, **kw)
+
+    roster = config.raw_param(params.custom_params, "serveModels", {})
+    if not isinstance(roster, dict):
+        srv.shutdown(drain=False)
+        raise ValueError(
+            "customParams.serveModels must be {name: modelDir} or "
+            f"{{name: {{'model': dir, 'bank': dir}}}}, got {roster!r}")
+    _populate_stage_registry()
+    try:
+        for name, spec in roster.items():
+            if isinstance(spec, str):
+                srv.register(str(name), model_dir=spec)
+            elif isinstance(spec, dict) and spec.get("model"):
+                srv.register(str(name), model_dir=str(spec["model"]),
+                             bank_dir=(str(spec["bank"])
+                                       if spec.get("bank") else None))
+            else:
+                raise ValueError(
+                    f"customParams.serveModels[{name!r}] must be a model "
+                    f"dir or {{'model': dir, 'bank': dir}}, got {spec!r}")
+        if params.model_location:
+            bank = config.string_param(params.custom_params, "serveBank")
+            srv.register("default", model_dir=params.model_location,
+                         bank_dir=str(bank) if bank else None)
+        if registry is not None:
+            # every model with a promoted version serves, resolving the
+            # pointer again on each reload
+            for name in registry.models():
+                if registry.current(name) and name not in srv.models():
+                    srv.register_from_registry(name)
+        if not srv.models():
+            raise ValueError(
+                "serve: no models — set modelLocation, "
+                "customParams.serveModels or a promoted registry model "
+                "(customParams.registryDir) in the params file")
+    except BaseException:  # lint: broad-except — stops the half-built server and re-raises
+        srv.shutdown(drain=False)
+        raise
+    return srv
+
+
+def run_registry(action: str, registry_dir: str,
+                 model: Optional[str] = None,
+                 model_dir: Optional[str] = None,
+                 bank: Optional[str] = None,
+                 version: Optional[str] = None,
+                 promote: bool = False, as_json: bool = False) -> int:
+    """The ``registry`` subcommand over ``lifecycle.ModelRegistry``:
+    ``list`` the versions and the current pointer, ``register`` an
+    exported model (version id: the program bank's state digest),
+    ``promote`` / ``rollback`` the atomic pointer, print ``current``."""
+    from .lifecycle import ModelRegistry, RegistryError
+
+    reg = ModelRegistry(registry_dir)
+    try:
+        if action == "list":
+            names = [model] if model else reg.models()
+            doc = {n: reg.status(n) for n in names}
+            if as_json:
+                print(json.dumps(doc, indent=1, default=str))
+            else:
+                for n, st in doc.items():
+                    print(f"{n}: current={st['current']} "
+                          f"previous={st['previous']}")
+                    for rec in st["versions"]:
+                        mark = "*" if rec["version"] == st["current"] \
+                            else " "
+                        print(f"  {mark} {rec['version']}  "
+                              f"model={rec['modelDir']}  "
+                              f"bank={rec['bankDir']}")
+                if not doc:
+                    print("registry: empty")
+            return 0
+        if not model:
+            print(f"registry {action}: --model is required")
+            return 1
+        if action == "register":
+            if not model_dir:
+                print("registry register: --model-dir is required")
+                return 1
+            vid = reg.register(model, model_dir, bank_dir=bank,
+                               version=version, promote=promote)
+            print(f"registered {model} version {vid}"
+                  + (" (promoted)" if promote else ""))
+            return 0
+        if action == "promote":
+            if not version:
+                print("registry promote: --version is required")
+                return 1
+            ptr = reg.promote(model, version)
+            print(f"{model}: current={ptr['current']} "
+                  f"(was {ptr['previous']})")
+            return 0
+        if action == "rollback":
+            prev = reg.rollback(model)
+            print(f"{model}: rolled back to {prev}")
+            return 0
+        if action == "current":
+            print(reg.current(model))
+            return 0
+    except RegistryError as e:
+        print(f"registry {action}: {e}")
+        return 1
+    print(f"registry: unknown action {action!r}")
+    return 1
+
+
+def run_serve(params_path: Optional[str] = None,
+              model_location: Optional[str] = None,
+              port: Optional[int] = None, host: str = "127.0.0.1",
+              block: bool = True, port_file: Optional[str] = None,
+              device=None) -> int:
+    """The ``serve`` subcommand: the params file's roster in a
+    multi-tenant :class:`~transmogrifai_tpu_torch.server.ModelServer` on
+    ``device`` (None: the card; the tests pass "cpu"), served by the
+    stdlib HTTP front end until SIGINT or SIGTERM, then drained (every
+    accepted request is scored before exit). ``port_file`` receives the
+    bound port atomically once listening (``--port 0``). ``serveMetrics``
+    turns telemetry on for ``/metrics``; ``traceDir`` makes this process
+    write a trace shard there on drain."""
+    from . import server as server_mod
+    from . import telemetry
+    from .runner import OpParams, _bool_custom_param, _numeric_custom_param
+
+    params = OpParams()
+    if params_path:
+        params = _load_params(params_path, "serve")
+        if params is None:
+            return 1
+    if model_location:
+        params.model_location = model_location
+    try:
+        serve_metrics = _bool_custom_param(params, "serveMetrics",
+                                           default=False)
+        trace_dir = config.string_param(params.custom_params, "traceDir")
+        srv = build_server_from_params(params, device=device)
+        if port is None:
+            port = _numeric_custom_param(params, "servePort", 8000)
+    except (ValueError, KeyError) as e:
+        print(f"serve: {e}")
+        return 1
+    if serve_metrics or trace_dir:
+        telemetry.enable()
+    if trace_dir and telemetry.TRACE_ROLE_ENV not in os.environ:
+        telemetry.set_trace_role("worker")
+    stop = threading.Event()
+    if block:
+        # the handler is in place before the port file tells a supervisor
+        # where to find this worker
+        try:
+            signal.signal(signal.SIGTERM, lambda *_: stop.set())
+        except ValueError:
+            pass         # not the main thread: Ctrl-C still works
+    httpd = server_mod.serve_http(srv, host=host, port=int(port))
+    bound = httpd.server_address
+    if port_file:
+        tmp = str(port_file) + ".tmp"
+        with open(tmp, "w") as fh:
+            fh.write(str(bound[1]))
+        os.replace(tmp, port_file)   # atomic: never a half-written port
+    print(f"serve: {len(srv.models())} model(s) "
+          f"({', '.join(srv.models())}) on http://{bound[0]}:{bound[1]} "
+          "— POST /v1/models/<name>:score, GET /stats; Ctrl-C/SIGTERM "
+          "drains and exits", flush=True)
+    if not block:        # the caller drives the server directly
+        return 0
+    try:
+        while not stop.is_set():
+            stop.wait(3600)
+        print("serve: SIGTERM — draining in-flight requests ...",
+              flush=True)
+    except KeyboardInterrupt:
+        print("serve: draining in-flight requests ...", flush=True)
+    finally:
+        # drain the server first (/healthz answers 503 at once, queued
+        # futures resolve while the HTTP loop can still answer them),
+        # then stop the listener
+        srv.shutdown(drain=True)
+        httpd.shutdown()
+        if trace_dir:
+            try:
+                telemetry.write_trace_shard(str(trace_dir))
+            except OSError:
+                print(f"serve: trace shard write to {trace_dir!r} "
+                      "failed", flush=True)
+    return 0
+
+
 #: the subcommands whose modules are not ported yet: what they run
 _UNPORTED_COMMANDS = {
-    "serve": "the multi-tenant model server (server.py)",
     "fleet": "the horizontal serving fleet (fleet.py)",
     "workload": "the workload flight recorder and replay (workload.py)",
     "tune": "the offline autotuner (tuner.py)",
-    "registry": "the versioned model registry (lifecycle.py)",
 }
 
 
@@ -505,8 +763,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     pln.add_argument("--suppress", action="append", default=[],
                      metavar="RULE", help="mute a TMG4xx advisory rule "
                                           "id (repeatable)")
-    srv = sub.add_parser("serve", help="multi-tenant model server (not "
-                                       "ported yet: A6.8 (d))")
+    srv = sub.add_parser("serve", help="multi-tenant model server over "
+                                       "the params file's roster (stdlib "
+                                       "HTTP; SIGTERM drains)")
     srv.add_argument("params", nargs="?", help="OpParams json/yaml file")
     srv.add_argument("--model", dest="model_location")
     srv.add_argument("--port", type=int, default=None)
@@ -571,8 +830,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                      default=None)
     tun.add_argument("--max-requests", dest="max_requests", type=int,
                      default=None)
-    reg = sub.add_parser("registry", help="versioned model registry (not "
-                                          "ported yet: A6.8 (d))")
+    reg = sub.add_parser("registry", help="versioned model registry: "
+                                          "list / register / promote / "
+                                          "rollback / current")
     reg.add_argument("action",
                      choices=("list", "register", "promote", "rollback",
                               "current"))
@@ -599,6 +859,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.cmd == "trace":
         return run_trace(args.action, args.trace_dir, out=args.out,
                          strict=args.strict)
+    if args.cmd == "serve":
+        return run_serve(args.params, model_location=args.model_location,
+                         port=args.port, host=args.host,
+                         port_file=args.port_file)
+    if args.cmd == "registry":
+        return run_registry(args.action, args.registry, model=args.model,
+                            model_dir=args.reg_model_dir, bank=args.bank,
+                            version=args.version, promote=args.promote,
+                            as_json=args.reg_json)
     if args.cmd in _UNPORTED_COMMANDS:
         return _unported(args.cmd, _UNPORTED_COMMANDS[args.cmd])
     files = generate_project(args.input, args.response, args.output,

@@ -7,10 +7,10 @@ record: name, type, default, bounds or choices, the module that owns it,
 whether a tuner may search it, and an optional extra validator. The
 names, types, defaults, owners and validators are the JAX package's, so
 one params file means the same in both packages. The registry keeps the
-knobs of modules this package has not ported yet (the server, the
-fleet, continual training, the mesh): it is the declared surface that
-``python -m transmogrifai_tpu_torch check`` validates, and the runner
-raises where a run asks for one of them.
+knobs of modules this package has not ported yet (the fleet, continual
+training, the workload recorder, the mesh): it is the declared surface
+that ``python -m transmogrifai_tpu_torch check`` validates, and the
+runner and ``serve`` raise where a run asks for one of them.
 
 The runner's knob readers are lookups over this table, ``gen`` emits its
 ``customParams`` block from :func:`default_custom_params`, ``check``

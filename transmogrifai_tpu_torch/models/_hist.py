@@ -56,12 +56,15 @@ repository root) and bound with ``ctypes``. Every launch returns
 (one per wrapper call that reached the card; for ``predict_trees`` the
 operator's CUDA implementation counts, so a trace counts nothing). A
 wrapper called while a CUDA graph is captured records its kernel instead
-of launching it; the scoring engine takes those counts back after the
-capture and adds them at each replay of the graph
-(:func:`count_graph_replay`), which is where the recorded kernels launch.
+of launching it; the scoring engine records those counts apart for the
+capturing thread (:func:`recording_launches`) and adds them at each
+replay of the graph (:func:`count_graph_replay`), which is where the
+recorded kernels launch. Threads count under one lock, so engines on
+several threads (the model server's tenants) lose no count.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -110,16 +113,47 @@ KERNEL_LAUNCHES: Dict[str, int] = {"cumhist": 0, "cumhist_bc": 0,
                                    "level_epilogue": 0, "predict_trees": 0}
 
 
+_COUNT_LOCK = threading.Lock()
+#: per thread: the dict a capture records its launches into, if any
+_RECORDING = threading.local()
+
+
 def reset_launch_counts() -> None:
-    for k in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in KERNEL_LAUNCHES:
+            KERNEL_LAUNCHES[k] = 0
+
+
+def _count(kernel: str, n: int = 1) -> None:
+    """Count ``n`` launches of ``kernel``: into the calling thread's
+    capture record while it captures, else into ``KERNEL_LAUNCHES``."""
+    rec = getattr(_RECORDING, "launches", None)
+    if rec is not None:
+        rec[kernel] = rec.get(kernel, 0) + n
+        return
+    with _COUNT_LOCK:
+        KERNEL_LAUNCHES[kernel] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Record the calling thread's kernel launches into the yielded dict
+    instead of ``KERNEL_LAUNCHES`` (a CUDA graph capture launches
+    nothing; its kernels launch at each replay)."""
+    rec: Dict[str, int] = {}
+    prev = getattr(_RECORDING, "launches", None)
+    _RECORDING.launches = rec
+    try:
+        yield rec
+    finally:
+        _RECORDING.launches = prev
 
 
 def count_graph_replay(launches: Dict[str, int]) -> None:
     """One replay of a CUDA graph that holds ``launches`` kernel launches
     (per kernel, as the wrappers counted them during the capture)."""
     for k, v in launches.items():
-        KERNEL_LAUNCHES[k] += v
+        _count(k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +293,7 @@ def _launch(kernel: str, fn_name: str, *args) -> None:
     rc = _call(fn_name, *args)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
-    KERNEL_LAUNCHES[kernel] += 1
+    _count(kernel)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype,

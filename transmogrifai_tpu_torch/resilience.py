@@ -113,8 +113,9 @@ FAULT_SITES = frozenset({
     "pipeline.upload",           # a scoring chunk's upload to the
                                  # device (scoring.ScoringEngine)
     "server.dispatch",           # model-server micro-batch dispatch
-                                 # (server.py — batch AND per-request
-                                 # fallback attempts pass through it)
+                                 # (server.py — the merged batch and
+                                 # each one-request retry on the same
+                                 # engine pass through it)
     "fleet.forward",             # router→worker forward attempt
                                  # (fleet.serve_fleet_http — fires per
                                  # attempt, so a fault models a dead or
@@ -167,10 +168,8 @@ FAULT_SITES = frozenset({
 #: so the fault-site coverage rule (TMG805, ``repo_lint``) waits for their
 #: modules, which bring their chaos tests
 UNPORTED_SITES = {
-    "server.dispatch": "A6.8 (d)",
     "fleet.forward": "A6.8 (d)",
     "fleet.spawn": "A6.8 (d)",
-    "lifecycle.promote": "A6.8 (d)",
     "continual.retrain": "A6.8 (d)",
     "continual.register": "A6.8 (d)",
 }

@@ -112,9 +112,10 @@ __all__ = ["OpParams", "RunType", "RunnerResult", "OpWorkflowRunner",
            "OpApp"]
 
 #: registry knobs the runner reads whose module is not ported yet: what
-#: they ask for and the ROADMAP queue A item (the server, fleet,
-#: lifecycle, continual and workload knobs are read by no run; ``check``
-#: validates them and ``serve``, ``fleet`` and ``tune`` raise, A6.8 (d))
+#: they ask for and the ROADMAP queue A item (the fleet, continual and
+#: workload knobs are read by no run; ``check`` validates them, ``fleet``
+#: and ``tune`` exit naming A6.8 (d), and ``serve`` raises for
+#: ``workloadDir`` and ``retrainOnDrift``)
 _UNPORTED_CUSTOM = {
     "meshDevices": ("multi-device runs (parallel/mesh.py)", "A6.6"),
     "meshGridSize": ("multi-device runs (parallel/mesh.py)", "A6.6"),
@@ -477,8 +478,13 @@ class OpWorkflowRunner:
             k: v - launches[k] for k, v in _hist.KERNEL_LAUNCHES.items()}}
         # the program bank's tallies (aot.py): zeros on runs that never
         # touch the serving tier
-        from . import aot
+        from . import aot, lifecycle, server
         result.metrics["aot"] = aot.aot_stats()
+        # the model server's and the model lifecycle's tallies (requests,
+        # merged dispatches, bank hits; registry traffic, rollouts, drift
+        # windows): zeros on runs that never serve
+        result.metrics["server"] = server.server_stats()
+        result.metrics["lifecycle"] = lifecycle.lifecycle_stats()
         # device seconds and FLOPs by phase (process-wide, as in the JAX
         # package; recorded while telemetry is on)
         result.metrics["mfu"] = telemetry.device_cost_stats()

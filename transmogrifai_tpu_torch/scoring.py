@@ -130,6 +130,11 @@ SCORING_MIN_ROWS = 2048
 #: used dropped first; the ladder bounds the live ones in practice
 PROGRAM_CACHE_CAP = 32
 
+#: one CUDA graph capture at a time in the process: engines on several
+#: threads (the model server's tenants) capture their programs in turns,
+#: and none syncs the device while another captures
+_CAPTURE_LOCK = threading.Lock()
+
 
 def bucket_for(n: int, cap: int = DEFAULT_BUCKET_CAP) -> int:
     """Smallest ladder bucket holding ``n`` rows (a non-power-of-two cap
@@ -295,6 +300,11 @@ class ScoringEngine:
         self._compile_count = 0
         self._graph_count = 0
         self._lock = threading.Lock()
+        #: held around a chunk's device half: a program's CUDA graph reads
+        #: and writes static buffers, so threads sharing one engine (the
+        #: model server's worker and a caller's own ``score_store``) take
+        #: turns
+        self._run_lock = threading.Lock()
         #: repeat calls on the same ColumnStore (score → evaluate) skip the
         #: host half; weakref-checked identity keys
         self._prep_cache: "OrderedDict[Tuple, Tuple[Any, _PreparedBatch]]" \
@@ -558,17 +568,22 @@ class ScoringEngine:
         return np.concatenate([a, pad], axis=0)
 
     def prepare_batch(self, data, use_cache: bool = True,
+                      bucket_min: Optional[int] = None,
                       pool=None) -> _PreparedBatch:
         """Host half of a scoring call, padded to the ladder: host stages,
         ``host_prepare`` and padding, chunk by chunk (numpy and Python
         only, so it may run on a worker thread). Re-scoring the same
         ColumnStore object reuses its prepared blocks (``use_cache``).
-        ``pool`` (a ``pipeline.BufferPool``) pads into reused buffers, the
-        same values; ``release()`` on the result gives them back."""
+        ``bucket_min`` pins the padded bucket to at least that rung (the
+        cap clamps it): the model server's oracle scores a lone request
+        through the program its merged dispatch ran, so co-batching is
+        bitwise by construction. ``pool`` (a ``pipeline.BufferPool``)
+        pads into reused buffers, the same values; ``release()`` on the
+        result gives them back."""
         from .workflow import _raw_store
         cache_key = None
         if use_cache and isinstance(data, ColumnStore):
-            cache_key = (id(data), data.n_rows)
+            cache_key = (id(data), data.n_rows, bucket_min)
             with self._lock:
                 hit = self._prep_cache.get(cache_key)
             if hit is not None and hit[0]() is data:
@@ -593,6 +608,9 @@ class ScoringEngine:
                         lo, min(lo + self.bucket_cap, n_total)))
                 n = sub.n_rows
                 bucket = bucket_for(n, self.bucket_cap)
+                if bucket_min is not None:
+                    bucket = min(self.bucket_cap,
+                                 max(bucket, int(bucket_min)))
                 host_store, prepared, uploads = self.host_blocks(sub)
                 prepared = {uid: {k: pad(v, n, bucket)
                                   for k, v in blocks.items()}
@@ -752,29 +770,25 @@ class ScoringEngine:
     def _capture(self, prog: _Program, body, prepared, uploads,
                  bucket: int) -> None:
         """Capture the program as a CUDA graph over static input buffers
-        holding this chunk's blocks. The wrappers count the launches they
-        record; a capture launches nothing, so those counts are taken back
-        and added again at each replay. The capture is thread-local: the
+        holding this chunk's blocks. A capture launches nothing: the
+        launches the wrappers record go to this thread's capture record
+        and are counted at each replay. The capture is thread-local: the
         streaming prep workers allocate and recycle pinned host buffers
         (event queries, host allocations) while the consumer captures,
         and in the global mode any such call on another thread
         invalidates the capture."""
         ins = self._upload(prepared, uploads)
-        before = dict(_hist.KERNEL_LAUNCHES)
         graph = torch.cuda.CUDAGraph()
-        torch.cuda.synchronize(self.device)
-        try:
-            with torch.cuda.device(self.device), torch.cuda.graph(
-                    graph, capture_error_mode="thread_local"):
-                outs = body(*ins)
-        except Exception as e:  # lint: broad-except — wrapped and re-raised naming the bucket, nothing swallowed
-            raise RuntimeError(
-                f"scoring engine: CUDA graph capture failed at bucket "
-                f"{bucket} ({type(e).__name__}: {e})") from e
-        finally:
-            launches = {k: v - before[k]
-                        for k, v in _hist.KERNEL_LAUNCHES.items()}
-            _hist.KERNEL_LAUNCHES.update(before)
+        with _CAPTURE_LOCK, _hist.recording_launches() as launches:
+            torch.cuda.synchronize(self.device)
+            try:
+                with torch.cuda.device(self.device), torch.cuda.graph(
+                        graph, capture_error_mode="thread_local"):
+                    outs = body(*ins)
+            except Exception as e:  # lint: broad-except — wrapped and re-raised naming the bucket, nothing swallowed
+                raise RuntimeError(
+                    f"scoring engine: CUDA graph capture failed at bucket "
+                    f"{bucket} ({type(e).__name__}: {e})") from e
         prog.graph, prog.inputs, prog.outputs = graph, ins, outs
         prog.launches = {k: v for k, v in launches.items() if v}
         self._graph_count += 1
@@ -879,26 +893,9 @@ class ScoringEngine:
             was_compile = False
             pulled: Dict[str, Any] = {}
             if out_names:
-                before = self._compile_count
-                prog = self._program(
-                    self.program_key(prepared, uploads, out_names), bucket)
-                was_compile = self._compile_count > before
-                with telemetry.span("score:bucket", rows=n, bucket=bucket,
-                                    compiled=was_compile):
-                    try:
-                        # the device sites: an injected fault or the
-                        # card's own failure raises to the caller, never
-                        # quarantined as a poison batch
-                        resilience.inject("pipeline.upload", rows=n,
-                                          bucket=bucket)
-                        resilience.inject("scoring.device_dispatch",
-                                          rows=n, bucket=bucket)
-                        outs = self._device_outputs(prog, prepared, uploads,
-                                                    out_names, bucket)
-                        pulled = self._pull(outs, out_names, n)
-                    except BaseException as e:  # lint: broad-except — tagged as a device failure and re-raised
-                        resilience.mark_device_failure(e)
-                        raise
+                with self._run_lock:
+                    pulled, was_compile = self._run_chunk(
+                        prepared, uploads, out_names, n, bucket)
                 telemetry.settle_device_timers()
             store = host_store
             meta_env: Dict[str, Any] = {}
@@ -929,6 +926,30 @@ class ScoringEngine:
             stores.append(store)
         return stores[0] if len(stores) == 1 else _concat_stores(stores)
 
+    def _run_chunk(self, prepared, uploads, out_names, n: int,
+                   bucket: int) -> Tuple[Dict[str, Any], bool]:
+        """One chunk's program run and pull: (pulled outputs, whether the
+        program was built for it). The caller holds ``_run_lock``."""
+        before = self._compile_count
+        prog = self._program(
+            self.program_key(prepared, uploads, out_names), bucket)
+        was_compile = self._compile_count > before
+        with telemetry.span("score:bucket", rows=n, bucket=bucket,
+                            compiled=was_compile):
+            try:
+                # the device sites: an injected fault or the card's own
+                # failure raises to the caller, never quarantined as a
+                # poison batch
+                resilience.inject("pipeline.upload", rows=n, bucket=bucket)
+                resilience.inject("scoring.device_dispatch", rows=n,
+                                  bucket=bucket)
+                outs = self._device_outputs(prog, prepared, uploads,
+                                            out_names, bucket)
+                return self._pull(outs, out_names, n), was_compile
+            except BaseException as e:  # lint: broad-except — tagged as a device failure and re-raised
+                resilience.mark_device_failure(e)
+                raise
+
     def _pull(self, outs, out_names, n: int) -> Dict[str, Any]:
         """The chunk's outputs on the host, its first ``n`` rows: each
         prediction as (prediction, raw, probability) f64 arrays, de-indexed
@@ -955,15 +976,17 @@ class ScoringEngine:
                               results_only=False)
 
     def score_store(self, data, keep_intermediate: bool = False,
-                    use_cache: bool = True, keep: Sequence[str] = ()
-                    ) -> ColumnStore:
+                    use_cache: bool = True, keep: Sequence[str] = (),
+                    bucket_min: Optional[int] = None) -> ColumnStore:
         """``WorkflowModel.score`` through the engine: only the result
         columns leave the device. ``keep`` names host columns (raw or
         host-stage features, such as an evaluator's label) to return
-        beside them."""
+        beside them; ``bucket_min`` pins the padded bucket
+        (:meth:`prepare_batch`)."""
         if keep_intermediate:
             return self.transform_store(data, use_cache=use_cache)
-        store = self.run_batch(self.prepare_batch(data, use_cache=use_cache),
+        store = self.run_batch(self.prepare_batch(data, use_cache=use_cache,
+                                                  bucket_min=bucket_min),
                                results_only=True, keep=keep)
         return store.select([nm for nm in (*self._result_names, *keep)
                              if nm in store])
