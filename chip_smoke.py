@@ -80,7 +80,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    random forest (50 trees, per-node draws of 4 features) and a decision
    tree at maxDepth {3, 6, 12}, 5-fold CV, refit, scoring, with every
    launch counted (one ``level_epilogue`` and one ``group_rows`` a level);
-   then RF (5 trees) and DT at maxDepth {3, 6} on 20,000 rows on the card
+   then RF (5 trees) and DT at maxDepth {3, 6} on 10,000 rows on the card
    and on the CPU: the same model, AuPR within 1e-4.
 6. titanic (``titanic.py``, the reference's hello-world): the bundled CSV
    read through ``DataReaders.simple.csv``, the derived features,
@@ -131,7 +131,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    as numeric codes {1, 4, 6}, which the DataCutter re-indexes, scored
    through the engine's graphs as the layer path scores them.
 9. every feature type (``transmogrify``'s whole dispatch): a
-   200,000-row store, made in bulk from a seed, with one feature of each
+   100,000-row store (``EVERY_TYPE_N``), made in bulk from a seed, with one feature of each
    type this phase adds — MultiPickList, Geolocation, DateList, RealMap,
    IntegralMap, TextMap, MultiPickListMap, GeolocationMap, DateMap — a
    Real through ``bucketize`` and ``auto_bucketize`` and a raw vector
@@ -207,7 +207,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    the train seconds by phase (aggregate, vectorize, sweep, refit) and
    :func:`stage_table`. The model saved, loaded afresh and the aggregated
    store scored through the engine: predictions equal to the layer
-   path's, probabilities within 2^-22. The same at 20,000 users on the
+   path's, probabilities within 2^-22. The same at 10,000 users on the
    card and the CPU: the aggregated stores bitwise equal, the same
    winner, every family's fold metrics within 1e-4. Last, the dataprep
    walkthrough's rows (``dataprep.run()``) against those
@@ -240,7 +240,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    200,000 rows scored through the engine against the layer path, rows/s
    and graphs captured), each at 2,000 rows on the card and the CPU (the
    same winner; every family's fold RMSE within 1e-4 relative, F1 within
-   ``MLP_AGREE``); every-surface-100k (``every_surface.py``: 100,000
+   ``MLP_AGREE``); every-surface-25k (``every_surface.py``: 25,000
    records, seed 13, through every new DSL surface → SanityChecker → LR
    and GBT at one grid point, the MLP at its default grid, 3-fold CV;
    counted: GBT's fits must launch the tree kernels; ``random.categorical``'s
@@ -254,8 +254,8 @@ Run from the repository root on a machine with one NVIDIA H100:
    tupled columns give the same predictions; GBT refit on them so
    ``predict_trees`` launches; then 2,000 records on the card and the CPU:
    host stages and the count block bitwise, LDA and Word2Vec within
-   ``TOPIC_ATOL``, the same winner) and taggers-20k (entities, languages,
-   sentences and POS tags of 20,000 notes → LR; seconds by stage). Each
+   ``TOPIC_ATOL``, the same winner) and taggers-5k (entities, languages,
+   sentences and POS tags of 5,000 notes → LR; seconds by stage). Each
    path's seconds.
 14. the pre-flight, the planner and the run summary: (a) plan-200k,
    phase 4's records through ``OpWorkflowRunner`` with the default
@@ -287,19 +287,19 @@ Run from the repository root on a machine with one NVIDIA H100:
    statistics phases' CUDA-event device seconds, each within the wall
    seconds of its spans; the f32 and bf16 shares) and the Train seconds
    off and on, beside the card's name and power limit.
-16. out-of-core ingest at ooc-1m (:func:`ooc_phase`): 1,000,000
-   BigPassenger records (text-200k's schema and widths) written as 10
+16. out-of-core ingest at ooc-600k (:func:`ooc_phase`): 600,000
+   BigPassenger records (text-200k's schema and widths) written as 6
    Avro shards of 100,000 on a process pool, one seed each, and a 20,000
    record holdout. In a fresh process text-200k's workflow is trained
    through ``OpWorkflowRunner`` with ``streamFit`` false on all of them;
    in another with ``streamFit`` null (auto), ``streamFitPasses`` 1 and
    ``rssCapMb`` at 0.8 of the first's peak RSS: the streamed fold's
-   statistics over the 1,000,000 rows bitwise the device pass's over the
-   materialized store, a 262,144-row subsample, the peak RSS under the
-   cap, the streamed leg's median RSS step a file over the last 500,000
+   statistics over the 600,000 rows bitwise the device pass's over the
+   materialized store, a 131,072-row subsample, the peak RSS under the
+   cap, the streamed leg's median RSS step a file over the last 300,000
    ingested rows at most 0.25 of the materialized leg's, the holdout AuPR
    within 0.02, one ``level_epilogue`` and one ``group_rows`` a level in
-   both. Then StreamingScore of 200,000 records in 20 Avro files and one
+   both. Then StreamingScore of 100,000 records in 10 Avro files and one
    cut short, with a ``quarantineLocation``, at ``pipelineWorkers`` 1 and
    4: the cut file quarantined, the predictions bitwise equal to each
    other and to a plain Score, ``predict_trees`` launched; a
@@ -316,14 +316,14 @@ Run from the repository root on a machine with one NVIDIA H100:
    ``python -m transmogrifai_tpu_torch gen --response survived`` (the
    inferred types and problem kind printed); the generated ``app.py``
    with its own ``params.json`` (the binary selector's default families
-   at their full grids; ``traceDir`` set) run as a Train and a Score, each
-   a process on the card, whose metrics documents give the phase's
+   at their full grids; ``traceDir`` set) run as a Train and a Score (of
+   the CSV's first 50,000 records), each a process on the card, whose metrics documents give the phase's
    launches (the Train must launch the five training kernels, one
    ``level_epilogue`` and one ``group_rows`` a level; a tree winner's
-   Score ``predict_trees``); then ``check`` (the params and the saved
-   model, the device pass on), ``plan``, ``lint`` over the package and
-   ``trace merge`` over the two runs' shards, each exiting 0 with its
-   summary line. Last, the project generated from the first 2,000
+   Score ``predict_trees``); ``check`` (the params and the saved model,
+   the device pass on), ``plan`` and ``lint`` over the package, each a
+   process beside the Score, and then ``trace merge`` over the two runs'
+   shards, each exiting 0 with its summary line. Last, the project generated from the first 2,000
    records (the same files but the data's name) trained on the card and
    the CPU at one grid point a family: the same winner, every family's
    fold AuPR, the training AuPR and Evaluate's AuPR within 1e-4 (the
@@ -361,6 +361,42 @@ Run from the repository root on a machine with one NVIDIA H100:
    and ``server:dispatch`` under the minted trace id. Requests/s, rows/s,
    p50/p95/p99 and each decomposition phase, beside the card's name and
    power limit; the launches of training, export and served traffic.
+19. the serving fleet, the workload recorder and continuous training at
+   fleet-tenants (:func:`fleet_tenants_phase`), over phase 18's registry
+   (churn v1 current, v2 registered) and phase 7's model, at text-200k's
+   451 columns. ``python -m transmogrifai_tpu_torch fleet`` with two
+   workers on the card (``--port 0 --port-file``, ``workloadDir`` with
+   payloads, ``traceDir``): both workers' ready s and first requests;
+   4 closed-loop clients of 100 requests of 1-64 records over both
+   tenants through the router, each response bitwise equal to a solo
+   ``score_store(bucket_min=bucket)``, with requests/s, rows/s, the
+   clients' p50/p95/p99, each worker's requests and the ``/stats``
+   aggregate; ``workload merge`` of the router's and the workers' shards
+   (each routed request one combined record) and ``workload replay``
+   through the router with no parity failure; a canary of v2 deployed on
+   both workers routing each of 16 requests alike, answered bitwise by
+   its version, rolled back; a ``fleet.forward`` fault plan in a second
+   router over the same workers (a plan lives in one process): every
+   request answered bitwise, one failover a fault; a SIGKILL of worker 0
+   under 2 clients (no request lost, the respawn's ready s, its first
+   request bitwise); a rolling restart by SIGHUP under 2 clients (no
+   request lost); SIGTERM drains; every shard merged; ``trace merge``
+   and ``trace analyze`` (the top spans by share of e2e, the slowest
+   request's path from ``fleet:route``). The workers start as ``serve
+   --preload``, and the load clients pause between requests. Continuous
+   training, armed after the replay: an
+   in-process ``ModelServer`` with ``retrainOnDrift`` on churn
+   (``cli.build_retrain_controllers``), its ``retrainCmd`` this script's
+   ``--retrain-leg``: ``age`` + 40 traffic arms the job after two
+   drifted windows; the job (its own process on the card, beside the
+   fleet's fault steps) trains v3 at
+   one grid point on 50,000 fresh drifted records, warm-started from v1's
+   persisted fit statistics, saves and exports its bank; it passes the
+   holdout gate (within 0.01 of v1's holdout AuPR) and registers, the
+   canary promotes it (the pointer moves), its answers bitwise; a second
+   trigger inside the cooldown starts no job. The job's seconds, warm
+   merges and kernel launches (its metrics document's) are printed and
+   its launches join the result line.
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
 boston-200k, mapprep-200k, mapprep-guarded-200k and eventlog-200k) once
@@ -385,7 +421,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–18).
+over the main paths' runs, phases 3–19).
 ``--serve-export-only`` runs phase 7 (without its comparison with phase
 4's AuPR) and phase 12 alone, and prints no result line.
 ``--every-surface-only`` runs phase 13 alone and prints no result line.
@@ -398,8 +434,13 @@ its two training legs as ``chip_smoke.py --ooc-leg <spec>``).
 ``--gen-only`` runs phase 17 alone and prints no result line.
 ``--serve-tenants-only`` runs phase 18 alone (training and saving phase
 7's model first when its save is missing) and prints no result line.
+``--fleet-only`` runs phase 18 and then phase 19 on its registry (phase
+7's model as for ``--serve-tenants-only``) and prints no result line;
+phase 19 starts its retrain job as ``chip_smoke.py --retrain-leg
+<spec>``.
 """
 import contextlib
+import io
 import json
 import math
 import os
@@ -415,6 +456,8 @@ N, F, B = 200_000, 20, 32
 #: the sweep's card/CPU agreement (cut from 20,000 rows to make room for
 #: phase 17: the CPU's plain tree kernels take most of phase 3)
 SWEEP_AGREE_N = 5_000
+#: rf-200k's card/CPU agreement (cut from 20,000 rows for phase 19)
+RF_AGREE_N = 10_000
 #: the indicator block of the sparse01 check: BigPassenger's hash width,
 #: at the density of its hashed buckets (one voyage token in ~1,000)
 FB, DENSITY = 512, 0.016
@@ -2151,7 +2194,12 @@ def same_column(a, b, what):
         fail(f"{what}: the card's vector metadata differs from the CPU's")
 
 
-def check_every_type(n=N, dev="cuda"):
+#: every-type's store: 100,000 rows (cut from 200,000 for phase 19's
+#: time; the vector keeps its 127 columns, which 50,000 rows do not)
+EVERY_TYPE_N = 100_000
+
+
+def check_every_type(n=EVERY_TYPE_N, dev="cuda"):
     """Phase 9, part 1: the new vectorizers fitted and applied on the card
     and on the CPU over one ``n``-row store: every fitted state, every
     stage's vector and the combined vector equal bit for bit. Prints each
@@ -2243,7 +2291,7 @@ def check_every_type(n=N, dev="cuda"):
           f"vs host tier, per model): fitted states within {worst:.3g} "
           f"relative, vector elements differing {int((diff > 0).sum())}, "
           f"largest {diff.max():.3g}")
-    check_fusion(fused, store, "every-type-200k", dev)
+    check_fusion(fused, store, f"every-type-{n // 1000}k", dev)
     for where, what in (("card", "stages on the card"),
                         ("host", "host stages (their blocks built on the "
                                  "host)")):
@@ -2896,7 +2944,7 @@ def guarded_paths(H, TF, MP, records, root, profile=False, dev="cuda"):
 #: eventlog-200k: users, events a user, the seed of ``dataprep.
 #: make_event_log``; the card/CPU agreement's users
 EVENT_USERS, EVENTS_PER_USER, EVENT_SEED = 200_000, 20, 47
-EVENT_AGREE_USERS = 20_000
+EVENT_AGREE_USERS = 10_000
 #: ``bench.py``'s event log: files, rows a file, users
 BENCH_FILES, BENCH_FILE_ROWS, BENCH_USERS = 16, 10_000, 5_000
 #: the kernels every tree family's every fold must launch on the path
@@ -3200,22 +3248,22 @@ def eventlog_paths(H, TF, DP, root, profile=False, dev="cuda"):
     events = DP.make_event_log(EVENT_AGREE_USERS, EVENTS_PER_USER,
                                EVENT_SEED)
     runs = {}
-    runs["cuda"], paths["eventlog-20k"] = counted(
+    runs["cuda"], paths["eventlog-10k"] = counted(
         H, lambda: eventlog_run(H, DP, EVENT_AGREE_USERS, "cuda", events),
         EVENT_KERNELS)
-    fold_launches(runs["cuda"], "eventlog-20k (card)", EVENT_KERNELS)
+    fold_launches(runs["cuda"], "eventlog-10k (card)", EVENT_KERNELS)
     runs["cpu"] = eventlog_run(H, DP, EVENT_AGREE_USERS, "cpu", events)
     same_store(runs["cuda"]["store"], runs["cpu"]["store"],
                [f.name for f in runs["cpu"]["raw"]],
-               "eventlog-20k: the card's store against the CPU's")
+               "eventlog-10k: the card's store against the CPU's")
     agree_metric(runs, "AuPR", 1e-4,
                  f"eventlog, {EVENT_AGREE_USERS} users (stores bitwise "
                  "equal)")
     refit_d = {k: abs(v - runs["cpu"]["refits"][k])
                for k, v in runs["cuda"]["refits"].items()}
     if not max(refit_d.values()) <= 1e-4:
-        fail(f"eventlog-20k: the tree refits' AuPR differ {refit_d}")
-    print(f"eventlog-20k tree refits: card/CPU |dAuPR| "
+        fail(f"eventlog-10k: the tree refits' AuPR differ {refit_d}")
+    print(f"eventlog-10k tree refits: card/CPU |dAuPR| "
           f"{ {k: float(f'{v:.3g}') for k, v in refit_d.items()} } "
           f"(limit 1e-4)")
     print(f"eventlog agreement: {time.perf_counter() - t0:.2f} s")
@@ -3861,17 +3909,20 @@ def timings(H, dev, BP, run):
 
 
 # -- phase 13: the remaining estimators and the rich DSL -----------------
-#: every-surface-100k's records (cut from 200,000 to make room for phase
-#: 16), and the rows of each card/CPU agreement
-SURFACE_N = 100_000
+#: every-surface-25k's records (cut from 200,000 to make room for phase
+#: 16, and to 25,000 for phase 19), and the rows of each card/CPU
+#: agreement
+SURFACE_N = 25_000
 SURFACE_SEED = 13
 SURFACE_AGREE_N = 2_000
-#: every-surface-100k's records compared engine against layer path
+#: every-surface-25k's records compared engine against layer path (and
+#: GBT's refit)
 SURFACE_SERVE_N = 20_000
-#: taggers-20k's records: both packages tag one Python call a token on
+#: taggers-5k's records: both packages tag one Python call a token on
 #: the host (NER ~0.7 ms and POS ~0.3 ms a 20-token note), so this path
-#: is cut from 200,000 records (PERF.md §4)
-TAGGER_N = 20_000
+#: is cut from 200,000 records (to 20,000, and to 5,000 for phase 19;
+#: PERF.md §4)
+TAGGER_N = 5_000
 TAGGER_SEED = 17
 #: the MLP's card/CPU agreement (F1, AuPR): full-batch Adam scales each
 #: gradient coordinate by its own magnitude, so f32 rounding of a
@@ -4081,7 +4132,7 @@ def surface_agreement(ES, dev="cuda"):
 
 
 def surface_path(H, TF, ES, root, dev="cuda"):
-    """every-surface-100k: the rich-DSL workflow trained on 100,000
+    """every-surface-25k: the rich-DSL workflow trained on 25,000
     records with every launch counted (GBT's histogram, scan and epilogue
     kernels), its stage and family seconds, LDA's and Word2Vec's fits,
     Word2Vec's pairs, chunk and peak memory, the width, winner, AuPR and
@@ -4099,7 +4150,7 @@ def surface_path(H, TF, ES, root, dev="cuda"):
     t0 = time.perf_counter()
     check_gumbel_noise(dev)
     raw = ES.make_raw(SURFACE_N, SURFACE_SEED)
-    print(f"every-surface-100k: {SURFACE_N} records made in "
+    print(f"every-surface-25k: {SURFACE_N} records made in "
           f"{time.perf_counter() - t0:.2f} s")
     t0_store = time.perf_counter()
     store = ES.raw_store(raw)
@@ -4114,33 +4165,33 @@ def surface_path(H, TF, ES, root, dev="cuda"):
             ("cumhist", "group_rows", "split_scan", "level_epilogue"))
     finally:
         TP.w2v_train = inner
-    once_per_level(launches, "every-surface-100k")
+    once_per_level(launches, "every-surface-25k")
     model, s = out["model"], out["summary"]
     aupr, brier = out["metrics"]["AuPR"], out["bin_score"]["BrierScore"]
     if not (0.5 < aupr <= 1.0 and 0.0 < brier < 0.25):
-        fail(f"every-surface-100k: AuPR {aupr} / Brier {brier} out of range")
+        fail(f"every-surface-25k: AuPR {aupr} / Brier {brier} out of range")
     st = out["workflow"]["stages"]
     fit = {k: model.stage_metrics.get(st[k].origin_stage.uid, {}).get(
         "fitSeconds") for k in ("counts_vec", "topics", "embedding")}
-    print(f"every-surface-100k {SURFACE_N} records: store {store_s:.2f} s, "
+    print(f"every-surface-25k {SURFACE_N} records: store {store_s:.2f} s, "
           f"train "
           f"{out['train_s']:.2f} s, "
           f"evaluate {out['eval_s']:.2f} s, width {out['width']}, best "
           f"{s.best_model_name} {s.best_model_params}, AuPR {aupr:.6f}, "
           f"Brier {brier:.6f}; CV seconds by family "
           f"{s.validator_summary.family_seconds}")
-    print(f"every-surface-100k fits: count vectorizer {fit['counts_vec']} "
+    print(f"every-surface-25k fits: count vectorizer {fit['counts_vec']} "
           f"s, LDA {fit['topics']} s, Word2Vec {fit['embedding']} s "
           f"(training {stats.get('train_s', 0.0):.2f} s: "
           f"{stats.get('pairs')} pairs, {stats.get('chunk_pairs')} a chunk, "
           f"{stats.get('chunks_per_epoch')} chunks an epoch, peak "
           f"{stats.get('peak_bytes', 0) / 2**20:.1f} MiB over the "
           f"allocations before it)")
-    print(f"every-surface-100k training launches: {launches}")
-    stage_table(model, "every-surface-100k")
+    print(f"every-surface-25k training launches: {launches}")
+    stage_table(model, "every-surface-25k")
 
     # the prediction alone as the result (the same fitted stages): the
-    # engine's fused program, timed over the 100,000 records; then the
+    # engine's fused program, timed over the 25,000 records; then the
     # model as trained, whose tupled columns are host stages that read
     # the prediction (so nothing upstream of them fuses), and the layer
     # path, each on SURFACE_SERVE_N records: the host stages dominate
@@ -4203,38 +4254,38 @@ def surface_path(H, TF, ES, root, dev="cuda"):
     torch.cuda.synchronize()
     launches = dict(H.KERNEL_LAUNCHES)
     if not launches["predict_trees"]:
-        fail("every-surface-100k: predict_trees never launched")
+        fail("every-surface-25k: predict_trees never launched")
     print(f"every-surface GBT refit on {SURFACE_SERVE_N} records (so "
           f"predict_trees runs whichever family won): AuPR {refits}; "
           f"launches over training, serving and the refit: {launches}")
     if not fold0:
-        fail("every-surface-100k: the selector's CV kept no fold")
+        fail("every-surface-25k: the selector's CV kept no fold")
     worst = check_mapprep_kernels(H, TF, dev, fold0.pop("X"),
                                   fold0.pop("y"),
-                                  "every-surface-100k CV fold 0")
+                                  "every-surface-25k CV fold 0")
     surface_agreement(ES, dev)
     return launches, time.perf_counter() - t0, worst
 
 
 def tagger_path(ES, dev="cuda"):
-    """taggers-20k: entities, languages, sentences and POS tags of 20,000
+    """taggers-5k: entities, languages, sentences and POS tags of 5,000
     notes, transmogrified, one LR point; seconds by stage."""
     t0 = time.perf_counter()
     raw = ES.make_tagger_raw(TAGGER_N, TAGGER_SEED)
     out = ES.run_taggers(raw, device=dev)
     aupr = out["metrics"]["AuPR"]
     if not 0.5 < aupr <= 1.0:
-        fail(f"taggers-20k: AuPR {aupr} out of range")
-    print(f"taggers-20k {TAGGER_N} records: train {out['train_s']:.2f} s, "
+        fail(f"taggers-5k: AuPR {aupr} out of range")
+    print(f"taggers-5k {TAGGER_N} records: train {out['train_s']:.2f} s, "
           f"best {out['summary'].best_model_name}, train AuPR {aupr:.6f}")
-    stage_table(out["model"], "taggers-20k")
+    stage_table(out["model"], "taggers-5k")
     return time.perf_counter() - t0
 
 
 def rich_dsl_paths(H, TF, BO, IR, root, dev="cuda"):
-    """Phase 13: boston-glm-200k, iris-mlp-200k, every-surface-100k and
-    taggers-20k, with each path's seconds. Returns ({path: launches},
-    each kernel's max abs error at every-surface-100k's fold shapes)."""
+    """Phase 13: boston-glm-200k, iris-mlp-200k, every-surface-25k and
+    taggers-5k, with each path's seconds. Returns ({path: launches},
+    each kernel's max abs error at every-surface-25k's fold shapes)."""
     from transmogrifai_tpu_torch import every_surface as ES
     data_dir = os.path.join(root, "build", "data")
     seconds, launches_by = {}, {}
@@ -4244,11 +4295,11 @@ def rich_dsl_paths(H, TF, BO, IR, root, dev="cuda"):
                                                         root, dev))):
         out, launches = counted(H, fn, ())
         seconds[name], launches_by[name] = out, launches
-    (launches_by["every-surface-100k"], seconds["every-surface-100k"],
+    (launches_by["every-surface-25k"], seconds["every-surface-25k"],
      worst) = surface_path(H, TF, ES, root, dev)
-    out, launches_by["taggers-20k"] = counted(H, lambda: tagger_path(ES,
+    out, launches_by["taggers-5k"] = counted(H, lambda: tagger_path(ES,
                                                                      dev), ())
-    seconds["taggers-20k"] = out
+    seconds["taggers-5k"] = out
     print(f"phase 13 seconds by path: "
           f"{ {k: round(v, 2) for k, v in seconds.items()} }, total "
           f"{sum(seconds.values()):.2f} s")
@@ -4757,17 +4808,19 @@ def telemetry_phase(H, BP, records, text_aupr, card, dev="cuda"):
     return launches
 
 
-#: phase 16, ooc-1m: BigPassenger records as Avro shards (one seed each)
-OOC_ROWS, OOC_SHARDS, OOC_SEED = 1_000_000, 10, 1600
+#: phase 16, ooc-600k: BigPassenger records as Avro shards (one seed each)
+OOC_ROWS, OOC_SHARDS, OOC_SEED = 600_000, 6, 1600
 OOC_HOLDOUT, OOC_HOLDOUT_SEED = 20_000, 1599
-#: the streamed fit's subsample (``workflow.STREAM_SAMPLE_ROWS``' default)
-OOC_SAMPLE = 262_144
+#: the streamed fit's subsample, half ``workflow.STREAM_SAMPLE_ROWS``'
+#: default as the rows were cut from 1,000,000 to make room for phase 19
+#: (the streamed leg's ``TMOG_STREAM_SAMPLE_ROWS``)
+OOC_SAMPLE = 131_072
 #: the streamed leg's peak RSS cap, as a share of the materialized leg's:
 #: below it, with room for the streamed leg's fixed part (the card's
-#: context and the Train on the 262,144-row subsample: 60% of the
-#: materialized peak)
+#: context and the Train on the subsample: 60% of the materialized peak
+#: at 1,000,000 rows and 262,144)
 OOC_RSS_SHARE = 0.8
-#: the bound's scale check: over the last 500,000 ingested rows, the
+#: the bound's scale check: over the last half of the ingested rows, the
 #: median step of the streamed leg's RSS from one file to the next is at
 #: most this share of the materialized leg's (a stream that kept its
 #: records would step as much). The median, since the allocator grows
@@ -4776,8 +4829,9 @@ OOC_RSS_STEP_SHARE = 0.25
 #: holdout AuPR of the streamed model within this of the materialized
 #: model's (the JAX package's own out-of-core proof, ``bench.py``)
 OOC_AUPR_TOL = 0.02
-#: StreamingScore's directory: 20 files of 10,000 records and one cut short
-STREAM_FILES, STREAM_FILE_ROWS, STREAM_SEED = 20, 10_000, 1700
+#: StreamingScore's directory: 10 files of 10,000 records and one cut short
+#: (cut from 20 for phase 19)
+STREAM_FILES, STREAM_FILE_ROWS, STREAM_SEED = 10, 10_000, 1700
 #: card against CPU: 20,000 rows in 4 shards, a subsample of 8,192
 OOC_AGREE_ROWS, OOC_AGREE_SHARDS, OOC_AGREE_SAMPLE = 20_000, 4, 8_192
 OOC_KERNELS = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
@@ -4799,7 +4853,7 @@ def write_shards(pool, jobs):
     """Write every (path, rows, seed) shard on the process pool."""
     for fp in pool.map(_write_shard, jobs):
         if not os.path.getsize(fp):
-            fail(f"ooc-1m: empty shard {fp}")
+            fail(f"ooc-600k: empty shard {fp}")
 
 
 def state_hex(states):
@@ -4978,12 +5032,13 @@ def run_leg(spec):
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--ooc-leg",
          json.dumps(spec)], capture_output=True, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, TMOG_STREAM_SAMPLE_ROWS=str(OOC_SAMPLE)))
     lines = [ln for ln in proc.stdout.splitlines()
              if ln.startswith("OOC_LEG ")]
     if proc.returncode != 0 or len(lines) != 1:
         sys.stderr.write(proc.stderr[-6000:])
-        fail(f"ooc-1m: the {spec['mode']} leg exited {proc.returncode}")
+        fail(f"ooc-600k: the {spec['mode']} leg exited {proc.returncode}")
     res = json.loads(lines[0][len("OOC_LEG "):])
     res["process_s"] = time.perf_counter() - t0
     return res
@@ -5034,23 +5089,23 @@ def streaming_score_runs(H, model_dir, score_dir, work, records, card,
     torch.cuda.synchronize()
     launches = dict(H.KERNEL_LAUNCHES)
     if launches["predict_trees"] == 0:
-        fail("ooc-1m StreamingScore: predict_trees never launched")
+        fail("ooc-600k StreamingScore: predict_trees never launched")
     n = STREAM_FILES * STREAM_FILE_ROWS
     written = {}
     for w, (m, secs, params) in runs.items():
         if (m["rowsScored"], m["quarantinedFiles"], m["batches"],
                 m["quarantinedBatches"]) != (n, 1, STREAM_FILES, 0):
-            fail(f"ooc-1m StreamingScore at {w} worker(s): {m}")
+            fail(f"ooc-600k StreamingScore at {w} worker(s): {m}")
         if m["pipelineWorkers"] != w:
-            fail(f"ooc-1m StreamingScore pipelineWorkers "
+            fail(f"ooc-600k StreamingScore pipelineWorkers "
                  f"{m['pipelineWorkers']}, asked {w}")
         dead = resilience.Quarantine(params.quarantine_location).entries()
         if [(e["site"], e["kind"]) for e in dead] != [
                 ("stream.read_file", "files")]:
-            fail(f"ooc-1m StreamingScore quarantine: {dead}")
+            fail(f"ooc-600k StreamingScore quarantine: {dead}")
         written[w] = sink_rows(params.write_location)
     if written[1] != written[4]:
-        fail("ooc-1m StreamingScore: predictions differ between 1 and 4 "
+        fail("ooc-600k StreamingScore: predictions differ between 1 and 4 "
              "workers")
     plain = OpWorkflowRunner(None, scoring_reader=DataReaders.simple.records(
         records), device=dev)
@@ -5058,11 +5113,11 @@ def streaming_score_runs(H, model_dir, score_dir, work, records, card,
     plain.run(RunType.SCORE, OpParams(model_location=model_dir,
                                       write_location=plain_out))
     if sink_rows(plain_out) != written[1]:
-        fail("ooc-1m StreamingScore: predictions differ from a plain "
+        fail("ooc-600k StreamingScore: predictions differ from a plain "
              "Score of the same records")
     rates = {w: n / runs[w][1] for w in runs}
     m1 = runs[1][0]
-    print(f"ooc-1m StreamingScore ({card}): {n:,} records in "
+    print(f"ooc-600k StreamingScore ({card}): {n:,} records in "
           f"{STREAM_FILES} files + "
           f"1 truncated file quarantined; workers 1: {runs[1][1]:.2f} s "
           f"({rates[1]:,.0f} rows/s), workers 4: {runs[4][1]:.2f} s "
@@ -5076,16 +5131,16 @@ def streaming_score_runs(H, model_dir, score_dir, work, records, card,
     m, _s, params = run(1, "stream-fault", plan)
     if (m["quarantinedBatches"], m["rowsScored"]) != (
             1, n - STREAM_FILE_ROWS):
-        fail(f"ooc-1m stream.score_batch fault: {m}")
+        fail(f"ooc-600k stream.score_batch fault: {m}")
     got = sink_rows(params.write_location)
     # the header, then batch k's rows at 1 + k·rows
     lo, hi = 1 + 3 * STREAM_FILE_ROWS, 1 + 4 * STREAM_FILE_ROWS
     if got != written[1][:lo] + written[1][hi:]:
-        fail("ooc-1m stream.score_batch fault: the other batches differ")
+        fail("ooc-600k stream.score_batch fault: the other batches differ")
     dead = [e for e in resilience.Quarantine(
         params.quarantine_location).entries() if e["kind"] == "batches"]
     if [(e["index"], e["rows"]) for e in dead] != [(3, STREAM_FILE_ROWS)]:
-        fail(f"ooc-1m stream.score_batch fault quarantined {dead}")
+        fail(f"ooc-600k stream.score_batch fault quarantined {dead}")
     before = resilience.resilience_stats()["quarantined_batches"]
     # the first chunk of batch 3 (a batch runs in chunks of the engine's
     # largest bucket)
@@ -5097,12 +5152,12 @@ def streaming_score_runs(H, model_dir, score_dir, work, records, card,
         run(4, "stream-device-fault", plan)
     except OSError as e:
         if not resilience.is_device_failure(e):
-            fail(f"ooc-1m device fault raised unmarked: {e!r}")
+            fail(f"ooc-600k device fault raised unmarked: {e!r}")
     else:
-        fail("ooc-1m: a scoring.device_dispatch fault did not raise")
+        fail("ooc-600k: a scoring.device_dispatch fault did not raise")
     if resilience.resilience_stats()["quarantined_batches"] != before:
-        fail("ooc-1m: a device fault was quarantined")
-    print(f"ooc-1m faults: a stream.score_batch fault on batch 3 "
+        fail("ooc-600k: a device fault was quarantined")
+    print(f"ooc-600k faults: a stream.score_batch fault on batch 3 "
           f"quarantined that batch alone (the other {n - STREAM_FILE_ROWS:,}"
           f" predictions bitwise); a scoring.device_dispatch fault on "
           f"batch 3 raised out of the run, nothing quarantined")
@@ -5146,9 +5201,9 @@ def ooc_small(H, BP, directory, holdout, dev, passes=(2,)):
 
 
 def ooc_phase(H, BP, card, dev="cuda"):
-    """Phase 16, ooc-1m: out-of-core ingest on the card.
+    """Phase 16, ooc-600k: out-of-core ingest on the card.
 
-    1,000,000 BigPassenger records (text-200k's schema and widths) as 10
+    600,000 BigPassenger records (text-200k's schema and widths) as 6
     Avro shards of 100,000, one seed each, written on a process pool, and
     a 20,000-record holdout. (a) A fresh process trains text-200k's
     workflow through ``OpWorkflowRunner`` with ``streamFit`` false on all
@@ -5203,7 +5258,7 @@ def ooc_phase(H, BP, card, dev="cuda"):
         blob = fh.read()
     with open(cut + "-cut.avro", "wb") as fh:
         fh.write(blob[:len(blob) * 3 // 5])
-    print(f"ooc-1m data: {OOC_ROWS:,} records in {OOC_SHARDS} shards, "
+    print(f"ooc-600k data: {OOC_ROWS:,} records in {OOC_SHARDS} shards, "
           f"{OOC_HOLDOUT:,} holdout, {STREAM_FILES * STREAM_FILE_ROWS:,} "
           f"to score, {OOC_AGREE_ROWS:,} for the agreement, written in "
           f"{gen_s:.2f} s on {workers} processes")
@@ -5217,37 +5272,37 @@ def ooc_phase(H, BP, card, dev="cuda"):
     for what, leg in (("materialized", mat), ("streamed", st)):
         missing = [k for k in OOC_KERNELS if leg["launches"][k] == 0]
         if missing:
-            fail(f"ooc-1m {what} leg never launched {missing}")
-        once_per_level(leg["launches"], f"ooc-1m {what} leg")
-        print(f"ooc-1m {what} leg ({card}): Train {leg['train_s']:.2f} s "
+            fail(f"ooc-600k {what} leg never launched {missing}")
+        once_per_level(leg["launches"], f"ooc-600k {what} leg")
+        print(f"ooc-600k {what} leg ({card}): Train {leg['train_s']:.2f} s "
               f"(ingest {leg['ingest_s']}), process {leg['process_s']:.2f} "
               f"s, peak RSS {leg['peak_rss_mb']:.1f} MB, {leg['train_rows']:,}"
               f" training rows, best {leg['best']}, holdout AuPR "
               f"{leg['aupr']:.6f}, launches {leg['launches']}")
     if mat["rows"] != OOC_ROWS:
-        fail(f"ooc-1m: the materialized leg read {mat['rows']} rows")
+        fail(f"ooc-600k: the materialized leg read {mat['rows']} rows")
     if st["stream_rows"] != [OOC_ROWS, OOC_SAMPLE]:
-        fail(f"ooc-1m: streamed rows {st['stream_rows']}")
+        fail(f"ooc-600k: streamed rows {st['stream_rows']}")
     if st["states"] != mat["states"]:
         bad = [nm for nm in mat["states"]
                if st["states"].get(nm) != mat["states"][nm]]
-        fail(f"ooc-1m: the streamed fold's states differ from the device "
+        fail(f"ooc-600k: the streamed fold's states differ from the device "
              f"pass's over the full store: {bad}")
     if not st["peak_rss_mb"] < cap:
-        fail(f"ooc-1m: streamed peak RSS {st['peak_rss_mb']} MB not under "
+        fail(f"ooc-600k: streamed peak RSS {st['peak_rss_mb']} MB not under "
              f"rssCapMb {cap}")
     growth, step = {}, {}
     for what, leg in (("materialized", mat), ("streamed", st)):
         probes = leg["rss"]["probes"]
         at = dict((r, mb) for r, mb in probes)
         if OOC_ROWS // 2 not in at or OOC_ROWS not in at:
-            fail(f"ooc-1m {what} leg: no RSS probe at {OOC_ROWS // 2:,} and "
+            fail(f"ooc-600k {what} leg: no RSS probe at {OOC_ROWS // 2:,} and "
                  f"{OOC_ROWS:,} rows: {probes}")
         growth[what] = at[OOC_ROWS] - at[OOC_ROWS // 2]
         step[what] = float(np.median([
             b[1] - a[1] for a, b in zip(probes, probes[1:])
             if a[0] >= OOC_ROWS // 2]))
-        print(f"ooc-1m {what} leg RSS ({card}): {leg['rss']['base_mb']:.1f} "
+        print(f"ooc-600k {what} leg RSS ({card}): {leg['rss']['base_mb']:.1f} "
               f"MB before the run, {at[OOC_ROWS // 2]:.1f} MB at "
               f"{OOC_ROWS // 2:,} rows ingested, {at[OOC_ROWS]:.1f} MB at "
               f"{OOC_ROWS:,}; peak {leg['rss']['startup_peak_mb']:.1f} MB "
@@ -5256,14 +5311,14 @@ def ooc_phase(H, BP, card, dev="cuda"):
               f"(ru_maxrss {leg['ru_maxrss_mb']:.1f} MB); by file "
               f"{leg['rss']['probes']}")
     if not step["streamed"] <= OOC_RSS_STEP_SHARE * step["materialized"]:
-        fail(f"ooc-1m: the streamed leg's RSS stepped a median "
+        fail(f"ooc-600k: the streamed leg's RSS stepped a median "
              f"{step['streamed']:.1f} MB a file over the last "
              f"{OOC_ROWS // 2:,} rows, against {step['materialized']:.1f} MB "
              f"materialized")
     d_aupr = abs(st["aupr"] - mat["aupr"])
     if not d_aupr <= OOC_AUPR_TOL:
-        fail(f"ooc-1m: holdout AuPR {st['aupr']} against {mat['aupr']}")
-    print(f"ooc-1m ({card}): the fold's states over {OOC_ROWS:,} rows "
+        fail(f"ooc-600k: holdout AuPR {st['aupr']} against {mat['aupr']}")
+    print(f"ooc-600k ({card}): the fold's states over {OOC_ROWS:,} rows "
           f"bitwise the device pass's ({len(st['states'])} columns); "
           f"subsample {OOC_SAMPLE:,}; peak RSS streamed "
           f"{st['peak_rss_mb']:.1f} MB < rssCapMb {cap} "
@@ -5302,13 +5357,16 @@ def ooc_phase(H, BP, card, dev="cuda"):
     launches = {k: (mat["launches"][k] + st["launches"][k]
                     + stream_launches[k] + small_launches[k])
                 for k in H.KERNEL_LAUNCHES}
-    print(f"ooc-1m launches: {launches}")
+    print(f"ooc-600k launches: {launches}")
     print(f"phase 16: {time.perf_counter() - t_phase:.2f} s ({card})")
     return launches
 
 
 GEN_N = 200_000
 GEN_AGREE_N = 2_000
+#: the records the generated app's Score process scores: the CSV's first
+#: 50,000 (cut from all 200,000 to make room for phase 19)
+GEN_SCORE_N = 50_000
 #: the kernels the generated project's Train must launch (its binary
 #: default families over a 32-bin block and a 2-bin indicator block)
 GEN_KERNELS = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
@@ -5343,21 +5401,40 @@ def gen_start(args, cwd, module=True):
                             stderr=subprocess.PIPE), time.perf_counter()
 
 
-def gen_finish(started, what):
-    """Wait for a :func:`gen_start` process; fail unless it exits 0 within
-    ``GEN_STEP_TIMEOUT_S``. Returns (stdout, seconds)."""
+def gen_watch(started):
+    """Wait for a :func:`gen_start` process on a thread of its own, so its
+    seconds end when it exits, not when :func:`gen_finish` reads it."""
     proc, t0 = started
-    try:
-        out, err = proc.communicate(timeout=GEN_STEP_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
+    box = {"proc": proc}
+
+    def wait():
+        try:
+            box["out"], box["err"] = proc.communicate(
+                timeout=GEN_STEP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            box["out"], box["err"] = proc.communicate()
+            box["timed_out"] = True
+        box["secs"] = time.perf_counter() - t0
+
+    box["thread"] = threading.Thread(target=wait, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def gen_finish(started, what):
+    """Wait for a :func:`gen_start` (or :func:`gen_watch`) process; fail
+    unless it exits 0 within ``GEN_STEP_TIMEOUT_S``. Returns (stdout,
+    seconds)."""
+    box = started if isinstance(started, dict) else gen_watch(started)
+    box["thread"].join()
+    if box.get("timed_out"):
         fail(f"gen-200k: {what} did not finish within "
              f"{GEN_STEP_TIMEOUT_S} s")
-    if proc.returncode != 0:
-        sys.stderr.write(out[-3000:] + err[-6000:])
-        fail(f"gen-200k: {what} exited {proc.returncode}")
-    return out, time.perf_counter() - t0
+    if box["proc"].returncode != 0:
+        sys.stderr.write(box["out"][-3000:] + box["err"][-6000:])
+        fail(f"gen-200k: {what} exited {box['proc'].returncode}")
+    return box["out"], box["secs"]
 
 
 def gen_step(args, cwd, what, module=True):
@@ -5422,13 +5499,14 @@ def gen_phase(H, BP, card, dev="cuda"):
     headed CSV of text-200k's 200,000 records; ``python -m
     transmogrifai_tpu_torch gen``; the generated ``app.py`` with its own
     ``params.json`` (the full default grid, a trace directory) as a Train
-    and a Score, each a process on the card; then ``check`` (the params
-    and the saved model, the device pass on), ``plan``, ``lint`` and
-    ``trace merge``, each exiting 0. The launches of each kernel are read
-    from the Train's and the Score's metrics documents. Then the same
-    project generated from the first 2,000 records (the same types: gen
-    samples 1,000 rows) trained at one grid point a family on the card and
-    the CPU. Everything is written under a temporary directory, removed
+    and a Score, each a process on the card; ``check`` (the params and
+    the saved model, the device pass on), ``plan``, ``lint`` and the
+    2,000-row project's ``gen``, each a process started beside the Score
+    and exiting 0; then ``trace merge`` of the two runs' shards, in this
+    process. The launches of each kernel are read from the Train's and
+    the Score's metrics documents. Then the same project generated from
+    the first 2,000 records (the same types: gen samples 1,000 rows)
+    trained at one grid point a family on the card and the CPU. Everything is written under a temporary directory, removed
     at the end. Returns the phase's launches."""
     import shutil
     import tempfile
@@ -5441,6 +5519,8 @@ def gen_phase(H, BP, card, dev="cuda"):
         write_headed_csv(data_csv, records)
         small_csv = os.path.join(work, "passengers2k.csv")
         write_headed_csv(small_csv, records[:GEN_AGREE_N])
+        score_csv = os.path.join(work, "passengers-score.csv")
+        write_headed_csv(score_csv, records[:GEN_SCORE_N])
         del records
         data_s = time.perf_counter() - t0
         proj = os.path.join(work, "proj")
@@ -5466,8 +5546,24 @@ def gen_phase(H, BP, card, dev="cuda"):
             json.dump(params, fh, indent=1)
         launches = {k: 0 for k in H.KERNEL_LAUNCHES}
         docs = {}
+        # check, plan, lint and the 2,000-row project's gen read neither
+        # the Score's outputs nor the card: one process each, started
+        # beside the Score
+        small = os.path.join(work, "proj2k")
+        steps = [(["check", "params.json"], proj, "check: "),
+                 (["plan", "params.json"], proj, None),
+                 (["lint"], proj, "lint: "),
+                 (["gen", "--input", small_csv, "--response", "survived",
+                   "--name", "GenApp", "--output", small], work,
+                  "generated ")]
+        started = []
         for run_type, extra in (("Train", []), ("Score", [
                 "--write-location", "scores.csv"])):
+            if run_type == "Score":
+                # the app reads its one CSV: Score reads its first rows
+                os.replace(score_csv, data_csv)
+                started = [gen_watch(gen_start(args, cwd))
+                           for args, cwd, _p in steps]
             _out, secs = gen_step(["app.py", "--run-type", run_type,
                                    "--params", "params.json", "--quiet",
                                    *extra], proj, f"app.py {run_type}",
@@ -5484,7 +5580,7 @@ def gen_phase(H, BP, card, dev="cuda"):
                    if docs["Train"]["trees"]["launches"][k] == 0]
         if missing:
             fail(f"gen-200k: the Train never launched {missing}")
-        if docs["Score"]["rowsScored"] != GEN_N:
+        if docs["Score"]["rowsScored"] != GEN_SCORE_N:
             fail(f"gen-200k: Score scored {docs['Score']['rowsScored']} "
                  "rows")
         if docs["Train"]["effectiveConfig"]["traceDir"] != traces:
@@ -5502,22 +5598,11 @@ def gen_phase(H, BP, card, dev="cuda"):
               f"validated; "
               f"trainTimeSeconds {docs['Train']['trainTimeSeconds']:.2f}; "
               f"{n_scores:,} rows in scores.csv")
-        if n_scores != GEN_N:
+        if n_scores != GEN_SCORE_N:
             fail(f"gen-200k: scores.csv holds {n_scores} rows")
         if best in ("OpRandomForestClassifier", "OpGBTClassifier") and \
                 docs["Score"]["trees"]["launches"]["predict_trees"] == 0:
             fail("gen-200k: a tree winner scored without predict_trees")
-        # check, plan, lint, trace merge and the 2,000-row project's gen
-        # are independent: one process each, all at once
-        small = os.path.join(work, "proj2k")
-        steps = [(["check", "params.json"], proj, "check: "),
-                 (["plan", "params.json"], proj, None),
-                 (["lint"], proj, "lint: "),
-                 (["trace", "merge", traces], proj, "trace merge: "),
-                 (["gen", "--input", small_csv, "--response", "survived",
-                   "--name", "GenApp", "--output", small], work,
-                  "generated ")]
-        started = [gen_start(args, cwd) for args, cwd, _p in steps]
         for (args, _cwd, prefix), st in zip(steps, started):
             what = " ".join(args[:2])
             out, secs = gen_finish(st, what)
@@ -5527,6 +5612,16 @@ def gen_phase(H, BP, card, dev="cuda"):
             if prefix == "check: " and not line.startswith(
                     "check: 0 error(s)"):
                 fail(f"gen-200k: check found errors: {line}")
+        # the Train's and the Score's shards, merged by the command in
+        # this process (the Score has ended)
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["trace", "merge", traces])
+        if rc != 0:
+            fail(f"gen-200k: trace merge exited {rc}")
+        print(f"gen-200k trace merge: {time.perf_counter() - t0:.2f} s; "
+              + summary_line(buf.getvalue(), "trace merge: ", "trace"))
         merged = json.load(open(os.path.join(traces,
                                              "merged.trace.json")))
         if merged["mergedShards"] < 2:
@@ -5635,16 +5730,24 @@ def tenant_version(BP, records, seed, root, dev):
                                      bucket_cap=TENANT_CAP, device=dev)
     torch.cuda.synchronize()
     export_s = time.perf_counter() - t0
+    holdout = model.fitted_stages[prediction.origin_stage.uid] \
+        .selector_summary.holdout_evaluation
     return {"model": model, "pred": prediction.name, "model_dir": mdir,
             "export_dir": edir, "train_s": train_s, "export_s": export_s,
             "width": width, "excluded": excluded, "seed": seed,
-            "bank": meta["aot"]}
+            "bank": meta["aot"], "holdout_aupr": holdout["AuPR"]}
 
 
 def draw_request(rng, records):
     n = int(rng.integers(1, TENANT_MAX_ROWS + 1))
     lo = int(rng.integers(0, len(records) - n))
     return records[lo:lo + n]
+
+
+def age_shifted(records):
+    """``records`` with ``age`` + 40 (a missing age stays missing)."""
+    return [dict(r, age=None if r["age"] is None else r["age"] + 40.0)
+            for r in records]
 
 
 def solo_equal(eng, records, res, pred, what):
@@ -5980,8 +6083,8 @@ def serve_tenants_inprocess(H, v1, v2, reg, serve200k_dir, records, acc,
         if marks[-1][2] != adv0 or not quiet["windowsCompared"]:
             fail(f"serve-tenants: in-distribution traffic drifted: {quiet}")
         shift_at = len(records) // 2
-        shifted = [dict(r, age=None if r["age"] is None else r["age"] + 40.0)
-                   for r in records[shift_at:shift_at + TENANT_DRIFT_WINDOW]]
+        shifted = age_shifted(
+            records[shift_at:shift_at + TENANT_DRIFT_WINDOW])
         drift_seen, marks = drift_stream(shifted)
         first = next(((rows, [f for f in fs if f.rule == "TMG601"
                               and f.feature == "age"])
@@ -6222,7 +6325,7 @@ def serve_process_step(reg_dir, serve200k_dir, engines, preds, records,
 
 
 def serve_tenants_phase(H, BP, card, records=None, serve200k_dir=None,
-                        dev="cuda"):
+                        dev="cuda", keep=False):
     """Phase 18, serve-tenants: the model server and the model lifecycle
     on the card. Two versions of text-200k's model (v1 and v2: GBT
     maxDepth 6 at selector seeds 42 and 43, a RawFeatureFilter at its
@@ -6235,7 +6338,9 @@ def serve_tenants_phase(H, BP, card, records=None, serve200k_dir=None,
     the drift sentinel; then a ``serve`` process over HTTP. Every response
     is held bitwise against a solo score at its bucket. Returns the
     phase's launches (training, export and served traffic; the oracle
-    checks are not counted)."""
+    checks are not counted); with ``keep``, also what phase 19 reuses (the
+    work directory, which the caller then removes: the registry, the
+    versions, the oracle engines and prediction names)."""
     import shutil
     import tempfile
     from transmogrifai_tpu_torch.lifecycle import ModelRegistry
@@ -6267,14 +6372,19 @@ def serve_tenants_phase(H, BP, card, records=None, serve200k_dir=None,
             v = versions[tag]
             v["vid"] = reg.register("churn", v["model_dir"],
                                     bank_dir=v["export_dir"],
-                                    train_metrics={"seed": v["seed"]},
+                                    train_metrics={
+                                        "seed": v["seed"],
+                                        "AuPR": v["holdout_aupr"]},
                                     promote=(tag == "v1"))
         engines, preds = serve_tenants_inprocess(
             H, versions["v1"], versions["v2"], reg, serve200k_dir, records,
             acc, card, dev)
         serve_process_step(reg_dir, serve200k_dir, engines, preds, records,
                            work, card)
-    finally:
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    if not keep:
         shutil.rmtree(work, ignore_errors=True)
     launches = acc.total
     missing = [k for k in TENANT_KERNELS if launches[k] == 0]
@@ -6283,6 +6393,732 @@ def serve_tenants_phase(H, BP, card, records=None, serve200k_dir=None,
     print(f"serve-tenants launches: {launches}")
     print(f"serve-tenants ({card}): phase 18 took "
           f"{time.perf_counter() - t_phase:.2f} s")
+    if keep:
+        return launches, {"work": work, "reg_dir": reg_dir,
+                          "versions": versions, "engines": engines,
+                          "preds": preds, "serve200k_dir": serve200k_dir}
+    return launches
+
+
+# -- phase 19: the serving fleet, the workload, continuous training ---------
+
+#: two serve workers on the card behind the router
+FLEET_WORKERS = 2
+#: closed-loop HTTP clients through the router, and requests each
+FLEET_CLIENTS = 4
+FLEET_REQUESTS = 100
+#: requests of the canary step, each sent to both workers
+FLEET_CANARY_REQUESTS = 16
+#: the replay's speed-up of the recorded arrivals (the first requests,
+#: each a tenant's load, are seconds apart)
+FLEET_REPLAY_SPEED = 20.0
+#: the second router's requests (two clients) and the forwards it fails
+FLEET_FAULT_REQUESTS = 20
+FLEET_FAULT_AT = (0, 5, 11, 17)
+#: clients under the SIGKILL and the rolling restart, and each one's
+#: pause between requests (every answer is held against a solo score on
+#: the card: unpaced, two clients sent ~7,800 requests over the ~70 s of
+#: a respawn and a restart)
+FLEET_LOAD_CLIENTS = 2
+FLEET_LOAD_PAUSE_S = 0.05
+FLEET_STEP_TIMEOUT_S = 300
+#: the fleet command's arguments after the interpreter
+FLEET_CMD = ["-m", "transmogrifai_tpu_torch", "fleet"]
+#: the retrain job's fresh slice: drifted (age + 40) records of one seed,
+#: the holdout gate's tolerance and the canary's windows
+RETRAIN_N, RETRAIN_SEED = 50_000, 1900
+RETRAIN_HOLDOUT_TOL = 0.01
+RETRAIN_WINDOW_REQUESTS, RETRAIN_PROMOTE_WINDOWS = 32, 1
+RETRAIN_TIMEOUT_S = 600
+#: the kernels phase 19 must launch: the retrain job's training and
+#: export, and the in-process server's scored dispatches
+FLEET_KERNELS = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
+                 "level_epilogue", "predict_trees")
+
+
+def retrain_leg(spec):
+    """The retrain job of phase 19 (``--retrain-leg``), in the process the
+    controller spawns: text-200k's workflow at one grid point (GBT
+    maxDepth 6, a RawFeatureFilter) trained on ``RETRAIN_N`` fresh drifted
+    records, warm-started from the stable model's persisted fit
+    statistics (``continual.load_warm_stats`` of ``TMOG_RETRAIN_STABLE``),
+    saved under ``TMOG_RETRAIN_OUT/model`` and exported with a bank under
+    ``TMOG_RETRAIN_OUT/export``; its metrics document (holdout AuPR, the
+    warm merges, the kernel launches, the seconds) in ``metrics.json``."""
+    from transmogrifai_tpu_torch import big_passenger as BP
+    from transmogrifai_tpu_torch import continual, fitstats, serving
+    from transmogrifai_tpu_torch.filters import RawFeatureFilter
+    from transmogrifai_tpu_torch.models import _hist as H
+    from transmogrifai_tpu_torch.ops.hashing import load_native
+    from transmogrifai_tpu_torch.synthetic_trees import default_families
+    from transmogrifai_tpu_torch.workflow import Workflow
+    t_leg = time.perf_counter()
+    dev = torch.device(spec["dev"])
+    if dev.type == "cuda":
+        H.build_kernels()
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+    load_native()
+    out = os.environ["TMOG_RETRAIN_OUT"]
+    warm = continual.load_warm_stats(
+        os.environ.get("TMOG_RETRAIN_STABLE") or None)
+    t0 = time.perf_counter()
+    records = age_shifted(BP.synthesize_records(spec["n"],
+                                                seed=spec["seed"]))
+    records_s = time.perf_counter() - t0
+    _, checked, selector, prediction = BP.build_selection(
+        [default_families((6,), ())[0]], num_folds=3, seed=spec["seed"])
+    wf = (Workflow().set_input_records(records)
+          .set_result_features(prediction)
+          .set_splitter(selector.splitter)
+          .with_raw_feature_filter(RawFeatureFilter())
+          .with_warm_fit_stats(warm))
+    H.reset_launch_counts()
+    fitstats.reset_fitstats_stats()
+    t0 = time.perf_counter()
+    model = wf.train(device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    merges = fitstats.fitstats_stats()["warm_state_merges"]
+    t0 = time.perf_counter()
+    model.save(os.path.join(out, "model"), overwrite=True)
+    meta = serving.export_scoring_fn(model, os.path.join(out, "export"),
+                                     records[:64], bucket_cap=TENANT_CAP,
+                                     device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    holdout = model.fitted_stages[prediction.origin_stage.uid] \
+        .selector_summary.holdout_evaluation
+    doc = {"AuPR": holdout["AuPR"], "warmStarted": bool(warm),
+           "warmStateMerges": merges,
+           "width": len(model.fitted_stages[
+               checked.origin_stage.uid].keep_indices),
+           "trees": {"launches": dict(H.KERNEL_LAUNCHES)},
+           "bankPrograms": meta["aot"]["programs"],
+           "seconds": {"records": records_s, "train": train_s,
+                       "export": export_s,
+                       "leg": time.perf_counter() - t_leg}}
+    with open(os.path.join(out, "metrics.json"), "w") as fh:
+        json.dump(doc, fh)
+    print("RETRAIN_LEG " + json.dumps(doc), flush=True)
+    return 0
+
+
+class _Running:
+    """A worker process this script did not start, seen by its pid (the
+    second router's view of the fleet's workers)."""
+
+    def __init__(self, pid):
+        self.pid = pid
+
+    def poll(self):
+        try:
+            os.kill(self.pid, 0)
+        except OSError:
+            return 1
+        return None
+
+
+def http_json(port, method, path, body=None, timeout=120):
+    status, raw, _ = http_call(port, method, path, body, timeout=timeout)
+    return status, json.loads(raw or b"{}")
+
+
+def fleet_status(port):
+    """The router's view: [{worker, state, port, pid, spawns, ...}]."""
+    return http_json(port, "GET", "/healthz")[1]["workers"]
+
+
+def fleet_traffic(port, records, n_clients, n_requests, seed, names,
+                  stop=None, pause_s=0.0):
+    """Closed-loop clients through ``port``: ``n_requests`` each (or until
+    ``stop`` is set) of 1-``TENANT_MAX_ROWS`` seeded records, the tenants
+    in turn, ``pause_s`` between a client's requests; [(name, records,
+    status, doc, seconds)]."""
+    lock, out = threading.Lock(), []
+
+    def client(k):
+        rng = np.random.default_rng(seed + k)
+        i = 0
+        while (stop is None and i < n_requests) or \
+                (stop is not None and not stop.is_set()):
+            name = names[(k + i) % len(names)]
+            recs = draw_request(rng, records)
+            t0 = time.perf_counter()
+            status, doc = http_json(port, "POST",
+                                    f"/v1/models/{name}:score",
+                                    {"records": recs})
+            with lock:
+                out.append((name, recs, status, doc,
+                            time.perf_counter() - t0))
+            i += 1
+            if pause_s:
+                time.sleep(pause_s)
+
+    wall = run_clients(client, n_clients, "fleet")
+    return out, wall
+
+
+def fleet_check(results, oracle, what):
+    """Every answer 200 and equal to its version's solo score at its
+    bucket; the failed ones named."""
+    bad = [(n, st, doc.get("error")) for n, _r, st, doc, _s in results
+           if st != 200]
+    if bad:
+        fail(f"fleet-tenants: {what}: {len(bad)} of {len(results)} "
+             f"requests failed, e.g. {bad[:3]}")
+    for name, recs, _st, doc, _s in results:
+        eng, pred = oracle[name]
+        http_equal(doc, recs, eng, pred, f"{what} ({name})")
+
+
+def pct_ms(secs, q):
+    v = sorted(secs)
+    return 1e3 * v[min(int(q * (len(v) - 1) + 0.5), len(v) - 1)]
+
+
+def under_load(port, records, seed, action, what):
+    """``action()`` while ``FLEET_LOAD_CLIENTS`` clients send churn
+    requests through ``port``, each pausing ``FLEET_LOAD_PAUSE_S`` after
+    an answer; (results, action's return)."""
+    stop = threading.Event()
+    box = {}
+
+    def drive():
+        box["results"], _ = fleet_traffic(port, records,
+                                          FLEET_LOAD_CLIENTS, 0, seed,
+                                          ("churn",), stop=stop,
+                                          pause_s=FLEET_LOAD_PAUSE_S)
+
+    t = threading.Thread(target=drive, daemon=True, name=f"load-{what}")
+    t.start()
+    try:
+        time.sleep(0.3)
+        got = action()
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        t.join(timeout=FLEET_STEP_TIMEOUT_S)
+    if t.is_alive() or "results" not in box:
+        fail(f"fleet-tenants: {what}: the load clients did not finish")
+    return box["results"], got
+
+
+def wait_workers(port, cond, what, timeout_s=FLEET_STEP_TIMEOUT_S):
+    """Poll the router's worker view until ``cond(workers)``; seconds."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            ws = fleet_status(port)
+            if cond(ws):
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > timeout_s:
+            fail(f"fleet-tenants: {what} within {timeout_s} s")
+        time.sleep(0.05)
+
+
+def start_fleet(params, work, dev):
+    """``python -m transmogrifai_tpu_torch fleet`` on ``dev``; (process,
+    router port, log path, seconds until both workers are ready)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    port_file = os.path.join(work, "fleet.port")
+    log_path = os.path.join(work, "fleet.log")
+    log = open(log_path, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable] + FLEET_CMD + [
+            params, "--workers", str(FLEET_WORKERS), "--port", "0",
+            "--port-file", port_file, "--device", str(dev)],
+        cwd=work, env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    while not os.path.exists(port_file):
+        if proc.poll() is not None or \
+                time.perf_counter() - t0 > FLEET_STEP_TIMEOUT_S:
+            sys.stderr.write(open(log_path).read()[-6000:])
+            fail("fleet-tenants: the fleet never served")
+        time.sleep(0.05)
+    port = int(open(port_file).read())
+    wait_workers(port, lambda ws: sum(w["state"] == "ready" for w in ws)
+                 == FLEET_WORKERS, "both workers ready")
+    return proc, port, log_path, time.perf_counter() - t0
+
+
+def fleet_step(ctx, records, work, card, dev, after_replay):
+    """Phase 19 (a) and (b): the fleet command on ``dev``, its traffic,
+    the canary, the faults; the workload merged and replayed; the trace
+    analyzed. ``after_replay()`` runs on this thread once the measured
+    traffic and the replay are done (phase 19 arms its retrain job there,
+    so the job trains beside the fault steps and not beside the measured
+    traffic)."""
+    import signal
+    from transmogrifai_tpu_torch import aot, cli, resilience
+    from transmogrifai_tpu_torch import fleet as fleet_mod
+    versions, engines, preds = ctx["versions"], ctx["engines"], ctx["preds"]
+    v1, v2 = versions["v1"], versions["v2"]
+    eng_v2 = v2["model"].scoring_engine(dev, bucket_cap=TENANT_CAP)
+    aot.load_program_bank(eng_v2, v2["export_dir"])
+    oracle = {"churn": (engines["churn"], preds["churn"]),
+              "serve200k": (engines["serve200k"], preds["serve200k"])}
+    wdir, tdir = os.path.join(work, "workload"), os.path.join(work, "traces")
+    params = os.path.join(work, "fleet_params.json")
+    with open(params, "w") as fh:
+        json.dump({"customParams": {
+            "registryDir": ctx["reg_dir"],
+            "serveModels": {"serve200k": ctx["serve200k_dir"]},
+            "serveBucketCap": TENANT_CAP,
+            "serveBatchDeadlineMs": TENANT_DEADLINE_S * 1e3,
+            "workloadDir": wdir, "workloadPayloads": True,
+            "traceDir": tdir}}, fh)
+    proc, port, log_path, ready_s = start_fleet(params, work, dev)
+    try:
+        workers = fleet_status(port)
+        # -- first requests: each worker loaded both tenants before it
+        # answered /readyz (serve --preload) -------------------------------
+        firsts = {}
+
+        def first(k):
+            w = workers[k]
+            for name in ("churn", "serve200k"):
+                recs = records[:17]
+                t0 = time.perf_counter()
+                status, doc = http_json(w["port"], "POST",
+                                        f"/v1/models/{name}:score",
+                                        {"records": recs})
+                firsts[(k, name)] = 1e3 * (time.perf_counter() - t0)
+                if status != 200:
+                    raise RuntimeError(f"worker {k}'s first {name} "
+                                       f"request answered {status}")
+                http_equal(doc, recs, *oracle[name], "first request")
+
+        run_clients(first, len(workers), "first")
+        print(f"fleet-tenants ({card}): `fleet --workers {FLEET_WORKERS}` "
+              f"ready in {ready_s:.2f} s (both workers, their tenants "
+              "loaded); first requests (churn, serve200k) " + "; ".join(
+                  f"worker {k} {firsts[(k, 'churn')]:.1f}, "
+                  f"{firsts[(k, 'serve200k')]:.1f} ms"
+                  for k in range(len(workers))))
+        # -- closed-loop clients through the router -----------------------
+        results, wall = fleet_traffic(port, records, FLEET_CLIENTS,
+                                      FLEET_REQUESTS, 1900,
+                                      ("churn", "serve200k"))
+        fleet_check(results, oracle, "closed-loop traffic")
+        secs = [s for *_x, s in results]
+        rows = sum(len(r) for _n, r, *_x in results)
+        status, stats = http_json(port, "GET", "/stats")
+        per_worker = {wid: (w.get("server") or {}).get("requests")
+                      for wid, w in stats["workers"].items()}
+        agg = stats["aggregate"]
+        if sum(1 for n in per_worker.values() if n) != FLEET_WORKERS:
+            fail(f"fleet-tenants: the router used {per_worker}")
+        print(f"fleet-tenants traffic ({card}): {FLEET_CLIENTS} clients x "
+              f"{FLEET_REQUESTS} requests of 1-{TENANT_MAX_ROWS} records "
+              f"through the router: {len(results)} requests, {rows} rows "
+              f"in {wall:.3f} s = {len(results) / wall:.1f} requests/s, "
+              f"{rows / wall:.1f} rows/s; client e2e p50 "
+              f"{pct_ms(secs, 0.5):.2f} / p95 {pct_ms(secs, 0.95):.2f} / "
+              f"p99 {pct_ms(secs, 0.99):.2f} ms; every response bitwise "
+              f"equal to solo score_store(bucket_min=) at its bucket; "
+              f"requests by worker {per_worker}; /stats aggregate "
+              f"requests {agg.get('requests')}, dispatches "
+              f"{agg.get('batches')}, {agg.get('batch_coalescing_factor')} "
+              f"requests a dispatch, bank-hit rate "
+              f"{agg.get('bank_hit_rate')}")
+        # -- (b) the workload so far: merge, replay through the router ----
+        merged = os.path.join(work, "merged.workload.json")
+        if cli.main(["workload", "merge", wdir, "-o", merged]) != 0:
+            fail("fleet-tenants: workload merge exited non-zero")
+        doc = json.load(open(merged))
+        both = sum(r.get("sources") == ["router", "worker"]
+                   for r in doc["records"])
+        if both < len(results):
+            fail(f"fleet-tenants: {both} merged router+worker records for "
+                 f"{len(results)} routed requests")
+        summary = os.path.join(work, "replay.json")
+        t0 = time.perf_counter()
+        rc = cli.main(["workload", "replay", merged, "--url",
+                       f"http://127.0.0.1:{port}", "--speed",
+                       str(FLEET_REPLAY_SPEED), "-o", summary])
+        replay_s = time.perf_counter() - t0
+        rep = json.load(open(summary))["replayed"]
+        if rc != 0 or rep["parityFailures"] or rep["failed"] or \
+                rep["parityChecked"] < len(results):
+            fail(f"fleet-tenants: workload replay rc {rc}: {rep}")
+        print(f"fleet-tenants workload: merged {doc['mergedShards']} "
+              f"shards, {doc['requests']} requests ({both} router+worker "
+              f"combined); replayed {rep['sent']} through the router in "
+              f"{replay_s:.2f} s: parity checked {rep['parityChecked']}, "
+              f"failures {rep['parityFailures']}, max |delta| "
+              f"{rep['parityMaxAbsDelta']}, late sends {rep['lateSends']}")
+        # -- the retrain job trains from here on, beside the fleet's faults -
+        after_replay()
+        # -- a canary of v2 routes a request the same way on either worker -
+        t_step = time.perf_counter()
+        ports = [w["port"] for w in fleet_status(port)]
+
+        def deploy(k):          # each worker loads the candidate, at once
+            st, d = http_json(ports[k], "POST", "/v1/models/churn:deploy",
+                              {"version": v2["vid"], "mode": "canary",
+                               "fraction": 0.5,
+                               "windowRequests": 1_000_000})
+            if st != 200:
+                raise RuntimeError(f"deploy answered {st}: {d}")
+
+        run_clients(deploy, len(ports), "deploy")
+        rng = np.random.default_rng(1910)
+        flags = []
+        for _ in range(FLEET_CANARY_REQUESTS):
+            recs = draw_request(rng, records)
+            seen = [http_json(p, "POST", "/v1/models/churn:score",
+                              {"records": recs})[1] for p in ports]
+            if len({d["canary"] for d in seen}) != 1:
+                fail("fleet-tenants: the workers routed a canary request "
+                     "differently")
+            flags.append(seen[0]["canary"])
+            for d in seen:
+                eng, pred = (eng_v2, v2["pred"]) if d["canary"] \
+                    else oracle["churn"]
+                http_equal(d, recs, eng, pred, "canary")
+        for p in ports:
+            if http_json(p, "POST", "/v1/models/churn:rollback")[0] != 200:
+                fail("fleet-tenants: the canary's rollback failed")
+        if not any(flags) or all(flags):
+            fail(f"fleet-tenants: the canary took {sum(flags)} of "
+                 f"{len(flags)} requests")
+        print(f"fleet-tenants canary: v2 at fraction 0.5 on both workers; "
+              f"{sum(flags)} of {len(flags)} requests to the candidate, "
+              "each routed alike by both workers and answered bitwise by "
+              f"its version; rolled back on both "
+              f"({time.perf_counter() - t_step:.2f} s)")
+        # -- a fleet.forward fault: a second router over the same workers -
+        view = fleet_mod.FleetSupervisor(
+            params, workers=FLEET_WORKERS, device=str(dev),
+            log_dir=os.path.join(work, "view"))
+        for h, w in zip(view.workers, fleet_status(port)):
+            h.port, h.state, h.proc = w["port"], fleet_mod.READY, \
+                _Running(w["pid"])
+        router2 = fleet_mod.serve_fleet_http(view, port=0, retry_budget=2)
+        before = fleet_mod.fleet_stats()
+        plan = resilience.FaultPlan(seed=19).on(
+            "fleet.forward", error=OSError, at=list(FLEET_FAULT_AT))
+        try:
+            with resilience.fault_plan(plan):
+                res2, _ = fleet_traffic(router2.server_address[1], records,
+                                        2, FLEET_FAULT_REQUESTS, 1920,
+                                        ("churn", "serve200k"))
+        finally:
+            router2.shutdown()
+        fleet_check(res2, oracle, "fleet.forward fault")
+        fo = fleet_mod.fleet_stats()["failovers"] - before["failovers"]
+        if plan.fired("fleet.forward") != len(FLEET_FAULT_AT) or \
+                fo != len(FLEET_FAULT_AT):
+            fail(f"fleet-tenants: {plan.fired('fleet.forward')} faults "
+                 f"fired, {fo} failovers")
+        print(f"fleet-tenants fleet.forward fault: {len(FLEET_FAULT_AT)} "
+              f"forwards failed in a second router over the same workers "
+              f"(the fault plan lives in this process); {len(res2)} "
+              f"requests all answered bitwise, {fo} failovers")
+        # -- SIGKILL one worker under load: respawn, rejoin ---------------
+        victim = fleet_status(port)[0]
+
+        def kill():
+            os.kill(victim["pid"], signal.SIGKILL)
+            return wait_workers(
+                port, lambda ws: ws[0]["spawns"] > victim["spawns"]
+                and ws[0]["state"] == "ready", "the killed worker's "
+                "respawn")
+
+        res3, respawn_s = under_load(port, records, 1930, kill, "sigkill")
+        fleet_check(res3, oracle, "SIGKILL")
+        back = fleet_status(port)[0]
+        recs = records[100:117]
+        t0 = time.perf_counter()
+        st, d = http_json(back["port"], "POST", "/v1/models/churn:score",
+                          {"records": recs})
+        rejoin_ms = 1e3 * (time.perf_counter() - t0)
+        if st != 200:
+            fail(f"fleet-tenants: the respawned worker answered {st}")
+        http_equal(d, recs, *oracle["churn"], "respawned worker")
+        print(f"fleet-tenants SIGKILL: worker 0 (pid {victim['pid']}) "
+              f"killed under {FLEET_LOAD_CLIENTS} clients; {len(res3)} "
+              f"requests, none lost, all bitwise (the slowest "
+              f"{1e3 * max(r[-1] for r in res3):.1f} ms); respawned (pid "
+              f"{back['pid']}) and ready, its tenants loaded, in "
+              f"{respawn_s:.2f} s; its first "
+              f"request {rejoin_ms:.1f} ms, bitwise")
+        # -- SIGHUP: a rolling restart under load -------------------------
+        restarts = http_json(port, "GET", "/stats")[1]["fleet"]["fleet"][
+            "drained_restarts"]
+
+        def roll():
+            proc.send_signal(signal.SIGHUP)
+            t0 = time.perf_counter()
+            while True:
+                fl = http_json(port, "GET", "/stats")[1]["fleet"]
+                if fl["fleet"]["drained_restarts"] >= \
+                        restarts + FLEET_WORKERS and \
+                        fl["ready"] == FLEET_WORKERS:
+                    return time.perf_counter() - t0
+                if time.perf_counter() - t0 > FLEET_STEP_TIMEOUT_S:
+                    fail("fleet-tenants: the rolling restart did not end")
+                time.sleep(0.05)
+
+        res4, roll_s = under_load(port, records, 1940, roll, "rolling")
+        fleet_check(res4, oracle, "rolling restart")
+        print(f"fleet-tenants rolling restart (SIGHUP): {FLEET_WORKERS} "
+              f"workers drained and restarted one at a time in "
+              f"{roll_s:.2f} s under {FLEET_LOAD_CLIENTS} clients; "
+              f"{len(res4)} requests, none lost, all bitwise (the slowest "
+              f"{1e3 * max(r[-1] for r in res4):.1f} ms)")
+        final = http_json(port, "GET", "/stats")[1]
+        fl = final["fleet"]["fleet"]
+        print(f"fleet-tenants router tallies: routed "
+              f"{fl['routed_requests']}, failed {fl['routed_failed']}, "
+              f"failovers {fl['failovers']}, spawned "
+              f"{fl['workers_spawned']}, respawned "
+              f"{fl['workers_respawned']}, crashes {fl['worker_crashes']}, "
+              f"drained restarts {fl['drained_restarts']}")
+        if fl["routed_failed"]:
+            fail(f"fleet-tenants: the router failed {fl['routed_failed']} "
+                 "requests")
+        # -- SIGTERM drains the fleet -------------------------------------
+        t_step = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=FLEET_STEP_TIMEOUT_S)
+        drain_s = time.perf_counter() - t_step
+        out = open(log_path).read()
+        if rc != 0 or "draining" not in out:
+            sys.stderr.write(out[-6000:])
+            fail(f"fleet-tenants: the fleet exited {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    # -- (b) every shard merged; the trace merged and analyzed ------------
+    t_step = time.perf_counter()
+    if cli.main(["workload", "merge", wdir, "-o", merged]) != 0:
+        fail("fleet-tenants: the final workload merge exited non-zero")
+    doc = json.load(open(merged))
+    if cli.main(["trace", "merge", tdir]) != 0:
+        fail("fleet-tenants: trace merge exited non-zero")
+    analysis = os.path.join(work, "analysis.json")
+    if cli.main(["trace", "analyze", tdir, "-o", analysis,
+                 "--top-k", "3"]) != 0:
+        fail("fleet-tenants: trace analyze exited non-zero")
+    a = json.load(open(analysis))
+    top = sorted(a["phases"].items(), key=lambda kv: -kv[1]["share"])[:4]
+    if not a["requests"] or not any(
+            r["path"][0]["name"] == "fleet:route" for r in a["slowest"]):
+        fail(f"fleet-tenants: trace analyze found {a['requests']} requests")
+    print(f"fleet-tenants workload after SIGTERM (the drain "
+          f"{drain_s:.2f} s): {doc['mergedShards']} shards, "
+          f"{doc['requests']} requests, {doc['tornRecordsSkipped']} torn "
+          f"records skipped (the killed worker's); the merges and the "
+          f"analysis {time.perf_counter() - t_step:.2f} s")
+    print(f"fleet-tenants trace analyze: {a['requests']} requests, e2e p50 "
+          f"{a['e2e']['p50Ms']} / p99 {a['e2e']['p99Ms']} ms, coverage "
+          f"mean {a['coverage']['mean']}; top spans by share of e2e: "
+          + "; ".join(f"{n} {ph['share']} (p50 {ph['p50Ms']} ms, p99 "
+                      f"{ph['p99Ms']} ms)" for n, ph in top)
+          + "; the slowest: " + " -> ".join(
+              f"{p['name']} {p['ms']} ms" for p in a["slowest"][0]["path"]))
+
+
+class RetrainStep:
+    """Phase 19 (c): continuous training on an in-process server on
+    ``dev`` over ``reg_dir`` (a copy of phase 18's registry: the fleet's
+    workers resolve churn through the original while this step registers
+    and promotes v3). :meth:`arm` sends ``age`` + 40 traffic until the
+    controller starts the retrain job (a process of its own);
+    :meth:`finish` waits for the job, sends traffic until the canary
+    promotes v3 and checks the cooldown; :meth:`close` shuts the server
+    down and puts the pointer back on v1. Every in-process launch is
+    counted in ``acc`` on the calling thread, between the fleet's steps,
+    so nothing but this step's own traffic is counted; the job's
+    launches come from its metrics document."""
+
+    def __init__(self, ctx, reg_dir, records, acc, dev):
+        from transmogrifai_tpu_torch import lifecycle
+        from transmogrifai_tpu_torch.server import ModelServer
+        self.reg = lifecycle.ModelRegistry(reg_dir)
+        self.v1 = ctx["versions"]["v1"]
+        if self.reg.current("churn") != self.v1["vid"]:
+            fail("fleet-tenants: the registry's churn is not on v1")
+        self.acc, self.dev = acc, dev
+        self.shifted = age_shifted(records[len(records) // 2:])
+        self.srv = ModelServer(registry=self.reg,
+                               drift_window=TENANT_DRIFT_WINDOW,
+                               batch_deadline_s=TENANT_DEADLINE_S,
+                               bucket_cap=TENANT_CAP, device=dev)
+        self.c = None
+        self.n_req = self.rows = self.at = 0
+        self.t0 = self.job_at = None
+
+    def traffic(self):
+        """One slice of drifted traffic (a quarter drift window in
+        requests of 64 rows), then the drift windows drained."""
+        sub = TENANT_DRIFT_WINDOW // 4
+        if time.perf_counter() - self.t0 > RETRAIN_TIMEOUT_S:
+            fail(f"fleet-tenants: no promote in {RETRAIN_TIMEOUT_S} s: "
+                 f"{self.c.status()}")
+        with self.acc.count():
+            for lo in range(self.at, self.at + sub, 64):
+                res = self.srv.score("churn", self.shifted[lo:lo + 64],
+                                     timeout_s=120)
+                self.n_req += 1
+                self.rows += res.rows
+        self.at = (self.at + sub) % (len(self.shifted) - sub)
+        self.srv.drain_drift()
+
+    def arm(self):
+        from transmogrifai_tpu_torch import continual
+        from transmogrifai_tpu_torch.cli import build_retrain_controllers
+        from transmogrifai_tpu_torch.runner import OpParams
+        with self.acc.count():
+            self.srv.register_from_registry("churn", preload=True)
+        spec = {"dev": str(self.dev), "n": RETRAIN_N, "seed": RETRAIN_SEED}
+        self.c = build_retrain_controllers(OpParams(custom_params={
+            "retrainOnDrift": True, "retrainArmWindows": 2,
+            "retrainCooldownS": 3600.0, "retrainMaxFailures": 1,
+            "retrainTimeoutS": float(RETRAIN_TIMEOUT_S),
+            "canaryFraction": 0.5,
+            "retrainCmd": [sys.executable, os.path.abspath(__file__),
+                           "--retrain-leg", json.dumps(spec)]}),
+            self.srv)[0]
+        self.c.window_requests = RETRAIN_WINDOW_REQUESTS
+        self.c.promote_windows = RETRAIN_PROMOTE_WINDOWS
+        self.c.holdout_tolerance = RETRAIN_HOLDOUT_TOL
+        self.before = continual.continual_stats()
+        self.t0 = time.perf_counter()
+        while not self.c.jobs():
+            self.traffic()
+        self.job_at = self.n_req
+
+    def finish(self, card):
+        """Returns the retrain job's launches (its metrics document)."""
+        from transmogrifai_tpu_torch import continual
+        # no traffic while the job trains (on the same card): the canary's
+        # windows need it only once the job deployed
+        self.c.wait_idle(RETRAIN_TIMEOUT_S)
+        while self.reg.current("churn") == self.v1["vid"]:
+            self.traffic()
+        loop_s = time.perf_counter() - self.t0
+        c, srv, v1 = self.c, self.srv, self.v1
+        c.wait_idle(60)
+        job = c.jobs()[-1]
+        if job["state"] != "deployed" or self.reg.current("churn") != \
+                job["version"]:
+            fail(f"fleet-tenants: the retrain job ended {job}")
+        m = self.reg.record("churn", job["version"])["trainMetrics"]
+        entry = srv._entries["churn"]
+        pred = entry.model.result_features[0].name
+        rng = np.random.default_rng(1950)
+        with self.acc.count():
+            after = sequential(srv, "churn", self.shifted, rng, 8)
+        for recs, res in after:
+            solo_equal(entry.engine, recs, res, pred, "after the promote")
+        st = continual.continual_stats()
+        second = c.trigger("cooldown check")
+        st2 = continual.continual_stats()
+        if second is not None or st2["suppressed_cooldown"] != \
+                st["suppressed_cooldown"] + 1 or len(c.jobs()) != 1:
+            fail("fleet-tenants: a trigger inside the cooldown was not "
+                 "suppressed")
+        job_s = job["finishedAt"] - job["createdAt"]
+        launches = m["trees"]["launches"]
+        before = self.before
+        print(f"fleet-tenants retrain ({card}): age + 40 traffic armed the "
+              f"job after {self.job_at} requests ({st['drifted_windows'] - before['drifted_windows']} "
+              f"drifted windows of {st['windows_seen'] - before['windows_seen']}); "
+              f"the job took {job_s:.2f} s (process; records "
+              f"{m['seconds']['records']:.2f}, train "
+              f"{m['seconds']['train']:.2f}, save and export "
+              f"{m['seconds']['export']:.2f}, leg "
+              f"{m['seconds']['leg']:.2f}), warm-started "
+              f"{m['warmStarted']} with {m['warmStateMerges']} "
+              f"fitstats.warm_state_merges, width {m['width']}, "
+              f"{m['bankPrograms']} bank programs; holdout AuPR "
+              f"{m['AuPR']:.6f} against the stable's "
+              f"{v1['holdout_aupr']:.6f} (tolerance "
+              f"{RETRAIN_HOLDOUT_TOL}); registered "
+              f"{job['version'][:12]} and promoted by the canary "
+              f"(windows of {RETRAIN_WINDOW_REQUESTS}); {self.n_req} "
+              f"requests, {self.rows} rows answered in {loop_s:.2f} s "
+              f"(the fleet's fault steps in between); the job's "
+              f"launches {launches}")
+        print("fleet-tenants retrain: a second trigger inside the cooldown "
+              "started no job (suppressed_cooldown +1); the promoted v3 "
+              "scores bitwise as solo")
+        if not m["warmStarted"] or not m["warmStateMerges"]:
+            fail("fleet-tenants: the retrain was not warm-started")
+        return launches
+
+    def close(self):
+        self.srv.shutdown(drain=True)
+        self.reg.promote("churn", self.v1["vid"])
+
+
+def fleet_tenants_phase(H, BP, card, records, ctx, dev="cuda"):
+    """Phase 19, fleet-tenants: the serving fleet, the workload recorder
+    and continuous training on the card, over phase 18's registry (churn
+    v1 current, v2 registered) and phase 7's saved model at text-200k's
+    width.
+
+    (a) ``python -m transmogrifai_tpu_torch fleet params.json --workers 2
+    --port 0 --port-file ...`` with ``workloadDir``, ``workloadPayloads``
+    and ``traceDir``: both workers ready with their tenants loaded;
+    ``FLEET_CLIENTS`` closed-loop clients of ``FLEET_REQUESTS``
+    requests of 1-64 records over both tenants through the router, every
+    response bitwise equal to a solo ``score_store(bucket_min=bucket)``;
+    a canary of v2 on both workers routing each request alike; a
+    ``fleet.forward`` fault plan in a second router over the same
+    workers; a SIGKILL of worker 0 under load (no request lost, the
+    respawn ready, its first request bitwise); a rolling restart (SIGHUP)
+    under load, no request lost; SIGTERM drains. (b) ``workload merge``
+    of the router's and the workers' shards and ``workload replay``
+    through the router (before the canary) with no parity failure;
+    ``trace merge`` and ``trace analyze``. (c) An in-process
+    ``ModelServer`` with ``retrainOnDrift`` on churn, ``retrainCmd`` this
+    script's ``--retrain-leg``: ``age`` + 40 traffic arms the job after
+    two drifted windows (after (a)'s replay), the job trains v3
+    warm-started beside (a)'s fault steps, registers it past the holdout
+    gate, and after (a) the canary promotes it; a second trigger inside
+    the cooldown starts no job. Every step runs on this thread. Returns
+    the phase's launches: the in-process server's, counted around its
+    own traffic only, and the retrain job's (the fleet workers' are not
+    read back)."""
+    import shutil
+    t_phase = time.perf_counter()
+    acc = PathLaunches(H)
+    work = os.path.join(ctx["work"], "fleet")
+    os.makedirs(work, exist_ok=True)
+    reg_copy = os.path.join(work, "registry-retrain")
+    shutil.copytree(ctx["reg_dir"], reg_copy)
+    step = RetrainStep(ctx, reg_copy, records, acc, dev)
+    try:
+        fleet_step(ctx, records, work, card, dev, step.arm)
+        t0 = time.perf_counter()
+        leg = step.finish(card)
+        finish_s = time.perf_counter() - t0
+    finally:
+        step.close()
+    launches = dict(acc.total)
+    for k, v in leg.items():
+        launches[k] += v
+    missing = [k for k in FLEET_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"fleet-tenants never launched {missing}")
+    print(f"fleet-tenants launches (the in-process server's and the "
+          f"retrain job's): {launches}")
+    print(f"fleet-tenants ({card}): phase 19 took "
+          f"{time.perf_counter() - t_phase:.2f} s (the retrain's canary "
+          f"and checks after the fleet {finish_s:.2f} s of it)")
     return launches
 
 
@@ -6298,6 +7134,11 @@ def main():
         # one leg of phase 16 in its own process (its spec names the device)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return ooc_leg(json.loads(sys.argv[sys.argv.index("--ooc-leg") + 1]))
+    if "--retrain-leg" in sys.argv[1:]:
+        # phase 19's retrain job, spawned by its controller
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return retrain_leg(json.loads(
+            sys.argv[sys.argv.index("--retrain-leg") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -6361,13 +7202,23 @@ def main():
     if "--gen-only" in sys.argv[1:]:
         gen_phase(H, BP, card)
         return 0
-    if "--serve-tenants-only" in sys.argv[1:]:
+    if "--serve-tenants-only" in sys.argv[1:] or \
+            "--fleet-only" in sys.argv[1:]:
         records = BP.synthesize_records(N, seed=42)
         saved = os.path.join(root, "build", "serve", "big_passenger")
         if not os.path.isdir(saved):
             BP.run(N, device="cuda", records=records)["model"].save(
                 saved, overwrite=True)
-        serve_tenants_phase(H, BP, card, records=records)
+        if "--serve-tenants-only" in sys.argv[1:]:
+            serve_tenants_phase(H, BP, card, records=records)
+            return 0
+        import shutil
+        _, ctx = serve_tenants_phase(H, BP, card, records=records,
+                                     keep=True)
+        try:
+            fleet_tenants_phase(H, BP, card, records, ctx)
+        finally:
+            shutil.rmtree(ctx["work"], ignore_errors=True)
         return 0
 
     t_ph = time.perf_counter()
@@ -6448,9 +7299,10 @@ def main():
     if profile:
         profile_path(H, "rf-200k", lambda: run(N, device="cuda",
                                                families=forest_families()))
-    agree({d: run(20_000, device=d,
+    agree({d: run(RF_AGREE_N, device=d,
                   families=forest_families((3, 6), num_trees=5))
-           for d in ("cuda", "cpu")}, "rf-200k, 20000 rows (RF 5 trees, DT)")
+           for d in ("cuda", "cpu")},
+          f"rf-200k, {RF_AGREE_N} rows (RF 5 trees, DT)")
 
     t_ph = phase_seconds(5, t_ph)
     # -- phase 6: titanic with the default families ------------------------
@@ -6536,8 +7388,8 @@ def main():
     path_launches["telemetry-200k"] = telemetry_phase(H, BP, records,
                                                       text_aupr, card)
 
-    # -- phase 16: out-of-core ingest at ooc-1m ---------------------------
-    path_launches["ooc-1m"] = ooc_phase(H, BP, card)
+    # -- phase 16: out-of-core ingest at ooc-600k ---------------------------
+    path_launches["ooc-600k"] = ooc_phase(H, BP, card)
 
     # -- phase 17: the command line end to end (gen-200k) -----------------
     t_ph = time.perf_counter()
@@ -6545,9 +7397,18 @@ def main():
     t_ph = phase_seconds(17, t_ph)
 
     # -- phase 18: the model server and the lifecycle (serve-tenants) -----
-    path_launches["serve-tenants"] = serve_tenants_phase(
-        H, BP, card, records=records)
-    phase_seconds(18, t_ph)
+    import shutil
+    path_launches["serve-tenants"], ctx = serve_tenants_phase(
+        H, BP, card, records=records, keep=True)
+    t_ph = phase_seconds(18, t_ph)
+
+    # -- phase 19: the fleet, the workload, continuous training -----------
+    try:
+        path_launches["fleet-tenants"] = fleet_tenants_phase(
+            H, BP, card, records, ctx)
+    finally:
+        shutil.rmtree(ctx["work"], ignore_errors=True)
+    phase_seconds(19, t_ph)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

@@ -4,8 +4,9 @@ of the bundled Titanic CSV and of generated iris and boston files,
 ``gen``'s four files equal once the package name is swapped, the
 generated project trained on the CPU (LR only, 2 folds: the shrink
 ``tests/test_cli.py`` uses) with its model loading in both packages,
-``check`` / ``plan`` / ``trace merge`` over it, and the subcommands whose
-modules are not ported exiting non-zero naming their ROADMAP item."""
+``check`` / ``plan`` / ``trace merge`` over it, ``fleet``, ``workload``
+and ``trace analyze`` on the arguments the JAX parser takes, and ``tune``
+(its module is not ported) exiting non-zero naming its ROADMAP item."""
 import csv
 import json
 import os
@@ -215,10 +216,12 @@ def test_trace_merge_merges_the_runs_shards(trained, capsys, tmp_path):
                       "--strict"]) == 1
 
 
-#: each subcommand whose module is not ported, with arguments the JAX
-#: parser takes (``serve`` and ``registry`` are ported:
-#: tests/test_torch_server.py, tests/test_torch_lifecycle.py)
-UNPORTED = {
+#: the subcommands of the operations tier, with arguments the JAX parser
+#: takes (``serve`` and ``registry``: tests/test_torch_server.py and
+#: tests/test_torch_lifecycle.py; ``fleet``, ``workload`` and ``trace
+#: analyze`` in full: tests/test_torch_fleet.py and
+#: tests/test_torch_workload.py). Only ``tune`` is not ported.
+OPS_COMMANDS = {
     "fleet": ["fleet", "params.json", "--workers", "2"],
     "workload": ["workload", "merge", "dir"],
     "tune": ["tune", "params.json", "--workload", "w.json"],
@@ -226,16 +229,52 @@ UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_subcommands_exit_nonzero_naming_their_item(name, capsys):
-    assert pcli.main(UNPORTED[name]) != 0
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "A6.8 (d)" in err
+@pytest.mark.parametrize("name", sorted(OPS_COMMANDS))
+def test_unported_subcommands_exit_nonzero_naming_their_item(
+        name, capsys, tmp_path, monkeypatch):
+    """The operations tier's commands on these arguments (the name is
+    kept from when all four exited 2). ``tune`` exits 2 naming A6.8 (d).
+    The ported ones run on these
+    arguments in a directory that holds them: ``workload merge dir`` over
+    a recorded shard and ``trace analyze dir`` over a trace shard exit 0
+    with the JAX command's output; ``fleet params.json`` with no such file
+    exits 1 naming it, before any worker starts."""
+    monkeypatch.chdir(tmp_path)
+    argv = OPS_COMMANDS[name]
+    if name == "tune":
+        assert pcli.main(argv) == 2
+        err = capsys.readouterr().err
+        assert "not ported yet" in err and "A6.8 (d)" in err
+        return
+    if name == "fleet":
+        assert pcli.main(argv) == 1
+        assert "cannot load" in capsys.readouterr().out
+        return
+    os.makedirs("dir")
+    if name == "workload":
+        from transmogrifai_tpu_torch import workload
+        rec = workload.WorkloadRecorder("dir", role="worker")
+        rec.record({"kind": "request", "tOffsetS": 1.0, "model": "m",
+                    "rows": 2}, records=[{"x": 1.0}, {"x": 2.0}])
+        rec.close()
+    else:
+        with open(os.path.join("dir", "shard-worker-1.trace.json"),
+                  "w") as fh:
+            json.dump({"traceEvents": [
+                {"ph": "X", "name": "server:request", "ts": 0, "dur": 900,
+                 "pid": 1, "tid": 1, "args": {"trace_id": "t1",
+                                              "span_id": "s1"}}],
+                "epochUnixS": 100.0, "role": "worker", "pid": 1}, fh)
+    assert pcli.main(argv) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(argv) == 0
+    assert got == capsys.readouterr().out
+    assert "1 request" in got
 
 
 def test_python_dash_m_runs_the_command_line(tmp_path):
     res = subprocess.run([sys.executable, "-m", "transmogrifai_tpu_torch",
-                          "fleet", "params.json"],
+                          "tune", "params.json", "--workload", "w.json"],
                          capture_output=True, text=True, env=_env(),
                          timeout=300)
     assert res.returncode == 2 and "A6.8 (d)" in res.stderr

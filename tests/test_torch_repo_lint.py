@@ -226,7 +226,8 @@ def test_whole_program_rules_equal_the_jax_tools(jtools, tmp_path):
 
 def test_fault_site_coverage_reads_the_ports_tests(jtools, tmp_path):
     """TMG805 over a tests directory: the JAX tool's findings, but for the
-    sites of modules not ported yet (``resilience.UNPORTED_SITES``), and
+    sites of modules not ported yet (``resilience.UNPORTED_SITES``, empty
+    since the fleet and continual sites came with their modules), and
     only ``test_torch_*.py`` files count."""
     _, jconc = jtools
     (tmp_path / "test_torch_x.py").write_text(
@@ -251,13 +252,16 @@ def test_the_ports_tree_is_clean_under_its_linters(capsys):
 
 def test_no_code_injects_a_site_of_an_unported_module():
     """The coverage rule skips ``UNPORTED_SITES`` only while nothing
-    injects them."""
+    injects them; with every module ported the set is empty and the
+    port's code injects every catalogued site."""
     assert set(resilience.UNPORTED_SITES) <= resilience.FAULT_SITES
     injected = set()
     for path in sorted(pathlib.Path(ptmog.PACKAGE_DIR).rglob("*.py")):
         injected |= set(re.findall(r'inject\(\s*"([^"]+)"',
                                    path.read_text()))
     assert injected and not injected & set(resilience.UNPORTED_SITES)
+    assert resilience.UNPORTED_SITES == {}
+    assert injected == resilience.FAULT_SITES
 
 
 def _fake_nvcc(tmp_path, body):

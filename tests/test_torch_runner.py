@@ -38,9 +38,8 @@ from transmogrifai_tpu_torch.runner import (OpApp, OpParams,
 from transmogrifai_tpu_torch.utils import uid as puid
 
 #: metrics-document blocks of the JAX package's runner whose modules are
-#: not ported (ROADMAP queue A: continual, fleet and workload A6.8 (d);
-#: parallel/mesh and multi-host A6.6)
-NOT_PORTED = {"continual", "fleet", "mesh", "process", "workload"}
+#: not ported (ROADMAP queue A: parallel/mesh and multi-host A6.6)
+NOT_PORTED = {"mesh", "process"}
 RUNS = (RunType.TRAIN, RunType.SCORE, RunType.EVALUATE, RunType.FEATURES)
 
 
@@ -115,8 +114,9 @@ def test_train_score_evaluate_features_and_the_metrics_keys(tmp_path):
     assert set(train["plan"]) == set(jtrain["plan"])
     assert train["plan"]["counts"]["stages"] \
         == jtrain["plan"]["counts"]["stages"]
-    # the model server's and the lifecycle's tallies, with the JAX keys
-    for block in ("server", "lifecycle"):
+    # the model server's, the lifecycle's and the operations tier's
+    # tallies, with the JAX keys
+    for block in ("server", "lifecycle", "continual", "fleet", "workload"):
         assert set(train[block]) == set(jtrain[block]), block
     assert outs[RunType.SCORE].metrics["rowsScored"] == len(records)
     assert outs[RunType.FEATURES].metrics["rows"] == len(records)

@@ -17,6 +17,7 @@ device-marked failure fails its batch and never reaches
 ``WorkflowModel.score(engine=False)``."""
 import http.client
 import json
+import os
 import threading
 import time
 
@@ -612,14 +613,46 @@ def test_serve_knob_validation_names_the_key(tenants, key, val):
     ("workloadDir", "/nowhere", "workload.py"),
     ("retrainOnDrift", True, "continual.py")])
 def test_unported_serve_knobs_raise_naming_their_item(tenants, key, val,
-                                                      module):
-    from transmogrifai_tpu_torch.cli import build_server_from_params
+                                                      module, tmp_path):
+    """The two knobs that raised before ``workload.py`` and
+    ``continual.py`` were ported (the name is kept from then), each wired
+    into its module: the server builds with either (``serve`` wires them,
+    not the server), ``workloadDir`` (here under ``tmp_path``) installs
+    ``workload``'s flight recorder there, and ``retrainOnDrift`` without a
+    trainer command fails loudly naming ``retrainCmd`` with
+    ``continual.validate_retrain_cmd``'s reason, as in the JAX package's
+    ``build_retrain_controllers``."""
+    import importlib
+    from transmogrifai_tpu_torch import workload
+    from transmogrifai_tpu_torch.cli import (_start_workload_recorder,
+                                             build_retrain_controllers,
+                                             build_server_from_params)
     from transmogrifai_tpu_torch.runner import OpParams
+    if key == "workloadDir":
+        val = str(tmp_path / val.strip("/"))
     params = OpParams(model_location=tenants["A"]["model_dir"],
-                      custom_params={key: val})
-    with pytest.raises(NotImplementedError,
-                       match=rf"{key}.*{module}.*A6\.8 \(d\)"):
-        build_server_from_params(params, device="cpu")
+                      custom_params={key: val, "registryDir":
+                                     str(tmp_path / "reg"),
+                                     "driftWindow": 64})
+    mod = importlib.import_module(
+        "transmogrifai_tpu_torch." + module[:-len(".py")])
+    srv = build_server_from_params(params, device="cpu")
+    try:
+        assert srv.models() == ["default"]
+        if key == "workloadDir":
+            assert _start_workload_recorder(params, "worker") == val
+            assert mod.recording_enabled()
+            assert mod.recorder().dir == val and os.path.isdir(val)
+            mod.stop_recorder()
+        else:
+            with pytest.raises(mod.ContinualError) as why:
+                mod.validate_retrain_cmd(None)
+            with pytest.raises(ValueError, match="retrainCmd") as e:
+                build_retrain_controllers(params, srv)
+            assert str(why.value) in str(e.value)
+    finally:
+        workload.stop_recorder()
+        srv.shutdown(drain=False)
 
 
 def test_run_serve_answers_traces_and_drains_on_sigterm(tenants, tmp_path,

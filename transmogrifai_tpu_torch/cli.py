@@ -22,18 +22,24 @@
 * ``lint``: the repo rules over this package's tree (``repo_lint/``: the
   per-line TMG3xx rules and the whole-program TMG8xx pass).
 * ``trace merge``: the trace shards a run wrote into ``traceDir`` merged
-  into one Perfetto-loadable file.
+  into one Perfetto-loadable file; ``trace analyze``: each request's
+  critical path across processes from those shards (``workload.py``),
+  with a regression diff against a ``--baseline`` analysis.
 * ``serve``: the params file's roster in a multi-tenant
-  :class:`~transmogrifai_tpu_torch.server.ModelServer` on the card, behind
-  the stdlib HTTP front end, drained on SIGINT and SIGTERM.
+  :class:`~transmogrifai_tpu_torch.server.ModelServer` on the card
+  (``--device cpu`` asks for the CPU), behind the stdlib HTTP front end,
+  drained on SIGINT and SIGTERM; ``workloadDir`` records its traffic and
+  ``retrainOnDrift`` arms continuous training (``continual.py``).
+* ``fleet``: N supervised ``serve`` workers behind the failover router
+  (``fleet.py``), each on the device ``--device`` names.
+* ``workload merge | replay``: the recorded shards merged into one
+  workload, and that workload driven again against a server or fleet
+  with score parity.
 * ``registry``: list, register, promote, roll back or read the current
   version of the versioned model registry (``lifecycle.py``).
 
-``fleet``, ``workload``, ``tune`` and ``trace analyze`` take the JAX
-parser's arguments and exit non-zero naming their ROADMAP queue A item
-(A6.8 (d)): their modules are not ported yet. So do the ``workloadDir``
-and ``retrainOnDrift`` knobs of ``serve`` (``workload.py``,
-``continual.py``).
+``tune`` takes the JAX parser's arguments and exits non-zero naming its
+ROADMAP queue A item (A6.8 (d)): the tuner is not ported yet.
 
 Usage::
 
@@ -44,6 +50,10 @@ Usage::
     python -m transmogrifai_tpu_torch lint
     python -m transmogrifai_tpu_torch trace merge ./traces
     python -m transmogrifai_tpu_torch serve params.json --port 0 --port-file port.txt
+    python -m transmogrifai_tpu_torch fleet params.json --workers 2 --port 8000
+    python -m transmogrifai_tpu_torch workload merge ./workload
+    python -m transmogrifai_tpu_torch workload replay ./workload/merged.workload.json --url http://127.0.0.1:8000
+    python -m transmogrifai_tpu_torch trace analyze ./traces --baseline prev.json
     python -m transmogrifai_tpu_torch registry list --registry ./registry
 """
 from __future__ import annotations
@@ -61,9 +71,17 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from . import config
 
 __all__ = ["infer_feature_types", "infer_problem_kind", "generate_project",
-           "build_server_from_params", "run_registry", "run_serve", "main"]
+           "build_server_from_params", "build_retrain_controllers",
+           "run_registry", "run_serve", "run_fleet", "run_trace",
+           "run_workload", "main"]
 
 _SAMPLE_ROWS = 1000
+
+#: how long ``serve`` and ``fleet`` block between looks at their stop
+#: event: the kernel may deliver SIGTERM or SIGHUP to any thread, and
+#: CPython runs the handler in the main thread only when it next runs
+#: bytecode, so a long wait would hold the signal that long
+_SIGNAL_POLL_S = 0.25
 
 
 def _is_int(v: str) -> bool:
@@ -367,21 +385,110 @@ def run_plan(params_path: Optional[str] = None,
     return 0
 
 
+def _on_sighup_roll(sup) -> None:
+    """SIGHUP starts ``sup.rolling_restart()`` on a thread (one at a time)
+    and reports its end on stdout."""
+    import time
+
+    from . import fleet as fleet_mod
+    rolling: List[threading.Thread] = []
+
+    def roll() -> None:
+        t0 = time.perf_counter()
+        try:
+            sup.rolling_restart()
+        except fleet_mod.FleetError as e:
+            print(f"fleet: rolling restart failed: {e}", flush=True)
+            return
+        print(f"fleet: rolling restart done in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def on_hup(*_: Any) -> None:
+        if rolling and rolling[-1].is_alive():
+            return                   # one rolling restart at a time
+        t = threading.Thread(target=roll, name="fleet-rolling-restart",
+                             daemon=True)
+        rolling.append(t)
+        t.start()
+
+    try:
+        signal.signal(signal.SIGHUP, on_hup)
+    except ValueError:
+        pass                         # not the main thread
+
+
 def run_trace(action: str, trace_dir: str, out: Optional[str] = None,
-              strict: bool = False) -> int:
-    """The ``trace merge`` subcommand: stitch the per-process shards a
-    run wrote into ``traceDir`` into ONE Perfetto-loadable file, clock
-    offsets aligned, one process row per (role, pid). Unreadable shards
-    are reported on stderr, and ``--strict`` makes any skipped shard a
-    non-zero exit. ``trace analyze`` is not ported (A6.8 (d)).
+              strict: bool = False, baseline: Optional[str] = None,
+              top_k: int = 5, threshold: float = 0.25) -> int:
+    """The ``trace`` subcommand.
+
+    ``merge`` stitches the per-process shards a run or a fleet wrote into
+    ``traceDir`` into ONE Perfetto-loadable file, clock offsets aligned,
+    one process row per (role, pid). Unreadable shards are reported on
+    stderr, and ``--strict`` makes any skipped shard a non-zero exit.
+
+    ``analyze`` rebuilds each request's critical path across processes
+    from a shard directory or a merged ``.json`` file
+    (``workload.analyze_trace``): per-phase self-time with p50/p99,
+    per-request coverage, the top-K slowest requests with their paths,
+    and with ``--baseline`` (an earlier analysis JSON) a thresholded
+    regression diff that exits non-zero on a regression::
 
         python -m transmogrifai_tpu_torch trace merge <dir> [-o merged.json] [--strict]
+        python -m transmogrifai_tpu_torch trace analyze <dir-or-merged.json> \\
+            [-o analysis.json] [--top-k N] [--baseline prev.json] [--threshold F]
     """
     from . import telemetry
+    from . import workload as workload_mod
 
+    if action == "analyze":
+        try:
+            doc = workload_mod.analyze_trace(trace_dir, top_k=top_k)
+        except (OSError, ValueError) as e:
+            print(f"trace analyze: {e}")
+            return 1
+        cov = doc["coverage"]
+        print(f"trace analyze: {doc['requests']} request trace(s) "
+              f"({doc['skippedTraces']} non-request skipped), e2e "
+              f"p50 {doc['e2e']['p50Ms']} ms / p99 "
+              f"{doc['e2e']['p99Ms']} ms, coverage min "
+              f"{cov['min']} mean {cov['mean']}")
+        for name, ph in doc["phases"].items():
+            print(f"  {name:<24} p50 {ph['p50Ms']:>9} ms  "
+                  f"p99 {ph['p99Ms']:>9} ms  share {ph['share']}")
+        for r in doc["slowest"]:
+            path_s = " -> ".join(p["name"] for p in r["path"])
+            print(f"  slow {r['e2eMs']:>9} ms  {r['traceId'][:8]}  "
+                  f"{path_s}")
+        if out:
+            workload_mod.write_merged_workload(doc, out)
+            print(f"trace analyze: analysis -> {out}")
+        if baseline:
+            try:
+                with open(baseline) as fh:
+                    base = json.load(fh)
+            except (OSError, ValueError) as e:
+                print(f"trace analyze: cannot load baseline "
+                      f"{baseline!r}: {e}")
+                return 1
+            diff = workload_mod.diff_analyses(doc, base,
+                                              threshold=threshold)
+            for v in diff["verdicts"]:
+                print(f"  baseline {v['phase']:<24} "
+                      f"{v['verdict']:<10} p99 "
+                      f"{v.get('currentP99Ms')} ms vs "
+                      f"{v.get('baselineP99Ms')} ms")
+            if not diff["ok"]:
+                print(f"trace analyze: {diff['regressions']} phase "
+                      f"regression(s) beyond +{threshold:.0%}",
+                      file=sys.stderr)
+                return 1
+            print("trace analyze: no regressions vs baseline")
+        return 0
     if action != "merge":
-        return _unported(f"trace {action}", "request critical-path "
-                         "analysis (workload.py)")
+        print(f"trace: unknown action {action!r} "
+              "(expected 'merge' or 'analyze')")
+        return 1
     out = out or os.path.join(trace_dir, "merged.trace.json")
     try:
         doc = telemetry.write_merged_trace(trace_dir, out)
@@ -403,6 +510,118 @@ def run_trace(action: str, trace_dir: str, out: Optional[str] = None,
         if strict:
             print("trace merge: failing (--strict)", file=sys.stderr)
             return 1
+    return 0
+
+
+def run_workload(action: str, path: str, out: Optional[str] = None,
+                 url: Optional[str] = None, speed: float = 1.0,
+                 strict: bool = False, parity_tol: float = 1e-4,
+                 timeout_s: float = 30.0,
+                 duration_s: Optional[float] = None,
+                 max_requests: Optional[int] = None) -> int:
+    """The ``workload`` subcommand.
+
+    ``merge`` stitches the per-process ``shard-*.workload.jsonl`` files a
+    recorded run wrote into ``workloadDir`` into one arrival-ordered
+    workload file (clock offsets aligned; a request's router and worker
+    records combined); torn records are skipped and counted, unreadable
+    shards are reported on stderr (non-zero under ``--strict``).
+
+    ``replay`` drives a merged workload open-loop against a live server
+    or fleet router at the recorded (or ``--speed``-scaled) arrival
+    offsets, checks score parity where payloads and outputs were
+    recorded (non-zero exit on a parity failure), and prints the same
+    decomposed-latency summary as the recording::
+
+        python -m transmogrifai_tpu_torch workload merge <dir> [-o merged.workload.json] [--strict]
+        python -m transmogrifai_tpu_torch workload replay <merged.workload.json> \\
+            --url http://127.0.0.1:8000 [--speed X] [--parity-tol F]
+    """
+    from . import workload as workload_mod
+
+    if action == "merge":
+        try:
+            doc = workload_mod.merge_workload_shards(path)
+        except (OSError, ValueError) as e:
+            print(f"workload merge: {e}")
+            return 1
+        out = out or os.path.join(path, "merged.workload.json")
+        workload_mod.write_merged_workload(doc, out)
+        summary = workload_mod.summarize_workload(doc)
+        print(f"workload merge: {doc['mergedShards']} shard(s), "
+              f"{doc['requests']} request(s) over "
+              f"{summary['durationS']}s, "
+              f"{doc['tornRecordsSkipped']} torn record(s) skipped "
+              f"-> {out}")
+        for m, ent in summary["models"].items():
+            print(f"  {m}: {ent['requests']} request(s), "
+                  f"{ent['rows']} row(s), {ent['failed']} failed")
+        errors = doc.get("mergeErrors", ())
+        if errors:
+            print(f"workload merge: {len(errors)} shard(s) skipped "
+                  "as unreadable:", file=sys.stderr)
+            for err in errors:
+                print(f"workload merge: skipped shard: {err}",
+                      file=sys.stderr)
+            if strict:
+                print("workload merge: failing (--strict)",
+                      file=sys.stderr)
+                return 1
+        return 0
+    if action != "replay":
+        print(f"workload: unknown action {action!r} "
+              "(expected 'merge' or 'replay')")
+        return 1
+    if not url:
+        print("workload replay: --url is required (a serve worker or "
+              "fleet router base URL)")
+        return 1
+    try:
+        if os.path.isdir(path):
+            doc = workload_mod.merge_workload_shards(path)
+        else:
+            doc = workload_mod.load_workload(path)
+    except (OSError, ValueError) as e:
+        print(f"workload replay: {e}")
+        return 1
+    recorded = workload_mod.summarize_workload(doc)
+    try:
+        result = workload_mod.replay_workload(
+            doc, url, speed=speed, timeout_s=timeout_s,
+            parity_tol=parity_tol, duration_s=duration_s,
+            max_requests=max_requests)
+    except (OSError, ValueError) as e:
+        print(f"workload replay: {e}")
+        return 1
+    # late sends mean the replayer could not hold the recorded arrival
+    # process, and the leg's latency split is suspect
+    print(f"workload replay: {result['sent']}/{result['requests']} "
+          f"request(s) re-driven at {speed:g}x in "
+          f"{result['durationS']}s ({result['skippedNoPayload']} "
+          f"skipped without payload, {result['truncated']} truncated, "
+          f"{result['failed']} failed, "
+          f"{result['lateSends']} late send(s))")
+    print(f"  parity: {result['parityChecked']} checked, "
+          f"{result['parityFailures']} failure(s), max |delta| "
+          f"{result['parityMaxAbsDelta']:.3g}")
+    for m, ent in result["models"].items():
+        rec_ph = (recorded["models"].get(m) or {}).get("phases", {})
+        print(f"  {m}:")
+        for ph, cur in ent.get("phases", {}).items():
+            rec = rec_ph.get(ph)
+            rec_s = (f"recorded p50 {rec['p50Ms']} ms"
+                     if rec else "not recorded")
+            print(f"    {ph:<16} p50 {cur['p50Ms']:>9} ms  p95 "
+                  f"{cur['p95Ms']:>9} ms  ({rec_s})")
+    if out:
+        workload_mod.write_merged_workload(
+            {"recorded": recorded, "replayed": result}, out)
+        print(f"workload replay: summary -> {out}")
+    if result["parityFailures"]:
+        print(f"workload replay: score parity FAILED on "
+              f"{result['parityFailures']} request(s) "
+              f"(tolerance {parity_tol:g})", file=sys.stderr)
+        return 1
     return 0
 
 
@@ -439,10 +658,12 @@ def run_lint(paths: Sequence[str] = (), fail_on: str = "warning",
     return 0
 
 
-def build_server_from_params(params, device=None) -> Any:
+def build_server_from_params(params, device=None,
+                             preload: bool = False) -> Any:
     """Build (but do not serve HTTP on) a
     :class:`~transmogrifai_tpu_torch.server.ModelServer` on ``device``
-    (None: the card) from an OpParams.
+    (None: the card) from an OpParams. ``preload`` loads every tenant now
+    instead of on its first request.
 
     The roster: ``customParams.serveModels`` (``{name: dir}`` or ``{name:
     {"model": dir, "bank": export_dir}}``), plus a ``default`` tenant when
@@ -450,18 +671,12 @@ def build_server_from_params(params, device=None) -> Any:
     when given), plus every model of ``customParams.registryDir`` with a
     promoted version. Every knob goes through the registry
     (``config.py``), so a malformed value names its key before any model
-    loads. ``workloadDir`` and ``retrainOnDrift`` raise: their modules are
-    not ported yet."""
+    loads. The flight recorder (``workloadDir``) and continuous training
+    (``retrainOnDrift``) are wired by ``run_serve``
+    (:func:`build_retrain_controllers`)."""
     from . import server as server_mod
-    from .runner import (_bool_custom_param, _not_ported,
-                         _numeric_custom_param)
+    from .runner import _bool_custom_param, _numeric_custom_param
 
-    if config.raw_param(params.custom_params, "workloadDir") is not None:
-        raise _not_ported("customParams.workloadDir: the workload flight "
-                          "recorder (workload.py)", "A6.8 (d)")
-    if _bool_custom_param(params, "retrainOnDrift", default=False):
-        raise _not_ported("customParams.retrainOnDrift: drift-triggered "
-                          "continuous training (continual.py)", "A6.8 (d)")
     deadline_ms = _numeric_custom_param(
         params, "serveBatchDeadlineMs", server_mod.DEFAULT_BATCH_DEADLINE_MS)
     max_queue = _numeric_custom_param(params, "serveMaxQueue",
@@ -511,11 +726,12 @@ def build_server_from_params(params, device=None) -> Any:
     try:
         for name, spec in roster.items():
             if isinstance(spec, str):
-                srv.register(str(name), model_dir=spec)
+                srv.register(str(name), model_dir=spec, preload=preload)
             elif isinstance(spec, dict) and spec.get("model"):
                 srv.register(str(name), model_dir=str(spec["model"]),
                              bank_dir=(str(spec["bank"])
-                                       if spec.get("bank") else None))
+                                       if spec.get("bank") else None),
+                             preload=preload)
             else:
                 raise ValueError(
                     f"customParams.serveModels[{name!r}] must be a model "
@@ -523,13 +739,14 @@ def build_server_from_params(params, device=None) -> Any:
         if params.model_location:
             bank = config.string_param(params.custom_params, "serveBank")
             srv.register("default", model_dir=params.model_location,
-                         bank_dir=str(bank) if bank else None)
+                         bank_dir=str(bank) if bank else None,
+                         preload=preload)
         if registry is not None:
             # every model with a promoted version serves, resolving the
             # pointer again on each reload
             for name in registry.models():
                 if registry.current(name) and name not in srv.models():
-                    srv.register_from_registry(name)
+                    srv.register_from_registry(name, preload=preload)
         if not srv.models():
             raise ValueError(
                 "serve: no models — set modelLocation, "
@@ -539,6 +756,87 @@ def build_server_from_params(params, device=None) -> Any:
         srv.shutdown(drain=False)
         raise
     return srv
+
+
+def build_retrain_controllers(params, srv) -> List[Any]:
+    """Wire continuous training onto a built server when
+    ``customParams.retrainOnDrift`` asks for it: one
+    :class:`~transmogrifai_tpu_torch.continual.RetrainController` per
+    tenant with a promoted registry version, recovered (crashed jobs
+    repaired, storm controls restored) and attached to the tenant's drift
+    windows. In a fleet every worker runs this; the shared ACTIVE flock in
+    the registry's job directory lets exactly one of them retrain, and the
+    others see the promote through the pointer. A malformed knob raises a
+    ``ValueError`` naming it."""
+    from . import continual
+    from .runner import _bool_custom_param, _numeric_custom_param
+
+    if not _bool_custom_param(params, "retrainOnDrift", default=False):
+        return []
+    registry = srv.registry
+    if registry is None:
+        raise ValueError(
+            "customParams.retrainOnDrift needs customParams.registryDir "
+            "(the retrain loop registers into the versioned registry)")
+    if not srv.drift_window:
+        raise ValueError(
+            "customParams.retrainOnDrift needs customParams.driftWindow "
+            "(the drift sentinel is the loop's trigger)")
+    cmd = config.raw_param(params.custom_params, "retrainCmd")
+    try:
+        cmd = continual.validate_retrain_cmd(cmd)
+    except continual.ContinualError as e:
+        raise ValueError(
+            f"customParams.retrainOnDrift needs customParams.retrainCmd "
+            f"(the TMOG_RETRAIN_* environment contract): {e}") from None
+    kw: Dict[str, Any] = {}
+    for key, arg in (("retrainArmWindows", "arm_windows"),
+                     ("retrainCooldownS", "cooldown_s"),
+                     ("retrainMaxFailures", "max_failures"),
+                     ("retrainTimeoutS", "timeout_s"),
+                     ("canaryFraction", "canary_fraction")):
+        v = _numeric_custom_param(params, key)
+        if v is not None:
+            kw[arg] = v
+    # the retrain subprocess writes its trace shard into the same traceDir
+    trace_dir = config.string_param(params.custom_params, "traceDir")
+    if trace_dir:
+        kw["trace_dir"] = trace_dir
+    controllers = []
+    for name in srv.models():
+        if not registry.current(name):
+            continue            # no promoted stable version to retrain
+        c = continual.RetrainController(name, registry, cmd, server=srv,
+                                        **kw)
+        c.recover()
+        c.attach()
+        controllers.append(c)
+    if not controllers:
+        raise ValueError(
+            "retrainOnDrift: no registry-promoted tenant to attach the "
+            "retrain loop to")
+    return controllers
+
+
+def _start_workload_recorder(params, default_role: str) -> Optional[str]:
+    """Install the workload flight recorder when
+    ``customParams.workloadDir`` is set (``workloadMaxMb``,
+    ``workloadPayloads``); the caller stops it on exit. Returns the shard
+    directory, or None when recording is off. A malformed knob raises a
+    ``ValueError`` naming it."""
+    from . import telemetry
+    from . import workload as workload_mod
+    from .runner import _bool_custom_param, _numeric_custom_param
+    wl_dir = config.string_param(params.custom_params, "workloadDir")
+    if wl_dir is None:
+        return None
+    max_mb = _numeric_custom_param(params, "workloadMaxMb",
+                                   workload_mod.DEFAULT_MAX_MB)
+    payloads = _bool_custom_param(params, "workloadPayloads", default=True)
+    role = os.environ.get(telemetry.TRACE_ROLE_ENV, default_role)
+    workload_mod.start_recorder(str(wl_dir), role=role, max_mb=max_mb,
+                                payloads=payloads)
+    return str(wl_dir)
 
 
 def run_registry(action: str, registry_dir: str,
@@ -611,17 +909,24 @@ def run_serve(params_path: Optional[str] = None,
               model_location: Optional[str] = None,
               port: Optional[int] = None, host: str = "127.0.0.1",
               block: bool = True, port_file: Optional[str] = None,
-              device=None) -> int:
+              device=None, preload: bool = False) -> int:
     """The ``serve`` subcommand: the params file's roster in a
     multi-tenant :class:`~transmogrifai_tpu_torch.server.ModelServer` on
-    ``device`` (None: the card; the tests pass "cpu"), served by the
-    stdlib HTTP front end until SIGINT or SIGTERM, then drained (every
-    accepted request is scored before exit). ``port_file`` receives the
+    ``device`` (None or "cuda": the card; "cpu" when the caller asks for
+    it), served by the stdlib HTTP front end until SIGINT or SIGTERM (the
+    fleet supervisor's rolling-restart signal), then drained: every
+    accepted request is scored before exit. ``port_file`` receives the
     bound port atomically once listening (``--port 0``). ``serveMetrics``
     turns telemetry on for ``/metrics``; ``traceDir`` makes this process
-    write a trace shard there on drain."""
+    write a trace shard there on drain; ``workloadDir`` records every
+    ``:score`` request into a workload shard there; ``retrainOnDrift``
+    arms continuous training on the registry's tenants. ``preload`` loads
+    every tenant before the port is bound and the port file written, so
+    the first ``/readyz`` 200 means a loaded worker (the fleet's
+    workers)."""
     from . import server as server_mod
     from . import telemetry
+    from . import workload as workload_mod
     from .runner import OpParams, _bool_custom_param, _numeric_custom_param
 
     params = OpParams()
@@ -631,20 +936,34 @@ def run_serve(params_path: Optional[str] = None,
             return 1
     if model_location:
         params.model_location = model_location
+    workload_dir = None
     try:
         serve_metrics = _bool_custom_param(params, "serveMetrics",
                                            default=False)
         trace_dir = config.string_param(params.custom_params, "traceDir")
-        srv = build_server_from_params(params, device=device)
-        if port is None:
-            port = _numeric_custom_param(params, "servePort", 8000)
+        if serve_metrics or trace_dir:
+            telemetry.enable()
+        if trace_dir and telemetry.TRACE_ROLE_ENV not in os.environ:
+            telemetry.set_trace_role("worker")
+        workload_dir = _start_workload_recorder(params, "worker")
+        srv = build_server_from_params(params, device=device,
+                                       preload=preload)
+        try:
+            controllers = build_retrain_controllers(params, srv)
+            if port is None:
+                port = _numeric_custom_param(params, "servePort", 8000)
+        except BaseException:  # lint: broad-except — stops the built server and re-raises
+            srv.shutdown(drain=False)
+            raise
     except (ValueError, KeyError) as e:
+        if workload_dir:
+            workload_mod.stop_recorder()
         print(f"serve: {e}")
         return 1
-    if serve_metrics or trace_dir:
-        telemetry.enable()
-    if trace_dir and telemetry.TRACE_ROLE_ENV not in os.environ:
-        telemetry.set_trace_role("worker")
+    if controllers:
+        print(f"serve: continuous training armed for "
+              f"{[c.name for c in controllers]} "
+              f"(job records under {controllers[0].job_dir})", flush=True)
     stop = threading.Event()
     if block:
         # the handler is in place before the port file tells a supervisor
@@ -656,10 +975,7 @@ def run_serve(params_path: Optional[str] = None,
     httpd = server_mod.serve_http(srv, host=host, port=int(port))
     bound = httpd.server_address
     if port_file:
-        tmp = str(port_file) + ".tmp"
-        with open(tmp, "w") as fh:
-            fh.write(str(bound[1]))
-        os.replace(tmp, port_file)   # atomic: never a half-written port
+        _write_port_file(port_file, bound[1])
     print(f"serve: {len(srv.models())} model(s) "
           f"({', '.join(srv.models())}) on http://{bound[0]}:{bound[1]} "
           "— POST /v1/models/<name>:score, GET /stats; Ctrl-C/SIGTERM "
@@ -668,17 +984,20 @@ def run_serve(params_path: Optional[str] = None,
         return 0
     try:
         while not stop.is_set():
-            stop.wait(3600)
+            stop.wait(_SIGNAL_POLL_S)
         print("serve: SIGTERM — draining in-flight requests ...",
               flush=True)
     except KeyboardInterrupt:
         print("serve: draining in-flight requests ...", flush=True)
     finally:
-        # drain the server first (/healthz answers 503 at once, queued
-        # futures resolve while the HTTP loop can still answer them),
-        # then stop the listener
+        # drain the server first (/healthz answers 503 at once, so a fleet
+        # router stops sending; queued futures resolve while the HTTP loop
+        # can still answer them), then stop the listener
         srv.shutdown(drain=True)
         httpd.shutdown()
+        if workload_dir:
+            # drain the recorder's queue and close this process's shard
+            workload_mod.stop_recorder()
         if trace_dir:
             try:
                 telemetry.write_trace_shard(str(trace_dir))
@@ -688,10 +1007,133 @@ def run_serve(params_path: Optional[str] = None,
     return 0
 
 
+def _write_port_file(path: str, port: int) -> None:
+    """The bound port, written atomically: never a half-written port."""
+    tmp = str(path) + ".tmp"
+    with open(tmp, "w") as fh:
+        fh.write(str(port))
+    os.replace(tmp, path)
+
+
+def run_fleet(params_path: Optional[str] = None,
+              workers: Optional[int] = None,
+              base_port: Optional[int] = None,
+              port: Optional[int] = None, host: str = "127.0.0.1",
+              block: bool = True, port_file: Optional[str] = None,
+              device: str = "cuda") -> int:
+    """The ``fleet`` subcommand: N ``serve`` worker processes over the
+    params file's shared registry and program banks, each on ``device``
+    ("cuda", the card, unless the caller asks for "cpu"), respawned with
+    jittered backoff when they crash, behind the consistent-hash failover
+    router (``fleet.py``). Knobs: ``customParams.fleetWorkers``,
+    ``fleetBasePort``, ``workerRespawnMax``, ``routerRetryBudget`` (the
+    flags win). ``port_file`` receives the router's bound port once it
+    listens. SIGHUP drains and restarts every worker, one at a time
+    (``FleetSupervisor.rolling_restart``: the fleet-wide deploy of a
+    promoted pointer, losing no request); SIGTERM stops the router and
+    drains every worker; ``block=False`` starts the fleet, waits for a
+    ready worker and stops it again."""
+    from . import fleet as fleet_mod
+    from . import telemetry
+    from . import workload as workload_mod
+    from .runner import _bool_custom_param, _numeric_custom_param
+
+    if not params_path:
+        print("fleet: a params file is required (the workers load "
+              "their roster from it)")
+        return 1
+    params = _load_params(params_path, "fleet")
+    if params is None:
+        return 1
+    try:
+        if workers is not None and int(workers) < 1:
+            # an explicit 0 is a configuration error, not "use the knob"
+            raise ValueError(f"--workers must be >= 1, got {workers}")
+        if device not in fleet_mod.WORKER_DEVICES:
+            raise ValueError(f"--device must be one of "
+                             f"{fleet_mod.WORKER_DEVICES}, got "
+                             f"{device!r}")
+        n = int(workers) if workers is not None else _numeric_custom_param(
+            params, "fleetWorkers", fleet_mod.DEFAULT_WORKERS)
+        bp = base_port if base_port is not None else \
+            _numeric_custom_param(params, "fleetBasePort")
+        respawn_max = _numeric_custom_param(
+            params, "workerRespawnMax", fleet_mod.DEFAULT_RESPAWN_MAX)
+        retry_budget = _numeric_custom_param(
+            params, "routerRetryBudget", fleet_mod.DEFAULT_RETRY_BUDGET)
+        if port is None:
+            port = _numeric_custom_param(params, "servePort", 8000)
+        # the router is the fleet's trace entry point: with a traceDir it
+        # records its routing spans and writes the "router" shard beside
+        # the workers'; serveMetrics alone turns its fleet.* counters on
+        trace_dir = config.string_param(params.custom_params, "traceDir")
+        serve_metrics = _bool_custom_param(params, "serveMetrics",
+                                           default=False)
+        # the router records the fleet side of every routed request
+        # (routing decision, failovers, the client's outcome) beside the
+        # workers' shards; `workload merge` combines the two
+        workload_dir = _start_workload_recorder(params, "router")
+    except ValueError as e:
+        print(f"fleet: {e}")
+        return 1
+    if trace_dir or serve_metrics:
+        telemetry.enable()
+    if trace_dir and telemetry.TRACE_ROLE_ENV not in os.environ:
+        telemetry.set_trace_role("router")
+    stop = threading.Event()
+    if block:
+        try:
+            signal.signal(signal.SIGTERM, lambda *_: stop.set())
+        except ValueError:
+            pass
+    sup = fleet_mod.FleetSupervisor(params_path, workers=n, base_port=bp,
+                                    respawn_max=respawn_max, device=device)
+    if block:
+        _on_sighup_roll(sup)
+    httpd = None
+    try:
+        sup.start()
+        try:
+            sup.wait_ready(min_workers=1)
+        except fleet_mod.FleetError as e:
+            print(f"fleet: {e}")
+            return 1
+        httpd = fleet_mod.serve_fleet_http(sup, host=host, port=int(port),
+                                           retry_budget=retry_budget)
+        bound = httpd.server_address
+        if port_file:
+            _write_port_file(port_file, bound[1])
+        print(f"fleet: {n} worker(s) on {device} behind "
+              f"http://{bound[0]}:{bound[1]} — POST "
+              "/v1/models/<name>:score, GET /stats; Ctrl-C/SIGTERM drains "
+              f"the fleet and exits (worker logs: {sup.log_dir})",
+              flush=True)
+        if block:
+            try:
+                while not stop.is_set():
+                    stop.wait(_SIGNAL_POLL_S)
+            except KeyboardInterrupt:
+                pass
+            print("fleet: draining workers ...", flush=True)
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+        sup.stop(drain=httpd is not None)
+        if workload_dir:
+            # the workers closed their shards on their drain; the
+            # router's records complete the merge set
+            workload_mod.stop_recorder()
+        if trace_dir:
+            try:
+                telemetry.write_trace_shard(str(trace_dir))
+            except OSError:
+                print(f"fleet: trace shard write to {trace_dir!r} "
+                      "failed", flush=True)
+    return 0
+
+
 #: the subcommands whose modules are not ported yet: what they run
 _UNPORTED_COMMANDS = {
-    "fleet": "the horizontal serving fleet (fleet.py)",
-    "workload": "the workload flight recorder and replay (workload.py)",
     "tune": "the offline autotuner (tuner.py)",
 }
 
@@ -704,6 +1146,7 @@ def _unported(cmd: str, what: str) -> int:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    from .fleet import WORKER_DEVICES
     ap = argparse.ArgumentParser(prog="transmogrifai_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     gen = sub.add_parser("gen", help="scaffold a project from a CSV")
@@ -771,24 +1214,37 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     srv.add_argument("--port", type=int, default=None)
     srv.add_argument("--host", default="127.0.0.1")
     srv.add_argument("--port-file", dest="port_file", metavar="PATH")
-    flt = sub.add_parser("fleet", help="horizontal serving fleet (not "
-                                       "ported yet: A6.8 (d))")
+    srv.add_argument("--device", choices=WORKER_DEVICES, default="cuda",
+                     help="the device the server scores on (default: "
+                          "cuda, the card)")
+    srv.add_argument("--preload", action="store_true",
+                     help="load every tenant before listening (a fleet "
+                          "worker answers /readyz only once loaded)")
+    flt = sub.add_parser("fleet", help="supervised serve workers behind "
+                                       "the consistent-hash failover "
+                                       "router")
     flt.add_argument("params", nargs="?", help="OpParams json/yaml file")
     flt.add_argument("--workers", type=int, default=None)
     flt.add_argument("--base-port", dest="base_port", type=int,
                      default=None)
     flt.add_argument("--port", type=int, default=None)
     flt.add_argument("--host", default="127.0.0.1")
+    flt.add_argument("--port-file", dest="port_file", metavar="PATH",
+                     help="write the router's bound port here")
+    flt.add_argument("--device", choices=WORKER_DEVICES, default="cuda",
+                     help="every worker's device (default: cuda, the "
+                          "card)")
     trc = sub.add_parser(
         "trace", help="merge the per-process trace shards a run wrote "
-                      "into one Perfetto file (analyze: not ported yet, "
-                      "A6.8 (d))")
+                      "into one Perfetto file, or analyze each request's "
+                      "critical path")
     trc.add_argument("action", choices=("merge", "analyze"))
     trc.add_argument("trace_dir", metavar="DIR",
                      help="the traceDir the run wrote shards into")
     trc.add_argument("-o", "--out", default=None,
                      help="output path (merge default: "
-                          "DIR/merged.trace.json)")
+                          "DIR/merged.trace.json; analyze: the analysis "
+                          "JSON)")
     trc.add_argument("--strict", action="store_true",
                      help="merge: exit non-zero when any shard was "
                           "skipped as unreadable")
@@ -796,8 +1252,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     trc.add_argument("--baseline", default=None, metavar="JSON")
     trc.add_argument("--threshold", type=float, default=0.25)
     wlp = sub.add_parser("workload", help="workload flight-recorder "
-                                          "tooling (not ported yet: "
-                                          "A6.8 (d))")
+                                          "tooling: merge the shards, "
+                                          "replay with score parity")
     wlp.add_argument("action", choices=("merge", "replay"))
     wlp.add_argument("path", metavar="DIR_OR_FILE")
     wlp.add_argument("-o", "--out", default=None)
@@ -858,11 +1314,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         suppress=args.suppress)
     if args.cmd == "trace":
         return run_trace(args.action, args.trace_dir, out=args.out,
-                         strict=args.strict)
+                         strict=args.strict, baseline=args.baseline,
+                         top_k=args.top_k, threshold=args.threshold)
     if args.cmd == "serve":
         return run_serve(args.params, model_location=args.model_location,
                          port=args.port, host=args.host,
-                         port_file=args.port_file)
+                         port_file=args.port_file, device=args.device,
+                         preload=args.preload)
+    if args.cmd == "fleet":
+        return run_fleet(args.params, workers=args.workers,
+                         base_port=args.base_port, port=args.port,
+                         host=args.host, port_file=args.port_file,
+                         device=args.device)
+    if args.cmd == "workload":
+        return run_workload(args.action, args.path, out=args.out,
+                            url=args.url, speed=args.speed,
+                            strict=args.strict, parity_tol=args.parity_tol,
+                            timeout_s=args.timeout_s,
+                            duration_s=args.duration_s,
+                            max_requests=args.max_requests)
     if args.cmd == "registry":
         return run_registry(args.action, args.registry, model=args.model,
                             model_dir=args.reg_model_dir, bank=args.bank,

@@ -7,10 +7,10 @@ record: name, type, default, bounds or choices, the module that owns it,
 whether a tuner may search it, and an optional extra validator. The
 names, types, defaults, owners and validators are the JAX package's, so
 one params file means the same in both packages. The registry keeps the
-knobs of modules this package has not ported yet (the fleet, continual
-training, the workload recorder, the mesh): it is the declared surface
-that ``python -m transmogrifai_tpu_torch check`` validates, and the
-runner and ``serve`` raise where a run asks for one of them.
+knobs of the modules this package has not ported yet (the mesh, the
+tuner): it is the declared surface that ``python -m
+transmogrifai_tpu_torch check`` validates, and the runner raises where a
+run asks for one of them.
 
 The runner's knob readers are lookups over this table, ``gen`` emits its
 ``customParams`` block from :func:`default_custom_params`, ``check``
@@ -88,13 +88,13 @@ def _canary_fraction_ok(v: Any) -> Optional[str]:
 
 
 def _retrain_cmd_ok(v: Any) -> Optional[str]:
-    """The trainer-command shape check of the JAX package's
-    ``continual.validate_retrain_cmd`` (continual training is ROADMAP
-    queue A, item A6.8 (d)): a non-empty list of argv strings."""
-    if (not isinstance(v, (list, tuple)) or not v
-            or not all(isinstance(c, str) for c in v)):
-        return ("customParams.retrainCmd: retrain command must be a "
-                f"non-empty list of argv strings, got {v!r}")
+    """The trainer-command shape check: ``continual.validate_retrain_cmd``,
+    the one predicate ``check``, ``serve`` and the controller share."""
+    from .continual import ContinualError, validate_retrain_cmd
+    try:
+        validate_retrain_cmd(v)
+    except ContinualError as e:
+        return f"customParams.retrainCmd: {e}"
     return None
 
 

@@ -96,8 +96,7 @@ def _tally(key: str, n: int = 1) -> None:
 #: the catalog of registered fault sites, the JAX package's whole: every
 #: ``inject(site)`` marker of the port must name one of these (held by
 #: ``tests/test_torch_resilience.py``, the counterpart of the JAX tree's
-#: TMG303: a misspelled site is a chaos test that never fires). The
-#: serving, fleet and continual sites come with their modules. In the
+#: TMG303: a misspelled site is a chaos test that never fires). In the
 #: port a fault at a device site (``fitstats.device_pass``,
 #: ``scoring.device_dispatch``, ``pipeline.upload``,
 #: ``temporal.aggregate``) raises to the caller; no breaker or host tier
@@ -164,15 +163,10 @@ FAULT_SITES = frozenset({
 })
 
 #: the registered sites whose modules are not ported yet, with the ROADMAP
-#: queue A item that brings each: no code of this package injects them,
-#: so the fault-site coverage rule (TMG805, ``repo_lint``) waits for their
-#: modules, which bring their chaos tests
-UNPORTED_SITES = {
-    "fleet.forward": "A6.8 (d)",
-    "fleet.spawn": "A6.8 (d)",
-    "continual.retrain": "A6.8 (d)",
-    "continual.register": "A6.8 (d)",
-}
+#: queue A item that brings each; the fault-site coverage rule (TMG805,
+#: ``repo_lint``) does not ask for them. Every site's module is ported, so
+#: it is empty: TMG805 asks a chaos test of every site
+UNPORTED_SITES: Dict[str, str] = {}
 
 
 #: the device sites: a fault at one raises to the caller, whatever the

@@ -113,9 +113,8 @@ __all__ = ["OpParams", "RunType", "RunnerResult", "OpWorkflowRunner",
 
 #: registry knobs the runner reads whose module is not ported yet: what
 #: they ask for and the ROADMAP queue A item (the fleet, continual and
-#: workload knobs are read by no run; ``check`` validates them, ``fleet``
-#: and ``tune`` exit naming A6.8 (d), and ``serve`` raises for
-#: ``workloadDir`` and ``retrainOnDrift``)
+#: workload knobs are read by ``serve`` and ``fleet``, not by a run;
+#: ``tune`` exits naming A6.8 (d))
 _UNPORTED_CUSTOM = {
     "meshDevices": ("multi-device runs (parallel/mesh.py)", "A6.6"),
     "meshGridSize": ("multi-device runs (parallel/mesh.py)", "A6.6"),
@@ -485,6 +484,13 @@ class OpWorkflowRunner:
         # windows): zeros on runs that never serve
         result.metrics["server"] = server.server_stats()
         result.metrics["lifecycle"] = lifecycle.lifecycle_stats()
+        # the operations tier's tallies (retrain triggers and jobs; worker
+        # spawns, routed requests and failovers; workload records, replay
+        # and parity): zeros on runs that never touch it
+        from . import continual, fleet, workload
+        result.metrics["continual"] = continual.continual_stats()
+        result.metrics["fleet"] = fleet.fleet_stats()
+        result.metrics["workload"] = workload.workload_stats()
         # device seconds and FLOPs by phase (process-wide, as in the JAX
         # package; recorded while telemetry is on)
         result.metrics["mfu"] = telemetry.device_cost_stats()

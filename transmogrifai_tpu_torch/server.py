@@ -54,9 +54,11 @@ HTTP (stdlib ``http.server``)::
     GET  /metrics                    Prometheus text
 
 Run it with ``python -m transmogrifai_tpu_torch serve params.json``
-(knobs ``customParams.serve*``, ``registryDir``, ``drift*``). The
-workload flight recorder (``workload.py``) is not ported: nothing is
-recorded.
+(knobs ``customParams.serve*``, ``registryDir``, ``drift*``). With the
+workload flight recorder installed (``customParams.workloadDir``,
+``workload.py``), every ``:score`` request the front end accepts, answers
+or refuses leaves one record: its arrival, payload, trace id, outcome and
+phase decomposition.
 """
 from __future__ import annotations
 
@@ -71,11 +73,12 @@ from collections import OrderedDict, deque
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FuturesTimeout
 from dataclasses import dataclass
+from http.server import ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from . import aot, lifecycle, resilience, telemetry
+from . import aot, lifecycle, resilience, telemetry, workload
 from .lifecycle import RegistryError
 from .utils import locks
 
@@ -1664,6 +1667,16 @@ def _stores_equal(a, b) -> bool:
 # ---------------------------------------------------------------------------
 
 
+class HTTPListener(ThreadingHTTPServer):
+    """The stdlib threading HTTP server of ``serve_http`` and the fleet's
+    router, with a listen backlog a burst of clients fits in (a replay,
+    a router's fan-in): socketserver's default of 5 drops the rest,
+    which then wait a second for the SYN retry or fail."""
+
+    daemon_threads = True
+    request_queue_size = 128
+
+
 def _store_rows(store) -> List[Dict[str, Any]]:
     return [{nm: store[nm].get_raw(i) for nm in store.names()}
             for i in range(store.n_rows)]
@@ -1678,7 +1691,7 @@ def serve_http(server: ModelServer, host: str = "127.0.0.1",
     """Start the stdlib HTTP front end on a daemon thread; returns the
     ``ThreadingHTTPServer`` (``.server_address`` has the bound port,
     ``.shutdown()`` stops it)."""
-    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    from http.server import BaseHTTPRequestHandler
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):   # route through logging
@@ -1750,6 +1763,24 @@ def serve_http(server: ModelServer, host: str = "127.0.0.1",
             path = self.path
             if not path.startswith("/v1/models/"):
                 return self._send(404, {"error": f"no route {path!r}"})
+            # the workload flight recorder: every :score request leaves
+            # one record through the recorder's bounded queue, failures
+            # too (a replay sees the 4xx/5xx mix); a no-op when no
+            # recorder is installed
+            wl_t0 = time.perf_counter()
+            wl_rows = [0]
+            wl_trace: List[Optional[str]] = [None]
+
+            def _wl_fail(code: int, exc: BaseException) -> None:
+                if (path.endswith(":score")
+                        and workload.recording_enabled()):
+                    workload.record_request(
+                        model=path[len("/v1/models/"):-len(":score")],
+                        rows=wl_rows[0], trace_id=wl_trace[0],
+                        t_arrival=wl_t0,
+                        outcome={"status": code, "ok": False,
+                                 "error": type(exc).__name__},
+                        phases={"e2e": time.perf_counter() - wl_t0})
             try:
                 if path.endswith(":deploy"):
                     name = path[len("/v1/models/"):-len(":deploy")]
@@ -1772,7 +1803,11 @@ def serve_http(server: ModelServer, host: str = "127.0.0.1",
                 if not path.endswith(":score"):
                     return self._send(404, {"error": f"no route {path!r}"})
                 name = path[len("/v1/models/"):-len(":score")]
-                doc = self._body()
+                # the raw body outlives the parse: the recorder splices
+                # its bytes into the record without serializing again
+                length = int(self.headers.get("Content-Length", 0))
+                raw_body = self.rfile.read(length) or b"{}"
+                doc = json.loads(raw_body)
                 records = doc.get("records")
                 if not isinstance(records, list) or not records:
                     return self._send(400, {
@@ -1783,12 +1818,14 @@ def serve_http(server: ModelServer, host: str = "127.0.0.1",
                 # the request mints its own. The request span's identity
                 # rides into the batcher (submit(trace=)) and back in the
                 # response header.
+                wl_rows[0] = len(records)
                 ctx = telemetry.parse_traceparent(
                     self.headers.get(telemetry.TRACE_HEADER))
                 if ctx is None and telemetry.enabled():
                     ctx = telemetry.mint_trace()
                 trace_hdr = (telemetry.format_traceparent(*ctx)
                              if ctx else None)
+                wl_trace[0] = ctx[0] if ctx else None
                 with telemetry.trace_scope(ctx):
                     with telemetry.span("server:request", model=name,
                                         rows=len(records)) as rsp:
@@ -1813,23 +1850,36 @@ def serve_http(server: ModelServer, host: str = "127.0.0.1",
                             if not f.cancelled():
                                 f.exception()
                         fut.add_done_callback(_late)
+                    if workload.recording_enabled():
+                        workload.record_request(
+                            model=name, rows=len(records),
+                            payload_json=raw_body, trace_id=wl_trace[0],
+                            t_arrival=wl_t0,
+                            outcome={"status": 504, "ok": False,
+                                     "error": "timeout"},
+                            phases={"e2e": time.perf_counter() - wl_t0})
                     return self._send(504, {
                         "error": f"timed out after "
                                  f"{request_timeout_s:g}s",
                         "model": name, "rows": len(records)})
             except ModelNotFound as e:
+                _wl_fail(404, e)
                 return self._send(404, {"error": str(e)})
             except (RolloutError, RegistryError, TypeError,
                     ValueError) as e:
+                _wl_fail(400, e)
                 if isinstance(e, json.JSONDecodeError):
                     return self._send(400,
                                       {"error": f"bad JSON body: {e}"})
                 return self._send(400, {"error": str(e)})
             except ServerBusy as e:
+                _wl_fail(429, e)
                 return self._send(429, {"error": str(e)})
             except ServerClosed as e:
+                _wl_fail(503, e)
                 return self._send(503, {"error": str(e)})
             except Exception as e:  # lint: broad-except — HTTP boundary: a poison request answers 500, the server lives
+                _wl_fail(500, e)
                 return self._send(500, {"error": repr(e)})
             phases = {k: round(v, 6)
                       for k, v in (res.decomp or {}).items()}
@@ -1843,13 +1893,22 @@ def serve_http(server: ModelServer, host: str = "127.0.0.1",
                 "phases": phases,
                 "outputs": _store_rows(res.store)},
                 default=str).encode()
+            if workload.recording_enabled():
+                # both bodies were serialized for this request anyway:
+                # the recorder splices the bytes, so the request pays
+                # one bounded-queue put
+                workload.record_request(
+                    model=name, rows=res.rows,
+                    payload_json=raw_body, response_json=resp_body,
+                    trace_id=wl_trace[0], t_arrival=wl_t0,
+                    outcome={"status": 200, "ok": True},
+                    phases=phases)
             return self._send(200, None, raw=resp_body,
                               headers=({telemetry.TRACE_HEADER:
                                         trace_hdr}
                                        if trace_hdr else None))
 
-    httpd = ThreadingHTTPServer((host, port), Handler)
-    httpd.daemon_threads = True
+    httpd = HTTPListener((host, port), Handler)
     t = threading.Thread(target=httpd.serve_forever,
                          name="serve-http", daemon=True)
     t.start()

@@ -1231,8 +1231,9 @@ class RunListener:
         pass
 
     def on_breaker_trip(self, name: str, failures: int, **_: Any) -> None:
-        """A circuit breaker opened: its device tier is now served by
-        the host fallback until the reset timeout (resilience.py)."""
+        """A circuit breaker opened (``resilience.CircuitBreaker``; the
+        fleet router's per-worker breakers): callers route around it until
+        the reset timeout. No breaker of the port guards a device."""
         pass
 
     def on_lint(self, rule: str, severity: str, message: str = "",
