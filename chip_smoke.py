@@ -48,7 +48,15 @@ Run from the repository root on a machine with one NVIDIA H100:
    histograms at blocks with several groups of output rows (``cumhist``
    at F ∈ {40, 600, 1100} features, B ∈ {32, 2, 1}; ``cumhist(bc=)`` at
    F=40, B=32; ``cumhist_sparse01`` at Fb=1,500) against their plain
-   versions at 20,000 rows, timed at 200,000.
+   versions at 20,000 rows, timed at 200,000. Last, the kernels past
+   eight stat channels (:func:`check_wide_channels`): both histograms
+   (launches of up to 8 channels) at gini C ∈ {9, 16, 27} and A ∈ {1,
+   64, 128} (counts exact, class channels within 2e-5), ``split_scan``
+   under gini at those C, every slot count and three block shapes,
+   masked and not, bitwise; the level epilogue (its run-time-C kernel)
+   under gini at those C in every case above, bitwise; ``predict_trees``
+   at K ∈ {9, 16, 26} leaf values (launches of up to 8) bitwise; each
+   timed on a line of its own with its bound.
 3. The tree-model AutoML sweep — GBT maxDepth {3, 6, 9} and XGBoost
    maxDepth {3, 6}, 20 rounds, 5-fold CV on AuPR, refit, scoring — through
    ``Workflow.train`` and ``WorkflowModel.evaluate`` on 200,000 rows, with
@@ -129,7 +137,16 @@ Run from the repository root on a machine with one NVIDIA H100:
    program, a CUDA graph per bucket): species names and predictions equal
    to the layer path's. Last, the label mapping on the card: the species
    as numeric codes {1, 4, 6}, which the DataCutter re-indexes, scored
-   through the engine's graphs as the layer path scores them.
+   through the engine's graphs as the layer path scores them. Then
+   letter-20k (:func:`letter_path`): 20,000 rows at the UCI Letter
+   Recognition data's published widths (16 integer features in 0..15, 26
+   classes; made from a seed), the multiclass selector over a 20-tree
+   random forest and a decision tree (3-fold CV on F1, a DataCutter),
+   counted: C = 27 channels through the histograms, ``split_scan`` and
+   the level epilogue, K = 26 through ``predict_trees``; train seconds,
+   the winner, F1 and launches; then 2,000 rows on the card and the CPU
+   (a 5-tree forest and a decision tree at depth 8): the same model, the
+   winner's trees equal, F1 and every fold's F1 within 2^-22.
 9. every feature type (``transmogrify``'s whole dispatch): a
    100,000-row store (``EVERY_TYPE_N``), made in bulk from a seed, with one feature of each
    type this phase adds — MultiPickList, Geolocation, DateList, RealMap,
@@ -144,7 +161,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    floor ``workflow.FUSE_MIN_ROWS`` raised past the store); the card's
    default train (device tier, fused transform) held against it, every
    fitted state within FUSED_RTOL and the vector within FUSED_RTOL, and
-   :func:`check_fusion` on it. Then mapprep-200k (``mapprep.py``: 200,000 records
+   :func:`check_fusion` on it. Then mapprep-100k (``mapprep.py``: 100,000 records
    from seed 7, generated once and reused below; logistic regression,
    3-fold CV on AuPR), counted; its records, vectorize, selector, train
    and evaluate seconds, width, best model and AuPR, and no column of the
@@ -157,10 +174,10 @@ Run from the repository root on a machine with one NVIDIA H100:
    widths read off the vector), ``group_rows``, the histograms, the split
    scans and the level epilogue under gini and variance, ``predict_trees``
    at the GBT's and the forest's ensembles. Last, the
-   mapprep-200k model saved, loaded afresh and scored through the engine:
+   mapprep-100k model saved, loaded afresh and scored through the engine:
    predictions equal to the layer path's, probabilities within 2^-22;
    Score seconds and rows/s.
-10. the guard rails (mapprep-guarded-200k): phase 9's 200,000 records
+10. the guard rails (mapprep-guarded-100k): phase 9's 100,000 records
    through mapprep's workflow with the default families at one grid point
    each, behind the RawFeatureFilter (scoring data: 50,000 records from
    seed 8 whose attrs lost their "region" key) and under workflow-level
@@ -240,7 +257,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    200,000 rows scored through the engine against the layer path, rows/s
    and graphs captured), each at 2,000 rows on the card and the CPU (the
    same winner; every family's fold RMSE within 1e-4 relative, F1 within
-   ``MLP_AGREE``); every-surface-25k (``every_surface.py``: 25,000
+   ``MLP_AGREE``); every-surface-20k (``every_surface.py``: 20,000
    records, seed 13, through every new DSL surface → SanityChecker → LR
    and GBT at one grid point, the MLP at its default grid, 3-fold CV;
    counted: GBT's fits must launch the tree kernels; ``random.categorical``'s
@@ -251,7 +268,9 @@ Run from the repository root on a machine with one NVIDIA H100:
    engine, its plan holding the count vectorizer as "vec" and the
    predictor as "predict" and every other new stage on the host, records/s;
    on 20,000 records a replay, the layer path and the model with its
-   tupled columns give the same predictions; GBT refit on them so
+   tupled columns give the same predictions, and the layer path on
+   10,000 records gives the engine's (a linear margin sums each row in
+   one order whatever the row count); GBT refit on them so
    ``predict_trees`` launches; then 2,000 records on the card and the CPU:
    host stages and the count block bitwise, LDA and Word2Vec within
    ``TOPIC_ATOL``, the same winner) and taggers-5k (entities, languages,
@@ -287,17 +306,20 @@ Run from the repository root on a machine with one NVIDIA H100:
    statistics phases' CUDA-event device seconds, each within the wall
    seconds of its spans; the f32 and bf16 shares) and the Train seconds
    off and on, beside the card's name and power limit.
-16. out-of-core ingest at ooc-600k (:func:`ooc_phase`): 600,000
-   BigPassenger records (text-200k's schema and widths) written as 6
-   Avro shards of 100,000 on a process pool, one seed each, and a 20,000
+16. out-of-core ingest at ooc-400k (:func:`ooc_phase`): 400,000
+   BigPassenger records (text-200k's schema and widths) written as 8
+   Avro shards of 50,000 on a process pool, one seed each, and a 20,000
    record holdout. In a fresh process text-200k's workflow is trained
    through ``OpWorkflowRunner`` with ``streamFit`` false on all of them;
    in another with ``streamFit`` null (auto), ``streamFitPasses`` 1 and
    ``rssCapMb`` at 0.8 of the first's peak RSS: the streamed fold's
-   statistics over the 600,000 rows bitwise the device pass's over the
-   materialized store, a 131,072-row subsample, the peak RSS under the
-   cap, the streamed leg's median RSS step a file over the last 300,000
-   ingested rows at most 0.25 of the materialized leg's, the holdout AuPR
+   statistics over the 400,000 rows bitwise the device pass's over the
+   materialized store, a 65,536-row subsample, the peak RSS under the
+   cap, the streamed leg's median RSS step a file over the last 200,000
+   ingested rows at most 0.25 of the materialized leg's (both legs' growth
+   over those rows printed, and the streamed fold's device chunks' own
+   steps: the first launch of its kernels loads their CUDA modules into
+   host memory, once a process), the holdout AuPR
    within 0.02, one ``level_epilogue`` and one ``group_rows`` a level in
    both. Then StreamingScore of 100,000 records in 10 Avro files and one
    cut short, with a ``quarantineLocation``, at ``pipelineWorkers`` 1 and
@@ -367,7 +389,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    451 columns. ``python -m transmogrifai_tpu_torch fleet`` with two
    workers on the card (``--port 0 --port-file``, ``workloadDir`` with
    payloads, ``traceDir``): both workers' ready s and first requests;
-   4 closed-loop clients of 100 requests of 1-64 records over both
+   4 closed-loop clients of 50 requests of 1-64 records over both
    tenants through the router, each response bitwise equal to a solo
    ``score_store(bucket_min=bucket)``, with requests/s, rows/s, the
    clients' p50/p95/p99, each worker's requests and the ``/stats``
@@ -397,15 +419,25 @@ Run from the repository root on a machine with one NVIDIA H100:
    trigger inside the cooldown starts no job. The job's seconds, warm
    merges and kernel launches (its metrics document's) are printed and
    its launches join the result line.
+20. the offline autotuner at tune-serve200k (:func:`tune_phase`): ``python
+   -m transmogrifai_tpu_torch tune`` (through ``cli.main``) over phase
+   19's recorded shards with phase 19's params less the recorder and the
+   traces, every leg an in-process server on the card serving both
+   tenants at 451 columns, the first 64 records replayed a leg with score
+   parity, the p99 objective over ``serveBatchDeadlineMs``, a 30 s
+   budget: the baseline and every ranked leg without a parity failure,
+   the tuned params passing ``check``, the report's digest its bytes',
+   ``predict_trees`` launched; each leg's p99, rows/s and seconds, the
+   winner. The fleet leg (``fleetWorkers``) is not run on the card.
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
-boston-200k, mapprep-200k, mapprep-guarded-200k and eventlog-200k) once
+boston-200k, mapprep-100k, mapprep-guarded-100k and eventlog-200k) once
 more under ``torch.profiler`` and
 prints its device-time table: the busy share, the device operations a tree level, the histogram
 kernels, the split scans, the route or level epilogue, the predict and the
 uint8 → bool copies.
-``--stage-seconds`` trains text-200k, mapprep-200k,
-mapprep-guarded-200k and eventlog-200k twice each and prints :func:`stage_table` after each
+``--stage-seconds`` trains text-200k, mapprep-100k,
+mapprep-guarded-100k and eventlog-200k twice each and prints :func:`stage_table` after each
 train, nothing else; like ``--timings-only`` it calls only what every
 version of the port has, so a copy of this script times another
 checkout's stages.
@@ -421,7 +453,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–19).
+over the main paths' runs, phases 3–20).
 ``--serve-export-only`` runs phase 7 (without its comparison with phase
 4's AuPR) and phase 12 alone, and prints no result line.
 ``--every-surface-only`` runs phase 13 alone and prints no result line.
@@ -438,6 +470,10 @@ its two training legs as ``chip_smoke.py --ooc-leg <spec>``).
 7's model as for ``--serve-tenants-only``) and prints no result line;
 phase 19 starts its retrain job as ``chip_smoke.py --retrain-leg
 <spec>``.
+``--tune-only`` runs phases 18, 19 and then 20 on phase 19's workload,
+and prints no result line.
+``--wide-only`` runs phase 2's checks past eight channels, phase 8's
+kernel checks and letter-20k, and prints no result line.
 """
 import contextlib
 import io
@@ -465,9 +501,13 @@ FB, DENSITY = 512, 0.016
 TITANIC_F = 498
 REPS = 20
 REL_TOL = 2e-5
-#: H100 SXM peaks (data sheet): bytes/s and f32 FLOP/s outside the tensor
-#: cores (every kernel's arithmetic is f32)
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+#: H100 SXM peaks (data sheet, dense): bytes/s, f32 FLOP/s outside the
+#: tensor cores, and bf16 FLOP/s on them. The histograms (``cumhist`` in
+#: every form and ``cumhist_sparse01``) sum on the tensor cores
+#: (``grouped_hist.cuh``: mma.sync bf16 with f32 accumulators), so their
+#: sums are taken at the bf16 rate; every other kernel's arithmetic, and
+#: the sparse histogram's t=0 subtraction, is f32 on the CUDA cores
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 
 
 def fail(msg):
@@ -868,17 +908,17 @@ def check_kernels(H, TF, dev):
     nbytes = N * 4 + live.numel() * (C * 4 + F) + out_bytes
     old_bytes = N * C * 4 + N * 4 + F * N * 4 + out_bytes
     # what these inputs need: each live row adds its C stats into the
-    # B − bin cumulative columns of each feature, f32 adds
+    # B − bin cumulative columns of each feature, on the tensor cores
     adds = C * float((B - XbT[:, live]).sum().item())
     rows["cumhist"] = dict(
         replaces="transmogrifai_tpu/models/_pallas_hist.py:160",
         max_abs_err=worst["cumhist"], ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound=(nbytes / HBM_BPS, adds / F32_FLOPS))
+        library_ms=lib_ms, bound=(nbytes / HBM_BPS, adds / BF16_FLOPS))
     print(f"cumhist A={A} C={C}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms, bound "
-          f"{1e3 * max(nbytes / HBM_BPS, adds / F32_FLOPS):.5f} ms "
+          f"{1e3 * max(nbytes / HBM_BPS, adds / BF16_FLOPS):.5f} ms "
           f"(int32 all-rows bound: "
-          f"{1e3 * max(old_bytes / HBM_BPS, adds / F32_FLOPS):.5f} ms)")
+          f"{1e3 * max(old_bytes / HBM_BPS, adds / BF16_FLOPS):.5f} ms)")
 
     # the bc= call at the same inputs: the indicator bytes of the live
     # rows instead of their bins; the same matmul is its library call
@@ -892,12 +932,12 @@ def check_kernels(H, TF, dev):
         replaces="transmogrifai_tpu/models/_pallas_hist.py:193",
         source="transmogrifai_tpu_torch/csrc/cumhist.cu",
         max_abs_err=worst["cumhist_bc"], ms=bc_ms, plain_ms=bc_plain_ms,
-        library_ms=lib_ms, bound=(bc_bytes / HBM_BPS, adds / F32_FLOPS))
+        library_ms=lib_ms, bound=(bc_bytes / HBM_BPS, adds / BF16_FLOPS))
     print(f"cumhist(bc=) A={A} C={C}: kernel {bc_ms:.4f} ms, plain "
           f"{bc_plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms, bound "
-          f"{1e3 * max(bc_bytes / HBM_BPS, adds / F32_FLOPS):.5f} ms "
+          f"{1e3 * max(bc_bytes / HBM_BPS, adds / BF16_FLOPS):.5f} ms "
           f"(all-rows bound: "
-          f"{1e3 * max(bc_old_bytes / HBM_BPS, adds / F32_FLOPS):.5f} ms)")
+          f"{1e3 * max(bc_old_bytes / HBM_BPS, adds / BF16_FLOPS):.5f} ms)")
 
     # -- cumhist_sparse01: the 2-bin indicator block ----------------------
     X01 = put((rng.random((FB, N)) < DENSITY).astype(np.uint8))
@@ -957,16 +997,17 @@ def check_kernels(H, TF, dev):
     # each live row adds its C stats into its slot's total and into the
     # nonzero side of each of its ones; t=0 is one subtraction per output
     nnz_live = float(X01[:, live].sum(dtype=torch.int64).item())
-    adds = C * (nnz_live + live.numel()) + A * C * FB
+    sops = (C * (nnz_live + live.numel()) / BF16_FLOPS
+            + A * C * FB / F32_FLOPS)
     rows["cumhist_sparse01"] = dict(
         replaces="transmogrifai_tpu/models/_pallas_hist.py:220",
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound=(nbytes / HBM_BPS, adds / F32_FLOPS))
+        bound=(nbytes / HBM_BPS, sops))
     print(f"cumhist_sparse01 A={A} C={C} Fb={FB}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms, bound "
-          f"{1e3 * max(nbytes / HBM_BPS, adds / F32_FLOPS):.5f} ms (all-rows "
+          f"{1e3 * max(nbytes / HBM_BPS, sops):.5f} ms (all-rows "
           f"bound: "
-          f"{1e3 * max(old_bytes / HBM_BPS, adds / F32_FLOPS):.5f} ms)")
+          f"{1e3 * max(old_bytes / HBM_BPS, sops):.5f} ms)")
 
     # -- both histograms at several groups of output rows -----------------
     for name, e in check_wide(H, dev, np.random.default_rng(1), put).items():
@@ -1125,8 +1166,13 @@ def epilogue_inputs(H, dev, rng, put, XbT, X01, kind, A, nblk, d, D,
     elif kind == "gini":
         if C in (3, 5):
             cls = y + (2.0 * (XbT[1] > B // 2).float() if C == 5 else 0.0)
-        else:           # every one of the C − 1 classes holds rows
+        elif C <= 8:    # every one of the C − 1 classes holds rows
             cls = torch.remainder(y.long() + XbT[1].long(), C - 1)
+        else:           # y's two classes hold most rows (so the 2-bin
+            # block wins slots) and the other C − 3 the rest
+            v = put(rng.random(N).astype(np.float32))
+            cls = torch.where(v < 0.8, y.long(),
+                              2 + torch.remainder(XbT[1].long(), C - 3))
         w = torch.floor(3.0 * u)
         onehot = torch.nn.functional.one_hot(cls.long(), C - 1).float()
         st = torch.cat([onehot * w[:, None], (w > 0).float()[:, None]], 1)
@@ -1648,7 +1694,7 @@ def serve(H, BP, records, text_aupr, dev="cuda", profile=False):
 
 
 #: phase 8's gini channel counts: iris's (three classes and the count)
-#: and the most the card's tree kernels take (seven classes)
+#: and the widest one launch of the histograms takes (seven classes)
 WIDE_GINI = (4, 8)
 #: the iris forest's ensemble as scoring runs it: (F, T, D, K) = the eight
 #: transmogrified columns, 50 trees of depth 12, three class shares
@@ -1717,7 +1763,7 @@ def check_multiclass_kernels(H, dev):
     plain_ms = time_ms(lambda: H.cumhist_reference(st, node, XbT, A, B))
     hbound = ((N * 4 + live.numel() * (C * 4 + F) + A * C * B * F * 4)
               / HBM_BPS,
-              C * float((B - XbT[:, live]).sum().item()) / F32_FLOPS)
+              C * float((B - XbT[:, live]).sum().item()) / BF16_FLOPS)
     times["cumhist gini C=8"] = (ms, plain_ms, max(hbound))
     srows = H.sparse01_rows(X01)
     s_ms = time_ms(lambda: H.cumhist_sparse01(st, node, X01, A,
@@ -1727,7 +1773,8 @@ def check_multiclass_kernels(H, dev):
     nnz_live = float(X01[:, live].sum(dtype=torch.int64).item())
     sbound = ((N * 4 + live.numel() * (C * 4 + FB) + A * C * 2 * FB * 4)
               / HBM_BPS,
-              (C * (nnz_live + live.numel()) + A * C * FB) / F32_FLOPS)
+              C * (nnz_live + live.numel()) / BF16_FLOPS
+              + A * C * FB / F32_FLOPS)
     times["cumhist_sparse01 gini C=8"] = (s_ms, s_plain_ms, max(sbound))
     print(f"cumhist gini A={A} C={C}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {1e3 * max(hbound):.5f} ms; "
@@ -1794,6 +1841,148 @@ def check_multiclass_kernels(H, dev):
           f"bitwise equal: {torch.equal(out, ref)}); kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {1e3 * pbound:.5f} ms")
     return times
+
+
+#: phase 2's wide channel counts (eight, 15 and letter-20k's 26 classes,
+#: and the count) and predict_trees' leaf widths there
+WIDE_CHANNELS = (9, 16, 27)
+WIDE_LEAVES = (9, 16, 26)
+#: the wide predict's ensemble: letter-20k's 16 features, a forest of 20
+#: trees of depth 12
+WIDE_PREDICT = (16, 20, 12)
+
+
+def check_wide_channels(H, dev):
+    """Phase 2's kernels past eight channels, each against its plain
+    version on the card: ``cumhist`` and ``cumhist_sparse01`` at C ∈
+    WIDE_CHANNELS (A ∈ {1, 64, 128}; counts exact, class channels within
+    REL_TOL, two calls bitwise); ``split_scan`` under gini at every C, the
+    shapes of WIDE_SCAN_SHAPES and slots of SCAN_SLOTS, masked and not,
+    bitwise; the level epilogue under gini at every C in every case of
+    :func:`check_epilogue`, bitwise; ``predict_trees`` at K ∈ WIDE_LEAVES
+    bitwise. Each is timed beside its plain version and printed on a line
+    of its own with its bound. Returns ({what: (ms, plain ms, bound s)},
+    {kernel: max abs error})."""
+    rng = np.random.default_rng(21)
+
+    def put(a):
+        return torch.as_tensor(a, device=dev)
+
+    XbT = put(rng.integers(0, B, size=(F, N), dtype=np.int32))
+    X01 = put((rng.random((FB, N)) < 0.3).astype(np.uint8))
+    hrows = H.hist_rows(XbT)
+    srows = H.sparse01_rows(X01)
+    times, worst = {}, {"cumhist": 0.0, "cumhist_sparse01": 0.0,
+                        "predict_trees": 0.0}
+    for C in WIDE_CHANNELS:
+        for A in (1, 64, 128):
+            node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+            st = put(gini_stats(rng, C, N))
+            worst["cumhist"] = max(worst["cumhist"], hold(
+                H.cumhist(st, node, XbT, A, B, rows=hrows),
+                H.cumhist(st, node, XbT, A, B),
+                [H.cumhist_reference(st, node, XbT, A, B)],
+                f"cumhist gini A={A} C={C}"))
+            worst["cumhist_sparse01"] = max(worst["cumhist_sparse01"], hold(
+                H.cumhist_sparse01(st, node, X01, A, rows=srows),
+                H.cumhist_sparse01(st, node, X01, A),
+                [H.cumhist_sparse01_reference(st, node, X01, A)],
+                f"cumhist_sparse01 gini A={A} C={C}"))
+        # timed as phase 8's C=8 rows are (A=64, the level loop's call)
+        A = 64
+        node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+        groups = H.group_rows(node, A)
+        st = put(gini_stats(rng, C, N))
+        live = (node < A).nonzero().squeeze(1)
+        ms = time_ms(lambda: H.cumhist(st, node, XbT, A, B, groups=groups,
+                                       rows=hrows))
+        plain_ms = time_ms(lambda: H.cumhist_reference(st, node, XbT, A, B),
+                           reps=5)
+        hbound = ((N * 4 + live.numel() * (C * 4 + F) + A * C * B * F * 4)
+                  / HBM_BPS,
+                  C * float((B - XbT[:, live]).sum().item()) / BF16_FLOPS)
+        times[f"cumhist gini C={C}"] = (ms, plain_ms, max(hbound))
+        s_ms = time_ms(lambda: H.cumhist_sparse01(st, node, X01, A,
+                                                  groups=groups, rows=srows))
+        s_plain_ms = time_ms(lambda: H.cumhist_sparse01_reference(
+            st, node, X01, A), reps=5)
+        nnz_live = float(X01[:, live].sum(dtype=torch.int64).item())
+        sbound = ((N * 4 + live.numel() * (C * 4 + FB) + A * C * 2 * FB * 4)
+                  / HBM_BPS,
+                  C * (nnz_live + live.numel()) / BF16_FLOPS
+                  + A * C * FB / F32_FLOPS)
+        times[f"cumhist_sparse01 gini C={C}"] = (s_ms, s_plain_ms,
+                                                 max(sbound))
+        print(f"cumhist gini A={A} C={C} ({-(-C // H.CHANNEL_CHUNK)} "
+              f"launches of <= {H.CHANNEL_CHUNK} channels): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{1e3 * max(hbound):.5f} ms")
+        print(f"cumhist_sparse01 gini A={A} C={C} Fb={FB} (density 0.3): "
+              f"kernel {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms, bound "
+              f"{1e3 * max(sbound):.5f} ms")
+    print(f"cumhist, cumhist_sparse01 at gini C = {WIDE_CHANNELS} (A = 1, "
+          f"64, 128): counts exact, class channels within {REL_TOL:g}, two "
+          "calls bitwise equal")
+    for C in WIDE_CHANNELS:
+        st = put(gini_stats(rng, C, N))
+        for Fs, Bs in WIDE_SCAN_SHAPES:
+            Xs = XbT[:Fs] if Bs == B else torch.remainder(XbT[:Fs], Bs)
+            xrows = H.hist_rows(Xs)
+            for A in SCAN_SLOTS:
+                node = put(rng.integers(0, A + 1, size=N, dtype=np.int32))
+                cum = H.cumhist(st, node, Xs, A, Bs, rows=xrows)
+                what = f"gini C={C} F={Fs} B={Bs} A={A}"
+                mask = put((rng.random((A, Fs)) > 0.2).astype(np.float32))
+                scan_holds(H, cum, "gini", mask, f"{what} masked")
+                scan_holds(H, cum, "gini", None, what)
+        node = put(rng.integers(0, 129, size=N, dtype=np.int32))
+        cum = H.cumhist(st, node, XbT, 128, B, rows=hrows)
+        ms = time_ms(lambda: H.split_scan(cum, "gini", 10.0))
+        plain_ms = time_ms(lambda: H.split_scan_reference(cum, "gini",
+                                                          10.0))
+        sbound = ((cum.numel() * 4 + 128 * 9) / HBM_BPS,
+                  (6.0 * (C - 1) + 6.0) * 128 * (B - 1) * F / F32_FLOPS)
+        times[f"split_scan gini C={C}"] = (ms, plain_ms, max(sbound))
+        print(f"split_scan gini C={C}: selections and scores bitwise equal "
+              f"to the plain version (F, B in {WIDE_SCAN_SHAPES}; A = "
+              f"{', '.join(map(str, SCAN_SLOTS))}; masked and not); A=128 "
+              f"F={F} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {1e3 * max(sbound):.5f} ms")
+    wins = epilogue_cases(H, dev, sweep_levels(H, dev, rng, put, XbT, X01),
+                          [("gini", C) for C in WIDE_CHANNELS])
+    if not wins:
+        fail("level_epilogue wide gini: no winner in the 2-bin block was "
+             "checked")
+    print(f"level_epilogue gini at C = {WIDE_CHANNELS}: every output "
+          f"bitwise equal to the plain version (A = 1, 64, 128; 1 and 2 "
+          f"blocks, {wins} slots won in the 2-bin block; both drivers; "
+          f"depth-limit, last and all-dying levels; gain ties)")
+    for C in WIDE_CHANNELS:
+        ms, plain_ms, ebound, _args = epilogue_timed(H, dev, rng, put, XbT,
+                                                     X01, "gini", C)
+        times[f"level_epilogue gini C={C}"] = (ms, plain_ms, max(ebound))
+    Fp, T, D = WIDE_PREDICT
+    for K in WIDE_LEAVES:
+        X, feat, thr, leaf = predict_inputs(rng, put, Fp, T, D, K)
+        out = H.predict_trees(X, feat, thr, leaf, D)
+        ref = H.predict_trees_reference(X, feat, thr, leaf, D)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            fail(f"predict_trees F={Fp} T={T} D={D} K={K}: not bitwise "
+                 f"equal to the plain version (max abs err "
+                 f"{(out - ref).abs().max().item():.3g})")
+        ms = time_ms(lambda: H.predict_trees(X, feat, thr, leaf, D))
+        plain_ms = time_ms(lambda: H.predict_trees_reference(
+            X, feat, thr, leaf, D), reps=3)
+        pbound = max(predict_bound(Fp, T, D, K))
+        times[f"predict_trees F={Fp} T={T} D={D} K={K}"] = (ms, plain_ms,
+                                                            pbound)
+        print(f"predict_trees F={Fp} T={T} D={D} K={K} "
+              f"({-(-K // H.CHANNEL_CHUNK)} launches of <= "
+              f"{H.CHANNEL_CHUNK} leaf values): bitwise equal to the plain "
+              f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {1e3 * pbound:.5f} ms")
+    return times, worst
 
 
 def iris_one_point():
@@ -1950,6 +2139,126 @@ def multiclass_paths(H, IR, BO, data_dir, profile=False, dev="cuda"):
     return launches_by, iris
 
 
+#: letter-20k: the UCI "Letter Recognition" data's published widths (Frey
+#: and Slate, 1991): 20,000 rows, 16 integer features in 0..15, 26 classes
+#: (C = 27 stat channels, K = 26 leaf values); made from a seed
+LETTER_N, LETTER_F, LETTER_K = 20_000, 16, 26
+LETTER_SEED = 26
+LETTER_AGREE_N = 2_000
+#: the forest's and the decision tree's grids at letter-20k, and the
+#: smaller ones of the card/CPU agreement (the CPU's plain kernels)
+LETTER_TREES, LETTER_DEPTHS = 20, (8, 12)
+LETTER_AGREE_TREES, LETTER_AGREE_DEPTH = 5, 8
+LETTER_KERNELS = ("cumhist", "group_rows", "split_scan", "level_epilogue",
+                  "predict_trees")
+
+
+def letter_records(n, seed=LETTER_SEED):
+    """``n`` rows at the Letter Recognition data's widths: class k (0..25,
+    uniform) has one centre in 2..13 a feature, drawn first from the seed;
+    a row is its class's centre plus normal noise (sd 2), rounded and
+    clipped to 0..15. Fields ``x0`` .. ``x15`` and ``letter`` (the class
+    code)."""
+    rng = np.random.default_rng(seed)
+    centre = rng.integers(2, 14, size=(LETTER_K, LETTER_F))
+    y = rng.integers(0, LETTER_K, n)
+    X = np.clip(np.rint(centre[y] + rng.normal(0.0, 2.0, (n, LETTER_F))),
+                0, 15)
+    names = [f"x{j}" for j in range(LETTER_F)]
+    return [dict(zip(names, X[i].tolist()), letter=float(y[i]))
+            for i in range(n)]
+
+
+def letter_run(records, dev, n_trees, depths):
+    """letter's workflow on ``records``: 16 numeric predictors through
+    ``transmogrify``, ``MultiClassificationModelSelector`` (3-fold CV on
+    F1, 20% holdout) over a random forest of ``n_trees`` trees and a
+    decision tree at ``depths``, trained on ``dev``, then F1 over every
+    row. Returns the run's dict (as ``iris.run``'s)."""
+    from transmogrifai_tpu_torch import FeatureBuilder, Workflow
+    from transmogrifai_tpu_torch.dsl import transmogrify
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.models import (
+        DataCutter, DecisionTreeFamily, MultiClassificationModelSelector,
+        RandomForestFamily)
+    tree = {"minInstancesPerNode": 5, "minInfoGain": 0.0}
+    label = FeatureBuilder.RealNN("letter").from_column().as_response()
+    vec = transmogrify([FeatureBuilder.RealNN(f"x{j}").from_column()
+                        .as_predictor() for j in range(LETTER_F)])
+    sel = MultiClassificationModelSelector.with_cross_validation(
+        num_folds=3, families=[
+            RandomForestFamily(grid=[dict(tree, maxDepth=depths[-1])],
+                               num_trees=n_trees),
+            DecisionTreeFamily(grid=[dict(tree, maxDepth=d)
+                                     for d in depths])],
+        splitter=DataCutter(reserve_test_fraction=0.2, seed=42))
+    pred = label.transform_with(sel, vec)
+    t0 = time.perf_counter()
+    model = (Workflow().set_input_records(records).set_result_features(pred)
+             .set_splitter(sel.splitter).train(device=dev))
+    train_s = time.perf_counter() - t0
+    evaluator = Evaluators.MultiClassification.f1().set_columns(label, pred)
+    t1 = time.perf_counter()
+    scored, metrics = model.score_and_evaluate(records, evaluator,
+                                               device=dev)
+    selected = model.fitted_stages[sel.uid]
+    return {"model": model, "metrics": metrics, "scored": scored,
+            "prediction": pred, "summary": selected.selector_summary,
+            "trees": selected.inner.trees, "train_s": train_s,
+            "eval_s": time.perf_counter() - t1}
+
+
+def letter_path(H, dev="cuda"):
+    """letter-20k on the card with every launch counted: a 26-class forest
+    and decision tree through the wide kernels (C = 27 channels, K = 26
+    leaf values); then the card against the CPU at LETTER_AGREE_N rows
+    with the smaller grids: the same model and trees, F1 and every CV
+    fold's F1 within PROB_ATOL (each device sums its f32 metric in its
+    own order). Returns the path's launches."""
+    records = letter_records(LETTER_N)
+    out, launches = counted(
+        H, lambda: letter_run(records, dev, LETTER_TREES, LETTER_DEPTHS),
+        LETTER_KERNELS)
+    once_per_level(launches, "letter-20k")
+    s = out["summary"]
+    f1 = out["metrics"]["F1"]
+    pred = out["scored"][out["prediction"].name]
+    if not (len(pred.prediction) == LETTER_N
+            and np.isfinite(pred.probability).all()
+            and pred.probability.shape[1] == LETTER_K and 0.0 < f1 <= 1.0):
+        fail("letter-20k: scores are not finite or of the wrong shape")
+    print(f"letter-20k {LETTER_N} rows, {LETTER_F} features, {LETTER_K} "
+          f"classes: train {out['train_s']:.2f} s, "
+          f"{launches['group_rows']} levels, evaluate {out['eval_s']:.2f} "
+          f"s, best {s.best_model_name} {s.best_model_params}, F1 "
+          f"{f1:.6f}; holdout F1 {s.holdout_evaluation['F1']:.6f}")
+    print(f"letter-20k CV seconds by family: "
+          f"{s.validator_summary.family_seconds}")
+    print(f"letter-20k launches: {launches}")
+    t0 = time.perf_counter()
+    small = letter_records(LETTER_AGREE_N)
+    runs = {k: letter_run(small, d, LETTER_AGREE_TREES,
+                          (LETTER_AGREE_DEPTH,))
+            for k, d in (("cuda", dev), ("cpu", "cpu"))}
+    # the same trees; F1 (f32 on each device) within two f32 ulps at 1
+    agree_metric(runs, "F1", PROB_ATOL,
+                 f"letter, {LETTER_AGREE_N} rows, forest of "
+                 f"{LETTER_AGREE_TREES} trees and a decision tree")
+    a, b = runs["cuda"]["trees"], runs["cpu"]["trees"]
+    for k in ("feat", "thr", "tree_w"):
+        if not np.array_equal(np.asarray(a[k]), np.asarray(b[k])):
+            fail(f"letter, {LETTER_AGREE_N} rows: the winner's trees differ "
+                 f"on the card and the CPU ({k})")
+    err = float(np.max(np.abs(np.asarray(a["leaf"]) - np.asarray(b["leaf"]))))
+    if err > 1e-6:
+        fail(f"letter, {LETTER_AGREE_N} rows: leaf values differ by "
+             f"{err:.3g}")
+    print(f"letter, {LETTER_AGREE_N} rows: the winner's trees equal on the "
+          f"card and the CPU (features, thresholds; leaves within "
+          f"{err:.3g}); {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def coded_iris_model(iris_path, dev):
     """The iris data with the species as numeric codes (IRIS_CODES) and
     no indexer: the DataCutter re-indexes {1, 4, 6} to classes 0..2 and
@@ -2068,9 +2377,12 @@ def serve_iris(H, iris, root, dev="cuda"):
     return launches, coded_launches
 
 
-# -- phase 9: transmogrify for every feature type; mapprep-200k ----------
+# -- phase 9: transmogrify for every feature type; mapprep-100k ----------
 #: the features of phase 9's every-type store: (name, type, bulk maker)
 MAPPREP_SEED = 7
+#: mapprep-100k's and mapprep-guarded-100k's records (cut from 200,000 to
+#: make room for phase 20)
+MAPPREP_N = 100_000
 MAPPREP_AGREE_N = 20_000
 TYPE_KEYS = ("k0", "k1", "k2")
 CATS = np.array(["red", "green", "blue", "teal", "plum", "gold"],
@@ -2424,13 +2736,44 @@ def check_mapprep_kernels(H, TF, dev, X, y, run="mapprep"):
     return worst
 
 
+#: the shapes at which :func:`linear_predictor_times` times a linear
+#: prediction's margins: mapprep-100k's Score (its logistic regression at
+#: width 118), phase 10's LOCO batch (2,260,000 rows at width 113), and
+#: iris-200k's multinomial logistic regression (3 classes, width 4)
+LINEAR_SHAPES = ((MAPPREP_N, 118, None), (2_260_000, 113, None),
+                 (200_000, 4, 3))
+def linear_predictor_times(dev):
+    """A fitted linear model's margins at each of LINEAR_SHAPES (seeded
+    normal inputs): ``_linfit.row_dot`` (row-count independent, what a
+    fitted model's predictions take) beside ``X @ coef`` (a matrix
+    product, what the cross-validation folds take, and every prediction
+    before row_dot); the bound is X read once and the margins written
+    once."""
+    from transmogrifai_tpu_torch.models import _linfit as L
+    rng = np.random.default_rng(7)
+    for n, d, K in LINEAR_SHAPES:
+        X = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                            device=dev)
+        W = torch.as_tensor(rng.normal(size=(d,) if K is None else (K, d))
+                            .astype(np.float32), device=dev)
+        mm = (lambda: X @ W) if K is None else (lambda: X @ W.T)
+        own = L.row_dot(X, W)
+        times = {"row_dot": time_ms(lambda: L.row_dot(X, W)),
+                 "matmul": time_ms(mm)}
+        bound = (n * d * 4 + n * (K or 1) * 4) / HBM_BPS
+        print(f"linear margins n={n} d={d} K={K or 1}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+              + f"; bound {1e3 * bound:.5f} ms (bytes); |row_dot - matmul|"
+              f" max {(own - mm()).abs().max().item():.3g}")
+
+
 def mapprep_paths(H, TF, MP, root, profile=False, dev="cuda", records=None,
                   records_s=0.0):
-    """Phase 9, parts 2-4: mapprep-200k (the example's logistic regression,
+    """Phase 9, parts 2-4: mapprep-100k (the example's logistic regression,
     3-fold CV, AuPR) counted; the default families at one grid point each
     on the first 20,000 records, card against CPU, counted on the card
     (the tree kernels must launch), and the kernels held at that vector's
-    shapes (:func:`check_mapprep_kernels`); and the 200k model saved,
+    shapes (:func:`check_mapprep_kernels`); and the model saved,
     loaded and scored through the engine against the layer path.
     ``records``: the path's (made here from MAPPREP_SEED when None, in
     ``records_s`` seconds). Returns ({path: launches}, each kernel's max
@@ -2439,29 +2782,30 @@ def mapprep_paths(H, TF, MP, root, profile=False, dev="cuda", records=None,
     t_phase = time.perf_counter()
     if records is None:
         t0 = time.perf_counter()
-        records = MP.make_records(N, MAPPREP_SEED)
+        records = MP.make_records(MAPPREP_N, MAPPREP_SEED)
         records_s = time.perf_counter() - t0
     out, launches = counted(H, lambda: MP.run(
-        N, seed=MAPPREP_SEED, device=dev, records=records), ())
+        MAPPREP_N, seed=MAPPREP_SEED, device=dev, records=records), ())
     s, aupr = out["summary"], out["metrics"]["AuPR"]
     groups = {c.grouping for c in out["vector_meta"].columns}
     if out["blocked_cols"] or MP.BLOCKED_KEY in groups:
-        fail("mapprep-200k: the blocked key reached the vector")
+        fail("mapprep-100k: the blocked key reached the vector")
     if not 0.0 < aupr <= 1.0:
-        fail("mapprep-200k: AuPR out of range")
-    print(f"mapprep-200k {N} records: records {records_s:.2f} s, "
+        fail("mapprep-100k: AuPR out of range")
+    print(f"mapprep-100k {MAPPREP_N} records: records {records_s:.2f} s, "
           f"vectorize {out['vectorize_s']:.2f} s, selector "
           f"{out['selector_s']:.2f} s, train {out['train_s']:.2f} s, "
           f"evaluate {out['eval_s']:.2f} s, width {out['width']}, best "
           f"{s.best_model_name} {s.best_model_params}, AuPR {aupr:.6f}, "
           f"no {MP.BLOCKED_KEY} column")
-    print(f"mapprep-200k launches: {launches}")
-    stage_table(out["model"], "mapprep-200k")
-    check_fusion(out["model"], out["store"], "mapprep-200k", dev)
-    paths = {"mapprep-200k": launches}
+    print(f"mapprep-100k launches: {launches}")
+    linear_predictor_times(dev)
+    stage_table(out["model"], "mapprep-100k")
+    check_fusion(out["model"], out["store"], "mapprep-100k", dev)
+    paths = {"mapprep-100k": launches}
     if profile:
-        profile_path(H, "mapprep-200k", lambda: MP.run(
-            N, seed=MAPPREP_SEED, device=dev, records=records))
+        profile_path(H, "mapprep-100k", lambda: MP.run(
+            MAPPREP_N, seed=MAPPREP_SEED, device=dev, records=records))
 
     t0 = time.perf_counter()
     small = records[:MAPPREP_AGREE_N]
@@ -2498,7 +2842,7 @@ def mapprep_paths(H, TF, MP, root, profile=False, dev="cuda", records=None,
     def score():
         return loaded.score(store, device=dev)
     # warm-up: the engine's first program runs eagerly, then captures
-    loaded.score(store.take(np.arange(min(N, 8192))), device=dev)
+    loaded.score(store.take(np.arange(min(MAPPREP_N, 8192))), device=dev)
     H.reset_launch_counts()
     t0 = time.perf_counter()
     scored = score()
@@ -2511,14 +2855,15 @@ def mapprep_paths(H, TF, MP, root, profile=False, dev="cuda", records=None,
     same_predictions(scored[pred], layer[pred], "mapprep Score",
                      prob_atol=PROB_ATOL)
     print(f"mapprep serve: save {save_s:.2f} s, load {load_s:.2f} s, Score "
-          f"{score_s:.2f} s through the engine ({N / score_s:.0f} rows/s), "
+          f"{score_s:.2f} s through the engine "
+          f"({MAPPREP_N / score_s:.0f} rows/s), "
           f"layer path {layer_s:.2f} s; predictions equal, probabilities "
           f"within 2^-22")
     print(f"phase 9 mapprep: {time.perf_counter() - t_phase:.2f} s")
     return paths, worst
 
 
-# -- phase 10: the guard rails; mapprep-guarded-200k -----------------------
+# -- phase 10: the guard rails; mapprep-guarded-100k -----------------------
 #: the filter's scoring records: seed 8, every record's attrs without the
 #: "region" key (a key that disappeared upstream)
 GUARD_SCORE_N, GUARD_SCORE_SEED = 50_000, 8
@@ -2861,7 +3206,7 @@ def guard_second_life(H, out, root, dev="cuda"):
 
 
 def guarded_paths(H, TF, MP, records, root, profile=False, dev="cuda"):
-    """Phase 10: mapprep-guarded-200k counted (the tree kernels in every
+    """Phase 10: mapprep-guarded-100k counted (the tree kernels in every
     fold, ``predict_trees`` in LOCO); its kernels at the path's shapes;
     the card/CPU agreement at 20,000 records; the second life. Returns
     ({path: launches}, each kernel's max abs error, the LOCO-batch
@@ -2873,31 +3218,31 @@ def guarded_paths(H, TF, MP, records, root, profile=False, dev="cuda"):
     out, launches = counted(H, lambda: guarded_run(
         H, MP, records, srecs, dev, LOCO_ROWS, keep_fold=True),
         GUARD_KERNELS + ("predict_trees",))
-    sweep = fold_launches(out, "mapprep-guarded-200k")
+    sweep = fold_launches(out, "mapprep-guarded-100k")
     model, s = out["model"], out["summary"]
     excluded = [(r.name, r.key) for r in model.rff_results.exclusion_reasons
                 if r.excluded]
     if ("attrs", "region") not in excluded:
-        fail("mapprep-guarded-200k: (attrs, region) was not excluded")
+        fail("mapprep-guarded-100k: (attrs, region) was not excluded")
     names = out["scored"][out["vector"].name].metadata.column_names()
     if any("region" in nm for nm in names):
-        fail("mapprep-guarded-200k: a region column reached the vector")
+        fail("mapprep-guarded-100k: a region column reached the vector")
     vtype = s.validator_summary.validation_type
     if not vtype.startswith("WorkflowCV:"):
-        fail(f"mapprep-guarded-200k: summary type {vtype}")
+        fail(f"mapprep-guarded-100k: summary type {vtype}")
     if out["gbt_loco_launches"] < 1:
-        fail("mapprep-guarded-200k: predict_trees never launched in LOCO")
+        fail("mapprep-guarded-100k: predict_trees never launched in LOCO")
     from transmogrifai_tpu_torch.graph import cut_dag
     _ms, _b, during, _a = cut_dag(model.result_features)
     ph = model.phase_seconds
-    print(f"mapprep-guarded-200k: filter excluded {excluded}, blacklisted "
+    print(f"mapprep-guarded-100k: filter excluded {excluded}, blacklisted "
           f"{[f.name for f in model.blacklisted_features]}; width "
           f"{out['width']}; during stages "
           f"{[sorted(type(x).__name__ for x in layer) for layer in during]}")
     for r in s.validator_summary.results:
-        print(f"mapprep-guarded-200k fold metrics: {r.family_name} "
+        print(f"mapprep-guarded-100k fold metrics: {r.family_name} "
               f"{r.hparams} {r.metric_values} mean {r.mean_metric:.6f}")
-    print(f"mapprep-guarded-200k: {vtype}, best {s.best_model_name} "
+    print(f"mapprep-guarded-100k: {vtype}, best {s.best_model_name} "
           f"{s.best_model_params}, AuPR {out['metrics']['AuPR']:.6f}; "
           f"scoring records {score_records_s:.2f} s; train "
           f"{out['train_s']:.2f} s (filter {ph['rawFeatureFilter']:.2f}, "
@@ -2913,23 +3258,23 @@ def guarded_paths(H, TF, MP, records, root, profile=False, dev="cuda"):
     top = sorted(((d.contribution, d.column_name) for f in
                   out["insights"].features for d in f.derived
                   if d.contribution is not None), reverse=True)[:5]
-    print(f"mapprep-guarded-200k top contributions: "
+    print(f"mapprep-guarded-100k top contributions: "
           f"{[(nm, round(c, 6)) for c, nm in top]}")
-    print(f"mapprep-guarded-200k launches: {launches}; the sweep's: {sweep}")
-    stage_table(model, "mapprep-guarded-200k")
+    print(f"mapprep-guarded-100k launches: {launches}; the sweep's: {sweep}")
+    stage_table(model, "mapprep-guarded-100k")
     check_fusion(model, training_store(
         model, out["store"], rff=out["workflow"].raw_feature_filter),
-        "mapprep-guarded-200k", dev)
-    paths = {"mapprep-guarded-200k": launches}
+        "mapprep-guarded-100k", dev)
+    paths = {"mapprep-guarded-100k": launches}
     if profile:
-        profile_path(H, "mapprep-guarded-200k", lambda: guarded_run(
+        profile_path(H, "mapprep-guarded-100k", lambda: guarded_run(
             H, MP, records, srecs, dev, LOCO_ROWS))
 
     paths["mapprep-guarded-20k"], errs = guard_agreement(H, MP, records,
                                                          dev)
     fold0 = out.pop("fold0")
     worst = check_mapprep_kernels(H, TF, dev, fold0["X"], fold0["y"],
-                                  "mapprep-guarded-200k workflow-CV fold 0")
+                                  "mapprep-guarded-100k workflow-CV fold 0")
     del fold0
     err, ms, plain_ms, bound, n_loco = check_loco_predict(
         H, out["gbt"], out["X"], dev)
@@ -3813,14 +4158,14 @@ def check_fusion(model, store, what, dev="cuda"):
 
 
 def stage_seconds(BP, MP, DP, dev="cuda"):
-    """``--stage-seconds``: text-200k, mapprep-200k, mapprep-guarded-200k
+    """``--stage-seconds``: text-200k, mapprep-100k, mapprep-guarded-100k
     and eventlog-200k's training (no insights, no checks) twice each,
     with :func:`stage_table` after each train. A copy of this script in
     another checkout that has these paths reads that checkout's stages:
     two versions compare in one call, in turns."""
     from transmogrifai_tpu_torch.filters import RawFeatureFilter
     records = BP.synthesize_records(N, seed=42)
-    mrecords = MP.make_records(N, MAPPREP_SEED)
+    mrecords = MP.make_records(MAPPREP_N, MAPPREP_SEED)
     srecs = guard_scoring_records(MP, GUARD_SCORE_N)
     events = DP.make_event_log(EVENT_USERS, EVENTS_PER_USER, EVENT_SEED)
     for rep in range(2):
@@ -3829,11 +4174,12 @@ def stage_seconds(BP, MP, DP, dev="cuda"):
               f"vectorize {out['vectorize_s']:.4f} s, SanityChecker "
               f"{out['sanity_s']:.4f} s, AuPR {out['metrics']['AuPR']:.6f}")
         stage_table(out["model"], f"text-200k rep {rep}")
-        out = MP.run(N, seed=MAPPREP_SEED, device=dev, records=mrecords)
-        print(f"mapprep-200k rep {rep}: train {out['train_s']:.4f} s, "
+        out = MP.run(MAPPREP_N, seed=MAPPREP_SEED, device=dev,
+                     records=mrecords)
+        print(f"mapprep-100k rep {rep}: train {out['train_s']:.4f} s, "
               f"vectorize {out['vectorize_s']:.4f} s, AuPR "
               f"{out['metrics']['AuPR']:.6f}")
-        stage_table(out["model"], f"mapprep-200k rep {rep}")
+        stage_table(out["model"], f"mapprep-100k rep {rep}")
         store, sstore = MP.records_store(mrecords), MP.records_store(srecs)
         wf = MP.build_workflow(store, families=titanic_one_point(),
                                seed=MAPPREP_SEED)
@@ -3843,9 +4189,9 @@ def stage_seconds(BP, MP, DP, dev="cuda"):
         model = wf["workflow"].train(device=dev)
         torch.cuda.synchronize()
         s = model.fitted_stages[wf["selector"].uid].selector_summary
-        print(f"mapprep-guarded-200k rep {rep}: train "
+        print(f"mapprep-guarded-100k rep {rep}: train "
               f"{time.perf_counter() - t0:.4f} s, best {s.best_model_name}")
-        stage_table(model, f"mapprep-guarded-200k rep {rep}")
+        stage_table(model, f"mapprep-guarded-100k rep {rep}")
         wf = DP.build_workflow(*events)
         t0 = time.perf_counter()
         model = wf["workflow"].train(device=dev)
@@ -3909,15 +4255,18 @@ def timings(H, dev, BP, run):
 
 
 # -- phase 13: the remaining estimators and the rich DSL -----------------
-#: every-surface-25k's records (cut from 200,000 to make room for phase
-#: 16, and to 25,000 for phase 19), and the rows of each card/CPU
-#: agreement
-SURFACE_N = 25_000
+#: every-surface-20k's records (cut from 200,000 to make room for phase
+#: 16, to 25,000 for phase 19 and to 20,000, SURFACE_SERVE_N, for phase
+#: 20), and the rows of each card/CPU agreement
+SURFACE_N = 20_000
 SURFACE_SEED = 13
 SURFACE_AGREE_N = 2_000
-#: every-surface-25k's records compared engine against layer path (and
+#: every-surface-20k's records compared engine against layer path (and
 #: GBT's refit)
 SURFACE_SERVE_N = 20_000
+#: the engine against the layer path on fewer records, too: the linear
+#: margins sum each row in one order whatever the row count
+SURFACE_SHORT_N = 10_000
 #: taggers-5k's records: both packages tag one Python call a token on
 #: the host (NER ~0.7 ms and POS ~0.3 ms a 20-token note), so this path
 #: is cut from 200,000 records (to 20,000, and to 5,000 for phase 19;
@@ -4132,7 +4481,7 @@ def surface_agreement(ES, dev="cuda"):
 
 
 def surface_path(H, TF, ES, root, dev="cuda"):
-    """every-surface-25k: the rich-DSL workflow trained on 25,000
+    """every-surface-20k: the rich-DSL workflow trained on 20,000
     records with every launch counted (GBT's histogram, scan and epilogue
     kernels), its stage and family seconds, LDA's and Word2Vec's fits,
     Word2Vec's pairs, chunk and peak memory, the width, winner, AuPR and
@@ -4150,7 +4499,7 @@ def surface_path(H, TF, ES, root, dev="cuda"):
     t0 = time.perf_counter()
     check_gumbel_noise(dev)
     raw = ES.make_raw(SURFACE_N, SURFACE_SEED)
-    print(f"every-surface-25k: {SURFACE_N} records made in "
+    print(f"every-surface-20k: {SURFACE_N} records made in "
           f"{time.perf_counter() - t0:.2f} s")
     t0_store = time.perf_counter()
     store = ES.raw_store(raw)
@@ -4165,33 +4514,33 @@ def surface_path(H, TF, ES, root, dev="cuda"):
             ("cumhist", "group_rows", "split_scan", "level_epilogue"))
     finally:
         TP.w2v_train = inner
-    once_per_level(launches, "every-surface-25k")
+    once_per_level(launches, "every-surface-20k")
     model, s = out["model"], out["summary"]
     aupr, brier = out["metrics"]["AuPR"], out["bin_score"]["BrierScore"]
     if not (0.5 < aupr <= 1.0 and 0.0 < brier < 0.25):
-        fail(f"every-surface-25k: AuPR {aupr} / Brier {brier} out of range")
+        fail(f"every-surface-20k: AuPR {aupr} / Brier {brier} out of range")
     st = out["workflow"]["stages"]
     fit = {k: model.stage_metrics.get(st[k].origin_stage.uid, {}).get(
         "fitSeconds") for k in ("counts_vec", "topics", "embedding")}
-    print(f"every-surface-25k {SURFACE_N} records: store {store_s:.2f} s, "
+    print(f"every-surface-20k {SURFACE_N} records: store {store_s:.2f} s, "
           f"train "
           f"{out['train_s']:.2f} s, "
           f"evaluate {out['eval_s']:.2f} s, width {out['width']}, best "
           f"{s.best_model_name} {s.best_model_params}, AuPR {aupr:.6f}, "
           f"Brier {brier:.6f}; CV seconds by family "
           f"{s.validator_summary.family_seconds}")
-    print(f"every-surface-25k fits: count vectorizer {fit['counts_vec']} "
+    print(f"every-surface-20k fits: count vectorizer {fit['counts_vec']} "
           f"s, LDA {fit['topics']} s, Word2Vec {fit['embedding']} s "
           f"(training {stats.get('train_s', 0.0):.2f} s: "
           f"{stats.get('pairs')} pairs, {stats.get('chunk_pairs')} a chunk, "
           f"{stats.get('chunks_per_epoch')} chunks an epoch, peak "
           f"{stats.get('peak_bytes', 0) / 2**20:.1f} MiB over the "
           f"allocations before it)")
-    print(f"every-surface-25k training launches: {launches}")
-    stage_table(model, "every-surface-25k")
+    print(f"every-surface-20k training launches: {launches}")
+    stage_table(model, "every-surface-20k")
 
     # the prediction alone as the result (the same fitted stages): the
-    # engine's fused program, timed over the 25,000 records; then the
+    # engine's fused program, timed over the 20,000 records; then the
     # model as trained, whose tupled columns are host stages that read
     # the prediction (so nothing upstream of them fuses), and the layer
     # path, each on SURFACE_SERVE_N records: the host stages dominate
@@ -4230,8 +4579,15 @@ def surface_path(H, TF, ES, root, dev="cuda"):
     full = loaded["every-surface"].score(sub, device=dev, engine=True)
     layer = lp.score(sub, device=dev, engine=False)[pred]
     head = PredCols(scored[pred], SURFACE_SERVE_N)
+    # the layer path scores all rows at once and the engine in buckets of
+    # 8,192 (and a padded tail): a row's margin must not depend on it
+    short = lp.score(store.take(np.arange(SURFACE_SHORT_N)), device=dev,
+                     engine=False)[pred]
     for a, b, what in ((replay, head, "a replay against the first pass"),
                        (layer, head, "the layer path against the engine"),
+                       (short, PredCols(scored[pred], SURFACE_SHORT_N),
+                        f"the layer path on {SURFACE_SHORT_N} records "
+                        "against the engine"),
                        (full[pred], head, "the model with tupled columns")):
         same_predictions(a, b, f"every-surface serve: {what}")
     p, rawp, prob = out["workflow"]["tupled"]
@@ -4245,8 +4601,9 @@ def surface_path(H, TF, ES, root, dev="cuda"):
           f"{SURFACE_N / score_s:,.0f} records/s; plan "
           f"{ {k: sorted(v) for k, v in plan.items()} }; host stages "
           f"{sorted(host)}; graphs {eng.graphs_captured}; on "
-          f"{SURFACE_SERVE_N} records a replay, the layer path and the "
-          f"model with its tupled columns (host, plan "
+          f"{SURFACE_SERVE_N} records a replay, the layer path (and on "
+          f"{SURFACE_SHORT_N}) and the model with its tupled columns "
+          f"(host, plan "
           f"{[it.kind for it in loaded['every-surface'].scoring_engine(dev)._plan]})"
           f" give the same predictions, the tupled columns the "
           f"prediction's parts")
@@ -4254,15 +4611,15 @@ def surface_path(H, TF, ES, root, dev="cuda"):
     torch.cuda.synchronize()
     launches = dict(H.KERNEL_LAUNCHES)
     if not launches["predict_trees"]:
-        fail("every-surface-25k: predict_trees never launched")
+        fail("every-surface-20k: predict_trees never launched")
     print(f"every-surface GBT refit on {SURFACE_SERVE_N} records (so "
           f"predict_trees runs whichever family won): AuPR {refits}; "
           f"launches over training, serving and the refit: {launches}")
     if not fold0:
-        fail("every-surface-25k: the selector's CV kept no fold")
+        fail("every-surface-20k: the selector's CV kept no fold")
     worst = check_mapprep_kernels(H, TF, dev, fold0.pop("X"),
                                   fold0.pop("y"),
-                                  "every-surface-25k CV fold 0")
+                                  "every-surface-20k CV fold 0")
     surface_agreement(ES, dev)
     return launches, time.perf_counter() - t0, worst
 
@@ -4283,9 +4640,9 @@ def tagger_path(ES, dev="cuda"):
 
 
 def rich_dsl_paths(H, TF, BO, IR, root, dev="cuda"):
-    """Phase 13: boston-glm-200k, iris-mlp-200k, every-surface-25k and
+    """Phase 13: boston-glm-200k, iris-mlp-200k, every-surface-20k and
     taggers-5k, with each path's seconds. Returns ({path: launches},
-    each kernel's max abs error at every-surface-25k's fold shapes)."""
+    each kernel's max abs error at every-surface-20k's fold shapes)."""
     from transmogrifai_tpu_torch import every_surface as ES
     data_dir = os.path.join(root, "build", "data")
     seconds, launches_by = {}, {}
@@ -4295,7 +4652,7 @@ def rich_dsl_paths(H, TF, BO, IR, root, dev="cuda"):
                                                         root, dev))):
         out, launches = counted(H, fn, ())
         seconds[name], launches_by[name] = out, launches
-    (launches_by["every-surface-25k"], seconds["every-surface-25k"],
+    (launches_by["every-surface-20k"], seconds["every-surface-20k"],
      worst) = surface_path(H, TF, ES, root, dev)
     out, launches_by["taggers-5k"] = counted(H, lambda: tagger_path(ES,
                                                                      dev), ())
@@ -4808,13 +5165,18 @@ def telemetry_phase(H, BP, records, text_aupr, card, dev="cuda"):
     return launches
 
 
-#: phase 16, ooc-600k: BigPassenger records as Avro shards (one seed each)
-OOC_ROWS, OOC_SHARDS, OOC_SEED = 600_000, 6, 1600
+#: phase 16, ooc-400k: BigPassenger records as Avro shards (one seed each)
+#: (cut from 1,000,000 rows for phase 19 and to 400,000 for phase 20; 8
+#: shards, so the last half of the rows still spans several files for
+#: the RSS step check)
+OOC_ROWS, OOC_SHARDS, OOC_SEED = 400_000, 8, 1600
 OOC_HOLDOUT, OOC_HOLDOUT_SEED = 20_000, 1599
-#: the streamed fit's subsample, half ``workflow.STREAM_SAMPLE_ROWS``'
-#: default as the rows were cut from 1,000,000 to make room for phase 19
-#: (the streamed leg's ``TMOG_STREAM_SAMPLE_ROWS``)
-OOC_SAMPLE = 131_072
+#: the streamed fit's subsample, a quarter of ``workflow.
+#: STREAM_SAMPLE_ROWS``' default (the streamed leg's
+#: ``TMOG_STREAM_SAMPLE_ROWS``), cut with the rows (PR 20's 131,072 at
+#: 600,000 rows peaked 1.76 GB above the process's start; the cap at
+#: 400,000 rows leaves ~1.66 GB)
+OOC_SAMPLE = 65_536
 #: the streamed leg's peak RSS cap, as a share of the materialized leg's:
 #: below it, with room for the streamed leg's fixed part (the card's
 #: context and the Train on the subsample: 60% of the materialized peak
@@ -4853,7 +5215,7 @@ def write_shards(pool, jobs):
     """Write every (path, rows, seed) shard on the process pool."""
     for fp in pool.map(_write_shard, jobs):
         if not os.path.getsize(fp):
-            fail(f"ooc-600k: empty shard {fp}")
+            fail(f"ooc-400k: empty shard {fp}")
 
 
 def state_hex(states):
@@ -4914,7 +5276,7 @@ def ooc_leg(spec):
     ``rssCapMb``: the out-of-core fit at ``streamFitPasses`` 1)."""
     peak = RssPeak()
     from transmogrifai_tpu_torch import big_passenger as BP
-    from transmogrifai_tpu_torch import fitstats, telemetry
+    from transmogrifai_tpu_torch import fitstats, pipeline, telemetry
     from transmogrifai_tpu_torch.evaluators import Evaluators
     from transmogrifai_tpu_torch.models import _hist as H
     from transmogrifai_tpu_torch.ops.hashing import load_native
@@ -4979,6 +5341,32 @@ def ooc_leg(spec):
         return out
 
     wf._stream_raw_store = stream_ingest
+    fold_chunk = fitstats.StreamingMomentFold._fold_chunk
+
+    def fold_chunks(self, *a):
+        """Each chunk of the streamed fold on the device (one each
+        FITSTATS_CHUNK_ROWS rows, the last at ``finalize``): [rows folded
+        before it, RSS before it, RSS after it has run]."""
+        before = rss_now_mb()
+        out = fold_chunk(self, *a)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rss.setdefault("fold_chunks", []).append(
+            [self.n_rows, before, rss_now_mb()])
+        return out
+
+    fitstats.StreamingMomentFold._fold_chunk = fold_chunks
+    compact = pipeline.SeededRowSample._compact
+
+    def compacted(self):
+        """The subsample's compaction (its buffer past twice its rows cut
+        back to them): [rows offered, RSS before, RSS after]."""
+        before = rss_now_mb()
+        compact(self)
+        rss.setdefault("compactions", []).append(
+            [self.total_rows, before, rss_now_mb()])
+
+    pipeline.SeededRowSample._compact = compacted
 
     def train(custom, model_dir):
         reader = Kept(spec["dir"], settle_s=0.0)
@@ -5038,7 +5426,7 @@ def run_leg(spec):
              if ln.startswith("OOC_LEG ")]
     if proc.returncode != 0 or len(lines) != 1:
         sys.stderr.write(proc.stderr[-6000:])
-        fail(f"ooc-600k: the {spec['mode']} leg exited {proc.returncode}")
+        fail(f"ooc-400k: the {spec['mode']} leg exited {proc.returncode}")
     res = json.loads(lines[0][len("OOC_LEG "):])
     res["process_s"] = time.perf_counter() - t0
     return res
@@ -5089,23 +5477,23 @@ def streaming_score_runs(H, model_dir, score_dir, work, records, card,
     torch.cuda.synchronize()
     launches = dict(H.KERNEL_LAUNCHES)
     if launches["predict_trees"] == 0:
-        fail("ooc-600k StreamingScore: predict_trees never launched")
+        fail("ooc-400k StreamingScore: predict_trees never launched")
     n = STREAM_FILES * STREAM_FILE_ROWS
     written = {}
     for w, (m, secs, params) in runs.items():
         if (m["rowsScored"], m["quarantinedFiles"], m["batches"],
                 m["quarantinedBatches"]) != (n, 1, STREAM_FILES, 0):
-            fail(f"ooc-600k StreamingScore at {w} worker(s): {m}")
+            fail(f"ooc-400k StreamingScore at {w} worker(s): {m}")
         if m["pipelineWorkers"] != w:
-            fail(f"ooc-600k StreamingScore pipelineWorkers "
+            fail(f"ooc-400k StreamingScore pipelineWorkers "
                  f"{m['pipelineWorkers']}, asked {w}")
         dead = resilience.Quarantine(params.quarantine_location).entries()
         if [(e["site"], e["kind"]) for e in dead] != [
                 ("stream.read_file", "files")]:
-            fail(f"ooc-600k StreamingScore quarantine: {dead}")
+            fail(f"ooc-400k StreamingScore quarantine: {dead}")
         written[w] = sink_rows(params.write_location)
     if written[1] != written[4]:
-        fail("ooc-600k StreamingScore: predictions differ between 1 and 4 "
+        fail("ooc-400k StreamingScore: predictions differ between 1 and 4 "
              "workers")
     plain = OpWorkflowRunner(None, scoring_reader=DataReaders.simple.records(
         records), device=dev)
@@ -5113,11 +5501,11 @@ def streaming_score_runs(H, model_dir, score_dir, work, records, card,
     plain.run(RunType.SCORE, OpParams(model_location=model_dir,
                                       write_location=plain_out))
     if sink_rows(plain_out) != written[1]:
-        fail("ooc-600k StreamingScore: predictions differ from a plain "
+        fail("ooc-400k StreamingScore: predictions differ from a plain "
              "Score of the same records")
     rates = {w: n / runs[w][1] for w in runs}
     m1 = runs[1][0]
-    print(f"ooc-600k StreamingScore ({card}): {n:,} records in "
+    print(f"ooc-400k StreamingScore ({card}): {n:,} records in "
           f"{STREAM_FILES} files + "
           f"1 truncated file quarantined; workers 1: {runs[1][1]:.2f} s "
           f"({rates[1]:,.0f} rows/s), workers 4: {runs[4][1]:.2f} s "
@@ -5131,16 +5519,16 @@ def streaming_score_runs(H, model_dir, score_dir, work, records, card,
     m, _s, params = run(1, "stream-fault", plan)
     if (m["quarantinedBatches"], m["rowsScored"]) != (
             1, n - STREAM_FILE_ROWS):
-        fail(f"ooc-600k stream.score_batch fault: {m}")
+        fail(f"ooc-400k stream.score_batch fault: {m}")
     got = sink_rows(params.write_location)
     # the header, then batch k's rows at 1 + k·rows
     lo, hi = 1 + 3 * STREAM_FILE_ROWS, 1 + 4 * STREAM_FILE_ROWS
     if got != written[1][:lo] + written[1][hi:]:
-        fail("ooc-600k stream.score_batch fault: the other batches differ")
+        fail("ooc-400k stream.score_batch fault: the other batches differ")
     dead = [e for e in resilience.Quarantine(
         params.quarantine_location).entries() if e["kind"] == "batches"]
     if [(e["index"], e["rows"]) for e in dead] != [(3, STREAM_FILE_ROWS)]:
-        fail(f"ooc-600k stream.score_batch fault quarantined {dead}")
+        fail(f"ooc-400k stream.score_batch fault quarantined {dead}")
     before = resilience.resilience_stats()["quarantined_batches"]
     # the first chunk of batch 3 (a batch runs in chunks of the engine's
     # largest bucket)
@@ -5152,12 +5540,12 @@ def streaming_score_runs(H, model_dir, score_dir, work, records, card,
         run(4, "stream-device-fault", plan)
     except OSError as e:
         if not resilience.is_device_failure(e):
-            fail(f"ooc-600k device fault raised unmarked: {e!r}")
+            fail(f"ooc-400k device fault raised unmarked: {e!r}")
     else:
-        fail("ooc-600k: a scoring.device_dispatch fault did not raise")
+        fail("ooc-400k: a scoring.device_dispatch fault did not raise")
     if resilience.resilience_stats()["quarantined_batches"] != before:
-        fail("ooc-600k: a device fault was quarantined")
-    print(f"ooc-600k faults: a stream.score_batch fault on batch 3 "
+        fail("ooc-400k: a device fault was quarantined")
+    print(f"ooc-400k faults: a stream.score_batch fault on batch 3 "
           f"quarantined that batch alone (the other {n - STREAM_FILE_ROWS:,}"
           f" predictions bitwise); a scoring.device_dispatch fault on "
           f"batch 3 raised out of the run, nothing quarantined")
@@ -5201,10 +5589,10 @@ def ooc_small(H, BP, directory, holdout, dev, passes=(2,)):
 
 
 def ooc_phase(H, BP, card, dev="cuda"):
-    """Phase 16, ooc-600k: out-of-core ingest on the card.
+    """Phase 16, ooc-400k: out-of-core ingest on the card.
 
-    600,000 BigPassenger records (text-200k's schema and widths) as 6
-    Avro shards of 100,000, one seed each, written on a process pool, and
+    400,000 BigPassenger records (text-200k's schema and widths) as 8
+    Avro shards of 50,000, one seed each, written on a process pool, and
     a 20,000-record holdout. (a) A fresh process trains text-200k's
     workflow through ``OpWorkflowRunner`` with ``streamFit`` false on all
     of them (the directory reader's ``read_records``) and computes the
@@ -5258,7 +5646,7 @@ def ooc_phase(H, BP, card, dev="cuda"):
         blob = fh.read()
     with open(cut + "-cut.avro", "wb") as fh:
         fh.write(blob[:len(blob) * 3 // 5])
-    print(f"ooc-600k data: {OOC_ROWS:,} records in {OOC_SHARDS} shards, "
+    print(f"ooc-400k data: {OOC_ROWS:,} records in {OOC_SHARDS} shards, "
           f"{OOC_HOLDOUT:,} holdout, {STREAM_FILES * STREAM_FILE_ROWS:,} "
           f"to score, {OOC_AGREE_ROWS:,} for the agreement, written in "
           f"{gen_s:.2f} s on {workers} processes")
@@ -5272,59 +5660,68 @@ def ooc_phase(H, BP, card, dev="cuda"):
     for what, leg in (("materialized", mat), ("streamed", st)):
         missing = [k for k in OOC_KERNELS if leg["launches"][k] == 0]
         if missing:
-            fail(f"ooc-600k {what} leg never launched {missing}")
-        once_per_level(leg["launches"], f"ooc-600k {what} leg")
-        print(f"ooc-600k {what} leg ({card}): Train {leg['train_s']:.2f} s "
+            fail(f"ooc-400k {what} leg never launched {missing}")
+        once_per_level(leg["launches"], f"ooc-400k {what} leg")
+        print(f"ooc-400k {what} leg ({card}): Train {leg['train_s']:.2f} s "
               f"(ingest {leg['ingest_s']}), process {leg['process_s']:.2f} "
               f"s, peak RSS {leg['peak_rss_mb']:.1f} MB, {leg['train_rows']:,}"
               f" training rows, best {leg['best']}, holdout AuPR "
               f"{leg['aupr']:.6f}, launches {leg['launches']}")
     if mat["rows"] != OOC_ROWS:
-        fail(f"ooc-600k: the materialized leg read {mat['rows']} rows")
+        fail(f"ooc-400k: the materialized leg read {mat['rows']} rows")
     if st["stream_rows"] != [OOC_ROWS, OOC_SAMPLE]:
-        fail(f"ooc-600k: streamed rows {st['stream_rows']}")
+        fail(f"ooc-400k: streamed rows {st['stream_rows']}")
     if st["states"] != mat["states"]:
         bad = [nm for nm in mat["states"]
                if st["states"].get(nm) != mat["states"][nm]]
-        fail(f"ooc-600k: the streamed fold's states differ from the device "
+        fail(f"ooc-400k: the streamed fold's states differ from the device "
              f"pass's over the full store: {bad}")
     if not st["peak_rss_mb"] < cap:
-        fail(f"ooc-600k: streamed peak RSS {st['peak_rss_mb']} MB not under "
+        fail(f"ooc-400k: streamed peak RSS {st['peak_rss_mb']} MB not under "
              f"rssCapMb {cap}")
-    growth, step = {}, {}
+    growth, step, once = {}, {}, {}
     for what, leg in (("materialized", mat), ("streamed", st)):
         probes = leg["rss"]["probes"]
         at = dict((r, mb) for r, mb in probes)
         if OOC_ROWS // 2 not in at or OOC_ROWS not in at:
-            fail(f"ooc-600k {what} leg: no RSS probe at {OOC_ROWS // 2:,} and "
+            fail(f"ooc-400k {what} leg: no RSS probe at {OOC_ROWS // 2:,} and "
                  f"{OOC_ROWS:,} rows: {probes}")
         growth[what] = at[OOC_ROWS] - at[OOC_ROWS // 2]
+        # the fold's device chunks in that half: the first one's step is
+        # the CUDA modules its kernels load at their first launch
+        once[what] = sum(b - a for r, a, b in leg["rss"].get(
+            "fold_chunks", ()) if r >= OOC_ROWS // 2)
         step[what] = float(np.median([
             b[1] - a[1] for a, b in zip(probes, probes[1:])
             if a[0] >= OOC_ROWS // 2]))
-        print(f"ooc-600k {what} leg RSS ({card}): {leg['rss']['base_mb']:.1f} "
+        print(f"ooc-400k {what} leg RSS ({card}): {leg['rss']['base_mb']:.1f} "
               f"MB before the run, {at[OOC_ROWS // 2]:.1f} MB at "
               f"{OOC_ROWS // 2:,} rows ingested, {at[OOC_ROWS]:.1f} MB at "
               f"{OOC_ROWS:,}; peak {leg['rss']['startup_peak_mb']:.1f} MB "
               f"before the run, {leg['rss']['ingest_peak_mb']:.1f} MB at "
               f"the ingest's end, {leg['peak_rss_mb']:.1f} MB at the end "
               f"(ru_maxrss {leg['ru_maxrss_mb']:.1f} MB); by file "
-              f"{leg['rss']['probes']}")
+              f"{leg['rss']['probes']}; the fold's device chunks "
+              f"[rows, MB before, MB after] {leg['rss'].get('fold_chunks')}; "
+              f"the subsample's compactions "
+              f"{leg['rss'].get('compactions')}")
     if not step["streamed"] <= OOC_RSS_STEP_SHARE * step["materialized"]:
-        fail(f"ooc-600k: the streamed leg's RSS stepped a median "
+        fail(f"ooc-400k: the streamed leg's RSS stepped a median "
              f"{step['streamed']:.1f} MB a file over the last "
              f"{OOC_ROWS // 2:,} rows, against {step['materialized']:.1f} MB "
              f"materialized")
     d_aupr = abs(st["aupr"] - mat["aupr"])
     if not d_aupr <= OOC_AUPR_TOL:
-        fail(f"ooc-600k: holdout AuPR {st['aupr']} against {mat['aupr']}")
-    print(f"ooc-600k ({card}): the fold's states over {OOC_ROWS:,} rows "
+        fail(f"ooc-400k: holdout AuPR {st['aupr']} against {mat['aupr']}")
+    print(f"ooc-400k ({card}): the fold's states over {OOC_ROWS:,} rows "
           f"bitwise the device pass's ({len(st['states'])} columns); "
           f"subsample {OOC_SAMPLE:,}; peak RSS streamed "
           f"{st['peak_rss_mb']:.1f} MB < rssCapMb {cap} "
           f"({OOC_RSS_SHARE:g} of the materialized {mat['peak_rss_mb']:.1f}"
           f" MB); over the last {OOC_ROWS // 2:,} rows RSS grew "
-          f"{growth['streamed']:.1f} MB streamed (median step "
+          f"{growth['streamed']:.1f} MB streamed ("
+          f"{growth['streamed'] - once['streamed']:.1f} less the fold's "
+          f"device chunks' {once['streamed']:.1f}; median step "
           f"{step['streamed']:.1f} MB a file), "
           f"{growth['materialized']:.1f} MB materialized (median step "
           f"{step['materialized']:.1f}); holdout |dAuPR| "
@@ -5357,7 +5754,7 @@ def ooc_phase(H, BP, card, dev="cuda"):
     launches = {k: (mat["launches"][k] + st["launches"][k]
                     + stream_launches[k] + small_launches[k])
                 for k in H.KERNEL_LAUNCHES}
-    print(f"ooc-600k launches: {launches}")
+    print(f"ooc-400k launches: {launches}")
     print(f"phase 16: {time.perf_counter() - t_phase:.2f} s ({card})")
     return launches
 
@@ -6406,7 +6803,7 @@ def serve_tenants_phase(H, BP, card, records=None, serve200k_dir=None,
 FLEET_WORKERS = 2
 #: closed-loop HTTP clients through the router, and requests each
 FLEET_CLIENTS = 4
-FLEET_REQUESTS = 100
+FLEET_REQUESTS = 50
 #: requests of the canary step, each sent to both workers
 FLEET_CANARY_REQUESTS = 16
 #: the replay's speed-up of the recorded arrivals (the first requests,
@@ -7122,6 +7519,111 @@ def fleet_tenants_phase(H, BP, card, records, ctx, dev="cuda"):
     return launches
 
 
+# -- phase 20: the offline autotuner over phase 19's workload -------------
+#: tune-serve200k's search: one knob, the first TUNE_REQUESTS runnable
+#: records of the workload a leg, and a budget that ends the search (a
+#: leg started before it runs to its end)
+TUNE_KNOBS = ("serveBatchDeadlineMs",)
+TUNE_BUDGET_S = 15.0
+TUNE_REQUESTS = 64
+TUNE_KERNELS = ("predict_trees",)
+
+
+def tune_phase(H, ctx, card, dev="cuda"):
+    """Phase 20, tune-serve200k: ``python -m transmogrifai_tpu_torch tune``
+    (in this process, through ``cli.main``) over phase 19's recorded
+    shards (merged by the command), with phase 19's params less the
+    recorder, the trace directory and workers: each leg an in-process
+    server on the card serving both tenants at text-200k's 451 columns
+    (churn from the registry, serve200k from phase 7's model), the first
+    TUNE_REQUESTS records replayed against it with score parity, the
+    objective p99, one knob, a budget of TUNE_BUDGET_S. Checks: no
+    leg is rejected (each serves the same models) and none has a parity
+    failure; the tuned params pass ``check``; the report's digest is its bytes'; and
+    ``predict_trees`` launched. Prints each leg's p99, rows/s and
+    seconds, the winner and the phase's seconds. Returns its launches.
+    (The fleet leg, ``fleetWorkers`` > 0, is not run on the card: two
+    worker starts a leg.)"""
+    import hashlib
+    from transmogrifai_tpu_torch import cli
+    from transmogrifai_tpu_torch import tuner as TU
+    t_phase = time.perf_counter()
+    work = os.path.join(ctx["work"], "fleet")
+    with open(os.path.join(work, "fleet_params.json")) as fh:
+        doc = json.load(fh)
+    for key in ("workloadDir", "workloadPayloads", "traceDir",
+                "fleetWorkers"):
+        doc["customParams"].pop(key, None)
+    params = os.path.join(work, "tune_params.json")
+    with open(params, "w") as fh:
+        json.dump(doc, fh, indent=1, sort_keys=True)
+    timed = []
+    inner = TU._boot_and_replay
+
+    def leg(*a, **kw):
+        t0 = time.perf_counter()
+        rep = inner(*a, **kw)
+        rows = sum(int(m.get("rows", 0))
+                   for m in (rep.get("models") or {}).values())
+        timed.append((time.perf_counter() - t0,
+                      rows / rep["durationS"] if rep.get("durationS")
+                      else 0.0))
+        return rep
+    TU._boot_and_replay = leg
+    try:
+        t0 = time.perf_counter()
+        rc, launches = counted(H, lambda: cli.main(
+            ["tune", params, "--workload", os.path.join(work, "workload"),
+             "--knobs", ",".join(TUNE_KNOBS), "--budget-s",
+             str(TUNE_BUDGET_S), "--max-requests", str(TUNE_REQUESTS),
+             "--device", "cuda" if str(dev) == "cuda" else str(dev)]),
+            TUNE_KERNELS)
+        search_s = time.perf_counter() - t0
+    finally:
+        TU._boot_and_replay = inner
+    tuned = os.path.join(work, "tune_params.tuned.json")
+    report_path = os.path.join(work, "tune_params.tuned.tuning-report.json")
+    rep = json.load(open(report_path))
+    if rc != 0:
+        fail(f"tune-serve200k: tune exited {rc}: {rep.get('legs')}")
+    legs = rep["legs"]
+    if not legs or legs[0]["label"] != "baseline":
+        fail(f"tune-serve200k: no baseline leg first: {legs}")
+    # every leg serves the same models, so a leg the tuner rejected (a
+    # parity failure, failed requests, a boot or replay error: a launch or
+    # CUDA error included) is a fault here, not a losing candidate
+    bad = [leg for leg in legs if leg.get("rejected")
+           or leg.get("parityFailures") or not leg.get("parityChecked")]
+    if bad:
+        fail(f"tune-serve200k: legs rejected or with parity failures {bad}")
+    if len(timed) != len(legs):
+        fail(f"tune-serve200k: {len(timed)} legs timed for {len(legs)} in "
+             "the report")
+    if cli.main(["check", tuned]) != 0:
+        fail("tune-serve200k: check of the tuned params exited non-zero")
+    body = {k: v for k, v in rep.items() if k != "digest"}
+    digest = "blake2b:" + hashlib.blake2b(json.dumps(
+        body, sort_keys=True, separators=(",", ":"), default=str).encode(),
+        digest_size=16).hexdigest()
+    if digest != rep["digest"]:
+        fail("tune-serve200k: the report's digest is not its bytes'")
+    for (secs, rows_s), leg in zip(timed, legs):
+        print(f"tune-serve200k leg {leg['label']}: p99 {leg['p99Ms']} ms, "
+              f"{rows_s:.1f} rows/s, {secs:.2f} s, sent {leg['sent']}, "
+              f"parity checked {leg['parityChecked']} / failures "
+              f"{leg['parityFailures']}, rejected {leg['rejected']}")
+    print(f"tune-serve200k ({card}): {rep['legsMeasured']} legs in "
+          f"{search_s:.2f} s (budget {TUNE_BUDGET_S:g} s, expired "
+          f"{rep['budgetExpired']}), baseline p99 {rep['baselineScore']} -> "
+          f"winner {rep['winnerScore']} ms, winner "
+          f"{rep['winner'] or 'the baseline'}; tuned params pass check; "
+          f"digest {rep['digest']}")
+    print(f"tune-serve200k launches: {launches}")
+    print(f"tune-serve200k: phase 20 took {time.perf_counter() - t_phase:.2f}"
+          " s")
+    return launches
+
+
 def phase_seconds(n, t0):
     """Print phase ``n``'s wall seconds since ``t0``; the time now."""
     t = time.perf_counter()
@@ -7189,6 +7691,11 @@ def main():
     if "--every-surface-only" in sys.argv[1:]:
         rich_dsl_paths(H, TF, BO, IR, root)
         return 0
+    if "--wide-only" in sys.argv[1:]:
+        check_wide_channels(H, dev)
+        check_multiclass_kernels(H, dev)
+        letter_path(H)
+        return 0
     if "--plan-only" in sys.argv[1:]:
         plan_phase(H, BP, TT, BP.synthesize_records(N, seed=42), None,
                    TT.run(device="cuda"), card)
@@ -7203,7 +7710,7 @@ def main():
         gen_phase(H, BP, card)
         return 0
     if "--serve-tenants-only" in sys.argv[1:] or \
-            "--fleet-only" in sys.argv[1:]:
+            "--fleet-only" in sys.argv[1:] or "--tune-only" in sys.argv[1:]:
         records = BP.synthesize_records(N, seed=42)
         saved = os.path.join(root, "build", "serve", "big_passenger")
         if not os.path.isdir(saved):
@@ -7217,12 +7724,17 @@ def main():
                                      keep=True)
         try:
             fleet_tenants_phase(H, BP, card, records, ctx)
+            if "--tune-only" in sys.argv[1:]:
+                tune_phase(H, ctx, card)
         finally:
             shutil.rmtree(ctx["work"], ignore_errors=True)
         return 0
 
     t_ph = time.perf_counter()
     rows = check_kernels(H, TF, dev)
+    wide_times, worst = check_wide_channels(H, dev)
+    for name, err in worst.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     path_launches = {}
     t_ph = phase_seconds(2, t_ph)
 
@@ -7338,15 +7850,16 @@ def main():
     data_dir = os.path.join(root, "build", "data")
     launches_by, iris = multiclass_paths(H, IR, BO, data_dir, profile)
     path_launches.update(launches_by)
+    path_launches["letter-20k"] = letter_path(H)
     (path_launches["serve-iris"],
      path_launches["serve-iris-coded"]) = serve_iris(H, iris, root)
 
     t_ph = phase_seconds(8, t_ph)
-    # -- phase 9: every feature type; mapprep-200k ------------------------
+    # -- phase 9: every feature type; mapprep-100k ------------------------
     t0 = time.perf_counter()
     check_every_type()
     t1 = time.perf_counter()
-    mapprep_records = MP.make_records(N, MAPPREP_SEED)
+    mapprep_records = MP.make_records(MAPPREP_N, MAPPREP_SEED)
     mapprep_launches, worst = mapprep_paths(
         H, TF, MP, root, profile, records=mapprep_records,
         records_s=time.perf_counter() - t1)
@@ -7355,7 +7868,7 @@ def main():
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     print(f"phase 9: {time.perf_counter() - t0:.2f} s")
 
-    # -- phase 10: the guard rails; mapprep-guarded-200k ------------------
+    # -- phase 10: the guard rails; mapprep-guarded-100k ------------------
     guard_launches, worst, loco_row = guarded_paths(
         H, TF, MP, mapprep_records, root, profile)
     path_launches.update(guard_launches)
@@ -7388,8 +7901,8 @@ def main():
     path_launches["telemetry-200k"] = telemetry_phase(H, BP, records,
                                                       text_aupr, card)
 
-    # -- phase 16: out-of-core ingest at ooc-600k ---------------------------
-    path_launches["ooc-600k"] = ooc_phase(H, BP, card)
+    # -- phase 16: out-of-core ingest at ooc-400k ---------------------------
+    path_launches["ooc-400k"] = ooc_phase(H, BP, card)
 
     # -- phase 17: the command line end to end (gen-200k) -----------------
     t_ph = time.perf_counter()
@@ -7403,12 +7916,15 @@ def main():
     t_ph = phase_seconds(18, t_ph)
 
     # -- phase 19: the fleet, the workload, continuous training -----------
+    # -- phase 20: the offline autotuner over phase 19's workload ---------
     try:
         path_launches["fleet-tenants"] = fleet_tenants_phase(
             H, BP, card, records, ctx)
+        t_ph = phase_seconds(19, t_ph)
+        path_launches["tune-serve200k"] = tune_phase(H, ctx, card)
     finally:
         shutil.rmtree(ctx["work"], ignore_errors=True)
-    phase_seconds(19, t_ph)
+    phase_seconds(20, t_ph)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",
@@ -7436,6 +7952,9 @@ def main():
           f"{gini['plain_ms']:.4f} ms, bound {gini['bound_ms']:.5f} ms")
     for what, (ms, plain_ms, bound) in wide.items():
         print(f"{what} (phase 8): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {1e3 * bound:.5f} ms")
+    for what, (ms, plain_ms, bound) in wide_times.items():
+        print(f"{what} (phase 2): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {1e3 * bound:.5f} ms")
     print(f"predict_trees at the LOCO batch (phase 10, n={loco_row['n']}): "
           f"{loco_row['ms']:.4f} ms, plain {loco_row['plain_ms']:.4f} ms, "

@@ -5,8 +5,8 @@ of the bundled Titanic CSV and of generated iris and boston files,
 generated project trained on the CPU (LR only, 2 folds: the shrink
 ``tests/test_cli.py`` uses) with its model loading in both packages,
 ``check`` / ``plan`` / ``trace merge`` over it, ``fleet``, ``workload``
-and ``trace analyze`` on the arguments the JAX parser takes, and ``tune``
-(its module is not ported) exiting non-zero naming its ROADMAP item."""
+``trace analyze`` and ``tune`` on the arguments the JAX parser takes
+(``tune`` in full: tests/test_torch_tuner.py)."""
 import csv
 import json
 import os
@@ -220,7 +220,7 @@ def test_trace_merge_merges_the_runs_shards(trained, capsys, tmp_path):
 #: takes (``serve`` and ``registry``: tests/test_torch_server.py and
 #: tests/test_torch_lifecycle.py; ``fleet``, ``workload`` and ``trace
 #: analyze`` in full: tests/test_torch_fleet.py and
-#: tests/test_torch_workload.py). Only ``tune`` is not ported.
+#: tests/test_torch_workload.py; ``tune``: tests/test_torch_tuner.py).
 OPS_COMMANDS = {
     "fleet": ["fleet", "params.json", "--workers", "2"],
     "workload": ["workload", "merge", "dir"],
@@ -233,18 +233,21 @@ OPS_COMMANDS = {
 def test_unported_subcommands_exit_nonzero_naming_their_item(
         name, capsys, tmp_path, monkeypatch):
     """The operations tier's commands on these arguments (the name is
-    kept from when all four exited 2). ``tune`` exits 2 naming A6.8 (d).
-    The ported ones run on these
+    kept from when all four exited 2). Each runs on these
     arguments in a directory that holds them: ``workload merge dir`` over
     a recorded shard and ``trace analyze dir`` over a trace shard exit 0
     with the JAX command's output; ``fleet params.json`` with no such file
-    exits 1 naming it, before any worker starts."""
+    exits 1 naming it, before any worker starts; ``tune params.json
+    --workload w.json`` with no such workload exits 1 as the JAX command
+    does, printing the same line."""
     monkeypatch.chdir(tmp_path)
     argv = OPS_COMMANDS[name]
     if name == "tune":
-        assert pcli.main(argv) == 2
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and "A6.8 (d)" in err
+        assert pcli.main(argv) == 1
+        got = capsys.readouterr().out
+        assert jcli.main(argv) == 1
+        assert got == capsys.readouterr().out
+        assert "cannot load workload 'w.json'" in got
         return
     if name == "fleet":
         assert pcli.main(argv) == 1
@@ -277,7 +280,7 @@ def test_python_dash_m_runs_the_command_line(tmp_path):
                           "tune", "params.json", "--workload", "w.json"],
                          capture_output=True, text=True, env=_env(),
                          timeout=300)
-    assert res.returncode == 2 and "A6.8 (d)" in res.stderr
+    assert res.returncode == 1 and "cannot load workload" in res.stdout
     res = subprocess.run([sys.executable, "-m", "transmogrifai_tpu_torch",
                           "registry", "list", "--registry",
                           str(tmp_path / "reg")],

@@ -196,12 +196,12 @@ def test_ingest_modules_are_scanned(module):
 
 @pytest.mark.parametrize("module", ["server.py", "lifecycle.py", "cli.py",
                                     "workload.py", "fleet.py",
-                                    "continual.py"])
+                                    "continual.py", "tuner.py"])
 def test_serving_tier_modules_are_scanned(module):
     """The model server, the model lifecycle, the command line that
-    serves them, the workload recorder, the serving fleet and continuous
-    training are among the sources scanned above and the modules imported
-    with ``jax`` blocked."""
+    serves them, the workload recorder, the serving fleet, continuous
+    training and the offline autotuner are among the sources scanned
+    above and the modules imported with ``jax`` blocked."""
     path = PORT / module
     assert path in SOURCES
     dotted = ".".join(path.relative_to(ROOT).with_suffix("").parts)

@@ -9,9 +9,11 @@ leaves), and the iris path (``iris.run`` against ``examples/iris.py``'s
 1e-9, the same species names; then the JAX-trained model carried over,
 models saved by either package loaded by the other, a ``label_mapping``
 both ways, and the scoring engine against the layer path. A ``slow`` case
-runs the default grids. The card's refusal of more than seven classes is
-shown without a card (the check reads the device only) and, ``cuda``
-marked, on it."""
+runs the default grids. Trees of 10 and 26 classes (11 and 27 stat
+channels, past one launch of the card's histograms) are held exactly
+against the JAX package's too; the card's class limit is shown without a
+card (the check reads the device only), and, ``cuda`` marked, a 9-class
+fit on the card and the wide kernels against their plain versions."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -343,15 +345,65 @@ def test_three_class_forest_matches_jax(cls_data, n_trees, unroll):
                                    atol=1e-12)
 
 
+def _classes_data(k, n=1000, seed=10):
+    """[n, 6] features and ``k`` classes, each feature leaning on the
+    class, with a fold mask."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, k, n).astype(np.float64)
+    X = rng.normal(size=(n, 6))
+    X[:, 0] += 0.7 * y
+    X[:, 1] -= 0.4 * (y % 5)
+    X[:, 2] = rng.random(n) < 0.3
+    X[:, 3] += (y % 3)
+    w = (rng.random(n) > 0.3) * 1.0
+    return X, y, w
+
+
+@pytest.mark.parametrize("n_trees", [5, 1], ids=["forest", "decision_tree"])
+@pytest.mark.parametrize("k", [10, 26])
+def test_many_class_forest_matches_jax(k, n_trees):
+    """Gini at k + 1 channels (10 and 26 classes: more than one launch of
+    the card's histograms takes): the same features, thresholds, leaf
+    class shares and training-row leaves as the JAX package's forest and
+    decision tree, and predictions within 1e-12."""
+    X, y, w = _classes_data(k)
+    kw = dict(task="classification", n_classes=k, n_trees=n_trees,
+              max_depth=5, n_bins=32, max_active_nodes=16, seed=7)
+    want = JT.fit_forest(
+        jnp.asarray(X), jnp.asarray(y), jnp.asarray(w),
+        min_instances=jnp.asarray(3.0), min_info_gain=jnp.asarray(1e-3),
+        num_trees_used=jnp.asarray(float(n_trees)),
+        subsample_rate=jnp.asarray(1.0), depth_limit=jnp.asarray(4), **kw)
+    got = PT.fit_forest(*_t(X, y, w), min_instances=3.0,
+                        min_info_gain=1e-3, num_trees_used=float(n_trees),
+                        subsample_rate=1.0, depth_limit=4, **kw)
+    for key in ("feat", "thr", "leaf", "train_node", "tree_w"):
+        np.testing.assert_array_equal(got[key].numpy(),
+                                      np.asarray(want[key]), err_msg=key)
+    assert got["leaf"].shape[-1] == k
+    assert len(np.unique(got["feat"].numpy())) > 1
+    params = {key: want[key] for key in ("feat", "thr", "leaf", "tree_w")}
+    jp = JT.predict_rf_classification(params, jnp.asarray(X), 5, k)
+    pp = PT.predict_rf_classification(got, torch.tensor(X), 5, k)
+    for a, b in zip(pp, jp):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12,
+                                   atol=1e-12)
+
+
 def test_more_than_seven_classes_refused_on_the_card_only():
-    """Nine stat channels do not fit the card's kernels: the check raises
-    for a CUDA device, naming the ROADMAP item, and passes the CPU, whose
-    plain versions take any count (an 8-class forest fits there)."""
-    with pytest.raises(ValueError, match="queue B, item 7"):
-        PT.check_card_classes("classification", 8, torch.device("cuda"))
-    PT.check_card_classes("classification", 7, torch.device("cuda"))
-    PT.check_card_classes("regression", 50, torch.device("cuda"))
-    PT.check_card_classes("classification", 8, torch.device("cpu"))
+    """The card's tree kernels take up to 64 stat channels (63 classes;
+    the histograms and ``predict_trees`` in launches of 8): the check
+    passes 32 and 63 classes for a CUDA device, raises past the limit
+    naming it, and passes the CPU, whose plain versions take any count
+    (an 8-class forest fits there)."""
+    from transmogrifai_tpu_torch.models import _hist as H
+    assert H.MAX_CARD_CHANNELS == 64
+    for k in (7, 8, 26, 32, 63):
+        PT.check_card_classes("classification", k, torch.device("cuda"))
+    with pytest.raises(ValueError, match="take at most 64 .63 classes"):
+        PT.check_card_classes("classification", 64, torch.device("cuda"))
+    PT.check_card_classes("regression", 500, torch.device("cuda"))
+    PT.check_card_classes("classification", 200, torch.device("cpu"))
     rng = np.random.default_rng(0)
     X = rng.normal(size=(300, 3))
     y = rng.integers(0, 8, 300).astype(float)
@@ -362,29 +414,93 @@ def test_more_than_seven_classes_refused_on_the_card_only():
     assert p["leaf"].shape[-1] == 8
 
 
-@pytest.mark.cuda
-def test_more_than_seven_classes_raise_before_any_launch_on_card():
+def _cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the card's channel limit")
+        pytest.skip("needs a CUDA device: the wide-channel tree kernels")
     from transmogrifai_tpu_torch.models import _hist as H
-    rng = np.random.default_rng(0)
-    X = torch.tensor(rng.normal(size=(500, 3)), dtype=torch.float32,
-                     device="cuda")
-    y = torch.tensor(rng.integers(0, 9, 500), dtype=torch.float32,
-                     device="cuda")
-    for fam in (PTR.RandomForestFamily(grid=[dict(TREE)], n_classes=9),
-                PTR.DecisionTreeFamily(grid=[dict(TREE)], n_classes=9)):
+    return H
+
+
+@pytest.mark.cuda
+def test_nine_classes_fit_through_the_kernels_on_card():
+    """A 9-class forest and decision tree (10 stat channels) fit on the
+    card through the kernels (each launched), with the same trees as on
+    the CPU; the summed leaves bitwise the CPU's, the predictions equal
+    and the class shares within 2^-22 (each device sums a row's shares
+    in its own order)."""
+    H = _cuda()
+    X, y, w = _classes_data(9, n=2000)
+    kw = dict(task="classification", n_classes=9, max_depth=6, n_bins=32,
+              min_instances=5.0, min_info_gain=1e-3, subsample_rate=1.0,
+              seed=7)
+    for n_trees in (5, 1):
         H.reset_launch_counts()
-        with pytest.raises(ValueError, match="queue B, item 7"):
-            fam.fit_prepared(X, y, torch.ones_like(y))
-        assert not any(H.KERNEL_LAUNCHES.values())
-    H.reset_launch_counts()
-    with pytest.raises(ValueError, match="queue B, item 7"):
-        PT.fit_forest(X, y, torch.ones_like(y), task="classification",
-                      n_classes=9, n_trees=2, max_depth=4, n_bins=32,
-                      min_instances=10.0, min_info_gain=1e-3,
-                      num_trees_used=2.0, subsample_rate=1.0)
-    assert not any(H.KERNEL_LAUNCHES.values())
+        got = PT.fit_forest(*[t.to("cuda", torch.float32)
+                              for t in _t(X, y, w)], n_trees=n_trees,
+                            num_trees_used=float(n_trees), **kw)
+        torch.cuda.synchronize()
+        for name in ("cumhist", "group_rows", "split_scan",
+                     "level_epilogue"):
+            assert H.KERNEL_LAUNCHES[name] > 0, name
+        want = PT.fit_forest(*[t.to(torch.float32) for t in _t(X, y, w)],
+                             n_trees=n_trees, num_trees_used=float(n_trees),
+                             **kw)
+        for key in ("feat", "thr", "train_node"):
+            assert torch.equal(got[key].cpu(), want[key]), key
+        X32 = torch.tensor(X, dtype=torch.float32)
+        H.reset_launch_counts()
+        card = PT.predict_ensemble(got["feat"], got["thr"], got["leaf"],
+                                   got["tree_w"], X32.cuda(), 6)
+        assert H.KERNEL_LAUNCHES["predict_trees"] == 2     # K = 9: 8 + 1
+        cpu = PT.predict_ensemble(want["feat"], want["thr"], want["leaf"],
+                                  want["tree_w"], X32, 6)
+        assert torch.equal(card.cpu(), cpu)
+        a = PT.rf_head(card, torch.float32, "classification")
+        b = PT.rf_head(cpu, torch.float32, "classification")
+        assert torch.equal(a[0].cpu(), b[0])
+        assert (a[2].cpu() - b[2]).abs().max().item() <= 2.0 ** -22
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [9, 16, 27])
+def test_wide_kernels_against_their_plain_versions_on_card(C):
+    """At C stat channels the histograms (counts exact, class channels
+    bitwise: integer weights), the gini split scan (bitwise) and
+    ``predict_trees`` at K = C - 1 leaf values (bitwise) against their
+    plain versions on the card."""
+    H = _cuda()
+    rng = np.random.default_rng(C)
+    n, F, B, A = 20_000, 16, 32, 64
+    cls = rng.integers(0, C - 1, n)
+    st = np.zeros((n, C), np.float32)
+    st[np.arange(n), cls] = rng.integers(0, 3, n)
+    st[:, -1] = st.sum(1) > 0
+    stats = torch.tensor(st, device="cuda")
+    node = torch.tensor(rng.integers(0, A + 1, n, dtype=np.int32),
+                        device="cuda")
+    XbT = torch.tensor(rng.integers(0, B, (F, n), dtype=np.int32),
+                       device="cuda")
+    X01 = torch.tensor((rng.random((F, n)) < 0.3).astype(np.uint8),
+                       device="cuda")
+    cum = H.cumhist(stats, node, XbT, A, B)
+    assert torch.equal(cum, H.cumhist_reference(stats, node, XbT, A, B))
+    s01 = H.cumhist_sparse01(stats, node, X01, A)
+    assert torch.equal(s01, H.cumhist_sparse01_reference(stats, node, X01,
+                                                         A))
+    for a, b in zip(H.split_scan(cum, "gini", 5.0),
+                    H.split_scan_reference(cum, "gini", 5.0)):
+        assert torch.equal(a, b)
+    D, T, K = 8, 10, C - 1
+    X = torch.tensor(rng.normal(size=(n, F)).astype(np.float32),
+                     device="cuda")
+    feat = torch.tensor(rng.integers(0, F, (T, (1 << D) - 1),
+                                     dtype=np.int32), device="cuda")
+    thr = torch.tensor(rng.normal(size=(T, (1 << D) - 1)).astype(
+        np.float32), device="cuda")
+    leaf = torch.tensor(rng.normal(size=(T, 1 << D, K)).astype(np.float32),
+                        device="cuda")
+    assert torch.equal(H.predict_trees(X, feat, thr, leaf, D),
+                       H.predict_trees_reference(X, feat, thr, leaf, D))
 
 
 # -- the iris path -----------------------------------------------------------

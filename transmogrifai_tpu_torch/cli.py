@@ -38,8 +38,11 @@
 * ``registry``: list, register, promote, roll back or read the current
   version of the versioned model registry (``lifecycle.py``).
 
-``tune`` takes the JAX parser's arguments and exits non-zero naming its
-ROADMAP queue A item (A6.8 (d)): the tuner is not ported yet.
+* ``tune``: the offline autotuner (``tuner.py``): a coordinate descent
+  over the registry's tunable knobs, each candidate a server (or fleet)
+  booted on the device ``--device`` names and the recorded workload
+  replayed against it with score parity; writes ``params.tuned.json`` and
+  a byte-stable report.
 
 Usage::
 
@@ -1132,19 +1135,6 @@ def run_fleet(params_path: Optional[str] = None,
     return 0
 
 
-#: the subcommands whose modules are not ported yet: what they run
-_UNPORTED_COMMANDS = {
-    "tune": "the offline autotuner (tuner.py)",
-}
-
-
-def _unported(cmd: str, what: str) -> int:
-    """Exit code 2 with the message of a part not ported yet."""
-    from .runner import _not_ported
-    print(f"{cmd}: {_not_ported(what, 'A6.8 (d)')}", file=sys.stderr)
-    return 2
-
-
 def main(argv: Optional[Sequence[str]] = None) -> int:
     from .fleet import WORKER_DEVICES
     ap = argparse.ArgumentParser(prog="transmogrifai_tpu_torch")
@@ -1268,8 +1258,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                      default=None)
     wlp.add_argument("--max-requests", dest="max_requests", type=int,
                      default=None)
-    tun = sub.add_parser("tune", help="offline autotuner (not ported "
-                                      "yet: A6.8 (d))")
+    tun = sub.add_parser(
+        "tune", help="offline autotuner: search the registry-declared "
+                     "tunable knobs by re-driving a recorded workload "
+                     "against a server (or fleet) booted per candidate, "
+                     "score parity asserted on every leg; writes "
+                     "params.tuned.json and a byte-stable report")
     tun.add_argument("params", help="baseline OpParams json/yaml file")
     tun.add_argument("--workload", required=True, metavar="DIR_OR_FILE")
     tun.add_argument("-o", "--out", default=None)
@@ -1286,6 +1280,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                      default=None)
     tun.add_argument("--max-requests", dest="max_requests", type=int,
                      default=None)
+    tun.add_argument("--device", choices=WORKER_DEVICES, default="cuda",
+                     help="the device every leg's server (or fleet "
+                          "worker) scores on (default: cuda, the card)")
     reg = sub.add_parser("registry", help="versioned model registry: "
                                           "list / register / promote / "
                                           "rollback / current")
@@ -1338,8 +1335,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                             model_dir=args.reg_model_dir, bank=args.bank,
                             version=args.version, promote=args.promote,
                             as_json=args.reg_json)
-    if args.cmd in _UNPORTED_COMMANDS:
-        return _unported(args.cmd, _UNPORTED_COMMANDS[args.cmd])
+    if args.cmd == "tune":
+        from .tuner import run_tune
+        return run_tune(args.params, workload=args.workload,
+                        out=args.out, budget_s=args.budget_s,
+                        objective=args.objective, knobs=args.knobs,
+                        report=args.report, speed=args.speed,
+                        parity_tol=args.parity_tol,
+                        duration_s=args.duration_s,
+                        max_requests=args.max_requests, device=args.device)
     files = generate_project(args.input, args.response, args.output,
                              name=args.name, id_column=args.id_column)
     for f, p in files.items():

@@ -13,7 +13,12 @@
 // column; cumulative and precomputed: (t, f) pairs, m = t*F + f), N = C
 // channels padded to 8 and K = the segment's rows. Each live row costs
 // M*8 MACs instead of the one-hot product's (A*C)*M, and idle rows are
-// never read.
+// never read. A launch takes at most 8 channels, the tile's N: the
+// wrappers (models/_hist.py) take wider stats (a tree of eight or more
+// classes) in launches over chunks of 8 channels. A histogram is linear
+// in its channels and a channel's sums do not depend on the others', so
+// the chunks' outputs are the channels' sums as one wide launch would
+// take them.
 //
 // Operands are row-major uint8 copies made once per fit (sparse01: [n, RB]
 // 0/1 bytes with the all-ones column at byte Fb; cumulative: [n, RB] bins,

@@ -7,6 +7,11 @@
 // (feature feat[t, node], threshold thr[t, node]; right iff x > thr) and
 // sums the pre-weighted leaves leaf[t, node, :K] in tree order, so the sums
 // are bitwise the plain version's (models/_hist.py predict_trees_reference).
+// A launch sums at most MAX_K = 8 leaf values a row (the accumulators stay
+// in registers, and a tree's leaves of K values stay in shared memory);
+// the wrapper takes a wider K (a forest of more than eight classes) in
+// launches over chunks of 8 leaf values, each the same sums in the same
+// tree order, so the pieces are bitwise the plain version's columns.
 //
 // Design: a persistent grid of one or two blocks an SM (from the device's
 // SM count and the occupancy the shared memory allows) that loops over

@@ -39,7 +39,12 @@
 // pass where a few blocks per SM do (n = 200,000: 196 row blocks), so the
 // redundant plans cost one plan's latency, not a block's share. The
 // kernel is instantiated per channel count C (3 to 8), so a slot's stats
-// stay in registers.
+// stay in registers. Past 8 channels (a classification tree of eight or
+// more classes) one instantiation takes the count at run time: a slot's
+// stats are read where they lie in the histograms, the gain loops over
+// them in the same order, and block 0 keeps the winners' [A, C] left
+// stats and totals for the records in a scratch buffer in device memory
+// (wide_stats), so the plan's shared memory does not grow with C.
 //
 // What bounds it: bytes. A row reads 12 bytes and writes 8 or 12; the plan
 // reads a few KB (block winners, 2 C stats a slot). The launch and the
@@ -55,6 +60,8 @@ constexpr int ROWS = 4;              // rows a thread takes a pass
 constexpr int BLOCKS_PER_SM = 2;     // at most, beyond one pass's rows
 constexpr int MAX_BLOCKS = 4;        // candidate blocks of the feature axis
 constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may use
+constexpr int MAX_REG_C = 8;         // widest C instantiated with registers
+constexpr int MAX_C = 64;            // models/_hist.py MAX_CARD_CHANNELS
 constexpr float EPS = 1e-12f;
 
 enum Kind { VARIANCE = 0, GINI = 1, XGB = 2 };  // models/_hist.py _KINDS
@@ -90,6 +97,7 @@ struct EpilogueParams {
   float* leaf_stats;                   // [n_leaves + 1, C], in place
   int n_blocks, edge_stride, n, A, A_next, C, kind, split, d, D;
   float lam, mig;
+  float* wide_stats;                   // [2, A, C] scratch when C > 8
 };
 
 namespace {
@@ -152,6 +160,50 @@ __device__ __forceinline__ float split_gain(int kind, const float* l,
                  - xgb_score(t[0], t[1], lam));
 }
 
+// The gini gain at run-time C, from one slot's left stats l[c * sl] and
+// totals t[c * st] where they lie: the same operations in the same order
+// as split_gain<C> (r = t - l per class; each sum left to right).
+__device__ __forceinline__ float gini_impurity_wide(const float* l, size_t sl,
+                                                    const float* t, size_t st,
+                                                    int K, int side,
+                                                    float* w_out) {
+  auto v = [&](int k) {
+    return side == 0 ? t[k * st]
+        : side == 1 ? l[k * sl] : t[k * st] - l[k * sl];
+  };
+  const float v0 = v(0);
+  float w = v0, q = v0 * v0;
+  for (int k = 1; k < K; ++k) {
+    const float c = v(k);
+    w = w + c;
+    q = q + c * c;
+  }
+  w = clamp_eps(w);
+  *w_out = w;
+  return 1.0f - q / (w * w);
+}
+
+__device__ __forceinline__ float split_gain_wide(int kind, const float* l,
+                                                 size_t sl, const float* t,
+                                                 size_t st, int C,
+                                                 float lam) {
+  if (kind == GINI) {
+    float W, wL, wR;
+    const float iT = gini_impurity_wide(l, sl, t, st, C - 1, 0, &W);
+    const float iL = gini_impurity_wide(l, sl, t, st, C - 1, 1, &wL);
+    const float iR = gini_impurity_wide(l, sl, t, st, C - 1, 2, &wR);
+    W = clamp_eps(W);
+    return iT - (wL / W) * iL - (wR / W) * iR;
+  }
+  float l3[3], t3[3];                  // variance and xgb read 3 channels
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    l3[c] = l[c * sl];
+    t3[c] = t[c * st];
+  }
+  return split_gain<3>(kind, l3, t3, lam);
+}
+
 struct Rows {
   int s[ROWS];
   int g[ROWS];
@@ -203,18 +255,25 @@ __device__ __forceinline__ void route_rows(
   }
 }
 
-template <int C>
+// C_T: the channel count, or 0 for the run-time count of p.C (> 8)
+template <int C_T>
 __global__ void __launch_bounds__(THREADS)
 level_epilogue_kernel(const EpilogueParams p) {
+  constexpr bool WIDE = C_T == 0;
+  constexpr int NR = WIDE ? 1 : C_T;           // stats held in registers
   extern __shared__ __align__(16) unsigned char smem[];
   const int A = p.A, A_next = p.A_next, half = A_next / 2;
+  const int C = WIDE ? p.C : C_T;
   int* tab = reinterpret_cast<int*>(smem);     // [4, A]
   float* key = reinterpret_cast<float*>(tab + 4 * A);
   float* thr_v = key + A;                      // stored threshold
   int* inv = reinterpret_cast<int*>(thr_v + A);  // position in gain order
-  float* lst = reinterpret_cast<float*>(inv + A);  // [A, C] winner's left
-  float* tst = lst + A * C;                        // [A, C] totals
-  unsigned char* ds = reinterpret_cast<unsigned char*>(tst + A * C);
+  // [A, C] winner's left stats and totals: in shared memory, or (wide)
+  // block 0's scratch in device memory
+  float* lst = WIDE ? p.wide_stats : reinterpret_cast<float*>(inv + A);
+  float* tst = lst + A * C;
+  unsigned char* ds = reinterpret_cast<unsigned char*>(
+      WIDE ? reinterpret_cast<float*>(inv + A) : tst + A * C);
 
   // block 0 writes the records; blocks 1.. route the rows, whose slot and
   // g loads are in flight while the block plans
@@ -229,9 +288,11 @@ level_epilogue_kernel(const EpilogueParams p) {
     const int nb0 = p.n_bins[0], fb0 = p.width[0];
     const float* c0 = p.cum[0] + (size_t)a * C * nb0 * fb0
         + (size_t)(nb0 - 1) * fb0;
-    float l[C], t[C];
+    float l[NR], t[NR];
+    if constexpr (!WIDE) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) t[c] = c0[(size_t)c * nb0 * fb0];
+      for (int c = 0; c < C_T; ++c) t[c] = c0[(size_t)c * nb0 * fb0];
+    }
     float sc = p.score[a];
     long long best = p.idx[a];
     bool ok = p.valid[a] != 0;
@@ -264,13 +325,25 @@ level_epilogue_kernel(const EpilogueParams p) {
         : p.sparse01[wb] ? 0.5f : p.edges[(size_t)fg * p.edge_stride + tb];
     const float* cw = p.cum[wb] + (size_t)a * C * nb * fb_n
         + (size_t)tb * fb_n + fb;
+    float gain;
+    if constexpr (WIDE) {
+      const size_t sl = (size_t)nb * fb_n, st = (size_t)nb0 * fb0;
+      gain = split_gain_wide(p.kind, cw, sl, c0, st, C, p.lam);
+      if (records) {
+        for (int c = 0; c < C; ++c) {
+          lst[a * C + c] = cw[c * sl];
+          tst[a * C + c] = c0[c * st];
+        }
+      }
+    } else {
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      l[c] = cw[(size_t)c * nb * fb_n];
-      lst[a * C + c] = l[c];
-      tst[a * C + c] = t[c];
+      for (int c = 0; c < C_T; ++c) {
+        l[c] = cw[(size_t)c * nb * fb_n];
+        lst[a * C_T + c] = l[c];
+        tst[a * C_T + c] = t[c];
+      }
+      gain = split_gain<C_T>(p.kind, l, t, p.lam);
     }
-    const float gain = split_gain<C>(p.kind, l, t, p.lam);
     const bool split = p.split && p.alive[a] && ok && gain >= p.mig;
     tab[a] = split ? fg : 0;
     tab[A + a] = tb;
@@ -400,26 +473,27 @@ int row_grid(int n) {
 
 }  // namespace
 
-// Shared memory of the epilogue's plan at A slots and C channels.
+// Shared memory of the epilogue's plan at A slots and C channels (past
+// 8 channels the winners' stats live in wide_stats).
 extern "C" int level_epilogue_smem(int A, int C) {
-  return A * (7 * 4 + 2 * C * 4 + 1);
+  return C > MAX_REG_C ? A * (7 * 4 + 1) : A * (7 * 4 + 2 * C * 4 + 1);
 }
 
 namespace {
 
 // Block 0 writes the records; one block more for each of row_grid's.
-template <int C>
+template <int C_T>
 int launch_epilogue(const EpilogueParams& p, void* stream) {
-  const int smem = level_epilogue_smem(p.A, C);
+  const int smem = level_epilogue_smem(p.A, p.C);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        level_epilogue_kernel<C>,
+        level_epilogue_kernel<C_T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  level_epilogue_kernel<C><<<1 + row_grid(p.n), THREADS, smem,
-                             (cudaStream_t)stream>>>(p);
+  level_epilogue_kernel<C_T><<<1 + row_grid(p.n), THREADS, smem,
+                               (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -430,8 +504,9 @@ int launch_epilogue(const EpilogueParams& p, void* stream) {
 extern "C" int level_epilogue_launch(const EpilogueParams* params,
                                      void* stream) {
   const EpilogueParams& p = *params;
-  if (p.A < 1 || p.A_next < 1 || p.C < 3 || p.C > 8 || p.n_blocks < 1 ||
-      p.n_blocks > MAX_BLOCKS ||
+  if (p.A < 1 || p.A_next < 1 || p.C < 3 || p.C > MAX_C ||
+      p.n_blocks < 1 || p.n_blocks > MAX_BLOCKS ||
+      (p.C > MAX_REG_C && p.wide_stats == nullptr) ||
       (p.kind != VARIANCE && p.kind != GINI && p.kind != XGB))
     return (int)cudaErrorInvalidValue;
   switch (p.C) {
@@ -440,7 +515,8 @@ extern "C" int level_epilogue_launch(const EpilogueParams* params,
     case 5: return launch_epilogue<5>(p, stream);
     case 6: return launch_epilogue<6>(p, stream);
     case 7: return launch_epilogue<7>(p, stream);
-    default: return launch_epilogue<8>(p, stream);
+    case 8: return launch_epilogue<8>(p, stream);
+    default: return launch_epilogue<0>(p, stream);
   }
 }
 

@@ -78,15 +78,15 @@ from typing import Dict, Optional, Tuple
 import torch
 
 #: the most stat channels (classes + the count) and leaf values the card's
-#: tree kernels take
-MAX_CARD_CHANNELS = 8
-
-#: what a tree fit or predict of more than seven classes waits for on the
-#: card (C > 8 stat channels or K > 8 leaf values)
-WIDE_CLASSES_ITEM = ("more than seven classes on the card: wider channel "
-                     "templates for the histograms, the split scan and the "
-                     "level epilogue, and K in chunks of 8 for "
-                     "predict_trees, ROADMAP queue B, item 7")
+#: tree kernels take: a classification tree of up to 63 classes. The
+#: histograms and ``predict_trees`` take them in launches over chunks of
+#: :data:`CHANNEL_CHUNK`, ``split_scan`` and the level epilogue loop over
+#: them (the epilogue's plan keeps wide stats in device memory); the limit
+#: is the level epilogue's (``MAX_C`` in csrc/route_level.cu)
+MAX_CARD_CHANNELS = 64
+#: channels one grouped-histogram launch takes (the tensor-core tile's N,
+#: csrc/grouped_hist.cuh) and leaf values one ``predict_trees`` launch sums
+CHANNEL_CHUNK = 8
 
 __all__ = ["cumhist", "cumhist_reference", "make_bc", "hist_rows",
            "bc_rows", "cumhist_sparse01", "cumhist_sparse01_reference",
@@ -96,6 +96,7 @@ __all__ = ["cumhist", "cumhist_reference", "make_bc", "hist_rows",
            "route_level_reference", "split_gain", "level_epilogue",
            "level_epilogue_reference", "predict_trees",
            "predict_trees_reference", "predict_trees_chunk", "build_kernels",
+           "MAX_CARD_CHANNELS", "CHANNEL_CHUNK",
            "KERNEL_LAUNCHES", "reset_launch_counts", "count_graph_replay",
            "SPLIT_NEG"]
 
@@ -493,12 +494,14 @@ def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
     ``(order, seg_off)`` of :func:`group_rows` on ``node``, made here when
     not given) and the kernel gathers each live row's bins from ``rows``,
     the row-major uint8 copy of :func:`hist_rows` (made here when not
-    given; a fit makes it once). With ``bc``, the 0/1 uint8 [B·F, n]
+    given; a fit makes it once). Stats of more than :data:`CHANNEL_CHUNK`
+    channels take one launch a chunk of them (:func:`_chunks`), each
+    counted. With ``bc``, the 0/1 uint8 [B·F, n]
     indicator of :func:`make_bc`, the same kernel reads the indicator
     instead of comparing bins: ``rows`` is then :func:`bc_rows`' copy of
     ``bc`` (made here when not given; a fit would make it once) and its
     launches count under ``cumhist_bc``. Kernel: f32 stats, int32
-    node/bins, C ≤ 8, B ≤ 256 (any B with ``bc``), any F. The CPU takes
+    node/bins, C ≤ 64, B ≤ 256 (any B with ``bc``), any F. The CPU takes
     the plain version, which reads ``XbT`` (or ``bc``) and ignores
     ``groups`` and ``rows``."""
     if _on_cpu(stats):
@@ -512,7 +515,8 @@ def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
     _check(XbT, "XbT", torch.int32, (F, n), dev)
     if not (1 <= C <= MAX_CARD_CHANNELS and A >= 1 and B >= 1 and n >= 1):
         raise ValueError(f"cumhist: unsupported shape n={n} C={C} A={A} "
-                         f"B={B}")
+                         f"B={B} (the kernel takes 1 <= C <= "
+                         f"{MAX_CARD_CHANNELS})")
     if (B > 256 and bc is None) or B * F >= 2 ** 31:
         raise ValueError(f"cumhist: B={B} > 256 does not fit the uint8 row "
                          f"copy, or B·F={B * F} overflows the kernel's int")
@@ -528,14 +532,33 @@ def cumhist(stats: torch.Tensor, node: torch.Tensor, XbT: torch.Tensor,
     _check(rows, "rows", torch.uint8, (n, _row_pad(width)), dev)
     order, seg_off = _groups_for(node, A, groups)
     chunk, n_chunks = group_chunk(n, A)
-    partial = torch.empty((n_chunks + A) * C * B * F, dtype=torch.float32,
-                          device=dev)
-    out = torch.empty((A, C, B, F), dtype=torch.float32, device=dev)
-    _launch(kernel, f"{kernel}_launch", stats.data_ptr(), rows.data_ptr(),
-            order.data_ptr(), seg_off.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n, C, A, B, F, rows.shape[1], chunk, n_chunks,
-            _stream(dev))
-    return out
+    pieces = _chunks(stats)
+    partial = torch.empty((n_chunks + A) * pieces[0].shape[1] * B * F,
+                          dtype=torch.float32, device=dev)
+    outs = []
+    for st in pieces:
+        Cc = st.shape[1]
+        out = torch.empty((A, Cc, B, F), dtype=torch.float32, device=dev)
+        _launch(kernel, f"{kernel}_launch", st.data_ptr(), rows.data_ptr(),
+                order.data_ptr(), seg_off.data_ptr(), partial.data_ptr(),
+                out.data_ptr(), n, Cc, A, B, F, rows.shape[1], chunk,
+                n_chunks, _stream(dev))
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _chunks(t: torch.Tensor):
+    """``t`` cut along its last axis into the contiguous pieces of at most
+    :data:`CHANNEL_CHUNK` one launch takes (``t`` itself when it fits):
+    [n, C] stats for the grouped histograms, [T, L, K] leaves for
+    ``predict_trees``. A histogram and a leaf sum are linear in their
+    channels and the kernels sum each channel on its own, so the pieces'
+    outputs, concatenated, are the whole's."""
+    C = t.shape[-1]
+    if C <= CHANNEL_CHUNK:
+        return [t]
+    return [t[..., c:c + CHANNEL_CHUNK].contiguous()
+            for c in range(0, C, CHANNEL_CHUNK)]
 
 
 def cumhist_sparse01_reference(stats: torch.Tensor, node: torch.Tensor,
@@ -572,9 +595,10 @@ def cumhist_sparse01(stats: torch.Tensor, node: torch.Tensor,
     The public layout is the JAX package's [Fb, n]; the kernel gathers
     rows from ``rows``, the row-major uint8 copy of :func:`sparse01_rows`
     (made here when not given; a fit makes it once), grouped by slot
-    (``groups`` as in :func:`cumhist`). Kernel: f32 stats, int32 node,
-    uint8 block, C ≤ 8. The CPU takes the plain version, which reads
-    ``Xb01`` and ignores ``groups`` and ``rows``."""
+    (``groups`` as in :func:`cumhist`; more than :data:`CHANNEL_CHUNK`
+    channels as there). Kernel: f32 stats, int32 node, uint8 block,
+    C ≤ 64. The CPU takes the plain version, which reads ``Xb01`` and
+    ignores ``groups`` and ``rows``."""
     if _on_cpu(stats):
         return cumhist_sparse01_reference(stats, node, Xb01, n_nodes)
     dev = stats.device
@@ -587,20 +611,26 @@ def cumhist_sparse01(stats: torch.Tensor, node: torch.Tensor,
     if not (1 <= C <= MAX_CARD_CHANNELS and A >= 1 and Fb >= 1
             and n >= 1):
         raise ValueError(f"cumhist_sparse01: unsupported shape n={n} C={C} "
-                         f"A={A} Fb={Fb}")
+                         f"A={A} Fb={Fb} (the kernel takes 1 <= C <= "
+                         f"{MAX_CARD_CHANNELS})")
     if rows is None:
         rows = sparse01_rows(Xb01)
     _check(rows, "rows", torch.uint8, (n, _row_pad(Fb + 1)), dev)
     order, seg_off = _groups_for(node, A, groups)
     chunk, n_chunks = group_chunk(n, A)
-    partial = torch.empty((n_chunks + A) * C * (Fb + 1), dtype=torch.float32,
-                          device=dev)
-    out = torch.empty((A, C, 2, Fb), dtype=torch.float32, device=dev)
-    _launch("cumhist_sparse01", "cumhist_sparse01_launch", stats.data_ptr(),
-            rows.data_ptr(), order.data_ptr(), seg_off.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), n, C, A, Fb, rows.shape[1],
-            chunk, n_chunks, _stream(dev))
-    return out
+    pieces = _chunks(stats)
+    partial = torch.empty((n_chunks + A) * pieces[0].shape[1] * (Fb + 1),
+                          dtype=torch.float32, device=dev)
+    outs = []
+    for st in pieces:
+        Cc = st.shape[1]
+        out = torch.empty((A, Cc, 2, Fb), dtype=torch.float32, device=dev)
+        _launch("cumhist_sparse01", "cumhist_sparse01_launch",
+                st.data_ptr(), rows.data_ptr(), order.data_ptr(),
+                seg_off.data_ptr(), partial.data_ptr(), out.data_ptr(), n, Cc,
+                A, Fb, rows.shape[1], chunk, n_chunks, _stream(dev))
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -666,8 +696,9 @@ def split_scan(cum: torch.Tensor, kind: str, min_instances, *,
     {"variance", "gini", "xgb"}; ``mask`` [A, F] (0/1) or None. Ties go
     to the lower flat index. ``out``: (score, idx, valid) [A] tensors to
     write into and return (the level loop passes the rows of one
-    [blocks, A] table). Kernel: f32; ``valid`` is written in place as
-    bool bytes (no conversion launch)."""
+    [blocks, A] table). Kernel: f32, any C (gini loops over the class
+    channels); ``valid`` is written in place as bool bytes (no conversion
+    launch)."""
     if _on_cpu(cum):
         res = split_scan_reference(cum, kind, min_instances, lam=lam,
                                    min_child_weight=min_child_weight,
@@ -937,7 +968,7 @@ class _EpilogueParams(ctypes.Structure):
                 + [(k, _I) for k in (
                     "n_blocks", "edge_stride", "n", "A", "A_next", "C",
                     "kind", "split", "d", "D")]
-                + [("lam", _F), ("mig", _F)])
+                + [("lam", _F), ("mig", _F), ("wide_stats", _P)])
 
 
 def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
@@ -968,8 +999,9 @@ def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
     level's sibling subtraction (A_next // 2 elsewhere); the children's
     positions and liveness; the parents in gain order.
 
-    Kernel: one launch; f32, int32 rows, A ≤ 2048, C ≤ 8, at most four
-    blocks."""
+    Kernel: one launch; f32, int32 rows, A ≤ 2048, 3 ≤ C ≤ 64, at most
+    four blocks. Past 8 channels the kernel takes C at run time and keeps
+    the winners' stats in a [2, A, C] scratch buffer made here."""
     args = (score, idx, valid, cums, cols, sparse01, edges, alive, gpos,
             XbT, slot, g, feat, thr, gain, leaf_stats)
     kw = dict(kind=kind, lam=lam, mig=mig, d=d, max_depth=max_depth,
@@ -987,7 +1019,8 @@ def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
             and 3 <= C <= MAX_CARD_CHANNELS and A_next >= 1
             and 1 <= D <= 30):
         raise ValueError(f"level_epilogue: unsupported blocks={nblk} A={A} "
-                         f"C={C} A_next={A_next} D={D}")
+                         f"C={C} A_next={A_next} D={D} (the kernel takes "
+                         f"3 <= C <= {MAX_CARD_CHANNELS})")
     if _call("level_epilogue_smem", A, C) > _SMEM_MAX:
         raise ValueError(f"level_epilogue: the plan of A={A} slots, C={C} "
                          "does not fit one block's shared memory")
@@ -1030,6 +1063,9 @@ def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
         nblk, edges.shape[1], n, A, A_next, C
     p.kind, p.split, p.d, p.D = _KINDS[kind], bool(split_ok), int(d), D
     p.lam, p.mig = float(lam), float(mig)
+    if C > CHANNEL_CHUNK:
+        wide = torch.empty((2, A, C), dtype=torch.float32, device=dev)
+        p.wide_stats = wide.data_ptr()
     _launch("level_epilogue", "level_epilogue_launch", ctypes.addressof(p),
             _stream(dev))
     return (rows[0], rows[1], rows[2] if node_even else None, gpos2, alive2,
@@ -1059,8 +1095,9 @@ def predict_trees_reference(X, feat, thr, leaf_w, max_depth: int):
 
 def _predict_trees_launch(X, feat, thr, leaf_w, max_depth: int):
     """The CUDA implementation of ``tmog_torch::predict_trees``: one launch
-    of ``csrc/predict_trees.cu`` on the current stream, counted. f32
-    X/thr/leaf, int32 feat, K ≤ 8."""
+    of ``csrc/predict_trees.cu`` on the current stream a chunk of
+    :data:`CHANNEL_CHUNK` leaf values, each counted (one launch at K ≤ 8).
+    f32 X/thr/leaf, int32 feat, K ≤ 64."""
     dev = X.device
     n, F = X.shape
     T, NN = feat.shape
@@ -1074,13 +1111,18 @@ def _predict_trees_launch(X, feat, thr, leaf_w, max_depth: int):
     _check(leaf_w, "leaf_w", torch.float32, (T, 1 << D, K), dev)
     if not (1 <= K <= MAX_CARD_CHANNELS and 1 <= D <= 16):
         raise ValueError(f"predict_trees: unsupported K={K} D={D}; the "
-                         f"kernel sums at most {MAX_CARD_CHANNELS} leaf "
-                         f"values ({WIDE_CLASSES_ITEM})")
-    out = torch.empty((n, K), dtype=torch.float32, device=dev)
-    _launch("predict_trees", "predict_trees_launch",
-            X.data_ptr(), feat.data_ptr(), thr.data_ptr(),
-            leaf_w.data_ptr(), out.data_ptr(), n, F, T, D, K, _stream(dev))
-    return out
+                         f"kernel takes 1 <= K <= {MAX_CARD_CHANNELS} leaf "
+                         "values and 1 <= D <= 16")
+    outs = []
+    for leaf in _chunks(leaf_w):
+        Kc = leaf.shape[-1]
+        out = torch.empty((n, Kc), dtype=torch.float32, device=dev)
+        _launch("predict_trees", "predict_trees_launch",
+                X.data_ptr(), feat.data_ptr(), thr.data_ptr(),
+                leaf.data_ptr(), out.data_ptr(), n, F, T, D, Kc,
+                _stream(dev))
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 @torch.library.custom_op(PREDICT_TREES_OP, mutates_args=(),
@@ -1115,6 +1157,7 @@ def predict_trees_chunk(n_features: int, max_depth: int,
                         n_out: int = 1) -> int:
     """Trees the predict kernel holds in shared memory at once at this
     shape (it takes a larger ensemble in chunks of this many trees; 0:
-    one tree does not fit). Builds the kernels if need be."""
+    one tree does not fit; past 8 leaf values, a launch's 8). Builds the
+    kernels if need be."""
     return _call("predict_trees_chunk", int(n_features), int(max_depth),
-                 int(n_out))
+                 min(int(n_out), CHANNEL_CHUNK))

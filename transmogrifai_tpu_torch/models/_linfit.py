@@ -14,7 +14,11 @@ is one batched fit: the standardization and the power iteration, which do
 not depend on the regularization, run once, and the coefficients of all
 points iterate together as a [G, d] matrix ([G, K, d] for K classes).
 Naive Bayes' class sums do not depend on the smoothing either: they are
-taken once for the grid. The products are ``torch.matmul``.
+taken once for the grid. The fits' products, and the margins of their
+cross-validation folds, are ``torch.matmul``; a fitted model's margins
+are :func:`row_dot`, whose per-row sums do not depend on how many rows a
+call takes (the scoring engine scores in buckets, the layer path all
+rows at once, and the two agree bitwise).
 """
 from __future__ import annotations
 
@@ -28,7 +32,42 @@ __all__ = ["standardize_stats", "power_iter_sq_norm", "soft_threshold",
            "cg_solve", "fista", "fit_binary_logistic",
            "predict_binary_logistic", "fit_multinomial_logistic",
            "predict_multinomial_logistic", "fit_linear", "fit_linear_grid",
-           "predict_linear", "fit_naive_bayes", "predict_naive_bayes"]
+           "predict_linear", "fit_naive_bayes", "predict_naive_bayes",
+           "row_dot", "margins"]
+
+
+def row_dot(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Each row's dot product with ``W`` ([d] → [n]; [K, d] → [n, K]),
+    summed in one fixed order for every row count: the products, zero-
+    padded to a power of two, then halves added elementwise until one
+    column is left. A matrix product picks its kernel, and so its
+    summation order, by the row count, on the card and on the CPU alike:
+    a row scored in a bucket of 8,192 and among 10,000 rows could differ
+    in its last bits. It costs a [n, (K,) 2^ceil(log2 d)] buffer and
+    log2(d) passes over it, several times a matrix product's time, so
+    only a fitted model's predictions (``margins(..., fixed_order=True)``)
+    take it."""
+    d = X.shape[-1]
+    w = 1 << max(d - 1, 0).bit_length()
+    lead = tuple(W.shape[:-1])
+    p = torch.zeros((X.shape[0],) + lead + (w,),
+                    dtype=torch.result_type(X, W), device=X.device)
+    torch.mul(X[:, None, :] if lead else X, W, out=p[..., :d])
+    while w > 1:
+        w //= 2
+        p[..., :w] += p[..., w:2 * w]
+    return p[..., 0]
+
+
+def margins(X: torch.Tensor, W: torch.Tensor,
+            fixed_order: bool = True) -> torch.Tensor:
+    """``X @ W`` ([d] → [n]; [K, d] → [n, K]): by :func:`row_dot` when
+    ``fixed_order`` (a fitted model's predictions, which the scoring
+    engine's buckets and the layer path must give bitwise alike), else
+    by a matrix product (a family's cross-validation folds)."""
+    if fixed_order:
+        return row_dot(X, W)
+    return X @ (W.T if W.dim() == 2 else W)
 
 
 def standardize_stats(X: torch.Tensor, w: torch.Tensor
@@ -130,10 +169,11 @@ def fit_binary_logistic(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return coef, params[:, d] - (coef * mean).sum(1)
 
 
-def predict_binary_logistic(coef: torch.Tensor, intercept, X: torch.Tensor):
+def predict_binary_logistic(coef: torch.Tensor, intercept, X: torch.Tensor,
+                            fixed_order: bool = True):
     """One grid point's (coef [d], intercept) → (prediction, raw [n, 2],
-    prob [n, 2])."""
-    margin = X @ coef + intercept
+    prob [n, 2]); ``fixed_order`` as in :func:`margins`."""
+    margin = margins(X, coef, fixed_order) + intercept
     p1 = score_sigmoid(margin)
     prob = torch.stack([1.0 - p1, p1], dim=1)
     raw = torch.stack([-margin, margin], dim=1)
@@ -178,10 +218,10 @@ def fit_multinomial_logistic(X: torch.Tensor, y: torch.Tensor,
 
 
 def predict_multinomial_logistic(coef: torch.Tensor, intercept,
-                                 X: torch.Tensor):
+                                 X: torch.Tensor, fixed_order: bool = True):
     """One grid point's (coef [K, d], intercept [K]) → (prediction,
-    logits [n, K], prob [n, K])."""
-    logits = X @ coef.T + intercept
+    logits [n, K], prob [n, K]); ``fixed_order`` as in :func:`margins`."""
+    logits = margins(X, coef, fixed_order) + intercept
     prob = torch.softmax(logits, dim=-1)
     return torch.argmax(prob, dim=-1).to(X.dtype), logits, prob
 
@@ -241,9 +281,10 @@ def fit_linear_grid(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return coef, ybar - (coef * mean).sum(1)
 
 
-def predict_linear(coef: torch.Tensor, intercept, X: torch.Tensor):
+def predict_linear(coef: torch.Tensor, intercept, X: torch.Tensor,
+                   fixed_order: bool = True):
     empty = torch.zeros((X.shape[0], 0), dtype=X.dtype, device=X.device)
-    return X @ coef + intercept, empty, empty
+    return margins(X, coef, fixed_order) + intercept, empty, empty
 
 
 def fit_naive_bayes(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,

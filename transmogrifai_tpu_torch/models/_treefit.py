@@ -48,7 +48,7 @@ import torch
 
 from .. import random as R
 from .base import score_sigmoid
-from ._hist import (MAX_CARD_CHANNELS, WIDE_CLASSES_ITEM, cumhist,
+from ._hist import (MAX_CARD_CHANNELS, cumhist,
                     cumhist_sparse01, group_rows, hist_rows, level_epilogue,
                     predict_trees, sparse01_rows, split_scan)
 
@@ -539,18 +539,19 @@ def forest_draws(seed: int, n_trees: int, n: int, task: str, max_depth: int,
 
 
 def check_card_classes(task: str, n_classes: int, device) -> None:
-    """A classification forest of more than seven classes needs more than
-    eight stat channels, which the card's kernels do not take: it raises
-    on the card before anything launches. The CPU's plain versions take
-    any count. A family checks in ``device_prep``, before it bins (on the
-    card binning launches ``group_rows``); :func:`fit_forest` checks when
-    it bins itself."""
+    """A classification forest of K classes needs K + 1 stat channels and
+    K leaf values; past what the card's kernels take
+    (``_hist.MAX_CARD_CHANNELS``, 63 classes) it raises on the card before
+    anything launches. The CPU's plain versions take any count. A family
+    checks in ``device_prep``, before it bins (on the card binning
+    launches ``group_rows``); :func:`fit_forest` checks when it bins
+    itself."""
     if (task == "classification" and torch.device(device).type == "cuda"
             and int(n_classes) + 1 > MAX_CARD_CHANNELS):
         raise ValueError(
             f"a tree fit of {int(n_classes)} classes needs "
             f"{int(n_classes) + 1} stat channels and the card's kernels take "
-            f"{MAX_CARD_CHANNELS}; waits for {WIDE_CLASSES_ITEM}")
+            f"at most {MAX_CARD_CHANNELS} ({MAX_CARD_CHANNELS - 1} classes)")
 
 
 def fit_forest(X, y, w, *, task: str, n_classes: int, n_trees: int,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..stages.base import register_stage
+from ._linfit import margins
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
                    device_table, extract_xy, resolve_device)
 
@@ -86,10 +87,12 @@ def fit_glm(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, fam,
     return beta[:, :d], beta[:, d]
 
 
-def predict_glm(coef: torch.Tensor, intercept, X: torch.Tensor, fam):
-    """One grid point → (μ, empty raw [n, 0], empty prob [n, 0])."""
+def predict_glm(coef: torch.Tensor, intercept, X: torch.Tensor, fam,
+                fixed_order: bool = True):
+    """One grid point → (μ, empty raw [n, 0], empty prob [n, 0]);
+    ``fixed_order`` as in ``_linfit.margins``."""
     fam = torch.as_tensor(fam, device=X.device)
-    mu = _inv_link(X @ coef + intercept, fam)
+    mu = _inv_link(margins(X, coef, fixed_order) + intercept, fam)
     empty = torch.zeros((X.shape[0], 0), dtype=X.dtype, device=X.device)
     return mu, empty, empty
 
@@ -188,7 +191,8 @@ class GLMRegressionFamily(ModelFamily):
         return [(coef[i], b[i], fams[i]) for i in range(len(grid))]
 
     def predict_batch(self, params, X, on_train: bool = False) -> List:
-        return [predict_glm(c, b, X, f) for c, b, f in params]
+        return [predict_glm(c, b, X, f, fixed_order=False)
+                for c, b, f in params]
 
     def realize(self, params, hparams) -> GLMRegressionModel:
         coef, b, _fam = params

@@ -176,7 +176,7 @@ class LogisticRegressionFamily(ModelFamily):
     def predict_batch(self, params, X, on_train: bool = False):
         predict = (LF.predict_binary_logistic if self.n_classes == 2
                    else LF.predict_multinomial_logistic)
-        return [predict(c, b, X) for c, b in params]
+        return [predict(c, b, X, fixed_order=False) for c, b in params]
 
     def realize(self, params, hparams) -> LogisticRegressionModel:
         coef, b = params
@@ -260,7 +260,8 @@ class LinearRegressionFamily(ModelFamily):
         return [(coef[i], b[i]) for i in range(len(grid))]
 
     def predict_batch(self, params, X, on_train: bool = False):
-        return [LF.predict_linear(c, b, X) for c, b in params]
+        return [LF.predict_linear(c, b, X, fixed_order=False)
+                for c, b in params]
 
     def realize(self, params, hparams) -> LinearRegressionModel:
         coef, b = params

@@ -28,7 +28,7 @@ import torch
 
 from .. import random as R
 from ..stages.base import register_stage
-from ._linfit import fista, power_iter_sq_norm, standardize_stats
+from ._linfit import fista, margins, power_iter_sq_norm, standardize_stats
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
                    device_table, extract_xy, resolve_device, score_sigmoid)
 
@@ -65,9 +65,11 @@ def fit_linear_svc(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return coef, params[:, d] - (coef * mean).sum(1)
 
 
-def predict_linear_svc(coef: torch.Tensor, intercept, X: torch.Tensor):
-    """One grid point → (prediction, raw [n, 2], prob [n, 2])."""
-    m = X @ coef + intercept
+def predict_linear_svc(coef: torch.Tensor, intercept, X: torch.Tensor,
+                       fixed_order: bool = True):
+    """One grid point → (prediction, raw [n, 2], prob [n, 2]);
+    ``fixed_order`` as in ``_linfit.margins``."""
+    m = margins(X, coef, fixed_order) + intercept
     p1 = score_sigmoid(m)
     return ((m > 0.0).to(X.dtype), torch.stack([-m, m], dim=1),
             torch.stack([1.0 - p1, p1], dim=1))
@@ -150,7 +152,8 @@ class LinearSVCFamily(ModelFamily):
         return [(coef[i], b[i]) for i in range(len(grid))]
 
     def predict_batch(self, params, X, on_train: bool = False) -> List:
-        return [predict_linear_svc(c, b, X) for c, b in params]
+        return [predict_linear_svc(c, b, X, fixed_order=False)
+                for c, b in params]
 
     def realize(self, params, hparams) -> LinearSVCModel:
         coef, b = params

@@ -113,8 +113,8 @@ __all__ = ["OpParams", "RunType", "RunnerResult", "OpWorkflowRunner",
 
 #: registry knobs the runner reads whose module is not ported yet: what
 #: they ask for and the ROADMAP queue A item (the fleet, continual and
-#: workload knobs are read by ``serve`` and ``fleet``, not by a run;
-#: ``tune`` exits naming A6.8 (d))
+#: workload knobs are read by ``serve``, ``fleet`` and ``tune``, not by a
+#: run)
 _UNPORTED_CUSTOM = {
     "meshDevices": ("multi-device runs (parallel/mesh.py)", "A6.6"),
     "meshGridSize": ("multi-device runs (parallel/mesh.py)", "A6.6"),
