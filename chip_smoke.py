@@ -24,7 +24,9 @@ Run from the repository root on a machine with one NVIDIA H100:
    (duplicate feature columns; the lowest flat index wins). The level
    epilogue's every output (slots, g, sibling masks, gpos, alive, rank,
    and the feat/thr/gain/leaf records) is bitwise equal to its plain
-   version at A ∈ {1, 64, 128}, variance, xgb and gini (C = 3 and 5), one
+   version, reading the winners' stats from the histograms and again
+   from a ``win_stats`` table (the column-sharded level's input, phase
+   21), at A ∈ {1, 64, 128}, variance, xgb and gini (C = 3 and 5), one
    block and two (the 2-bin block's winners included), both drivers'
    levels, a level past the depth limit, a last level, a level where every
    slot dies, and gain ties. The random forest's draws (bootstrap uniforms,
@@ -62,7 +64,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    ``Workflow.train`` and ``WorkflowModel.evaluate`` on 200,000 rows, with
    every kernel launch counted (one ``level_epilogue`` and one
    ``group_rows`` a level, no route-only ``route_level``, no
-   ``cumhist(bc=)``); then the same sweep at 5,000 rows (depths {3, 6};
+   ``cumhist(bc=)``); then the same sweep at 2,000 rows (depths {3, 6};
    ``SWEEP_AGREE_N``) on the card and on the CPU, which must pick the same model with AuPR
    within 1e-4.
 4. The BigPassenger workflow (``big_passenger.py``): 200,000 typed records
@@ -88,7 +90,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    random forest (50 trees, per-node draws of 4 features) and a decision
    tree at maxDepth {3, 6, 12}, 5-fold CV, refit, scoring, with every
    launch counted (one ``level_epilogue`` and one ``group_rows`` a level);
-   then RF (5 trees) and DT at maxDepth {3, 6} on 10,000 rows on the card
+   then RF (5 trees) and DT at maxDepth {3, 6} on 4,000 rows on the card
    and on the CPU: the same model, AuPR within 1e-4.
 6. titanic (``titanic.py``, the reference's hello-world): the bundled CSV
    read through ``DataReaders.simple.csv``, the derived features,
@@ -144,7 +146,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    random forest and a decision tree (3-fold CV on F1, a DataCutter),
    counted: C = 27 channels through the histograms, ``split_scan`` and
    the level epilogue, K = 26 through ``predict_trees``; train seconds,
-   the winner, F1 and launches; then 2,000 rows on the card and the CPU
+   the winner, F1 and launches; then 1,000 rows on the card and the CPU
    (a 5-tree forest and a decision tree at depth 8): the same model, the
    winner's trees equal, F1 and every fold's F1 within 2^-22.
 9. every feature type (``transmogrify``'s whole dispatch): a
@@ -166,7 +168,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    3-fold CV on AuPR), counted; its records, vectorize, selector, train
    and evaluate seconds, width, best model and AuPR, and no column of the
    blocked key; its :func:`stage_table` and :func:`check_fusion`. The binary selector's default families, one grid point
-   each, on the first 20,000 records, on the card (counted: the tree
+   each, on the first 10,000 records, on the card (counted: the tree
    kernels, ``cumhist_sparse01`` included, must launch) and on the CPU:
    the same model, every family's fold metrics within 1e-4. Then every
    kernel of that run at the shapes its vector gives it, against its plain
@@ -194,7 +196,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    vectorize, sweep, refit), the insights, LOCO and corr seconds and the
    top five contributions, its :func:`stage_table` and
    :func:`check_fusion` (on the filtered records). Then the same at
-   20,000 records (5,000 scoring
+   10,000 records (5,000 scoring
    records) on the card and the CPU: the filter's results JSON equal, the
    blacklist, the width, the winner and every family's fold metrics
    within 1e-4, the contributions within 1e-5 of the largest, the card
@@ -224,7 +226,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    the train seconds by phase (aggregate, vectorize, sweep, refit) and
    :func:`stage_table`. The model saved, loaded afresh and the aggregated
    store scored through the engine: predictions equal to the layer
-   path's, probabilities within 2^-22. The same at 10,000 users on the
+   path's, probabilities within 2^-22. The same at 4,000 users on the
    card and the CPU: the aggregated stores bitwise equal, the same
    winner, every family's fold metrics within 1e-4. Last, the dataprep
    walkthrough's rows (``dataprep.run()``) against those
@@ -271,7 +273,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    tupled columns give the same predictions, and the layer path on
    10,000 records gives the engine's (a linear margin sums each row in
    one order whatever the row count); GBT refit on them so
-   ``predict_trees`` launches; then 2,000 records on the card and the CPU:
+   ``predict_trees`` launches; then 1,000 records on the card and the CPU:
    host stages and the count block bitwise, LDA and Word2Vec within
    ``TOPIC_ATOL``, the same winner) and taggers-5k (entities, languages,
    sentences and POS tags of 5,000 notes → LR; seconds by stage). Each
@@ -321,7 +323,7 @@ Run from the repository root on a machine with one NVIDIA H100:
    steps: the first launch of its kernels loads their CUDA modules into
    host memory, once a process), the holdout AuPR
    within 0.02, one ``level_epilogue`` and one ``group_rows`` a level in
-   both. Then StreamingScore of 100,000 records in 10 Avro files and one
+   both. Then StreamingScore of 60,000 records in 6 Avro files and one
    cut short, with a ``quarantineLocation``, at ``pipelineWorkers`` 1 and
    4: the cut file quarantined, the predictions bitwise equal to each
    other and to a plain Score, ``predict_trees`` launched; a
@@ -429,6 +431,24 @@ Run from the repository root on a machine with one NVIDIA H100:
    the tuned params passing ``check``, the report's digest its bytes',
    ``predict_trees`` launched; each leg's p99, rows/s and seconds, the
    winner. The fleet leg (``fleetWorkers``) is not run on the card.
+21. the mesh at mesh-200k (:func:`mesh_phase`): one world of two ranks
+   on this card (``python -m torch.distributed.run --standalone
+   --nproc-per-node 2 chip_smoke.py --mesh-leg <spec>``, gloo: NCCL
+   refuses two ranks on one device), each rank running
+   :func:`mesh_leg`: (a) text-200k's Train through the runner at
+   ``meshDevices: 2`` — the (2, 1) mesh, each rank's histograms of its
+   rows summed over the ranks — with the same winner as phase 4 and
+   AuPR within 1e-4 of phase 4's, rank 0 alone saving, then loading the
+   save and scoring all 200,000 records; (b) rf-200k's 50-tree forest
+   and decision tree at phase 5's winning depth on the (1, 2) mesh at
+   ``featureShards: 2`` (each rank a chunk of the columns), their tables
+   bitwise the unsharded fits made after phase 5, and an LR grid over
+   sweep-200k's matrix on the (2, 1) mesh with fold metrics within 1e-4
+   of the same grid unsharded. Every tree kernel must launch on each
+   rank (one epilogue and one ``group_rows`` a level); the world's start
+   seconds, each leg's seconds and the all-reduces a level with their
+   µs are printed, and the ranks' launches join the result line. A
+   failing rank, or a world past 420 s, fails the script.
 
 ``--profile`` runs each main path (the four, serve's Score, iris-200k,
 boston-200k, mapprep-100k, mapprep-guarded-100k and eventlog-200k) once
@@ -453,7 +473,7 @@ Any failure exits non-zero before the result line. With no CUDA device it
 exits 2 and prints no result. The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists each kernel's numbers as JSON (launches summed
-over the main paths' runs, phases 3–20).
+over the main paths' runs, phases 3–21).
 ``--serve-export-only`` runs phase 7 (without its comparison with phase
 4's AuPR) and phase 12 alone, and prints no result line.
 ``--every-surface-only`` runs phase 13 alone and prints no result line.
@@ -474,6 +494,9 @@ phase 19 starts its retrain job as ``chip_smoke.py --retrain-leg
 and prints no result line.
 ``--wide-only`` runs phase 2's checks past eight channels, phase 8's
 kernel checks and letter-20k, and prints no result line.
+``--mesh-only`` runs phase 2's epilogue and wide checks, trains
+text-200k and rf-200k's two fits as phases 4 and 5 do, then phase 21,
+and prints no result line.
 """
 import contextlib
 import io
@@ -490,10 +513,12 @@ import torch
 
 N, F, B = 200_000, 20, 32
 #: the sweep's card/CPU agreement (cut from 20,000 rows to make room for
-#: phase 17: the CPU's plain tree kernels take most of phase 3)
-SWEEP_AGREE_N = 5_000
-#: rf-200k's card/CPU agreement (cut from 20,000 rows for phase 19)
-RF_AGREE_N = 10_000
+#: phase 17, and from 5,000 for phase 21: the CPU's plain tree kernels
+#: take most of phase 3)
+SWEEP_AGREE_N = 2_000
+#: rf-200k's card/CPU agreement (cut from 20,000 rows for phase 19, from
+#: 10,000 for phase 21)
+RF_AGREE_N = 4_000
 #: the indicator block of the sparse01 check: BigPassenger's hash width,
 #: at the density of its hashed buckets (one voyage token in ~1,000)
 FB, DENSITY = 512, 0.016
@@ -1238,27 +1263,62 @@ MIG = torch.clamp(torch.tensor(0.0), min=1e-10)
 EPILOGUE_KINDS = (("variance", 4), ("xgb", 3), ("gini", 3), ("gini", 5))
 
 
+def winner_stats(args):
+    """The [2, A, C] ``win_stats`` of a level's epilogue inputs: the
+    winner's left stats (the blocks' winners merged, score desc then
+    concatenated index asc) and block 0's slot totals — what the
+    column-sharded level gathers across its ranks."""
+    score, idx, _valid, cums = args[:4]
+    A, C = score.shape[1], cums[0].shape[1]
+    off, s_best = 0, None
+    for b, cumb in enumerate(cums):
+        size = (cumb.shape[2] - 1) * cumb.shape[3]
+        ix = idx[b].long()
+        gi = off + ix
+        lb = cumb[:, :, :-1, :].reshape(A, C, size).gather(
+            2, ix[:, None, None].expand(A, C, 1))[:, :, 0]
+        if s_best is None:
+            s_best, best, lst = score[b], gi, lb
+        else:
+            take = (score[b] > s_best) | ((score[b] == s_best)
+                                          & (gi < best))
+            best = torch.where(take, gi, best)
+            lst = torch.where(take[:, None], lb, lst)
+            s_best = torch.where(take, score[b], s_best)
+        off += size
+    return torch.stack([lst, cums[0][:, :, -1, 0]]).contiguous()
+
+
 def epilogue_pair(H, args, records, kw):
     """The epilogue kernel and its plain version on the same inputs, each
-    on its own copy of the records; fails unless every output and record
-    (but the records' sink entries) is bitwise equal. Returns the plain
-    version's (outputs, records)."""
+    on its own copy of the records, and the kernel again reading the
+    winners' stats from ``win_stats`` (the column-sharded level's input,
+    :func:`winner_stats`) with the blocks given by their shapes; fails
+    unless every output and record (but the records' sink entries) is
+    bitwise equal. Returns the plain version's (outputs, records)."""
     got_rec = [r.clone() for r in records]
     ref_rec = [r.clone() for r in records]
+    win_rec = [r.clone() for r in records]
     got = H.level_epilogue(*args, *got_rec, **kw)
     ref = H.level_epilogue_reference(*args, *ref_rec, **kw)
+    wargs = list(args)
+    wargs[3] = [(c.shape[2], c.shape[3]) for c in args[3]]
+    win = H.level_epilogue(*wargs, *win_rec, win_stats=winner_stats(args),
+                           **kw)
     torch.cuda.synchronize()
     names = ("slot2", "g2", "node_even2", "gpos2", "alive2", "rank")
-    for name, a, b in zip(names, got, ref):
-        if (a is None) != (b is None) or (a is not None
-                                          and not torch.equal(a, b)):
-            fail(f"level_epilogue: {name} differs ({kw})")
-    # the last entry of each record is a sink: the plain version writes
-    # its dropped entries there, the kernel leaves it
-    for name, a, b in zip(("feat", "thr", "gain", "leaf_stats"), got_rec,
-                          ref_rec):
-        if not torch.equal(a[:-1], b[:-1]):
-            fail(f"level_epilogue: {name} differs ({kw})")
+    for got_out, rec, what in ((got, got_rec, ""),
+                               (win, win_rec, " from win_stats")):
+        for name, a, b in zip(names, got_out, ref):
+            if (a is None) != (b is None) or (a is not None
+                                              and not torch.equal(a, b)):
+                fail(f"level_epilogue{what}: {name} differs ({kw})")
+        # the last entry of each record is a sink: the plain version
+        # writes its dropped entries there, the kernel leaves it
+        for name, a, b in zip(("feat", "thr", "gain", "leaf_stats"), rec,
+                              ref_rec):
+            if not torch.equal(a[:-1], b[:-1]):
+                fail(f"level_epilogue{what}: {name} differs ({kw})")
     return ref, ref_rec
 
 
@@ -1359,8 +1419,8 @@ def check_epilogue(H, dev, rng, put, XbT):
         fail("level_epilogue: no winner in the 2-bin block was checked")
     print(f"level_epilogue: slots, g, sibling masks, gpos, alive, rank and "
           f"the feat/thr/gain/leaf records bitwise equal to the plain "
-          f"version (A = 1, 64, 128; variance, xgb, gini at C = 3 and 5; "
-          f"1 and 2 blocks, "
+          f"version, from the histograms and from win_stats (A = 1, 64, "
+          f"128; variance, xgb, gini at C = 3 and 5; 1 and 2 blocks, "
           f"{block1_wins} slots won in the 2-bin block; both drivers; "
           f"depth-limit, last and all-dying levels; gain ties)")
 
@@ -2144,7 +2204,8 @@ def multiclass_paths(H, IR, BO, data_dir, profile=False, dev="cuda"):
 #: (C = 27 stat channels, K = 26 leaf values); made from a seed
 LETTER_N, LETTER_F, LETTER_K = 20_000, 16, 26
 LETTER_SEED = 26
-LETTER_AGREE_N = 2_000
+#: letter's card/CPU agreement (cut from 2,000 rows for phase 21)
+LETTER_AGREE_N = 1_000
 #: the forest's and the decision tree's grids at letter-20k, and the
 #: smaller ones of the card/CPU agreement (the CPU's plain kernels)
 LETTER_TREES, LETTER_DEPTHS = 20, (8, 12)
@@ -2383,7 +2444,9 @@ MAPPREP_SEED = 7
 #: mapprep-100k's and mapprep-guarded-100k's records (cut from 200,000 to
 #: make room for phase 20)
 MAPPREP_N = 100_000
-MAPPREP_AGREE_N = 20_000
+#: the card/CPU agreements of phase 9 (mapprep's default families) and
+#: phase 10 (the guarded workflow) (cut from 20,000 records for phase 21)
+MAPPREP_AGREE_N = 10_000
 TYPE_KEYS = ("k0", "k1", "k2")
 CATS = np.array(["red", "green", "blue", "teal", "plum", "gold"],
                 dtype=object)
@@ -2819,9 +2882,10 @@ def mapprep_paths(H, TF, MP, root, profile=False, dev="cuda", records=None,
                          records=small, families=titanic_one_point())
     agree_metric(runs, "AuPR", 1e-4,
                  f"mapprep default families, {MAPPREP_AGREE_N} records")
-    print(f"mapprep-families-20k launches (card): {launches}; "
+    name = f"mapprep-families-{MAPPREP_AGREE_N // 1000}k"
+    print(f"{name} launches (card): {launches}; "
           f"{time.perf_counter() - t0:.2f} s")
-    paths["mapprep-families-20k"] = launches
+    paths[name] = launches
     cuda = runs["cuda"]
     fold = cuda["store"].take(np.arange(MAPPREP_FOLD_ROWS))
     X = cuda["model"].transform(fold, device=dev, up_to=cuda["features"])[
@@ -2897,12 +2961,13 @@ def spy_folds(H, validator, keep_fold=False):
         if keep_fold and not fold0:
             fold0["X"], fold0["y"] = X[w > 0], y[w > 0]
 
-    def spy(family, groups, metric_fn, Xarg, yd, w, v, y, vm, metrics, k):
+    def spy(family, *args):
+        # (groups, metric_fn, Xarg, yd, w, v, y, vm, metrics, k[, owns])
         torch.cuda.synchronize()
         before = dict(H.KERNEL_LAUNCHES)
-        sweep(family, groups, metric_fn, Xarg, yd, w, v, y, vm, metrics, k)
+        sweep(family, *args)
         torch.cuda.synchronize()
-        per_fold.append((family.name, k, {
+        per_fold.append((family.name, args[9], {
             n: H.KERNEL_LAUNCHES[n] - before[n] for n in before}))
 
     def keep(families, fold_data, **kw):
@@ -3270,8 +3335,8 @@ def guarded_paths(H, TF, MP, records, root, profile=False, dev="cuda"):
         profile_path(H, "mapprep-guarded-100k", lambda: guarded_run(
             H, MP, records, srecs, dev, LOCO_ROWS))
 
-    paths["mapprep-guarded-20k"], errs = guard_agreement(H, MP, records,
-                                                         dev)
+    paths[f"mapprep-guarded-{MAPPREP_AGREE_N // 1000}k"], errs = \
+        guard_agreement(H, MP, records, dev)
     fold0 = out.pop("fold0")
     worst = check_mapprep_kernels(H, TF, dev, fold0["X"], fold0["y"],
                                   "mapprep-guarded-100k workflow-CV fold 0")
@@ -3289,7 +3354,8 @@ def guarded_paths(H, TF, MP, records, root, profile=False, dev="cuda"):
 #: eventlog-200k: users, events a user, the seed of ``dataprep.
 #: make_event_log``; the card/CPU agreement's users
 EVENT_USERS, EVENTS_PER_USER, EVENT_SEED = 200_000, 20, 47
-EVENT_AGREE_USERS = 10_000
+#: (the agreement cut from 10,000 users for phase 21)
+EVENT_AGREE_USERS = 4_000
 #: ``bench.py``'s event log: files, rows a file, users
 BENCH_FILES, BENCH_FILE_ROWS, BENCH_USERS = 16, 10_000, 5_000
 #: the kernels every tree family's every fold must launch on the path
@@ -3593,22 +3659,23 @@ def eventlog_paths(H, TF, DP, root, profile=False, dev="cuda"):
     events = DP.make_event_log(EVENT_AGREE_USERS, EVENTS_PER_USER,
                                EVENT_SEED)
     runs = {}
-    runs["cuda"], paths["eventlog-10k"] = counted(
+    agree_name = f"eventlog-{EVENT_AGREE_USERS // 1000}k"
+    runs["cuda"], paths[agree_name] = counted(
         H, lambda: eventlog_run(H, DP, EVENT_AGREE_USERS, "cuda", events),
         EVENT_KERNELS)
-    fold_launches(runs["cuda"], "eventlog-10k (card)", EVENT_KERNELS)
+    fold_launches(runs["cuda"], f"{agree_name} (card)", EVENT_KERNELS)
     runs["cpu"] = eventlog_run(H, DP, EVENT_AGREE_USERS, "cpu", events)
     same_store(runs["cuda"]["store"], runs["cpu"]["store"],
                [f.name for f in runs["cpu"]["raw"]],
-               "eventlog-10k: the card's store against the CPU's")
+               f"{agree_name}: the card's store against the CPU's")
     agree_metric(runs, "AuPR", 1e-4,
                  f"eventlog, {EVENT_AGREE_USERS} users (stores bitwise "
                  "equal)")
     refit_d = {k: abs(v - runs["cpu"]["refits"][k])
                for k, v in runs["cuda"]["refits"].items()}
     if not max(refit_d.values()) <= 1e-4:
-        fail(f"eventlog-10k: the tree refits' AuPR differ {refit_d}")
-    print(f"eventlog-10k tree refits: card/CPU |dAuPR| "
+        fail(f"{agree_name}: the tree refits' AuPR differ {refit_d}")
+    print(f"{agree_name} tree refits: card/CPU |dAuPR| "
           f"{ {k: float(f'{v:.3g}') for k, v in refit_d.items()} } "
           f"(limit 1e-4)")
     print(f"eventlog agreement: {time.perf_counter() - t0:.2f} s")
@@ -4260,7 +4327,8 @@ def timings(H, dev, BP, run):
 #: 20), and the rows of each card/CPU agreement
 SURFACE_N = 20_000
 SURFACE_SEED = 13
-SURFACE_AGREE_N = 2_000
+#: (the card/CPU agreement cut from 2,000 records for phase 21)
+SURFACE_AGREE_N = 1_000
 #: every-surface-20k's records compared engine against layer path (and
 #: GBT's refit)
 SURFACE_SERVE_N = 20_000
@@ -5191,10 +5259,11 @@ OOC_RSS_STEP_SHARE = 0.25
 #: holdout AuPR of the streamed model within this of the materialized
 #: model's (the JAX package's own out-of-core proof, ``bench.py``)
 OOC_AUPR_TOL = 0.02
-#: StreamingScore's directory: 10 files of 10,000 records and one cut short
-#: (cut from 20 for phase 19)
-STREAM_FILES, STREAM_FILE_ROWS, STREAM_SEED = 10, 10_000, 1700
-#: card against CPU: 20,000 rows in 4 shards, a subsample of 8,192
+#: StreamingScore's directory: 6 files of 10,000 records and one cut short
+#: (cut from 20 for phase 19, from 10 for phase 21)
+STREAM_FILES, STREAM_FILE_ROWS, STREAM_SEED = 6, 10_000, 1700
+#: card against CPU: 20,000 rows in 4 shards, a subsample of 8,192 (the
+#: streamed fold keeps its states from ``workflow.FUSE_MIN_ROWS`` rows)
 OOC_AGREE_ROWS, OOC_AGREE_SHARDS, OOC_AGREE_SAMPLE = 20_000, 4, 8_192
 OOC_KERNELS = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
                "level_epilogue", "predict_trees")
@@ -7624,6 +7693,305 @@ def tune_phase(H, ctx, card, dev="cuda"):
     return launches
 
 
+# -- phase 21: the mesh (mesh-200k) ----------------------------------------
+#: seconds a leg's world of two ranks may take before it is stopped
+MESH_LEG_TIMEOUT_S = 420
+#: text-200k's two-rank AuPR against phase 4's, and the sharded LR's fold
+#: metrics against the unsharded LR's on the card (f32 sums in another
+#: order: no bits are promised)
+MESH_AUPR_TOL = 1e-4
+MESH_LR_TOL = 1e-4
+#: the tree kernels every rank of the text leg must launch
+MESH_KERNELS = ("cumhist", "cumhist_sparse01", "group_rows", "split_scan",
+                "level_epilogue")
+#: rf-200k's winning depth (phase 5: the decision tree at maxDepth 6)
+MESH_FOREST_POINT = {"maxDepth": 6, "minInstancesPerNode": 10,
+                     "minInfoGain": 0.001, "subsamplingRate": 1.0}
+
+
+def forest_fits(ST, dev, n=N):
+    """rf-200k's 50-tree forest and decision tree at
+    :data:`MESH_FOREST_POINT`, fitted on all of rf-200k's rows under
+    whatever mesh scope is active: each family's feat, thr, leaf and gain
+    tables, and the fit's seconds."""
+    from transmogrifai_tpu_torch.models.trees import (DecisionTreeFamily,
+                                                       RandomForestFamily)
+    store = ST.synthesize_store(n)
+    Xd = torch.as_tensor(store["features"].values, device=dev)
+    yd = torch.as_tensor(store["label"].values, dtype=torch.float32,
+                         device=dev)
+    out = {}
+    for fam in (RandomForestFamily(grid=[dict(MESH_FOREST_POINT)],
+                                   num_trees=50),
+                DecisionTreeFamily(grid=[dict(MESH_FOREST_POINT)])):
+        t0 = time.perf_counter()
+        params, _ = fam.fit_prepared(Xd, yd, torch.ones_like(yd))
+        torch.cuda.synchronize()
+        out[fam.name] = ({k: params[0][k].cpu() for k in
+                          ("feat", "thr", "leaf", "gain")},
+                         time.perf_counter() - t0)
+    return out
+
+
+def _leg_join(spec):
+    """Join the leg's world (``torchrun``'s environment); this rank and
+    the seconds from the world's launch to the joining."""
+    import torch.distributed as dist
+
+    from transmogrifai_tpu_torch.parallel import multihost
+    if not multihost.initialize():
+        fail("mesh leg: the world of ranks did not form")
+    return dist.get_rank(), time.time() - spec["t_launch"]
+
+
+def _counts():
+    """This process's kernel launches and all-reduces since the last
+    reset."""
+    from transmogrifai_tpu_torch.models import _hist as H
+    from transmogrifai_tpu_torch.parallel import mesh as M
+    torch.cuda.synchronize()
+    return dict(H.KERNEL_LAUNCHES), M.collective_stats()
+
+
+def _reset_counts():
+    from transmogrifai_tpu_torch.models import _hist as H
+    from transmogrifai_tpu_torch.parallel import mesh as M
+    torch.cuda.synchronize()
+    H.reset_launch_counts()
+    M.reset_collective_stats()
+
+
+def _text_leg(spec, rank):
+    """Phase 21 (a), one rank: text-200k's Train through the runner at
+    ``meshDevices: 2`` (both ranks on this card, gloo), every launch and
+    all-reduce counted from 0; rank 0 then loads the save and scores all
+    records."""
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch import big_passenger as BP
+    from transmogrifai_tpu_torch.evaluators import Evaluators
+    from transmogrifai_tpu_torch.readers import DataReaders
+    from transmogrifai_tpu_torch.runner import (OpParams, OpWorkflowRunner,
+                                                RunType)
+    from transmogrifai_tpu_torch.workflow import Workflow
+    t_leg = time.perf_counter()
+    records = BP.synthesize_records(N, seed=42)
+    survived, _checked, selector, prediction = BP.build_selection()
+    wf = (Workflow().set_result_features(prediction)
+          .set_splitter(selector.splitter))
+    runner = OpWorkflowRunner(
+        wf, training_reader=DataReaders.simple.records(records),
+        device="cuda")
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = runner.run(RunType.TRAIN, OpParams(
+        model_location=spec["model"], custom_params={"meshDevices": 2}))
+    train_s = time.perf_counter() - t0
+    summ = out.model.fitted_stages[selector.uid].selector_summary
+    res = {"train_s": train_s,
+           "best": [summ.best_model_name, summ.best_model_params],
+           "mesh": out.metrics["mesh"], "process": out.metrics["process"]}
+    if rank == 0:
+        t0 = time.perf_counter()
+        model = WorkflowModel.load(spec["model"])
+        ev = Evaluators.BinaryClassification.auPR().set_columns(
+            survived, prediction)
+        scored, metrics = model.score_and_evaluate(records, ev,
+                                                   device="cuda")
+        p = scored[prediction.name].probability
+        res.update(aupr=metrics["AuPR"], score_s=time.perf_counter() - t0,
+                   finite=bool(np.isfinite(p).all()), rows=len(p))
+    res["launches"], res["all_reduces"] = _counts()
+    res["leg_s"] = time.perf_counter() - t_leg
+    return res
+
+
+def _forest_leg(spec):
+    """Phase 21 (b), one rank: rf-200k's forest and decision tree on the
+    (1, 2) mesh at ``featureShards: 2`` (each rank one chunk of the
+    columns), held bitwise against phase 5's unsharded fits; then an LR
+    grid on the (2, 1) mesh over sweep-200k's matrix against the same
+    grid unsharded on this card."""
+    from transmogrifai_tpu_torch import synthetic_trees as ST
+    from transmogrifai_tpu_torch.models import _treefit as TF
+    from transmogrifai_tpu_torch.models.linear import \
+        LogisticRegressionFamily
+    from transmogrifai_tpu_torch.models.tuning import CrossValidation
+    from transmogrifai_tpu_torch.parallel import mesh as M
+    t_leg = time.perf_counter()
+    ref = torch.load(spec["ref"])
+    cols_mesh = M.make_mesh(grid_axis=2)  # lint: explicit-mesh — the leg's column-sharded (1, 2) topology
+    rows_mesh = M.make_mesh()  # lint: explicit-mesh — the leg's row-sharded (2, 1) topology
+    _reset_counts()
+    with TF.tree_mesh_scope(cols_mesh), TF.feature_shards_scope(2):
+        got = forest_fits(ST, torch.device("cuda"))
+    res = {"forest": {name: {"equal": {
+        k: bool(torch.equal(t[k], ref[name][0][k])) for k in t}, "s": s}
+        for name, (t, s) in got.items()}}
+    res["launches"], res["all_reduces"] = _counts()
+    store = ST.synthesize_store(N)
+    X, y = store["features"].values, store["label"].values
+    cv = CrossValidation(num_folds=3, metric_name="AuPR", seed=42)
+    lr = {}
+    for what, mesh in (("sharded", rows_mesh), ("one", None)):
+        t0 = time.perf_counter()
+        _f, _h, summ = cv.validate([LogisticRegressionFamily()], X, y,
+                                   device="cuda", mesh=mesh)
+        lr[what] = ([r.metric_values for r in summ.results],
+                    time.perf_counter() - t0)
+    res.update(lr_max_diff=float(np.max(np.abs(
+        np.asarray(lr["sharded"][0]) - np.asarray(lr["one"][0])))),
+        lr_s={k: v[1] for k, v in lr.items()},
+        leg_s=time.perf_counter() - t_leg)
+    return res
+
+
+def mesh_leg(spec):
+    """One rank of phase 21's world: (a) then (b), every result written
+    where the driver reads it; then every rank leaves together."""
+    import torch.distributed as dist
+
+    from transmogrifai_tpu_torch.parallel import multihost
+    rank, joined_s = _leg_join(spec)
+    res = {"rank": rank, "joined_s": joined_s,
+           "card": torch.cuda.get_device_name(0),
+           "text": _text_leg(spec, rank), "forest": _forest_leg(spec)}
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    multihost.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_world(spec, what):
+    """:func:`mesh_leg` on two ranks (``python -m torch.distributed.run
+    --standalone --nproc-per-node 2``), both on this card: every rank's
+    result and the world's wall seconds. A rank that fails, or a world
+    that outlives :data:`MESH_LEG_TIMEOUT_S`, fails the phase; every
+    process the world started is stopped."""
+    import shutil
+    import signal
+    import tempfile
+    out = tempfile.mkdtemp(prefix="mesh_leg_")
+    spec = dict(spec, out=out, t_launch=time.time())
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", os.path.abspath(__file__), "--mesh-leg",
+           json.dumps(spec)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=MESH_LEG_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log = proc.communicate()[0]
+        print(log[-6000:])
+        fail(f"{what}: the world of two ranks outlived "
+             f"{MESH_LEG_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(log[-6000:])
+        fail(f"{what}: the world of two ranks exited {proc.returncode}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    shutil.rmtree(out, ignore_errors=True)
+    return ranks, wall
+
+
+def level_all_reduces(leg, levels):
+    """(all-reduces a level, µs an all-reduce) of one rank's leg."""
+    c = leg["all_reduces"]
+    return c["all_reduce"] / max(levels, 1), \
+        1e6 * c["all_reduce_s"] / max(c["all_reduce"], 1)
+
+
+def mesh_phase(H, ST, card, text_best, text_aupr, forest_ref):
+    """Phase 21 (mesh-200k), one world of two ranks on this card: (a)
+    text-200k trained through the runner, against phase 4's winner and
+    AuPR; (b) rf-200k's forest and decision tree column-sharded, bitwise
+    phase 5's unsharded fits, and an LR grid row-sharded against the
+    unsharded one. Returns the world's kernel launches, summed over the
+    ranks and both legs."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="mesh_phase_")
+    try:
+        ref_path = os.path.join(work, "forest_ref.pt")
+        torch.save(forest_ref, ref_path)
+        ranks, wall = mesh_world({"model": os.path.join(work, "model"),
+                                  "ref": ref_path}, "mesh-200k")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    text = [r["text"] for r in ranks]
+    for rank, t in enumerate(text):
+        missing = [k for k in MESH_KERNELS if t["launches"][k] == 0]
+        if missing:
+            fail(f"mesh-200k: rank {rank} never launched {missing}")
+        once_per_level(t["launches"], f"mesh-200k rank {rank}")
+        if t["best"] != text[0]["best"]:
+            fail("mesh-200k: the ranks picked different winners")
+        if t["mesh"]["devices"] != 2 or t["mesh"]["data"] != 2 \
+                or t["process"]["process_count"] != 2:
+            fail(f"mesh-200k: rank {rank} ran on {t['mesh']}")
+    t0 = text[0]
+    if t0["best"] != list(text_best):
+        fail(f"mesh-200k: winner {t0['best']} is not phase 4's {text_best}")
+    if not (t0["finite"] and t0["rows"] == N
+            and abs(t0["aupr"] - text_aupr) <= MESH_AUPR_TOL):
+        fail(f"mesh-200k: AuPR {t0['aupr']!r} against phase 4's "
+             f"{text_aupr!r} (tolerance {MESH_AUPR_TOL})")
+    if t0["launches"]["predict_trees"] == 0:
+        fail("mesh-200k: rank 0's score never launched predict_trees")
+    levels = t0["launches"]["group_rows"]
+    per_level, us = level_all_reduces(t0, levels)
+    joined = max(r["joined_s"] for r in ranks)
+    print(f"mesh-200k (a), {card}: text-200k's Train by 2 ranks (gloo, "
+          f"one card): world {wall:.2f} s, ranks joined {joined:.2f} s "
+          f"after launch; leg {max(t['leg_s'] for t in text):.2f} s, Train "
+          f"{max(t['train_s'] for t in text):.2f} s, rank 0's load + score "
+          f"{t0['score_s']:.2f} s; winner {t0['best']}, AuPR "
+          f"{t0['aupr']:.6f} (phase 4 {text_aupr:.6f}, |Δ| "
+          f"{abs(t0['aupr'] - text_aupr):.2e}); {levels} levels, "
+          f"{per_level:.2f} all-reduces a level at {us:.1f} µs each "
+          f"({t0['all_reduces']['all_reduce_bytes'] / 1e6:.1f} MB in all); "
+          f"launches {[t['launches'] for t in text]}")
+    forest = [r["forest"] for r in ranks]
+    for rank, f in enumerate(forest):
+        for name, fit in f["forest"].items():
+            bad = [k for k, ok in fit["equal"].items() if not ok]
+            if bad:
+                fail(f"mesh-200k: rank {rank}'s column-sharded {name} "
+                     f"differs from phase 5's in {bad}")
+        if f["lr_max_diff"] > MESH_LR_TOL:
+            fail(f"mesh-200k: the row-sharded LR's fold metrics are "
+                 f"{f['lr_max_diff']:.3e} from the unsharded LR's")
+        for k in ("cumhist", "group_rows", "split_scan", "level_epilogue"):
+            if f["launches"][k] == 0:
+                fail(f"mesh-200k forest leg: rank {rank} never launched {k}")
+    f0 = forest[0]
+    flevels = f0["launches"]["group_rows"]
+    fper, fus = level_all_reduces(f0, flevels)
+    print(f"mesh-200k (b), {card}: leg {max(f['leg_s'] for f in forest):.2f}"
+          f" s; featureShards 2: forest and decision tree bitwise phase "
+          f"5's fits, "
+          + ", ".join(f"{k} {v['s']:.2f} s (unsharded {forest_ref[k][1]:.2f}"
+                      f" s)" for k, v in f0["forest"].items())
+          + f"; {flevels} levels, {fper:.2f} all-reduces a level at "
+          f"{fus:.1f} µs each; LR grid on (2, 1): fold metrics within "
+          f"{max(f['lr_max_diff'] for f in forest):.2e} of the unsharded "
+          f"LR, {f0['lr_s']['sharded']:.2f} s sharded, "
+          f"{f0['lr_s']['one']:.2f} s one rank alone")
+    launches = {k: sum(r[leg]["launches"][k] for r in ranks
+                       for leg in ("text", "forest"))
+                for k in H.KERNEL_LAUNCHES}
+    print(f"phase 21 (mesh-200k) {card}: {time.perf_counter() - t_phase:.2f}"
+          f" s")
+    return launches
+
+
 def phase_seconds(n, t0):
     """Print phase ``n``'s wall seconds since ``t0``; the time now."""
     t = time.perf_counter()
@@ -7641,6 +8009,11 @@ def main():
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return retrain_leg(json.loads(
             sys.argv[sys.argv.index("--retrain-leg") + 1]))
+    if "--mesh-leg" in sys.argv[1:]:
+        # one rank of phase 21's world (started by torchrun)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return mesh_leg(json.loads(
+            sys.argv[sys.argv.index("--mesh-leg") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -7690,6 +8063,20 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if "--every-surface-only" in sys.argv[1:]:
         rich_dsl_paths(H, TF, BO, IR, root)
+        return 0
+    if "--mesh-only" in sys.argv[1:]:
+        from transmogrifai_tpu_torch import synthetic_trees as ST
+        rng = np.random.default_rng(0)
+        check_epilogue(H, dev, rng, lambda a: torch.as_tensor(a, device=dev),
+                       torch.as_tensor(rng.integers(0, B, size=(F, N),
+                                                    dtype=np.int32),
+                                       device=dev))
+        check_wide_channels(H, dev)
+        out = BP.run(N, device="cuda",
+                     records=BP.synthesize_records(N, seed=42))
+        s = out["summary"]
+        mesh_phase(H, ST, card, (s.best_model_name, s.best_model_params),
+                   out["metrics"]["AuPR"], forest_fits(ST, dev))
         return 0
     if "--wide-only" in sys.argv[1:]:
         check_wide_channels(H, dev)
@@ -7780,6 +8167,7 @@ def main():
     print(f"BigPassenger launches: {launches}")
     path_launches["text-200k"] = launches
     text_aupr = aupr
+    text_best = (s.best_model_name, s.best_model_params)
     stage_table(out["model"], "text-200k")
     check_fusion(out["model"], training_store(
         out["model"], records, selector_splitter(out["model"])),
@@ -7807,6 +8195,10 @@ def main():
           f"{s.validator_summary.family_seconds}")
     print(f"rf-200k launches: {launches}")
     path_launches["rf-200k"] = launches
+    # phase 21's reference: the forest and the decision tree fitted on
+    # all of rf-200k's rows, unsharded
+    from transmogrifai_tpu_torch import synthetic_trees as ST
+    forest_ref = forest_fits(ST, dev)
     layer_evaluate(out, "rf-200k")
     if profile:
         profile_path(H, "rf-200k", lambda: run(N, device="cuda",
@@ -7924,7 +8316,12 @@ def main():
         path_launches["tune-serve200k"] = tune_phase(H, ctx, card)
     finally:
         shutil.rmtree(ctx["work"], ignore_errors=True)
-    phase_seconds(20, t_ph)
+    t_ph = phase_seconds(20, t_ph)
+
+    # -- phase 21: the mesh (mesh-200k) ------------------------------------
+    path_launches["mesh-200k"] = mesh_phase(H, ST, card, text_best,
+                                            text_aupr, forest_ref)
+    phase_seconds(21, t_ph)
 
     kernels = []
     names = ("cumhist", "cumhist_bc", "cumhist_sparse01", "group_rows",

@@ -208,6 +208,20 @@ def test_serving_tier_modules_are_scanned(module):
     assert dotted in _modules()
 
 
+@pytest.mark.parametrize("module", ["parallel/__init__.py",
+                                    "parallel/mesh.py",
+                                    "parallel/multihost.py"])
+def test_mesh_modules_are_scanned(module):
+    """The mesh and the joining of ranks are among the sources scanned
+    above and the modules imported with ``jax`` blocked."""
+    path = PORT / module
+    assert path in SOURCES
+    parts = path.relative_to(ROOT).with_suffix("").parts
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    assert ".".join(parts) in _modules()
+
+
 def test_a_telemetry_on_train_runs_with_jax_blocked(tmp_path):
     """With ``jax`` and the JAX package blocked, the port trains through
     its runner on the CPU with telemetry on and writes its trace."""

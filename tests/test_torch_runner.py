@@ -4,8 +4,7 @@ records, the metrics documents' keys, stage-parameter overrides, the
 ``OpApp`` entry, the written CSV, a workflow with the RawFeatureFilter
 and workflow-level CV (the filter's verdict in Train's metrics), and what
 StreamingScore, the quarantine sink and YAML parameter files running and
-writing what they write, and what is not ported raising with its ROADMAP
-queue A item."""
+writing what they write, and the mesh knobs in a world of one process."""
 import csv
 import json
 import os
@@ -38,8 +37,8 @@ from transmogrifai_tpu_torch.runner import (OpApp, OpParams,
 from transmogrifai_tpu_torch.utils import uid as puid
 
 #: metrics-document blocks of the JAX package's runner whose modules are
-#: not ported (ROADMAP queue A: parallel/mesh and multi-host A6.6)
-NOT_PORTED = {"mesh", "process"}
+#: not ported: none (the mesh and multi-host blocks came with parallel/)
+NOT_PORTED = set()
 RUNS = (RunType.TRAIN, RunType.SCORE, RunType.EVALUATE, RunType.FEATURES)
 
 
@@ -198,21 +197,27 @@ def test_the_runner_defaults_to_the_card():
 
 UNPORTED = {
     "mesh": (lambda r, p: r.run(RunType.TRAIN, OpParams(
-        custom_params={"meshDevices": 4})), r"item A6\.6"),
+        custom_params={"meshDevices": 4})), "n_devices=4"),
     "mesh-devices flag": (lambda r, p: _App(r).main(
         ["--run-type", "Train", "--quiet", "--mesh-devices", "2"]),
-        r"item A6\.6"),
+        "n_devices=2"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(UNPORTED))
 def test_unported_parts_raise_naming_their_item(what, tmp_path):
-    """Nothing of the JAX runner is silently ignored: each part not
-    ported raises NotImplementedError naming its ROADMAP queue A item."""
+    """The mesh knobs, once unported, reach ``make_mesh``: in a world of
+    one process a mesh of more ranks raises the ValueError naming the
+    world's rank count and ``torchrun`` (the flag runs for real under the
+    spawned world of ``tests/test_torch_multihost.py``), and nothing
+    initializes ``torch.distributed``."""
+    import torch.distributed as dist
     runner, params, _pred = _port_runner(_records(n=60), tmp_path)
-    call, item = UNPORTED[what]
-    with pytest.raises(NotImplementedError, match=f"queue A,? {item}"):
+    call, n = UNPORTED[what]
+    with pytest.raises(ValueError, match=rf"{n} exceeds the world's 1 "
+                       r"rank\(s\).*torchrun"):
         call(runner, params)
+    assert not dist.is_initialized()
 
 
 #: the telemetry requests that raised before telemetry was ported: each

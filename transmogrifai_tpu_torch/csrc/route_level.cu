@@ -46,6 +46,13 @@
 // stats and totals for the records in a scratch buffer in device memory
 // (wide_stats), so the plan's shared memory does not grow with C.
 //
+// Column-sharded levels (models/_treefit.py, featureShards): a rank holds
+// only its column chunk's histograms, so the caller merges the chunks'
+// winners across ranks and passes the winners' [A, C] left stats and the
+// slot totals in win_stats [2, A, C]; the plan then reads a slot's stats
+// there instead of from cum (which is not read, and may be null), and
+// decodes the winner over each block's padded width as before.
+//
 // What bounds it: bytes. A row reads 12 bytes and writes 8 or 12; the plan
 // reads a few KB (block winners, 2 C stats a slot). The launch and the
 // plan's chain of dependent loads (winner -> column -> edge) set its time
@@ -98,6 +105,7 @@ struct EpilogueParams {
   int n_blocks, edge_stride, n, A, A_next, C, kind, split, d, D;
   float lam, mig;
   float* wide_stats;                   // [2, A, C] scratch when C > 8
+  float* win_stats;                    // [2, A, C] winners' stats, or null
 };
 
 namespace {
@@ -269,8 +277,10 @@ level_epilogue_kernel(const EpilogueParams p) {
   float* thr_v = key + A;                      // stored threshold
   int* inv = reinterpret_cast<int*>(thr_v + A);  // position in gain order
   // [A, C] winner's left stats and totals: in shared memory, or (wide)
-  // block 0's scratch in device memory
-  float* lst = WIDE ? p.wide_stats : reinterpret_cast<float*>(inv + A);
+  // block 0's scratch in device memory, or the caller's win_stats
+  const bool win = p.win_stats != nullptr;
+  float* lst = WIDE ? (win ? p.win_stats : p.wide_stats)
+                    : reinterpret_cast<float*>(inv + A);
   float* tst = lst + A * C;
   unsigned char* ds = reinterpret_cast<unsigned char*>(
       WIDE ? reinterpret_cast<float*>(inv + A) : tst + A * C);
@@ -286,12 +296,14 @@ level_epilogue_kernel(const EpilogueParams p) {
   for (int a = threadIdx.x; a < A; a += THREADS) {
     // block 0's totals do not depend on the winner: loaded first
     const int nb0 = p.n_bins[0], fb0 = p.width[0];
-    const float* c0 = p.cum[0] + (size_t)a * C * nb0 * fb0
-        + (size_t)(nb0 - 1) * fb0;
+    const float* c0 = win ? nullptr
+        : p.cum[0] + (size_t)a * C * nb0 * fb0 + (size_t)(nb0 - 1) * fb0;
     float l[NR], t[NR];
     if constexpr (!WIDE) {
 #pragma unroll
-      for (int c = 0; c < C_T; ++c) t[c] = c0[(size_t)c * nb0 * fb0];
+      for (int c = 0; c < C_T; ++c)
+        t[c] = win ? p.win_stats[(size_t)(A + a) * C_T + c]
+                   : c0[(size_t)c * nb0 * fb0];
     }
     float sc = p.score[a];
     long long best = p.idx[a];
@@ -323,13 +335,20 @@ level_epilogue_kernel(const EpilogueParams p) {
     // the stored threshold is a record (block 0's); rows compare bins
     const float thr = !records ? 0.0f
         : p.sparse01[wb] ? 0.5f : p.edges[(size_t)fg * p.edge_stride + tb];
-    const float* cw = p.cum[wb] + (size_t)a * C * nb * fb_n
-        + (size_t)tb * fb_n + fb;
+    const float* cw = win ? nullptr
+        : p.cum[wb] + (size_t)a * C * nb * fb_n + (size_t)tb * fb_n + fb;
     float gain;
     if constexpr (WIDE) {
-      const size_t sl = (size_t)nb * fb_n, st = (size_t)nb0 * fb0;
-      gain = split_gain_wide(p.kind, cw, sl, c0, st, C, p.lam);
-      if (records) {
+      if (win) {
+        gain = split_gain_wide(p.kind, p.win_stats + (size_t)a * C, 1,
+                               p.win_stats + (size_t)(A + a) * C, 1, C,
+                               p.lam);
+      } else {
+        const size_t sl = (size_t)nb * fb_n, st = (size_t)nb0 * fb0;
+        gain = split_gain_wide(p.kind, cw, sl, c0, st, C, p.lam);
+      }
+      if (records && !win) {
+        const size_t sl = (size_t)nb * fb_n, st = (size_t)nb0 * fb0;
         for (int c = 0; c < C; ++c) {
           lst[a * C + c] = cw[c * sl];
           tst[a * C + c] = c0[c * st];
@@ -338,7 +357,8 @@ level_epilogue_kernel(const EpilogueParams p) {
     } else {
 #pragma unroll
       for (int c = 0; c < C_T; ++c) {
-        l[c] = cw[(size_t)c * nb * fb_n];
+        l[c] = win ? p.win_stats[(size_t)a * C_T + c]
+                   : cw[(size_t)c * nb * fb_n];
         lst[a * C_T + c] = l[c];
         tst[a * C_T + c] = t[c];
       }
@@ -506,7 +526,8 @@ extern "C" int level_epilogue_launch(const EpilogueParams* params,
   const EpilogueParams& p = *params;
   if (p.A < 1 || p.A_next < 1 || p.C < 3 || p.C > MAX_C ||
       p.n_blocks < 1 || p.n_blocks > MAX_BLOCKS ||
-      (p.C > MAX_REG_C && p.wide_stats == nullptr) ||
+      (p.C > MAX_REG_C && p.wide_stats == nullptr &&
+       p.win_stats == nullptr) ||
       (p.kind != VARIANCE && p.kind != GINI && p.kind != XGB))
     return (int)cudaErrorInvalidValue;
   switch (p.C) {

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from . import telemetry
+from .parallel import mesh as _mesh
 
 logger = logging.getLogger(__name__)
 
@@ -388,14 +389,20 @@ def _chan_combine(parts: np.ndarray) -> Tuple[np.ndarray, ...]:
 
 
 def _device_moment_bundles(store, col_kinds: Dict[str, Dict[str, List[Tuple]]],
-                           dev: torch.device, dtype: torch.dtype
+                           dev: torch.device, dtype: torch.dtype, mesh=None
                            ) -> Tuple[Dict[str, Dict[Tuple, Any]],
                                       Dict[str, SufficientStats]]:
     """The device tier: the requested columns stacked into [n, k] (masked
     rows zeroed), chunks of ``_chunk_rows(n)`` rows folded on ``dev`` in
     ``dtype``, every chunk's partials pulled in one copy and merged on
     the host in f64. Returns each column's values by (kind, params) and
-    its state (the merged partials)."""
+    its state (the merged partials).
+
+    Over a mesh whose ``data`` axis D divides the chunk, each chunk is D
+    pieces and rank r folds pieces r, r + D, ...; the pieces' partials
+    are summed over the ``data`` group from zero-filled copies, so every
+    rank merges the same partials (counts, minima and maxima exact; the
+    moments within rounding of the unsharded pass)."""
     names = sorted(col_kinds)
     n, k = store.n_rows, len(names)
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
@@ -412,20 +419,35 @@ def _device_moment_bundles(store, col_kinds: Dict[str, Dict[str, List[Tuple]]],
     if pinned:
         Vt, Bt = Vt.pin_memory(), Bt.pin_memory()
     n_chunks = rows // chunk
+    D = 1 if mesh is None else mesh.shape["data"]
+    sharded = D > 1 and chunk % D == 0
+    if sharded:
+        piece = chunk // D
+        mine = list(range(mesh.axis_index("data"), rows // piece, D))
+        Vt = torch.cat([Vt[j * piece:(j + 1) * piece] for j in mine])
+        Bt = torch.cat([Bt[j * piece:(j + 1) * piece] for j in mine])
     # the device seconds of the upload and the fold (the analytic ~10
     # operations a cell: count, sum, chunk mean, centered delta, M2, min,
     # max), read after the pull below
     with telemetry.device_timer("fitstats", dev,
-                                flops=10.0 * chunk * k * n_chunks):
+                                flops=10.0 * chunk * k * n_chunks / D):
         Vd = Vt.to(dev, non_blocking=pinned)
         Bd = Bt.to(dev, non_blocking=pinned)
-        parts = torch.stack([_moment_step(Vd[off:off + chunk],
-                                          Bd[off:off + chunk])
-                             for off in range(0, rows, chunk)])
+        if sharded:
+            parts = torch.zeros((rows // piece, 6, k), dtype=Vd.dtype,
+                                device=dev)
+            for i, j in enumerate(mine):
+                parts[j] = _moment_step(Vd[i * piece:(i + 1) * piece],
+                                        Bd[i * piece:(i + 1) * piece])
+            _mesh.all_reduce(parts, mesh, "data")
+        else:
+            parts = torch.stack([_moment_step(Vd[off:off + chunk],
+                                              Bd[off:off + chunk])
+                                 for off in range(0, rows, chunk)])
     parts = parts.cpu().numpy()
     telemetry.settle_device_timers()
     with telemetry.span("fit:psum_merge", chunks=n_chunks, columns=k,
-                        sharded=False):
+                        sharded=sharded):
         cnt, mean, m2, mn, mx = _chan_combine(parts)
     out: Dict[str, Dict[Tuple, Any]] = {}
     states: Dict[str, SufficientStats] = {}
@@ -680,8 +702,8 @@ class LayerStatsPlan:
             warm_state: Optional[Mapping[str, SufficientStats]] = None,
             workflow_device=None, dtype: torch.dtype = torch.float32,
             tier_hint: Optional[str] = None,
-            stream_state: Optional[Mapping[str, SufficientStats]] = None
-            ) -> StatResults:
+            stream_state: Optional[Mapping[str, SufficientStats]] = None,
+            mesh=None) -> StatResults:
         """Compute every request in one pass.
 
         ``device`` picks the moment kinds' tier (None: the device tier
@@ -701,7 +723,10 @@ class LayerStatsPlan:
         request on such a column finalizes from it (bitwise a materialized
         device pass over every streamed row) and the subsample ``store``
         is not scanned for it; it persists and warm-merges like a fresh
-        state."""
+        state.
+
+        ``mesh`` (the workflow's): the device tier's rows are folded
+        across its ``data`` ranks (:func:`_device_moment_bundles`)."""
         from .models.base import resolve_device
         dev = None
 
@@ -739,7 +764,8 @@ class LayerStatsPlan:
                 from . import resilience
                 resilience.inject("fitstats.device_pass", rows=store.n_rows)
                 bundles, states = _device_moment_bundles(
-                    store, moment_cols, target(), dtype)
+                    store, moment_cols, target(), dtype,
+                    _mesh.mesh_if_multi(mesh))
             else:
                 bundles, states = {}, {}
                 for nm, kinds in moment_cols.items():

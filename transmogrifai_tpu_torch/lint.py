@@ -874,7 +874,8 @@ def preflight_device(model, n_rows: int = 8, target=None) -> List[Finding]:
                             f"envelope ({envelope_of}; VMEM_ENVELOPE_BYTES)"
                             " with feature sharding off: "
                             "customParams.featureShards (columns 1/G per "
-                            "device, ROADMAP A6.6) and "
+                            "rank over the mesh's grid axis of G ranks, "
+                            "customParams.meshGridSize) and "
                             "customParams.streamFit (the out-of-core "
                             "fit) are the remedies", stage=m.uid))
                 store = store.with_column(

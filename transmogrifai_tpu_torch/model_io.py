@@ -414,9 +414,27 @@ def _recover_checkpoint(path: str) -> str:
     If the process died between the renames, ``<path>`` is missing but a
     sibling is loadable: ``.tmp`` is preferred (it is complete before any
     rename starts), then ``.old``, and the chosen one is renamed into
-    place. MODEL_JSON, written last, marks a complete save."""
+    place. MODEL_JSON, written last, marks a complete save.
+
+    In a world of ranks only the coordinator repairs the shared directory
+    (one writer). Another rank returns ``path`` at once when no sibling
+    is complete (the load then fails downstream); otherwise it waits up
+    to 30 s for the repaired target, then reads a complete sibling, which
+    nothing renames any more."""
     if os.path.exists(os.path.join(path, MODEL_JSON)):
         return path
+    from .parallel.multihost import is_coordinator
+    if not is_coordinator():
+        if not any(os.path.exists(os.path.join(s, MODEL_JSON))
+                   for s in (f"{path}.tmp", f"{path}.old")):
+            return path
+        for _ in range(60):
+            if os.path.exists(os.path.join(path, MODEL_JSON)):
+                return path
+            time.sleep(0.5)
+        sibs = [s for s in (path, f"{path}.tmp", f"{path}.old")
+                if os.path.exists(os.path.join(s, MODEL_JSON))]
+        return sibs[0] if sibs else path
     for sibling in (f"{path}.tmp", f"{path}.old"):
         if os.path.exists(os.path.join(sibling, MODEL_JSON)):
             if not os.path.exists(path):

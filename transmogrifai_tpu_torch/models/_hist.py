@@ -838,15 +838,24 @@ def split_gain(kind: str, l: torch.Tensor, t: torch.Tensor,
     raise ValueError(f"split_gain: unknown kind {kind!r}")
 
 
+def _block_shape(cumb) -> Tuple[int, int]:
+    """(n_bins, width) of a candidate block: its histogram's last two
+    axes, or the pair itself (``win_stats`` given)."""
+    if torch.is_tensor(cumb):
+        return int(cumb.shape[2]), int(cumb.shape[3])
+    return int(cumb[0]), int(cumb[1])
+
+
 def level_epilogue_reference(score, idx, valid, cums, cols, sparse01, edges,
                              alive, gpos, XbT, slot, g, feat, thr, gain,
                              leaf_stats, *, kind: str, lam: float, mig,
                              d: int, max_depth: int, A_next: int,
-                             split_ok: bool = True, node_even: bool = False):
+                             split_ok: bool = True, node_even: bool = False,
+                             win_stats=None):
     """Plain version of :func:`level_epilogue`, the level loop's eager
     code."""
     A = alive.shape[0]
-    C = cums[0].shape[1]
+    C = cums[0].shape[1] if win_stats is None else win_stats.shape[2]
     dev = alive.device
     D = max_depth
     total_nodes, n_leaves = (1 << D) - 1, 1 << D
@@ -856,6 +865,7 @@ def level_epilogue_reference(score, idx, valid, cums, cols, sparse01, edges,
     # concatenation)
     off = 0
     for bi, cumb in enumerate(cums):
+        nb, fb_n = _block_shape(cumb)
         gi = off + idx[bi].long()
         if bi == 0:
             s_best, best, ok = score[0], gi, valid[0]
@@ -865,14 +875,15 @@ def level_epilogue_reference(score, idx, valid, cums, cols, sparse01, edges,
             best = torch.where(take, gi, best)
             ok = torch.where(take, valid[bi], ok)
             s_best = torch.where(take, score[bi], s_best)
-        off += (cumb.shape[2] - 1) * cumb.shape[3]
+        off += (nb - 1) * fb_n
     # decode the winner in its block (later blocks override where the
     # winner lies in them); the exact gain is taken at the winner's
-    # [A, C] left / total stats
+    # [A, C] left / total stats: read from the histograms, or from
+    # ``win_stats`` [2, A, C] (left stats, totals) when given
     off = 0
     for bi, cumb in enumerate(cums):
-        fb_n = cumb.shape[3]
-        size = (cumb.shape[2] - 1) * fb_n
+        nb, fb_n = _block_shape(cumb)
+        size = (nb - 1) * fb_n
         local = best - off
         if len(cums) > 1:
             local = torch.clamp(local, 0, size - 1)
@@ -880,8 +891,9 @@ def level_epilogue_reference(score, idx, valid, cums, cols, sparse01, edges,
         tb = local // fb_n
         thr_b = (torch.full((A,), 0.5, dtype=edges.dtype, device=dev)
                  if sparse01[bi] else edges[fg, tb])
-        lb = cumb[:, :, :-1, :].reshape(A, C, size).gather(
-            2, local[:, None, None].expand(A, C, 1))[:, :, 0]
+        lb = (win_stats[0] if win_stats is not None
+              else cumb[:, :, :-1, :].reshape(A, C, size).gather(
+                  2, local[:, None, None].expand(A, C, 1))[:, :, 0])
         if bi == 0:
             f_idx, t_idx, thr_v, lstats = fg, tb, thr_b, lb
         else:
@@ -892,7 +904,7 @@ def level_epilogue_reference(score, idx, valid, cums, cols, sparse01, edges,
             lstats = torch.where(inb[:, None], lb, lstats)
         off += size
     f_idx, t_idx = f_idx.to(torch.int32), t_idx.to(torch.int32)
-    tstats = cums[0][:, :, -1, 0]
+    tstats = cums[0][:, :, -1, 0] if win_stats is None else win_stats[1]
     best_gain = split_gain(kind, lstats, tstats, lam)
     do_split = alive & ok & (best_gain >= mig)
     if not split_ok:
@@ -968,14 +980,15 @@ class _EpilogueParams(ctypes.Structure):
                 + [(k, _I) for k in (
                     "n_blocks", "edge_stride", "n", "A", "A_next", "C",
                     "kind", "split", "d", "D")]
-                + [("lam", _F), ("mig", _F), ("wide_stats", _P)])
+                + [("lam", _F), ("mig", _F), ("wide_stats", _P),
+                   ("win_stats", _P)])
 
 
 def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
                    gpos, XbT, slot, g, feat, thr, gain, leaf_stats, *,
                    kind: str, lam: float, mig, d: int, max_depth: int,
                    A_next: int, split_ok: bool = True,
-                   node_even: bool = False):
+                   node_even: bool = False, win_stats=None):
     """One tree level after its split scans: A parent slots → A_next
     child slots.
 
@@ -999,19 +1012,26 @@ def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
     level's sibling subtraction (A_next // 2 elsewhere); the children's
     positions and liveness; the parents in gain order.
 
+    ``win_stats`` [2, A, C] (the column-sharded level, whose rank holds
+    only its chunk's histograms): the winners' left stats and the slot
+    totals, read there instead of from the histograms; ``cums`` are then
+    each block's (n_bins, width) and ``cols`` its [width] columns.
+
     Kernel: one launch; f32, int32 rows, A ≤ 2048, 3 ≤ C ≤ 64, at most
     four blocks. Past 8 channels the kernel takes C at run time and keeps
-    the winners' stats in a [2, A, C] scratch buffer made here."""
+    the winners' stats in a [2, A, C] scratch buffer made here (or reads
+    ``win_stats``)."""
     args = (score, idx, valid, cums, cols, sparse01, edges, alive, gpos,
             XbT, slot, g, feat, thr, gain, leaf_stats)
     kw = dict(kind=kind, lam=lam, mig=mig, d=d, max_depth=max_depth,
-              A_next=A_next, split_ok=split_ok, node_even=node_even)
+              A_next=A_next, split_ok=split_ok, node_even=node_even,
+              win_stats=win_stats)
     if _on_cpu(XbT):
         return level_epilogue_reference(*args, **kw)
     dev = XbT.device
     F, n = XbT.shape
     nblk, A = len(cums), alive.shape[0]
-    C = cums[0].shape[1]
+    C = cums[0].shape[1] if win_stats is None else win_stats.shape[2]
     D, A_next = int(max_depth), int(A_next)
     if kind not in _KINDS:
         raise ValueError(f"level_epilogue: no kernel for kind {kind!r}")
@@ -1025,8 +1045,13 @@ def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
         raise ValueError(f"level_epilogue: the plan of A={A} slots, C={C} "
                          "does not fit one block's shared memory")
     for bi, (cumb, cb) in enumerate(zip(cums, cols)):
-        _check(cumb, f"cums[{bi}]", torch.float32, (A, C, None, None), dev)
-        _check(cb, f"cols[{bi}]", torch.int64, (cumb.shape[3],), dev)
+        if win_stats is None:
+            _check(cumb, f"cums[{bi}]", torch.float32, (A, C, None, None),
+                   dev)
+        _check(cb, f"cols[{bi}]", torch.int64, (_block_shape(cumb)[1],),
+               dev)
+    if win_stats is not None:
+        _check(win_stats, "win_stats", torch.float32, (2, A, C), dev)
     _check(score, "score", torch.float32, (nblk, A), dev)
     _check(idx, "idx", torch.int32, (nblk, A), dev)
     _check(valid, "valid", torch.bool, (nblk, A), dev)
@@ -1047,8 +1072,9 @@ def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
     rank = torch.empty((A_next // 2,), dtype=torch.int64, device=dev)
     p = _EpilogueParams()
     for bi, (cumb, cb) in enumerate(zip(cums, cols)):
-        p.cum[bi], p.cols[bi] = cumb.data_ptr(), cb.data_ptr()
-        p.n_bins[bi], p.width[bi] = cumb.shape[2], cumb.shape[3]
+        p.cum[bi] = cumb.data_ptr() if win_stats is None else None
+        p.cols[bi] = cb.data_ptr()
+        p.n_bins[bi], p.width[bi] = _block_shape(cumb)
         p.sparse01[bi] = bool(sparse01[bi])
     for name, t in (("score", score), ("idx", idx), ("valid", valid),
                     ("edges", edges), ("alive", alive), ("gpos", gpos),
@@ -1063,7 +1089,9 @@ def level_epilogue(score, idx, valid, cums, cols, sparse01, edges, alive,
         nblk, edges.shape[1], n, A, A_next, C
     p.kind, p.split, p.d, p.D = _KINDS[kind], bool(split_ok), int(d), D
     p.lam, p.mig = float(lam), float(mig)
-    if C > CHANNEL_CHUNK:
+    if win_stats is not None:
+        p.win_stats = win_stats.data_ptr()
+    elif C > CHANNEL_CHUNK:
         wide = torch.empty((2, A, C), dtype=torch.float32, device=dev)
         p.wide_stats = wide.data_ptr()
     _launch("level_epilogue", "level_epilogue_launch", ctypes.addressof(p),

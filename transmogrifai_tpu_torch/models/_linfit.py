@@ -19,6 +19,13 @@ cross-validation folds, are ``torch.matmul``; a fitted model's margins
 are :func:`row_dot`, whose per-row sums do not depend on how many rows a
 call takes (the scoring engine scores in buckets, the layer path all
 rows at once, and the two agree bitwise).
+
+Over a mesh (``parallel.mesh.sharded_scope``) a fit takes the whole input
+on every rank and works on its own rows (:func:`shard_rows`): every sum
+over rows — the standardization's moments, the power iteration's and the
+gradients' products, the conjugate-gradient matvec, naive Bayes' class
+sums — is summed over the ``data`` group (:func:`psum`), so every rank
+iterates the same coefficients.
 """
 from __future__ import annotations
 
@@ -26,9 +33,11 @@ from typing import Callable, Tuple
 
 import torch
 
+from ..parallel import mesh as _mesh
 from .base import score_sigmoid
 
-__all__ = ["standardize_stats", "power_iter_sq_norm", "soft_threshold",
+__all__ = ["psum", "psum_pair", "shard_rows", "standardize_stats",
+           "power_iter_sq_norm", "soft_threshold",
            "cg_solve", "fista", "fit_binary_logistic",
            "predict_binary_logistic", "fit_multinomial_logistic",
            "predict_multinomial_logistic", "fit_linear", "fit_linear_grid",
@@ -70,13 +79,42 @@ def margins(X: torch.Tensor, W: torch.Tensor,
     return X @ (W.T if W.dim() == 2 else W)
 
 
+def psum(t: torch.Tensor) -> torch.Tensor:
+    """A sum over this rank's rows summed over the active mesh's ``data``
+    group (``t`` itself in one process)."""
+    return _mesh.all_reduce(t, _mesh.active_sharded_mesh(), "data")
+
+
+def psum_pair(a: torch.Tensor, b: torch.Tensor):
+    """(psum(a), psum(b)) of a [G, p] and b [G, q] in one all-reduce over
+    the active mesh; ``a`` and ``b`` themselves in one process."""
+    mesh = _mesh.active_sharded_mesh()
+    if mesh is None or mesh.group("data") is None:
+        return a, b
+    sums = psum(torch.cat([a, b], dim=1))
+    return sums[:, :a.shape[1]], sums[:, a.shape[1]:]
+
+
+def shard_rows(*ts: torch.Tensor):
+    """This rank's rows of whole-input tensors under the active mesh
+    (zero-weight padding past the end), else the tensors themselves."""
+    mesh = _mesh.active_sharded_mesh()
+    if mesh is None or mesh.shape["data"] <= 1:
+        return ts
+    return tuple(_mesh.local_rows(mesh, t) for t in ts)
+
+
+def _wsum(w: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(psum(w.sum()), min=1e-12)
+
+
 def standardize_stats(X: torch.Tensor, w: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted per-feature mean and std (std ≥ 1e-6, so a constant column
     is harmless)."""
-    wsum = torch.clamp(w.sum(), min=1e-12)
-    mean = (X * w[:, None]).sum(0) / wsum
-    var = ((X - mean) ** 2 * w[:, None]).sum(0) / wsum
+    wsum = _wsum(w)
+    mean = psum((X * w[:, None]).sum(0)) / wsum
+    var = psum(((X - mean) ** 2 * w[:, None]).sum(0)) / wsum
     return mean, torch.sqrt(torch.clamp(var, min=1e-12))
 
 
@@ -87,11 +125,11 @@ def power_iter_sq_norm(Xs: torch.Tensor, w: torch.Tensor,
     d = Xs.shape[1]
     v = torch.full((d,), 1.0, dtype=Xs.dtype, device=Xs.device) \
         / torch.sqrt(torch.tensor(float(d), dtype=Xs.dtype))
-    wsum = torch.clamp(w.sum(), min=1e-12)
+    wsum = _wsum(w)
     for _ in range(iters):
-        u = (Xs.T @ (w * (Xs @ v))) / wsum
+        u = psum(Xs.T @ (w * (Xs @ v))) / wsum
         v = u / torch.clamp(torch.linalg.norm(u), min=1e-12)
-    return torch.clamp(v @ (Xs.T @ (w * (Xs @ v))) / wsum, min=1e-12)
+    return torch.clamp(v @ psum(Xs.T @ (w * (Xs @ v))) / wsum, min=1e-12)
 
 
 def soft_threshold(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -144,9 +182,10 @@ def fit_binary_logistic(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     """Binary elastic-net logistic regression at G grid points
     (``reg_param`` / ``elastic_net`` of G values) → (coef [G, d],
     intercept [G])."""
+    X, y, w = shard_rows(X, y, w)
     mean, std = standardize_stats(X, w)
     Xs = (X - mean) / std
-    wsum = torch.clamp(w.sum(), min=1e-12)
+    wsum = _wsum(w)
     reg, enet = _grid(reg_param, X), _grid(elastic_net, X)
     l1, l2 = reg * enet, reg * (1.0 - enet)
     d = X.shape[1]
@@ -155,8 +194,8 @@ def fit_binary_logistic(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         beta, b = params[:, :d], params[:, d:]
         p = torch.sigmoid(beta @ Xs.T + b)  # [G, n]
         r = w * (p - y)
-        return torch.cat([r @ Xs / wsum + l2 * beta,
-                          r.sum(1, keepdim=True) / wsum], dim=1)
+        g_x, g_b = psum_pair(r @ Xs, r.sum(1, keepdim=True))
+        return torch.cat([g_x / wsum + l2 * beta, g_b / wsum], dim=1)
 
     def prox(params, step):
         return torch.cat([soft_threshold(params[:, :d], step * l1),
@@ -186,9 +225,10 @@ def fit_multinomial_logistic(X: torch.Tensor, y: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Softmax elastic-net logistic regression over ``n_classes`` classes
     at G grid points → (coef [G, K, d], intercept [G, K])."""
+    X, y, w = shard_rows(X, y, w)
     mean, std = standardize_stats(X, w)
     Xs = (X - mean) / std
-    wsum = torch.clamp(w.sum(), min=1e-12)
+    wsum = _wsum(w)
     reg, enet = _grid(reg_param, X), _grid(elastic_net, X)
     l1, l2 = (reg * enet)[:, :, None], (reg * (1.0 - enet))[:, :, None]
     n, d, K = X.shape[0], X.shape[1], int(n_classes)
@@ -203,8 +243,9 @@ def fit_multinomial_logistic(X: torch.Tensor, y: torch.Tensor,
         logits = (Xs @ W.reshape(G * K, d).T).reshape(n, G, K) + b
         r = (torch.softmax(logits, dim=2) - onehot[:, None, :]) \
             * w[:, None, None]                                # [n, G, K]
-        gW = (r.reshape(n, G * K).T @ Xs).reshape(G, K, d) / wsum + l2 * W
-        return torch.cat([gW, (r.sum(0) / wsum)[:, :, None]], dim=2)
+        gW = psum(r.reshape(n, G * K).T @ Xs).reshape(G, K, d) / wsum \
+            + l2 * W
+        return torch.cat([gW, (psum(r.sum(0)) / wsum)[:, :, None]], dim=2)
 
     def prox(params, step):
         return torch.cat([soft_threshold(params[:, :, :d], step * l1),
@@ -244,12 +285,13 @@ def fit_linear_grid(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     run, each of the others ridge/OLS by conjugate gradients on the
     normal equations."""
     regs, enets = list(map(float, reg_param)), list(map(float, elastic_net))
+    X, y, w = shard_rows(X, y, w)
     d = X.shape[1]
     coef = torch.empty((len(regs), d), dtype=X.dtype, device=X.device)
     mean, std = standardize_stats(X, w)
     Xs = (X - mean) / std
-    wsum = torch.clamp(w.sum(), min=1e-12)
-    ybar = (y * w).sum() / wsum
+    wsum = _wsum(w)
+    ybar = psum((y * w).sum()) / wsum
     yc = y - ybar
     l1_pts = [i for i, (r, e) in enumerate(zip(regs, enets)) if r * e > 0.0]
     if l1_pts:
@@ -259,7 +301,7 @@ def fit_linear_grid(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 
         def grad(beta):                     # [G', d]
             r = w * (beta @ Xs.T - yc)
-            return r @ Xs / wsum + l2 * beta
+            return psum(r @ Xs) / wsum + l2 * beta
 
         def prox(beta, step):
             return soft_threshold(beta, step * l1)
@@ -274,8 +316,8 @@ def fit_linear_grid(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         l2 = r * (1.0 - e)
 
         def matvec(v):
-            return Xs.T @ (w * (Xs @ v)) / wsum + (l2 + 1e-10) * v
-        coef[i] = cg_solve(matvec, (Xs.T @ (w * yc)) / wsum,
+            return psum(Xs.T @ (w * (Xs @ v))) / wsum + (l2 + 1e-10) * v
+        coef[i] = cg_solve(matvec, psum(Xs.T @ (w * yc)) / wsum,
                            n_iter=min(max(d, 16), 128))
     coef = coef / std
     return coef, ybar - (coef * mean).sum(1)
@@ -294,9 +336,10 @@ def fit_naive_bayes(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     G grid points (``smoothing`` of G values) → (log prior [G, K], log
     likelihood [G, K, d]). Features are clipped at 0."""
     K = int(n_classes)
+    X, y, w = shard_rows(X, y, w)
     yw = torch.nn.functional.one_hot(y.long(), K).to(X.dtype) * w[:, None]
-    class_count = yw.sum(0)                                  # [K]
-    feat_sum = yw.T @ torch.clamp(X, min=0.0)                # [K, d]
+    class_count = psum(yw.sum(0))                            # [K]
+    feat_sum = psum(yw.T @ torch.clamp(X, min=0.0))          # [K, d]
     sm = torch.as_tensor(smoothing, dtype=X.dtype, device=X.device)
     sm = sm.reshape(-1, 1)                                   # [G, 1]
     log_prior = torch.log(class_count + sm) - torch.log(

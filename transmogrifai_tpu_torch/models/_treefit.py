@@ -38,21 +38,40 @@ takes its mask as a view and adds no launch.
 
 Tree layout: level-order ``feat``/``thr`` of length 2^D − 1 and ``leaf``
 [2^D, K]; routing is ``node = 2·node + (x[feat] > thr)``.
+
+Over a mesh of ranks (:func:`tree_mesh_scope`, ``parallel/mesh.py``) a fit
+takes the whole input on every rank and works on its own rows: the bin
+edges come from all rows, the forests' bootstrap uniforms are drawn for
+all rows and sliced; each rank builds a level's histograms over its rows
+and sums them over the ``data`` group before the split scan and the
+sibling subtraction (the xgboost/Rabit histogram all-reduce), and routes
+its own rows. Under ``featureShards`` (:func:`set_feature_shards`, when
+the mesh's ``grid`` axis equals it) each grid rank also takes one
+contiguous chunk of every block's columns, zero-padded to equal width
+with the pads masked, and the chunks' winners merge across the ``grid``
+group (score desc, global index asc); the level epilogue then reads the
+winner's stats from that merge (``win_stats``), since a rank holds only
+its chunk's histograms. Every rank ends a level with the same records.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import random as R
+from ..parallel import mesh as _mesh
 from .base import score_sigmoid
 from ._hist import (MAX_CARD_CHANNELS, cumhist,
                     cumhist_sparse01, group_rows, hist_rows, level_epilogue,
                     predict_trees, sparse01_rows, split_scan)
 
-__all__ = ["quantile_bin_edges", "binarize", "compute_bins", "Block",
+__all__ = ["tree_mesh_scope", "active_tree_mesh", "set_feature_shards",
+           "feature_shards_scope", "active_feature_shards", "RowShard",
+           "row_shard", "quantile_bin_edges", "binarize", "compute_bins",
+           "Block",
            "make_col_blocks", "prepare_blocks",
            "VarianceCriterion", "GiniCriterion", "XGBCriterion",
            "variance_leaf", "gini_leaf", "make_xgb_leaf", "grow_tree",
@@ -72,6 +91,104 @@ _EPS = 1e-12
 QUANTILE_SAMPLE_ROWS = 262_144
 #: fixed key of the quantile-sketch row permutation
 _QUANTILE_SEED = 0x51EED
+
+
+# ---------------------------------------------------------------------------
+# The mesh: row shards and column chunks
+# ---------------------------------------------------------------------------
+
+#: requested column shard count (1 = off); engages only when the active
+#: tree mesh's ``grid`` axis equals it (:func:`_feature_shard_count`)
+_FEATURE_SHARDS = [1]
+
+
+def set_feature_shards(n: int) -> int:
+    """Install the requested column shard count (1 = off); returns the
+    previous value (the runner's ``featureShards`` restores it)."""
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"feature shards must be >= 1, got {n}")
+    prev = _FEATURE_SHARDS[0]
+    _FEATURE_SHARDS[0] = n
+    return prev
+
+
+@contextlib.contextmanager
+def feature_shards_scope(n: int):
+    """Scoped :func:`set_feature_shards`."""
+    prev = set_feature_shards(n)
+    try:
+        yield
+    finally:
+        _FEATURE_SHARDS[0] = prev
+
+
+def active_feature_shards() -> int:
+    """The requested column shard count (1 = off)."""
+    return _FEATURE_SHARDS[0]
+
+
+def tree_mesh_scope(mesh):
+    """The block's tree fits shard over ``mesh`` (``mesh.sharded_scope``;
+    None, ``False`` and the degenerate mesh keep the single-process
+    path). Re-entrant; the previous scope is restored on exit."""
+    return _mesh.sharded_scope(mesh)
+
+
+def active_tree_mesh():
+    """The mesh of :func:`tree_mesh_scope` (never a one-rank mesh), or
+    None."""
+    return _mesh.active_sharded_mesh()
+
+
+def _feature_shard_count() -> int:
+    """The column shard count G of a fit now, or 1: ``featureShards`` > 1
+    and an active tree mesh whose ``grid`` axis is exactly G. Anything
+    else keeps whole blocks, so a stale request over another mesh cannot
+    mis-shard."""
+    req = int(_FEATURE_SHARDS[0])
+    mesh = active_tree_mesh()
+    if req <= 1 or mesh is None or mesh.shape["grid"] != req:
+        return 1
+    return req
+
+
+class RowShard(NamedTuple):
+    """A fit's rows over a mesh: ``n`` rows in all, this rank's
+    ``data_sharding`` of them (zero-weight padding past ``n``)."""
+
+    mesh: object
+    n: int
+
+    def take(self, t: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """This rank's rows of a whole-input tensor (rows on ``axis``)."""
+        return _mesh.local_rows(self.mesh, t, axis)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole [n, ...] from every rank's rows of it."""
+        return _mesh.gather_rows(self.mesh, t, self.n)
+
+
+def row_shard(n: int) -> Optional[RowShard]:
+    """The row shard of an ``n``-row fit under the active tree mesh, or
+    None (one process, or a mesh of one rank on its ``data`` axis)."""
+    mesh = active_tree_mesh()
+    if mesh is None or mesh.shape["data"] <= 1:
+        return None
+    return RowShard(mesh, int(n))
+
+
+def _hist_sums(hs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """A level's histograms (one a block) of this rank's rows summed over
+    the ``data`` group in one all-reduce (every rank gets the same
+    bits)."""
+    mesh = active_tree_mesh()
+    if mesh is None or mesh.group("data") is None:
+        return hs
+    flat = _mesh.all_reduce(torch.cat([h.reshape(-1) for h in hs]), mesh,
+                            "data")
+    return [p.reshape(h.shape) for p, h in zip(
+        flat.split([h.numel() for h in hs]), hs)]
 
 
 # ---------------------------------------------------------------------------
@@ -149,13 +266,17 @@ def _mask_or_none(binary_mask) -> Optional[np.ndarray]:
     return np.asarray(binary_mask, bool)
 
 
-def compute_bins(X: torch.Tensor, n_bins: int, binary_mask=None):
+def compute_bins(X: torch.Tensor, n_bins: int, binary_mask=None,
+                 shard: Optional[RowShard] = None):
     """[n, F] reals → (XbT [F, n] int32, edges [F, n_bins − 1]): the bins
     in the feature-major layout the kernels stream. Indicator columns
     (host-side [F] bool ``binary_mask``) are rebinned to ``x > 0.5``, so
     routing's ``bin > t`` works with their block-local threshold index 0
-    (``_treefit.compute_bins`` of the JAX package)."""
+    (``_treefit.compute_bins`` of the JAX package). With ``shard`` the
+    edges come from all of X and the bins are this rank's rows'."""
     edges = quantile_bin_edges(X, n_bins)
+    if shard is not None:
+        X = shard.take(X)
     Xb = binarize(X, edges)
     bm = _mask_or_none(binary_mask)
     if bm is not None:
@@ -172,13 +293,20 @@ class Block(NamedTuple):
     stored threshold is 0.5) and, on the card, ``rows``: the row-major
     uint8 copy the histogram kernel gathers rows from (``hist_rows`` /
     ``sparse01_rows``; None on the CPU, whose plain versions read
-    ``mat``)."""
+    ``mat``).
+
+    Under ``featureShards`` G > 1 (``shards``) ``mat`` holds this grid
+    rank's chunk: columns ``cols[lo:lo + real]`` of the block, zero rows
+    up to the chunk width ``ceil(Fb / G)``; ``cols`` stays the block's."""
 
     cols: torch.Tensor
     n_bins: int
     mat: torch.Tensor
     sparse01: bool
     rows: Optional[torch.Tensor] = None
+    shards: int = 1
+    lo: int = 0
+    real: int = 0
 
 
 def make_col_blocks(n_features: int, n_bins: int, binary_mask=None
@@ -200,19 +328,32 @@ def prepare_blocks(XbT: torch.Tensor, n_bins: int, binary_mask=None
     """The blocks of one fit, extracted once from the full [F, n] bins:
     the indicator block is stored as uint8 (its bins are 0 or 1); a
     single continuous block is ``XbT`` itself. On the card each block
-    also gets its row-major uint8 copy, once per fit."""
+    also gets its row-major uint8 copy, once per fit. Under
+    ``featureShards`` (:func:`_feature_shard_count`) each block is this
+    grid rank's column chunk."""
     F = XbT.shape[0]
     on_card = XbT.device.type != "cpu"
+    G = _feature_shard_count()
+    s = active_tree_mesh().axis_index("grid") if G > 1 else 0
     out = []
     for cols, nb, indicator in make_col_blocks(F, n_bins, binary_mask):
         idx = torch.from_numpy(cols).to(XbT.device)
-        mat = XbT if len(cols) == F else XbT.index_select(0, idx)
+        lo = real = 0
+        if G > 1:
+            Flg = -(-len(cols) // G)
+            lo = min(s * Flg, len(cols))
+            real = min(len(cols) - lo, Flg)
+            mat = torch.zeros((Flg, XbT.shape[1]), dtype=XbT.dtype,
+                              device=XbT.device)
+            mat[:real] = XbT.index_select(0, idx[lo:lo + real])
+        else:
+            mat = XbT if len(cols) == F else XbT.index_select(0, idx)
         if indicator:
             mat = mat.to(torch.uint8)
         rows = None
         if on_card:
             rows = sparse01_rows(mat) if indicator else hist_rows(mat)
-        out.append(Block(idx, nb, mat, indicator, rows))
+        out.append(Block(idx, nb, mat, indicator, rows, G, lo, real))
     return out
 
 
@@ -281,6 +422,66 @@ def slot_cap(max_depth: int, max_active_nodes: int, unroll: bool) -> int:
     return cap - cap % 2 if unroll else cap
 
 
+def _merge_chunks(score, idx, valid, cums, G: int, s: int, C: int):
+    """The column chunks' split-scan winners of one level merged across
+    the ``grid`` group. ``score`` / ``idx`` / ``valid`` [blocks, A] hold
+    this rank's chunk winners (``idx`` local, t·Flg + f). Returns the
+    per-block winners over the whole block — index in the block's padded
+    candidate axis t·(G·Flg) + s·Flg + f, score desc then index asc, as
+    one scan over the unsharded block picks — and ``win_stats`` [2, A,
+    C]: the overall winner's left stats (blocks merged as the epilogue
+    merges them) and the slot totals (grid rank 0's first column, the
+    lane the unsharded level reads)."""
+    nblk, A = score.shape
+    dt = cums[0].dtype
+    packs = []
+    for bi, cumb in enumerate(cums):
+        nb, Flg = cumb.shape[2], cumb.shape[3]
+        size = (nb - 1) * Flg
+        ix = idx[bi].long()
+        lb = cumb[:, :, :-1, :].reshape(A, C, size).gather(
+            2, ix.clamp(0, size - 1)[:, None, None].expand(A, C, 1))[:, :, 0]
+        gi = (ix // Flg) * (G * Flg) + s * Flg + ix % Flg
+        packs.append(torch.cat([score[bi][:, None].to(dt),
+                                gi[:, None].to(dt),
+                                valid[bi][:, None].to(dt), lb], dim=1))
+    tot = cums[0][:, :, -1, 0] if s == 0 else torch.zeros_like(
+        cums[0][:, :, -1, 0])
+    allp = _mesh.gather_axis(active_tree_mesh(), torch.cat(
+        [torch.stack(packs).reshape(-1), tot.reshape(-1)]), "grid")
+    body = allp[:, :nblk * A * (3 + C)].reshape(G, nblk, A, 3 + C)
+    tstats = allp[0, nblk * A * (3 + C):].reshape(A, C)
+    out_s, out_i, out_v = [], [], []
+    off = 0
+    for bi, cumb in enumerate(cums):
+        for k in range(G):
+            sk, gk = body[k, bi, :, 0], body[k, bi, :, 1]
+            vk, lk = body[k, bi, :, 2] > 0.5, body[k, bi, :, 3:]
+            if k == 0:
+                bs, best, ok, lb = sk, gk, vk, lk
+                continue
+            take = (sk > bs) | ((sk == bs) & (gk < best))
+            best = torch.where(take, gk, best)
+            ok = torch.where(take, vk, ok)
+            lb = torch.where(take[:, None], lk, lb)
+            bs = torch.where(take, sk, bs)
+        out_s.append(bs)
+        out_i.append(best)
+        out_v.append(ok)
+        gi = off + best
+        if bi == 0:
+            s_all, i_all, l_all = bs, gi, lb
+        else:
+            take = (bs > s_all) | ((bs == s_all) & (gi < i_all))
+            i_all = torch.where(take, gi, i_all)
+            l_all = torch.where(take[:, None], lb, l_all)
+            s_all = torch.where(take, bs, s_all)
+        off += (cumb.shape[2] - 1) * G * cumb.shape[3]
+    return (torch.stack(out_s).to(score.dtype),
+            torch.stack(out_i).to(torch.int32), torch.stack(out_v),
+            torch.stack([l_all, tstats]).contiguous())
+
+
 def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
               crit, leaf_fn: Callable, max_depth: int, n_bins: int,
               min_instances, min_info_gain, depth_limit: Optional[int] = None,
@@ -334,6 +535,36 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
         return cumhist(stats, node, blk.mat, a, blk.n_bins, groups=groups,
                        rows=blk.rows)
 
+    fs = blocks[0].shards > 1
+    if fs:
+        G = blocks[0].shards
+        gi_s = active_tree_mesh().axis_index("grid")
+        # the epilogue decodes a block's padded candidate axis t·(G·Flg)
+        # + s·Flg + f: pad columns map to the block's last real column
+        # (reachable only when no candidate is valid)
+        pcols, fs_masks = [], []
+        for bi, blk in enumerate(blocks):
+            Flg = blk.mat.shape[0]
+            pos = torch.clamp(torch.arange(G * Flg, device=dev),
+                              max=len(blk.cols) - 1)
+            pcols.append(blk.cols[pos])
+            pad = Flg - blk.real
+            if masks is not None:
+                m = masks[bi][..., blk.lo:blk.lo + blk.real]
+                fs_masks.append(torch.nn.functional.pad(m, (0, pad))
+                                .contiguous())
+            elif pad:
+                m = torch.ones((cap, Flg), dtype=torch.float32, device=dev)
+                m[:, blk.real:] = 0.0
+                fs_masks.append(m.expand(D, cap, Flg))
+            else:
+                fs_masks.append(None)
+
+    def scan_mask(bi, d, A):
+        if fs:
+            return None if fs_masks[bi] is None else fs_masks[bi][d, :A]
+        return None if masks is None else masks[bi][d, :A]
+
     def level(d, A, A_next, slot, g, node_even, gpos, alive, feat, thr,
               gain, leafS, prev):
         # the card's kernels read the live rows grouped by slot, once a
@@ -354,25 +585,35 @@ def grow_tree(XbT: torch.Tensor, edges: torch.Tensor, stats: torch.Tensor,
         idx = torch.empty((len(blocks), A), **i32)
         valid = torch.empty((len(blocks), A), dtype=torch.bool, device=dev)
         cums = []
-        for bi, blk in enumerate(blocks):
+        # every block's histogram of this rank's rows, summed over the
+        # ranks in one all-reduce
+        hs = _hist_sums([hist(blk, node_even, half, groups)
+                         if prev is not None else hist(blk, slot, A, groups)
+                         for blk in blocks])
+        for bi, (blk, h) in enumerate(zip(blocks, hs)):
             if prev is not None:
-                ev = hist(blk, node_even, half, groups)
                 parent = prev[0][bi][prev[1]]
-                cumb = torch.stack([ev, parent - ev], dim=1).reshape(
-                    (A,) + ev.shape[1:])
+                cumb = torch.stack([h, parent - h], dim=1).reshape(
+                    (A,) + h.shape[1:])
             else:
-                cumb = hist(blk, slot, A, groups)
+                cumb = h
             split_scan(cumb, crit.kernel_kind, min_instances, lam=lam,
-                       min_child_weight=mcw,
-                       mask=None if masks is None else masks[bi][d, :A],
+                       min_child_weight=mcw, mask=scan_mask(bi, d, A),
                        out=(score[bi], idx[bi], valid[bi]))
             cums.append(cumb)
+        win = None
+        shapes, ecols = cums, cols
+        if fs:
+            score, idx, valid, win = _merge_chunks(
+                score, idx, valid, cums, G, gi_s, C)
+            shapes = [(c.shape[2], G * c.shape[3]) for c in cums]
+            ecols = pcols
         slot2, g2, node_even2, gpos2, alive2, rank = level_epilogue(
-            score, idx, valid, cums, cols, sparse01, edges, alive, gpos,
+            score, idx, valid, shapes, ecols, sparse01, edges, alive, gpos,
             XbT, slot, g, feat, thr, gain, leafS, kind=crit.kernel_kind,
             lam=lam, mig=mig, d=d, max_depth=D, A_next=A_next,
             split_ok=depth_limit is None or d < depth_limit,
-            node_even=unroll and d + 1 < D)
+            node_even=unroll and d + 1 < D, win_stats=win)
         return slot2, g2, node_even2, gpos2, alive2, (cums, rank)
 
     # the trailing entry of each record is a sink for non-live slots
@@ -554,6 +795,22 @@ def check_card_classes(task: str, n_classes: int, device) -> None:
             f"at most {MAX_CARD_CHANNELS} ({MAX_CARD_CHANNELS - 1} classes)")
 
 
+def _binned(X, n_bins, binary_mask, prebinned, task=None, n_classes=0,
+            device=None):
+    """(XbT, edges, blocks, row shard | None) of a fit: ``prebinned``
+    (XbT, edges, blocks[, shard]) or X binned here, under the active
+    tree mesh's row shard."""
+    if prebinned is not None:
+        XbT, edges, blocks = prebinned[:3]
+        return XbT, edges, blocks, (prebinned[3] if len(prebinned) > 3
+                                    else None)
+    if task is not None:
+        check_card_classes(task, n_classes, device)
+    shard = row_shard(X.shape[0])
+    XbT, edges = compute_bins(X, n_bins, binary_mask, shard)
+    return XbT, edges, prepare_blocks(XbT, n_bins, binary_mask), shard
+
+
 def fit_forest(X, y, w, *, task: str, n_classes: int, n_trees: int,
                max_depth: int, n_bins: int, min_instances, min_info_gain,
                num_trees_used, subsample_rate,
@@ -569,20 +826,24 @@ def fit_forest(X, y, w, *, task: str, n_classes: int, n_trees: int,
     splits. One tree (a decision tree) takes neither draw. ``draws``
     (:func:`forest_draws`) reuses a sweep's draws; ``prebinned`` is (XbT,
     edges, blocks). Returns the params dict, with ``train_node`` [T, n],
-    each training row's leaf (the CV sweep predicts from it)."""
-    if prebinned is None:
-        check_card_classes(task, n_classes, w.device)
-        XbT, edges = compute_bins(X, n_bins, binary_mask)
-        blocks = prepare_blocks(XbT, n_bins, binary_mask)
-    else:
-        XbT, edges, blocks = prebinned
-    n = XbT.shape[1]
+    each training row's leaf (the CV sweep predicts from it).
+
+    Over a mesh (``prebinned``'s fourth entry, or :func:`row_shard` when
+    this call bins) ``X``, ``y`` and ``w`` are the whole input on every
+    rank; the fit takes this rank's rows and ``train_node`` holds them."""
+    XbT, edges, blocks, shard = _binned(X, n_bins, binary_mask, prebinned,
+                                        task, n_classes, w.device)
+    n = XbT.shape[1] if shard is None else shard.n
     dt, dev = w.dtype, w.device
     if draws is None:
         draws = forest_draws(seed, n_trees, n, task, max_depth,
                              slot_cap(max_depth, max_active_nodes, unroll),
                              blocks, dt, dev, per_node_features)
     bw = draws.bootstrap(subsample_rate, dt)
+    if shard is not None:
+        y, w = shard.take(y), shard.take(w)
+        if bw is not None:
+            bw = shard.take(bw, axis=1)
     if task == "classification":
         onehot = torch.nn.functional.one_hot(y.long(), n_classes).to(dt)
 
@@ -620,14 +881,19 @@ def fit_forest(X, y, w, *, task: str, n_classes: int, n_trees: int,
 # Boosting
 # ---------------------------------------------------------------------------
 
+def _shard_inputs(X, y, w, n_bins, binary_mask, prebinned):
+    """A boosted fit's inputs as this rank's rows: binned here when not
+    ``prebinned``, ``y`` and ``w`` sliced to the row shard."""
+    XbT, edges, blocks, shard = _binned(X, n_bins, binary_mask, prebinned)
+    if shard is not None:
+        y, w = shard.take(y), shard.take(w)
+    return X, y, w, (XbT, edges, blocks, shard)
+
+
 def _boost(X, y, w, n_rounds, max_depth, n_bins, num_rounds_used, shrink,
            stats_of, crit, leaf_fn, min_instances, min_info_gain,
            depth_limit, max_active_nodes, binary_mask, prebinned, unroll):
-    if prebinned is None:
-        XbT, edges = compute_bins(X, n_bins, binary_mask)
-        blocks = prepare_blocks(XbT, n_bins, binary_mask)
-    else:
-        XbT, edges, blocks = prebinned
+    XbT, edges, blocks, _shard = _binned(X, n_bins, binary_mask, prebinned)
     dt = w.dtype
     shrink = torch.as_tensor(shrink, dtype=dt, device=w.device)
     Fm = torch.zeros_like(w)
@@ -658,8 +924,11 @@ def fit_gbt(X, y, w, *, task: str, n_rounds: int, max_depth: int,
     """Spark-style GBT: each round fits a weighted regression tree to the
     pseudo-residuals; classification uses logloss on y' ∈ {−1, +1} with
     margin F, prob = σ(2F). ``binary_mask`` marks indicator columns
-    (2-bin block); ``prebinned`` is (XbT, edges, blocks) from
-    :func:`compute_bins` and :func:`prepare_blocks`."""
+    (2-bin block); ``prebinned`` is (XbT, edges, blocks[, row shard])
+    from :func:`compute_bins` and :func:`prepare_blocks`. Over a mesh the
+    inputs are whole and ``train_margin`` holds this rank's rows."""
+    X, y, w, prebinned = _shard_inputs(X, y, w, n_bins, binary_mask,
+                                       prebinned)
     dt = w.dtype
     ypm = 2.0 * y - 1.0
     cnt = (w > 0).to(dt)
@@ -679,7 +948,9 @@ def fit_xgb(X, y, w, *, task: str, n_rounds: int, max_depth: int,
             depth_limit: Optional[int] = None, max_active_nodes: int = 128,
             binary_mask=None, prebinned=None, unroll: bool = False):
     """Second-order boosting: g/h of the logistic (classification) or
-    squared loss; leaf = −G/(H+λ)."""
+    squared loss; leaf = −G/(H+λ). Over a mesh as :func:`fit_gbt`."""
+    X, y, w, prebinned = _shard_inputs(X, y, w, n_bins, binary_mask,
+                                       prebinned)
     dt = w.dtype
     cnt = (w > 0).to(dt)
 

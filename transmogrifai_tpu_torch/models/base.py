@@ -166,10 +166,17 @@ class ModelFamily:
       * ``fit_batch(X, y, w, grid)`` → one params dict per grid point
       * ``predict_batch(params, X)`` → one (prediction, raw, prob) each
       * ``realize(params_i, hparams_i)`` → a fitted model stage
+
+    A family whose fits take the whole input and shard its rows over the
+    active mesh (``parallel.mesh.sharded_scope``) says so by
+    ``row_sharded``; the CV sweep and the refit run any other family
+    unsharded on every rank (``parallel.mesh.REPLICATED``).
     """
 
     name: str = "family"
     default_grid: List[Dict[str, Any]] = []
+    #: fits shard their rows over the active mesh (see above)
+    row_sharded: bool = False
 
     def __init__(self, grid: Optional[List[Dict[str, Any]]] = None):
         self.grid = list(grid) if grid is not None else list(self.default_grid)

@@ -146,6 +146,7 @@ class LogisticRegressionFamily(ModelFamily):
     elasticNet); multinomial when the selector sets ``n_classes`` > 2."""
 
     name = "OpLogisticRegression"
+    row_sharded = True
     default_grid = [
         {"regParam": r, "elasticNetParam": e}
         for r in (0.001, 0.01, 0.1, 0.2) for e in (0.1, 0.5)
@@ -240,6 +241,7 @@ class LinearRegressionFamily(ModelFamily):
     """Batched linear-regression grid (reg × elasticNet)."""
 
     name = "OpLinearRegression"
+    row_sharded = True
     default_grid = [
         {"regParam": r, "elasticNetParam": e}
         for r in (0.001, 0.01, 0.1, 0.2) for e in (0.1, 0.5)
@@ -318,6 +320,7 @@ class OpNaiveBayes(PredictorEstimator):
 
 class NaiveBayesFamily(ModelFamily):
     name = "OpNaiveBayes"
+    row_sharded = True
     default_grid = [{"smoothing": s} for s in (1.0,)]
 
     def __init__(self, grid=None, n_classes: int = 2):

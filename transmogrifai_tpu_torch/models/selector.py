@@ -27,6 +27,7 @@ import torch
 
 from ..columns import ColumnStore
 from ..evaluators import metrics as M
+from ..parallel import mesh as _mesh
 from ..stages.base import register_stage, stage_from_state
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
                    device_table, extract_xy, resolve_device, to_f64)
@@ -170,6 +171,10 @@ class ModelSelector(PredictorEstimator):
     """Estimator(label, features) → Prediction via validated selection."""
 
     operation_name = "modelSelector"
+    #: the ranks the sweep and the refit shard over: None resolves to the
+    #: process-default mesh (a workflow assigns its resolved one), False
+    #: forces the single-process path
+    mesh = None
 
     def __init__(self, validator=None,
                  splitter: Optional[Splitter] = None,
@@ -240,7 +245,8 @@ class ModelSelector(PredictorEstimator):
             folds.append((X, y, train_mask * w, val_mask,
                           detect_binary_columns(X)))
         self.precomputed_ = self.validator.validate_per_fold(
-            self.families, folds, device=device, dtype=dtype)
+            self.families, folds, device=device, dtype=dtype,
+            mesh=_mesh.stage_mesh(self))
 
     def fit_columns(self, store: ColumnStore, device=None,
                     dtype: torch.dtype = torch.float32) -> SelectedModel:
@@ -258,22 +264,25 @@ class ModelSelector(PredictorEstimator):
         for fam in self.families:
             if hasattr(fam, "binary_mask"):
                 fam.binary_mask = bmask
+        mesh = _mesh.stage_mesh(self)
         if precomputed:
             best_family, best_hparams, vsummary = precomputed
         else:
             best_family, best_hparams, vsummary = self.validator.validate(
                 self.families, X, y, base_weights=w, device=dev,
-                dtype=dtype)
+                dtype=dtype, mesh=mesh)
 
-        # final refit on the full prepared train (ModelSelector.scala:158)
+        # final refit on the full prepared train (ModelSelector.scala:158),
+        # over the sweep's mesh
         t0 = time.perf_counter()
         single = best_family.clone_single(best_hparams)
-        params, Xarg = single.fit_prepared(
-            torch.as_tensor(X, dtype=dtype, device=dev),
-            torch.as_tensor(y, dtype=dtype, device=dev),
-            torch.as_tensor(w, dtype=dtype, device=dev))
-        pred, _raw, prob = to_f64(
-            single.predict_batch(params, Xarg, on_train=True)[0])
+        with _mesh.sharded_scope(mesh if single.row_sharded else None):
+            params, Xarg = single.fit_prepared(
+                torch.as_tensor(X, dtype=dtype, device=dev),
+                torch.as_tensor(y, dtype=dtype, device=dev),
+                torch.as_tensor(w, dtype=dtype, device=dev))
+            pred, _raw, prob = to_f64(
+                single.predict_batch(params, Xarg, on_train=True)[0])
         logger.info("final refit (fit + train predict): %.2fs",
                     time.perf_counter() - t0)
         model = SelectedModel(

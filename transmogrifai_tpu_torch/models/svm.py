@@ -28,7 +28,8 @@ import torch
 
 from .. import random as R
 from ..stages.base import register_stage
-from ._linfit import fista, margins, power_iter_sq_norm, standardize_stats
+from ._linfit import (_wsum, fista, margins, power_iter_sq_norm,
+                      psum_pair, shard_rows, standardize_stats)
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
                    device_table, extract_xy, resolve_device, score_sigmoid)
 
@@ -41,11 +42,13 @@ __all__ = ["fit_linear_svc", "predict_linear_svc", "LinearSVCModel",
 def fit_linear_svc(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                    reg_param, max_iter: int = 64):
     """Squared-hinge L2 SVM at G grid points (``reg_param`` of G values),
-    y ∈ {0, 1} → (coef [G, d], intercept [G])."""
+    y ∈ {0, 1} → (coef [G, d], intercept [G]). Over a mesh its row sums
+    are summed over the ``data`` group (``_linfit.psum``)."""
+    X, y, w = shard_rows(X, y, w)
     mean, std = standardize_stats(X, w)
     Xs = (X - mean) / std
     ypm = 2.0 * y - 1.0
-    wsum = torch.clamp(w.sum(), min=1e-12)
+    wsum = _wsum(w)
     d = X.shape[1]
     reg = torch.as_tensor(reg_param, dtype=X.dtype,
                           device=X.device).reshape(-1, 1)
@@ -55,8 +58,8 @@ def fit_linear_svc(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
         m = beta @ Xs.T + b                 # [G, n]
         slack = torch.clamp(1.0 - ypm * m, min=0.0)
         g_m = w * (-2.0 * ypm * slack) / wsum
-        return torch.cat([g_m @ Xs + reg * beta, g_m.sum(1, keepdim=True)],
-                         dim=1)
+        g_x, g_b = psum_pair(g_m @ Xs, g_m.sum(1, keepdim=True))
+        return torch.cat([g_x + reg * beta, g_b], dim=1)
 
     lip = 2.0 * power_iter_sq_norm(Xs, w) + reg + 1.0
     params0 = torch.zeros((len(reg), d + 1), dtype=X.dtype, device=X.device)
@@ -134,6 +137,7 @@ class LinearSVCFamily(ModelFamily):
     """Grid = Regularization (DefaultSelectorParams.Regularization)."""
 
     name = "OpLinearSVC"
+    row_sharded = True
     default_grid = [{"regParam": r} for r in (0.001, 0.01, 0.1, 0.2)]
 
     def __init__(self, grid=None, max_iter: int = 64, n_classes: int = 2):

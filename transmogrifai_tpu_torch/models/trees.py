@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh as _mesh
 from ..stages.base import register_stage
 from . import _treefit as TF
 from .base import (ModelFamily, PredictorEstimator, PredictorModel,
@@ -133,6 +134,7 @@ class _TreeFamilyBase(ModelFamily):
     """Shared grid handling for the tree families."""
 
     task = "classification"
+    row_sharded = True
     n_bins = 32                      # DefaultSelectorParams.MaxBin
 
     def __init__(self, grid=None, n_classes: int = 2,
@@ -162,17 +164,21 @@ class _TreeFamilyBase(ModelFamily):
 
     def device_prep(self, Xd: torch.Tensor) -> Dict[str, Any]:
         """Bin the feature matrix once per (data, binning config):
-        ``{"XbT": [F, n] int32, "edges", "blocks"}`` (the histogram
-        blocks of ``binary_mask``) — accepted by fit_batch and
-        predict_batch in place of raw X. A forest of more classes than
-        the card's kernels take raises here on the card, before the
-        sweep launches anything."""
+        ``{"XbT": [F, n] int32, "edges", "blocks", "shard"}`` (the
+        histogram blocks of ``binary_mask``; over a tree mesh this rank's
+        rows of the whole ``Xd``, its row shard in ``shard``, else None)
+        — accepted by fit_batch and predict_batch in place of raw X. A
+        forest of more classes than the card's kernels take raises here
+        on the card, before the sweep launches anything."""
         if self._head() == "rf":
             TF.check_card_classes(self.task, self.n_classes, Xd.device)
-        XbT, edges = TF.compute_bins(Xd, self.n_bins, self.binary_mask)
+        shard = TF.row_shard(Xd.shape[0])
+        XbT, edges = TF.compute_bins(Xd, self.n_bins, self.binary_mask,
+                                     shard)
         return {"XbT": XbT, "edges": edges,
                 "blocks": TF.prepare_blocks(XbT, self.n_bins,
-                                            self.binary_mask)}
+                                            self.binary_mask),
+                "shard": shard}
 
     def _point(self, g: Dict[str, Any]) -> Dict[str, Any]:
         hp = dict(self.param_defaults())
@@ -207,24 +213,29 @@ class _TreeFamilyBase(ModelFamily):
 
     def _prebinned(self, X):
         if isinstance(X, dict):
-            return (X["XbT"], X["edges"], X["blocks"]), None
+            return (X["XbT"], X["edges"], X["blocks"], X["shard"]), None
         return None, X
 
     def predict_batch(self, params: List[Dict], X, on_train: bool = False):
         """(prediction, raw, prob) per grid point. ``on_train=True`` (X IS
         the training matrix the fit saw) answers from the fit-time caches:
         leaf gathers at ``train_node`` (forests) or the margins
-        (boosting); otherwise the trees route the raw X."""
+        (boosting), every rank's rows gathered over a tree mesh (``X``'s
+        row shard); otherwise the trees route the raw X."""
         head = self._head()
         scale = 2.0 if head == "gbt" else 1.0
         if on_train:
             dt = X["edges"].dtype if isinstance(X, dict) else X.dtype
+            shard = X.get("shard") if isinstance(X, dict) else None
+
+            def whole(t):
+                return t if shard is None else shard.gather(t)
             if head == "rf":
-                return [TF.rf_head(TF.rf_train_aggregate(
-                    p["leaf"], p["train_node"], p["tree_w"], self.task),
+                return [TF.rf_head(whole(TF.rf_train_aggregate(
+                    p["leaf"], p["train_node"], p["tree_w"], self.task)),
                     dt, self.task) for p in params]
-            return [TF.margin_head(p["train_margin"], scale, dt, self.task)
-                    for p in params]
+            return [TF.margin_head(whole(p["train_margin"]), scale, dt,
+                                   self.task) for p in params]
         if isinstance(X, dict):
             raise ValueError("routed prediction needs the raw feature matrix")
         D = self.global_depth()
@@ -292,13 +303,15 @@ class RandomForestFamily(_TreeFamilyBase):
         prebinned, Xraw = self._prebinned(X)
         draws = None
         if prebinned is not None:
-            XbT, _edges, blocks = prebinned
+            XbT, _edges, blocks, shard = prebinned
+            # the draws are the whole input's (sliced per rank in the fit)
+            n = XbT.shape[1] if shard is None else shard.n
             cap = TF.slot_cap(depth, self.max_active_nodes, unroll)
-            key = (XbT.shape[1], n_trees, depth, cap, w.dtype, w.device)
+            key = (n, n_trees, depth, cap, w.dtype, w.device)
             draws = self._draws.get(key)
             if draws is None:
                 draws = self._draws[key] = TF.forest_draws(
-                    self.seed, n_trees, XbT.shape[1], self.task, depth, cap,
+                    self.seed, n_trees, n, self.task, depth, cap,
                     blocks, w.dtype, w.device, self.per_node_features)
         return TF.fit_forest(
             Xraw, y, w, task=self.task, n_classes=self.n_classes,
@@ -430,6 +443,10 @@ class XGBoostFamily(_TreeFamilyBase):
 
 class _TreeEstimatorBase(PredictorEstimator):
     task = "classification"
+    #: the ranks the fit shards over: None resolves to the process-default
+    #: mesh (a workflow assigns its resolved one), False forces the
+    #: single-process path
+    mesh = None
 
     def _family(self, n_classes: int) -> _TreeFamilyBase:
         raise NotImplementedError
@@ -443,9 +460,10 @@ class _TreeEstimatorBase(PredictorEstimator):
         fam.binary_mask = detect_binary_columns(X)
         dev = resolve_device(device)
         Xd = torch.as_tensor(X, dtype=dtype, device=dev)
-        params, _ = fam.fit_prepared(
-            Xd, torch.as_tensor(y, dtype=dtype, device=dev),
-            torch.ones((X.shape[0],), dtype=dtype, device=dev))
+        with TF.tree_mesh_scope(_mesh.stage_mesh(self)):
+            params, _ = fam.fit_prepared(
+                Xd, torch.as_tensor(y, dtype=dtype, device=dev),
+                torch.ones((X.shape[0],), dtype=dtype, device=dev))
         return fam.realize(params[0], fam.grid[0])
 
 

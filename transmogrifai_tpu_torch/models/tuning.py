@@ -17,6 +17,16 @@ metric matrix comes back to the host. Under workflow-level CV
 family and fold. From ``UNROLL_MIN_ROWS`` rows the
 grid is grouped by ``maxDepth`` and each group grows unrolled trees at its
 own depth.
+
+Over a mesh of ranks (``mesh=``, ``parallel/mesh.py``) every rank holds
+the whole input; a family that shards its rows (``row_sharded``) fits
+under ``sharded_scope`` on its own rows, and its training predictions are
+gathered back whole, so each fold's metric is taken on every rank from
+every validation row. Folds, or else grid points, are split over the
+``grid`` axis when it divides them (and the tree engine is not using that
+axis for column chunks); the [grid, folds] metric matrix is then summed
+over the ``grid`` group from zero-filled copies. Every rank picks the
+same winner.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import torch
 
 from ..columns import ColumnStore
 from ..evaluators import metrics as M
+from ..parallel import mesh as _mesh
 from .base import ModelFamily, resolve_device, to_f64
 
 __all__ = ["Splitter", "DataSplitter", "DataBalancer", "DataCutter",
@@ -350,13 +361,15 @@ class _ValidatorBase:
 
     def validate(self, families: Sequence[ModelFamily], X: np.ndarray,
                  y: np.ndarray, base_weights: Optional[np.ndarray] = None,
-                 device=None, dtype: torch.dtype = torch.float32
+                 device=None, dtype: torch.dtype = torch.float32, mesh=None
                  ) -> Tuple[ModelFamily, Dict[str, Any], ValidatorSummary]:
         """Run the (family × grid × fold) sweep on ``device``; return the
         winner (family, hparams) and the summary. The selection metric is
         taken on the device where it has a device form; otherwise each
-        fold's predictions come back and the host metric reads them."""
+        fold's predictions come back and the host metric reads them.
+        ``mesh``: the ranks to shard over (see the module docstring)."""
         dev = resolve_device(device)
+        mesh = _mesh.mesh_if_multi(mesh)
         splits = self._splits(y)
         base_w = (np.ones_like(y, dtype=np.float64)
                   if base_weights is None else base_weights)
@@ -371,19 +384,24 @@ class _ValidatorBase:
         for family in families:
             t0 = time.perf_counter()
             metric_fn = self._metric_fn(family)
-            Xarg = family.device_prep(Xd)
-            groups = self._depth_groups(family, len(y))
-            metrics: List[List[Any]] = [[None] * len(folds)
-                                        for _ in range(family.grid_size())]
-            for k, (w, v) in enumerate(folds):
-                self._sweep_fold(family, groups, metric_fn, Xarg, yd, w, v,
-                                 y, splits[k][1].astype(bool), metrics, k)
-            ranked += self._record(summary, family, metric_fn, metrics, t0)
+            owns = _grid_owner(mesh, len(folds), family.grid_size())
+            with _mesh.sharded_scope(mesh if family.row_sharded else None):
+                Xarg = family.device_prep(Xd)
+                groups = self._depth_groups(family, len(y))
+                metrics: List[List[Any]] = [
+                    [None] * len(folds) for _ in range(family.grid_size())]
+                for k, (w, v) in enumerate(folds):
+                    self._sweep_fold(family, groups, metric_fn, Xarg, yd, w,
+                                     v, y, splits[k][1].astype(bool),
+                                     metrics, k, owns)
+            ranked += self._record(summary, family, metric_fn, metrics, t0,
+                                   mesh, dev)
         return self._winner(summary, ranked)
 
     def validate_per_fold(self, families: Sequence[ModelFamily],
                           fold_data: Sequence[Tuple[np.ndarray, ...]],
-                          device=None, dtype: torch.dtype = torch.float32
+                          device=None, dtype: torch.dtype = torch.float32,
+                          mesh=None
                           ) -> Tuple[ModelFamily, Dict[str, Any],
                                      ValidatorSummary]:
         """Workflow-level CV engine: each fold carries its own feature
@@ -395,8 +413,10 @@ class _ValidatorBase:
         before ``device_prep`` bins the fold. Within a
         fold the sweep is :meth:`validate`'s: the by-depth groups and the
         device metrics. The summary's type is ``"WorkflowCV:"`` + the
-        validation type (OpCrossValidation.scala:89-116, dagCopy)."""
+        validation type (OpCrossValidation.scala:89-116, dagCopy).
+        ``mesh`` as in :meth:`validate`."""
         dev = resolve_device(device)
+        mesh = _mesh.mesh_if_multi(mesh)
 
         def put(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -409,15 +429,19 @@ class _ValidatorBase:
             metric_fn = self._metric_fn(family)
             metrics: List[List[Any]] = [[None] * len(fold_data)
                                         for _ in range(family.grid_size())]
-            for k, fold in enumerate(fold_data):
-                X, y, w_tr, w_val, bmask = fold
-                if hasattr(family, "binary_mask"):
-                    family.binary_mask = bmask
-                self._sweep_fold(family, self._depth_groups(family, len(y)),
-                                 metric_fn, family.device_prep(put(X)),
-                                 put(y), put(w_tr), put(w_val), y, w_val > 0,
-                                 metrics, k)
-            ranked += self._record(summary, family, metric_fn, metrics, t0)
+            owns = _grid_owner(mesh, len(fold_data), family.grid_size())
+            with _mesh.sharded_scope(mesh if family.row_sharded else None):
+                for k, fold in enumerate(fold_data):
+                    X, y, w_tr, w_val, bmask = fold
+                    if hasattr(family, "binary_mask"):
+                        family.binary_mask = bmask
+                    self._sweep_fold(
+                        family, self._depth_groups(family, len(y)),
+                        metric_fn, family.device_prep(put(X)), put(y),
+                        put(w_tr), put(w_val), y, w_val > 0, metrics, k,
+                        owns)
+            ranked += self._record(summary, family, metric_fn, metrics, t0,
+                                   mesh, dev)
         return self._winner(summary, ranked)
 
     def _metric_fn(self, family: ModelFamily):
@@ -443,12 +467,17 @@ class _ValidatorBase:
 
     def _sweep_fold(self, family: ModelFamily, groups, metric_fn, Xarg, yd,
                     w, v, y: np.ndarray, vm: np.ndarray,
-                    metrics: List[List[Any]], k: int) -> None:
+                    metrics: List[List[Any]], k: int, owns=None) -> None:
         """Fit every grid point on fold ``k``'s weights ``w``, predict the
         training matrix from the fit-time caches and put each point's
         metric over the validation rows (``v`` on the device, ``vm`` on
-        the host) in ``metrics[i][k]``."""
+        the host) in ``metrics[i][k]``. ``owns(k, i)`` (a grid split):
+        the points this rank fits; the others stay None."""
         for ix, sd in groups:
+            if owns is not None:
+                ix = [i for i in ix if owns(k, i)]
+                if not ix:
+                    continue
             grid = [family.grid[i] for i in ix]
             params = (family.fit_batch(Xarg, yd, w, grid) if sd is None
                       else family.fit_batch(Xarg, yd, w, grid,
@@ -464,12 +493,25 @@ class _ValidatorBase:
                     prob[vm] if prob.ndim == 2 else prob)
 
     def _record(self, summary: ValidatorSummary, family: ModelFamily,
-                metric_fn, metrics: List[List[Any]], t0: float
-                ) -> List[Tuple[ValidationResult, ModelFamily]]:
+                metric_fn, metrics: List[List[Any]], t0: float, mesh=None,
+                dev=None) -> List[Tuple[ValidationResult, ModelFamily]]:
         """The family's [grid, folds] metrics read back (one copy when
         they were taken on the device) into the summary's results; returns
-        them with the family."""
-        if metric_fn is not None:
+        them with the family. Under a grid split each rank holds its own
+        entries (None elsewhere): zero-filled, they are summed over the
+        ``grid`` group in f64 on ``dev``."""
+        split = any(m is None for row in metrics for m in row)
+        if split:
+            per_grid = torch.zeros((len(metrics), len(metrics[0])),
+                                   dtype=torch.float64, device=dev)
+            for i, row in enumerate(metrics):
+                for k, m in enumerate(row):
+                    if m is not None:
+                        per_grid[i, k] = torch.as_tensor(
+                            m, dtype=torch.float64)
+            per_grid = _mesh.all_reduce(per_grid, mesh, "grid").to(
+                "cpu").numpy()
+        elif metric_fn is not None:
             per_grid = torch.stack([torch.stack(m) for m in metrics]).to(
                 "cpu", torch.float64).numpy()                   # [G, K]
         else:
@@ -496,6 +538,26 @@ class _ValidatorBase:
         assert best is not None
         summary.best = best[0]
         return best[1], best[0].hparams, summary
+
+
+def _grid_owner(mesh, n_folds: int, n_points: int):
+    """``owns(k, i)`` of a sweep split over the mesh's ``grid`` axis of G
+    ranks — the folds when G divides them, else the grid points when G
+    divides those (fold k or point i goes to grid rank k % G or i % G) —
+    or None: no mesh, a grid axis of one, or the tree engine's column
+    chunks on that axis (``featureShards``)."""
+    from ._treefit import active_feature_shards
+    if mesh is None:
+        return None
+    G = mesh.shape["grid"]
+    if G <= 1 or active_feature_shards() == G:
+        return None
+    me = mesh.axis_index("grid")
+    if n_folds % G == 0:
+        return lambda k, i: k % G == me
+    if n_points % G == 0:
+        return lambda k, i: i % G == me
+    return None
 
 
 class CrossValidation(_ValidatorBase):

@@ -219,9 +219,14 @@ class CostDatabase:
 
     def save(self, path: Optional[str] = None) -> bool:
         """Write atomically (temporary file + ``os.replace``): a kill
-        mid-write never leaves a truncated database behind."""
+        mid-write never leaves a truncated database behind. In a world of
+        ranks only the coordinator writes (every rank measures the same
+        phases); the others return False."""
         path = path or self.path
         if not path:
+            return False
+        from .parallel.multihost import is_coordinator
+        if not is_coordinator():
             return False
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         tmp = f"{path}.tmp"

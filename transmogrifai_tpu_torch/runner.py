@@ -83,12 +83,18 @@
   ``--params``, the locations, ``--trace-out``, ``--metrics-format``,
   ``--compile-cache-dir`` (here the cost database's directory when
   ``costDb`` is unset), ``--quarantine-out``, ``--fail-on`` and
-  ``--no-validate``, then runs; ``--mesh-devices`` raises (A6.6).
-
-What the JAX package's runner adds and this one does not have yet raises
-``NotImplementedError`` naming its ROADMAP queue A item when a run asks
-for it: the mesh knobs (A6.6). The blocks of the metrics document whose
-modules are not ported are left out.
+  ``--no-validate`` and ``--mesh-devices``, then runs.
+* The mesh (``parallel/mesh.py``): ``customParams.meshDevices`` /
+  ``meshGridSize`` (``--mesh-devices``) join the world's ranks
+  (``multihost.initialize``, from ``torchrun``'s environment) and install
+  a run-scoped (data, grid) mesh, the previous one restored at the run's
+  end; a request past the world's rank count raises a ``ValueError``.
+  ``featureShards`` shards the tree fits' columns over the grid axis
+  (engaged when the axis equals it). Every metrics document has the
+  ``mesh`` block (``mesh_topology``), Train's the ``process`` block. Only
+  the coordinator (rank 0) saves the model and writes the metrics, the
+  traces and the scores; every rank waits at a barrier before the run
+  returns.
 """
 from __future__ import annotations
 
@@ -104,28 +110,14 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from . import config, telemetry
-from .models import _hist
+from .models import _hist, _treefit
+from .parallel import mesh as _mesh
+from .parallel import multihost
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["OpParams", "RunType", "RunnerResult", "OpWorkflowRunner",
            "OpApp"]
-
-#: registry knobs the runner reads whose module is not ported yet: what
-#: they ask for and the ROADMAP queue A item (the fleet, continual and
-#: workload knobs are read by ``serve``, ``fleet`` and ``tune``, not by a
-#: run)
-_UNPORTED_CUSTOM = {
-    "meshDevices": ("multi-device runs (parallel/mesh.py)", "A6.6"),
-    "meshGridSize": ("multi-device runs (parallel/mesh.py)", "A6.6"),
-    "featureShards": ("multi-device runs (parallel/mesh.py)", "A6.6"),
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A, item {item})")
-
 
 def _numeric_custom_param(params: "OpParams", key: str,
                           default: Any = None) -> Any:
@@ -255,16 +247,11 @@ class OpParams:
                     stage.set_params(**self.stage_params[key])
 
     def check_ported(self) -> None:
-        """Raise for anything this run asks of a module not ported yet,
-        and for a metrics format that is neither "json" nor
+        """Raise for a metrics format that is neither "json" nor
         "prometheus"."""
         if self.metrics_format not in ("json", "prometheus"):
             raise ValueError(f"metricsFormat must be 'json' or "
                              f"'prometheus', got {self.metrics_format!r}")
-        for key, (what, item) in _UNPORTED_CUSTOM.items():
-            v = config.raw_param(self.custom_params, key)
-            if v is not None and v is not False and v != "false":
-                raise _not_ported(f"customParams.{key}: {what}", item)
 
 
 class RunType:
@@ -321,7 +308,7 @@ class OpWorkflowRunner:
         file). ``fmt="prometheus"`` writes the telemetry registry in text
         exposition with the document's numeric scalars as ``run_*``
         gauges; the default writes the document as JSON."""
-        if not location:
+        if not location or not multihost.is_coordinator():
             return
         os.makedirs(os.path.dirname(location) or ".", exist_ok=True)
         tmp = location + ".tmp"
@@ -345,6 +332,8 @@ class OpWorkflowRunner:
     @classmethod
     def _write_traces(cls, params: OpParams, trace_dir: Optional[str],
                       run_type: str) -> None:
+        if not multihost.is_coordinator():
+            return
         if params.trace_location:
             telemetry.write_trace(params.trace_location)
         if trace_dir:
@@ -387,6 +376,16 @@ class OpWorkflowRunner:
         if qloc is not None and not isinstance(qloc, str):
             raise ValueError("quarantineLocation must be a path string, "
                              f"got {qloc!r}")
+        # the run-scoped mesh (meshDevices / meshGridSize) and column
+        # shards: validated, and the ranks joined, before anything runs
+        mesh_devices = _numeric_custom_param(params, "meshDevices")
+        mesh_grid = _numeric_custom_param(params, "meshGridSize")
+        feature_shards = _numeric_custom_param(params, "featureShards")
+        run_mesh = None
+        if mesh_devices is not None or mesh_grid is not None:
+            multihost.initialize()
+            run_mesh = _mesh.make_mesh(  # lint: explicit-mesh — the run-scoped meshDevices/meshGridSize override is the sanctioned explicit construction
+                n_devices=mesh_devices, grid_axis=mesh_grid)
         # run-scoped telemetry: on for this run only, unless it was on
         # before the run
         run_scoped = False
@@ -394,13 +393,23 @@ class OpWorkflowRunner:
                 and not telemetry.enabled():
             telemetry.enable()
             run_scoped = True
+        prev_shards = (_treefit.set_feature_shards(feature_shards)
+                       if feature_shards is not None else None)
+        prev_mesh = (_mesh.set_process_mesh(run_mesh)
+                     if run_mesh is not None else None)
         try:
             result = self._run(run_type, params, knobs, stream_knobs, qloc,
                                trace_dir)
         finally:
+            if run_mesh is not None:
+                _mesh.set_process_mesh(prev_mesh)
+            if prev_shards is not None:
+                _treefit.set_feature_shards(prev_shards)
             if run_scoped:
                 telemetry.disable()
                 telemetry.reset(keep_listeners=True)
+        # every rank leaves together: the coordinator's writes are done
+        multihost.barrier()
         return result
 
     def _run(self, run_type: str, params: OpParams, knobs: Dict[str, Any],
@@ -472,6 +481,8 @@ class OpWorkflowRunner:
         # switched off for the run)
         result.metrics["preflight"] = self._last_preflight
         result.metrics["plan"] = self._last_plan
+        # the mesh every heavy phase ran on
+        result.metrics["mesh"] = _mesh.mesh_topology()
         # the tree engine's kernel launches of this run, per kernel
         result.metrics["trees"] = {"launches": {
             k: v - launches[k] for k, v in _hist.KERNEL_LAUNCHES.items()}}
@@ -738,10 +749,12 @@ class OpWorkflowRunner:
                                         dtype=self.dtype)
             if wf_plan is not None:
                 self._record_plan_costs(model)
-            if params.model_location:
+            # every rank trained the same model; one writes it
+            if params.model_location and multihost.is_coordinator():
                 model.save(params.model_location, overwrite=True)
             metrics = model.summary()
             metrics["appSeconds"] = round(time.perf_counter() - t0, 3)
+            metrics["process"] = multihost.process_summary()
             # the RawFeatureFilter's verdict (None: no filter configured)
             metrics["rawFeatureFilter"] = (
                 model.rff_results.summary()
@@ -881,9 +894,26 @@ class _AvroSink:
                            for n in self._names]}).close()
 
 
+class _NullSink:
+    """The sink of a rank other than the coordinator: every rank scores
+    the same rows, one writes them."""
+
+    def write_header(self, names) -> None:
+        pass
+
+    def write(self, store) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 def _make_sink(path: str):
     """The incremental sink for ``path``: an Avro container where the path
-    ends in ``.avro`` (the reference's saveScores), else CSV."""
+    ends in ``.avro`` (the reference's saveScores), else CSV; nothing on a
+    rank other than the coordinator."""
+    if not multihost.is_coordinator():
+        return _NullSink()
     return _AvroSink(path) if path.endswith(".avro") else _CsvSink(path)
 
 
@@ -922,9 +952,9 @@ class OpApp:
                              "database's directory when costDb is unset "
                              "(nothing is compiled ahead in this package)")
         ap.add_argument("--mesh-devices", type=int, metavar="N",
-                        help="devices in the run's mesh "
-                             "(customParams.meshDevices); multi-device "
-                             "runs are not ported yet")
+                        help="ranks in the run's (data, grid) mesh "
+                             "(customParams.meshDevices); start N ranks "
+                             "with torchrun --nproc-per-node N")
         ap.add_argument("--quarantine-out", metavar="PATH",
                         help="dead-letter sink (JSONL): unreadable stream "
                              "files and failed scoring batches land here "
@@ -945,8 +975,7 @@ class OpApp:
         params = (OpParams.from_file(args.params) if args.params
                   else OpParams())
         if args.mesh_devices is not None:
-            raise _not_ported("--mesh-devices: multi-device runs "
-                              "(parallel/mesh.py)", "A6.6")
+            params.custom_params["meshDevices"] = args.mesh_devices
         for key in ("model_location", "write_location", "metrics_location"):
             if getattr(args, key):
                 setattr(params, key, getattr(args, key))

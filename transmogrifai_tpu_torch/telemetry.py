@@ -294,9 +294,10 @@ def write_trace(path: str) -> bool:
 
 
 def _is_coordinator() -> bool:
-    """Rank 0 of one process: the port runs on one card in one process
-    (multi-device runs are ROADMAP queue A, item A6.6)."""
-    return True
+    """The one writer of a world of ranks (``multihost.is_coordinator``:
+    rank 0; always True in one process)."""
+    from .parallel.multihost import is_coordinator
+    return is_coordinator()
 
 
 # ---------------------------------------------------------------------------

@@ -70,6 +70,13 @@ __all__ = ["Workflow", "WorkflowModel", "WorkflowError"]
 logger = logging.getLogger(__name__)
 
 
+def _is_coordinator() -> bool:
+    """Shared-filesystem writes (checkpoints) happen on one rank only:
+    every rank of a mesh computes identical state."""
+    from .parallel.multihost import is_coordinator
+    return is_coordinator()
+
+
 class WorkflowError(Exception):
     pass
 
@@ -343,6 +350,12 @@ class Workflow:
         #: free-form parameters carried into the model and its saves
         #: (``set_parameters``)
         self.parameters: Dict[str, Any] = {}
+        #: the (data, grid) mesh of the heavy phases (``set_mesh``): None
+        #: resolves to the process default at train, False forces the
+        #: single-process path
+        self.mesh = None
+        #: the mesh the last train resolved (None: single-process)
+        self._active_mesh = None
 
     def set_result_features(self, *features: Feature) -> "Workflow":
         if not features:
@@ -410,6 +423,17 @@ class Workflow:
         so validation metrics never see label leakage from feature
         engineering."""
         self._workflow_cv = enabled
+        return self
+
+    def set_mesh(self, mesh) -> "Workflow":
+        """Pin the (data, grid) mesh of this workflow's heavy phases (the
+        CV sweep and the refit, tree estimators, the fused statistics
+        pass; ``parallel/mesh.py``). None — the default — resolves to
+        ``parallel.mesh.process_default_mesh`` at train, so a world of
+        several ranks shards by default and one process takes the
+        degenerate 1×1 path; ``mesh=False`` forces the single-process
+        path on every rank."""
+        self.mesh = mesh
         return self
 
     def set_plan(self, plan) -> "Workflow":
@@ -517,6 +541,7 @@ class Workflow:
         if self.splitter is not None:
             train, test = self.splitter.reserve_split(store)
         dag = compute_dag(result_features)
+        self._resolve_mesh(dag)
         #: the graph being fitted (the filter may have copied it); layer
         #: checkpoints record this one
         self._active_result_features = result_features
@@ -553,6 +578,43 @@ class Workflow:
                               rff_results=rff_results, fit_stats=fit_state)
         model.phase_seconds = dict(self._phase_seconds)
         return model
+
+    def _resolve_mesh(self, dag: StagesDAG) -> None:
+        """Resolve the mesh this fit's heavy phases run on: ``self.mesh``
+        when set (False: none), else the process default; the degenerate
+        1×1 resolves to None (the single-process path). Every model
+        selector and tree estimator of the DAG not handed a mesh of its
+        own gets it and stays workflow-managed (``_mesh_auto``: a
+        retrain re-resolves it)."""
+        from .models.selector import ModelSelector
+        from .models.trees import _TreeEstimatorBase
+        from .parallel.mesh import (mesh_if_multi, mesh_topology,
+                                    process_default_mesh)
+        if self.mesh is False:
+            active = None
+        else:
+            active = mesh_if_multi(self.mesh if self.mesh is not None
+                                   else process_default_mesh())
+        self._active_mesh = active
+        if active is not None:
+            topo = mesh_topology(active)
+            telemetry.gauge("mesh.data_axis").set(topo["data"])
+            telemetry.gauge("mesh.grid_axis").set(topo["grid"])
+            telemetry.emit("mesh", devices=topo["devices"],
+                           data=topo["data"], grid=topo["grid"],
+                           platform=topo["platform"])
+            logger.info("train: mesh of %d rank(s) (data=%d, grid=%d, %s)",
+                        topo["devices"], topo["data"], topo["grid"],
+                        topo["backend"])
+        for layer in dag:
+            for stage in layer:
+                if not isinstance(stage, (ModelSelector,
+                                          _TreeEstimatorBase)):
+                    continue
+                if getattr(stage, "_mesh_auto", False) \
+                        or stage.mesh is None:
+                    stage.mesh = active if active is not None else False
+                    stage._mesh_auto = True
 
     # -- the out-of-core ingest (streamFit) ---------------------------------
     def _use_stream_fit(self) -> bool:
@@ -693,7 +755,7 @@ class Workflow:
                     li, layer, len(dag), train, test, fitted, dev, dtype,
                     seconds, transform_last, fit_state)
             if checkpoint and self._checkpoint_dir \
-                    and len(fitted) > n_before:
+                    and len(fitted) > n_before and _is_coordinator():
                 from .model_io import _atomic_checkpoint
                 _atomic_checkpoint(WorkflowModel(
                     self._active_result_features, fitted),
@@ -865,7 +927,8 @@ class Workflow:
                              workflow_device=dev, dtype=dtype,
                              tier_hint=self._tier("fitstats_tier"),
                              stream_state=getattr(self, "_stream_state",
-                                                  None))
+                                                  None),
+                             mesh=self._active_mesh)
         telemetry.emit("stats_pass", layer=li, n_stages=n_scanning,
                        n_requests=plan.n_requests,
                        passes_saved=n_scanning - 1,
